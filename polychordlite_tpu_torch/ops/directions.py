@@ -1,0 +1,111 @@
+"""Whitened chord directions for the slice engines
+(counterpart of ``polychordlite_tpu/ops/directions.py``).
+
+As in the reference (``chordal_sampling.f90:94-145``,
+``random_utils.F90:381-437``):
+
+* per speed grade g, directions span the subspace of dimensions
+  [start(g), nDims), drawn as the columns of stacked Haar-random orthonormal
+  bases (Gram-Schmidt of Gaussian matrices, ``ops/pallas_dirs.py``);
+* the R = sum(num_repeats) slots are shuffled by ONE permutation shared by
+  the whole batch, keeping slot 0 on the first slow-grade direction;
+* each direction is whitened by the cluster Cholesky L, normalised, and
+  the initial slice width is w = 3 |L n̂| (``chordal_sampling.f90:73-82``).
+
+The Gaussians and the permutation come from an explicit ``torch.Generator``
+on the run's device.  :func:`make_directions` also takes them precomputed
+(``gauss``, ``perm``), which lets tests feed it the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from .pallas_dirs import gram_schmidt_lanes
+
+
+def shared_permutation(R: int, generator: torch.Generator, device) -> torch.Tensor:
+    """Slot order shared by the batch: slot 0 stays first, slots 1..R-1 are
+    shuffled (``directions.py:137-145``)."""
+    head = torch.zeros(1, dtype=torch.int64, device=device)
+    if R == 1:
+        return head
+    tail = torch.randperm(R - 1, generator=generator, device=device) + 1
+    return torch.cat([head, tail])
+
+
+def draw_gaussians(
+    B: int,
+    grade_dims: Sequence[int],
+    num_repeats: Sequence[int],
+    n_dims: int,
+    generator: torch.Generator,
+    device,
+) -> List[torch.Tensor]:
+    """Per grade, (n_bases, sub, sub, B) standard normals (chain axis minor)."""
+    out = []
+    for g, reps in enumerate(num_repeats):
+        sub = n_dims - int(sum(grade_dims[:g]))
+        n_bases = -(-reps // sub)
+        out.append(torch.randn((n_bases, sub, sub, B), generator=generator,
+                               device=device, dtype=torch.float32))
+    return out
+
+
+def make_directions(
+    cholesky: torch.Tensor,  # (B, D, D) per-chain cluster Cholesky
+    *,
+    grade_dims: Tuple[int, ...],
+    num_repeats: Tuple[int, ...],
+    n_dims: int,
+    generator: Optional[torch.Generator] = None,
+    gauss: Optional[List[torch.Tensor]] = None,
+    perm: Optional[torch.Tensor] = None,
+):
+    """Whitened slice directions for a batch of chains.
+
+    Returns (nhats (B,R,D) unit directions in cube space, w (B,R) initial
+    widths, speeds (B,R) int64 grade of each slot).  ``gauss`` (per grade,
+    ``(n_bases, sub, sub, B)``) and ``perm`` (R,) replace the draws from
+    ``generator`` when given."""
+    B = cholesky.shape[0]
+    device = cholesky.device
+    R = int(sum(num_repeats))
+    if gauss is None:
+        gauss = draw_gaussians(B, grade_dims, num_repeats, n_dims, generator, device)
+    if perm is None:
+        perm = shared_permutation(R, generator, device)
+
+    blocks = []
+    for g, reps in enumerate(num_repeats):
+        start = int(sum(grade_dims[:g]))
+        sub = n_dims - start
+        qt = gram_schmidt_lanes(gauss[g])  # (NB, sub, sub, B), orthonormal columns
+        n_bases = qt.shape[0]
+        dirs = qt.permute(3, 0, 2, 1).reshape(B, n_bases * sub, sub)[:, :reps]
+        full = torch.zeros((B, reps, n_dims), dtype=torch.float32, device=device)
+        full[:, :, start:] = dirs
+        blocks.append(full)
+    nhats = torch.cat(blocks, dim=1)[:, perm]
+    speeds_r = torch.cat([
+        torch.full((reps,), g, dtype=torch.int64, device=device)
+        for g, reps in enumerate(num_repeats)
+    ])
+    speeds = speeds_r[perm].expand(B, R)
+
+    # Whiten: the chord direction in cube space is L n̂, and the initial
+    # width is 3x its length.  Full float32: TF32 is switched off for this
+    # product and the caller's setting restored after it.  (The JAX package
+    # computes it at the TPU's default matmul precision, bf16 operands; the
+    # port does not copy that.)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        whitened = torch.matmul(nhats, cholesky.to(torch.float32).transpose(1, 2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    norms = torch.sqrt(torch.sum(whitened * whitened, dim=2))
+    unit = whitened / torch.clamp_min(norms, torch.finfo(torch.float32).tiny)[:, :, None]
+    return unit, 3.0 * norms, speeds

@@ -1,0 +1,151 @@
+"""The port's slice as a whole on the CPU: ``run()`` end to end, against the
+analytic evidence and against the JAX package on the same configuration,
+plus the engine and device rules."""
+
+import math
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import polychordlite_tpu
+import polychordlite_tpu_torch
+from polychordlite_tpu.models.examples import gaussian as jax_gaussian
+from polychordlite_tpu_torch.core import nested_sampling as ns
+from polychordlite_tpu_torch.models.examples import gaussian
+from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
+from polychordlite_tpu_torch.output import PolyChordOutput
+from polychordlite_tpu_torch.priors import UniformPrior, identity_prior
+
+torch.set_num_threads(2)
+
+D = 4
+# normalised Gaussian (mu 0.5, sigma 0.1) in the unit cube: Z = 1 to ~1e-6
+LOGZ_TRUE = 0.0
+KW = dict(nDerived=2, nlive=100, num_repeats=8, do_clustering=False,
+          read_resume=False, seed=11, feedback=-1)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base_p = str(tmp_path_factory.mktemp("port"))
+    base_j = str(tmp_path_factory.mktemp("jax"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no replay-divergence (or any) warning
+        port = polychordlite_tpu_torch.run(gaussian(D), D, base_dir=base_p, **KW)
+    ref = polychordlite_tpu.run(jax_gaussian(D), D, base_dir=base_j, mesh_shape=1, **KW)
+    return port, ref, base_p
+
+
+def test_logz_within_3_sigma_of_analytic(runs):
+    port, ref, _ = runs
+    for out in (port, ref):
+        assert abs(out.logZ - LOGZ_TRUE) < 3 * out.logZerr, (out.logZ, out.logZerr)
+
+
+def test_port_agrees_with_jax_package(runs):
+    port, ref, _ = runs
+    sigma = math.sqrt(port.logZerr**2 + ref.logZerr**2)
+    assert abs(port.logZ - ref.logZ) < 3 * sigma, (port.logZ, ref.logZ, sigma)
+
+
+def test_port_files_parse(runs):
+    port, _, base = runs
+    out = PolyChordOutput(base, "test")
+    assert out.ndead > 500 and math.isfinite(out.logZ)
+    samples = np.loadtxt(f"{base}/test.txt")
+    assert samples.shape[1] == 2 + D + 2
+    assert (samples[:, 0] >= 0).all() and samples[:, 0].max() > 0
+    assert np.isfinite(samples).all()
+    assert ((samples[:, 2:2 + D] >= 0) & (samples[:, 2:2 + D] <= 1)).all()
+
+
+def test_chained_epochs_stayed_on(runs, tmp_path):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        res = ns.nested_sampling(
+            gaussian(D), identity_prior, ns.default_dumper,
+            polychordlite_tpu_torch.PolyChordSettings(
+                D, 2, base_dir=str(tmp_path), **{k: v for k, v in KW.items() if k != "nDerived"},
+            ),
+        )
+    assert res["metrics"]["engine_used"] == "torch"
+    assert res["metrics"]["chained_epochs"] is True
+    assert res["logZ"] == pytest.approx(runs[0].logZ)  # same seed, same run
+
+
+def test_engine_and_device_rules(monkeypatch):
+    calc = make_batched_calculator(identity_prior, gaussian(D), D, 2)
+    cpu = torch.device("cpu")
+    assert ns.resolve_engine("auto", cpu, calc) == "torch"
+    assert ns.resolve_engine("torch", cpu, calc) == "torch"
+    with pytest.raises(ValueError):
+        ns.resolve_engine("cuda", cpu, calc)
+    assert ns.resolve_device(None).type == ("cuda" if torch.cuda.is_available() else "cpu")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ns.resolve_device("cuda")
+    assert ns.resolve_device(None) == cpu
+
+    # with a card: the kernel for a model with a device form, and a loud
+    # refusal (naming engine='torch') for one without
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cuda = ns.resolve_device("cuda")
+    assert ns.resolve_engine("auto", cuda, calc) == "cuda"
+
+    def plain_like(theta):
+        return -torch.sum((theta - 0.5) ** 2, dim=1)
+
+    no_form = make_batched_calculator(identity_prior, plain_like, D, 0)
+    assert no_form.device_spec is None and not no_form.uses_callback
+    with pytest.raises(ValueError, match="engine='torch'"):
+        ns.resolve_engine("auto", cuda, no_form)
+    assert ns.resolve_engine("torch", cuda, no_form) == "torch"
+
+
+def test_calculator_paths():
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), gaussian(D), D, 2)
+    assert calc.device_spec["prior"] == (0.0, 1.0)
+    assert calc.device_spec["likelihood"]["name"] == "gaussian"
+    cube = torch.tensor([[0.5] * D, [1.2] + [0.5] * (D - 1)])
+    theta, phi, logL = calc(cube)
+    assert logL[1] == torch.tensor(-1e30) and (theta[1] == 0).all() and (phi[1] == 0).all()
+    assert logL[0] == pytest.approx(-D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)), rel=1e-6)
+
+    def numpy_like(theta):
+        return float(-np.sum((np.asarray(theta) - 0.5) ** 2)), [0.0]
+
+    cb = make_batched_calculator(identity_prior, numpy_like, D, 1)
+    assert cb.uses_callback and cb.device_spec is None
+    _, _, ll = cb(cube)
+    assert ll[0] == 0.0 and ll[1] == torch.tensor(-1e30)
+
+
+def test_unported_modes_raise(tmp_path):
+    for extra in ({"do_clustering": True}, {"synchronous": False},
+                  {"precision": "highest"}):
+        with pytest.raises(NotImplementedError):
+            polychordlite_tpu_torch.run(
+                gaussian(D), D, **{**KW, **extra, "base_dir": str(tmp_path)}
+            )
+
+
+def test_forced_chain_on_callback_model_raises(tmp_path):
+    """``chain_epochs`` > 1 on a host-callback model raises nothing: the
+    chain fetches whole epoch records, so it runs, and its replay check
+    holds.  Left at auto, such a model dispatches one epoch at a time."""
+    def numpy_like(theta):
+        return float(-np.sum((np.asarray(theta) - 0.5) ** 2))
+
+    kw = dict(nlive=20, num_repeats=2, do_clustering=False, read_resume=False,
+              seed=1, feedback=-1, max_ndead=100, write_stats=False,
+              base_dir=str(tmp_path))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        forced = polychordlite_tpu_torch.run(numpy_like, 2, chain_epochs=4, **kw)
+    auto = polychordlite_tpu_torch.run(numpy_like, 2, **kw)
+    assert forced.metrics["chained_epochs"] is True and forced.ndead >= 100
+    assert auto.metrics["chained_epochs"] is False and auto.ndead >= 100
+    assert math.isfinite(forced.logZ) and math.isfinite(auto.logZ)
