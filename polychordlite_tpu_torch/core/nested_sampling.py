@@ -15,9 +15,19 @@ picks); the slice uniforms are a murmur3 stream keyed per epoch by
 ``fold_in(key, 100_000 + epoch_idx)`` (``ops/pallas_slice.py``), with
 ``key`` the raw uint32[2] key of ``seed``.  ``epoch_idx`` is checkpointed.
 
-Ported so far: one cluster (``do_clustering=False``), synchronous mode,
-single-grade likelihoods, float32.  The other modes raise
-``NotImplementedError``.
+Multimodal runs (``nested_sampling.py:403-701`` of the JAX package):
+clustering at every compression e-fold, and cluster reorganisations
+handled without discarding single nurseries — babies of a nursery
+dispatched before a reorganisation are re-assigned to clusters by the
+Voronoi rule ``add_cluster`` applies to phantoms.  A chained dispatch
+(K nurseries from a one-cluster device state) during which a
+reorganisation happens has its queued nurseries discarded, its replay
+check voided, and chaining cools down for 4 e-folds — for every nursery
+of the chain, the last one included (the JAX package skips the cooldown
+there: ROADMAP C4).
+
+Ported so far: synchronous mode, single-grade likelihoods, float32.  The
+other modes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from ..utils import io as io_mod
 from ..utils import resume as resume_mod
 from ..utils.metrics import RunMetrics
 from ..utils.writebehind import WriteBehindWriter
+from .clustering import do_clustering
 from .generate import (
     assign_num_repeats,
     generate_live_points,
@@ -57,6 +68,7 @@ from .rti import (
     calculate_covmats,
     delete_cluster,
     delete_outermost_point,
+    identify_clusters_batch,
     live_logZ,
     try_replace_live,
     update_posteriors,
@@ -87,24 +99,28 @@ def resolve_device(device=None) -> torch.device:
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: the CUDA kernel on a CUDA device (the model
     must have a device form), the plain torch engine on the CPU.
-    ``engine="torch"`` is the plain engine on any device."""
+    ``engine="cuda5"`` forces the speculative-packet kernel (the JAX
+    package's ``"pallas5"``) under the same conditions; ``engine="torch"``
+    is the plain engine on any device."""
     if engine == "auto":
         if device.type != "cuda":
             return "torch"
         engine = "cuda"
-    if engine == "cuda":
+    if engine in ("cuda", "cuda5"):
         if device.type != "cuda":
-            raise ValueError("engine='cuda' needs device='cuda'")
+            raise ValueError(f"engine={engine!r} needs device='cuda'")
         if getattr(calc, "device_spec", None) is None:
             raise ValueError(
-                "the CUDA slice kernel needs a prior with an affine form and a "
+                "the CUDA slice kernels need a prior with an affine form and a "
                 "likelihood with a device form (priors.py, models/examples.py); "
                 "pass engine='torch' to run this model on the plain torch engine"
             )
-        return "cuda"
+        return engine
     if engine == "torch":
         return "torch"
-    raise ValueError(f"unknown engine {engine!r}: use 'auto', 'cuda' or 'torch'")
+    raise ValueError(
+        f"unknown engine {engine!r}: use 'auto', 'cuda', 'cuda5' or 'torch'"
+    )
 
 
 def _check_supported(s: PolyChordSettings) -> None:
@@ -112,7 +128,6 @@ def _check_supported(s: PolyChordSettings) -> None:
     missing = {
         "precision='highest'": getattr(s, "precision", "single") == "highest",
         "synchronous=False": not s.synchronous,
-        "do_clustering=True (multimodal runs)": bool(s.do_clustering),
         "maximise=True": bool(s.maximise),
         "an nlives schedule": bool(s.nlives),
         "several speed grades": len(s.grade_dims) > 1,
@@ -168,6 +183,32 @@ def _write_products(s: PolyChordSettings, rti: RunTimeInfo, nlikesum, rng, key):
         io_mod.write_posterior_files(s, rti)
 
 
+#: e-folds of per-epoch dispatch after a reorganisation voided a chain
+CHAIN_COOLDOWN = 4
+
+
+def _end_chain_on_reorganisation(turbo, nursery_queue, reorganised: bool) -> None:
+    """After consuming a nursery: if it came from a chained dispatch (its
+    replay check is pending) and the clusters were reorganised since that
+    dispatch, the queued nurseries of the chain — drawn from a one-cluster
+    device state — are discarded, the replay check is voided, and chaining
+    cools down for :data:`CHAIN_COOLDOWN` e-folds.  This holds for every
+    nursery of the chain, the last one included (ROADMAP C4: the JAX
+    package tests ``nursery_queue`` and so skips the cooldown there)."""
+    if turbo["verify"] is not None and reorganised:
+        nursery_queue.clear()
+        turbo["verify"] = None
+        turbo["cooldown"] = CHAIN_COOLDOWN
+        turbo["voided"] += 1
+
+
+def _kernel_launches() -> dict:
+    """The launch counts of the CUDA kernels' wrappers (process-wide)."""
+    from ..ops import pallas_dirs, pallas_slice_v4, pallas_slice_v5
+
+    return {**pallas_dirs.LAUNCHES, **pallas_slice_v4.LAUNCHES, **pallas_slice_v5.LAUNCHES}
+
+
 def _feedback(s: PolyChordSettings, level: int, msg: str) -> None:
     if s.feedback >= level:
         print(msg, flush=True)
@@ -187,6 +228,7 @@ def nested_sampling(
     _check_supported(s)
     device = resolve_device(device)
     t_start = time.time()
+    launches0 = _kernel_launches()
 
     # --- RNG: host generator, device generator and murmur key, all from seed
     seed = s.seed if s.seed >= 0 else int(time.time_ns() % (2**31))
@@ -299,20 +341,24 @@ def nested_sampling(
             bound = np.asarray(rti.logLp[cluster_ids], dtype=np.float64).copy()
             chol = rti.cholesky[cluster_ids]
             handle = run_epoch.dispatch(_next_epoch_key(), seeds[:, s.h], bound, chol)
-            return handle, bound, np.asarray(cluster_ids)
+            return handle, bound, np.asarray(cluster_ids), rti.epoch
 
         # --- chained epochs (ops/chained_epoch.py): K epochs and the
         # live-set update in one dispatch; the host replays every decision
-        # and checks its live set against the device's final state
+        # and checks its live set against the device's final state.  After
+        # a reorganisation voids a chain, per-epoch dispatch for a few
+        # e-folds (actively fragmenting runs would otherwise thrash chains)
         nursery_queue = deque()
         turbo_K = int(getattr(s, "chain_epochs", -1))
         if turbo_K < 0:  # auto: host-callback likelihoods dispatch per epoch
             turbo_K = 0 if calc.uses_callback else 8
-        turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None}
+        turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
+                 "cooldown": 0, "voided": 0}
 
         def _turbo_ok():
             return (
                 turbo["enabled"]
+                and turbo["cooldown"] == 0
                 and rti.ncluster == 1
                 and rti.total_nlive() == s.nlive
             )
@@ -328,29 +374,33 @@ def nested_sampling(
                     _next_epoch_key(), live[:, s.h], live[:, s.l0],
                     rti.cholesky[0], K,
                 )
-                return ("chain", h)
+                return ("chain", h, rti.epoch)
             return ("single", _dispatch())
 
         pending = _dispatch_any() if running else None
         while running and failures <= nfail and rti.ncluster > 0:
             if not nursery_queue:
                 if pending[0] == "single":
-                    handle, bound, cluster_ids = pending[1]
+                    handle, bound, cluster_ids, epoch_at_dispatch = pending[1]
                     with metrics.device_epoch():
                         outs = run_epoch.collect(handle)
-                    nursery_queue.append((*outs, bound, cluster_ids))
+                    nursery_queue.append(
+                        (*outs, bound, cluster_ids, epoch_at_dispatch)
+                    )
                     turbo["verify"] = None
                 else:
+                    _, handle, epoch_at = pending
                     with metrics.device_epoch():
-                        nurseries, final_ll = run_epoch.collect_chain(pending[1])
+                        nurseries, final_ll = run_epoch.collect_chain(handle)
                     zero_ids = np.zeros(B, dtype=int)
                     for cube_k, th_k, phi_k, logL_k, nl_k, b0 in nurseries:
                         nursery_queue.append(
-                            (cube_k, th_k, phi_k, logL_k, nl_k, np.full(B, b0), zero_ids)
+                            (cube_k, th_k, phi_k, logL_k, nl_k,
+                             np.full(B, b0), zero_ids, epoch_at)
                         )
                     turbo["verify"] = final_ll
-            (b_cube, b_theta, b_phi, b_logL, nlike, bound,
-             cluster_ids) = nursery_queue.popleft()
+            (b_cube, b_theta, b_phi, b_logL, nlike, bound, cluster_ids,
+             epoch_at_dispatch) = nursery_queue.popleft()
             nlike = nlike.sum(axis=0)
             rti.nlike += nlike
             nlikesum += nlike
@@ -368,23 +418,47 @@ def nested_sampling(
             t_assemble += time.time() - _t0
 
             # --- consume the nursery in vectorised chunks -------------------
+            # a reorganisation since the dispatch: stale seed-cluster ids are
+            # re-assigned by the Voronoi rule add_cluster applies to phantoms
+            # (run_time_info.f90:444-453), so no generated work is thrown away
+            ids = cluster_ids.copy()
+            if rti.epoch != epoch_at_dispatch:
+                ids = identify_clusters_batch(rti, babies[:, -1])
             chunk = max(8, min(64, s.nlive // 8))
             b0 = 0
+            ph_done = 0  # phantom-insertion high-water mark: a chunk that
+            # breaks early on a reorganisation restarts at b0 = b, but its
+            # phantoms were already inserted up to the old b1
             while b0 < B and running and failures <= nfail and rti.ncluster > 0:
                 b1 = min(b0 + chunk, B)
-                if R > 1:  # phantom candidates of the chunk, one batched insert
+                epoch0 = rti.epoch
+                if R > 1 and b1 > ph_done:  # the chunk's phantoms, one insert
+                    lo = max(b0, ph_done)
                     append_phantoms_batch(
                         rti,
-                        babies[b0:b1, :-1].reshape(-1, s.nTotal),
-                        np.repeat(cluster_ids[b0:b1], R - 1),
+                        babies[lo:b1, :-1].reshape(-1, s.nTotal),
+                        np.repeat(ids[lo:b1], R - 1),
                     )
+                    ph_done = b1
+                # live candidates: Voronoi membership against the current
+                # live set, recomputed every VORONOI_SUB replacements
+                # (run_time_info.f90:744-753)
+                VORONOI_SUB = 16
                 lpts = babies[b0:b1, -1]
+                assign = identify_clusters_batch(rti, lpts)
                 _nested = ("posteriors", "file_writes", "dumper", "clustering")
                 t_loop0 = time.time()
                 _n0 = sum(metrics._phase_tot.get(k, 0.0) for k in _nested)
                 b = b0
                 while b < b1:
-                    res = try_replace_live(rti, lpts[b - b0], int(cluster_ids[b]), True)
+                    if rti.epoch != epoch0:
+                        break  # reorganisation: re-validate remaining babies
+                    i = b - b0
+                    if i and i % VORONOI_SUB == 0:
+                        assign[i:] = identify_clusters_batch(rti, lpts[i:])
+                    res = try_replace_live(
+                        rti, lpts[i], int(ids[b]), bool(assign[i] == ids[b])
+                    )
                     b += 1
                     if res is True:
                         failures = 0
@@ -399,6 +473,8 @@ def nested_sampling(
                         <= rti.logX_last_update + math.log(s.compression_factor)
                     )
                     if update:
+                        if turbo["cooldown"] > 0:
+                            turbo["cooldown"] -= 1
                         rti.logX_last_update = lse_logXp
                         with metrics.phase("posteriors"):
                             update_posteriors(rti)
@@ -437,6 +513,10 @@ def nested_sampling(
                         )
                         nlikesum[:] = 0
                         with metrics.phase("clustering"):
+                            if s.do_clustering:
+                                if s.sub_clustering_dimensions:
+                                    do_clustering(rti, s.sub_clustering_dimensions)
+                                do_clustering(rti)
                             calculate_covmats(rti)
 
                     running = more_samples_needed(s, rti)
@@ -449,7 +529,13 @@ def nested_sampling(
                     + (time.time() - t_loop0)
                     - (_n1 - _n0)
                 )
+                if rti.epoch != epoch0 and rti.ncluster > 0 and b < B:
+                    ids[b:] = identify_clusters_batch(rti, babies[b:, -1])
                 b0 = b
+
+            _end_chain_on_reorganisation(
+                turbo, nursery_queue, rti.epoch != epoch_at_dispatch
+            )
 
             if not nursery_queue and turbo["verify"] is not None:
                 # chain fully replayed: the host live set must match the
@@ -523,7 +609,17 @@ def nested_sampling(
             varlogZ=varlogZ,
             nlike=int(rti.nlike.sum()),
             engine=run_epoch.engine_used(),
-            extra={"epoch_timers": epoch_timers, "chained_epochs": turbo["enabled"]},
+            extra={
+                "epoch_timers": epoch_timers, "chained_epochs": turbo["enabled"],
+                "chains_voided": turbo["voided"],
+                # the host phases over the whole run (host_breakdown above
+                # holds the last interval only)
+                "host_totals": {k: round(v, 3) for k, v in metrics._phase_tot.items()},
+                # kernel launches during this run (the functor check included)
+                "kernel_launches": {
+                    k: v - launches0[k] for k, v in _kernel_launches().items()
+                },
+            },
         )
         return {
             "logZ": float(logZ),

@@ -20,13 +20,11 @@
 // bound on micro-steps that v4 has (pallas_slice_v4.py:134).
 //
 // The likelihood is evaluated inside the kernel by a functor (template
-// parameter).  This file has one: the normalised Gaussian behind a
-// per-coordinate affine prior, theta = a + s * cube.  It sums the
-// chi-square over coordinates 0..D-1 in index order, and every float
-// operation is an explicitly rounded intrinsic (and the file is built with
-// --fmad=false), in the same order as the plain torch engine
-// (ops/slice_kernel.py) and the torch likelihood (models/examples.py), so
-// the kernel and its plain version agree bit for bit.
+// parameter) from likelihoods.cuh, behind a per-coordinate affine prior;
+// every float operation is an explicitly rounded intrinsic, in the same
+// order as the plain torch engine (ops/slice_kernel.py) and the torch
+// likelihoods (models/examples.py), so the kernel and its plain version
+// agree bit for bit.
 //
 // Layout: x0 (D, B), nhat (R, D, B) and w (R, B) with the chain axis
 // minor, so neighbouring threads read neighbouring words; outputs t, logL
@@ -44,59 +42,7 @@
 // SLICE_MAXD with static indices) and uses small blocks (32 threads) to
 // spread the chains over as many SMs as possible.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define SLICE_MAXD 32
-
-enum { PH_INIT_R = 0, PH_INIT_L, PH_STEP_R, PH_STEP_L, PH_SHRINK, PH_DONE };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int n) {
-    return (x << n) | (x >> (32 - n));
-}
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h, uint32_t k) {
-    k *= 0xCC9E2D51u;
-    k = rotl32(k, 15);
-    k *= 0x1B873593u;
-    h ^= k;
-    h = rotl32(h, 13);
-    return h * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    return h ^ (h >> 16);
-}
-
-struct GaussianLike {
-    float prior_a, prior_s;  // theta = prior_a + prior_s * cube
-    float mu, sigma, norm, logzero;
-
-    // logL of the probe x0 + t n̂ with calculate_point's semantics: a probe
-    // outside the unit cube, or a NaN, gives logzero.
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
-        float chi2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float p = __fadd_rn(x0[d], __fmul_rn(t, n[d]));
-                inside = inside && (p >= 0.0f) && (p <= 1.0f);
-                const float th = __fadd_rn(__fmul_rn(p, prior_s), prior_a);
-                const float z = __fdiv_rn(__fsub_rn(th, mu), sigma);
-                chi2 = __fadd_rn(chi2, __fmul_rn(z, z));
-            }
-        }
-        float logL = __fsub_rn(norm, __fmul_rn(0.5f, chi2));
-        if (logL != logL) logL = logzero;
-        return inside ? logL : logzero;
-    }
-};
+#include "likelihoods.cuh"
 
 template <class Like>
 __global__ void slice_epoch_kernel(Like like, const float* __restrict__ x0t,
@@ -133,8 +79,7 @@ __global__ void slice_epoch_kernel(Like like, const float* __restrict__ x0t,
             float tL = 0.0f, tR = 0.0f, t = 0.0f, logL_store = logzero;
             for (uint32_t it = 0; steps < cap; ++it) {
                 ++steps;
-                const float u =
-                    (float)(fmix32(mix32(h_rep, it)) >> 8) * 5.9604644775390625e-08f;
+                const float u = slice_uniform(h_rep, it);
                 switch (phase) {
                     case PH_INIT_R:
                         tL = __fmul_rn(-u, wr);
@@ -211,24 +156,29 @@ __global__ void slice_epoch_kernel(Like like, const float* __restrict__ x0t,
     }
 }
 
-extern "C" int slice_epoch_max_dim() { return SLICE_MAXD; }
-
-// All arrays float32 (nlike int32), contiguous, on the device; see the
-// layout above.  Returns cudaGetLastError() after the launch.
-extern "C" int slice_epoch_gaussian(
+// All device arrays float32 (nlike int32), contiguous; see the layout
+// above.  `functor` is a LIKE_* id of likelihoods.cuh, `consts` its
+// constants, and prior_a, prior_s the prior's D-vectors — these three are
+// host arrays.  Returns cudaGetLastError() after the launch.
+extern "C" int slice_epoch_launch(
+    int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float prior_a, float prior_s, float mu, float sigma,
-    float norm, float logzero, void* stream) {
+    long long cap, float logzero, void* stream) {
     if (D < 1 || D > SLICE_MAXD || R < 1 || B < 1)
         return (int)cudaErrorInvalidValue;
-    GaussianLike like{prior_a, prior_s, mu, sigma, norm, logzero};
     const int threads = 32;
-    slice_epoch_kernel<GaussianLike><<<(B + threads - 1) / threads, threads, 0,
-                                       (cudaStream_t)stream>>>(
-        like, (const float*)x0t, (const float*)bound, (const float*)valid,
-        (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
-        (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap);
+    const int blocks = (B + threads - 1) / threads;
+    const int bad = with_likelihood(
+        functor, consts, prior_a, prior_s, D, logzero, [&](auto like) {
+            slice_epoch_kernel<decltype(like)>
+                <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                    like, (const float*)x0t, (const float*)bound,
+                    (const float*)valid, (const float*)nhat, (const float*)w,
+                    (float*)t_out, (float*)logL_out, (int*)nlike_out, B, D, R, k0,
+                    k1, max_step, max_shrink, cap);
+        });
+    if (bad) return bad;
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Example likelihoods ported so far (see ``examples.py``)."""
 
-from .examples import LIKELIHOODS, gaussian, get_likelihood
+from .examples import LIKELIHOODS, gaussian, gaussian_shells, get_likelihood
 
-__all__ = ["LIKELIHOODS", "gaussian", "get_likelihood"]
+__all__ = ["LIKELIHOODS", "gaussian", "gaussian_shells", "get_likelihood"]

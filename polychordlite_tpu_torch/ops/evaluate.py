@@ -17,7 +17,9 @@ Two paths share one interface:
 
 When the prior has an ``affine`` descriptor (``priors.py``) and the
 likelihood a ``device_form`` (``models/examples.py``), ``calc.device_spec``
-holds both, and the CUDA slice kernel can evaluate the model itself.
+holds both — the prior as per-coordinate float32 arrays ``(a[D], s[D])``,
+``theta = a + s * cube`` — and the CUDA slice kernels can evaluate the
+model themselves.
 """
 
 from __future__ import annotations
@@ -158,8 +160,10 @@ def make_batched_calculator(
     affine = getattr(prior_fn, "affine", None)
     form = getattr(loglike_fn, "device_form", None)
     if not use_callback and affine is not None and form is not None:
+        a, s = (np.broadcast_to(np.asarray(v, np.float32), (n_dims,)).copy()
+                for v in affine)
         calc_point_batch.device_spec = {
-            "prior": tuple(affine), "likelihood": dict(form),
+            "prior": (a, s), "likelihood": dict(form),
             "n_dims": n_dims, "logzero": float(logzero),
         }
     return calc_point_batch

@@ -6,9 +6,11 @@
 design).  For CPU tensors it runs the kernel's plain version,
 ``slice_kernel.slice_records_plain``; for CUDA tensors it launches the
 kernel or raises.  The kernel evaluates the likelihood itself through a
-device functor selected by ``calc.device_spec`` (``ops/evaluate.py``);
-:func:`validate_functor` checks that functor against the torch calc,
-bitwise, before a run uses it.
+device functor of ``csrc/likelihoods.cuh`` (:data:`FUNCTORS`), selected by
+``calc.device_spec`` (``ops/evaluate.py``); :func:`validate_functor` checks
+that functor against the torch calc, bitwise, through the engine that will
+run it, before a run uses it.  :func:`launch_slice_kernel` is shared with
+the speculative kernel of ``ops/pallas_slice_v5.py``.
 
 Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
@@ -27,29 +29,93 @@ import torch
 from ..utils import nvcc
 from .slice_kernel import EpochConfig, slice_records_plain
 
+#: the kernels' bound on the dimension (SLICE_MAXD of ``csrc/slice_common.cuh``)
+SLICE_MAXD = 32
+
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch": 0}
 
-_FUNCTORS = ("gaussian",)
+#: device functors of ``csrc/likelihoods.cuh``: the likelihood form's name
+#: -> (functor id, the form's constants in the order the functor takes them)
+FUNCTORS = {
+    "gaussian": (0, ("mu", "sigma", "norm")),
+    "gaussian_shells": (1, ("centre", "radius", "two_s2", "neg_a", "log_two")),
+}
+
+_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+)
 
 
-def _lib():
-    lib = nvcc.load("slice_epoch", ["slice_epoch.cu"])
+def load_library(name: str, source: str, entry: str):
+    """Build (at first use) and load a slice-epoch library; type its entry."""
+    lib = nvcc.load(name, [source])
     if not getattr(lib, "_typed", False):
-        vp, ci, cu, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        lib.slice_epoch_gaussian.argtypes = (
-            [vp] * 8 + [ci, ci, ci, cu, cu, ci, ci, ctypes.c_longlong]
-            + [cf] * 6 + [vp]
-        )
-        lib.slice_epoch_gaussian.restype = ci
-        lib.slice_epoch_max_dim.argtypes = []
-        lib.slice_epoch_max_dim.restype = ci
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
+def _lib():
+    return load_library("slice_epoch", "slice_epoch.cu", "slice_epoch_launch")
+
+
 def _f32(x: float) -> float:
     return float(np.float32(x))
+
+
+def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
+                        x0, bound, valid, nhats, ws):
+    """Check the inputs of a slice-epoch kernel, launch it on the current
+    stream and return (t, logL, nlike), each (B, R).  The model must have a
+    device form (``calc.device_spec``) whose functor is in
+    :data:`FUNCTORS`."""
+    spec = getattr(calc, "device_spec", None)
+    if spec is None or spec["likelihood"]["name"] not in FUNCTORS:
+        raise ValueError(
+            "the CUDA slice kernels need a prior and likelihood with a device "
+            "form (ops/evaluate.py); use engine='torch' for this model"
+        )
+    B, R, D = nhats.shape
+    if D > SLICE_MAXD:
+        raise ValueError(f"D={D} exceeds the kernels' maximum {SLICE_MAXD}")
+    if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
+        raise ValueError(f"{entry}: inconsistent shapes")
+    dev = x0.device
+    for name, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
+        if a.device != dev:
+            raise ValueError(f"{entry}: {name} is on {a.device}, x0 on {dev}")
+    f32 = torch.float32
+    x0t = x0.to(f32).t().contiguous()
+    nhat_t = nhats.to(f32).permute(1, 2, 0).contiguous()
+    w_t = ws.to(f32).t().contiguous()
+    bound_f = bound.to(f32).contiguous()
+    valid_f = valid.to(f32).contiguous()
+    t_out = torch.empty((R, B), dtype=f32, device=dev)
+    l_out = torch.empty((R, B), dtype=f32, device=dev)
+    n_out = torch.empty((R, B), dtype=torch.int32, device=dev)
+    fid, names = FUNCTORS[spec["likelihood"]["name"]]
+    consts = np.array([spec["likelihood"][k] for k in names], dtype=np.float32)
+    prior_a, prior_s = (np.ascontiguousarray(v, dtype=np.float32) for v in spec["prior"])
+    if prior_a.shape != (D,) or prior_s.shape != (D,):
+        raise ValueError(f"{entry}: the prior's affine form is not per coordinate of D={D}")
+    k0, k1 = key_words
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = getattr(lib, entry)(
+            fid, consts.ctypes.data, prior_a.ctypes.data, prior_s.ctypes.data,
+            x0t.data_ptr(), bound_f.data_ptr(), valid_f.data_ptr(),
+            nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
+            l_out.data_ptr(), n_out.data_ptr(), B, D, R,
+            int(k0), int(k1), cfg.max_step, cfg.max_shrink,
+            cfg.step_cap, _f32(cfg.logzero), stream,
+        )
+    nvcc.check(status, entry)
+    return t_out.t(), l_out.t(), n_out.t()
 
 
 def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
@@ -63,57 +129,23 @@ def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
-    spec = getattr(calc, "device_spec", None)
-    if spec is None or spec["likelihood"]["name"] not in _FUNCTORS:
-        raise ValueError(
-            "the CUDA slice kernel needs a prior and likelihood with a device "
-            "form (ops/evaluate.py); use engine='torch' for this model"
-        )
-    B, R, D = nhats.shape
-    lib = _lib()
-    if D > lib.slice_epoch_max_dim():
-        raise ValueError(f"D={D} exceeds the kernel's maximum {lib.slice_epoch_max_dim()}")
-    if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
-        raise ValueError("slice_epoch: inconsistent shapes")
-    dev = x0.device
-    for name, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
-        if a.device != dev:
-            raise ValueError(f"slice_epoch: {name} is on {a.device}, x0 on {dev}")
-    f32 = torch.float32
-    x0t = x0.to(f32).t().contiguous()
-    nhat_t = nhats.to(f32).permute(1, 2, 0).contiguous()
-    w_t = ws.to(f32).t().contiguous()
-    bound_f = bound.to(f32).contiguous()
-    valid_f = valid.to(f32).contiguous()
-    t_out = torch.empty((R, B), dtype=f32, device=dev)
-    l_out = torch.empty((R, B), dtype=f32, device=dev)
-    n_out = torch.empty((R, B), dtype=torch.int32, device=dev)
-    a, b = spec["prior"]
-    like = spec["likelihood"]
-    k0, k1 = key_words
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = lib.slice_epoch_gaussian(
-            x0t.data_ptr(), bound_f.data_ptr(), valid_f.data_ptr(),
-            nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
-            l_out.data_ptr(), n_out.data_ptr(), B, D, R,
-            int(k0), int(k1), cfg.max_step, cfg.max_shrink,
-            cfg.step_cap, _f32(a), _f32(b - a), _f32(like["mu"]),
-            _f32(like["sigma"]), _f32(like["norm"]), _f32(cfg.logzero), stream,
-        )
-    nvcc.check(status, "slice_epoch_gaussian")
+    out = launch_slice_kernel(_lib(), "slice_epoch_launch", calc, cfg, key_words,
+                              x0, bound, valid, nhats, ws)
     LAUNCHES["slice_epoch"] += 1
-    return t_out.t(), l_out.t(), n_out.t()
+    return out
 
 
-def validate_functor(calc, cfg: EpochConfig, device) -> None:
+def validate_functor(calc, cfg: EpochConfig, device, records=None) -> None:
     """Check the kernel's likelihood functor against the torch calc on 1280
     cubes, some outside the walls; raise on any difference.
 
-    The kernel is run with zero directions and zero widths, so every probe
-    is the seed itself, and with an unbounded contour: the lane steps out
-    and shrinks on the spot and accepts its seed with the functor's logL
-    (a seed outside the walls is a forced logzero accept)."""
+    ``records`` is the wrapper of the engine that will run the functor
+    (:func:`slice_epoch` by default; ``pallas_slice_v5.slice_epoch_v5`` for
+    ``"cuda5"``).  The kernel is run with zero directions and zero widths,
+    so every probe is the seed itself, and with an unbounded contour: the
+    lane steps out and shrinks on the spot and accepts its seed with the
+    functor's logL (a seed outside the walls is a forced logzero accept)."""
+    records = slice_epoch if records is None else records
     D = cfg.n_dims
     rng = np.random.default_rng(20240131)
     pts = np.concatenate([
@@ -122,8 +154,9 @@ def validate_functor(calc, cfg: EpochConfig, device) -> None:
     ]).astype(np.float32)
     x0 = torch.as_tensor(pts, device=device)
     B = x0.shape[0]
-    one = cfg._replace(num_repeats=(1,), grade_dims=(D,))
-    _, got, _ = slice_epoch(
+    # one repeat on the plain configuration (a subclass's budget dropped)
+    one = EpochConfig(*cfg)._replace(num_repeats=(1,), grade_dims=(D,))
+    _, got, _ = records(
         calc, one, (0, 0), x0,
         torch.full((B,), -torch.finfo(torch.float32).max, device=device),
         torch.ones(B, dtype=torch.bool, device=device),

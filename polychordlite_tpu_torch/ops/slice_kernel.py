@@ -4,16 +4,20 @@
 ``epoch(key_words, seed_cube, bound, cholesky, lane_valid)``, which runs R
 slice repeats on each of B chains and returns the packed
 ``(B, R*(2D+n_phi+1) + n_grades + 1)`` record of the JAX package's contract
-(``slice_kernel.py:137-149``; see :func:`unpack_epoch`).  Two engines:
+(``slice_kernel.py:137-149``; see :func:`unpack_epoch`).  Three engines:
 
 * ``"torch"`` — :func:`slice_records_plain`, the per-lane state machine of
   the v4 kernel (``pallas_slice_v4.py:215-348``) vectorised over lanes in
   plain torch.  It runs on any device and is the plain version of the CUDA
   kernel.
 * ``"cuda"`` — the hand-written kernel ``csrc/slice_epoch.cu``, through
-  ``ops/pallas_slice_v4.py``.
+  ``ops/pallas_slice_v4.py`` (the JAX package's ``"pallas"`` / ``"pallas4"``).
+* ``"cuda5"`` — the speculative-packet kernel ``csrc/slice_epoch_v5.cu``,
+  through ``ops/pallas_slice_v5.py`` (the JAX package's forced
+  ``"pallas5"``); decision-exact with ``"cuda"``, so a run gives the same
+  result on either.
 
-Both produce per (lane, repeat) the accepted chord position t, its logL and
+All produce per (lane, repeat) the accepted chord position t, its logL and
 the repeat's likelihood-call count; positions are rebuilt outside as
 ``seed + cumsum(t n̂)`` (``ops/pallas_slice_v4.py``).  The per-lane state
 machine for one repeat (Neal 2003; ``chordal_sampling.f90:163-273``):
@@ -53,7 +57,7 @@ from .pallas_slice import (
     uniform_from_hash,
 )
 
-ENGINES = ("torch", "cuda")
+ENGINES = ("torch", "cuda", "cuda5")
 
 
 class EpochConfig(NamedTuple):
@@ -66,7 +70,7 @@ class EpochConfig(NamedTuple):
     logzero: float = LOG_ZERO
     max_step: int = 200   # stepping-out cap (reference warns past 100 and has no cap)
     max_shrink: int = 100  # shrinkage cap (chordal_sampling.f90:240-271)
-    engine: str = "torch"  # "torch" (plain, any device) or "cuda" (kernel)
+    engine: str = "torch"  # "torch" (plain, any device), "cuda" or "cuda5" (kernels)
 
     @property
     def total_repeats(self) -> int:
@@ -202,6 +206,7 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     from; ``directions=(nhats, w, speeds)`` replaces the draw (test seam)."""
     from .directions import make_directions
     from .pallas_slice_v4 import assemble_epoch, slice_epoch
+    from .pallas_slice_v5 import slice_epoch_v5
 
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; have {ENGINES}")
@@ -209,6 +214,8 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     def records(*args):
         if cfg.engine == "cuda":
             return slice_epoch(calc, cfg, *args)
+        if cfg.engine == "cuda5":
+            return slice_epoch_v5(calc, cfg, *args)
         return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
 
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,

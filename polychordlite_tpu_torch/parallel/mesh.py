@@ -5,9 +5,9 @@ The *logical* batch width B (the nursery the administrator consumes) is
 rounded to 8 lanes; the engine is fed a *physical* batch padded to
 ``GRANULE`` lanes with invalid lanes (``valid = 0``: they never move and are
 dropped before the nursery is returned).  The CUDA kernels take any width;
-128 lanes are whole thread blocks of both.  Both engines use the same
-granule, so they draw the same directions and, the kernel and its plain
-version agreeing bit for bit, a run gives the same result on either.
+128 lanes are whole thread blocks of each.  All engines use the same
+granule, so they draw the same directions and, the kernels and their plain
+versions agreeing bit for bit, a run gives the same result on any of them.
 
 Each epoch crosses the host-device boundary as one packed upload and one
 fetch of the full epoch record (cube, theta, phi, logL per baby).
@@ -46,10 +46,12 @@ def make_epoch_runner(
     tail = len(cfg.grade_dims) + 1  # per-grade nlike + overflow flag
 
     epoch_fn = build_epoch_fn(calc, cfg)
-    if cfg.engine == "cuda":
+    if cfg.engine in ("cuda", "cuda5"):  # the functor, through its own kernel
         from ..ops.pallas_slice_v4 import validate_functor
+        from ..ops.pallas_slice_v5 import slice_epoch_v5
 
-        validate_functor(calc, cfg, device)
+        validate_functor(calc, cfg, device,
+                         slice_epoch_v5 if cfg.engine == "cuda5" else None)
 
     # cumulative epoch-phase timers (host clock, seconds)
     timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "unpack": 0.0}
@@ -148,6 +150,6 @@ def make_epoch_runner(
     run.collect = collect
     run.dispatch_chain = dispatch_chain
     run.collect_chain = collect_chain
-    run.engine_used = lambda: cfg.engine
+    run.engine_used = lambda: cfg.engine  # the engine that ran: no fallback
     run.timers = timers
     return run, B

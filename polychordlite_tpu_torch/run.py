@@ -15,8 +15,12 @@ Differences from the reference (documented deviations):
   the exact sample stream but not the statistics);
 * ``device=`` picks the torch device: ``None`` means ``"cuda"`` when a card is
   present, else ``"cpu"``; an explicit ``"cuda"`` without a card raises.
-  ``engine="auto"`` runs the CUDA slice kernel on a CUDA device and the plain
-  torch engine on the CPU; ``engine="torch"`` is the plain engine anywhere.
+  ``engine="auto"`` runs the CUDA slice kernel (``"cuda"``, the v4 kernel)
+  on a CUDA device and the plain torch engine on the CPU; ``engine="cuda5"``
+  forces the speculative-packet kernel (decision-exact with ``"cuda"``, so
+  the same run); ``engine="torch"`` is the plain engine anywhere.  A model
+  the kernels cannot evaluate (no affine prior or no device form) raises
+  with ``"cuda"``/``"cuda5"`` and with ``"auto"`` on a card.
 """
 
 from __future__ import annotations

@@ -86,9 +86,11 @@ class PolyChordSettings:
     #: number of local devices to shard the chain batch over; the port runs
     #: on one device and ignores it.
     mesh_shape: Optional[int] = None
-    #: slice engine: "auto" (default — the CUDA kernel on a CUDA device for
-    #: a model with a device form, the plain torch engine on the CPU),
-    #: "cuda" (the kernel, forced) or "torch" (the plain engine, any device).
+    #: slice engine: "auto" (default — the CUDA kernel "cuda" on a CUDA
+    #: device for a model with a device form, the plain torch engine on the
+    #: CPU), "cuda" (the v4 kernel, forced), "cuda5" (the speculative-packet
+    #: kernel, the JAX package's forced "pallas5"; decision-exact with
+    #: "cuda") or "torch" (the plain engine, any device).
     engine: str = "auto"
     #: "single" (float32) or "highest" (float64 — reference precision,
     #: utils.F90:6; needed when |logL| exceeds ~1e6, see ops/precision.py;

@@ -21,15 +21,24 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import polychordlite_tpu_torch as pt  # noqa: E402
-from polychordlite_tpu_torch.models import gaussian  # noqa: E402
-from polychordlite_tpu_torch.ops import pallas_dirs, pallas_slice_v4  # noqa: E402
+from polychordlite_tpu_torch.models import gaussian, gaussian_shells  # noqa: E402
+from polychordlite_tpu_torch.ops import (  # noqa: E402
+    pallas_dirs,
+    pallas_slice_v4,
+    pallas_slice_v5,
+)
 from polychordlite_tpu_torch.ops.directions import make_directions  # noqa: E402
 from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator  # noqa: E402
 from polychordlite_tpu_torch.ops.slice_kernel import (  # noqa: E402
     EpochConfig,
     slice_records_plain,
 )
-from polychordlite_tpu_torch.priors import UniformPrior, identity_prior  # noqa: E402
+from polychordlite_tpu_torch.priors import (  # noqa: E402
+    BlockPrior,
+    PriorBlock,
+    UniformPrior,
+    identity_prior,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +113,96 @@ def test_run_on_the_card(dev):
                                np.loadtxt(os.path.join(base, "test.txt")))
     assert results["cuda"][:3] == results["torch"][:3]
     np.testing.assert_array_equal(results["cuda"][3], results["torch"][3])
+
+
+class CappedConfig(EpochConfig):
+    """An epoch budget small enough to stop lanes mid-repeat."""
+
+    @property
+    def step_cap(self) -> int:
+        return 13
+
+
+@pytest.mark.parametrize("prior", [identity_prior, UniformPrior([0.0] * 4, [1.0] * 4)])
+@pytest.mark.parametrize("max_step,max_shrink,capped", [(200, 100, False), (1, 100, False),
+                                                        (200, 2, False), (200, 100, True)])
+def test_v5_kernel_equals_plain_and_v4(dev, prior, max_step, max_shrink, capped):
+    D, R, B = 4, 6, 1000
+    like = gaussian(D, sigma=0.2)
+    calc = make_batched_calculator(prior, like, D, 2)
+    cls = CappedConfig if capped else EpochConfig
+    cfg = cls(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,),
+              max_step=max_step, max_shrink=max_shrink)
+    pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice_v5.slice_epoch_v5)
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
+    r0 = 1.5 * 0.2 * math.sqrt(D)
+    off = 5.0 if max_shrink == 2 else 0.0
+    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2 + off, device=dev)
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    args = (x0, bound, valid, nh, w)
+    before = pallas_slice_v5.LAUNCHES["slice_epoch_v5"]
+    got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args)
+    assert pallas_slice_v5.LAUNCHES["slice_epoch_v5"] == before + 1
+    plain = pallas_slice_v5.slice_records_packet_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    v4 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    for a, b, c in zip(got, plain, v4):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _shells_calc():
+    blocks = [PriorBlock("uniform", (0, 1), (0, 1), (-6.0, 6.0, -2.5, 2.5))]
+    return make_batched_calculator(BlockPrior(blocks, 2), gaussian_shells(2), 2, 0)
+
+
+def test_shells_functor_through_both_kernels(dev):
+    calc = _shells_calc()
+    B, R = 512, 10
+    cfg = EpochConfig(n_dims=2, n_phi=1, grade_dims=(2,), num_repeats=(R,))
+    pallas_slice_v4.validate_functor(calc, cfg, dev)
+    pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice_v5.slice_epoch_v5)
+    gen = torch.Generator(dev).manual_seed(1)
+    ang = 2 * math.pi * torch.rand(500, generator=gen, device=dev)
+    side = torch.where(torch.rand(500, generator=gen, device=dev) < 0.5, -3.5, 3.5)
+    rad = 2.0 + 0.1 * torch.randn(500, generator=gen, device=dev)
+    th = torch.stack([side + rad * torch.cos(ang), rad * torch.sin(ang)], 1)
+    live = (th - torch.tensor([-6.0, -2.5], device=dev)) / torch.tensor([12.0, 5.0], device=dev)
+    live_logL = calc(live)[2]
+    pick = torch.randint(0, 500, (B,), generator=gen, device=dev)
+    other = torch.randint(0, 500, (B,), generator=gen, device=dev)
+    bound = torch.minimum(live_logL[pick], live_logL[other])
+    valid = torch.arange(B, device=dev) < 504
+    chol = torch.linalg.cholesky(torch.cov(live.T)).expand(B, 2, 2)
+    nh, w, _ = make_directions(chol, grade_dims=(2,), num_repeats=(R,), n_dims=2, generator=gen)
+    args = (live[pick], bound, valid, nh, w)
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, (3, 4), *args)
+    b3 = pallas_slice_v5.slice_epoch_v5(calc, cfg, (3, 4), *args)
+    plain = slice_records_plain(lambda p: calc(p)[2], cfg, (3, 4), *args)
+    for a, b, c in zip(b1, b3, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_shells_run_cuda5_equals_cuda(dev):
+    """A 2-D shells run() with clustering gives the same run on the
+    speculative kernel as on the v4 kernel."""
+    results = {}
+    for engine in ("cuda", "cuda5"):
+        with tempfile.TemporaryDirectory() as base:
+            pallas_slice_v4.LAUNCHES["slice_epoch"] = 0
+            pallas_slice_v5.LAUNCHES["slice_epoch_v5"] = 0
+            out = pt.run(gaussian_shells(2), 2, prior=UniformPrior([-6.0, -2.5], [6.0, 2.5]),
+                         nlive=125, num_repeats=10, read_resume=False, base_dir=base,
+                         seed=17, feedback=-1, device="cuda", engine=engine)
+            ran = {"cuda": pallas_slice_v4.LAUNCHES["slice_epoch"],
+                   "cuda5": pallas_slice_v5.LAUNCHES["slice_epoch_v5"]}
+            assert ran[engine] > 1 and sum(ran.values()) == ran[engine]
+            with open(os.path.join(base, "test.metrics.jsonl")) as f:
+                recs = [json.loads(ln) for ln in f.read().splitlines()]
+            assert recs[-1]["engine"] == engine
+            assert max(r.get("ncluster", 0) for r in recs) >= 2
+            assert abs(out.logZ + math.log(60.0)) < 3 * out.logZerr
+            with open(os.path.join(base, "test.txt"), "rb") as f:
+                results[engine] = (out.ndead, out.logZ, out.logZerr, f.read())
+    assert results["cuda"] == results["cuda5"]

@@ -243,6 +243,7 @@ COPIED = [
     "settings.py", "output.py", "ops/logspace.py", "ops/linalg.py",
     "core/rti.py", "core/clustering.py", "utils/io.py", "utils/feedback.py",
     "utils/metrics.py", "utils/writebehind.py", "utils/native.py",
+    "params.py", "utils/inifile.py",
 ]
 
 

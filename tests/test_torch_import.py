@@ -13,6 +13,9 @@ MODULES = [
     "polychordlite_tpu_torch",
     "polychordlite_tpu_torch.core.nested_sampling",
     "polychordlite_tpu_torch.ops.pallas_slice_v4",
+    "polychordlite_tpu_torch.ops.pallas_slice_v5",
+    "polychordlite_tpu_torch.inidriver",
+    "polychordlite_tpu_torch.priors",
     "polychordlite_tpu_torch.ops.chained_epoch",
     "polychordlite_tpu_torch.utils.resume",
     "polychordlite_tpu_torch.models",

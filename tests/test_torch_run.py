@@ -80,8 +80,9 @@ def test_engine_and_device_rules(monkeypatch):
     cpu = torch.device("cpu")
     assert ns.resolve_engine("auto", cpu, calc) == "torch"
     assert ns.resolve_engine("torch", cpu, calc) == "torch"
-    with pytest.raises(ValueError):
-        ns.resolve_engine("cuda", cpu, calc)
+    for engine in ("cuda", "cuda5"):  # the kernels need a card
+        with pytest.raises(ValueError):
+            ns.resolve_engine(engine, cpu, calc)
     assert ns.resolve_device(None).type == ("cuda" if torch.cuda.is_available() else "cpu")
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -94,6 +95,7 @@ def test_engine_and_device_rules(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     assert ns.resolve_engine("auto", cuda, calc) == "cuda"
+    assert ns.resolve_engine("cuda5", cuda, calc) == "cuda5"
 
     def plain_like(theta):
         return -torch.sum((theta - 0.5) ** 2, dim=1)
@@ -107,7 +109,9 @@ def test_engine_and_device_rules(monkeypatch):
 
 def test_calculator_paths():
     calc = make_batched_calculator(UniformPrior(0.0, 1.0), gaussian(D), D, 2)
-    assert calc.device_spec["prior"] == (0.0, 1.0)
+    a, s = calc.device_spec["prior"]  # per coordinate: theta = a + s * cube
+    assert a.dtype == s.dtype == np.float32 and a.shape == s.shape == (D,)
+    assert (a == 0.0).all() and (s == 1.0).all()
     assert calc.device_spec["likelihood"]["name"] == "gaussian"
     cube = torch.tensor([[0.5] * D, [1.2] + [0.5] * (D - 1)])
     theta, phi, logL = calc(cube)
@@ -124,8 +128,8 @@ def test_calculator_paths():
 
 
 def test_unported_modes_raise(tmp_path):
-    for extra in ({"do_clustering": True}, {"synchronous": False},
-                  {"precision": "highest"}):
+    for extra in ({"synchronous": False}, {"precision": "highest"},
+                  {"maximise": True}, {"nlives": {-10.0: 50}}):
         with pytest.raises(NotImplementedError):
             polychordlite_tpu_torch.run(
                 gaussian(D), D, **{**KW, **extra, "base_dir": str(tmp_path)}
