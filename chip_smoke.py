@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from ``polychordlite_tpu_torch/csrc``
-(one ``nvcc`` each, started together), checks each against its plain torch
-version on the card, then drives the port's paths and checks what comes
-out and which kernels ran:
+Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
+(one ``nvcc`` each, started together; ptxas registers, stack and spills
+reported), checks each kernel against its plain torch version on the card
+(B1 v4, B2 Gram-Schmidt, B3 v5, B4 v3, B5 v2 at four geometries; E1, the
+counted v4, in the ``lane_efficiency`` study), then drives the port's paths
+and checks what comes out and which kernels ran:
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
@@ -17,16 +19,26 @@ out and which kernels ran:
   launches of its run into its ``.metrics.jsonl``;
 * ``run_gaussian_shells_v5``: the same settings through
   ``run(..., engine="cuda5")`` (the speculative-packet kernel), which must
-  give the CLI run's result bit for bit.
+  give the CLI run's result bit for bit;
+* ``run_zoo_inis``: the nine other analytic inis of ``ini/`` at their
+  shipped settings (``base_dir`` and ``seed`` added) through
+  ``inidriver.run_ini`` on the default device, and ``ini/eggbox.ini``
+  through ``python3 -m polychordlite_tpu_torch``; each logZ within 3 sigma
+  of its oracle (:data:`ZOO_ORACLES`);
+* ``run_himmelblau_ab``: ``ini/himmelblau.ini`` through
+  ``run(engine="cuda3")`` (B4), bitwise the ``run_zoo_inis`` run, and
+  ``run(engine="cuda2")`` (B5), within 3 sigma of -log 100.
 
 Each phase prints one JSON line; the line before the last lists the
-kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failed
+kernels with their times, bounds (from this run's shapes and step counts)
+and launches on the paths, and the last line is ``{"ok": true, "device": ...}``.  Any failed
 phase exits non-zero without that line.  Without a CUDA device, or without
 the package beside this file, it exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -39,6 +51,7 @@ import traceback
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "chiprun_out")
 SEED = 20250101
 BENCH = dict(B=8192, R=100, D=20)        # the slice bench geometry
 SMALL = dict(B=1024, R=8, D=20)
@@ -53,11 +66,39 @@ LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
     "slice_epoch": ["slice_epoch.cu"],
     "slice_epoch_v5": ["slice_epoch_v5.cu"],
+    "slice_epoch_v3": ["slice_epoch_v3.cu"],
+    "slice_epoch_v2": ["slice_epoch_v2.cu"],
 }
+#: the analytic inis' evidence oracles: (logZ, its sigma or None for an exact
+#: value, where it comes from).  The JAX values are the JAX package's CPU runs
+#: at the same settings and seed, from ``scripts/zoo_reference_logz.py``
+#: (JAX 0.9.0); each run here must land within 3 combined sigma.  The same
+#: script checked the four analytic values: gaussian_shell -4.9942 +- 0.0829,
+#: himmelblau -4.5747 +- 0.0956, half_gaussian +0.0755 +- 0.0925, pyramidal
+#: -0.1074 +- 0.0870.
+ZOO_ORACLES = {
+    "gaussian_shell": (-math.log(144.0), None, "normalised shell in a 12 x 12 box"),
+    "himmelblau": (-math.log(100.0), None, "normalised, 10 x 10 box"),
+    "half_gaussian": (0.0, None, "normalised"),
+    "pyramidal": (0.0, None, "normalised"),
+    "eggbox": (-4.068568333227493, 0.06926281283625953, "JAX package, CPU"),
+    "rastrigin": (-4.601151046710499, 0.11321131723081969, "JAX package, CPU"),
+    "rosenbrock": (-5.0304313247996255, 0.10651320969831203, "JAX package, CPU"),
+    "twin_gaussian": (-2.236031473448633, 0.10162701830093217, "JAX package, CPU"),
+    "random_gaussian": (-0.15459852089235782, 0.08891872190328032, "JAX package, CPU"),
+}
+# H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if os.path.isdir(OUT):  # the whole record, beyond the end of the output
+        with open(os.path.join(OUT, "chip_smoke.jsonl"), "a") as f:
+            f.write(line + "\n")
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -80,18 +121,68 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def shells_ini_copy(base: str) -> str:
-    """ini/gaussian_shells.ini with base_dir set to ``base`` and a fixed
-    seed added, nothing else changed."""
-    with open(os.path.join(HERE, "ini", "gaussian_shells.ini")) as f:
+def ini_copy(base: str, name: str) -> str:
+    """ini/<name>.ini with base_dir set to ``base`` and a fixed seed added,
+    nothing else changed."""
+    with open(os.path.join(HERE, "ini", f"{name}.ini")) as f:
         src = f.read()
     if "base_dir = chains" not in src:
-        raise AssertionError("ini/gaussian_shells.ini has no 'base_dir = chains' line")
+        raise AssertionError(f"ini/{name}.ini has no 'base_dir = chains' line")
     src = src.replace("base_dir = chains", f"base_dir = {base}\nseed = {SEED}")
-    path = os.path.join(base, "gaussian_shells.ini")
+    path = os.path.join(base, f"{name}.ini")
     with open(path, "w") as f:
         f.write(src)
     return path
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slice_epoch_bytes(B: int, R: int, D: int, cube: bool = False, counted: bool = False) -> int:
+    """Bytes a slice-epoch kernel must move: x0 (D,B), n-hat (R,D,B), w
+    (R,B), bound and valid (B,) read once; t, logL, nlike (R,B) written once
+    (and v2's cube (R,D,B), or the counted kernel's B + B/32 counters)."""
+    n = D * B + R * D * B + R * B + 2 * B + 3 * R * B
+    if cube:
+        n += R * D * B
+    if counted:
+        n += B + -(-B // 32)
+    return 4 * n
+
+
+def gaussian_probe_flops(D: int) -> int:
+    """float32 operations of one probe of the Gaussian functor: the probe
+    x0 + t n-hat and the prior's affine map (4 per coordinate), (th - mu) /
+    sigma and the chi-square add (4 per coordinate), logL and the chord
+    position t (about 7) — a division counted as one operation."""
+    return 8 * D + 7
+
+
+def gram_schmidt_flops(NB: int, D: int, B: int) -> int:
+    """float32 operations of CGS2 on NB*B bases of D vectors: two passes of
+    k dot products and k updates (2D each) for vector k, and a norm and a
+    scale per vector (3D + 1)."""
+    per = 2 * sum(4 * D * k for k in range(D)) + D * (3 * D + 1)
+    return NB * B * per
+
+
+def ptxas_summary(log: str):
+    """Kernels, and the largest registers, stack frame and spill bytes that
+    ptxas reports for any of them."""
+    import re
+
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    stack = [int(m) for m in re.findall(r"(\d+) bytes stack frame", log)]
+    spill = [int(a) + int(b) for a, b in
+             re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=None),
+            "max_stack_bytes": max(stack, default=None),
+            "max_spill_bytes": max(spill, default=None)}
 
 
 def read_metrics(base: str, root: str):
@@ -132,8 +223,15 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         import polychordlite_tpu_torch as pt
-        from polychordlite_tpu_torch.models import gaussian, gaussian_shells
-        from polychordlite_tpu_torch.ops import pallas_dirs, pallas_slice_v4, pallas_slice_v5
+        from polychordlite_tpu_torch.inidriver import run_ini
+        from polychordlite_tpu_torch.models import gaussian, gaussian_shells, himmelblau
+        from polychordlite_tpu_torch.ops import (
+            pallas_dirs,
+            pallas_slice,
+            pallas_slice_v3,
+            pallas_slice_v4,
+            pallas_slice_v5,
+        )
         from polychordlite_tpu_torch.ops.directions import make_directions
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
         from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
@@ -145,6 +243,7 @@ def main() -> None:
         fail(f"cannot import the port beside this script ({e})")
 
     dev = torch.device("cuda")
+    os.makedirs(OUT, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -171,13 +270,10 @@ def main() -> None:
     def _():
         t0 = time.perf_counter()
         nvcc.build_all(LIBRARIES)
-        pallas_dirs._lib()
-        pallas_slice_v4._lib()
-        pallas_slice_v5._lib()
-        ptxas = {
-            name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-            for name, log in nvcc.build_log.items()
-        }
+        ptxas = {name: ptxas_summary(log) for name, log in nvcc.build_log.items()}
+        with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
+            for name, log in nvcc.build_log.items():
+                f.write(f"==== {name}\n{log}\n")
         return {"seconds": round(time.perf_counter() - t0, 3),
                 "per_library": {k: round(v, 3) for k, v in nvcc.build_seconds.items()},
                 "ptxas": ptxas}
@@ -195,11 +291,18 @@ def main() -> None:
             orth = (qtq - torch.eye(shape[1], device=dev)[None, :, :, None]).abs().max().item()
             if not (err <= 1e-5 and orth <= 1e-5):
                 raise AssertionError(f"{tag}: max|dq| {err:.3g}, max|QtQ - I| {orth:.3g}")
+            # the yardstick: one batched Householder QR of the same bases,
+            # (NB*B, D, D) with the vectors as columns; the port never calls it
+            mats = g.permute(0, 3, 1, 2).reshape(-1, shape[1], shape[2]).contiguous()
             out[tag] = {
                 "shape": list(shape), "max_abs_err": err, "orth_err": orth,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
                 "plain_ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_plain(g), 3),  # noqa: B023
+                "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 5),  # noqa: B023
             }
+            nb, d, _, b = shape
+            out[tag]["bound_ms"], out[tag]["bound_by"] = bound(
+                2 * 4 * nb * d * d * b, gram_schmidt_flops(nb, d, b))
         results["gram_schmidt"] = {**out["bench"],
                                    "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         return out
@@ -348,16 +451,132 @@ def main() -> None:
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         return out
 
-    # ---- 5. the main path: run() on ini/gaussian.ini ----------------------
-    launches = {"gram_schmidt": 0, "slice_epoch": 0, "slice_epoch_v5": 0}
+    # ---- 5. v3 (B4) and v2 (B5) against their plain versions and B1 -------
+    @phase("slice_epoch_v3")
+    def _():
+        out = {}
+        for tag, geo in GEOMETRIES:
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            calc, cfg, args = geometry(tag, geo)
+            pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice_v3.slice_epoch_v3)
+            kw = (0x01234567, 0x89ABCDEF)
+
+            def plain(calc=calc, cfg=cfg, args=args):
+                return pallas_slice_v3.slice_records_window_plain(
+                    lambda p: calc(p)[2], cfg, kw, *args)
+
+            got = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
+            want = plain()
+            v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            mism = {
+                f"{k}_vs_{other}": int((a != b).sum())
+                for other, ref in (("plain", want), ("v4", v4))
+                for k, a, b in zip(("t", "logL", "nlike"), got, ref)
+            }
+            if any(mism.values()):
+                raise AssertionError(f"{tag}: B4 differs {mism}")
+            err = max((got[0] - want[0]).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item())
+            ms = cuda_ms(lambda: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args), 5)  # noqa: B023
+            v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            out[tag] = {
+                "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
+                "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(plain, 1), "v4_ms": v4_ms,
+            }
+        results["slice_epoch_v3"] = {**out["bench"],
+                                     "max_abs_err": max(o["max_abs_err"] for o in out.values())}
+        return out
+
+    @phase("slice_epoch_v2")
+    def _():
+        out = {}
+        for tag, geo in GEOMETRIES:
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            calc, cfg, args = geometry(tag, geo)
+            pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice.slice_epoch_v2)
+            kw = (0x01234567, 0x89ABCDEF)
+
+            def plain(calc=calc, cfg=cfg, args=args):
+                return pallas_slice.slice_records_lockstep_plain(
+                    lambda p: calc(p)[2], cfg, kw, *args)
+
+            got = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
+            want = plain()
+            v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            mism = {
+                f"{k}_vs_{other}": int((a != b).sum())
+                for other, ref in (("plain", want), ("v4", v4))
+                for k, a, b in zip(("t", "logL", "nlike", "cube"), got, ref)
+            }
+            if any(mism.values()):
+                raise AssertionError(f"{tag}: B5 differs {mism}")
+            rebuilt = args[0][:, None, :] + torch.cumsum(v4[0][:, :, None] * args[3], dim=1)
+            cube_vs_v4 = (got[3] - rebuilt).abs().max().item()
+            if not cube_vs_v4 <= 1e-5:
+                raise AssertionError(f"{tag}: B5's cube is {cube_vs_v4} from B1's rebuild")
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            ms = cuda_ms(lambda: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args), 5)  # noqa: B023
+            out[tag] = {
+                "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
+                "max_abs_err": err, "max_abs_cube_vs_v4_rebuild": cube_vs_v4,
+                "ms": ms, "plain_ms": cuda_ms(plain, 1),
+            }
+        results["slice_epoch_v2"] = {**out["bench"],
+                                     "max_abs_err": max(o["max_abs_err"] for o in out.values())}
+        return out
+
+    # ---- 6. E1: B1 with its micro-steps counted, and the lane efficiency --
+    @phase("lane_efficiency")
+    def _():
+        out = {}
+        for tag, geo in (("bench", BENCH), ("gaussian_ini", RUN)):
+            calc, cfg, args = geometry(tag, geo)
+            kw = (0x01234567, 0x89ABCDEF)
+            got = pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args)
+            v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            plain_steps = slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args,  # noqa: B023
+                                              count_steps=True)[3]
+            mism = {k: int((a != b).sum()) for k, a, b in
+                    zip(("t", "logL", "nlike", "lane_steps"), got, (*v4, plain_steps))}
+            mism["warp_max"] = int((got[4] != pallas_slice_v4.warp_maxima(plain_steps)).sum())
+            if any(mism.values()):
+                raise AssertionError(f"{tag}: E1 differs {mism}")
+            # the study: its own launches (the comparison above does not count)
+            pallas_slice_v4.LAUNCHES["slice_epoch_counted"] = 0
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args), 5)  # noqa: B023
+            study = pallas_slice_v4.LAUNCHES["slice_epoch_counted"]
+            v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            steps, wmax = got[3].to(torch.int64), got[4].to(torch.int64)
+            evals = int(got[2].sum())
+            out[tag] = {
+                "B": geo["B"], "R": geo["R"], "D": geo["D"], "valid_lanes": int(args[2].sum()),
+                "sum_lane_steps": int(steps.sum()), "sum_warp_max": int(wmax.sum()),
+                "lane_efficiency": pallas_slice_v4.lane_efficiency(got[3], got[4]),
+                "lane_steps_max": int(steps.max()), "lane_steps_mean_valid":
+                    float(steps[args[2]].float().mean()),
+                "evals": evals, "evals_per_step": evals / max(int(steps.sum()), 1),
+                "ms": ms, "v4_ms": v4_ms, "study_launches": study,
+            }
+        results["lane_efficiency"] = {**out["bench"], "max_abs_err": 0.0,
+                                      "launches": sum(o["study_launches"] for o in out.values())}
+        return out
+
+    # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
+    counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
+                pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES)
+    launches = {k: 0 for c in counters for k in c}
 
     def reset_launches():
-        pallas_dirs.LAUNCHES["gram_schmidt"] = 0
-        pallas_slice_v4.LAUNCHES["slice_epoch"] = 0
-        pallas_slice_v5.LAUNCHES["slice_epoch_v5"] = 0
+        for c in counters:
+            for k in c:
+                c[k] = 0
 
     def read_launches():
-        return {**pallas_dirs.LAUNCHES, **pallas_slice_v4.LAUNCHES, **pallas_slice_v5.LAUNCHES}
+        return {k: v for c in counters for k, v in c.items()}
+
+    def only(ran, kernels):
+        """Whether exactly ``kernels`` of the path ran (each at least once)."""
+        return all((ran.get(k, 0) > 0) == (k in kernels) for k in launches)
 
     def add_launches(ran):
         for k, v in ran.items():
@@ -387,7 +606,7 @@ def main() -> None:
             raise AssertionError(f"engine_used is {last.get('engine')!r}, not 'cuda'")
         if last.get("chained_epochs") is not True:
             raise AssertionError("chained epochs were switched off during the run")
-        if not (ran["gram_schmidt"] and ran["slice_epoch"]) or ran["slice_epoch_v5"]:
+        if not only(ran, ("gram_schmidt", "slice_epoch")):
             raise AssertionError(f"the path did not run B1 and B2 (only): {ran}")
         add_launches(ran)
         if not (math.isfinite(stats.logZ) and abs(stats.logZ - 0.0) < 3 * stats.logZerr):
@@ -404,7 +623,7 @@ def main() -> None:
             "epoch_timers_s": last.get("epoch_timers"),
         }
 
-    # ---- 6. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
+    # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
     shells = {}
     tmpdirs = []
 
@@ -412,7 +631,7 @@ def main() -> None:
     def _():
         base = tempfile.mkdtemp(prefix="shells_cli_")
         tmpdirs.append(base)
-        ini = shells_ini_copy(base)
+        ini = ini_copy(base, "gaussian_shells")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
@@ -431,7 +650,7 @@ def main() -> None:
         shells.update(base=base, last=last)
         if last.get("engine") != "cuda":
             raise AssertionError(f"engine_used is {last.get('engine')!r}, not 'cuda'")
-        if not (ran["gram_schmidt"] and ran["slice_epoch"]) or ran["slice_epoch_v5"]:
+        if not only(ran, ("gram_schmidt", "slice_epoch")):
             raise AssertionError(f"the CLI run did not run B1 and B2 (only): {ran}")
         add_launches(ran)
         if not (math.isfinite(out.logZ) and abs(out.logZ - SHELLS_LOGZ) < 3 * out.logZerr):
@@ -465,28 +684,32 @@ def main() -> None:
             "epoch_timers_s": last.get("epoch_timers"),
         }
 
-    # ---- 7. the same settings through run(engine="cuda5") (B3) ------------
+    # ---- 9. the same settings through run(engine="cuda5") (B3) ------------
+    def settings_kw(ini, base, engine):
+        """run() keywords of an ini's settings, with base_dir and engine."""
+        s, blocks, *_ = read_ini(ini)
+        skip = ("nDims", "seed_point", "mesh_shape")
+        kw = {k: getattr(s, k) for k in s.__dataclass_fields__ if k not in skip}
+        kw.update(engine=engine, base_dir=base)
+        return s.nDims, BlockPrior(blocks, s.nDims), kw
+
     @phase("run_gaussian_shells_v5")
     def _():
         if "last" not in shells:
             raise AssertionError("the CLI run failed; nothing to compare with")
         base = tempfile.mkdtemp(prefix="shells_v5_")
         tmpdirs.append(base)
-        s, blocks, *_ = read_ini(shells_ini_copy(base))
-        skip = ("nDims", "seed_point", "mesh_shape")
-        kw = {k: getattr(s, k) for k in s.__dataclass_fields__ if k not in skip}
-        kw.update(engine="cuda5", base_dir=base)
+        D, prior, kw = settings_kw(ini_copy(base, "gaussian_shells"), base, "cuda5")
         reset_launches()
         t0 = time.perf_counter()
-        pt.run(gaussian_shells(s.nDims), s.nDims, prior=BlockPrior(blocks, s.nDims),
-               device="cuda", **kw)
+        pt.run(gaussian_shells(D), D, prior=prior, device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ran = read_launches()
         last = read_metrics(base, "gaussian_shells")[-1]
         if last.get("engine") != "cuda5":
             raise AssertionError(f"engine_used is {last.get('engine')!r}, not 'cuda5'")
-        if not (ran["slice_epoch_v5"] and ran["gram_schmidt"]) or ran["slice_epoch"]:
+        if not only(ran, ("gram_schmidt", "slice_epoch_v5")):
             raise AssertionError(f"the run did not run B3 and B2 (only): {ran}")
         add_launches(ran)
         cli = shells["last"]
@@ -504,6 +727,111 @@ def main() -> None:
             "host_totals_s": last.get("host_totals"),
         }
 
+    # ---- 10. the other analytic inis through run_ini, eggbox through the CLI
+    zoo = {}
+
+    def oracle_check(name, logZ, logZerr):
+        """(oracle, sigma used, pull) of one run; raises beyond 3 sigma."""
+        ref, ref_err, _ = ZOO_ORACLES[name]
+        sigma = logZerr if ref_err is None else math.hypot(logZerr, ref_err)
+        pull = (logZ - ref) / sigma
+        if not (math.isfinite(logZ) and abs(pull) < 3.0):
+            raise AssertionError(f"{name}: logZ {logZ} +/- {logZerr} is {pull:.2f} sigma "
+                                 f"from {ref}")
+        return ref, sigma, pull
+
+    def zoo_record(name, base, wall, ran, via):
+        last = read_metrics(base, name)[-1]
+        if last.get("engine") != "cuda":
+            raise AssertionError(f"{name}: engine_used is {last.get('engine')!r}, not 'cuda'")
+        if not only(ran, ("gram_schmidt", "slice_epoch")):
+            raise AssertionError(f"{name}: the run did not run B1 and B2 (only): {ran}")
+        ref, sigma, pull = oracle_check(name, last["logZ"], last["logZerr"])
+        return {
+            "via": via, "engine_used": last["engine"], "ndead": last["ndead"],
+            "logZ": last["logZ"], "logZerr": last["logZerr"], "oracle": ref,
+            "oracle_from": ZOO_ORACLES[name][2], "pull_sigma": pull,
+            "launches": {k: v for k, v in ran.items() if v},
+            "wall_s": wall, "dead_per_s": last["ndead"] / wall,
+            "device_frac": last.get("device_frac"), "host_totals_s": last.get("host_totals"),
+        }
+
+    @phase("run_zoo_inis")
+    def _():
+        out = {}
+        for name in ZOO_ORACLES:
+            base = tempfile.mkdtemp(prefix=f"{name}_")
+            tmpdirs.append(base)
+            ini = ini_copy(base, name)
+            reset_launches()
+            t0 = time.perf_counter()
+            with open(os.path.join(OUT, f"{name}.log"), "w") as log, \
+                    contextlib.redirect_stdout(log):  # the run's feedback lines
+                run_ini(ini)  # the default device: the card
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            out[name] = zoo_record(name, base, wall, ran, "run_ini")
+            add_launches(ran)
+            zoo[name] = base
+        base = tempfile.mkdtemp(prefix="eggbox_cli_")
+        tmpdirs.append(base)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "polychordlite_tpu_torch", ini_copy(base, "eggbox")],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the eggbox CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        ran = read_metrics(base, "eggbox")[-1]["kernel_launches"]
+        out["eggbox_cli"] = zoo_record("eggbox", base, wall, ran, "python -m polychordlite_tpu_torch")
+        add_launches(ran)
+        return out
+
+    # ---- 11. himmelblau on B4 (bitwise the B1 run) and on B5 ---------------
+    @phase("run_himmelblau_ab")
+    def _():
+        if "himmelblau" not in zoo:
+            raise AssertionError("the run_ini himmelblau run failed; nothing to compare with")
+        out = {}
+        for engine, kernel in (("cuda3", "slice_epoch_v3"), ("cuda2", "slice_epoch_v2")):
+            base = tempfile.mkdtemp(prefix=f"himmelblau_{engine}_")
+            tmpdirs.append(base)
+            D, prior, kw = settings_kw(ini_copy(base, "himmelblau"), base, engine)
+            reset_launches()
+            t0 = time.perf_counter()
+            with open(os.path.join(OUT, f"himmelblau_{engine}.log"), "w") as log, \
+                    contextlib.redirect_stdout(log):
+                pt.run(himmelblau(D), D, prior=prior, device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            last = read_metrics(base, "himmelblau")[-1]
+            if last.get("engine") != engine:
+                raise AssertionError(f"engine_used is {last.get('engine')!r}, not {engine!r}")
+            if not only(ran, ("gram_schmidt", kernel)):
+                raise AssertionError(f"the {engine} run did not run {kernel} and B2 (only): {ran}")
+            add_launches(ran)
+            rec = {"engine_used": engine, "ndead": last["ndead"], "logZ": last["logZ"],
+                   "logZerr": last["logZerr"], "launches": {k: v for k, v in ran.items() if v},
+                   "wall_s": wall, "dead_per_s": last["ndead"] / wall,
+                   "device_frac": last.get("device_frac")}
+            if engine == "cuda3":  # the same decisions: the B1 run, bit for bit
+                ref = read_metrics(zoo["himmelblau"], "himmelblau")[-1]
+                same = {k: last[k] == ref[k] for k in ("ndead", "logZ", "logZerr")}
+                with open(os.path.join(base, "himmelblau.txt"), "rb") as f, \
+                        open(os.path.join(zoo["himmelblau"], "himmelblau.txt"), "rb") as g:
+                    same["txt"] = f.read() == g.read()
+                if not all(same.values()):
+                    raise AssertionError(f"the cuda3 run differs from the cuda run: {same}")
+                rec["identical_to_cuda"] = same
+            else:  # another chain (v2's cube): held to the analytic evidence
+                rec["oracle"], _, rec["pull_sigma"] = oracle_check(
+                    "himmelblau", last["logZ"], last["logZerr"])
+            out[engine] = rec
+        return out
+
     for d in tmpdirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -513,25 +841,40 @@ def main() -> None:
     if failed:
         fail(f"failed phases: {failed}")
 
+    # bounds at the bench geometry, from its shapes and the micro-steps its
+    # data needed (E1's count; every slice kernel makes those decisions)
+    Bb, Rb, Db = BENCH["B"], BENCH["R"], BENCH["D"]
+    flops = results["lane_efficiency"]["sum_lane_steps"] * gaussian_probe_flops(Db)
     src = "polychordlite_tpu_torch/csrc/"
-    emit({"kernels": [
-        {"name": "slice_epoch", "route": "cuda", "source": src + "slice_epoch.cu",
-         "replaces": "polychordlite_tpu/ops/pallas_slice_v4.py:508",
-         "launches": launches["slice_epoch"],
-         "max_abs_err": results["slice_epoch"]["max_abs_err"],
-         "ms": results["slice_epoch"]["ms"], "plain_ms": results["slice_epoch"]["plain_ms"]},
-        {"name": "slice_epoch_v5", "route": "cuda", "source": src + "slice_epoch_v5.cu",
-         "replaces": "polychordlite_tpu/ops/pallas_slice_v5.py:606",
-         "launches": launches["slice_epoch_v5"],
-         "max_abs_err": results["slice_epoch_v5"]["max_abs_err"],
-         "ms": results["slice_epoch_v5"]["ms"],
-         "plain_ms": results["slice_epoch_v5"]["plain_ms"]},
-        {"name": "gram_schmidt", "route": "cuda", "source": src + "gram_schmidt.cu",
-         "replaces": "polychordlite_tpu/ops/pallas_dirs.py:71",
-         "launches": launches["gram_schmidt"],
-         "max_abs_err": results["gram_schmidt"]["max_abs_err"],
-         "ms": results["gram_schmidt"]["ms"], "plain_ms": results["gram_schmidt"]["plain_ms"]},
-    ]})
+    rows = [
+        ("slice_epoch", "slice_epoch.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
+         "slice_epoch", bound(slice_epoch_bytes(Bb, Rb, Db), flops), None),
+        ("gram_schmidt", "gram_schmidt.cu", "polychordlite_tpu/ops/pallas_dirs.py:71",
+         "gram_schmidt", (results["gram_schmidt"]["bound_ms"], results["gram_schmidt"]["bound_by"]),
+         results["gram_schmidt"]["library_ms"]),
+        ("slice_epoch_v5", "slice_epoch_v5.cu", "polychordlite_tpu/ops/pallas_slice_v5.py:606",
+         "slice_epoch_v5", bound(slice_epoch_bytes(Bb, Rb, Db), flops), None),
+        ("slice_epoch_v3", "slice_epoch_v3.cu", "polychordlite_tpu/ops/pallas_slice_v3.py:345",
+         "slice_epoch_v3", bound(slice_epoch_bytes(Bb, Rb, Db), flops), None),
+        ("slice_epoch_v2", "slice_epoch_v2.cu", "polychordlite_tpu/ops/pallas_slice.py:372",
+         "slice_epoch_v2", bound(slice_epoch_bytes(Bb, Rb, Db, cube=True), flops), None),
+        ("slice_epoch_counted", "slice_epoch.cu", "polychordlite_tpu/experiments/v4_instr.py:384",
+         "lane_efficiency", bound(slice_epoch_bytes(Bb, Rb, Db, counted=True), flops), None),
+    ]
+    kernels = []
+    for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
+        r = results[res]
+        plain_ms = r.get("plain_ms", results["slice_epoch"]["plain_ms"])  # E1's plain: B1's
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+            "launches": r["launches"] if name == "slice_epoch_counted" else launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        fail(f"kernels never launched on their paths: {missing}")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -4,8 +4,10 @@ Counterpart of ``polychordlite_tpu/__main__.py`` (the reference's compiled
 ini programs, ``src/drivers/polychord_examples.f90`` ->
 ``run_polychord_ini``, ``interfaces.F90:232-276``): parse the ini, build
 the block priors and grade layout, pick the example likelihood (by
-``--likelihood`` or the file_root name), run on the CUDA device when there
-is one (else the CPU), and print the summary line of the JAX package's CLI.
+``--likelihood`` or the file_root name), run on the device that
+``--device`` names (``cuda`` by default, which needs a card; the JAX CLI
+picks its backend through ``JAX_PLATFORMS``), and print the summary line of
+the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .core.nested_sampling import resolve_device
 from .inidriver import run_ini
 from .models import LIKELIHOODS
 
@@ -29,10 +32,18 @@ def main(argv=None) -> int:
         help="example likelihood name (default: inferred from file_root); "
         f"available: {', '.join(sorted(LIKELIHOODS))}",
     )
+    ap.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="torch device of the run (default: cuda; it needs a CUDA card)",
+    )
     args = ap.parse_args(argv)
 
     try:
-        out = run_ini(args.inifile, likelihood_name=args.likelihood)
+        resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    try:
+        out = run_ini(args.inifile, likelihood_name=args.likelihood, device=args.device)
     except ValueError as e:
         ap.error(str(e))
     print(

@@ -45,7 +45,7 @@ from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
 from ..ops.precision import F32_SAFE_LOGL
-from ..ops.slice_kernel import EpochConfig
+from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig
 from ..parallel.mesh import make_epoch_runner
 from ..priors import identity_prior
 from ..settings import PolyChordSettings
@@ -84,13 +84,15 @@ def default_dumper(live, dead, logweights, logZ, logZerr):
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` when a card is present, else ``cpu``.  An
-    explicit ``cuda`` without a card raises."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """``None`` means ``cuda``: the run goes to the card, and without one it
+    raises (naming ``device="cpu"``, the explicit way to run on the CPU).
+    Nothing falls back to the CPU by itself."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' was requested but no CUDA device is available")
+        raise RuntimeError(
+            f"no CUDA device is available for device={str(device)!r} (also the "
+            "default); pass device='cpu' to run on the CPU"
+        )
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
@@ -98,15 +100,14 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: the CUDA kernel on a CUDA device (the model
-    must have a device form), the plain torch engine on the CPU.
-    ``engine="cuda5"`` forces the speculative-packet kernel (the JAX
-    package's ``"pallas5"``) under the same conditions; ``engine="torch"``
-    is the plain engine on any device."""
+    must have a device form), the plain torch engine on the CPU.  The other
+    kernel engines of :data:`KERNEL_ENGINES` are forced by name under the
+    same conditions; ``engine="torch"`` is the plain engine on any device."""
     if engine == "auto":
         if device.type != "cuda":
             return "torch"
         engine = "cuda"
-    if engine in ("cuda", "cuda5"):
+    if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
         if getattr(calc, "device_spec", None) is None:
@@ -119,7 +120,7 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine == "torch":
         return "torch"
     raise ValueError(
-        f"unknown engine {engine!r}: use 'auto', 'cuda', 'cuda5' or 'torch'"
+        f"unknown engine {engine!r}: use 'auto', 'torch' or one of {KERNEL_ENGINES}"
     )
 
 
@@ -204,9 +205,10 @@ def _end_chain_on_reorganisation(turbo, nursery_queue, reorganised: bool) -> Non
 
 def _kernel_launches() -> dict:
     """The launch counts of the CUDA kernels' wrappers (process-wide)."""
-    from ..ops import pallas_dirs, pallas_slice_v4, pallas_slice_v5
+    from ..ops import pallas_dirs, pallas_slice, pallas_slice_v3, pallas_slice_v4, pallas_slice_v5
 
-    return {**pallas_dirs.LAUNCHES, **pallas_slice_v4.LAUNCHES, **pallas_slice_v5.LAUNCHES}
+    return {**pallas_dirs.LAUNCHES, **pallas_slice_v4.LAUNCHES, **pallas_slice_v5.LAUNCHES,
+            **pallas_slice_v3.LAUNCHES, **pallas_slice.LAUNCHES}
 
 
 def _feedback(s: PolyChordSettings, level: int, msg: str) -> None:

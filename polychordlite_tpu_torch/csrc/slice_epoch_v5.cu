@@ -242,7 +242,8 @@ extern "C" int slice_epoch_v5_launch(
     const int threads = 32;
     const int blocks = (B + threads - 1) / threads;
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, [&](auto like) {
+        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream,
+        [&](auto like) {
             slice_epoch_v5_kernel<decltype(like)>
                 <<<blocks, threads, 0, (cudaStream_t)stream>>>(
                     like, (const float*)x0t, (const float*)bound,

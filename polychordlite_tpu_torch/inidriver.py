@@ -5,9 +5,10 @@ likelihood, run.
 
 The prior is a :class:`~polychordlite_tpu_torch.priors.BlockPrior`, so an
 all-uniform layout carries the affine form the CUDA slice kernels apply
-themselves.  Only the example likelihoods ported so far
-(``models/examples.py``) can be named; the data-driven examples
-(``fitting``, ``object_detection``) are not ported yet.
+themselves.  Every analytic example likelihood (``models/examples.py``)
+can be named; the data-driven examples (``fitting``, ``object_detection``)
+are not ported yet, and the user-template inis (``my_likelihood``,
+``gaussian_CC``) name no example.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from .utils import io as io_mod
 from .utils.inifile import read_ini
 
 
-def run_ini(inifile: str, likelihood_name=None, loglikelihood=None):
+def run_ini(inifile: str, likelihood_name=None, loglikelihood=None, device=None):
     """Run from an ini file.
 
     ``loglikelihood(theta, nDerived) -> (logL, phi)``, if given, overrides
     the example-zoo lookup.  Otherwise the zoo likelihood is picked by
     ``likelihood_name`` / the ini's ``likelihood`` key / ``file_root``.
-    The run goes to the CUDA device when there is one, else the CPU.
+    ``device`` is the torch device: ``None`` means ``"cuda"`` (the run
+    raises without a card); ``"cpu"`` runs on the CPU.
     """
     settings, blocks, paramnames, derived, kv = read_ini(inifile)
 
@@ -49,4 +51,4 @@ def run_ini(inifile: str, likelihood_name=None, loglikelihood=None):
     if settings.write_paramnames and paramnames:
         io_mod.write_paramnames_file(settings, list(paramnames) + list(derived))
 
-    return nested_sampling(like, prior, default_dumper, settings)
+    return nested_sampling(like, prior, default_dumper, settings, device=device)

@@ -1,5 +1,23 @@
-"""murmur3 counter hash and per-epoch key words
-(counterpart of the helpers in ``polychordlite_tpu/ops/pallas_slice.py``).
+"""The v2 slice epoch, the per-lane state machine in plain torch, the murmur3
+counter hash and per-epoch key words (counterpart of
+``polychordlite_tpu/ops/pallas_slice.py``).
+
+:func:`slice_epoch_v2` is the wrapper of the hand-written CUDA kernel
+``csrc/slice_epoch_v2.cu`` (B5, the JAX package's ``"pallas2"`` engine):
+each chain runs its R repeats freely under v2's per-repeat budget and the
+kernel writes the cube.  For CPU tensors it runs
+:func:`slice_records_lockstep_plain`, v2's own structure in torch (every
+repeat a while loop of 4-micro-step bodies over all lanes, the cube
+carried); for CUDA tensors it launches the kernel or raises.  Both make
+the v4 engine's decisions (same uniforms, budgets that cannot bind), so t,
+logL and nlike are bitwise those of ``slice_kernel.slice_records_plain``;
+the cube is the sequential x <- x + t n̂, which differs in the last bits
+from the ``seed + cumsum(t n̂)`` the other engines rebuild.
+
+:class:`LaneMachine` is the per-lane state machine of one micro-step
+(``csrc/slice_machine.cuh``) vectorised over lanes; the plain versions of
+v4 (``slice_kernel.py``), v3 (``pallas_slice_v3.py``) and v2 (here) drive
+it, each with its own outer structure.
 
 The slice engines draw their 1-D uniforms from a murmur3 hash keyed on
 (epoch key words, global lane, repeat, iteration), so a lane's stream never
@@ -21,6 +39,9 @@ statistics).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils import nvcc
 
 MASK = 0xFFFFFFFF
 
@@ -97,3 +118,185 @@ def key_words(key):
     JAX package's ``_key_words`` takes them."""
     k = np.asarray(key, dtype=np.uint32).reshape(-1)
     return int(k[0]), int(k[-1])
+
+
+def lane_hash(key_words, B: int, device) -> torch.Tensor:
+    """h_lane = mix(mix(k0, k1), lane) of lanes 0..B-1, int64 words."""
+    k0, k1 = key_words
+    lanes = torch.arange(B, device=device)
+    return _mix(_mix(torch.full((B,), k0, dtype=torch.int64, device=device), k1), lanes)
+
+
+class LaneMachine:
+    """The state of the slice state machine of B lanes in one repeat
+    (``csrc/slice_machine.cuh``), as int64, bool and float32 tensors.  All
+    lanes start in ``PH_DONE``; the caller starts the ones it runs."""
+
+    def __init__(self, B: int, device, logzero: float):
+        def i64(v):
+            return torch.full((B,), v, dtype=torch.int64, device=device)
+
+        self.logzero = logzero
+        self.phase = i64(PH_DONE)
+        self.it, self.rstep, self.lstep, self.nshrink, self.cnt = i64(0), i64(1), i64(1), i64(0), i64(0)
+        self.need_r = torch.zeros(B, dtype=torch.bool, device=device)
+        self.need_l = torch.zeros_like(self.need_r)
+        self.tL = torch.zeros(B, dtype=torch.float32, device=device)
+        self.tR = torch.zeros_like(self.tL)
+
+    def step(self, logL_fn, cfg, active, h_rep, w, nhat, x, bound):
+        """One micro-step of every ``active`` lane on the chord x + t n̂, the
+        uniform drawn at (h_rep, it).  Returns (t, probe, logL, acc, forced);
+        an accepting lane is left for the caller to record and restart."""
+        logzero = self.logzero
+        phase = self.phase
+        u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(torch.float32)
+        self.it = torch.where(active, self.it + 1, self.it)
+        is_ir = active & (phase == PH_INIT_R)
+        is_il = active & (phase == PH_INIT_L)
+        is_sr = active & (phase == PH_STEP_R)
+        is_sl = active & (phase == PH_STEP_L)
+        is_sh = active & (phase == PH_SHRINK)
+        tL = torch.where(is_ir, -u * w, self.tL)
+        tR = torch.where(is_ir, (1.0 - u) * w, self.tR)
+        t = torch.where(is_ir, tR, 0.0)
+        t = torch.where(is_il, tL, t)
+        t = torch.where(is_sr, w * self.rstep.to(torch.float32), t)
+        t = torch.where(is_sl, -w * self.lstep.to(torch.float32), t)
+        t = torch.where(is_sh, tL + u * (tR - tL), t)
+
+        probe = x + t[:, None] * nhat
+        logL = logL_fn(probe)
+        inside = (logL >= bound) & (logL > logzero)
+        self.cnt = self.cnt + (active & (logL > logzero)).to(torch.int64)
+
+        self.need_r = torch.where(is_ir, inside, self.need_r)
+        self.need_l = torch.where(is_il, inside, self.need_l)
+        after_il = torch.where(
+            self.need_r, PH_STEP_R, torch.where(self.need_l, PH_STEP_L, PH_SHRINK)
+        )
+        done_r = is_sr & (~inside | (self.rstep >= cfg.max_step))
+        done_l = is_sl & (~inside | (self.lstep >= cfg.max_step))
+        tR = torch.where(done_r, t, tR)
+        tL = torch.where(done_l, t, tL)
+        self.rstep = torch.where(is_sr & ~done_r, self.rstep + 1, self.rstep)
+        self.lstep = torch.where(is_sl & ~done_l, self.lstep + 1, self.lstep)
+
+        accept = is_sh & inside
+        forced = is_sh & ~inside & (self.nshrink + 1 >= cfg.max_shrink)
+        acc = accept | forced
+        contract = is_sh & ~inside & ~forced
+        self.tR = torch.where(contract & (t > 0.0), t, tR)
+        self.tL = torch.where(contract & (t <= 0.0), t, tL)
+        self.nshrink = torch.where(contract | forced, self.nshrink + 1, self.nshrink)
+
+        phase = torch.where(is_ir, PH_INIT_L, phase)
+        phase = torch.where(is_il, after_il, phase)
+        phase = torch.where(done_r, torch.where(self.need_l, PH_STEP_L, PH_SHRINK), phase)
+        self.phase = torch.where(done_l, PH_SHRINK, phase)
+        return t, probe, logL, acc, forced
+
+    def restart(self, mask) -> None:
+        """Reset the repeat state of the lanes in ``mask`` (phase aside)."""
+        self.it = torch.where(mask, 0, self.it)
+        self.rstep = torch.where(mask, 1, self.rstep)
+        self.lstep = torch.where(mask, 1, self.lstep)
+        self.nshrink = torch.where(mask, 0, self.nshrink)
+        self.cnt = torch.where(mask, 0, self.cnt)
+        self.need_r = self.need_r & ~mask
+        self.need_l = self.need_l & ~mask
+        self.tL = torch.where(mask, 0.0, self.tL)
+        self.tR = torch.where(mask, 0.0, self.tR)
+
+
+#: micro-steps per while-loop body of the v2 and v3 kernels
+BODY = 4
+
+
+def v2_repeat_budget(cfg) -> int:
+    """v2's micro-steps per repeat: bodies of 4 while the loop counter is
+    below max_inner = 2 max_step + max_shrink + 4 (pallas_slice.py:213)."""
+    max_inner = 2 * cfg.max_step + cfg.max_shrink + 4
+    return -(-max_inner // BODY) * BODY
+
+
+def slice_records_lockstep_plain(
+    logL_fn,
+    cfg,
+    key_words,
+    x0: torch.Tensor,      # (B, D) float32 seed cubes
+    bound: torch.Tensor,   # (B,) float32
+    valid: torch.Tensor,   # (B,) bool
+    nhats: torch.Tensor,   # (B, R, D) float32
+    ws: torch.Tensor,      # (B, R) float32
+):
+    """v2's lockstep epoch in plain torch: per repeat, a while loop of
+    4-micro-step bodies over all lanes until every lane has accepted or the
+    loop counter reaches max_inner; the accepted probe is the baby's cube
+    and seeds the next repeat.  A lane that never accepts keeps its x for
+    the cube and the next repeat, with t = 0 and logL = logzero.
+
+    Returns (t (B,R), logL (B,R)) float32, nlike (B,R) int32 and cube
+    (B,R,D) float32."""
+    B, D = x0.shape
+    R = nhats.shape[1]
+    dev = x0.device
+    logzero = torch.tensor(cfg.logzero, dtype=torch.float32).item()
+    h_lane = lane_hash(key_words, B, dev)
+    x = x0.to(torch.float32).clone()
+    t_out = torch.zeros((B, R), dtype=torch.float32, device=dev)
+    l_out = torch.full((B, R), logzero, dtype=torch.float32, device=dev)
+    n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    cube = torch.empty((B, R, D), dtype=torch.float32, device=dev)
+    budget = v2_repeat_budget(cfg)
+    for r in range(R):
+        m = LaneMachine(B, dev, logzero)
+        m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
+        h_rep = _mix(h_lane, r)
+        acc_t = torch.zeros(B, dtype=torch.float32, device=dev)
+        acc_l = torch.full((B,), logzero, dtype=torch.float32, device=dev)
+        acc_x = x
+        it = 0
+        while it < budget and bool((m.phase != PH_DONE).any()):
+            for _ in range(BODY):
+                active = m.phase != PH_DONE
+                t, probe, logL, acc, forced = m.step(
+                    logL_fn, cfg, active, h_rep, ws[:, r], nhats[:, r], x, bound)
+                acc_t = torch.where(acc, t, acc_t)
+                acc_l = torch.where(acc, torch.where(forced, logzero, logL), acc_l)
+                acc_x = torch.where(acc[:, None], probe, acc_x)
+                m.phase = torch.where(acc, PH_DONE, m.phase)
+                it += 1
+        t_out[:, r], l_out[:, r] = acc_t, acc_l
+        n_out[:, r] = m.cnt.to(torch.int32)
+        cube[:, r] = x = acc_x
+    return t_out, l_out, n_out, cube
+
+
+#: kernel launches since the last reset (compare-with-plain launches included)
+LAUNCHES = {"slice_epoch_v2": 0}
+
+
+def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws):
+    """Run the slice repeats of every lane with v2's budget and cube:
+    (t, logL) float32, nlike int32, each (B, R), and cube (B, R, D)
+    float32, with the inputs of ``pallas_slice_v4.slice_epoch``.  CPU
+    tensors: the plain version; CUDA tensors: the kernel, which needs
+    ``calc.device_spec``."""
+    if x0.device.type == "cpu":
+        return slice_records_lockstep_plain(
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
+        )
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    from .pallas_slice_v4 import launch_slice_kernel  # it imports this module
+
+    B, R, D = nhats.shape
+    cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
+    t, logL, nlike = launch_slice_kernel(
+        nvcc.load("slice_epoch_v2", ["slice_epoch_v2.cu"]), "slice_epoch_v2_launch",
+        calc, cfg, key_words, x0, bound, valid, nhats, ws,
+        cap=v2_repeat_budget(cfg), extra=(cube,),
+    )
+    LAUNCHES["slice_epoch_v2"] += 1
+    return t, logL, nlike, cube.permute(2, 0, 1)

@@ -35,7 +35,8 @@ from .pallas_slice import (
     _mix,
     uniform_from_hash,
 )
-from .pallas_slice_v4 import launch_slice_kernel, load_library
+from ..utils import nvcc
+from .pallas_slice_v4 import launch_slice_kernel
 from .slice_kernel import EpochConfig
 
 #: kernel launches since the last reset (compare-with-plain launches included)
@@ -45,7 +46,7 @@ P = 4  # probes per packet (the INIT plan [tR, tL, +w, -w] needs 4)
 
 
 def _lib():
-    return load_library("slice_epoch_v5", "slice_epoch_v5.cu", "slice_epoch_v5_launch")
+    return nvcc.load("slice_epoch_v5", ["slice_epoch_v5.cu"])
 
 
 def _ladder(t, ins, step, max_step):

@@ -16,11 +16,21 @@ slice repeats on each of B chains and returns the packed
   through ``ops/pallas_slice_v5.py`` (the JAX package's forced
   ``"pallas5"``); decision-exact with ``"cuda"``, so a run gives the same
   result on either.
+* ``"cuda3"`` — the kernel ``csrc/slice_epoch_v3.cu`` with v3's budget,
+  through ``ops/pallas_slice_v3.py`` (the JAX package's forced
+  ``"pallas3"``); the same run as ``"cuda"``.
+* ``"cuda2"`` — the kernel ``csrc/slice_epoch_v2.cu``, which writes the
+  cube as v2 does, through ``ops/pallas_slice.py`` (the JAX package's
+  forced ``"pallas2"``); the same decisions, a cube that differs from the
+  rebuilt one in the last bits, so another chain, held statistically.
 
-All produce per (lane, repeat) the accepted chord position t, its logL and
-the repeat's likelihood-call count; positions are rebuilt outside as
-``seed + cumsum(t n̂)`` (``ops/pallas_slice_v4.py``).  The per-lane state
-machine for one repeat (Neal 2003; ``chordal_sampling.f90:163-273``):
+The kernel engines are forced only by name: nothing falls back from one to
+another (the JAX package's silent chain, ``slice_kernel.py:162-173``, is
+ROADMAP C5).  All produce per (lane, repeat) the accepted chord position t,
+its logL and the repeat's likelihood-call count; positions are rebuilt
+outside as ``seed + cumsum(t n̂)`` (``ops/pallas_slice_v4.py``) except by
+``"cuda2"``.  The per-lane state machine for one repeat (Neal 2003;
+``chordal_sampling.f90:163-273``; ``pallas_slice.LaneMachine``):
 
     INIT_R  draw u, set the interval [-u w, (1-u) w], evaluate its right end
     INIT_L  evaluate its left end
@@ -45,19 +55,13 @@ import numpy as np
 import torch
 
 from .logspace import LOG_ZERO
-from .pallas_slice import (
-    PH_DONE,
-    PH_INIT_L,
-    PH_INIT_R,
-    PH_SHRINK,
-    PH_STEP_L,
-    PH_STEP_R,
-    _fmix,
-    _mix,
-    uniform_from_hash,
-)
+from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash, slice_epoch_v2
 
-ENGINES = ("torch", "cuda", "cuda5")
+#: the kernel engines: "cuda" (B1, v4), "cuda5" (B3, v5), "cuda3" (B4, v3)
+#: and "cuda2" (B5, v2) — the JAX package's "pallas", "pallas5", "pallas3"
+#: and "pallas2"
+KERNEL_ENGINES = ("cuda", "cuda5", "cuda3", "cuda2")
+ENGINES = ("torch",) + KERNEL_ENGINES
 
 
 class EpochConfig(NamedTuple):
@@ -70,7 +74,7 @@ class EpochConfig(NamedTuple):
     logzero: float = LOG_ZERO
     max_step: int = 200   # stepping-out cap (reference warns past 100 and has no cap)
     max_shrink: int = 100  # shrinkage cap (chordal_sampling.f90:240-271)
-    engine: str = "torch"  # "torch" (plain, any device), "cuda" or "cuda5" (kernels)
+    engine: str = "torch"  # "torch" (plain, any device) or a kernel: "cuda", "cuda5", "cuda3", "cuda2"
 
     @property
     def total_repeats(self) -> int:
@@ -93,109 +97,64 @@ def slice_records_plain(
     valid: torch.Tensor,   # (B,) bool
     nhats: torch.Tensor,   # (B, R, D) float32
     ws: torch.Tensor,      # (B, R) float32
+    count_steps: bool = False,
 ):
     """The plain torch engine: every lane runs its R repeats freely.
 
     ``logL_fn(probe (B, D)) -> logL (B,)`` float32.  Returns (t (B,R),
     logL (B,R)) float32 and nlike (B,R) int32 per (lane, repeat); repeats
-    never reached keep t = 0, logL = logzero, nlike = 0."""
+    never reached keep t = 0, logL = logzero, nlike = 0.  With
+    ``count_steps``, also the micro-steps each lane executed, (B,) int32."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
     f32 = torch.float32
     logzero = torch.tensor(cfg.logzero, dtype=f32).item()
-    k0, k1 = key_words
     lanes = torch.arange(B, device=dev)
-    h_lane = _mix(_mix(torch.full((B,), k0, dtype=torch.int64, device=dev), k1), lanes)
-
-    def i64(v):
-        return torch.full((B,), v, dtype=torch.int64, device=dev)
-
+    h_lane = lane_hash(key_words, B, dev)
+    m = LaneMachine(B, dev, logzero)
+    m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
     rep = torch.where(valid, 0, R).to(torch.int64)
-    phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
-    it, rstep, lstep, nshrink, cnt, steps = i64(0), i64(1), i64(1), i64(0), i64(0), i64(0)
-    need_r = torch.zeros(B, dtype=torch.bool, device=dev)
-    need_l = torch.zeros_like(need_r)
-    tL = torch.zeros(B, dtype=f32, device=dev)
-    tR = torch.zeros_like(tL)
+    steps = torch.zeros(B, dtype=torch.int64, device=dev)
     x = x0.to(f32).clone()
     t_out = torch.zeros((B, R), dtype=f32, device=dev)
     l_out = torch.full((B, R), logzero, dtype=f32, device=dev)
     n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
     cap = cfg.step_cap
 
-    while bool((phase != PH_DONE).any()):
-        active = phase != PH_DONE
+    while bool((m.phase != PH_DONE).any()):
+        active = m.phase != PH_DONE
         r_idx = rep.clamp(max=R - 1)
-        nhat = nhats[lanes, r_idx]
-        w = ws[lanes, r_idx]
-        u = uniform_from_hash(_fmix(_mix(_mix(h_lane, rep), it))).to(f32)
-
-        is_ir = active & (phase == PH_INIT_R)
-        is_il = active & (phase == PH_INIT_L)
-        is_sr = active & (phase == PH_STEP_R)
-        is_sl = active & (phase == PH_STEP_L)
-        is_sh = active & (phase == PH_SHRINK)
-        tL = torch.where(is_ir, -u * w, tL)
-        tR = torch.where(is_ir, (1.0 - u) * w, tR)
-        t = torch.where(is_ir, tR, 0.0)
-        t = torch.where(is_il, tL, t)
-        t = torch.where(is_sr, w * rstep.to(f32), t)
-        t = torch.where(is_sl, -w * lstep.to(f32), t)
-        t = torch.where(is_sh, tL + u * (tR - tL), t)
-
-        probe = x + t[:, None] * nhat
-        logL = logL_fn(probe)
-        inside = (logL >= bound) & (logL > logzero)
-        cnt = cnt + (active & (logL > logzero)).to(torch.int64)
-
-        need_r = torch.where(is_ir, inside, need_r)
-        need_l = torch.where(is_il, inside, need_l)
-        after_il = torch.where(
-            need_r, PH_STEP_R, torch.where(need_l, PH_STEP_L, PH_SHRINK)
-        )
-        done_r = is_sr & (~inside | (rstep >= cfg.max_step))
-        done_l = is_sl & (~inside | (lstep >= cfg.max_step))
-        tR = torch.where(done_r, t, tR)
-        tL = torch.where(done_l, t, tL)
-        rstep = torch.where(is_sr & ~done_r, rstep + 1, rstep)
-        lstep = torch.where(is_sl & ~done_l, lstep + 1, lstep)
-
-        accept = is_sh & inside
-        forced = is_sh & ~inside & (nshrink + 1 >= cfg.max_shrink)
-        acc = accept | forced
-        contract = is_sh & ~inside & ~forced
-        tR = torch.where(contract & (t > 0.0), t, tR)
-        tL = torch.where(contract & (t <= 0.0), t, tL)
-        nshrink = torch.where(contract | forced, nshrink + 1, nshrink)
-
+        t, probe, logL, acc, forced = m.step(
+            logL_fn, cfg, active, _mix(h_lane, rep), ws[lanes, r_idx], nhats[lanes, r_idx],
+            x, bound)
         steps = steps + active.to(torch.int64)
         capped = active & ~acc & (steps >= cap)
         rec = acc | capped
         rows, cols = lanes[rec], rep[rec]
         t_out[rows, cols] = torch.where(acc, t, 0.0)[rec]
         l_out[rows, cols] = torch.where(acc & ~forced, logL, logzero)[rec]
-        n_out[rows, cols] = cnt[rec].to(torch.int32)
+        n_out[rows, cols] = m.cnt[rec].to(torch.int32)
         x = torch.where(acc[:, None], probe, x)
-
-        phase = torch.where(is_ir, PH_INIT_L, phase)
-        phase = torch.where(is_il, after_il, phase)
-        phase = torch.where(done_r, torch.where(need_l, PH_STEP_L, PH_SHRINK), phase)
-        phase = torch.where(done_l, PH_SHRINK, phase)
         rep = torch.where(acc, rep + 1, rep)
-        phase = torch.where(acc, torch.where(rep >= R, PH_DONE, PH_INIT_R), phase)
-        phase = torch.where(capped | (acc & (steps >= cap)), PH_DONE, phase)
-
-        it = torch.where(acc, 0, torch.where(active, it + 1, it))
-        rstep = torch.where(acc, 1, rstep)
-        lstep = torch.where(acc, 1, lstep)
-        nshrink = torch.where(acc, 0, nshrink)
-        cnt = torch.where(acc, 0, cnt)
-        need_r = need_r & ~acc
-        need_l = need_l & ~acc
-        tL = torch.where(acc, 0.0, tL)
-        tR = torch.where(acc, 0.0, tR)
+        m.phase = torch.where(acc, torch.where(rep >= R, PH_DONE, PH_INIT_R), m.phase)
+        m.phase = torch.where(capped | (acc & (steps >= cap)), PH_DONE, m.phase)
+        m.restart(acc)
+    if count_steps:
+        return t_out, l_out, n_out, steps.to(torch.int32)
     return t_out, l_out, n_out
+
+
+def kernel_wrapper(engine: str):
+    """The wrapper of an engine's CUDA kernel: (calc, cfg, key_words, x0,
+    bound, valid, nhats, ws) -> (t, logL, nlike[, cube]).  On CPU tensors
+    each wrapper runs its own plain version."""
+    from .pallas_slice_v3 import slice_epoch_v3
+    from .pallas_slice_v4 import slice_epoch
+    from .pallas_slice_v5 import slice_epoch_v5
+
+    return {"cuda": slice_epoch, "cuda5": slice_epoch_v5, "cuda3": slice_epoch_v3,
+            "cuda2": slice_epoch_v2}[engine]
 
 
 def build_epoch_fn(calc, cfg: EpochConfig):
@@ -205,18 +164,18 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     ``generator`` is the device ``torch.Generator`` the directions are drawn
     from; ``directions=(nhats, w, speeds)`` replaces the draw (test seam)."""
     from .directions import make_directions
-    from .pallas_slice_v4 import assemble_epoch, slice_epoch
-    from .pallas_slice_v5 import slice_epoch_v5
+    from .pallas_slice_v4 import assemble_epoch
 
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; have {ENGINES}")
+    if cfg.engine == "torch":
+        def records(*args):
+            return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
+    else:
+        kernel = kernel_wrapper(cfg.engine)
 
-    def records(*args):
-        if cfg.engine == "cuda":
-            return slice_epoch(calc, cfg, *args)
-        if cfg.engine == "cuda5":
-            return slice_epoch_v5(calc, cfg, *args)
-        return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
+        def records(*args):
+            return kernel(calc, cfg, *args)
 
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,
               generator=None, directions=None):
@@ -227,11 +186,8 @@ def build_epoch_fn(calc, cfg: EpochConfig):
             )
         nhats, ws, speeds = directions
         seed_f = seed_cube.to(torch.float32)
-        t_acc, logL, nlike = records(
-            key_words, seed_f, bound.to(torch.float32), lane_valid, nhats, ws
-        )
-        return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds,
-                              t_acc, logL, nlike)
+        out = records(key_words, seed_f, bound.to(torch.float32), lane_valid, nhats, ws)
+        return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out)
 
     return epoch
 

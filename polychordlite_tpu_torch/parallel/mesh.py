@@ -46,12 +46,11 @@ def make_epoch_runner(
     tail = len(cfg.grade_dims) + 1  # per-grade nlike + overflow flag
 
     epoch_fn = build_epoch_fn(calc, cfg)
-    if cfg.engine in ("cuda", "cuda5"):  # the functor, through its own kernel
+    if cfg.engine != "torch":  # the functor, through its own kernel
         from ..ops.pallas_slice_v4 import validate_functor
-        from ..ops.pallas_slice_v5 import slice_epoch_v5
+        from ..ops.slice_kernel import kernel_wrapper
 
-        validate_functor(calc, cfg, device,
-                         slice_epoch_v5 if cfg.engine == "cuda5" else None)
+        validate_functor(calc, cfg, device, kernel_wrapper(cfg.engine))
 
     # cumulative epoch-phase timers (host clock, seconds)
     timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "unpack": 0.0}

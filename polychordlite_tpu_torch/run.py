@@ -13,14 +13,16 @@ Differences from the reference (documented deviations):
 * ``batch_size`` controls the width of the device chain nursery (the analogue
   of the MPI process count; like nprocs in the reference, changing it changes
   the exact sample stream but not the statistics);
-* ``device=`` picks the torch device: ``None`` means ``"cuda"`` when a card is
-  present, else ``"cpu"``; an explicit ``"cuda"`` without a card raises.
+* ``device=`` picks the torch device: ``None`` means ``"cuda"``, and
+  without a card the run raises; ``device="cpu"`` runs on the CPU.
   ``engine="auto"`` runs the CUDA slice kernel (``"cuda"``, the v4 kernel)
-  on a CUDA device and the plain torch engine on the CPU; ``engine="cuda5"``
-  forces the speculative-packet kernel (decision-exact with ``"cuda"``, so
-  the same run); ``engine="torch"`` is the plain engine anywhere.  A model
+  on a CUDA device and the plain torch engine on the CPU; ``"cuda5"``
+  (speculative packets, v5) and ``"cuda3"`` (v3's budget) force other
+  kernels that make the same decisions, so the same run; ``"cuda2"`` forces
+  the v2 kernel, which writes the cube itself (another chain, the same
+  statistics); ``engine="torch"`` is the plain engine anywhere.  A model
   the kernels cannot evaluate (no affine prior or no device form) raises
-  with ``"cuda"``/``"cuda5"`` and with ``"auto"`` on a card.
+  with a kernel engine and with ``"auto"`` on a card.
 """
 
 from __future__ import annotations

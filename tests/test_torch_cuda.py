@@ -10,6 +10,7 @@ it, where the repository's conftest (which imports jax) is left out:
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import warnings
@@ -22,8 +23,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import polychordlite_tpu_torch as pt  # noqa: E402
 from polychordlite_tpu_torch.models import gaussian, gaussian_shells  # noqa: E402
+from polychordlite_tpu_torch.models import LIKELIHOODS  # noqa: E402
 from polychordlite_tpu_torch.ops import (  # noqa: E402
     pallas_dirs,
+    pallas_slice,
+    pallas_slice_v3,
     pallas_slice_v4,
     pallas_slice_v5,
 )
@@ -31,6 +35,7 @@ from polychordlite_tpu_torch.ops.directions import make_directions  # noqa: E402
 from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator  # noqa: E402
 from polychordlite_tpu_torch.ops.slice_kernel import (  # noqa: E402
     EpochConfig,
+    kernel_wrapper,
     slice_records_plain,
 )
 from polychordlite_tpu_torch.priors import (  # noqa: E402
@@ -39,6 +44,10 @@ from polychordlite_tpu_torch.priors import (  # noqa: E402
     UniformPrior,
     identity_prior,
 )
+
+from polychordlite_tpu_torch.utils.inifile import read_ini  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -206,3 +215,97 @@ def test_shells_run_cuda5_equals_cuda(dev):
             with open(os.path.join(base, "test.txt"), "rb") as f:
                 results[engine] = (out.ndead, out.logZ, out.logZerr, f.read())
     assert results["cuda"] == results["cuda5"]
+
+
+def _ball_args(dev, D, R, B, max_shrink):
+    gen = torch.Generator(dev).manual_seed(D + R)
+    like = gaussian(D, sigma=0.2)
+    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
+    r0 = 1.5 * 0.2 * math.sqrt(D)
+    off = 3.0 if max_shrink < 100 else 0.0
+    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2 + off, device=dev)
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    return like, (x0, bound, valid, nh, w)
+
+
+@pytest.mark.parametrize("caps", [{}, {"max_step": 2, "max_shrink": 3}])
+@pytest.mark.parametrize("D,R,B", [(4, 6, 1000), (20, 8, 1024)])
+def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
+    """B4, B5 and E1 against their plain versions and against B1, bit for
+    bit (B5's cube too; against B1's rebuilt cube to float noise)."""
+    like, args = _ball_args(dev, D, R, B, caps.get("max_shrink", 100))
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), like, D, 2)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
+    kw = (7, 8)
+    fn = lambda p: calc(p)[2]  # noqa: E731
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+    before = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
+    b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
+    b5 = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
+    e1 = pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args)
+    after = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1}
+    plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
+    plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
+    plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
+    for k in range(3):
+        for got in (b4[k], b5[k], e1[k], plain4[k], plain3[k], plain2[k]):
+            assert torch.equal(got, b1[k]), k
+    assert torch.equal(b5[3], plain2[3])
+    rebuilt = args[0][:, None, :] + torch.cumsum(b1[0][:, :, None] * args[3], dim=1)
+    assert (b5[3] - rebuilt).abs().max().item() <= 2e-6
+    assert torch.equal(e1[3], plain4[3])
+    assert torch.equal(e1[4], pallas_slice_v4.warp_maxima(plain4[3]))
+    assert bool((b1[1][64:] == np.float32(cfg.logzero)).any()) == bool(caps)
+
+
+def _ini_calc(name, dev):
+    s, blocks, *_ = read_ini(os.path.join(REPO, "ini", f"{name}.ini"))
+    calc = make_batched_calculator(BlockPrior(blocks, s.nDims), LIKELIHOODS[name](s.nDims),
+                                   s.nDims, s.nDerived)
+    return s, calc
+
+
+@pytest.mark.parametrize("name", sorted(LIKELIHOODS))
+def test_every_functor_through_every_kernel(dev, name):
+    """Each likelihood's functor against its torch calc through all four
+    kernels, and one epoch of B1 at the ini's dimension against the plain
+    engine on a live set of the ini's prior."""
+    s, calc = _ini_calc(name, dev)
+    D, R, B = s.nDims, 4, 256
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    for engine in ("cuda", "cuda3", "cuda2", "cuda5"):
+        pallas_slice_v4.validate_functor(calc, cfg, dev, kernel_wrapper(engine))
+    gen = torch.Generator(dev).manual_seed(11)
+    live = torch.rand((400, D), generator=gen, device=dev)
+    live_logL = calc(live)[2]
+    pick = torch.randint(0, 400, (B,), generator=gen, device=dev)
+    other = torch.randint(0, 400, (B,), generator=gen, device=dev)
+    bound = torch.minimum(live_logL[pick], live_logL[other])
+    chol = torch.linalg.cholesky(torch.cov(live.T).reshape(D, D)).expand(B, D, D)
+    nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    args = (live[pick], bound, torch.ones(B, dtype=torch.bool, device=dev), nh, w)
+    got = pallas_slice_v4.slice_epoch(calc, cfg, (1, 2), *args)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_cli_runs_on_the_card_by_default(dev, tmp_path):
+    """``python -m polychordlite_tpu_torch`` with no --device runs on the
+    card, on the v4 kernel."""
+    src = open(os.path.join(REPO, "ini", "himmelblau.ini")).read()
+    src = (src.replace("nlive = 500", "nlive = 100")
+           .replace("base_dir = chains", f"base_dir = {tmp_path}")
+           .replace("feedback = 1", "feedback = 0\nmax_ndead = 400\nseed = 4"))
+    ini = tmp_path / "himmelblau.ini"
+    ini.write_text(src)
+    out = subprocess.run([sys.executable, "-m", "polychordlite_tpu_torch", str(ini)],
+                         capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    with open(tmp_path / "himmelblau.metrics.jsonl") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    assert last["engine"] == "cuda" and last["kernel_launches"]["slice_epoch"] > 0

@@ -230,7 +230,7 @@ def test_port_reads_jax_checkpoint(tmp_path):
         pt_gaussian(2), 2, nDerived=2, nlive=25, num_repeats=4, max_ndead=150,
         do_clustering=False, read_resume=True, base_dir=base, seed=3,
         feedback=-1, write_dead=False, posteriors=False, equals=False,
-        write_live=False, write_prior=False,
+        write_live=False, write_prior=False, device="cpu",
     )
     assert out.ndead >= 150
     s = p_set.PolyChordSettings(2, 2, base_dir=base).finalise()

@@ -146,7 +146,7 @@ def test_engine_auto_on_a_card_refuses_a_layout_without_affine_form(monkeypatch)
 
 CLI = """
 import runpy, sys
-sys.argv = ["polychordlite_tpu_torch", sys.argv[1]]
+sys.argv = ["polychordlite_tpu_torch", sys.argv[1], "--device", "cpu"]
 try:
     runpy.run_module("polychordlite_tpu_torch", run_name="__main__")
 except SystemExit as e:
@@ -157,8 +157,8 @@ sys.exit(code)
 
 
 def test_cli_smoke(tmp_path):
-    """``python -m polychordlite_tpu_torch`` on a shrunk copy of the shipped
-    gaussian_shells.ini (the overrides of tests/test_ini_suite.py)."""
+    """``python -m polychordlite_tpu_torch --device cpu`` on a shrunk copy of
+    the shipped gaussian_shells.ini (the overrides of tests/test_ini_suite.py)."""
     src = open(os.path.join(REPO, "ini", "gaussian_shells.ini")).read()
     src = (
         src.replace("nlive = 500", "nlive = 50")

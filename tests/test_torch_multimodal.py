@@ -54,7 +54,7 @@ def runs(tmp_path_factory):
 
     s = PolyChordSettings(2, 0, base_dir=str(tmp_path_factory.mktemp("port")), **SETTINGS)
     port = ns.nested_sampling(gaussian_shells(2), UniformPrior([-6.0, -2.5], [6.0, 2.5]),
-                              ns.default_dumper, s)
+                              ns.default_dumper, s, device="cpu")
     lo, hi = jnp.asarray([-6.0, -2.5]), jnp.asarray([6.0, 2.5])
     sj = j_set.PolyChordSettings(2, 0)
     for k, v in {**SETTINGS, "base_dir": str(tmp_path_factory.mktemp("jax"))}.items():

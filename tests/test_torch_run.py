@@ -25,6 +25,7 @@ D = 4
 LOGZ_TRUE = 0.0
 KW = dict(nDerived=2, nlive=100, num_repeats=8, do_clustering=False,
           read_resume=False, seed=11, feedback=-1)
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +34,7 @@ def runs(tmp_path_factory):
     base_j = str(tmp_path_factory.mktemp("jax"))
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # no replay-divergence (or any) warning
-        port = polychordlite_tpu_torch.run(gaussian(D), D, base_dir=base_p, **KW)
+        port = polychordlite_tpu_torch.run(gaussian(D), D, base_dir=base_p, device="cpu", **KW)
     ref = polychordlite_tpu.run(jax_gaussian(D), D, base_dir=base_j, mesh_shape=1, **KW)
     return port, ref, base_p
 
@@ -69,6 +70,7 @@ def test_chained_epochs_stayed_on(runs, tmp_path):
             polychordlite_tpu_torch.PolyChordSettings(
                 D, 2, base_dir=str(tmp_path), **{k: v for k, v in KW.items() if k != "nDerived"},
             ),
+            device=CPU,
         )
     assert res["metrics"]["engine_used"] == "torch"
     assert res["metrics"]["chained_epochs"] is True
@@ -80,22 +82,26 @@ def test_engine_and_device_rules(monkeypatch):
     cpu = torch.device("cpu")
     assert ns.resolve_engine("auto", cpu, calc) == "torch"
     assert ns.resolve_engine("torch", cpu, calc) == "torch"
-    for engine in ("cuda", "cuda5"):  # the kernels need a card
+    for engine in ns.KERNEL_ENGINES:  # the kernels need a card
         with pytest.raises(ValueError):
             ns.resolve_engine(engine, cpu, calc)
-    assert ns.resolve_device(None).type == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert ns.resolve_device("cpu") == cpu
 
+    # the default is the card: without one it raises, naming the CPU option
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ns.resolve_device("cuda")
-    assert ns.resolve_device(None) == cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ns.resolve_device(None)
 
     # with a card: the kernel for a model with a device form, and a loud
     # refusal (naming engine='torch') for one without
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
+    assert ns.resolve_device(None) == cuda
     assert ns.resolve_engine("auto", cuda, calc) == "cuda"
-    assert ns.resolve_engine("cuda5", cuda, calc) == "cuda5"
+    for engine in ns.KERNEL_ENGINES:
+        assert ns.resolve_engine(engine, cuda, calc) == engine
 
     def plain_like(theta):
         return -torch.sum((theta - 0.5) ** 2, dim=1)
@@ -132,7 +138,7 @@ def test_unported_modes_raise(tmp_path):
                   {"maximise": True}, {"nlives": {-10.0: 50}}):
         with pytest.raises(NotImplementedError):
             polychordlite_tpu_torch.run(
-                gaussian(D), D, **{**KW, **extra, "base_dir": str(tmp_path)}
+                gaussian(D), D, device="cpu", **{**KW, **extra, "base_dir": str(tmp_path)}
             )
 
 
@@ -145,7 +151,7 @@ def test_forced_chain_on_callback_model_raises(tmp_path):
 
     kw = dict(nlive=20, num_repeats=2, do_clustering=False, read_resume=False,
               seed=1, feedback=-1, max_ndead=100, write_stats=False,
-              base_dir=str(tmp_path))
+              base_dir=str(tmp_path), device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         forced = polychordlite_tpu_torch.run(numpy_like, 2, chain_epochs=4, **kw)
