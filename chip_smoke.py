@@ -7,7 +7,8 @@ Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 reported), checks each kernel against its plain torch version on the card
 (B1 v4, B2 Gram-Schmidt, B3 v5, B4 v3, B5 v2 at four geometries; E1, the
 counted v4, in the ``lane_efficiency`` study), then drives the port's paths
-and checks what comes out and which kernels ran:
+and checks what comes out and which kernels ran (each path with every
+launch count set to 0 just before it):
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
@@ -27,7 +28,21 @@ and checks what comes out and which kernels ran:
   of its oracle (:data:`ZOO_ORACLES`);
 * ``run_himmelblau_ab``: ``ini/himmelblau.ini`` through
   ``run(engine="cuda3")`` (B4), bitwise the ``run_zoo_inis`` run, and
-  ``run(engine="cuda2")`` (B5), within 3 sigma of -log 100.
+  ``run(engine="cuda2")`` (B5), within 3 sigma of -log 100;
+
+then the structure-cost studies of ``polychordlite_tpu_torch.experiments``,
+each kernel first held against its plain version on the card:
+
+* ``lockstep_waste``: E3, the counted v2 kernel (bitwise B5 and its plain
+  version at three geometries), and its study at the bench geometry;
+* ``v3_iters``: E2, v3's grid steps as a cooperative kernel with their body
+  counts (bitwise B4, B1 and its plain version; the skeleton one body per
+  step), its study (real and skeleton, beside B4), and the numpy
+  simulation's projected lane efficiencies beside E1's and E3's;
+* ``grid_overhead``: E6, the grid-step skeleton, variants A-F and B one
+  launch per step;
+* ``while_cost``: E7, the loop-body cost of every body, beside B1's time
+  per micro-step.
 
 Each phase prints one JSON line; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
@@ -68,6 +83,8 @@ LIBRARIES = {
     "slice_epoch_v5": ["slice_epoch_v5.cu"],
     "slice_epoch_v3": ["slice_epoch_v3.cu"],
     "slice_epoch_v2": ["slice_epoch_v2.cu"],
+    "slice_epoch_v3_instr": ["slice_epoch_v3_instr.cu"],
+    "probes": ["probes.cu"],
 }
 #: the analytic inis' evidence oracles: (logZ, its sigma or None for an exact
 #: value, where it comes from).  The JAX values are the JAX package's CPU runs
@@ -119,6 +136,19 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_once(fn):
+    """(result, device ms) of one call of ``fn()``, from CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def ini_copy(base: str, name: str) -> str:
@@ -223,6 +253,15 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         import polychordlite_tpu_torch as pt
+        from polychordlite_tpu_torch.experiments import (
+            prof_grid_overhead,
+            prof_lockstep_waste,
+            prof_pallas_while,
+            prof_v3_iters,
+            sim_iter_distribution,
+            v3_instr,
+        )
+        from polychordlite_tpu_torch.experiments.bench_geometry import slice_inputs
         from polychordlite_tpu_torch.inidriver import run_ini
         from polychordlite_tpu_torch.models import gaussian, gaussian_shells, himmelblau
         from polychordlite_tpu_torch.ops import (
@@ -563,7 +602,8 @@ def main() -> None:
 
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
-                pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES)
+                pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
+                prof_grid_overhead.LAUNCHES, prof_pallas_while.LAUNCHES)
     launches = {k: 0 for c in counters for k in c}
 
     def reset_launches():
@@ -832,6 +872,154 @@ def main() -> None:
             out[engine] = rec
         return out
 
+    # ---- 12. the structure-cost studies (E3, E2, E6, E7) ------------------
+    # Each phase holds its kernel against its plain version (and the kernels
+    # making the same decisions) on the card, then runs its study at full
+    # size with that kernel's count set to 0 just before and read just after.
+    def study_inputs():
+        return slice_inputs(dev, BENCH["B"], BENCH["R"], BENCH["D"], 0)
+
+    def decisions(tag, pairs):
+        """Mismatch counts of (name, got, want) triples; raises on any."""
+        mism = {name: int((a != b).sum()) for name, a, b in pairs}
+        if any(mism.values()):
+            raise AssertionError(f"{tag}: {mism}")
+        return mism
+
+    STUDY_GEOMETRIES = (("small", SMALL), ("gaussian_ini", RUN), ("bench", BENCH))
+
+    @phase("lockstep_waste")
+    def _():
+        out = {}
+        for tag, geo in STUDY_GEOMETRIES:
+            calc, cfg, args = geometry(tag, geo)
+            kw = (0x01234567, 0x89ABCDEF)
+            got = pallas_slice.slice_epoch_v2_counted(calc, cfg, kw, *args)
+            b5 = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
+            want = pallas_slice.slice_records_lockstep_plain(
+                lambda p: calc(p)[2], cfg, kw, *args, count_steps=True)  # noqa: B023
+            names = ("t", "logL", "nlike", "cube", "steps", "iters")
+            out[tag] = {"B": geo["B"], "R": geo["R"], "mismatches": decisions(
+                f"{tag}: E3 differs",
+                [(f"{k}_vs_plain", a, b) for k, a, b in zip(names, got, want)]
+                + [(f"{k}_vs_B5", a, b) for k, a, b in zip(names, got, b5)]),
+                "iters_sum": int(got[5].sum()),
+                "ms": cuda_ms(lambda: pallas_slice.slice_epoch_v2_counted(  # noqa: B023
+                    calc, cfg, kw, *args), 5),  # noqa: B023
+                "b5_ms": cuda_ms(lambda: pallas_slice.slice_epoch_v2(  # noqa: B023
+                    calc, cfg, kw, *args), 5)}  # noqa: B023
+        calc, cfg, kw, args = study_inputs()
+        pallas_slice.LAUNCHES["slice_epoch_v2_counted"] = 0
+        rec = prof_lockstep_waste.main()
+        study = pallas_slice.LAUNCHES["slice_epoch_v2_counted"]
+        _, plain_ms = cuda_once(lambda: pallas_slice.slice_records_lockstep_plain(
+            lambda p: calc(p)[2], cfg, kw, *args, count_steps=True))
+        B, R, D = BENCH["B"], BENCH["R"], BENCH["D"]
+        results["lockstep_waste"] = {
+            "ms": rec["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0, "launches": study,
+            "lane_efficiency": rec["lane_efficiency"],
+            "bound": bound(slice_epoch_bytes(B, R, D, cube=True) + 4 * (R * B + R),
+                           rec["lane_steps"] * gaussian_probe_flops(D))}
+        return {"checks": out, "study": rec, "study_launches": study, "plain_ms": plain_ms}
+
+    @phase("v3_iters")
+    def _():
+        out = {}
+        for tag, geo in STUDY_GEOMETRIES:
+            calc, cfg, args = geometry(tag, geo)
+            kw = (0x01234567, 0x89ABCDEF)
+            got = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args)
+            cheap = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, cheap=True)
+            b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
+            b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            want = pallas_slice_v3.slice_records_window_plain(
+                lambda p: calc(p)[2], cfg, kw, *args, count_iters=True)  # noqa: B023
+            names = ("t", "logL", "nlike", "iters")
+            out[tag] = {"B": geo["B"], "R": geo["R"], "iters_sum": int(got[3].sum()),
+                        "mismatches": decisions(
+                f"{tag}: E2 differs",
+                [(f"{k}_vs_plain", a, b) for k, a, b in zip(names, got, want)]
+                + [(f"{k}_vs_{o}", a, b) for o, ref in (("B4", b4), ("B1", b1))
+                   for k, a, b in zip(names[:3], got, ref)]
+                + [("cheap_iters_not_1", cheap[3], torch.ones_like(cheap[3]))])}
+            out[tag].update({  # the same kernel unchecked (no wait for its flag), and B4
+                form: cuda_ms(lambda c=c: v3_instr.slice_epoch_v3_instr(  # noqa: B023
+                    calc, cfg, kw, *args, cheap=c, check=False), 5)  # noqa: B023
+                for form, c in (("ms", False), ("cheap_ms", True))})
+            out[tag]["b4_ms"] = cuda_ms(
+                lambda: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args), 5)  # noqa: B023
+        calc, cfg, kw, args = study_inputs()
+        v3_instr.LAUNCHES["slice_epoch_v3_instr"] = 0
+        rec = prof_v3_iters.main()
+        study = v3_instr.LAUNCHES["slice_epoch_v3_instr"]
+        _, plain_ms = cuda_once(lambda: pallas_slice_v3.slice_records_window_plain(
+            lambda p: calc(p)[2], cfg, kw, *args, count_iters=True))
+        # what the simulation projects beside what E1 and E3 measured
+        steps, wmax = pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args)[3:]
+        sim = sim_iter_distribution.main()
+        projections = {
+            "sim_lockstep_lane_efficiency": {W: v["lane_efficiency"]
+                                             for W, v in sim["lockstep"].items()},
+            "sim_free_running_lane_efficiency": {W: v["lane_efficiency"]
+                                                 for W, v in sim["free_running"].items()},
+            "E1_lane_efficiency_study_inputs": pallas_slice_v4.lane_efficiency(steps, wmax),
+            "E1_lane_efficiency_bench": results["lane_efficiency"]["lane_efficiency"],
+            "E3_lane_efficiency": results.get("lockstep_waste", {}).get("lane_efficiency"),
+        }
+        B, R, D = BENCH["B"], BENCH["R"], BENCH["D"]
+        results["v3_iters"] = {
+            "ms": rec["real"]["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "launches": study,
+            "bound": bound(slice_epoch_bytes(B, R, D) + 4 * (R + 1),
+                           int(steps.sum()) * gaussian_probe_flops(D))}
+        return {"checks": out, "study": rec, "study_launches": study, "plain_ms": plain_ms,
+                "projections": projections, "simulation": sim}
+
+    @phase("grid_overhead")
+    def _():
+        g = prof_grid_overhead
+        R, D, S = g.SIZES["R"], g.SIZES["D"], g.SIZES["S"]
+        stream, head, x0 = g.grid_inputs(dev, R, D, S, ones=False, seed=SEED)
+        decisions("E6 differs from its plain version", [
+            (v, g.grid_steps(v, stream, head, x0), g.grid_steps_plain(v, stream, head, x0))
+            for v in g.VARIANTS])
+        g.LAUNCHES["grid_steps"] = 0
+        rec = g.main()
+        study = g.LAUNCHES["grid_steps"]
+        stream, head, x0 = g.grid_inputs(dev, R, D, S)
+        plain_ms = cuda_ms(lambda: g.grid_steps_plain("E", stream, head, x0), 3)
+        E = S * g.LANE
+        results["grid_overhead"] = {
+            "ms": rec["variants"]["E"]["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0, "launches": study,
+            "bound": bound(4 * (R * D * E + 3 * D * E + D * E + R * E), 3 * R * E)}
+        return {"study": rec, "study_launches": study, "plain_ms_E": plain_ms}
+
+    @phase("while_cost")
+    def _():
+        w = prof_pallas_while
+        S, n = w.SIZES["S"], w.SIZES["n"]
+        x = 0.2 + 0.6 * torch.rand((S, w.LANE), generator=torch.Generator(dev).manual_seed(SEED),
+                                   device=dev)
+        short = 2000  # every body held to its plain version over this many iterations
+        decisions("E7 differs from its plain version", [
+            (v, w.while_loop(v, x, short), w.while_loop_plain(v, x, short))
+            for v in w.VARIANTS])
+        w.LAUNCHES["while_loop"] = 0
+        rec = w.main()
+        study = w.LAUNCHES["while_loop"]
+        # body20 at full length: the kernel against one timed plain run
+        zeros = torch.zeros((S, w.LANE), device=dev)
+        want, plain_ms = cuda_once(lambda: w.while_loop_plain("body20", zeros, n))
+        decisions("E7 body20 differs at full length", [("body20", w.while_loop("body20", zeros, n),
+                                                         want)])
+        E = S * w.LANE
+        results["while_cost"] = {
+            "ms": rec["variants"]["body20"]["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
+            "launches": study,
+            "bound": bound(4 * (E + w.BODY20_D * E + E), n * E * (5 * w.BODY20_D + 3))}
+        return {"study": rec, "study_launches": study, "plain_ms_body20": plain_ms,
+                "checked_iterations": {"all": short, "body20": n}}
+
     for d in tmpdirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -858,16 +1046,28 @@ def main() -> None:
          "slice_epoch_v3", bound(slice_epoch_bytes(Bb, Rb, Db), flops), None),
         ("slice_epoch_v2", "slice_epoch_v2.cu", "polychordlite_tpu/ops/pallas_slice.py:372",
          "slice_epoch_v2", bound(slice_epoch_bytes(Bb, Rb, Db, cube=True), flops), None),
-        ("slice_epoch_counted", "slice_epoch.cu", "polychordlite_tpu/experiments/v4_instr.py:384",
+        ("slice_epoch_counted", "slice_epoch.cu", "experiments/v4_instr.py:384",
          "lane_efficiency", bound(slice_epoch_bytes(Bb, Rb, Db, counted=True), flops), None),
+    ] + [
+        (name, source, replaces, res, results[res]["bound"], None)
+        for name, source, replaces, res in (
+            ("slice_epoch_v3_instr", "slice_epoch_v3_instr.cu", "experiments/v3_instr.py:351",
+             "v3_iters"),
+            ("slice_epoch_v2_counted", "slice_epoch_v2.cu",
+             "experiments/prof_lockstep_waste.py:165", "lockstep_waste"),
+            ("grid_steps", "probes.cu", "experiments/prof_grid_overhead.py:90", "grid_overhead"),
+            ("while_loop", "probes.cu", "experiments/prof_pallas_while.py:66", "while_cost"),
+        )
     ]
     kernels = []
+    PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
+                    "slice_epoch_v2")  # the others: their studies' own launches
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]
         plain_ms = r.get("plain_ms", results["slice_epoch"]["plain_ms"])  # E1's plain: B1's
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-            "launches": r["launches"] if name == "slice_epoch_counted" else launches[name],
+            "launches": launches[name] if name in PATH_KERNELS else r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })

@@ -1,5 +1,6 @@
 // Likelihood functors of the slice-epoch kernels (slice_epoch.cu,
-// slice_epoch_v2.cu, slice_epoch_v3.cu, slice_epoch_v5.cu).
+// slice_epoch_v2.cu, slice_epoch_v3.cu, slice_epoch_v3_instr.cu,
+// slice_epoch_v5.cu).
 //
 // A functor returns the logL of the probe x0 + t n̂ with calculate_point's
 // semantics: a probe outside the unit cube, or a NaN, gives logzero.  Each

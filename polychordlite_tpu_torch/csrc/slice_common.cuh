@@ -1,6 +1,7 @@
-// Pieces shared by the slice-epoch kernels (slice_epoch.cu, slice_epoch_v5.cu):
-// the bound on the dimension, the phases of the per-lane state machine
-// (ops/pallas_slice.py), and the murmur3 counter hash the uniforms come from.
+// Pieces shared by the slice-epoch kernels (likelihoods.cuh and every
+// slice_epoch*.cu) and probes.cu: the bound on the dimension, the phases of
+// the per-lane state machine (ops/pallas_slice.py), and the murmur3 counter
+// hash the uniforms come from.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,8 +13,8 @@
 // (pallas_slice_v4.py:134).
 //
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
-// TPU kernel polychordlite_tpu/experiments/v4_instr.py::
-// build_epoch_fn_pallas_v4 (:384): the same kernel, instantiated with
+// TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
+// the repository's top-level experiments/): the same kernel, instantiated with
 // COUNTED, also writes the micro-steps each lane executed and, per warp,
 // the largest of its 32 lanes' (__reduce_max_sync).  A warp runs as long
 // as its slowest lane, so sum(lane steps) / (32 * sum(warp max)) is the

@@ -29,12 +29,26 @@
 // t, logL (R, B) float32, nlike (R, B) int32 and cube (R, D, B) float32.
 // A lane never accepted (an invalid lane) keeps x0 as its cube.
 //
+// The counted form (slice_epoch_v2_counted_launch) replaces the
+// instrumented TPU kernel experiments/prof_lockstep_waste.py::
+// build_instrumented (pallas_call at :165): the same kernel, instantiated
+// with COUNTED, also writes the micro-steps of every (lane, repeat) and,
+// per repeat, the micro-steps v2's lockstep loop runs over the whole batch
+// — whole 4-step bodies until the slowest valid lane accepts: each warp's
+// largest step count (__reduce_max_sync), rounded up to a body, goes into
+// iters[r] by atomicMax.  Its t, logL, nlike and cube are B5's bit for bit.
+// That loop counter is already in micro-steps (prof_lockstep_waste.py:123);
+// the JAX study multiplies it by 4 once more (:221, ROADMAP C11), which
+// this count does not inherit.
+//
 // What bounds it on the card: as slice_epoch.cu, parallelism and warp
 // divergence; the cube adds R·D·4 bytes of coalesced writes per chain.
 
 #include "slice_machine.cuh"
 
-template <class Like>
+#define V2_BODY 4  // micro-steps per while-loop body (pallas_slice.py:213)
+
+template <class Like, bool COUNTED>
 __global__ void slice_epoch_v2_kernel(Like like, const float* __restrict__ x0t,
                                       const float* __restrict__ bound,
                                       const float* __restrict__ valid,
@@ -45,18 +59,24 @@ __global__ void slice_epoch_v2_kernel(Like like, const float* __restrict__ x0t,
                                       int* __restrict__ nlike_out,
                                       float* __restrict__ cube_out, int B, int D,
                                       int R, uint32_t k0, uint32_t k1, int max_step,
-                                      int max_shrink, long long repeat_budget) {
+                                      int max_shrink, long long repeat_budget,
+                                      int* __restrict__ steps_out,
+                                      int* __restrict__ iters) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
+    const bool lane = b < B;
+    if constexpr (!COUNTED) {
+        if (!lane) return;
+    }
     const float logzero = like.logzero;
     float x0[SLICE_MAXD];
     float n[SLICE_MAXD];
-    slice_load(x0, x0t, 0, D, B, b);
-    const bool live = valid[b] > 0.5f;
-    const float bnd = bound[b];
+    if (lane) slice_load(x0, x0t, 0, D, B, b);
+    const bool live = lane && valid[b] > 0.5f;
+    const float bnd = lane ? bound[b] : 0.0f;
     const uint32_t h_lane = mix32(mix32(k0, k1), (uint32_t)b);
     for (int r = 0; r < R; ++r) {
         const size_t o = (size_t)r * B + b;
+        int steps = 0;  // micro-steps of this lane in repeat r
         if (live) {
             slice_load(n, nhat, (size_t)r * D * B, D, B, b);
             const float wr = w[o];
@@ -66,16 +86,53 @@ __global__ void slice_epoch_v2_kernel(Like like, const float* __restrict__ x0t,
             nlike_out[o] = rep.cnt;
             t_out[o] = rep.t;
             logL_out[o] = rep.logL;
+            steps = (int)rep.steps;
             if (rep.accepted) slice_advance(x0, n, rep.t, D);
-        } else {
+        } else if (lane) {
             nlike_out[o] = 0;
             t_out[o] = 0.0f;
             logL_out[o] = logzero;
         }
+        if (lane) {
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) cube_out[((size_t)r * D + d) * B + b] = x0[d];
+            for (int d = 0; d < SLICE_MAXD; ++d)
+                if (d < D) cube_out[((size_t)r * D + d) * B + b] = x0[d];
+        }
+        if constexpr (COUNTED) {  // every thread of the warp gets here
+            if (lane) steps_out[o] = steps;
+            // v2's loop runs whole bodies until its slowest lane accepts
+            const int m = __reduce_max_sync(0xffffffffu, steps);
+            if ((threadIdx.x & 31) == 0 && m > 0)
+                atomicMax(&iters[r], (m + V2_BODY - 1) / V2_BODY * V2_BODY);
+        }
     }
+}
+
+template <bool COUNTED>
+static int launch(int functor, const float* consts, const float* prior_a,
+                  const float* prior_s, const void* x0t, const void* bound,
+                  const void* valid, const void* nhat, const void* w, void* t_out,
+                  void* logL_out, void* nlike_out, int B, int D, int R, unsigned int k0,
+                  unsigned int k1, int max_step, int max_shrink, long long cap,
+                  float logzero, void* stream, void* cube_out, void* steps_out,
+                  void* iters) {
+    if (D < 1 || D > SLICE_MAXD || R < 1 || B < 1)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 32;  // one warp per block: warp w holds lanes 32w..32w+31
+    const int blocks = (B + threads - 1) / threads;
+    const int bad = with_likelihood(
+        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream,
+        [&](auto like) {
+            slice_epoch_v2_kernel<decltype(like), COUNTED>
+                <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                    like, (const float*)x0t, (const float*)bound,
+                    (const float*)valid, (const float*)nhat, (const float*)w,
+                    (float*)t_out, (float*)logL_out, (int*)nlike_out,
+                    (float*)cube_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                    (int*)steps_out, (int*)iters);
+        });
+    if (bad) return bad;
+    return (int)cudaGetLastError();
 }
 
 // The interface of slice_epoch_launch (slice_epoch.cu), with `cap` the
@@ -87,20 +144,23 @@ extern "C" int slice_epoch_v2_launch(
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
     long long cap, float logzero, void* stream, void* cube_out) {
-    if (D < 1 || D > SLICE_MAXD || R < 1 || B < 1)
-        return (int)cudaErrorInvalidValue;
-    const int threads = 32;
-    const int blocks = (B + threads - 1) / threads;
-    const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream,
-        [&](auto like) {
-            slice_epoch_v2_kernel<decltype(like)>
-                <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                    like, (const float*)x0t, (const float*)bound,
-                    (const float*)valid, (const float*)nhat, (const float*)w,
-                    (float*)t_out, (float*)logL_out, (int*)nlike_out,
-                    (float*)cube_out, B, D, R, k0, k1, max_step, max_shrink, cap);
-        });
-    if (bad) return bad;
-    return (int)cudaGetLastError();
+    return launch<false>(functor, consts, prior_a, prior_s, x0t, bound, valid, nhat, w,
+                         t_out, logL_out, nlike_out, B, D, R, k0, k1, max_step,
+                         max_shrink, cap, logzero, stream, cube_out, nullptr, nullptr);
+}
+
+// The counted form: as slice_epoch_v2_launch, and steps_out (R, B) int32,
+// the micro-steps of each (lane, repeat), and iters (R,) int32, zeroed by
+// the caller: the micro-steps v2's loop runs in repeat r, 4 * ceil(max over
+// the lanes / 4) (0 when no lane is valid).
+extern "C" int slice_epoch_v2_counted_launch(
+    int functor, const float* consts, const float* prior_a, const float* prior_s,
+    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
+    long long cap, float logzero, void* stream, void* cube_out, void* steps_out,
+    void* iters) {
+    return launch<true>(functor, consts, prior_a, prior_s, x0t, bound, valid, nhat, w,
+                        t_out, logL_out, nlike_out, B, D, R, k0, k1, max_step,
+                        max_shrink, cap, logzero, stream, cube_out, steps_out, iters);
 }

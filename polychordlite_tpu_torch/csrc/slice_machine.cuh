@@ -1,9 +1,10 @@
 // The per-lane slice-sampling state machine of one repeat, shared by the
 // one-thread-per-chain epoch kernels: slice_epoch.cu (B1 and its counted
-// form E1), slice_epoch_v3.cu (B4) and slice_epoch_v2.cu (B5).  Each
-// kernel owns only its outer loop over repeats and what its TPU original
-// does at a repeat's end (where the budget is counted, whether the kernel
-// writes the cube).
+// form E1), slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
+// form E3) and slice_epoch_v3_instr.cu (E2, which keeps a lane's
+// SliceState across its bodies).  Each kernel owns only its outer loop over
+// repeats and what its TPU original does at a repeat's end (where the
+// budget is counted, whether the kernel writes the cube).
 //
 // One repeat on the chord x0 + t n̂ (pallas_slice_v4.py:215-348; Neal 2003,
 // chordal_sampling.f90:163-273):
@@ -30,74 +31,107 @@ struct SliceRepeat {
     long long steps;  // micro-steps taken
 };
 
+// The state of one lane inside one repeat.  slice_repeat runs it to the
+// end; a kernel that must stop a lane between micro-steps (the cooperative
+// v3 of slice_epoch_v3_instr.cu) keeps it across its bodies.
+struct SliceState {
+    int phase, rstep, lstep, nshrink, cnt;
+    bool need_r, need_l;
+    float tL, tR;
+    uint32_t it;  // micro-steps of the repeat so far: the uniform's counter
+
+    __device__ __forceinline__ void start() {
+        phase = PH_INIT_R;
+        rstep = lstep = 1;
+        nshrink = cnt = 0;
+        need_r = need_l = false;
+        tL = tR = 0.0f;
+        it = 0;
+    }
+};
+
+// One micro-step of the machine.  Returns true when the repeat accepts,
+// with t the accepted chord position and logL_store its logL (logzero for
+// a forced accept).
+template <class Like>
+__device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, const float* x0,
+                                            const float* n, float wr, float bnd,
+                                            uint32_t h_rep, int D, int max_step,
+                                            int max_shrink, float& t, float& logL_store) {
+    const float logzero = like.logzero;
+    const float u = slice_uniform(h_rep, s.it);
+    ++s.it;
+    switch (s.phase) {
+        case PH_INIT_R:
+            s.tL = __fmul_rn(-u, wr);
+            s.tR = __fmul_rn(__fsub_rn(1.0f, u), wr);
+            t = s.tR;
+            break;
+        case PH_INIT_L: t = s.tL; break;
+        case PH_STEP_R: t = __fmul_rn(wr, (float)s.rstep); break;
+        case PH_STEP_L: t = __fmul_rn(-wr, (float)s.lstep); break;
+        default: t = __fadd_rn(s.tL, __fmul_rn(u, __fsub_rn(s.tR, s.tL))); break;
+    }
+    const float logL = like(x0, n, t, D);
+    const bool inside = (logL >= bnd) && (logL > logzero);
+    if (logL > logzero) ++s.cnt;
+    switch (s.phase) {
+        case PH_INIT_R:
+            s.need_r = inside;
+            s.phase = PH_INIT_L;
+            break;
+        case PH_INIT_L:
+            s.need_l = inside;
+            s.phase = s.need_r ? PH_STEP_R : (s.need_l ? PH_STEP_L : PH_SHRINK);
+            break;
+        case PH_STEP_R:
+            if (!inside || s.rstep >= max_step) {
+                s.tR = t;
+                s.phase = s.need_l ? PH_STEP_L : PH_SHRINK;
+            } else {
+                ++s.rstep;
+            }
+            break;
+        case PH_STEP_L:
+            if (!inside || s.lstep >= max_step) {
+                s.tL = t;
+                s.phase = PH_SHRINK;
+            } else {
+                ++s.lstep;
+            }
+            break;
+        default:
+            if (inside) {
+                logL_store = logL;
+                return true;
+            }
+            if (s.nshrink + 1 >= max_shrink) {
+                logL_store = logzero;  // forced: logzero, x0 still moves
+                return true;
+            }
+            if (t > 0.0f) s.tR = t; else s.tL = t;
+            ++s.nshrink;
+            break;
+    }
+    return false;
+}
+
 template <class Like>
 __device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const float* x0,
                                                     const float* n, float wr, float bnd,
                                                     uint32_t h_rep, int D, int max_step,
                                                     int max_shrink, long long budget) {
-    const float logzero = like.logzero;
-    int phase = PH_INIT_R, rstep = 1, lstep = 1, nshrink = 0, cnt = 0;
-    bool need_r = false, need_l = false, accepted = false;
-    float tL = 0.0f, tR = 0.0f, t = 0.0f, logL_store = logzero;
+    SliceState s;
+    s.start();
+    float t = 0.0f, logL_store = like.logzero;
     long long steps = 0;
-    for (uint32_t it = 0; steps < budget; ++it) {
+    while (steps < budget) {
         ++steps;
-        const float u = slice_uniform(h_rep, it);
-        switch (phase) {
-            case PH_INIT_R:
-                tL = __fmul_rn(-u, wr);
-                tR = __fmul_rn(__fsub_rn(1.0f, u), wr);
-                t = tR;
-                break;
-            case PH_INIT_L: t = tL; break;
-            case PH_STEP_R: t = __fmul_rn(wr, (float)rstep); break;
-            case PH_STEP_L: t = __fmul_rn(-wr, (float)lstep); break;
-            default: t = __fadd_rn(tL, __fmul_rn(u, __fsub_rn(tR, tL))); break;
-        }
-        const float logL = like(x0, n, t, D);
-        const bool inside = (logL >= bnd) && (logL > logzero);
-        if (logL > logzero) ++cnt;
-        switch (phase) {
-            case PH_INIT_R:
-                need_r = inside;
-                phase = PH_INIT_L;
-                break;
-            case PH_INIT_L:
-                need_l = inside;
-                phase = need_r ? PH_STEP_R : (need_l ? PH_STEP_L : PH_SHRINK);
-                break;
-            case PH_STEP_R:
-                if (!inside || rstep >= max_step) {
-                    tR = t;
-                    phase = need_l ? PH_STEP_L : PH_SHRINK;
-                } else {
-                    ++rstep;
-                }
-                break;
-            case PH_STEP_L:
-                if (!inside || lstep >= max_step) {
-                    tL = t;
-                    phase = PH_SHRINK;
-                } else {
-                    ++lstep;
-                }
-                break;
-            default:
-                if (inside) {
-                    accepted = true;
-                    logL_store = logL;
-                } else if (nshrink + 1 >= max_shrink) {
-                    accepted = true;  // forced: logzero, x0 still moves
-                } else {
-                    if (t > 0.0f) tR = t; else tL = t;
-                    ++nshrink;
-                }
-                break;
-        }
-        if (accepted) break;
+        if (slice_micro(like, s, x0, n, wr, bnd, h_rep, D, max_step, max_shrink, t,
+                        logL_store))
+            return SliceRepeat{true, t, logL_store, s.cnt, steps};
     }
-    if (!accepted) return SliceRepeat{false, 0.0f, logzero, cnt, steps};
-    return SliceRepeat{true, t, logL_store, cnt, steps};
+    return SliceRepeat{false, 0.0f, like.logzero, s.cnt, steps};
 }
 
 // x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.

@@ -14,6 +14,12 @@ logL and nlike are bitwise those of ``slice_kernel.slice_records_plain``;
 the cube is the sequential x <- x + t n̂, which differs in the last bits
 from the ``seed + cumsum(t n̂)`` the other engines rebuild.
 
+:func:`slice_epoch_v2_counted` is the wrapper of the same kernel's counted
+instantiation (E3, ``experiments/prof_lockstep_waste.py`` at the repository
+root): B5's outputs bit for bit, plus the micro-steps of every (lane,
+repeat) and the micro-steps v2's lockstep loop runs per repeat.  Its study
+is ``experiments/prof_lockstep_waste.py`` of this package.
+
 :class:`LaneMachine` is the per-lane state machine of one micro-step
 (``csrc/slice_machine.cuh``) vectorised over lanes; the plain versions of
 v4 (``slice_kernel.py``), v3 (``pallas_slice_v3.py``) and v2 (here) drive
@@ -229,6 +235,7 @@ def slice_records_lockstep_plain(
     valid: torch.Tensor,   # (B,) bool
     nhats: torch.Tensor,   # (B, R, D) float32
     ws: torch.Tensor,      # (B, R) float32
+    count_steps: bool = False,
 ):
     """v2's lockstep epoch in plain torch: per repeat, a while loop of
     4-micro-step bodies over all lanes until every lane has accepted or the
@@ -237,7 +244,11 @@ def slice_records_lockstep_plain(
     the cube and the next repeat, with t = 0 and logL = logzero.
 
     Returns (t (B,R), logL (B,R)) float32, nlike (B,R) int32 and cube
-    (B,R,D) float32."""
+    (B,R,D) float32.  With ``count_steps``, also the micro-steps of each
+    (lane, repeat), (B,R) int32, and the micro-steps the loop ran in each
+    repeat, (R,) int32 — the loop counter the instrumented v2 writes
+    (``experiments/prof_lockstep_waste.py:123,144``): whole bodies until
+    the slowest valid lane accepts, 0 when no lane is valid."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
@@ -248,6 +259,8 @@ def slice_records_lockstep_plain(
     l_out = torch.full((B, R), logzero, dtype=torch.float32, device=dev)
     n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
     cube = torch.empty((B, R, D), dtype=torch.float32, device=dev)
+    steps = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    iters = torch.zeros(R, dtype=torch.int32, device=dev)
     budget = v2_repeat_budget(cfg)
     for r in range(R):
         m = LaneMachine(B, dev, logzero)
@@ -270,11 +283,15 @@ def slice_records_lockstep_plain(
         t_out[:, r], l_out[:, r] = acc_t, acc_l
         n_out[:, r] = m.cnt.to(torch.int32)
         cube[:, r] = x = acc_x
+        steps[:, r] = m.it.to(torch.int32)
+        iters[r] = it
+    if count_steps:
+        return t_out, l_out, n_out, cube, steps, iters
     return t_out, l_out, n_out, cube
 
 
 #: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch_v2": 0}
+LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0}
 
 
 def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws):
@@ -300,3 +317,32 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws):
     )
     LAUNCHES["slice_epoch_v2"] += 1
     return t, logL, nlike, cube.permute(2, 0, 1)
+
+
+def slice_epoch_v2_counted(calc, cfg, key_words, x0, bound, valid, nhats, ws):
+    """B5 with its micro-steps counted (the port of the instrumented v2,
+    ``experiments/prof_lockstep_waste.py::build_instrumented``): (t, logL,
+    nlike, cube) as :func:`slice_epoch_v2` gives them, ``steps (B, R)``
+    int32 the micro-steps of each (lane, repeat) and ``iters (R,)`` int32
+    the micro-steps v2's lockstep loop runs in each repeat.  CPU tensors:
+    the plain version's counts; CUDA tensors: the counted kernel."""
+    if x0.device.type == "cpu":
+        return slice_records_lockstep_plain(
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws,
+            count_steps=True,
+        )
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    from .pallas_slice_v4 import launch_slice_kernel  # it imports this module
+
+    B, R, D = nhats.shape
+    cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
+    steps = torch.empty((R, B), dtype=torch.int32, device=x0.device)
+    iters = torch.zeros(R, dtype=torch.int32, device=x0.device)
+    t, logL, nlike = launch_slice_kernel(
+        nvcc.load("slice_epoch_v2", ["slice_epoch_v2.cu"]), "slice_epoch_v2_counted_launch",
+        calc, cfg, key_words, x0, bound, valid, nhats, ws,
+        cap=v2_repeat_budget(cfg), extra=(cube, steps, iters),
+    )
+    LAUNCHES["slice_epoch_v2_counted"] += 1
+    return t, logL, nlike, cube.permute(2, 0, 1), steps.t(), iters

@@ -51,11 +51,18 @@ def slice_records_window_plain(
     valid: torch.Tensor,   # (B,) bool
     nhats: torch.Tensor,   # (B, R, D) float32
     ws: torch.Tensor,      # (B, R) float32
+    count_iters: bool = False,
+    cheap: bool = False,
 ):
     """v3's windowed epoch in plain torch (see the module docstring).
 
     Returns (t (B,R), logL (B,R)) float32 and nlike (B,R) int32, as
-    ``slice_kernel.slice_records_plain`` does."""
+    ``slice_kernel.slice_records_plain`` does.  With ``count_iters``, also
+    the bodies each grid step ran, (R,) int32, as the instrumented v3
+    counts them (``experiments/v3_instr.py:274,288``): at least one, at most
+    ``cap_body``.  ``cheap`` is that kernel's skeleton (:269-270): a body
+    only advances every lane's repeat, and the records stay at their
+    initial values."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
@@ -73,23 +80,28 @@ def slice_records_window_plain(
     t_out = torch.zeros((B, R), dtype=torch.float32, device=dev)
     l_out = torch.full((B, R), logzero, dtype=torch.float32, device=dev)
     n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
+    iters = torch.zeros(R, dtype=torch.int32, device=dev)
     for r in range(R):
         window_hi = min(r + rc - 1, R - 1)
-        for _ in range(cap_body(cfg)):
-            for _ in range(BODY):
-                active = (m.phase != PH_DONE) & (rep <= window_hi)
-                r_idx = rep.clamp(max=R - 1)
-                t, probe, logL, acc, forced = m.step(
-                    logL_fn, cfg, active, _mix(h_lane, rep), ws[lanes, r_idx],
-                    nhats[lanes, r_idx], x, bound)
-                slot, rows = (rep % rc)[acc], lanes[acc]
-                ring_t[slot, rows] = t[acc]
-                ring_l[slot, rows] = torch.where(forced, logzero, logL)[acc]
-                ring_n[slot, rows] = m.cnt[acc].to(torch.int32)
-                x = torch.where(acc[:, None], probe, x)
-                rep = torch.where(acc, rep + 1, rep)
-                m.phase = torch.where(acc, torch.where(rep >= R, PH_DONE, PH_INIT_R), m.phase)
-                m.restart(acc)
+        for k in range(cap_body(cfg)):
+            iters[r] = k + 1
+            if cheap:
+                rep = rep + 1
+            else:
+                for _ in range(BODY):
+                    active = (m.phase != PH_DONE) & (rep <= window_hi)
+                    r_idx = rep.clamp(max=R - 1)
+                    t, probe, logL, acc, forced = m.step(
+                        logL_fn, cfg, active, _mix(h_lane, rep), ws[lanes, r_idx],
+                        nhats[lanes, r_idx], x, bound)
+                    slot, rows = (rep % rc)[acc], lanes[acc]
+                    ring_t[slot, rows] = t[acc]
+                    ring_l[slot, rows] = torch.where(forced, logzero, logL)[acc]
+                    ring_n[slot, rows] = m.cnt[acc].to(torch.int32)
+                    x = torch.where(acc[:, None], probe, x)
+                    rep = torch.where(acc, rep + 1, rep)
+                    m.phase = torch.where(acc, torch.where(rep >= R, PH_DONE, PH_INIT_R), m.phase)
+                    m.restart(acc)
             if not bool((rep <= r).any()):
                 break
         # the step's flush; a lane still in repeat r stops with it unaccepted
@@ -100,6 +112,8 @@ def slice_records_window_plain(
         rep = torch.where(late, R, rep)
         t_out[:, r], l_out[:, r], n_out[:, r] = ring_t[s], ring_l[s], ring_n[s]
         ring_t[s], ring_l[s], ring_n[s] = 0.0, logzero, 0
+    if count_iters:
+        return t_out, l_out, n_out, iters
     return t_out, l_out, n_out
 
 

@@ -14,7 +14,7 @@ the kernels of ``ops/pallas_slice_v5.py``, ``ops/pallas_slice_v3.py`` and
 ``ops/pallas_slice.py``.
 
 :func:`slice_epoch_counted` is the wrapper of the same kernel's counted
-instantiation (the JAX package's ``experiments/v4_instr.py``): B1's
+instantiation (``experiments/v4_instr.py`` at the repository root): B1's
 outputs bit for bit, plus the micro-steps each lane executed and the
 largest of each warp of 32 lanes, from which :func:`lane_efficiency`
 follows.  No run calls it.

@@ -107,7 +107,16 @@ def build_all(libraries: Dict[str, Sequence[str]]) -> None:
                 proc.communicate()
 
 
+#: what some CUDA error codes mean for the port's entry points
+_ERRORS = {
+    720: "the blocks of a cooperative launch cannot all be resident on the "
+         "card at once (cudaErrorCooperativeLaunchTooLarge); its grid "
+         "barrier would never release",
+}
+
+
 def check(status: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status}")
+        raise RuntimeError(f"{what}: CUDA error {status}"
+                           + (f": {_ERRORS[status]}" if status in _ERRORS else ""))

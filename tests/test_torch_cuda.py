@@ -247,7 +247,8 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     e1 = pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args)
     after = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1}
+        "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
+        "slice_epoch_v2_counted": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -309,3 +310,85 @@ def test_cli_runs_on_the_card_by_default(dev, tmp_path):
     with open(tmp_path / "himmelblau.metrics.jsonl") as f:
         last = json.loads(f.read().splitlines()[-1])
     assert last["engine"] == "cuda" and last["kernel_launches"]["slice_epoch"] > 0
+
+
+# ---- the structure-cost studies: E2, E3, E6, E7 ------------------------
+
+from polychordlite_tpu_torch.experiments import (  # noqa: E402
+    prof_grid_overhead,
+    prof_pallas_while,
+    v3_instr,
+)
+
+# (B, R, B_valid): small, the shape run() gives on gaussian.ini, the bench
+STUDY_GEOMETRIES = {"small": (1024, 8, 960), "gaussian_ini": (512, 40, 504),
+                    "bench": (8192, 100, 8192)}
+
+
+def _study_args(dev, tag):
+    B, R, B_valid = STUDY_GEOMETRIES[tag]
+    D = 20
+    like, (x0, bound, _, nh, w) = _ball_args(dev, D, R, B, 100)
+    valid = torch.arange(B, device=dev) < B_valid
+    calc = make_batched_calculator(identity_prior, like, D, 2)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    return calc, cfg, (x0, bound, valid, nh, w)
+
+
+@pytest.mark.parametrize("tag", sorted(STUDY_GEOMETRIES))
+def test_v3_instr_and_counted_v2_kernels(dev, tag):
+    """E2 (cooperative v3, body counts) and E3 (counted B5) against their
+    plain versions and against B4, B5 and B1, bit for bit; E2's skeleton
+    runs one body per step."""
+    calc, cfg, args = _study_args(dev, tag)
+    kw = (9, 10)
+    fn = lambda p: calc(p)[2]  # noqa: E731
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+    b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
+    b5 = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
+    before = (v3_instr.LAUNCHES["slice_epoch_v3_instr"],
+              pallas_slice.LAUNCHES["slice_epoch_v2_counted"])
+    e2 = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args)
+    e3 = pallas_slice.slice_epoch_v2_counted(calc, cfg, kw, *args)
+    assert (v3_instr.LAUNCHES["slice_epoch_v3_instr"],
+            pallas_slice.LAUNCHES["slice_epoch_v2_counted"]) == (before[0] + 1, before[1] + 1)
+    plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args, count_iters=True)
+    plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args, count_steps=True)
+    for k in range(3):
+        for got in (e2[k], e3[k], b4[k], plain3[k]):
+            assert torch.equal(got, b1[k]), k
+    assert torch.equal(e2[3], plain3[3])
+    for got, want in zip(e3, plain2):
+        assert torch.equal(got, want)
+    assert torch.equal(e3[3], b5[3])
+    cheap = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, cheap=True)
+    assert (cheap[3] == 1).all() and (cheap[2] == 0).all() and (cheap[0] == 0).all()
+
+
+def test_v3_instr_refuses_a_grid_that_is_not_co_resident(dev):
+    """More blocks of 32 lanes than 132 SMs x 32 resident blocks can hold:
+    the cooperative launch raises instead of hanging at its barrier."""
+    B = 132 * 32 * 32 + 32
+    like = gaussian(2, sigma=0.2)
+    calc = make_batched_calculator(identity_prior, like, 2, 2)
+    cfg = EpochConfig(n_dims=2, n_phi=2, grade_dims=(2,), num_repeats=(1,))
+    args = (torch.full((B, 2), 0.5, device=dev), torch.zeros(B, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev),
+            torch.ones((B, 1, 2), device=dev) / math.sqrt(2), torch.ones((B, 1), device=dev))
+    with pytest.raises(RuntimeError, match="resident"):
+        v3_instr.slice_epoch_v3_instr(calc, cfg, (1, 2), *args)
+
+
+@pytest.mark.parametrize("variant", prof_grid_overhead.VARIANTS)
+def test_grid_steps_kernel_equals_plain(dev, variant):
+    stream, head, x0 = prof_grid_overhead.grid_inputs(dev, 7, 5, 8, ones=False, seed=3)
+    got = prof_grid_overhead.grid_steps(variant, stream, head, x0)
+    assert torch.equal(got, prof_grid_overhead.grid_steps_plain(variant, stream, head, x0))
+
+
+@pytest.mark.parametrize("variant", prof_pallas_while.VARIANTS)
+def test_while_loop_kernel_equals_plain(dev, variant):
+    x = torch.rand((64, 128), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    x = 0.2 + 0.6 * x  # body20's contour crosses this range
+    got = prof_pallas_while.while_loop(variant, x, 700)
+    assert torch.equal(got, prof_pallas_while.while_loop_plain(variant, x, 700))

@@ -1,5 +1,6 @@
-"""The port imports without JAX.  Checked in a fresh interpreter, because the
-test process itself has already imported jax (tests/conftest.py)."""
+"""The port imports without JAX, and importing a module runs nothing.
+Checked in a fresh interpreter, because the test process itself has already
+imported jax (tests/conftest.py)."""
 
 import os
 import subprocess
@@ -19,6 +20,11 @@ MODULES = [
     "polychordlite_tpu_torch.ops.chained_epoch",
     "polychordlite_tpu_torch.utils.resume",
     "polychordlite_tpu_torch.models",
+    "polychordlite_tpu_torch.experiments.prof_v3_iters",
+    "polychordlite_tpu_torch.experiments.prof_lockstep_waste",
+    "polychordlite_tpu_torch.experiments.prof_grid_overhead",
+    "polychordlite_tpu_torch.experiments.prof_pallas_while",
+    "polychordlite_tpu_torch.experiments.sim_iter_distribution",
 ]
 
 
@@ -34,3 +40,4 @@ def test_import_leaves_jax_out(module):
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == ""  # importing runs nothing (the studies print their records)
