@@ -42,7 +42,13 @@ each kernel first held against its plain version on the card:
 * ``grid_overhead``: E6, the grid-step skeleton, variants A-F and B one
   launch per step;
 * ``while_cost``: E7, the loop-body cost of every body, beside B1's time
-  per micro-step.
+  per micro-step;
+* ``proto_epoch``: E4, the whole-epoch prototype (bitwise its plain version
+  at B=1024/R=8 and at its full size, B=8192/R=100), its study, and its
+  time per lane iteration beside B1's per micro-step in the same call;
+* ``proto_repeat``: E5, the one-repeat prototype (bitwise its plain version
+  at nb=2 and nb=8 blocks of 1,024 chains, and over a chain of launches),
+  and its study (one repeat, then 100 launches back to back).
 
 Each phase prints one JSON line; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
@@ -85,6 +91,7 @@ LIBRARIES = {
     "slice_epoch_v2": ["slice_epoch_v2.cu"],
     "slice_epoch_v3_instr": ["slice_epoch_v3_instr.cu"],
     "probes": ["probes.cu"],
+    "prototypes": ["prototypes.cu"],
 }
 #: the analytic inis' evidence oracles: (logZ, its sigma or None for an exact
 #: value, where it comes from).  The JAX values are the JAX package's CPU runs
@@ -254,6 +261,8 @@ def main() -> None:
     try:
         import polychordlite_tpu_torch as pt
         from polychordlite_tpu_torch.experiments import (
+            pallas_epoch_v2,
+            pallas_slice_repeat,
             prof_grid_overhead,
             prof_lockstep_waste,
             prof_pallas_while,
@@ -603,7 +612,8 @@ def main() -> None:
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
                 pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
-                prof_grid_overhead.LAUNCHES, prof_pallas_while.LAUNCHES)
+                prof_grid_overhead.LAUNCHES, prof_pallas_while.LAUNCHES,
+                pallas_epoch_v2.LAUNCHES, pallas_slice_repeat.LAUNCHES)
     launches = {k: 0 for c in counters for k in c}
 
     def reset_launches():
@@ -1020,6 +1030,95 @@ def main() -> None:
         return {"study": rec, "study_launches": study, "plain_ms_body20": plain_ms,
                 "checked_iterations": {"all": short, "body20": n}}
 
+    # ---- 13. the prototypes (E4, E5) ---------------------------------------
+    def max_err(got, want):
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+
+    @phase("proto_epoch")
+    def _():
+        e = pallas_epoch_v2
+        D = e.SIZES["D"]
+        seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+        out, errs = {}, []
+        for tag, S, R in (("small", SMALL["B"] // e.LANE, SMALL["R"]),
+                          ("full", e.SIZES["S"], e.SIZES["R"])):
+            args = e.study_inputs(dev, D, S, R, seed=SEED)
+            got = e.proto_epoch(seed, *args)
+            (*want, steps), plain_ms = cuda_once(
+                lambda: e.proto_epoch_plain(seed, *args, count_steps=True))  # noqa: B023
+            mism = decisions(f"{tag}: E4 differs from its plain version",
+                             list(zip(("cube", "logL", "nlike"), got, want)))
+            errs.append(max_err(got, want))
+            steps = steps.to(torch.int64)
+            out[tag] = {
+                "B": S * e.LANE, "R": R, "D": D, "mismatches": mism, "evals": int(got[2].sum()),
+                "accepted_frac": float((got[1] > e.LOGZERO).float().mean()),
+                "lane_iterations_sum": int(steps.sum()),
+                "lane_iterations_max": int(steps.sum(0).max()),
+                "lockstep_iterations": int(steps.flatten(1).max(1).values.sum()),
+                "ms": cuda_ms(lambda: e.proto_epoch(seed, *args), 5),  # noqa: B023
+                "plain_ms": plain_ms}
+        full = out["full"]
+        full["us_per_lane_iteration"] = full["ms"] * 1e3 / full["lane_iterations_max"]
+        # B1 in the same call, at the bench geometry (E7's measure of it)
+        calc, cfg, kw, b1_args = study_inputs()
+        b1_steps = pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *b1_args)[3]
+        b1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *b1_args), 5)
+        b1 = {"B": BENCH["B"], "R": BENCH["R"], "D": BENCH["D"], "ms": b1_ms,
+              "lane_steps_max": int(b1_steps.max()),
+              "us_per_micro_step": b1_ms * 1e3 / int(b1_steps.max())}
+        e.LAUNCHES["proto_epoch"] = 0
+        rec = e.main()
+        study = e.LAUNCHES["proto_epoch"]
+        B, R = full["B"], full["R"]
+        results["proto_epoch"] = {
+            "ms": full["ms"], "plain_ms": full["plain_ms"], "max_abs_err": max(errs),
+            "launches": study,
+            "bound": bound(4 * (D * B + B + 2 * R * D * B + 2 * R * B + B),
+                           full["lane_iterations_sum"] * gaussian_probe_flops(D))}
+        return {"checks": out, "b1": b1,
+                "e4_lane_iteration_over_b1_micro_step":
+                    full["us_per_lane_iteration"] / b1["us_per_micro_step"],
+                "study": rec, "study_launches": study}
+
+    @phase("proto_repeat")
+    def _():
+        p = pallas_slice_repeat
+        D = p.SIZES["D"]
+        seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+        out, errs = {}, []
+        for nb in (2, 8):
+            x0, nh, w, bnd = p.study_inputs(dev, D, nb, seed=SEED)
+            args = (x0, nh, w, bnd)
+            got = p.proto_repeat(seed, *args)
+            (*want, steps), plain_ms = cuda_once(
+                lambda: p.proto_repeat_plain(seed, *args, count_steps=True))  # noqa: B023
+            pairs = list(zip(("cube", "logL", "nlike"), got, want))
+            errs.append(max_err(got, want))
+            xs, xp = x0, x0  # ten launches back to back against the plain chain
+            for r in range(10):
+                xs, ls, ns = p.proto_repeat(seed + r, xs, nh, w, bnd)
+                xp, lp, n_p = p.proto_repeat_plain(seed + r, xp, nh, w, bnd)
+            pairs += [("chain_cube", xs, xp), ("chain_logL", ls, lp), ("chain_nlike", ns, n_p)]
+            out[f"nb{nb}"] = {
+                "B": nb * p.BLOCK, "D": D,
+                "mismatches": decisions(f"nb={nb}: E5 differs from its plain version", pairs),
+                "evals": int(got[2].sum()), "lane_steps_sum": int(steps.sum()),
+                "lane_steps_max": int(steps.max()),
+                "ms": cuda_ms(lambda: p.proto_repeat(seed, *args), 20),  # noqa: B023
+                "plain_ms": plain_ms}
+        p.LAUNCHES["proto_repeat"] = 0
+        rec = p.main()
+        study = p.LAUNCHES["proto_repeat"]
+        o = out["nb2"]
+        B = o["B"]
+        results["proto_repeat"] = {
+            "ms": o["ms"], "plain_ms": o["plain_ms"], "max_abs_err": max(errs),
+            "launches": study,
+            "bound": bound(4 * (3 * D * B + 4 * B + 1),
+                           o["lane_steps_sum"] * gaussian_probe_flops(D))}
+        return {"checks": out, "study": rec, "study_launches": study}
+
     for d in tmpdirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -1057,6 +1156,9 @@ def main() -> None:
              "experiments/prof_lockstep_waste.py:165", "lockstep_waste"),
             ("grid_steps", "probes.cu", "experiments/prof_grid_overhead.py:90", "grid_overhead"),
             ("while_loop", "probes.cu", "experiments/prof_pallas_while.py:66", "while_cost"),
+            ("proto_epoch", "prototypes.cu", "experiments/pallas_epoch_v2.py:141", "proto_epoch"),
+            ("proto_repeat", "prototypes.cu", "experiments/pallas_slice_repeat.py:124",
+             "proto_repeat"),
         )
     ]
     kernels = []

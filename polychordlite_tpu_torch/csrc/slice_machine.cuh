@@ -1,10 +1,10 @@
 // The per-lane slice-sampling state machine of one repeat, shared by the
 // one-thread-per-chain epoch kernels: slice_epoch.cu (B1 and its counted
 // form E1), slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
-// form E3) and slice_epoch_v3_instr.cu (E2, which keeps a lane's
-// SliceState across its bodies).  Each kernel owns only its outer loop over
-// repeats and what its TPU original does at a repeat's end (where the
-// budget is counted, whether the kernel writes the cube).
+// form E3), slice_epoch_v3_instr.cu (E2, which keeps a lane's SliceState
+// across its bodies) and prototypes.cu (E4, E5).  Each kernel owns only its
+// outer loop over repeats and what its TPU original does at a repeat's end
+// (where the budget is counted, whether the kernel writes the cube).
 //
 // One repeat on the chord x0 + t n̂ (pallas_slice_v4.py:215-348; Neal 2003,
 // chordal_sampling.f90:163-273):
@@ -19,6 +19,11 @@
 //   h_rep = mix(mix(mix(k0, k1), lane), repeat) —
 // and at most `budget` micro-steps; a repeat that reaches it unaccepted
 // returns accepted = false with t = 0 and logL = logzero.
+// With SPLIT_INIT (E5, experiments/pallas_slice_repeat.py:48-56) the
+// uniform that places the bracket is a draw of its own, taken before the
+// loop: micro-step 0 (INIT_R) draws counter 0 and micro-step it > 0 draws
+// counter it + 1, so counter 1 — the INIT_R iteration's own draw, which
+// E5 leaves unused — is never drawn.
 #pragma once
 
 #include "likelihoods.cuh"
@@ -53,13 +58,13 @@ struct SliceState {
 // One micro-step of the machine.  Returns true when the repeat accepts,
 // with t the accepted chord position and logL_store its logL (logzero for
 // a forced accept).
-template <class Like>
+template <class Like, bool SPLIT_INIT = false>
 __device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, const float* x0,
                                             const float* n, float wr, float bnd,
                                             uint32_t h_rep, int D, int max_step,
                                             int max_shrink, float& t, float& logL_store) {
     const float logzero = like.logzero;
-    const float u = slice_uniform(h_rep, s.it);
+    const float u = slice_uniform(h_rep, SPLIT_INIT && s.it > 0 ? s.it + 1 : s.it);
     ++s.it;
     switch (s.phase) {
         case PH_INIT_R:
@@ -116,7 +121,7 @@ __device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, con
     return false;
 }
 
-template <class Like>
+template <class Like, bool SPLIT_INIT = false>
 __device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const float* x0,
                                                     const float* n, float wr, float bnd,
                                                     uint32_t h_rep, int D, int max_step,
@@ -127,8 +132,8 @@ __device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const floa
     long long steps = 0;
     while (steps < budget) {
         ++steps;
-        if (slice_micro(like, s, x0, n, wr, bnd, h_rep, D, max_step, max_shrink, t,
-                        logL_store))
+        if (slice_micro<Like, SPLIT_INIT>(like, s, x0, n, wr, bnd, h_rep, D, max_step,
+                                          max_shrink, t, logL_store))
             return SliceRepeat{true, t, logL_store, s.cnt, steps};
     }
     return SliceRepeat{false, 0.0f, like.logzero, s.cnt, steps};

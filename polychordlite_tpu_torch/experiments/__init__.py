@@ -18,6 +18,10 @@ Importing a module runs nothing.
 * ``prof_grid_overhead``: E6, the grid-step skeleton (``csrc/probes.cu``);
 * ``prof_pallas_while``: E7, the cost of one loop iteration
   (``csrc/probes.cu``);
+* ``pallas_epoch_v2``: E4, the whole-epoch prototype, and its study
+  (``csrc/prototypes.cu``);
+* ``pallas_slice_repeat``: E5, the one-repeat prototype over blocks of
+  1,024 chains, and its study (``csrc/prototypes.cu``);
 * ``sim_iter_distribution``: the numpy simulation of the state machine's
   step counts and the lane efficiencies it projects (no kernel);
 * ``bench_geometry``: the studies' inputs and timer.

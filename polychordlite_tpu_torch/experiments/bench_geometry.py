@@ -56,6 +56,21 @@ def device_ms(fn, reps: int, device: torch.device):
     return start.elapsed_time(stop) / reps
 
 
+def device_once(fn, device: torch.device):
+    """(``fn()``, its device ms from CUDA events); the ms is ``None`` on
+    the CPU."""
+    if device.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(stop)
+
+
 def slice_inputs(device: torch.device, B: int, R: int, D: int, seed: int = 0):
     """(calc, cfg, key words, (x0, bound, valid, nhats, ws)) of one epoch
     of the D-dimensional Gaussian (sigma 0.1) at B chains and R repeats."""

@@ -150,13 +150,15 @@ class LaneMachine:
         self.tL = torch.zeros(B, dtype=torch.float32, device=device)
         self.tR = torch.zeros_like(self.tL)
 
-    def step(self, logL_fn, cfg, active, h_rep, w, nhat, x, bound):
+    def step(self, logL_fn, cfg, active, h_rep, w, nhat, x, bound, u=None):
         """One micro-step of every ``active`` lane on the chord x + t n̂, the
-        uniform drawn at (h_rep, it).  Returns (t, probe, logL, acc, forced);
-        an accepting lane is left for the caller to record and restart."""
+        uniform drawn at (h_rep, it) unless ``u`` (B,) float32 gives it.
+        Returns (t, probe, logL, acc, forced); an accepting lane is left for
+        the caller to record and restart."""
         logzero = self.logzero
         phase = self.phase
-        u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(torch.float32)
+        if u is None:
+            u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(torch.float32)
         self.it = torch.where(active, self.it + 1, self.it)
         is_ir = active & (phase == PH_INIT_R)
         is_il = active & (phase == PH_INIT_L)

@@ -392,3 +392,56 @@ def test_while_loop_kernel_equals_plain(dev, variant):
     x = 0.2 + 0.6 * x  # body20's contour crosses this range
     got = prof_pallas_while.while_loop(variant, x, 700)
     assert torch.equal(got, prof_pallas_while.while_loop_plain(variant, x, 700))
+
+
+# ---- the prototypes: E4 (whole epoch) and E5 (one repeat) ----------------
+
+from polychordlite_tpu_torch.experiments import (  # noqa: E402
+    pallas_epoch_v2,
+    pallas_slice_repeat,
+)
+
+
+@pytest.mark.parametrize("D,S,R", [(4, 2, 5), (20, 8, 8)])
+def test_proto_epoch_kernel_equals_plain(dev, D, S, R):
+    """E4 against its lockstep plain version on the card, bit for bit:
+    cube, logL and nlike; one launch counted."""
+    args = pallas_epoch_v2.study_inputs(dev, D, S, R, seed=D)
+    seed = torch.tensor([31], dtype=torch.int32, device=dev)
+    before = pallas_epoch_v2.LAUNCHES["proto_epoch"]
+    got = pallas_epoch_v2.proto_epoch(seed, *args)
+    assert pallas_epoch_v2.LAUNCHES["proto_epoch"] == before + 1
+    want = pallas_epoch_v2.proto_epoch_plain(seed, *args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert (got[1] > -1e30).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("D,nb", [(4, 1), (20, 2)])
+def test_proto_repeat_kernel_equals_plain(dev, D, nb):
+    """E5 against its plain version on the card, bit for bit, one repeat
+    and a chain of five launches (seed + r, the cube carried)."""
+    x0, nh, w, bound = pallas_slice_repeat.study_inputs(dev, D, nb, seed=D)
+    seed = torch.tensor([17], dtype=torch.int32, device=dev)
+    got = pallas_slice_repeat.proto_repeat(seed, x0, nh, w, bound)
+    want = pallas_slice_repeat.proto_repeat_plain(seed, x0, nh, w, bound)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    xs, xp = x0, x0
+    for r in range(5):
+        xs, ls, ns = pallas_slice_repeat.proto_repeat(seed + r, xs, nh, w, bound)
+        xp, lp, n_p = pallas_slice_repeat.proto_repeat_plain(seed + r, xp, nh, w, bound)
+        assert torch.equal(xs, xp) and torch.equal(ls, lp) and torch.equal(ns, n_p)
+
+
+def test_prototype_wrappers_raise_on_other_devices(dev):
+    seed = torch.tensor([1], dtype=torch.int32, device=dev)
+    args = [a.to("meta") for a in pallas_epoch_v2.study_inputs(dev, 4, 1, 1)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        pallas_epoch_v2.proto_epoch(seed, *args)
+    args = [a.to("meta") for a in pallas_slice_repeat.study_inputs(dev, 4, 1)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        pallas_slice_repeat.proto_repeat(seed, *args)
+    x0, nh, w, bound = pallas_slice_repeat.study_inputs(dev, 4, 1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pallas_slice_repeat.proto_repeat(seed, x0, nh, w.cpu(), bound)

@@ -25,6 +25,8 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.prof_grid_overhead",
     "polychordlite_tpu_torch.experiments.prof_pallas_while",
     "polychordlite_tpu_torch.experiments.sim_iter_distribution",
+    "polychordlite_tpu_torch.experiments.pallas_epoch_v2",
+    "polychordlite_tpu_torch.experiments.pallas_slice_repeat",
 ]
 
 
