@@ -1,18 +1,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE,PHASE,...]
 
 Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 (one ``nvcc`` each, started together; ptxas registers, stack and spills
 reported), checks each kernel against its plain torch version on the card
-(B1 v4, B2 Gram-Schmidt, B3 v5, B4 v3, B5 v2 at four geometries; E1, the
-counted v4, in the ``lane_efficiency`` study), then drives the port's paths
-and checks what comes out and which kernels ran (each path with every
-launch count set to 0 just before it):
+(B2 Gram-Schmidt, bitwise, at the bench and gaussian.ini shapes; B1 v4 at
+every group size G of lanes per chain, B3 v5, B4 v3, B5
+v2 at four geometries, B1 also against its G = 1 form; E1, the counted
+v4, in the ``lane_efficiency`` study), measures what B1's micro-step costs
+(``measure_first``: E7's ``body20`` with an IEEE division and with the
+hash, B1 at every G at the gaussian.ini, bench and 4x bench geometries,
+and the SASS of B1's Gaussian instantiations from ``cuobjdump``), then
+drives the port's paths and checks what comes out and which kernels ran
+(each path with every launch count set to 0 just before it):
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
-  ``"cuda"`` (the v4 kernel) and the Gram-Schmidt kernel;
+  ``"cuda"`` (the v4 kernel, at the G that ``choose_group`` picks, which
+  must be > 1) and the Gram-Schmidt kernel;
 * ``run_gaussian_shells_ini``: ``python3 -m polychordlite_tpu_torch`` on a
   copy of ``ini/gaussian_shells.ini`` (2-D, two shells, clustering, nlive
   500, num_repeats 10) with only ``base_dir`` and a fixed ``seed`` added;
@@ -48,13 +54,16 @@ each kernel first held against its plain version on the card:
   time per lane iteration beside B1's per micro-step in the same call;
 * ``proto_repeat``: E5, the one-repeat prototype (bitwise its plain version
   at nb=2 and nb=8 blocks of 1,024 chains, and over a chain of launches),
-  and its study (one repeat, then 100 launches back to back).
+  its time per launch from a captured CUDA graph of 20 launches back to
+  back, and its study (one repeat, then 100 launches back to back).
 
 Each phase prints one JSON line; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
 and launches on the paths, and the last line is ``{"ok": true, "device": ...}``.  Any failed
 phase exits non-zero without that line.  Without a CUDA device, or without
-the package beside this file, it exits non-zero at once.
+the package beside this file, it exits non-zero at once.  ``--only`` runs
+the named phases alone (``build`` first) and ends with ``{"ok": true,
+"only": [...], ...}`` instead of the kernels line.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "chiprun_out")
 SEED = 20250101
 BENCH = dict(B=8192, R=100, D=20)        # the slice bench geometry
+BENCH_X4 = dict(B=32768, R=100, D=20)    # ... at four times the chains
 SMALL = dict(B=1024, R=8, D=20)
 INI = dict(nDims=20, nDerived=2, nlive=500, num_repeats=40)  # ini/gaussian.ini
 # what run() gives the kernel on ini/gaussian.ini: B = nlive rounded to 8
@@ -115,6 +125,10 @@ ZOO_ORACLES = {
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+#: B2 before its redesign (the global-memory design, removed): ms at the
+#: bench shape (5, 20, 20, 8192) and where that was measured
+PREVIOUS_B2 = (1.0315, "this script on the global-memory design, H100 80GB HBM3, 700 W "
+                        "(PERF.md, section 6)")
 
 
 def emit(obj) -> None:
@@ -143,6 +157,65 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn()`` from a captured CUDA graph of
+    ``launches`` calls back to back, replayed ``reps`` times: no host work
+    between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * launches)
+
+
+def sass_report(so: str, keep: str):
+    """From ``cuobjdump`` on the library ``so``: per kernel of B1's Gaussian
+    (by G, and the counted form), the SASS ``CALL`` instructions, the
+    instructions in all and the registers, stack and local bytes; the SASS
+    of those kernels goes to ``keep``.  None when there is no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          timeout=600).stdout
+    usage = subprocess.run([tool, "-res-usage", so], capture_output=True, text=True,
+                           timeout=600).stdout
+    res = {m[0]: {"registers": int(m[1]), "stack": int(m[2]), "local": int(m[3])}
+           for m in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+                               usage)}
+    out, kept = {}, []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        m = re.search(r"slice_epoch_kernel.*12GaussianLikeLi(\d+)ELb([01])E", name)
+        if not m:
+            continue
+        tag = f"G={m[1]}" + (" counted" if m[2] == "1" else "")
+        out[tag] = {"calls": len(re.findall(r"\bCALL\b", block)),
+                    "instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/", block)),
+                    **res.get(name, {})}
+        kept.append(f"==== {tag} {name}\n{block}")
+    with open(keep, "w") as f:
+        f.write("\n".join(kept))
+    return out
 
 
 def cuda_once(fn):
@@ -250,7 +323,12 @@ def lse(values) -> float:
     return m + math.log(sum(math.exp(v - m) for v in values))
 
 
-def main() -> None:
+def main(argv=()) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default="", help="comma-separated phases to run alone")
+    selected = [p for p in parser.parse_args(argv).only.split(",") if p]
     try:
         import torch
     except ImportError:
@@ -303,6 +381,8 @@ def main() -> None:
 
     def phase(name):
         def wrap(fn):
+            if selected and name not in selected and name != "build":
+                return fn
             try:
                 out = fn()
                 emit({"phase": name, "ok": True, "card": label, **out})
@@ -326,24 +406,29 @@ def main() -> None:
                 "per_library": {k: round(v, 3) for k, v in nvcc.build_seconds.items()},
                 "ptxas": ptxas}
 
-    # ---- 2. Gram-Schmidt (B2) against its plain version --------------------
+    # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise -----------
     @phase("gram_schmidt")
     def _():
         out = {}
         for tag, shape in (("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512))):
             g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(1), device=dev)
-            q = pallas_dirs.gram_schmidt_lanes(g)
             q_plain = pallas_dirs.gram_schmidt_plain(g)
+            q = pallas_dirs.gram_schmidt_lanes(g)
+            mism = int((q != q_plain).sum())
+            if mism:
+                raise AssertionError(f"{tag}: the kernel differs from the plain version in "
+                                     f"{mism} entries")
             err = (q - q_plain).abs().max().item()
             qtq = torch.einsum("nikb,nijb->nkjb", q, q)
             orth = (qtq - torch.eye(shape[1], device=dev)[None, :, :, None]).abs().max().item()
-            if not (err <= 1e-5 and orth <= 1e-5):
+            if not (err == 0.0 and orth <= 1e-5):
                 raise AssertionError(f"{tag}: max|dq| {err:.3g}, max|QtQ - I| {orth:.3g}")
             # the yardstick: one batched Householder QR of the same bases,
             # (NB*B, D, D) with the vectors as columns; the port never calls it
             mats = g.permute(0, 3, 1, 2).reshape(-1, shape[1], shape[2]).contiguous()
             out[tag] = {
                 "shape": list(shape), "max_abs_err": err, "orth_err": orth,
+                "mismatches": mism,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
                 "plain_ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_plain(g), 3),  # noqa: B023
                 "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 5),  # noqa: B023
@@ -424,8 +509,66 @@ def main() -> None:
 
     GEOMETRIES = (("small", SMALL), ("gaussian_ini", RUN), ("bench", BENCH),
                   ("shells_ini", SHELLS))
+    GROUPS = pallas_slice_v4.GROUPS
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    # ---- 3. slice epoch (B1) against the plain torch engine ----------------
+    def mismatches(got, want):
+        return {k: int((a != b).sum()) for k, a, b in zip(("t", "logL", "nlike"), got, want)}
+
+    def decisions(tag, pairs):
+        """Mismatch counts of (name, got, want) triples; raises on any."""
+        mism = {name: int((a != b).sum()) for name, a, b in pairs}
+        if any(mism.values()):
+            raise AssertionError(f"{tag}: {mism}")
+        return mism
+
+    # ---- 3. what B1's micro-step costs (the redesign's step 0) --------------
+    @phase("measure_first")
+    def _():
+        w = prof_pallas_while
+        S, n = w.SIZES["S"], w.SIZES["n"]
+        x = 0.2 + 0.6 * torch.rand((S, w.LANE), generator=torch.Generator(dev).manual_seed(SEED),
+                                   device=dev)
+        zeros = torch.zeros((S, w.LANE), device=dev)
+        bodies = {}
+        for v in ("body20", "body20_div", "body20_hash"):
+            decisions(f"E7 {v} differs from its plain version",
+                      [(v, w.while_loop(v, x, 2000), w.while_loop_plain(v, x, 2000))])
+            ms = cuda_ms(lambda v=v: w.while_loop(v, zeros, n), 3)
+            bodies[v] = {"ms": ms, "us_per_iter": ms * 1e3 / n}
+        by_group = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH), ("bench_x4", BENCH_X4)):
+            calc, cfg, args = geometry(tag, geo)
+            one = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=1)
+            for G in GROUPS:
+                decisions(f"{tag}: B1 at G={G} differs from G=1", [
+                    (f"{k}_G{G}", a, b) for k, a, b in zip(
+                        ("t", "logL", "nlike"),
+                        pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=G), one)])
+            lane_max = int(pallas_slice_v4.slice_epoch_counted(calc, cfg, kw, *args)[3].max())
+            ms = {G: cuda_ms(lambda G=G: pallas_slice_v4.slice_epoch(  # noqa: B023
+                calc, cfg, kw, *args, group=G), 5) for G in GROUPS}  # noqa: B023
+            B, D = geo["B"], geo["D"]
+            by_group[tag] = {
+                "B": B, "R": geo["R"], "D": D, "evals": int(one[2].sum()),
+                "lane_steps_max": lane_max, "chosen_group": pallas_slice_v4.choose_group(B, D, n_sm),
+                "ms_by_group": ms, "us_per_micro_step_by_group":
+                    {G: t * 1e3 / lane_max for G, t in ms.items()},
+                "best_group": min(ms, key=ms.get)}
+        x4 = by_group["bench_x4"]["ms_by_group"][1] / by_group["bench"]["ms_by_group"][1]
+        sass = sass_report(str(nvcc.library_path("slice_epoch", LIBRARIES["slice_epoch"])),
+                           os.path.join(OUT, "slice_epoch_gaussian.sass"))
+        results["measure_first"] = {"bodies": bodies, "b1_by_group": by_group}
+        return {"n_sm": n_sm, "bodies": bodies,
+                "body20_div_minus_body20_us": bodies["body20_div"]["us_per_iter"]
+                - bodies["body20"]["us_per_iter"],
+                "body20_hash_minus_body20_us": bodies["body20_hash"]["us_per_iter"]
+                - bodies["body20"]["us_per_iter"],
+                "b1_by_group": by_group, "b1_g1_x4_chains_time_ratio": x4,
+                "sass": sass if sass is not None else "cuobjdump not found on this machine"}
+
+    # ---- 4. slice epoch (B1) at every G against the plain torch engine -----
     @phase("slice_epoch")
     def _():
         out = {}
@@ -436,23 +579,28 @@ def main() -> None:
             kw = (0x01234567, 0x89ABCDEF)
             valid = args[2]
             t, l, n = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
-            tp, lp, n_p = slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args)  # noqa: B023
-            mism = {
-                "t": int((t != tp).sum()), "logL": int((l != lp).sum()),
-                "nlike": int((n != n_p).sum()),
-            }
-            if any(mism.values()):
+            tp, lp, n_p = want = slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args)  # noqa: B023
+            one = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=1)
+            mism = {"default_vs_plain": mismatches((t, l, n), want),
+                    "default_vs_G1": mismatches((t, l, n), one)}
+            for G in GROUPS:
+                mism[f"G{G}_vs_plain"] = mismatches(
+                    pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=G), want)
+            if any(v for m in mism.values() for v in m.values()):
                 raise AssertionError(f"{tag}: kernel and plain engine differ {mism}")
             err = max((t - tp).abs().max().item(), (l - lp).abs().max().item())
             evals = int(n.sum())
             ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            g1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(  # noqa: B023
+                calc, cfg, kw, *args, group=1), 5)  # noqa: B023
             plain_ms = cuda_ms(
                 lambda: slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args), 1  # noqa: B023
             )
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
-                "evals": evals, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms,
+                "group": pallas_slice_v4.choose_group(B, D, n_sm),
+                "evals": evals, "max_abs_err": err, "mismatches": mism,
+                "ms": ms, "g1_ms": g1_ms, "plain_ms": plain_ms,
                 "evals_per_s": evals / (ms / 1e3), "plain_evals_per_s": evals / (plain_ms / 1e3),
             }
         results["slice_epoch"] = {**out["bench"],
@@ -617,7 +765,7 @@ def main() -> None:
     launches = {k: 0 for c in counters for k in c}
 
     def reset_launches():
-        for c in counters:
+        for c in counters + (pallas_slice_v4.GROUP_LAUNCHES,):
             for k in c:
                 c[k] = 0
 
@@ -649,6 +797,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ran = read_launches()
+            groups = {G: c for G, c in pallas_slice_v4.GROUP_LAUNCHES.items() if c}
             stats = PolyChordOutput(base, "test")
             with open(os.path.join(base, "test.metrics.jsonl")) as f:
                 last = json.loads(f.read().splitlines()[-1])
@@ -658,6 +807,8 @@ def main() -> None:
             raise AssertionError("chained epochs were switched off during the run")
         if not only(ran, ("gram_schmidt", "slice_epoch")):
             raise AssertionError(f"the path did not run B1 and B2 (only): {ran}")
+        if 1 in groups or not groups:
+            raise AssertionError(f"B1 ran at G = 1 on the path: launches by G {groups}")
         add_launches(ran)
         if not (math.isfinite(stats.logZ) and abs(stats.logZ - 0.0) < 3 * stats.logZerr):
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is not within 3 sigma of 0")
@@ -667,7 +818,7 @@ def main() -> None:
             "engine_used": last["engine"], "chained_epochs": last["chained_epochs"],
             "ndead": stats.ndead, "logZ": stats.logZ,
             "logZerr": stats.logZerr, "wall_s": wall, "dead_per_s": stats.ndead / wall,
-            "launches": ran,
+            "launches": ran, "slice_epoch_launches_by_group": groups,
             "device_frac": last.get("device_frac"),
             "host_totals_s": last.get("host_totals"),
             "epoch_timers_s": last.get("epoch_timers"),
@@ -889,13 +1040,6 @@ def main() -> None:
     def study_inputs():
         return slice_inputs(dev, BENCH["B"], BENCH["R"], BENCH["D"], 0)
 
-    def decisions(tag, pairs):
-        """Mismatch counts of (name, got, want) triples; raises on any."""
-        mism = {name: int((a != b).sum()) for name, a, b in pairs}
-        if any(mism.values()):
-            raise AssertionError(f"{tag}: {mism}")
-        return mism
-
     STUDY_GEOMETRIES = (("small", SMALL), ("gaussian_ini", RUN), ("bench", BENCH))
 
     @phase("lockstep_waste")
@@ -1105,7 +1249,8 @@ def main() -> None:
                 "mismatches": decisions(f"nb={nb}: E5 differs from its plain version", pairs),
                 "evals": int(got[2].sum()), "lane_steps_sum": int(steps.sum()),
                 "lane_steps_max": int(steps.max()),
-                "ms": cuda_ms(lambda: p.proto_repeat(seed, *args), 20),  # noqa: B023
+                "ms": graph_ms(lambda: p.proto_repeat(seed, *args)),  # noqa: B023
+                "host_clocked_ms": cuda_ms(lambda: p.proto_repeat(seed, *args), 20),  # noqa: B023
                 "plain_ms": plain_ms}
         p.LAUNCHES["proto_repeat"] = 0
         rec = p.main()
@@ -1127,6 +1272,11 @@ def main() -> None:
         emit({"phase": "no_jax", "ok": False, "error": "jax was imported"})
     if failed:
         fail(f"failed phases: {failed}")
+    if selected:
+        emit({"ok": True, "only": selected,
+              "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return
 
     # bounds at the bench geometry, from its shapes and the micro-steps its
     # data needed (E1's count; every slice kernel makes those decisions)
@@ -1164,6 +1314,12 @@ def main() -> None:
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
                     "slice_epoch_v2")  # the others: their studies' own launches
+    se = results["slice_epoch"]
+    redesigned = {  # this run's G = 1 form of B1; B2's design before the redesign
+        "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],
+                        "previous": "the G = 1 form, in this run"},
+        "gram_schmidt": {"previous_ms": PREVIOUS_B2[0], "previous": PREVIOUS_B2[1]},
+    }
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]
         plain_ms = r.get("plain_ms", results["slice_epoch"]["plain_ms"])  # E1's plain: B1's
@@ -1172,6 +1328,7 @@ def main() -> None:
             "launches": launches[name] if name in PATH_KERNELS else r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            **redesigned.get(name, {}),
         })
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
@@ -1182,4 +1339,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

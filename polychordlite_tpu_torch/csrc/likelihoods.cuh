@@ -2,7 +2,7 @@
 // slice_epoch_v2.cu, slice_epoch_v3.cu, slice_epoch_v3_instr.cu,
 // slice_epoch_v5.cu; the Gaussian also of prototypes.cu).
 //
-// A functor returns the logL of the probe x0 + t n̂ with calculate_point's
+// A functor gives the logL of the probe x0 + t n̂ with calculate_point's
 // semantics: a probe outside the unit cube, or a NaN, gives logzero.  Each
 // one applies a per-coordinate affine prior, theta[d] = a[d] + s[d] * cube[d]
 // (priors.py), and then does the float operations of its torch likelihood
@@ -13,6 +13,20 @@
 // the torch calc bit for bit, which ops/pallas_slice_v4.py::validate_functor
 // checks before a run uses it.  Sums run over coordinates in index order,
 // starting from the first term where the torch form does.
+//
+// Each functor is written in two stages, so that the coordinates of one
+// chain can be spread over the lanes of a group (slice_epoch.cu):
+//   term(th, d, out)  the per-coordinate stage: the NT terms of coordinate
+//                     d from its theta (for the Gaussian, the division and
+//                     the square);
+//   combine(T, D)     the ordered combine: the functor's sums over the terms
+//                     T[j][d], d = 0..D-1 in index order, and what follows.
+// A functor whose terms couple coordinates exports theta itself and keeps
+// its body in the combine (the shells, himmelblau, rosenbrock,
+// random_gaussian).  like_eval runs both stages in one thread (every kernel
+// but the grouped B1); slice_epoch.cu's group form runs the first on the
+// lane that owns coordinate d and the second on every lane of the group.
+// The rounded operations and their order are the same either way.
 #pragma once
 
 #include "slice_common.cuh"
@@ -28,19 +42,38 @@ struct AffinePrior {
 // constant memory on the launch's stream before the kernel.
 __constant__ float c_like_matrix[SLICE_MAXD * SLICE_MAXD];
 
-// theta_d of the probe x0 + t n̂; clears `inside` if its cube coordinate
-// leaves [0, 1].
-__device__ __forceinline__ float probe_theta(const AffinePrior& prior, const float* x0,
-                                             const float* n, float t, int d,
+// theta of one coordinate of the probe x0 + t n̂ under the prior a + s cube;
+// clears `inside` if the cube coordinate leaves [0, 1].
+__device__ __forceinline__ float probe_theta(float x0, float n, float t, float a, float s,
                                              bool& inside) {
-    const float p = __fadd_rn(x0[d], __fmul_rn(t, n[d]));
+    const float p = __fadd_rn(x0, __fmul_rn(t, n));
     inside = inside && (p >= 0.0f) && (p <= 1.0f);
-    return __fadd_rn(__fmul_rn(p, prior.s[d]), prior.a[d]);
+    return __fadd_rn(__fmul_rn(p, s), a);
 }
 
 __device__ __forceinline__ float like_result(float logL, bool inside, float logzero) {
     if (logL != logL) logL = logzero;
     return inside ? logL : logzero;
+}
+
+// Both stages in one thread: the logL of the probe x0 + t n̂ (x0, n indexed
+// by coordinate).
+template <class Like>
+__device__ __forceinline__ float like_eval(const Like& like, const float* x0, const float* n,
+                                           float t, int D) {
+    bool inside = true;
+    float T[Like::NT][SLICE_MAXD];
+#pragma unroll
+    for (int d = 0; d < SLICE_MAXD; ++d) {
+        if (d < D) {
+            float o[Like::NT];
+            like.term(probe_theta(x0[d], n[d], t, like.prior.a[d], like.prior.s[d], inside), d,
+                      o);
+#pragma unroll
+            for (int j = 0; j < Like::NT; ++j) T[j][d] = o[j];
+        }
+    }
+    return like_result(like.combine(T, D), inside, like.logzero);
 }
 
 // logaddexp(l1, l2) - log 2, spelled out as torch's form does it.
@@ -59,20 +92,18 @@ __device__ __noinline__ float like_cosf(float x) { return cosf(x); }
 struct GaussianLike {
     AffinePrior prior;
     float mu, sigma, norm, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        const float z = __fdiv_rn(__fsub_rn(th, mu), sigma);
+        out[0] = __fmul_rn(z, z);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float chi2 = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float z = __fdiv_rn(__fsub_rn(th, mu), sigma);
-                chi2 = __fadd_rn(chi2, __fmul_rn(z, z));
-            }
-        }
-        return like_result(__fsub_rn(norm, __fmul_rn(0.5f, chi2)), inside, logzero);
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) chi2 = __fadd_rn(chi2, T[0][d]);
+        return __fsub_rn(norm, __fmul_rn(0.5f, chi2));
     }
 };
 
@@ -83,19 +114,18 @@ struct GaussianLike {
 struct GaussianShellsLike {
     AffinePrior prior;
     float centre, radius, two_s2, neg_a, log_two, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float th0 = 0.0f, rest = 0.0f;
 #pragma unroll
         for (int d = 0; d < SLICE_MAXD; ++d) {
             if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
                 if (d == 0)
-                    th0 = th;
+                    th0 = T[0][d];
                 else
-                    rest = __fadd_rn(rest, __fmul_rn(th, th));
+                    rest = __fadd_rn(rest, __fmul_rn(T[0][d], T[0][d]));
             }
         }
         const float c1 = __fadd_rn(th0, centre);
@@ -106,7 +136,7 @@ struct GaussianShellsLike {
         const float d2 = __fsub_rn(r2, radius);
         const float l1 = __fsub_rn(neg_a, __fdiv_rn(__fmul_rn(d1, d1), two_s2));
         const float l2 = __fsub_rn(neg_a, __fdiv_rn(__fmul_rn(d2, d2), two_s2));
-        return like_result(mix_of_two(l1, l2, log_two), inside, logzero);
+        return mix_of_two(l1, l2, log_two);
     }
 };
 
@@ -115,20 +145,18 @@ struct GaussianShellsLike {
 struct HalfGaussianLike {
     AffinePrior prior;
     float mu, sigma, norm, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int d, float* out) const {
+        const float z = __fdiv_rn(__fsub_rn(th, d == 0 ? 0.0f : mu), sigma);
+        out[0] = __fmul_rn(z, z);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float chi2 = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float z = __fdiv_rn(__fsub_rn(th, d == 0 ? 0.0f : mu), sigma);
-                chi2 = __fadd_rn(chi2, __fmul_rn(z, z));
-            }
-        }
-        return like_result(__fsub_rn(norm, __fmul_rn(0.5f, chi2)), inside, logzero);
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) chi2 = __fadd_rn(chi2, T[0][d]);
+        return __fsub_rn(norm, __fmul_rn(0.5f, chi2));
     }
 };
 
@@ -136,21 +164,17 @@ struct HalfGaussianLike {
 struct PyramidalLike {
     AffinePrior prior;
     float mu, sigma, norm, factor, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        out[0] = __fdiv_rn(fabsf(__fsub_rn(th, mu)), sigma);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float m = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float z = __fdiv_rn(fabsf(__fsub_rn(th, mu)), sigma);
-                m = d == 0 ? z : fmaxf(m, z);
-            }
-        }
-        const float q = __fdiv_rn(__fmul_rn(m, m), factor);
-        return like_result(__fsub_rn(norm, q), inside, logzero);
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) m = d == 0 ? T[0][d] : fmaxf(m, T[0][d]);
+        return __fsub_rn(norm, __fdiv_rn(__fmul_rn(m, m), factor));
     }
 };
 
@@ -159,22 +183,18 @@ struct PyramidalLike {
 struct RastriginLike {
     AffinePrior prior;
     float log_norm, A, two_pi, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        const float c = like_cosf(__fmul_rn(th, two_pi));
+        out[0] = __fsub_rn(__fadd_rn(__fmul_rn(th, th), log_norm), __fmul_rn(c, A));
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float total = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float c = like_cosf(__fmul_rn(th, two_pi));
-                const float term =
-                    __fsub_rn(__fadd_rn(__fmul_rn(th, th), log_norm), __fmul_rn(c, A));
-                total = d == 0 ? term : __fadd_rn(total, term);
-            }
-        }
-        return like_result(-total, inside, logzero);
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) total = d == 0 ? T[0][d] : __fadd_rn(total, T[0][d]);
+        return -total;
     }
 };
 
@@ -183,24 +203,26 @@ struct RastriginLike {
 struct TwinGaussianLike {
     AffinePrior prior;
     float off, sigma, norm, log_two, logzero;
+    static constexpr int NT = 2;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int d, float* out) const {
+        const float z1 = __fdiv_rn(__fsub_rn(th, d < 2 ? -off : 0.0f), sigma);
+        const float z2 = __fdiv_rn(__fsub_rn(th, d < 2 ? off : 0.0f), sigma);
+        out[0] = __fmul_rn(z1, z1);
+        out[1] = __fmul_rn(z2, z2);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float c1 = 0.0f, c2 = 0.0f;
 #pragma unroll
         for (int d = 0; d < SLICE_MAXD; ++d) {
             if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float z1 = __fdiv_rn(__fsub_rn(th, d < 2 ? -off : 0.0f), sigma);
-                const float z2 = __fdiv_rn(__fsub_rn(th, d < 2 ? off : 0.0f), sigma);
-                c1 = d == 0 ? __fmul_rn(z1, z1) : __fadd_rn(c1, __fmul_rn(z1, z1));
-                c2 = d == 0 ? __fmul_rn(z2, z2) : __fadd_rn(c2, __fmul_rn(z2, z2));
+                c1 = d == 0 ? T[0][d] : __fadd_rn(c1, T[0][d]);
+                c2 = d == 0 ? T[1][d] : __fadd_rn(c2, T[1][d]);
             }
         }
         const float l1 = __fsub_rn(norm, __fmul_rn(0.5f, c1));
         const float l2 = __fsub_rn(norm, __fmul_rn(0.5f, c2));
-        return like_result(mix_of_two(l1, l2, log_two), inside, logzero);
+        return mix_of_two(l1, l2, log_two);
     }
 };
 
@@ -209,23 +231,15 @@ struct TwinGaussianLike {
 struct HimmelblauLike {
     AffinePrior prior;
     float norm, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
-        float th0 = 0.0f, th1 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                if (d == 0) th0 = th;
-                if (d == 1) th1 = th;
-            }
-        }
+    __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+        const float th0 = D > 0 ? T[0][0] : 0.0f;
+        const float th1 = D > 1 ? T[0][1] : 0.0f;
         const float a = __fsub_rn(__fadd_rn(__fmul_rn(th0, th0), th1), 11.0f);
         const float b = __fsub_rn(__fadd_rn(th0, __fmul_rn(th1, th1)), 7.0f);
-        const float logL = __fsub_rn(__fsub_rn(norm, __fmul_rn(a, a)), __fmul_rn(b, b));
-        return like_result(logL, inside, logzero);
+        return __fsub_rn(__fsub_rn(norm, __fmul_rn(a, a)), __fmul_rn(b, b));
     }
 };
 
@@ -234,15 +248,15 @@ struct HimmelblauLike {
 struct RosenbrockLike {
     AffinePrior prior;
     float a, b, norm, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float prev = 0.0f, total = 0.0f;
 #pragma unroll
         for (int d = 0; d < SLICE_MAXD; ++d) {
             if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
+                const float th = T[0][d];
                 if (d > 0) {
                     const float u = __fsub_rn(a, prev);
                     const float v = __fsub_rn(th, __fmul_rn(prev, prev));
@@ -252,7 +266,7 @@ struct RosenbrockLike {
                 prev = th;
             }
         }
-        return like_result(__fsub_rn(norm, total), inside, logzero);
+        return __fsub_rn(norm, total);
     }
 };
 
@@ -261,23 +275,19 @@ struct RosenbrockLike {
 struct EggboxLike {
     AffinePrior prior;
     float logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        out[0] = like_cosf(__fdiv_rn(th, 2.0f));
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float p = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                const float c = like_cosf(__fdiv_rn(th, 2.0f));
-                p = d == 0 ? c : __fmul_rn(p, c);
-            }
-        }
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) p = d == 0 ? T[0][d] : __fmul_rn(p, T[0][d]);
         const float q = __fadd_rn(p, 2.0f);
         const float q2 = __fmul_rn(q, q);
-        const float q5 = __fmul_rn(q, __fmul_rn(q2, q2));
-        return like_result(-q5, inside, logzero);
+        return -__fmul_rn(q, __fmul_rn(q2, q2));
     }
 };
 
@@ -286,21 +296,18 @@ struct EggboxLike {
 struct GaussianShellLike {
     AffinePrior prior;
     float radius, two_s2, neg_a, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        out[0] = __fmul_rn(th, th);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float s = 0.0f;
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = probe_theta(prior, x0, n, t, d, inside);
-                s = d == 0 ? __fmul_rn(th, th) : __fadd_rn(s, __fmul_rn(th, th));
-            }
-        }
+        for (int d = 0; d < SLICE_MAXD; ++d)
+            if (d < D) s = d == 0 ? T[0][d] : __fadd_rn(s, T[0][d]);
         const float dr = __fsub_rn(sqrtf(s), radius);
-        const float logL = __fsub_rn(neg_a, __fdiv_rn(__fmul_rn(dr, dr), two_s2));
-        return like_result(logL, inside, logzero);
+        return __fsub_rn(neg_a, __fdiv_rn(__fmul_rn(dr, dr), two_s2));
     }
 };
 
@@ -311,14 +318,16 @@ struct GaussianShellLike {
 struct RandomGaussianLike {
     AffinePrior prior;
     float mu, norm, logzero;
+    static constexpr int NT = 1;
 
-    __device__ __forceinline__ float operator()(const float* x0, const float* n,
-                                                float t, int D) const {
-        bool inside = true;
+    __device__ __forceinline__ void term(float th, int, float* out) const {
+        out[0] = __fsub_rn(th, mu);
+    }
+    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
         float dv[SLICE_MAXD];
 #pragma unroll
         for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) dv[d] = __fsub_rn(probe_theta(prior, x0, n, t, d, inside), mu);
+            if (d < D) dv[d] = T[0][d];
         float q = 0.0f;
         for (int i = 0; i < D; ++i) {
             float row = 0.0f;
@@ -326,7 +335,7 @@ struct RandomGaussianLike {
                 row = __fadd_rn(row, __fmul_rn(c_like_matrix[i * D + j], dv[j]));
             q = __fadd_rn(q, __fmul_rn(dv[i], row));
         }
-        return like_result(__fsub_rn(norm, __fmul_rn(0.5f, q)), inside, logzero);
+        return __fsub_rn(norm, __fmul_rn(0.5f, q));
     }
 };
 

@@ -35,6 +35,12 @@
 //            d^2 (d in index order), acc = logL > -40 ? acc + 1 : acc / 2,
 //            with b the (20, S, 128) broadcast of the input, read from
 //            memory so that the 20 coordinates are not folded into one.
+// Two more bodies split what B1's micro-step costs beyond body20 (they
+// have no TPU original):
+//   body20_div   body20 with d = (probe - 0.5) / 0.1, an IEEE division
+//                (__fdiv_rn) per coordinate in place of the multiply;
+//   body20_hash  body20 with acc += u first, u the prng body's murmur3
+//                uniform of the iteration.
 // Every float operation is a rounded intrinsic (and the file is built with
 // --fmad=false), so each kernel equals its plain torch version bit for bit.
 //
@@ -183,7 +189,8 @@ extern "C" int grid_steps_launch(int variant, const void* stream_in, const void*
 // ---------------------------------------------------------------------------
 // loop bodies (E7)
 
-enum { W_COUNTER = 0, W_ANY_GRID, W_ANY_WARP, W_ANY_CTA, W_PRNG, W_BODY20 };
+enum { W_COUNTER = 0, W_ANY_GRID, W_ANY_WARP, W_ANY_CTA, W_PRNG, W_BODY20, W_BODY20_DIV,
+       W_BODY20_HASH };
 
 #define BODY20_D 20
 
@@ -223,16 +230,21 @@ __global__ void while_loop_kernel(const float* __restrict__ x, const float* __re
     } else if constexpr (VARIANT == W_PRNG) {
         const uint32_t h = mix32(7u, (uint32_t)e);
         for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, slice_uniform(h, (uint32_t)i));
-    } else if constexpr (VARIANT == W_BODY20) {
+    } else if constexpr (VARIANT == W_BODY20 || VARIANT == W_BODY20_DIV ||
+                         VARIANT == W_BODY20_HASH) {
         float b[BODY20_D];
 #pragma unroll
         for (int d = 0; d < BODY20_D; ++d) b[d] = e < E ? b20[(size_t)d * E + e] : 0.0f;
+        const uint32_t h = mix32(7u, (uint32_t)e);
         for (int i = 0; i < n; ++i) {
+            if constexpr (VARIANT == W_BODY20_HASH)
+                acc = __fadd_rn(acc, slice_uniform(h, (uint32_t)i));
             const float step = __fmul_rn(0.001f, acc);
             float sum = 0.0f;
 #pragma unroll
             for (int d = 0; d < BODY20_D; ++d) {
-                const float dd = __fmul_rn(__fsub_rn(__fadd_rn(b[d], step), 0.5f), 10.0f);
+                const float x = __fsub_rn(__fadd_rn(b[d], step), 0.5f);
+                const float dd = VARIANT == W_BODY20_DIV ? __fdiv_rn(x, 0.1f) : __fmul_rn(x, 10.0f);
                 sum = d == 0 ? __fmul_rn(dd, dd) : __fadd_rn(sum, __fmul_rn(dd, dd));
             }
             const float logL = __fmul_rn(-0.5f, sum);
@@ -245,7 +257,7 @@ __global__ void while_loop_kernel(const float* __restrict__ x, const float* __re
 }
 
 // variant: a W_* id; x and out (E,) float32 with E = S * 128; b20 (20, E)
-// float32 for body20 (else null); flags (3,) int32 zeroed, for the grid
+// float32 for the body20 forms (else null); flags (3,) int32 zeroed, for the grid
 // form.  Returns a CUDA error code.
 extern "C" int while_loop_launch(int variant, const void* x, const void* b20, void* out,
                                  void* flags, int n, int E, void* stream) {
@@ -262,6 +274,8 @@ extern "C" int while_loop_launch(int variant, const void* x, const void* b20, vo
         case W_ANY_CTA: while_loop_kernel<W_ANY_CTA><<<blocks, LANES, 0, st>>>(a_x, a_b, a_out, a_flags, n, E); break;
         case W_PRNG: while_loop_kernel<W_PRNG><<<blocks, LANES, 0, st>>>(a_x, a_b, a_out, a_flags, n, E); break;
         case W_BODY20: while_loop_kernel<W_BODY20><<<blocks, LANES, 0, st>>>(a_x, a_b, a_out, a_flags, n, E); break;
+        case W_BODY20_DIV: while_loop_kernel<W_BODY20_DIV><<<blocks, LANES, 0, st>>>(a_x, a_b, a_out, a_flags, n, E); break;
+        case W_BODY20_HASH: while_loop_kernel<W_BODY20_HASH><<<blocks, LANES, 0, st>>>(a_x, a_b, a_out, a_flags, n, E); break;
         case W_ANY_GRID: {
             void* args[] = {&a_x, &a_b, &a_out, &a_flags, &n, &E};
             return coop_launch(while_loop_kernel<W_ANY_GRID>, blocks, LANES, 0, args, st);

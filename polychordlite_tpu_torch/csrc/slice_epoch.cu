@@ -1,4 +1,4 @@
-// Free-running slice-sampling epoch: one thread per chain.
+// Free-running slice-sampling epoch: one chain on a group of G lanes.
 //
 // Replaces the TPU kernel polychordlite_tpu/ops/pallas_slice_v4.py::
 // build_epoch_fn_pallas_v4 (kernel body :136-418).  It carries over v4's
@@ -8,151 +8,327 @@
 // (slice_repeat) and is shared with the v3 and v2 kernels.  v4's sliding
 // window, DMA ring and SMEM base exist only because per-lane indexing is
 // costly on the TPU; a lane's stalls there never change its own counter
-// stream, so a thread that runs freely makes the same decisions.  A lane
+// stream, so a chain that runs freely makes the same decisions.  A chain
 // stops after the same bound on micro-steps over the epoch that v4 has
 // (pallas_slice_v4.py:134).
 //
+// What bounds it on the card (PERF.md): not bytes and not the
+// arithmetic rate, but one micro-step's dependent chain with too few warps
+// to hide it.  A micro-step is the murmur3 hash (E7's body20_hash: +0.11
+// µs over body20's 0.11 µs per iteration), the state machine, and per
+// coordinate the probe, the wall test, the prior and an IEEE division — a
+// Newton sequence with a slow-path CALL in SASS, 32 of them in the
+// one-thread kernel's unrolled loop (body20_div: +0.50 µs for 20) — then
+// the index-order sum.  One thread per chain takes 2.7 µs per micro-step,
+// and 4x the chains take only 1.3x the time: at B = 8192 there are ~2
+// warps per SM, at gaussian.ini's B = 512 16 warps on the whole card.
+//
+// The design: G lanes of one warp (G in 1, 2, 4, ..., 32) hold one chain.
+// Lane g owns the coordinates d = g + k G and keeps their x0, n̂ and prior
+// coefficients in registers.  Every lane of the group runs the same scalar
+// state machine and draws the same murmur3 uniform, so nothing is broadcast
+// for the decisions.  A probe's per-coordinate stage (likelihoods.cuh:
+// term) runs on the lane that owns the coordinate, so the group shares the
+// D divisions; the wall flag is reduced over the group's lanes by a ballot
+// and the terms reach every lane by __shfl_sync, where each lane adds them
+// in index order (combine) exactly as the one-thread form does.  The 32 / G
+// chains of a warp run one loop of micro-steps together (group_epoch), each
+// chain in its own repeat and phase: so the warp's ballots and shuffles
+// take the full mask.  (Per-group masks, with each chain's loops
+// free-running, made the chains of a warp take turns: 33 WARPSYNCs per
+// micro-step, and at G = 2 a micro-step cost twice G = 1's.)  Nothing
+// synchronises beyond the warp.  More lanes per chain put more warps on the
+// card (latency hidden) and spend G times the issue slots on each chain's
+// machine and sums (throughput), so the launch picks G from B, D and the
+// SM count (ops/pallas_slice_v4.py::choose_group).  G = 1 is the same
+// template with the group parts compiled out: one thread per chain, its
+// repeats one slice_repeat after another.
+//
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
 // TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
-// the repository's top-level experiments/): the same kernel, instantiated with
-// COUNTED, also writes the micro-steps each lane executed and, per warp,
-// the largest of its 32 lanes' (__reduce_max_sync).  A warp runs as long
-// as its slowest lane, so sum(lane steps) / (32 * sum(warp max)) is the
-// share of issued lane-steps that did work: the lane efficiency.  Its t,
-// logL and nlike are B1's bit for bit.
+// the repository's top-level experiments/): the G = 1 kernel, instantiated
+// with COUNTED, also writes the micro-steps each lane executed and, per
+// warp, the largest of its 32 lanes' (__reduce_max_sync).  A warp runs as
+// long as its slowest lane, so sum(lane steps) / (32 * sum(warp max)) is
+// the share of issued lane-steps that did work: the lane efficiency of the
+// one-thread design.  Its t, logL and nlike are B1's bit for bit.
 //
-// The likelihood is evaluated inside the kernel by a functor (template
-// parameter) from likelihoods.cuh, behind a per-coordinate affine prior;
-// every float operation is an explicitly rounded intrinsic, in the same
+// Every float operation is an explicitly rounded intrinsic, in the same
 // order as the plain torch engine (ops/slice_kernel.py) and the torch
-// likelihoods (models/examples.py), so the kernel and its plain version
-// agree bit for bit.
+// likelihoods (models/examples.py), so the kernel at every G and its plain
+// version agree bit for bit.
 //
 // Layout: x0 (D, B), nhat (R, D, B) and w (R, B) with the chain axis
-// minor, so neighbouring threads read neighbouring words; outputs t, logL
-// (R, B) float32 and nlike (R, B) int32.
-//
-// What bounds it on the card: the work is the likelihood at every
-// micro-step (~4 flops per dimension) plus the hash, about 1 kFLOP per
-// probe, and a few hundred bytes of direction per repeat — neither the
-// arithmetic rate nor the memory bandwidth is near its limit.  The limit
-// is parallelism and divergence: one thread per chain gives B threads
-// (8192 at the bench geometry, 64 per SM), and lanes of a warp take
-// different paths through the state machine and different numbers of
-// probes per repeat, so a warp runs as long as its slowest lane.  The
-// design keeps all per-lane state in registers (x0 and n̂ as arrays of
-// SLICE_MAXD with static indices) and uses small blocks (32 threads) to
-// spread the chains over as many SMs as possible.
+// minor; outputs t, logL (R, B) float32 and nlike (R, B) int32.  With
+// G > 1 a warp's load of one coordinate touches G rows of 32 / G chains
+// each; chains of a warp sit in different repeats (they run freely), so a
+// repeat's directions cannot be staged for the block — they are read once
+// per repeat, a few hundred bytes against the repeat's ~10 probes.
 
 #include "slice_machine.cuh"
 
-template <class Like, bool COUNTED>
-__global__ void slice_epoch_kernel(Like like, const float* __restrict__ x0t,
-                                   const float* __restrict__ bound,
-                                   const float* __restrict__ valid,
-                                   const float* __restrict__ nhat,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ t_out,
-                                   float* __restrict__ logL_out,
-                                   int* __restrict__ nlike_out, int B, int D,
-                                   int R, uint32_t k0, uint32_t k1, int max_step,
-                                   int max_shrink, long long cap,
-                                   int* __restrict__ lane_steps,
-                                   int* __restrict__ warp_max) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    long long steps = 0;  // micro-steps of this lane in the epoch
-    if (b < B) {
-        const float logzero = like.logzero;
-        int r = 0;
-        if (valid[b] > 0.5f) {
-            float x0[SLICE_MAXD];
-            float n[SLICE_MAXD];
-            slice_load(x0, x0t, 0, D, B, b);
-            const float bnd = bound[b];
-            const uint32_t h_lane = mix32(mix32(k0, k1), (uint32_t)b);
-            for (; r < R; ++r) {
-                slice_load(n, nhat, (size_t)r * D * B, D, B, b);
-                const float wr = w[(size_t)r * B + b];
-                const SliceRepeat rep =
-                    slice_repeat(like, x0, n, wr, bnd, mix32(h_lane, (uint32_t)r), D,
-                                 max_step, max_shrink, cap - steps);
-                steps += rep.steps;
-                const size_t o = (size_t)r * B + b;
-                nlike_out[o] = rep.cnt;
-                t_out[o] = rep.t;
-                logL_out[o] = rep.logL;
-                if (!rep.accepted) {  // the epoch's budget: the lane stops here
-                    ++r;
-                    break;
+struct EpochArgs {
+    const float* x0t;
+    const float* bound;
+    const float* valid;
+    const float* nhat;
+    const float* w;
+    float* t_out;
+    float* logL_out;
+    int* nlike_out;
+    int B, D, R;
+    uint32_t k0, k1;
+    int max_step, max_shrink;
+    long long cap;
+    int* lane_steps;  // the counted form's outputs, else null
+    int* warp_max;
+};
+
+// Lane g of the group of G lanes that holds one chain: the functor, the
+// prior coefficients of the coordinates d = g + k G it owns, and its
+// group's lanes in the warp.  like_eval on it is the two-stage form; every
+// lane of the warp calls it together (group_epoch), so its warp operations
+// take the full mask.
+template <int G, class Like>
+struct GroupLane {
+    static constexpr int K = SLICE_MAXD / G;
+    const Like& like;
+    float a[K], s[K];
+    int g;
+    unsigned mask;
+    float logzero;
+};
+
+template <int G, class Like>
+__device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const float* x0,
+                                           const float* n, float t, int D) {
+    constexpr int K = GroupLane<G, Like>::K, NT = Like::NT;
+    bool inside = true;
+    float own[NT][K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {  // the per-coordinate stage, on the owner
+        const int d = L.g + k * G;
+        float o[NT] = {};
+        if (d < D) L.like.term(probe_theta(x0[k], n[k], t, L.a[k], L.s[k], inside), d, o);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) own[j][k] = o[j];
+    }
+    inside = (__ballot_sync(0xffffffffu, inside) & L.mask) == L.mask;
+    // every term to every lane of the group, in batches of 8 slots under a
+    // warp-uniform test so that a batch's shuffles issue back to back
+    float T[NT][SLICE_MAXD];
+#pragma unroll
+    for (int c = 0; c < SLICE_MAXD; c += 8) {
+        if (c < D) {
+#pragma unroll
+            for (int d = c; d < c + 8; ++d)
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    T[j][d] = __shfl_sync(0xffffffffu, own[j][d / G], d % G, G);
+        }
+    }
+    return like_result(L.like.combine(T, D), inside, L.logzero);
+}
+
+__device__ __forceinline__ void write_repeat(const EpochArgs& a, int r, int b, float t,
+                                             float logL, int cnt) {
+    const size_t o = (size_t)r * a.B + b;
+    a.nlike_out[o] = cnt;
+    a.t_out[o] = t;
+    a.logL_out[o] = logL;
+}
+
+// G = 1: the R repeats of chain b, one slice_repeat after the other.
+// Returns the micro-steps the chain took.
+template <class Like>
+__device__ __forceinline__ long long chain_epoch(const Like& like, const EpochArgs& a, int b) {
+    const int B = a.B, D = a.D, R = a.R;
+    long long steps = 0;
+    int r = 0;
+    if (a.valid[b] > 0.5f) {
+        float x0[SLICE_MAXD], n[SLICE_MAXD];
+        slice_load(x0, a.x0t, 0, D, B, b);
+        const float bnd = a.bound[b];
+        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        for (; r < R; ++r) {
+            slice_load(n, a.nhat, (size_t)r * D * B, D, B, b);
+            const float wr = a.w[(size_t)r * B + b];
+            const SliceRepeat rep =
+                slice_repeat(like, x0, n, wr, bnd, mix32(h_lane, (uint32_t)r), D, a.max_step,
+                             a.max_shrink, a.cap - steps);
+            steps += rep.steps;
+            write_repeat(a, r, b, rep.t, rep.logL, rep.cnt);
+            if (!rep.accepted) {  // the epoch's budget: the chain stops here
+                ++r;
+                break;
+            }
+            slice_advance(x0, n, rep.t, D);
+        }
+    }
+    for (; r < R; ++r) write_repeat(a, r, b, 0.0f, like.logzero, 0);  // invalid, never reached
+    return steps;
+}
+
+// G > 1: chain b on lane g of its group, in one loop of micro-steps that
+// every lane of the warp runs together — each iteration, each chain of the
+// warp takes its next micro-step, whatever repeat it is in, so the warp
+// operations of like_eval see the whole warp converged.  A chain that is
+// done (or out of range) still runs the iteration and keeps nothing.  The
+// decisions, the budget and the records are slice_repeat's and
+// chain_epoch's: a repeat that the budget ends unaccepted records t = 0,
+// logL = logzero and its count, and the chain stops.  Lane 0 writes.
+template <int G, class Like>
+__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const EpochArgs& a,
+                                            int b, bool in_range) {
+    constexpr int K = SLICE_MAXD / G;
+    const int B = a.B, D = a.D, R = a.R, g = L.g;
+    bool done = !(in_range && a.valid[b] > 0.5f);
+    int r = 0;
+    long long steps = 0;
+    float x0[K] = {}, n[K] = {}, wr = 0.0f, bnd = 0.0f;
+    uint32_t h_lane = 0;
+    SliceState s;
+    s.start();
+    if (!done) {
+        slice_load<G>(x0, a.x0t, 0, D, B, b, g);
+        slice_load<G>(n, a.nhat, 0, D, B, b, g);
+        wr = a.w[b];
+        bnd = a.bound[b];
+        h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+    }
+    uint32_t h_rep = mix32(h_lane, 0u);
+    for (;;) {
+        if (!done && steps >= a.cap) {  // the budget ends the chain
+            if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, s.cnt);
+            ++r;
+            done = true;
+        }
+        if (!__any_sync(0xffffffffu, !done)) break;
+        float t = 0.0f, logL = L.logzero;
+        const bool accepted = slice_micro(L, s, x0, n, wr, bnd, h_rep, D, a.max_step,
+                                          a.max_shrink, t, logL);
+        if (!done) {
+            ++steps;
+            if (accepted) {
+                if (g == 0) write_repeat(a, r, b, t, logL, s.cnt);
+                slice_advance<G>(x0, n, t, D, g);
+                if (++r < R) {
+                    slice_load<G>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
+                    wr = a.w[(size_t)r * B + b];
+                    h_rep = mix32(h_lane, (uint32_t)r);
+                    s.start();
+                } else {
+                    done = true;
                 }
-                slice_advance(x0, n, rep.t, D);
             }
         }
-        for (; r < R; ++r) {  // invalid lanes and repeats never reached
-            const size_t o = (size_t)r * B + b;
-            t_out[o] = 0.0f;
-            logL_out[o] = logzero;
-            nlike_out[o] = 0;
+    }
+    if (in_range && g == 0)
+        for (; r < R; ++r) write_repeat(a, r, b, 0.0f, L.logzero, 0);  // invalid, never reached
+}
+
+template <class Like, int G, bool COUNTED>
+__global__ void slice_epoch_kernel(Like like, EpochArgs a) {
+    static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
+    const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
+    const int b = lane_id / G;  // the chain
+    long long steps = 0;        // micro-steps of this chain in the epoch
+    if constexpr (G == 1) {
+        if (b < a.B) steps = chain_epoch(like, a, b);
+    } else {  // every lane of the warp runs group_epoch (no early return)
+        constexpr int K = SLICE_MAXD / G;
+        const int g = lane_id % G;  // this lane's place in its group
+        const unsigned mask = (0xffffffffu >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
+        GroupLane<G, Like> L{like, {}, {}, g, mask, like.logzero};
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int j = 0; j < G; ++j) {  // static indices into the parameter
+                if (g == j) {
+                    L.a[k] = like.prior.a[j + k * G];
+                    L.s[k] = like.prior.s[j + k * G];
+                }
+            }
         }
+        group_epoch(L, a, b, b < a.B);
     }
     if constexpr (COUNTED) {  // every thread of the warp gets here (no early return)
         const int s = (int)steps;
-        if (b < B) lane_steps[b] = s;
+        if (b < a.B) a.lane_steps[b] = s;
         const int m = __reduce_max_sync(0xffffffffu, s);
-        if ((threadIdx.x & 31) == 0) warp_max[b >> 5] = m;
+        if ((threadIdx.x & 31) == 0) a.warp_max[b >> 5] = m;
     }
 }
 
 template <bool COUNTED>
-static int launch(int functor, const float* consts, const float* prior_a,
-                  const float* prior_s, const void* x0t, const void* bound,
-                  const void* valid, const void* nhat, const void* w, void* t_out,
-                  void* logL_out, void* nlike_out, int B, int D, int R, unsigned int k0,
-                  unsigned int k1, int max_step, int max_shrink, long long cap,
-                  float logzero, void* stream, void* lane_steps, void* warp_max) {
-    if (D < 1 || D > SLICE_MAXD || R < 1 || B < 1)
+static int launch(int group, int functor, const float* consts, const float* prior_a,
+                  const float* prior_s, const EpochArgs& a, float logzero, void* stream) {
+    if (a.D < 1 || a.D > SLICE_MAXD || a.R < 1 || a.B < 1 || group < 1 || group > 32 ||
+        (group & (group - 1)) || (COUNTED && group != 1))
         return (int)cudaErrorInvalidValue;
-    const int threads = 32;  // one warp per block: warp w holds lanes 32w..32w+31
-    const int blocks = (B + threads - 1) / threads;
+    const int threads = 32;  // one warp per block: 32 / G chains
+    const int blocks = (int)(((long long)a.B * group + threads - 1) / threads);
+    const cudaStream_t st = (cudaStream_t)stream;
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream,
-        [&](auto like) {
-            slice_epoch_kernel<decltype(like), COUNTED>
-                <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                    like, (const float*)x0t, (const float*)bound,
-                    (const float*)valid, (const float*)nhat, (const float*)w,
-                    (float*)t_out, (float*)logL_out, (int*)nlike_out, B, D, R, k0,
-                    k1, max_step, max_shrink, cap, (int*)lane_steps, (int*)warp_max);
+        functor, consts, prior_a, prior_s, a.D, logzero, st, [&](auto like) {
+            using L = decltype(like);
+            if constexpr (COUNTED) {
+                slice_epoch_kernel<L, 1, true><<<blocks, threads, 0, st>>>(like, a);
+            } else {
+                switch (group) {
+                    case 1: slice_epoch_kernel<L, 1, false><<<blocks, threads, 0, st>>>(like, a); break;
+                    case 2: slice_epoch_kernel<L, 2, false><<<blocks, threads, 0, st>>>(like, a); break;
+                    case 4: slice_epoch_kernel<L, 4, false><<<blocks, threads, 0, st>>>(like, a); break;
+                    case 8: slice_epoch_kernel<L, 8, false><<<blocks, threads, 0, st>>>(like, a); break;
+                    case 16: slice_epoch_kernel<L, 16, false><<<blocks, threads, 0, st>>>(like, a); break;
+                    default: slice_epoch_kernel<L, 32, false><<<blocks, threads, 0, st>>>(like, a); break;
+                }
+            }
         });
     if (bad) return bad;
     return (int)cudaGetLastError();
 }
 
+static EpochArgs epoch_args(const void* x0t, const void* bound, const void* valid,
+                            const void* nhat, const void* w, void* t_out, void* logL_out,
+                            void* nlike_out, int B, int D, int R, unsigned int k0,
+                            unsigned int k1, int max_step, int max_shrink, long long cap,
+                            void* lane_steps, void* warp_max) {
+    return EpochArgs{(const float*)x0t, (const float*)bound, (const float*)valid,
+                     (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
+                     (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                     (int*)lane_steps, (int*)warp_max};
+}
+
 // All device arrays float32 (nlike int32), contiguous; see the layout
 // above.  `functor` is a LIKE_* id of likelihoods.cuh, `consts` its
 // constants, and prior_a, prior_s the prior's D-vectors — these three are
-// host arrays.  `cap` bounds a lane's micro-steps over the epoch.  Returns
+// host arrays.  `cap` bounds a chain's micro-steps over the epoch; `group`
+// is G, the lanes per chain (1, 2, 4, 8, 16 or 32).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int slice_epoch_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream) {
-    return launch<false>(functor, consts, prior_a, prior_s, x0t, bound, valid, nhat, w,
-                         t_out, logL_out, nlike_out, B, D, R, k0, k1, max_step,
-                         max_shrink, cap, logzero, stream, nullptr, nullptr);
+    long long cap, float logzero, void* stream, int group) {
+    return launch<false>(group, functor, consts, prior_a, prior_s,
+                         epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                    D, R, k0, k1, max_step, max_shrink, cap, nullptr, nullptr),
+                         logzero, stream);
 }
 
-// The counted form: as slice_epoch_launch, and lane_steps (B,) int32 and
-// warp_max (ceil(B / 32),) int32 device arrays.
+// The counted form (G = 1): as slice_epoch_launch, and lane_steps (B,)
+// int32 and warp_max (ceil(B / 32),) int32 device arrays.
 extern "C" int slice_epoch_counted_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
     long long cap, float logzero, void* stream, void* lane_steps, void* warp_max) {
-    return launch<true>(functor, consts, prior_a, prior_s, x0t, bound, valid, nhat, w,
-                        t_out, logL_out, nlike_out, B, D, R, k0, k1, max_step,
-                        max_shrink, cap, logzero, stream, lane_steps, warp_max);
+    return launch<true>(1, functor, consts, prior_a, prior_s,
+                        epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                   D, R, k0, k1, max_step, max_shrink, cap, lane_steps,
+                                   warp_max),
+                        logzero, stream);
 }

@@ -104,7 +104,7 @@ __global__ void slice_epoch_v5_kernel(Like like, const float* __restrict__ x0t,
                 bool in[SLICE_P];
 #pragma unroll
                 for (int j = 0; j < SLICE_P; ++j) {
-                    lj[j] = like(x0, n, t[j], D);
+                    lj[j] = like_eval(like, x0, n, t[j], D);
                     in[j] = (lj[j] >= bnd) && (lj[j] > logzero);
                 }
                 // ---- resolve it in order -----------------------------------

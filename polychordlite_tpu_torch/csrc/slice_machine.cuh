@@ -1,6 +1,7 @@
 // The per-lane slice-sampling state machine of one repeat, shared by the
-// one-thread-per-chain epoch kernels: slice_epoch.cu (B1 and its counted
-// form E1), slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
+// epoch kernels: slice_epoch.cu (B1, where every lane of a chain's group
+// runs it in step, and its counted form E1, one thread per chain),
+// slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
 // form E3), slice_epoch_v3_instr.cu (E2, which keeps a lane's SliceState
 // across its bodies) and prototypes.cu (E4, E5).  Each kernel owns only its
 // outer loop over repeats and what its TPU original does at a repeat's end
@@ -77,7 +78,7 @@ __device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, con
         case PH_STEP_L: t = __fmul_rn(-wr, (float)s.lstep); break;
         default: t = __fadd_rn(s.tL, __fmul_rn(u, __fsub_rn(s.tR, s.tL))); break;
     }
-    const float logL = like(x0, n, t, D);
+    const float logL = like_eval(like, x0, n, t, D);
     const bool inside = (logL >= bnd) && (logL > logzero);
     if (logL > logzero) ++s.cnt;
     switch (s.phase) {
@@ -139,17 +140,24 @@ __device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const floa
     return SliceRepeat{false, 0.0f, like.logzero, s.cnt, steps};
 }
 
-// x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.
-__device__ __forceinline__ void slice_advance(float* x0, const float* n, float t, int D) {
+// x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.  A
+// lane of a group of G holds coordinates d = g + k G at index k.
+template <int G = 1>
+__device__ __forceinline__ void slice_advance(float* x0, const float* n, float t, int D,
+                                              int g = 0) {
 #pragma unroll
-    for (int d = 0; d < SLICE_MAXD; ++d)
-        if (d < D) x0[d] = __fadd_rn(x0[d], __fmul_rn(t, n[d]));
+    for (int k = 0; k < SLICE_MAXD / G; ++k)
+        if (g + k * G < D) x0[k] = __fadd_rn(x0[k], __fmul_rn(t, n[k]));
 }
 
-// Load lane b's seed (D, B) or direction of repeat r (R, D, B), chain axis minor.
+// Load lane b's seed (D, B) or direction of repeat r (R, D, B), chain axis
+// minor: coordinates d = g + k G to index k.
+template <int G = 1>
 __device__ __forceinline__ void slice_load(float* v, const float* __restrict__ src,
-                                           size_t offset, int D, int B, int b) {
+                                           size_t offset, int D, int B, int b, int g = 0) {
 #pragma unroll
-    for (int d = 0; d < SLICE_MAXD; ++d)
-        if (d < D) v[d] = src[offset + (size_t)d * B + b];
+    for (int k = 0; k < SLICE_MAXD / G; ++k) {
+        const int d = g + k * G;
+        if (d < D) v[k] = src[offset + (size_t)d * B + b];
+    }
 }

@@ -12,6 +12,12 @@ float32 tile with one of four bodies (:17-57):
               d = (probe - 0.5) 10, logL = -0.5 sum_d d^2,
               acc = logL > -40 ? acc + 1 : acc / 2
 
+and two bodies of the port's own, which split B1's micro-step beyond
+``body20``: ``body20_div`` (d = (probe - 0.5) / 0.1, an IEEE division per
+coordinate, as B1's Gaussian has) and ``body20_hash`` (acc += u first, u
+the ``prng`` body's uniform of the iteration, as B1 draws one per
+micro-step).
+
 :func:`while_loop` is the wrapper of the hand-written CUDA kernel of
 ``csrc/probes.cu``, one thread per tile element.  The tile-wide ``any``
 spans 8,192 threads and so every block: ``anycond`` is a cooperative kernel
@@ -56,7 +62,8 @@ LAUNCHES = {"while_loop": 0}
 LIBRARY = ("probes", ["probes.cu"])
 LANE = 128  # a block of the kernel: one row of the tile
 #: the bodies, in the entry point's numbering
-VARIANTS = ("counter", "anycond", "anycond_warp", "anycond_cta", "prng", "body20")
+VARIANTS = ("counter", "anycond", "anycond_warp", "anycond_cta", "prng", "body20", "body20_div",
+            "body20_hash")
 SIZES = dict(S=64, n=50_000)  # prof_pallas_while.py:10, :86
 BODY20_D = 20
 
@@ -74,7 +81,7 @@ def prng_uniforms(shape, device):
 def while_loop_plain(variant: str, x: torch.Tensor, n: int, uniform=None):
     """The tile after ``n`` iterations of ``variant``'s body from x (S, 128)
     float32, in the kernel's float order.  ``uniform`` (iteration -> draws)
-    replaces the ``prng`` body's murmur3 stream."""
+    replaces the murmur3 stream of ``prng`` and ``body20_hash``."""
     acc = x.to(torch.float32).clone()
     if variant == "counter":
         for _ in range(n):
@@ -91,11 +98,17 @@ def while_loop_plain(variant: str, x: torch.Tensor, n: int, uniform=None):
         draw = prng_uniforms(acc.shape, acc.device) if uniform is None else uniform
         for i in range(n):
             acc = acc + draw(i)
-    elif variant == "body20":
+    elif variant.startswith("body20"):
         c = torch.tensor(0.001, dtype=torch.float32, device=acc.device)
+        tenth = acc.new_full((1,), 0.1)  # a tensor: a true division, not a reciprocal
         b = x.to(torch.float32).expand(BODY20_D, *x.shape)  # :44
-        for _ in range(n):
-            dd = ((b + c * acc) - 0.5) * 10.0
+        hashed = variant == "body20_hash"
+        draw = prng_uniforms(acc.shape, acc.device) if hashed and uniform is None else uniform
+        for i in range(n):
+            if hashed:
+                acc = acc + draw(i)
+            x_d = (b + c * acc) - 0.5
+            dd = x_d / tenth if variant == "body20_div" else x_d * 10.0
             sq = dd * dd
             total = sq[0]
             for d in range(1, BODY20_D):  # the sum in index order
@@ -119,7 +132,7 @@ def while_loop(variant: str, x: torch.Tensor, n: int):
         raise ValueError("x must be an (S, 128) float32 tensor")
     dev = x.device
     x = x.contiguous()
-    b20 = x.expand(BODY20_D, *x.shape).contiguous() if variant == "body20" else None
+    b20 = x.expand(BODY20_D, *x.shape).contiguous() if variant.startswith("body20") else None
     out = torch.empty_like(x)
     flags = torch.zeros(3, dtype=torch.int32, device=dev)
     fn = nvcc.load(*LIBRARY).while_loop_launch

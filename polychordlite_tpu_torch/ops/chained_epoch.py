@@ -32,7 +32,7 @@ def build_chained_fn(run_packed, cfg: EpochConfig, B_log: int, B_phys: int,
                      K: int, nlive: int, device, generator: torch.Generator):
     """Build ``fn(key, chol (D,D), live_cube (nlive,D), live_logL (nlive,))
     -> flat`` where ``flat`` = [K nursery records | K bounds | final
-    live logL], one float32 tensor on the device.
+    live logL | final live cube], one float32 tensor on the device.
 
     ``run_packed(key, packed_in)`` is the runner's epoch on a packed input
     batch of ``B_phys`` lanes ([cube, bound, cholesky, valid] per lane); it
@@ -63,6 +63,6 @@ def build_chained_fn(run_packed, cfg: EpochConfig, B_log: int, B_phys: int,
             lc = all_cube[top_idx]
             packs.append(cpacked.reshape(-1))
             bounds.append(bound0.reshape(1))
-        return torch.cat([*packs, *bounds, ll])
+        return torch.cat([*packs, *bounds, ll, lc.reshape(-1)])
 
     return fn

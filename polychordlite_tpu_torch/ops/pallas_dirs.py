@@ -5,8 +5,10 @@
 ``(dim, dim)`` Gaussian matrices stored ``(n_bases, dim, dim, B)`` with the
 chain axis minor — and returns their CGS2-orthonormalised columns in the
 same layout.  On a CUDA tensor it launches the hand-written kernel
-``csrc/gram_schmidt.cu``; on a CPU tensor it runs :func:`gram_schmidt_plain`,
-the same sweeps in plain torch.  Float32 only, as in the reference.
+``csrc/gram_schmidt.cu`` (one thread per basis, the finished columns in
+shared memory; see the source); on a CPU tensor it runs
+:func:`gram_schmidt_plain`, the same sweeps in plain torch.  Float32 only,
+as in the reference.
 """
 
 from __future__ import annotations

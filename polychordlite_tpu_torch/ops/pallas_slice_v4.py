@@ -2,8 +2,10 @@
 (counterpart of ``polychordlite_tpu/ops/pallas_slice_v4.py``).
 
 :func:`slice_epoch` is the wrapper of the hand-written CUDA kernel
-``csrc/slice_epoch.cu`` (one thread per chain; see the source for its
-design).  For CPU tensors it runs the kernel's plain version,
+``csrc/slice_epoch.cu``: one chain on a group of G lanes of a warp, each
+lane owning the coordinates d = g (mod G) (see the source for its design).
+:func:`choose_group` picks G from the chains, the dimension and the card's
+SM count.  For CPU tensors it runs the kernel's plain version,
 ``slice_kernel.slice_records_plain``; for CUDA tensors it launches the
 kernel or raises.  The kernel evaluates the likelihood itself through a
 device functor of ``csrc/likelihoods.cuh`` (:data:`FUNCTORS`), selected by
@@ -14,7 +16,7 @@ the kernels of ``ops/pallas_slice_v5.py``, ``ops/pallas_slice_v3.py`` and
 ``ops/pallas_slice.py``.
 
 :func:`slice_epoch_counted` is the wrapper of the same kernel's counted
-instantiation (``experiments/v4_instr.py`` at the repository root): B1's
+instantiation at G = 1 (``experiments/v4_instr.py`` at the repository root): B1's
 outputs bit for bit, plus the micro-steps each lane executed and the
 largest of each warp of 32 lanes, from which :func:`lane_efficiency`
 follows.  No run calls it.
@@ -43,6 +45,13 @@ SLICE_MAXD = 32
 LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0}
 
 WARP = 32  # lanes of a warp: the kernels run one warp per block
+#: the lanes a chain may be spread over (the kernel's instantiations)
+GROUPS = (1, 2, 4, 8, 16, 32)
+#: slice_epoch's launches by G since the last reset
+GROUP_LAUNCHES = {g: 0 for g in GROUPS}
+#: the warps per SM that choose_group aims for (PERF.md: the epoch's
+#: time against G at the bench and gaussian.ini geometries)
+TARGET_WARPS_PER_SM = 8
 
 #: device functors of ``csrc/likelihoods.cuh``: the likelihood form's name
 #: -> (functor id, the form's constants in the order the functor takes them)
@@ -70,6 +79,24 @@ _ARGTYPES = (
 
 def _lib():
     return nvcc.load("slice_epoch", ["slice_epoch.cu"])
+
+
+def choose_group(B: int, D: int, n_sm: int) -> int:
+    """G, the lanes of a warp that hold one chain: the smallest power of two
+    whose B G / 32 warps reach :data:`TARGET_WARPS_PER_SM` on each of the
+    card's ``n_sm`` SMs, and never more lanes than coordinates (G <= D, so
+    every lane owns one).  More lanes per chain hide the micro-step's
+    dependent chain behind more warps, but spend G times the issue slots on
+    each chain's state machine and sums."""
+    g_max = 1 << (min(D, WARP).bit_length() - 1)
+    g = 1
+    while g < g_max and B * g < TARGET_WARPS_PER_SM * n_sm * WARP:
+        g *= 2
+    return g
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _f32(x: float) -> float:
@@ -101,13 +128,14 @@ def functor_args(calc, D: int):
 
 
 def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
-                        x0, bound, valid, nhats, ws, cap=None, extra=()):
+                        x0, bound, valid, nhats, ws, cap=None, extra=(), ints=()):
     """Check the inputs of a slice-epoch kernel, launch it on the current
     stream and return (t, logL, nlike), each (B, R).  The model must have a
     device form (``calc.device_spec``) whose functor is in
     :data:`FUNCTORS`.  ``cap`` is the kernel's micro-step budget
     (``cfg.step_cap`` by default); ``extra`` are further output tensors on
-    the device, passed after the stream in that order."""
+    the device and ``ints`` further int arguments, passed after the stream
+    in that order."""
     B, R, D = nhats.shape
     if D > SLICE_MAXD:
         raise ValueError(f"D={D} exceeds the kernels' maximum {SLICE_MAXD}")
@@ -133,7 +161,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     k0, k1 = key_words
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = getattr(lib, entry)
-    fn.argtypes = _ARGTYPES + [ctypes.c_void_p] * len(extra)
+    fn.argtypes = _ARGTYPES + [ctypes.c_void_p] * len(extra) + [ctypes.c_int] * len(ints)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(
@@ -143,26 +171,34 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
             l_out.data_ptr(), n_out.data_ptr(), B, D, R,
             int(k0), int(k1), cfg.max_step, cfg.max_shrink,
             cfg.step_cap if cap is None else int(cap), _f32(cfg.logzero), stream,
-            *(a.data_ptr() for a in extra),
+            *(a.data_ptr() for a in extra), *(int(i) for i in ints),
         )
     nvcc.check(status, entry)
     return t_out.t(), l_out.t(), n_out.t()
 
 
-def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
+                group=None):
     """Run the slice repeats of every lane: (t, logL) float32 and nlike
     int32, each (B, R).  ``x0 (B,D)``, ``bound (B,)``, ``valid (B,)`` bool,
     ``nhats (B,R,D)``, ``ws (B,R)``.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, which needs ``calc.device_spec``."""
+    tensors: the kernel, which needs ``calc.device_spec``, with ``group``
+    lanes per chain (one of :data:`GROUPS`; :func:`choose_group` by
+    default).  Every G gives the same result bit for bit."""
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
+    B, R, D = nhats.shape
+    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
     out = launch_slice_kernel(_lib(), "slice_epoch_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws)
+                              x0, bound, valid, nhats, ws, ints=(G,))
     LAUNCHES["slice_epoch"] += 1
+    GROUP_LAUNCHES[G] += 1
     return out
 
 

@@ -4,8 +4,8 @@ The floating dtype of the evaluate/directions/slice-engine path is a
 thread-local ``torch.dtype``, float32 by default, so a run on one thread
 does not change the dtype seen by a run on another.  ``precision='highest'``
 (float64 on every device path) is not ported yet: ``nested_sampling`` raises
-``NotImplementedError`` for it.  Runs in f32 mode warn when the generation
-phase sees |logL| beyond ``F32_SAFE_LOGL``.
+``NotImplementedError`` for it.  A run raises when the best live point of
+the generation phase has |logL| beyond ``F32_SAFE_LOGL``.
 """
 
 from __future__ import annotations

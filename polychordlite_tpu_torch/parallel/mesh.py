@@ -128,22 +128,23 @@ def make_epoch_runner(
         t0 = time.perf_counter()
         flat = chains[sig](key, chol_t, cube_t, logL_t)
         timers["enqueue"] += time.perf_counter() - t0
-        return (flat, int(K))
+        return (flat, int(K), int(nlive))
 
     def collect_chain(handle):
         """Wait for a chain and unpack its K nurseries.  Returns
-        (nurseries, final_live_logL): nurseries is a list of
-        (cube, theta, phi, logL, nlike, bound0) per epoch in order."""
-        flat, K = handle
+        (nurseries, (final live logL, final live cube)): nurseries is a
+        list of (cube, theta, phi, logL, nlike, bound0) per epoch in order."""
+        flat, K, nlive = handle
         W = R_tot * stride + tail
         t0 = time.perf_counter()
         flat = flat.cpu().numpy()
         timers["fetch"] += time.perf_counter() - t0
         packs = flat[: K * B * W].reshape(K, B, W)
         bounds = flat[K * B * W : K * B * W + K]
-        final_ll = flat[K * B * W + K :]
+        final_ll = flat[K * B * W + K : K * B * W + K + nlive]
+        final_cube = flat[K * B * W + K + nlive :].reshape(nlive, -1)
         nurseries = [(*unpack(packs[k]), float(bounds[k])) for k in range(K)]
-        return nurseries, final_ll
+        return nurseries, (final_ll, final_cube)
 
     run.dispatch = dispatch
     run.collect = collect

@@ -44,7 +44,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _so_path(name: str, sources: Sequence[str]) -> Path:
+def library_path(name: str, sources: Sequence[str]) -> Path:
+    """Where ``lib<name>`` built from ``csrc/<sources>`` lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
@@ -54,7 +55,7 @@ def _so_path(name: str, sources: Sequence[str]) -> Path:
 
 def _start(name: str, sources: Sequence[str]):
     """Start nvcc for ``lib<name>`` unless it is built; returns (so, proc)."""
-    so = _so_path(name, sources)
+    so = library_path(name, sources)
     if so.exists():
         return so, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

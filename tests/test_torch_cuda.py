@@ -7,6 +7,7 @@ it, where the repository's conftest (which imports jax) is left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import json
 import math
 import os
@@ -66,6 +67,17 @@ def test_gram_schmidt_kernel_equals_plain(dev, shape):
     q = pallas_dirs.gram_schmidt_lanes(g)
     assert pallas_dirs.LAUNCHES["gram_schmidt"] == before + 1
     assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 1000), (2, 2, 2, 1000), (3, 3, 3, 999),
+                                   (2, 20, 20, 1000), (2, 32, 32, 999),
+                                   (2, 20, 20, 512), (5, 20, 20, 8192)])
+def test_gram_schmidt_every_dim_equals_plain(dev, shape):
+    """The kernel (one instantiation per dim) bitwise the plain version at
+    dim 1, 2, 3, 20, 32, at chain counts that are not multiples of a
+    block, and at both main-path shapes (gaussian.ini's and the bench's)."""
+    g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(shape[1]), device=dev)
+    assert torch.equal(pallas_dirs.gram_schmidt_lanes(g), pallas_dirs.gram_schmidt_plain(g))
 
 
 @pytest.mark.parametrize("prior", [identity_prior, UniformPrior(0.0, 1.0)])
@@ -130,6 +142,38 @@ class CappedConfig(EpochConfig):
     @property
     def step_cap(self) -> int:
         return 13
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 3, 20, 32])
+@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
+def test_slice_kernel_every_group(dev, G, D, capped):
+    """B1 with G lanes per chain, bitwise its plain version and its G = 1
+    form, at dimensions below, at and above G, B = 999 chains (not a
+    multiple of a warp), invalid lanes, and a budget that stops lanes
+    mid-epoch; one launch counted at G."""
+    R, B = 6, 999
+    like = gaussian(D, sigma=0.2)
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), like, D, 2)
+    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
+                                                     num_repeats=(R,))
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
+    r0 = 1.5 * 0.2 * math.sqrt(D)
+    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2, device=dev)
+    valid = torch.arange(B, device=dev) % 7 != 3
+    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    args = (x0, bound, valid, nh, w)
+    before = pallas_slice_v4.GROUP_LAUNCHES[G]
+    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=G)
+    assert pallas_slice_v4.GROUP_LAUNCHES[G] == before + 1
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    one = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=1)
+    for a, b, c in zip(got, want, one):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (got[2][~valid] == 0).all()
+    assert bool((got[1][valid] == np.float32(cfg.logzero)).any()) == capped
 
 
 @pytest.mark.parametrize("prior", [identity_prior, UniformPrior([0.0] * 4, [1.0] * 4)])
@@ -273,13 +317,17 @@ def _ini_calc(name, dev):
 @pytest.mark.parametrize("name", sorted(LIKELIHOODS))
 def test_every_functor_through_every_kernel(dev, name):
     """Each likelihood's functor against its torch calc through all four
-    kernels, and one epoch of B1 at the ini's dimension against the plain
-    engine on a live set of the ini's prior."""
+    kernels and B1 at every group size, and one epoch of B1 at every group
+    size at the ini's dimension against the plain engine on a live set of
+    the ini's prior."""
     s, calc = _ini_calc(name, dev)
     D, R, B = s.nDims, 4, 256
     cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
     for engine in ("cuda", "cuda3", "cuda2", "cuda5"):
         pallas_slice_v4.validate_functor(calc, cfg, dev, kernel_wrapper(engine))
+    for G in pallas_slice_v4.GROUPS:  # B1 at every group size
+        pallas_slice_v4.validate_functor(
+            calc, cfg, dev, functools.partial(pallas_slice_v4.slice_epoch, group=G))
     gen = torch.Generator(dev).manual_seed(11)
     live = torch.rand((400, D), generator=gen, device=dev)
     live_logL = calc(live)[2]
@@ -289,10 +337,11 @@ def test_every_functor_through_every_kernel(dev, name):
     chol = torch.linalg.cholesky(torch.cov(live.T).reshape(D, D)).expand(B, D, D)
     nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
     args = (live[pick], bound, torch.ones(B, dtype=torch.bool, device=dev), nh, w)
-    got = pallas_slice_v4.slice_epoch(calc, cfg, (1, 2), *args)
     want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), *args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for G in pallas_slice_v4.GROUPS:
+        got = pallas_slice_v4.slice_epoch(calc, cfg, (1, 2), *args, group=G)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), G
 
 
 def test_cli_runs_on_the_card_by_default(dev, tmp_path):

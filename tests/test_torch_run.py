@@ -142,7 +142,7 @@ def test_unported_modes_raise(tmp_path):
             )
 
 
-def test_forced_chain_on_callback_model_raises(tmp_path):
+def test_forced_chain_on_callback_model_runs(tmp_path):
     """``chain_epochs`` > 1 on a host-callback model raises nothing: the
     chain fetches whole epoch records, so it runs, and its replay check
     holds.  Left at auto, such a model dispatches one epoch at a time."""
@@ -159,3 +159,41 @@ def test_forced_chain_on_callback_model_raises(tmp_path):
     assert forced.metrics["chained_epochs"] is True and forced.ndead >= 100
     assert auto.metrics["chained_epochs"] is False and auto.ndead >= 100
     assert math.isfinite(forced.logZ) and math.isfinite(auto.logZ)
+
+
+def test_f32_unsafe_loglikelihood_raises(tmp_path):
+    """The best live logL beyond F32_SAFE_LOGL: the float32 contour test
+    would lose shells where the contour ends and precision='highest' is not
+    ported, so the run refuses to start, naming the limit and the option
+    (ROADMAP C13; the reference only warns)."""
+    base = gaussian(D)
+
+    def shifted(theta):
+        logL, phi = base(theta)
+        return logL - 5e6, phi
+
+    with pytest.raises(ValueError, match=r"F32_SAFE_LOGL = 1e\+06.*precision='highest'"):
+        polychordlite_tpu_torch.run(shifted, D, device="cpu",
+                                    **{**KW, "base_dir": str(tmp_path)})
+
+
+def test_chain_replay_compares_rows():
+    """The chain's replay check holds the host's live set to the device's
+    final one as (logL, cube) rows (ROADMAP C14): a permutation passes, a
+    NaN matches a NaN, and neither tied logL with other points nor a
+    missing row passes."""
+    rng = np.random.default_rng(3)
+    cube = rng.uniform(size=(6, 3)).astype(np.float32)
+    logL = rng.normal(size=6).astype(np.float32)
+    perm = rng.permutation(6)
+    assert ns.live_rows_match(cube, logL, cube[perm], logL[perm])
+    nan = logL.copy()
+    nan[2] = np.nan
+    assert ns.live_rows_match(cube, nan, cube[perm], nan[perm])
+    tied = logL.copy()
+    tied[1] = tied[0]
+    moved = cube.copy()
+    moved[1, 0] += 0.25  # the same logL multiset, another point
+    assert not ns.live_rows_match(cube, tied, moved, tied)
+    assert not ns.live_rows_match(cube, logL, cube[:5], logL[:5])
+    assert ns.live_rows_match(cube.astype(np.float64), logL.astype(np.float64), cube, logL)
