@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only PHASE,PHASE,...]
+    python3 chip_smoke.py
 
 Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 (one ``nvcc`` each, started together; ptxas registers, stack and spills
@@ -10,10 +10,11 @@ every group size G of lanes per chain, B3 v5, B4 v3, B5
 v2 at four geometries, B1 also against its G = 1 form; E1, the counted
 v4, in the ``lane_efficiency`` study), measures what B1's micro-step costs
 (``measure_first``: E7's ``body20`` with an IEEE division and with the
-hash, B1 at every G at the gaussian.ini, bench and 4x bench geometries,
-and the SASS of B1's Gaussian instantiations from ``cuobjdump``), then
-drives the port's paths and checks what comes out and which kernels ran
-(each path with every launch count set to 0 just before it):
+hash, B1 at every G at the gaussian.ini, 4-D and 8-D zoo, bench and 4x
+bench geometries, and the SASS of B1's Gaussian instantiations from
+``cuobjdump``), then drives the port's paths and checks what comes out and
+which kernels ran (each path with every launch count set to 0 just before
+it):
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
@@ -61,9 +62,7 @@ Each phase prints one JSON line; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
 and launches on the paths, and the last line is ``{"ok": true, "device": ...}``.  Any failed
 phase exits non-zero without that line.  Without a CUDA device, or without
-the package beside this file, it exits non-zero at once.  ``--only`` runs
-the named phases alone (``build`` first) and ends with ``{"ok": true,
-"only": [...], ...}`` instead of the kernels line.
+the package beside this file, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -92,6 +91,10 @@ INI = dict(nDims=20, nDerived=2, nlive=500, num_repeats=40)  # ini/gaussian.ini
 RUN = dict(B=512, R=40, D=20, B_valid=504)
 # ... and on ini/gaussian_shells.ini (nlive 500, num_repeats 10, 2-D)
 SHELLS = dict(B=512, R=10, D=2, B_valid=504)
+# ... and on the zoo's 4-D inis (half_gaussian, pyramidal, twin_gaussian:
+# num_repeats 20) and its 8-D random_gaussian.ini (num_repeats 40)
+ZOO_D4 = dict(B=512, R=20, D=4, B_valid=504)
+ZOO_D8 = dict(B=512, R=40, D=8, B_valid=504)
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -125,10 +128,6 @@ ZOO_ORACLES = {
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-#: B2 before its redesign (the global-memory design, removed): ms at the
-#: bench shape (5, 20, 20, 8192) and where that was measured
-PREVIOUS_B2 = (1.0315, "this script on the global-memory design, H100 80GB HBM3, 700 W "
-                        "(PERF.md, section 6)")
 
 
 def emit(obj) -> None:
@@ -323,12 +322,7 @@ def lse(values) -> float:
     return m + math.log(sum(math.exp(v - m) for v in values))
 
 
-def main(argv=()) -> None:
-    import argparse
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", default="", help="comma-separated phases to run alone")
-    selected = [p for p in parser.parse_args(argv).only.split(",") if p]
+def main() -> None:
     try:
         import torch
     except ImportError:
@@ -381,8 +375,6 @@ def main(argv=()) -> None:
 
     def phase(name):
         def wrap(fn):
-            if selected and name not in selected and name != "build":
-                return fn
             try:
                 out = fn()
                 emit({"phase": name, "ok": True, "card": label, **out})
@@ -498,8 +490,8 @@ def main(argv=()) -> None:
         else:
             like = gaussian(D)
             calc = make_batched_calculator(identity_prior, like, D, 2)
-            if tag == "gaussian_ini":
-                x0, bound, valid, chol = live_set_inputs(B, D, calc, gen)
+            if "B_valid" in geo:
+                x0, bound, valid, chol = live_set_inputs(B, D, calc, gen, B_valid=geo["B_valid"])
             else:
                 x0, bound, valid, chol = ball_inputs(B, D, like, gen)
         cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
@@ -538,7 +530,8 @@ def main(argv=()) -> None:
             bodies[v] = {"ms": ms, "us_per_iter": ms * 1e3 / n}
         by_group = {}
         kw = (0x01234567, 0x89ABCDEF)
-        for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH), ("bench_x4", BENCH_X4)):
+        for tag, geo in (("gaussian_ini", RUN), ("zoo_d4", ZOO_D4), ("zoo_d8", ZOO_D8),
+                         ("bench", BENCH), ("bench_x4", BENCH_X4)):
             calc, cfg, args = geometry(tag, geo)
             one = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=1)
             for G in GROUPS:
@@ -1272,12 +1265,6 @@ def main(argv=()) -> None:
         emit({"phase": "no_jax", "ok": False, "error": "jax was imported"})
     if failed:
         fail(f"failed phases: {failed}")
-    if selected:
-        emit({"ok": True, "only": selected,
-              "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                         "count": torch.cuda.device_count()}})
-        return
-
     # bounds at the bench geometry, from its shapes and the micro-steps its
     # data needed (E1's count; every slice kernel makes those decisions)
     Bb, Rb, Db = BENCH["B"], BENCH["R"], BENCH["D"]
@@ -1315,10 +1302,9 @@ def main(argv=()) -> None:
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
                     "slice_epoch_v2")  # the others: their studies' own launches
     se = results["slice_epoch"]
-    redesigned = {  # this run's G = 1 form of B1; B2's design before the redesign
+    redesigned = {  # B1's G = 1 form, in this run
         "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],
                         "previous": "the G = 1 form, in this run"},
-        "gram_schmidt": {"previous_ms": PREVIOUS_B2[0], "previous": PREVIOUS_B2[1]},
     }
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]
@@ -1339,4 +1325,4 @@ def main(argv=()) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

@@ -42,7 +42,13 @@
 // machine and sums (throughput), so the launch picks G from B, D and the
 // SM count (ops/pallas_slice_v4.py::choose_group).  G = 1 is the same
 // template with the group parts compiled out: one thread per chain, its
-// repeats one slice_repeat after another.
+// repeats one slice_repeat after another (chain_epoch).  It keeps that loop
+// because the warp-wide loop at G = 1 (group_epoch<1> with the one-thread
+// like_eval) made the same decisions and step counts but took 1.28x the
+// time at the bench geometry (2.14-2.15 ms against 1.67-1.68) and 1.25x at
+// gaussian.ini's (0.79-0.82 against 0.64-0.66), the counted form likewise:
+// chip_smoke.py's measure_first and lane_efficiency phases, both trees
+// twice in one run on an H100 80GB HBM3 at 700 W (PERF.md, section 6).
 //
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
 // TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in

@@ -30,10 +30,13 @@ def test_group_rule(B, D):
 
 def test_group_at_the_recorded_geometries():
     """The values PERF.md records: gaussian.ini's 512 lanes of 20-D chains
-    and the bench's 8,192 on an H100's 132 SMs; 2-D chains (the shells)."""
+    and the bench's 8,192 on an H100's 132 SMs; 2-, 4- and 8-D chains (the
+    shells and the zoo's 4-D and 8-D inis)."""
     assert choose_group(512, 20, H100_SMS) == 16
     assert choose_group(8192, 20, H100_SMS) == 8
     assert choose_group(512, 2, H100_SMS) == 2
+    assert choose_group(512, 4, H100_SMS) == 4
+    assert choose_group(512, 8, H100_SMS) == 8
     assert choose_group(32768, 20, H100_SMS) == 2
 
 
