@@ -12,7 +12,11 @@ v4, in the ``lane_efficiency`` study), measures what B1's micro-step costs
 (``measure_first``: E7's ``body20`` with an IEEE division and with the
 hash, B1 at every G at the gaussian.ini, 4-D and 8-D zoo, bench and 4x
 bench geometries, and the SASS of B1's Gaussian instantiations from
-``cuobjdump``), then drives the port's paths and checks what comes out and
+``cuobjdump``), holds B1's route for a likelihood evaluated in torch
+(``slice_step``: the kernel ``csrc/slice_step.cu`` replayed from a CUDA
+graph) bitwise against the plain engine and B1 at gaussian.ini's shape, the
+bench and D = 40, with 1, 7 and 32 rounds per replay, and times it beside
+both, then drives the port's paths and checks what comes out and
 which kernels ran (each path with every launch count set to 0 just before
 it):
 
@@ -36,6 +40,17 @@ it):
 * ``run_himmelblau_ab``: ``ini/himmelblau.ini`` through
   ``run(engine="cuda3")`` (B4), bitwise the ``run_zoo_inis`` run, and
   ``run(engine="cuda2")`` (B5), within 3 sigma of -log 100;
+
+* ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
+  its likelihood written as a plain batched torch function (no device
+  form): the traced route ``csrc/slice_step.cu`` and B2, within 3 sigma of
+  0, its dead/s beside the functor run's;
+* ``run_quickstart_torch``: the reference quickstart written per point in
+  torch (4-D, sigma 0.1, ``UniformPrior(-1, 1)``, one derived r^2, nlive
+  200, clustering on) through ``run()``: the traced route and B2 (never B1),
+  within 3 sigma of -4 log 2, the r^2 column in the chains;
+* ``run_gaussian_prior``: a 5-D Gaussian likelihood N(0, 0.5^2) under a
+  ``GaussianPrior(1, 1)``, within 3 sigma of its closed-form evidence;
 
 then the structure-cost studies of ``polychordlite_tpu_torch.experiments``,
 each kernel first held against its plain version on the card:
@@ -95,6 +110,8 @@ SHELLS = dict(B=512, R=10, D=2, B_valid=504)
 # num_repeats 20) and its 8-D random_gaussian.ini (num_repeats 40)
 ZOO_D4 = dict(B=512, R=20, D=4, B_valid=504)
 ZOO_D8 = dict(B=512, R=40, D=8, B_valid=504)
+# ... and a 40-D model, beyond B1's SLICE_MAXD, on the traced route
+TRACED_D40 = dict(B=512, R=40, D=40, B_valid=504)
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -105,6 +122,7 @@ LIBRARIES = {
     "slice_epoch_v3_instr": ["slice_epoch_v3_instr.cu"],
     "probes": ["probes.cu"],
     "prototypes": ["prototypes.cu"],
+    "slice_step": ["slice_step.cu"],
 }
 #: the analytic inis' evidence oracles: (logZ, its sigma or None for an exact
 #: value, where it comes from).  The JAX values are the JAX package's CPU runs
@@ -324,6 +342,7 @@ def lse(values) -> float:
 
 def main() -> None:
     try:
+        import numpy as np
         import torch
     except ImportError:
         fail("torch is not installed")
@@ -356,7 +375,12 @@ def main() -> None:
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
         from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
         from polychordlite_tpu_torch.output import PolyChordOutput
-        from polychordlite_tpu_torch.priors import BlockPrior, identity_prior
+        from polychordlite_tpu_torch.priors import (
+            BlockPrior,
+            GaussianPrior,
+            UniformPrior,
+            identity_prior,
+        )
         from polychordlite_tpu_torch.utils import nvcc
         from polychordlite_tpu_torch.utils.inifile import read_ini
     except ImportError as e:
@@ -375,9 +399,11 @@ def main() -> None:
 
     def phase(name):
         def wrap(fn):
+            t0 = time.perf_counter()
             try:
                 out = fn()
-                emit({"phase": name, "ok": True, "card": label, **out})
+                emit({"phase": name, "ok": True, "card": label,
+                      "seconds": time.perf_counter() - t0, **out})
             except Exception as e:  # report every phase, fail at the end
                 traceback.print_exc()
                 emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}"})
@@ -572,7 +598,9 @@ def main() -> None:
             kw = (0x01234567, 0x89ABCDEF)
             valid = args[2]
             t, l, n = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
-            tp, lp, n_p = want = slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args)  # noqa: B023
+            want, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
+            tp, lp, n_p = want
             one = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=1)
             mism = {"default_vs_plain": mismatches((t, l, n), want),
                     "default_vs_G1": mismatches((t, l, n), one)}
@@ -586,9 +614,6 @@ def main() -> None:
             ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
             g1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(  # noqa: B023
                 calc, cfg, kw, *args, group=1), 5)  # noqa: B023
-            plain_ms = cuda_ms(
-                lambda: slice_records_plain(lambda p: calc(p)[2], cfg, kw, *args), 1  # noqa: B023
-            )
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
                 "group": pallas_slice_v4.choose_group(B, D, n_sm),
@@ -615,7 +640,7 @@ def main() -> None:
                     lambda p: calc(p)[2], cfg, kw, *args)
 
             got = pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args)
-            want = plain()
+            want, plain_ms = cuda_once(plain)
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
             mism = {
                 f"{k}_vs_{other}": int((a != b).sum())
@@ -629,7 +654,6 @@ def main() -> None:
             evals = int(got[2].sum())
             ms = cuda_ms(lambda: pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args), 5)  # noqa: B023
             v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
-            plain_ms = cuda_ms(plain, 1)
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()),
                 "evals": evals, "mismatches": mism, "max_abs_err": err,
@@ -655,7 +679,7 @@ def main() -> None:
                     lambda p: calc(p)[2], cfg, kw, *args)
 
             got = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
-            want = plain()
+            want, plain_ms = cuda_once(plain)
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
             mism = {
                 f"{k}_vs_{other}": int((a != b).sum())
@@ -670,7 +694,7 @@ def main() -> None:
             v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
             out[tag] = {
                 "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
-                "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(plain, 1), "v4_ms": v4_ms,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "v4_ms": v4_ms,
             }
         results["slice_epoch_v3"] = {**out["bench"],
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
@@ -690,7 +714,7 @@ def main() -> None:
                     lambda p: calc(p)[2], cfg, kw, *args)
 
             got = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
-            want = plain()
+            want, plain_ms = cuda_once(plain)
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
             mism = {
                 f"{k}_vs_{other}": int((a != b).sum())
@@ -708,7 +732,7 @@ def main() -> None:
             out[tag] = {
                 "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
                 "max_abs_err": err, "max_abs_cube_vs_v4_rebuild": cube_vs_v4,
-                "ms": ms, "plain_ms": cuda_ms(plain, 1),
+                "ms": ms, "plain_ms": plain_ms,
             }
         results["slice_epoch_v2"] = {**out["bench"],
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
@@ -748,6 +772,62 @@ def main() -> None:
             }
         results["lane_efficiency"] = {**out["bench"], "max_abs_err": 0.0,
                                       "launches": sum(o["study_launches"] for o in out.values())}
+        return out
+
+    # ---- 6b. B1's route for a likelihood evaluated in torch ----------------
+    def slice_step_bytes(B: int, D: int, launches: int, R: int) -> int:
+        """Bytes the traced route must move: per launch and lane the state
+        read and written (ten int32, one int64, three float32: 132 bytes),
+        x and its direction read and the probe written (12 D bytes), plus
+        the (R, B) records written once."""
+        return launches * B * (132 + 12 * D) + 12 * R * B
+
+    @phase("slice_step")
+    def _():
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH), ("d40", TRACED_D40)):
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            if tag == "d40":  # unit directions: B2 stops at dim 32
+                gen = torch.Generator(dev).manual_seed(SEED)
+                calc = make_batched_calculator(identity_prior, gaussian(D), D, 2, device=dev)
+                x0, bnd, valid, _ = live_set_inputs(B, D, calc, gen, B_valid=geo["B_valid"])
+                nh = torch.randn((B, R, D), generator=gen, device=dev)
+                args = (x0, bnd, valid, nh / nh.norm(dim=2, keepdim=True),
+                        torch.full((B, R), 0.2, device=dev))
+                cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+            else:
+                calc, cfg, args = geometry(tag, geo)
+            want, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
+            pairs = []
+            for rounds in (1, 7, 32):
+                got = pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args, rounds=rounds)
+                pairs += [(f"{k}_rounds{rounds}_vs_plain", a, b)
+                          for k, a, b in zip(("t", "logL", "nlike"), got, want)]
+            b1_ms = None
+            if D <= pallas_slice_v4.SLICE_MAXD:  # the same decisions as B1's functor
+                pairs += [(f"{k}_vs_B1", a, b) for k, a, b in zip(
+                    ("t", "logL", "nlike"), want, pallas_slice_v4.slice_epoch(calc, cfg, kw, *args))]
+                b1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            mism = decisions(f"{tag}: the traced route differs", pairs)
+            before = (pallas_slice_v4.LAUNCHES["slice_step"], dict(pallas_slice_v4.TRACED))
+            pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args)
+            per_epoch = pallas_slice_v4.LAUNCHES["slice_step"] - before[0]
+            replays = pallas_slice_v4.TRACED["replays"] - before[1]["replays"]
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args), 3)  # noqa: B023
+            evals = int(want[2].sum())
+            out[tag] = {
+                "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "evals": evals,
+                "mismatches": mism, "launches_per_epoch": per_epoch,
+                "replays_per_epoch": replays, "rounds_per_replay": pallas_slice_v4.ROUNDS,
+                "ms": ms, "plain_ms": plain_ms, "b1_ms": b1_ms,
+                "plain_over_route": plain_ms / ms, "route_over_b1": ms / b1_ms if b1_ms else None,
+                "us_per_round": ms * 1e3 / max(per_epoch - 1, 1),
+                "evals_per_s": evals / (ms / 1e3),
+                "bound": bound(slice_step_bytes(B, D, per_epoch, R), 0),
+            }
+        results["slice_step"] = {**out["bench"], "max_abs_err": 0.0}
         return out
 
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
@@ -807,6 +887,7 @@ def main() -> None:
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is not within 3 sigma of 0")
         if stats.ndead != last["ndead"] or stats.ndead < INI["nlive"]:
             raise AssertionError(".stats does not match the run")
+        results["run_gaussian_ini"] = {"wall_s": wall, "dead_per_s": stats.ndead / wall}
         return {
             "engine_used": last["engine"], "chained_epochs": last["chained_epochs"],
             "ndead": stats.ndead, "logZ": stats.logZ,
@@ -816,6 +897,112 @@ def main() -> None:
             "host_totals_s": last.get("host_totals"),
             "epoch_timers_s": last.get("epoch_timers"),
         }
+
+    # ---- 7b. any torch likelihood through run(): the traced route ---------
+    def traced_run(name, like, n_dims, **kw):
+        """run() on the card with every launch count at 0 before it: (the
+        final metrics record, the output, wall seconds, the launches).  The
+        path must take the traced route and B2 only, with chained epochs
+        kept (a replay divergence would warn, and warnings are errors)."""
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                pt.run(like, n_dims, read_resume=False, base_dir=base, seed=SEED, feedback=-1,
+                       device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            stats = PolyChordOutput(base, "test")
+            last = read_metrics(base, "test")[-1]
+            chains = np.loadtxt(os.path.join(base, "test.txt"), ndmin=2)
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_step"):
+            raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
+                                 f"{last.get('route')!r}, not the traced route")
+        if last.get("chained_epochs") is not True:
+            raise AssertionError(f"{name}: chained epochs were switched off during the run")
+        if not only(ran, ("gram_schmidt", "slice_step")):
+            raise AssertionError(f"{name}: the path did not run slice_step and B2 (only): {ran}")
+        add_launches(ran)
+        return last, stats, wall, ran, chains
+
+    def traced_record(last, stats, wall, ran, truth):
+        pull = (stats.logZ - truth) / stats.logZerr
+        if not (math.isfinite(stats.logZ) and abs(pull) < 3.0):
+            raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is {pull:.2f} sigma "
+                                 f"from {truth}")
+        return {"engine_used": last["engine"], "route": last["route"], "form": last["form"],
+                "chained_epochs": last["chained_epochs"], "ndead": stats.ndead,
+                "logZ": stats.logZ, "logZerr": stats.logZerr, "oracle": truth,
+                "pull_sigma": pull, "wall_s": wall, "dead_per_s": stats.ndead / wall,
+                "launches": {k: v for k, v in ran.items() if v},
+                "traced_route": last.get("traced_route"), "device_frac": last.get("device_frac"),
+                "host_totals_s": last.get("host_totals"),
+                "epoch_timers_s": last.get("epoch_timers")}
+
+    def torch_gaussian(n_dims, mu=0.5, sigma=0.1):
+        """gaussian.ini's likelihood as a user writes it in torch: batched,
+        with its two derived parameters and no device form."""
+        norm = -n_dims * (math.log(sigma) + 0.5 * math.log(2 * math.pi))
+        log_vn = 0.5 * n_dims * math.log(math.pi) - math.lgamma(1 + 0.5 * n_dims)
+
+        def loglikelihood(theta):
+            r2 = ((theta - mu) ** 2).sum(-1)
+            r = torch.sqrt(r2)
+            return norm - 0.5 * r2 / sigma ** 2, torch.stack([r, n_dims * torch.log(r) + log_vn], -1)
+
+        return loglikelihood
+
+    @phase("run_gaussian_ini_torch")
+    def _():
+        last, stats, wall, ran, _ = traced_run(
+            "gaussian.ini", torch_gaussian(INI["nDims"]), INI["nDims"], nDerived=INI["nDerived"],
+            nlive=INI["nlive"], num_repeats=INI["num_repeats"], do_clustering=False,
+            precision_criterion=0.001)
+        if last["form"] != "batched":
+            raise AssertionError(f"the batched likelihood was read as {last['form']!r}")
+        rec = traced_record(last, stats, wall, ran, 0.0)
+        functor = results.get("run_gaussian_ini", {})
+        rec["functor_run_dead_per_s"] = functor.get("dead_per_s")
+        rec["functor_run_wall_s"] = functor.get("wall_s")
+        return rec
+
+    def quickstart(theta):
+        """The reference quickstart, per point (examples/quickstart.py)."""
+        r2 = torch.sum(theta ** 2)
+        return -math.log(2 * math.pi * 0.1 * 0.1) * 4 / 2.0 - r2 / 2 / 0.1 ** 2, [r2]
+
+    @phase("run_quickstart_torch")
+    def _():
+        last, stats, wall, ran, chains = traced_run(
+            "quickstart", quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=200,
+            do_clustering=True)
+        if last["form"] != "per_point":
+            raise AssertionError(f"the per-point quickstart was read as {last['form']!r}")
+        # weight, -2 logL, theta (4), r^2: the derived column is r^2 of its row
+        if chains.shape[1] != 2 + 4 + 1:
+            raise AssertionError(f"the chains have {chains.shape[1]} columns, not 7")
+        r2_err = float(np.abs(chains[:, 6] - (chains[:, 2:6] ** 2).sum(1)).max())
+        if not r2_err < 1e-5:
+            raise AssertionError(f"the r^2 column is {r2_err} from theta's")
+        return {**traced_record(last, stats, wall, ran, -4 * math.log(2.0)),
+                "chain_rows": int(chains.shape[0]), "max_abs_r2_err": r2_err}
+
+    @phase("run_gaussian_prior")
+    def _():
+        D, s_like, mu_p, s_p = 5, 0.5, 1.0, 1.0
+        norm = -D * (math.log(s_like) + 0.5 * math.log(2 * math.pi))
+
+        def like(theta):
+            return norm - 0.5 * ((theta / s_like) ** 2).sum(-1)
+
+        # Z = prod_d N(mu_p; 0, s_like^2 + s_p^2)
+        var = s_like ** 2 + s_p ** 2
+        truth = D * (-0.5 * math.log(2 * math.pi * var) - 0.5 * mu_p ** 2 / var)
+        last, stats, wall, ran, _ = traced_run(
+            "gaussian_prior", like, D, prior=GaussianPrior(mu_p, s_p), nlive=200)
+        return traced_record(last, stats, wall, ran, truth)
 
     # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
     shells = {}
@@ -1284,6 +1471,8 @@ def main() -> None:
          "slice_epoch_v2", bound(slice_epoch_bytes(Bb, Rb, Db, cube=True), flops), None),
         ("slice_epoch_counted", "slice_epoch.cu", "experiments/v4_instr.py:384",
          "lane_efficiency", bound(slice_epoch_bytes(Bb, Rb, Db, counted=True), flops), None),
+        ("slice_step", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
+         "slice_step", results["slice_step"]["bound"], None),
     ] + [
         (name, source, replaces, res, results[res]["bound"], None)
         for name, source, replaces, res in (
@@ -1300,7 +1489,7 @@ def main() -> None:
     ]
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
-                    "slice_epoch_v2")  # the others: their studies' own launches
+                    "slice_epoch_v2", "slice_step")  # the others: their studies' own launches
     se = results["slice_epoch"]
     redesigned = {  # B1's G = 1 form, in this run
         "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],

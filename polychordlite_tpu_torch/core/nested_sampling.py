@@ -41,11 +41,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops import pallas_slice_v4
 from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
 from ..ops.precision import F32_SAFE_LOGL
-from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig
+from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route
 from ..parallel.mesh import make_epoch_runner
 from ..priors import identity_prior
 from ..settings import PolyChordSettings
@@ -99,10 +100,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
-    """Resolve ``engine="auto"``: the CUDA kernel on a CUDA device (the model
-    must have a device form), the plain torch engine on the CPU.  The other
-    kernel engines of :data:`KERNEL_ENGINES` are forced by name under the
-    same conditions; ``engine="torch"`` is the plain engine on any device."""
+    """Resolve ``engine="auto"``: ``"cuda"`` on a CUDA device, the plain
+    torch engine on the CPU.  ``"cuda"`` runs any torch model, batched or
+    per point (B1's functor kernel for a model with a device form, the
+    traced route ``csrc/slice_step.cu`` for the others) and refuses a
+    host-callback model; the other kernel engines of :data:`KERNEL_ENGINES`
+    are forced by name and need a device form.  ``engine="torch"`` is the
+    plain engine on any device."""
     if engine == "auto":
         if device.type != "cuda":
             return "torch"
@@ -110,6 +114,14 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
+        if engine == "cuda":
+            if calc.uses_callback:
+                raise ValueError(
+                    "a host-callback likelihood (one that is not a torch function of a "
+                    "tensor) has no route on the card; pass engine='torch' to run it on "
+                    "the plain engine"
+                )
+            return engine
         if getattr(calc, "device_spec", None) is None:
             raise ValueError(
                 "the CUDA slice kernels need a prior with an affine form and a "
@@ -247,6 +259,7 @@ def nested_sampling(
     device = resolve_device(device)
     t_start = time.time()
     launches0 = _kernel_launches()
+    traced0 = dict(pallas_slice_v4.TRACED)
 
     # --- RNG: host generator, device generator and murmur key, all from seed
     seed = s.seed if s.seed >= 0 else int(time.time_ns() % (2**31))
@@ -258,7 +271,7 @@ def nested_sampling(
     fb.write_opening_statement(s, __version__, device.type)
 
     calc = make_batched_calculator(
-        prior, loglikelihood, s.nDims, s.nDerived, s.logzero
+        prior, loglikelihood, s.nDims, s.nDerived, s.logzero, device=device
     )
     n_grades = len(s.grade_dims) if s.grade_dims else 1
     engine = resolve_engine(s.engine, device, calc)
@@ -634,6 +647,12 @@ def nested_sampling(
                 # kernel launches during this run (the functor check included)
                 "kernel_launches": {
                     k: v - launches0[k] for k, v in _kernel_launches().items()
+                },
+                # the model's form (ops/evaluate.py), the kernel its engine ran,
+                # and the traced route's graph replays and rounds in this run
+                "form": calc.form, "route": epoch_route(engine, calc),
+                "traced_route": {
+                    k: v - traced0[k] for k, v in pallas_slice_v4.TRACED.items()
                 },
             },
         )

@@ -3,7 +3,9 @@
 // runs it in step, and its counted form E1, one thread per chain),
 // slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
 // form E3), slice_epoch_v3_instr.cu (E2, which keeps a lane's SliceState
-// across its bodies) and prototypes.cu (E4, E5).  Each kernel owns only its
+// across its bodies), prototypes.cu (E4, E5) and slice_step.cu (B1's route
+// for a likelihood evaluated in torch, which keeps the state in device
+// memory between its launches).  Each kernel owns only its
 // outer loop over repeats and what its TPU original does at a repeat's end
 // (where the budget is counted, whether the kernel writes the cube).
 //
@@ -56,29 +58,33 @@ struct SliceState {
     }
 };
 
-// One micro-step of the machine.  Returns true when the repeat accepts,
-// with t the accepted chord position and logL_store its logL (logzero for
-// a forced accept).
-template <class Like, bool SPLIT_INIT = false>
-__device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, const float* x0,
-                                            const float* n, float wr, float bnd,
-                                            uint32_t h_rep, int D, int max_step,
-                                            int max_shrink, float& t, float& logL_store) {
-    const float logzero = like.logzero;
+// A micro-step in two halves around the likelihood call: slice_propose
+// draws the uniform, advances `it` and returns the chord position t of the
+// probe; slice_decide takes that probe's logL and applies the transition.
+// slice_micro runs both with the functor between them; slice_step.cu runs
+// them in two launches, with the likelihood evaluated in torch in between.
+template <bool SPLIT_INIT = false>
+__device__ __forceinline__ float slice_propose(SliceState& s, float wr, uint32_t h_rep) {
     const float u = slice_uniform(h_rep, SPLIT_INIT && s.it > 0 ? s.it + 1 : s.it);
     ++s.it;
     switch (s.phase) {
         case PH_INIT_R:
             s.tL = __fmul_rn(-u, wr);
             s.tR = __fmul_rn(__fsub_rn(1.0f, u), wr);
-            t = s.tR;
-            break;
-        case PH_INIT_L: t = s.tL; break;
-        case PH_STEP_R: t = __fmul_rn(wr, (float)s.rstep); break;
-        case PH_STEP_L: t = __fmul_rn(-wr, (float)s.lstep); break;
-        default: t = __fadd_rn(s.tL, __fmul_rn(u, __fsub_rn(s.tR, s.tL))); break;
+            return s.tR;
+        case PH_INIT_L: return s.tL;
+        case PH_STEP_R: return __fmul_rn(wr, (float)s.rstep);
+        case PH_STEP_L: return __fmul_rn(-wr, (float)s.lstep);
+        default: return __fadd_rn(s.tL, __fmul_rn(u, __fsub_rn(s.tR, s.tL)));
     }
-    const float logL = like_eval(like, x0, n, t, D);
+}
+
+// The transition after the probe at t scored logL.  Returns true when the
+// repeat accepts, with logL_store the accepted logL (logzero for a forced
+// accept).
+__device__ __forceinline__ bool slice_decide(SliceState& s, float t, float logL, float bnd,
+                                             float logzero, int max_step, int max_shrink,
+                                             float& logL_store) {
     const bool inside = (logL >= bnd) && (logL > logzero);
     if (logL > logzero) ++s.cnt;
     switch (s.phase) {
@@ -120,6 +126,19 @@ __device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, con
             break;
     }
     return false;
+}
+
+// One micro-step of the machine.  Returns true when the repeat accepts,
+// with t the accepted chord position and logL_store its logL (logzero for
+// a forced accept).
+template <class Like, bool SPLIT_INIT = false>
+__device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, const float* x0,
+                                            const float* n, float wr, float bnd,
+                                            uint32_t h_rep, int D, int max_step,
+                                            int max_shrink, float& t, float& logL_store) {
+    t = slice_propose<SPLIT_INIT>(s, wr, h_rep);
+    return slice_decide(s, t, like_eval(like, x0, n, t, D), bnd, like.logzero, max_step,
+                        max_shrink, logL_store);
 }
 
 template <class Like, bool SPLIT_INIT = false>

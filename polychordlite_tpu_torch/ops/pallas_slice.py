@@ -155,7 +155,16 @@ class LaneMachine:
         uniform drawn at (h_rep, it) unless ``u`` (B,) float32 gives it.
         Returns (t, probe, logL, acc, forced); an accepting lane is left for
         the caller to record and restart."""
-        logzero = self.logzero
+        t = self.propose(active, h_rep, w, u)
+        probe = x + t[:, None] * nhat
+        logL = logL_fn(probe)
+        acc, forced = self.decide(cfg, active, t, logL, bound)
+        return t, probe, logL, acc, forced
+
+    def propose(self, active, h_rep, w, u=None):
+        """The first half of :meth:`step` (``slice_propose``): draw the
+        uniform, advance ``it`` and return the chord position t (B,) of every
+        lane's probe, 0 where a lane is not ``active``."""
         phase = self.phase
         if u is None:
             u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(torch.float32)
@@ -165,16 +174,26 @@ class LaneMachine:
         is_sr = active & (phase == PH_STEP_R)
         is_sl = active & (phase == PH_STEP_L)
         is_sh = active & (phase == PH_SHRINK)
-        tL = torch.where(is_ir, -u * w, self.tL)
-        tR = torch.where(is_ir, (1.0 - u) * w, self.tR)
-        t = torch.where(is_ir, tR, 0.0)
-        t = torch.where(is_il, tL, t)
+        self.tL = torch.where(is_ir, -u * w, self.tL)
+        self.tR = torch.where(is_ir, (1.0 - u) * w, self.tR)
+        t = torch.where(is_ir, self.tR, 0.0)
+        t = torch.where(is_il, self.tL, t)
         t = torch.where(is_sr, w * self.rstep.to(torch.float32), t)
         t = torch.where(is_sl, -w * self.lstep.to(torch.float32), t)
-        t = torch.where(is_sh, tL + u * (tR - tL), t)
+        return torch.where(is_sh, self.tL + u * (self.tR - self.tL), t)
 
-        probe = x + t[:, None] * nhat
-        logL = logL_fn(probe)
+    def decide(self, cfg, active, t, logL, bound):
+        """The second half of :meth:`step` (``slice_decide``): the transition
+        of every ``active`` lane after its probe at ``t`` scored ``logL``.
+        Returns (acc, forced)."""
+        logzero = self.logzero
+        phase = self.phase
+        is_ir = active & (phase == PH_INIT_R)
+        is_il = active & (phase == PH_INIT_L)
+        is_sr = active & (phase == PH_STEP_R)
+        is_sl = active & (phase == PH_STEP_L)
+        is_sh = active & (phase == PH_SHRINK)
+        tL, tR = self.tL, self.tR
         inside = (logL >= bound) & (logL > logzero)
         self.cnt = self.cnt + (active & (logL > logzero)).to(torch.int64)
 
@@ -202,7 +221,7 @@ class LaneMachine:
         phase = torch.where(is_il, after_il, phase)
         phase = torch.where(done_r, torch.where(self.need_l, PH_STEP_L, PH_SHRINK), phase)
         self.phase = torch.where(done_l, PH_SHRINK, phase)
-        return t, probe, logL, acc, forced
+        return acc, forced
 
     def restart(self, mask) -> None:
         """Reset the repeat state of the lanes in ``mask`` (phase aside)."""

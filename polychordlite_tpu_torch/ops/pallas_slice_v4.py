@@ -21,6 +21,17 @@ outputs bit for bit, plus the micro-steps each lane executed and the
 largest of each warp of 32 lanes, from which :func:`lane_efficiency`
 follows.  No run calls it.
 
+:func:`slice_epoch_traced` is B1's route for a model without a device
+functor, a likelihood written in torch (the JAX package traces any jnp
+likelihood into its kernel): the wrapper of ``csrc/slice_step.cu``, which
+runs one micro-step of every chain per launch with the likelihood evaluated
+by the torch calc between two launches.  :class:`TracedEpoch` keeps the
+kernel's device state and replays ``rounds`` rounds (the calc and one
+launch) captured in one CUDA graph until no lane is left running.  Its plain
+version is :func:`slice_step_plain` over :class:`StepState`, driven the
+same way by :func:`slice_records_rounds_plain`; both are bitwise
+``slice_kernel.slice_records_plain`` for the same calc.
+
 Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
 come from one batched evaluation of the calc, and everything is packed into
@@ -31,18 +42,25 @@ puts the pieces together.
 from __future__ import annotations
 
 import ctypes
+import gc
 
 import numpy as np
 import torch
 
 from ..utils import nvcc
+from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
 from .slice_kernel import EpochConfig, slice_records_plain
 
 #: the kernels' bound on the dimension (SLICE_MAXD of ``csrc/slice_common.cuh``)
 SLICE_MAXD = 32
 
 #: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0}
+LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0}
+#: the traced route's CUDA-graph replays and the rounds they ran, since the
+#: last reset
+TRACED = {"replays": 0, "rounds": 0}
+#: rounds (one calc evaluation and one slice_step launch each) in one graph
+ROUNDS = 32
 
 WARP = 32  # lanes of a warp: the kernels run one warp per block
 #: the lanes a chain may be spread over (the kernel's instantiations)
@@ -300,3 +318,223 @@ def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, lo
         nlike_g.to(torch.float32),
         torch.zeros((B, 1), dtype=torch.float32, device=seed.device),  # overflow flag (never set)
     ], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# B1's route for a likelihood evaluated in torch (csrc/slice_step.cu)
+# ---------------------------------------------------------------------------
+
+
+class StepState:
+    """The lanes of the traced route between two rounds, in torch: the plain
+    version of ``csrc/slice_step.cu``'s device state.  Set up as the first
+    launch sets it up: a valid lane in ``PH_INIT_R`` of repeat 0, an invalid
+    one done; every record t = 0, logL = logzero, nlike = 0."""
+
+    def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+        B, R, _ = nhats.shape
+        dev = x0.device
+        f32 = torch.float32
+        self.cfg, self.bound, self.nhats, self.ws = cfg, bound, nhats, ws
+        self.logzero = torch.tensor(cfg.logzero, dtype=f32).item()
+        self.lanes = torch.arange(B, device=dev)
+        self.h_lane = lane_hash(key_words, B, dev)
+        self.m = LaneMachine(B, dev, self.logzero)
+        self.m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
+        self.rep = torch.where(valid, 0, R).to(torch.int64)
+        self.steps = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.x = x0.to(f32).clone()
+        self.t_out = torch.zeros((B, R), dtype=f32, device=dev)
+        self.l_out = torch.full((B, R), self.logzero, dtype=f32, device=dev)
+        self.n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
+        self.t = self.probe = None  # the pending probes
+
+
+def slice_step_plain(st: StepState, logL=None) -> bool:
+    """One launch of ``csrc/slice_step.cu`` in torch.  Unless ``logL`` is
+    None (the epoch's first launch), consume it, the (B,) logL of
+    ``st.probe``: the transition of every running lane, the records of the
+    repeats that accept or meet the epoch's budget, an accepted lane's move
+    to its probe and the start of its next repeat.  Then propose: the next
+    probes into ``st.probe`` (a lane that is done probes its x with t = 0).
+    Returns whether a lane is left running (the kernel's ``active`` flag)."""
+    m, cfg = st.m, st.cfg
+    R = st.nhats.shape[1]
+    if logL is not None:
+        active = m.phase != PH_DONE
+        acc, forced = m.decide(cfg, active, st.t, logL, st.bound)
+        st.steps = st.steps + active.to(torch.int64)
+        capped = active & ~acc & (st.steps >= cfg.step_cap)
+        rec = acc | capped
+        rows, cols = st.lanes[rec], st.rep[rec]
+        st.t_out[rows, cols] = torch.where(acc, st.t, 0.0)[rec]
+        st.l_out[rows, cols] = torch.where(acc & ~forced, logL, st.logzero)[rec]
+        st.n_out[rows, cols] = m.cnt[rec].to(torch.int32)
+        st.x = torch.where(acc[:, None], st.probe, st.x)
+        st.rep = torch.where(acc, st.rep + 1, st.rep)
+        m.phase = torch.where(acc, torch.where(st.rep >= R, PH_DONE, PH_INIT_R), m.phase)
+        m.phase = torch.where(capped | (acc & (st.steps >= cfg.step_cap)), PH_DONE, m.phase)
+        m.restart(acc)
+    active = m.phase != PH_DONE
+    r_idx = st.rep.clamp(max=R - 1)
+    st.t = m.propose(active, _mix(st.h_lane, st.rep), st.ws[st.lanes, r_idx])
+    st.probe = st.x + st.t[:, None] * st.nhats[st.lanes, r_idx]
+    return bool(active.any())
+
+
+def slice_records_rounds_plain(logL_fn, cfg: EpochConfig, key_words, x0, bound, valid,
+                               nhats, ws, rounds: int = ROUNDS):
+    """The traced route in torch, structured as the kernel route runs it: the
+    first launch, then replays of ``rounds`` rounds (``logL_fn(probe)`` and
+    one :func:`slice_step_plain`) until the flag of a replay's last round
+    reads no lane running.  Returns (t, logL, nlike), each (B, R), bitwise
+    ``slice_kernel.slice_records_plain`` for any ``rounds``."""
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    running = slice_step_plain(st)
+    while running:
+        for _ in range(rounds):
+            running = slice_step_plain(st, logL_fn(st.probe))
+    return st.t_out, st.l_out, st.n_out
+
+
+#: slice_step_launch's arguments: first, 15 device pointers, B, D, R, k0,
+#: k1, max_step, max_shrink, cap, logzero, stream
+_STEP_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
+    + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+)
+_STATE_INTS, _STATE_FLOATS = 10, 3  # S_INTS and F_FLOATS of slice_step.cu
+
+
+class TracedEpoch:
+    """``csrc/slice_step.cu``'s device state for one calc, configuration and
+    (B, R, D), and the CUDA graph of ``rounds`` rounds that replays it.
+
+    The buffers are allocated once; each epoch copies its inputs in, runs the
+    first launch, captures the graph on its first use (the calc warmed up on
+    a side stream first, as capture asks) and replays it until the kernel's
+    ``active`` flag reads 0: one host read per replay.  A calc that cannot
+    run inside a graph (a host sync such as ``.item()``, a copy from host
+    memory) raises ``ValueError``.  The calc keeps its runners
+    (:func:`slice_epoch_traced`), so a runner takes the calc as an argument
+    and holds no reference to it: no cycle that only the garbage collector
+    could free, at a moment that might fall inside another capture."""
+
+    def __init__(self, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device):
+        self.cfg, self.rounds, self.device = cfg, rounds, device
+        self.shape = (B, R, D)
+        f32 = dict(dtype=torch.float32, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.x0t, self.valid, self.bound = (torch.zeros((D, B), **f32), torch.zeros(B, **f32),
+                                            torch.zeros(B, **f32))
+        self.nhat, self.w = torch.zeros((R, D, B), **f32), torch.zeros((R, B), **f32)
+        self.logL = torch.zeros(B, **f32)
+        self.ist = torch.zeros((_STATE_INTS, B), **i32)
+        self.steps = torch.zeros(B, dtype=torch.int64, device=device)
+        self.fst, self.x = torch.zeros((_STATE_FLOATS, B), **f32), torch.zeros((D, B), **f32)
+        self.probe = torch.zeros((B, D), **f32)
+        self.t_out, self.l_out = torch.zeros((R, B), **f32), torch.zeros((R, B), **f32)
+        self.n_out, self.active = torch.zeros((R, B), **i32), torch.zeros(1, **i32)
+        self.fn = nvcc.load("slice_step", ["slice_step.cu"]).slice_step_launch
+        self.fn.argtypes = _STEP_ARGTYPES
+        self.fn.restype = ctypes.c_int
+        self.graph = None
+
+    def _launch(self, first: bool, key_words=(0, 0)) -> None:
+        B, R, D = self.shape
+        cfg = self.cfg
+        bufs = (self.x0t, self.valid, self.bound, self.nhat, self.w, self.logL, self.ist,
+                self.steps, self.fst, self.x, self.probe, self.t_out, self.l_out, self.n_out,
+                self.active)
+        status = self.fn(
+            int(first), *(b.data_ptr() for b in bufs), B, D, R, int(key_words[0]),
+            int(key_words[1]), cfg.max_step, cfg.max_shrink, cfg.step_cap, _f32(cfg.logzero),
+            torch.cuda.current_stream(self.device).cuda_stream,
+        )
+        nvcc.check(status, "slice_step_launch")
+
+    def _capture(self, calc) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                calc(self.probe)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # a graph that the garbage collector frees while this one is being
+        # captured ends the capture: collect now, and not during it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    for i in range(self.rounds):
+                        self.logL.copy_(calc(self.probe)[2])
+                        if i == self.rounds - 1:  # the flag then tells of the last round
+                            self.active.zero_()
+                        self._launch(False)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as e:
+            first = e.__context__ or e  # what broke the capture, before capture_end's error
+            raise ValueError(
+                "the CUDA engine runs a model without a device functor inside a CUDA "
+                f"graph, and this likelihood or prior cannot be captured in one ({first}); "
+                "pass engine='torch' to run it on the plain engine"
+            ) from e
+        finally:
+            gc.enable()
+        self.graph = graph
+
+    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
+        self.x0t.copy_(x0.t())
+        self.valid.copy_(valid)
+        self.bound.copy_(bound)
+        self.nhat.copy_(nhats.permute(1, 2, 0))
+        self.w.copy_(ws.t())
+        self.active.zero_()
+        self._launch(True, key_words)
+        LAUNCHES["slice_step"] += 1
+        if self.graph is None:
+            self._capture(calc)
+        while int(self.active.item()):
+            self.graph.replay()
+            LAUNCHES["slice_step"] += self.rounds
+            TRACED["replays"] += 1
+            TRACED["rounds"] += self.rounds
+        return self.t_out.t().contiguous(), self.l_out.t().contiguous(), \
+            self.n_out.t().contiguous()
+
+
+def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
+                       rounds: int = ROUNDS):
+    """Run the slice repeats of every lane for a model without a device
+    functor: (t, logL) float32 and nlike int32, each (B, R), with the inputs
+    of :func:`slice_epoch`.  CPU tensors: the plain version,
+    :func:`slice_records_rounds_plain`; CUDA tensors: ``csrc/slice_step.cu``
+    through a :class:`TracedEpoch` kept on the calc, one per configuration,
+    shape and ``rounds``.  A host-callback calc raises on the card."""
+    B, R, D = nhats.shape
+    if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
+        raise ValueError("slice_epoch_traced: inconsistent shapes")
+    if rounds < 1:
+        raise ValueError(f"rounds must be at least 1, not {rounds}")
+    if x0.device.type == "cpu":
+        return slice_records_rounds_plain(lambda p: calc(p)[2], cfg, key_words, x0, bound,
+                                          valid, nhats, ws, rounds)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    if getattr(calc, "uses_callback", False):
+        raise ValueError(
+            "a host-callback likelihood has no route on the card (the CUDA engine needs "
+            "a torch likelihood); pass engine='torch' to run it on the plain engine"
+        )
+    for name, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
+        if a.device != x0.device:
+            raise ValueError(f"slice_epoch_traced: {name} is on {a.device}, x0 on {x0.device}")
+    runners = calc.__dict__.setdefault("traced_epochs", {})
+    key = (tuple(cfg), cfg.step_cap, B, R, D, rounds, str(x0.device))
+    if key not in runners:
+        runners[key] = TracedEpoch(cfg, B, R, D, rounds, x0.device)
+    return runners[key](calc, key_words, x0, bound, valid, nhats, ws)

@@ -11,7 +11,10 @@ slice repeats on each of B chains and returns the packed
   plain torch.  It runs on any device and is the plain version of the CUDA
   kernel.
 * ``"cuda"`` — the hand-written kernel ``csrc/slice_epoch.cu``, through
-  ``ops/pallas_slice_v4.py`` (the JAX package's ``"pallas"`` / ``"pallas4"``).
+  ``ops/pallas_slice_v4.py`` (the JAX package's ``"pallas"`` / ``"pallas4"``),
+  for a model with a device functor; for any other torch model, the
+  traced route of the same module, ``csrc/slice_step.cu`` with the
+  likelihood evaluated in torch between its launches (bitwise ``"torch"``).
 * ``"cuda5"`` — the speculative-packet kernel ``csrc/slice_epoch_v5.cu``,
   through ``ops/pallas_slice_v5.py`` (the JAX package's forced
   ``"pallas5"``); decision-exact with ``"cuda"``, so a run gives the same
@@ -148,13 +151,33 @@ def slice_records_plain(
 def kernel_wrapper(engine: str):
     """The wrapper of an engine's CUDA kernel: (calc, cfg, key_words, x0,
     bound, valid, nhats, ws) -> (t, logL, nlike[, cube]).  On CPU tensors
-    each wrapper runs its own plain version."""
+    each wrapper runs its own plain version.  ``"cuda"`` chooses by the
+    model's form, as the JAX package's one ``"pallas"`` engine does: B1's
+    functor kernel for a model with a device form (``calc.device_spec``),
+    else the traced route (``csrc/slice_step.cu``), which refuses a
+    host-callback model on the card.  The other engines need a functor."""
     from .pallas_slice_v3 import slice_epoch_v3
-    from .pallas_slice_v4 import slice_epoch
+    from .pallas_slice_v4 import slice_epoch, slice_epoch_traced
     from .pallas_slice_v5 import slice_epoch_v5
 
-    return {"cuda": slice_epoch, "cuda5": slice_epoch_v5, "cuda3": slice_epoch_v3,
+    def cuda(calc, cfg, *args):
+        if getattr(calc, "device_spec", None) is not None:
+            return slice_epoch(calc, cfg, *args)
+        return slice_epoch_traced(calc, cfg, *args)
+
+    return {"cuda": cuda, "cuda5": slice_epoch_v5, "cuda3": slice_epoch_v3,
             "cuda2": slice_epoch_v2}[engine]
+
+
+def epoch_route(engine: str, calc) -> str:
+    """The kernel that ``engine`` runs for ``calc`` (the run metrics'
+    ``route``): ``"plain"`` for the torch engine, ``"slice_step"`` for
+    ``"cuda"`` on a model without a device form, else the engine's kernel."""
+    if engine == "torch":
+        return "plain"
+    if engine == "cuda":
+        return "slice_epoch" if getattr(calc, "device_spec", None) is not None else "slice_step"
+    return {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}[engine]
 
 
 def build_epoch_fn(calc, cfg: EpochConfig):

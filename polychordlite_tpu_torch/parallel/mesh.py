@@ -46,7 +46,7 @@ def make_epoch_runner(
     tail = len(cfg.grade_dims) + 1  # per-grade nlike + overflow flag
 
     epoch_fn = build_epoch_fn(calc, cfg)
-    if cfg.engine != "torch":  # the functor, through its own kernel
+    if cfg.engine != "torch" and calc.device_spec is not None:  # the functor, in its kernel
         from ..ops.pallas_slice_v4 import validate_functor
         from ..ops.slice_kernel import kernel_wrapper
 

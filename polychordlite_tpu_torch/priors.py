@@ -18,18 +18,41 @@ layout that is all ``uniform`` with hypercube index = physical index have
 one; other priors have ``affine = None``.  The kernels' functors apply it
 inside the likelihood (``csrc/likelihoods.cuh``).
 
-The pypolychord prior classes other than ``UniformPrior`` (Gaussian,
-log-uniform, sorted) are not ported yet.
+The other pypolychord prior classes — :class:`GaussianPrior`,
+:class:`LogUniformPrior`, :class:`SortedUniformPrior` and
+:class:`LogSortedUniformPrior` (``polychordlite_tpu/priors.py:72-121``) —
+take scalar or per-coordinate parameters, work on one point ``(D,)`` and on
+a batch ``(B, D)``, and have no ``affine`` descriptor: on a card they run
+through the CUDA engine's traced route (``ops/pallas_slice_v4.py``).
+
+Every prior here keeps its parameter and index tensors on the device once
+made (:func:`_device_tensor`), so that running it copies nothing from the
+host and a CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _device_tensor(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor, made once per (values, dtype, device) and
+    kept: a prior that takes its constants from here copies nothing from the
+    host when it runs, which a CUDA graph capture would refuse."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _consts(values, x: torch.Tensor) -> torch.Tensor:
+    """The float64 ``values`` as a tensor of ``x``'s dtype and device."""
+    return _device_tensor(tuple(np.asarray(values, np.float64).ravel().tolist()), x.dtype,
+                          x.device)
 
 
 def identity_prior(cube: torch.Tensor) -> torch.Tensor:
@@ -64,9 +87,81 @@ class UniformPrior:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self._a, float):
             return self._a + self._s * x
-        a = torch.as_tensor(self._a, dtype=x.dtype, device=x.device)
-        s = torch.as_tensor(self._s, dtype=x.dtype, device=x.device)
-        return a + s * x
+        return _consts(self._a, x) + _consts(self._s, x) * x
+
+
+def _coord_params(*vals):
+    """The parameters as float64 arrays of one length (a scalar broadcast to
+    the vectors' length; all 0-d when every one is a scalar), as the JAX
+    package's ``_coord_params`` accepts them.  Raises when the lengths do
+    not broadcast."""
+    arrs = [np.atleast_1d(np.asarray(v, dtype=np.float64)) for v in vals]
+    n = max(a.size for a in arrs)
+    if n == 1:
+        return [np.float64(a[0]) for a in arrs]
+    if any(a.size not in (1, n) for a in arrs):
+        raise ValueError("prior parameter lengths do not broadcast")
+    return [np.broadcast_to(a, (n,)).copy() for a in arrs]
+
+
+def _param(v, x: torch.Tensor):
+    """A parameter from :func:`_coord_params`: a Python float for a scalar,
+    else a tensor on ``x``'s device."""
+    return float(v) if np.ndim(v) == 0 else _consts(v, x)
+
+
+class GaussianPrior:
+    """theta = mu + sigma sqrt(2) erfinv(2 cube - 1) (pypolychord
+    ``GaussianPrior``); ``mu`` and ``sigma`` scalars or per coordinate.
+    ``sigma sqrt(2)`` is rounded to float32 first, as the JAX package's
+    ``sigma * jnp.sqrt(2.0)`` is."""
+
+    def __init__(self, mu, sigma):
+        self.mu = mu
+        self.sigma = sigma
+        self._mu, sigma64 = _coord_params(mu, sigma)
+        self._scale = (np.asarray(sigma64, np.float32) * np.float32(math.sqrt(2.0))).astype(
+            np.float64)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return _param(self._mu, x) + _param(self._scale, x) * torch.special.erfinv(2 * x - 1)
+
+
+class LogUniformPrior(UniformPrior):
+    """theta = a (b / a)^cube (pypolychord ``LogUniformPrior``); ``a`` and
+    ``b`` scalars or per coordinate."""
+
+    def __init__(self, a, b):
+        super().__init__(a, b)
+        self._la, self._lb = _coord_params(a, b)
+        self.affine = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        ratio = self._lb / self._la
+        if np.ndim(ratio) == 0:
+            return float(self._la) * float(ratio) ** x
+        return _consts(self._la, x) * torch.pow(_consts(ratio, x), x)
+
+
+class SortedUniformPrior(UniformPrior):
+    """:class:`UniformPrior` of the sorted uniforms
+    :func:`forced_identifiability_transform` makes of the cube (pypolychord
+    ``SortedUniformPrior``)."""
+
+    def __init__(self, a, b):
+        super().__init__(a, b)
+        self.affine = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return super().__call__(forced_identifiability_transform(x))
+
+
+class LogSortedUniformPrior(LogUniformPrior):
+    """:class:`LogUniformPrior` of the sorted uniforms (pypolychord
+    ``LogSortedUniformPrior``)."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return super().__call__(forced_identifiability_transform(x))
 
 
 def forced_identifiability_transform(x: torch.Tensor) -> torch.Tensor:
@@ -133,10 +228,7 @@ def _pairs_np(params, n, stride=2):
 
 def _pairs(params, x, stride=2):
     """:func:`_pairs_np` as tensors of ``x``'s dtype and device."""
-    return [
-        torch.as_tensor(c, dtype=x.dtype, device=x.device)
-        for c in _pairs_np(params, x.shape[-1], stride)
-    ]
+    return [_consts(c, x) for c in _pairs_np(params, x.shape[-1], stride)]
 
 
 def _uniform_htp(x, params):
@@ -238,10 +330,10 @@ def hypercube_to_physical(cube: torch.Tensor, blocks: Sequence[PriorBlock]):
     leading batch dimensions."""
     out = torch.zeros_like(cube)
     for blk in blocks:
-        h = list(blk.hypercube_indices)
-        out[..., list(blk.physical_indices)] = _HTP[blk.prior_type](
-            cube[..., h], blk.parameters
-        )
+        h, p = (_device_tensor(tuple(i), torch.int64, cube.device)
+                for i in (blk.hypercube_indices, blk.physical_indices))
+        out = out.index_copy(-1, p, _HTP[blk.prior_type](cube.index_select(-1, h),
+                                                         blk.parameters))
     return out
 
 

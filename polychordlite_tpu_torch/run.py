@@ -7,9 +7,10 @@ the reference Python-layer defaults (pypolychord/polychord.py:221-646);
 the legacy settings-object interface (:16-215).
 
 Differences from the reference (documented deviations):
-* the likelihood may be a torch function of a ``(B, D)`` tensor (fast path:
-  batched on the device) or any plain Python/numpy callable of one point
-  (host-callback compatibility path);
+* the likelihood may be a torch function of a ``(B, D)`` tensor or of one
+  point ``(D,)`` (vmapped; both on the device, ``ops/evaluate.py``) or any
+  plain Python/numpy callable of one point (host-callback compatibility
+  path);
 * ``batch_size`` controls the width of the device chain nursery (the analogue
   of the MPI process count; like nprocs in the reference, changing it changes
   the exact sample stream but not the statistics);
@@ -20,9 +21,11 @@ Differences from the reference (documented deviations):
   (speculative packets, v5) and ``"cuda3"`` (v3's budget) force other
   kernels that make the same decisions, so the same run; ``"cuda2"`` forces
   the v2 kernel, which writes the cube itself (another chain, the same
-  statistics); ``engine="torch"`` is the plain engine anywhere.  A model
-  the kernels cannot evaluate (no affine prior or no device form) raises
-  with a kernel engine and with ``"auto"`` on a card.
+  statistics); ``engine="torch"`` is the plain engine anywhere.  On a card
+  ``"cuda"`` runs a torch model without a device form (no affine prior or
+  no device functor) on the v4 kernel's traced route, bitwise the plain
+  engine; the forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"`` raise for it,
+  and every kernel engine raises for a host-callback model.
 """
 
 from __future__ import annotations

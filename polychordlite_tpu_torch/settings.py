@@ -86,9 +86,10 @@ class PolyChordSettings:
     #: number of local devices to shard the chain batch over; the port runs
     #: on one device and ignores it.
     mesh_shape: Optional[int] = None
-    #: slice engine: "auto" (default — the CUDA kernel "cuda" on a CUDA
-    #: device for a model with a device form, the plain torch engine on the
-    #: CPU), "cuda" (the v4 kernel, forced), "cuda5" (the speculative-packet
+    #: slice engine: "auto" (default — "cuda" on a CUDA device, the plain
+    #: torch engine on the CPU), "cuda" (the v4 kernel: its functor for a
+    #: model with a device form, its traced route for any other torch
+    #: model), "cuda5" (the speculative-packet
     #: kernel, the JAX package's forced "pallas5"; decision-exact with
     #: "cuda") or "torch" (the plain engine, any device).
     engine: str = "auto"

@@ -41,6 +41,7 @@ from polychordlite_tpu_torch.ops.slice_kernel import (  # noqa: E402
 )
 from polychordlite_tpu_torch.priors import (  # noqa: E402
     BlockPrior,
+    GaussianPrior,
     PriorBlock,
     UniformPrior,
     identity_prior,
@@ -292,7 +293,7 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     after = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
-        "slice_epoch_v2_counted": 0}
+        "slice_epoch_v2_counted": 0, "slice_step": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -494,3 +495,124 @@ def test_prototype_wrappers_raise_on_other_devices(dev):
     x0, nh, w, bound = pallas_slice_repeat.study_inputs(dev, 4, 1)
     with pytest.raises(ValueError, match="is on cpu"):
         pallas_slice_repeat.proto_repeat(seed, x0, nh, w.cpu(), bound)
+
+
+# ---- B1's route for a likelihood evaluated in torch (csrc/slice_step.cu)
+def _unit_directions(gen, dev, B, R, D):
+    """Unit directions without B2, whose kernel stops at dim 32."""
+    nh = torch.randn((B, R, D), generator=gen, device=dev)
+    return nh / nh.norm(dim=2, keepdim=True), torch.full((B, R), 0.3, device=dev)
+
+
+def _quickstart(theta):
+    r2 = torch.sum(theta ** 2)
+    return -2.0 * math.log(2 * math.pi * 0.01) - r2 / 2 / 0.01, [r2]
+
+
+@pytest.mark.parametrize("rounds", [1, 7, 32])
+@pytest.mark.parametrize("model", ["per_point", "batched", "zoo", "gaussian_prior_d40"])
+def test_traced_route_equals_plain(dev, model, rounds):
+    """The kernel route against the plain engine bit for bit, for a per-point
+    and a batched torch model, a zoo model (also B1's records), and a model
+    beyond B1's SLICE_MAXD (D = 40, a non-affine prior)."""
+    D, R, B = {"per_point": (4, 6, 1000), "batched": (20, 8, 1024), "zoo": (20, 8, 1024),
+               "gaussian_prior_d40": (40, 4, 700)}[model]
+    prior, like, nd = {
+        "per_point": (UniformPrior(-1, 1), _quickstart, 1),
+        "batched": (identity_prior, lambda th: -0.5 * (((th - 0.5) / 0.1) ** 2).sum(-1), 0),
+        "zoo": (identity_prior, gaussian(D), 2),
+        "gaussian_prior_d40": (GaussianPrior(0.5, 0.2),
+                               lambda th: -0.5 * (((th - 0.5) / 0.1) ** 2).sum(-1), 0),
+    }[model]
+    calc = make_batched_calculator(prior, like, D, nd, device=dev)
+    assert calc.form == ("per_point" if model == "per_point" else "batched")
+    gen = torch.Generator(dev).manual_seed(D + rounds)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    bound = calc(x0)[2] - 2.0
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w = _unit_directions(gen, dev, B, R, D)
+    w = w * 0.1
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = (x0, bound, valid, nh, w)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (9, 10), *args)
+    before = pallas_slice_v4.LAUNCHES["slice_step"]
+    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (9, 10), *args, rounds=rounds)
+    assert pallas_slice_v4.LAUNCHES["slice_step"] > before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+    if model == "zoo":  # the same decisions as B1's functor kernel
+        for a, b in zip(pallas_slice_v4.slice_epoch(calc, cfg, (9, 10), *args), want):
+            assert torch.equal(a, b)
+
+
+def test_traced_route_block_prior_copies_nothing_from_the_host(dev):
+    """A block layout without an affine form (Gaussian blocks) runs inside
+    the CUDA graph: its parameters and indices stay on the card."""
+    blocks = [PriorBlock("gaussian", (0, 1), (1, 0), (0.5, 0.1)),
+              PriorBlock("uniform", (2,), (2,), (0.0, 1.0))]
+    calc = make_batched_calculator(BlockPrior(blocks, 3), lambda th: -(th ** 2).sum(-1), 3, 0,
+                                   device=dev)
+    assert calc.device_spec is None and calc.form == "batched"
+    B, R = 256, 3
+    gen = torch.Generator(dev).manual_seed(0)
+    x0 = (0.5 + 0.05 * torch.randn((B, 3), generator=gen, device=dev)).clamp(0, 1)
+    nh, w = _unit_directions(gen, dev, B, R, 3)
+    args = (x0, calc(x0)[2] - 1.0, torch.ones(B, dtype=torch.bool, device=dev), nh, w)
+    cfg = EpochConfig(n_dims=3, n_phi=1, grade_dims=(3,), num_repeats=(R,))
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), *args)
+    for a, b in zip(pallas_slice_v4.slice_epoch_traced(calc, cfg, (1, 2), *args), want):
+        assert torch.equal(a, b)
+
+
+def test_traced_route_refuses_a_likelihood_that_syncs(dev):
+    """A likelihood that reads a value back to the host cannot be captured:
+    the route raises, naming the plain engine, and runs nothing uncaptured."""
+    def syncing(th):
+        if float(th.sum().item()) > 1e30:
+            return th.sum(-1)
+        return -0.5 * ((th - 0.5) ** 2).sum(-1)
+
+    calc = make_batched_calculator(identity_prior, syncing, 3, 0, device=dev)
+    assert calc.form == "batched"
+    cfg = EpochConfig(n_dims=3, n_phi=1, grade_dims=(3,), num_repeats=(2,))
+    B = 128
+    with pytest.raises(ValueError, match="engine='torch'"):
+        pallas_slice_v4.slice_epoch_traced(
+            calc, cfg, (0, 0), torch.full((B, 3), 0.5, device=dev),
+            torch.full((B,), -10.0, device=dev), torch.ones(B, dtype=torch.bool, device=dev),
+            torch.ones((B, 2, 3), device=dev) / math.sqrt(3), torch.ones((B, 2), device=dev))
+    callback = make_batched_calculator(
+        identity_prior, lambda th: float(-np.sum(np.asarray(th) ** 2)), 3, 0)
+    with pytest.raises(ValueError, match="engine='torch'"):
+        pallas_slice_v4.slice_epoch_traced(
+            callback, cfg, (0, 0), torch.full((B, 3), 0.5, device=dev),
+            torch.full((B,), -10.0, device=dev), torch.ones(B, dtype=torch.bool, device=dev),
+            torch.ones((B, 2, 3), device=dev) / math.sqrt(3), torch.ones((B, 2), device=dev))
+
+
+def test_quickstart_runs_on_the_card(dev):
+    """The per-point torch quickstart through run(): the traced route and
+    B2, chained epochs kept (their replay check holds), and the same run as
+    the plain engine's on the card."""
+    results = {}
+    for engine in ("auto", "torch"):
+        with tempfile.TemporaryDirectory() as base:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")  # a replay divergence would warn
+                out = pt.run(_quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100,
+                             num_repeats=8, do_clustering=False, read_resume=False,
+                             base_dir=base, seed=5, feedback=-1, device="cuda", engine=engine)
+            with open(os.path.join(base, "test.metrics.jsonl")) as f:
+                last = json.loads(f.read().splitlines()[-1])
+            assert last["form"] == "per_point" and last["chained_epochs"] is True
+            ran = last["kernel_launches"]
+            if engine == "auto":
+                assert last["engine"] == "cuda" and last["route"] == "slice_step"
+                assert ran["slice_step"] > 0 and ran["gram_schmidt"] > 0
+                assert ran["slice_epoch"] == 0 and last["traced_route"]["replays"] > 0
+            assert abs(out.logZ + 4 * math.log(2.0)) < 3 * out.logZerr
+            results[engine] = (out.ndead, out.logZ, out.logZerr,
+                               np.loadtxt(os.path.join(base, "test.txt")))
+    assert results["auto"][:3] == results["torch"][:3]
+    np.testing.assert_array_equal(results["auto"][3], results["torch"][3])

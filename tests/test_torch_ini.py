@@ -136,9 +136,13 @@ def test_engine_auto_on_a_card_refuses_a_layout_without_affine_form(monkeypatch)
     from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
 
     calc = make_batched_calculator(ppr.BlockPrior(_layout("gaussian"), 5), gaussian(5), 5, 2)
-    assert calc.device_spec is None
+    assert calc.device_spec is None and calc.form == "batched"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for engine in ("auto", "cuda", "cuda5"):
+    # "cuda" takes the layout through the traced route; the forced A/B
+    # kernels need a functor and refuse it, naming the plain engine
+    for engine in ("auto", "cuda"):
+        assert ns.resolve_engine(engine, torch.device("cuda"), calc) == "cuda"
+    for engine in ("cuda5", "cuda3", "cuda2"):
         with pytest.raises(ValueError, match="engine='torch'"):
             ns.resolve_engine(engine, torch.device("cuda"), calc)
     assert ns.resolve_engine("torch", torch.device("cuda"), calc) == "torch"

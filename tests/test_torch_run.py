@@ -94,8 +94,10 @@ def test_engine_and_device_rules(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ns.resolve_device(None)
 
-    # with a card: the kernel for a model with a device form, and a loud
-    # refusal (naming engine='torch') for one without
+    # with a card: every kernel engine for a model with a device form; "cuda"
+    # (the traced route) for a torch model without one, the forced A/B
+    # kernels refusing it; a host-callback model refused (naming
+    # engine='torch') by every kernel engine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     assert ns.resolve_device(None) == cuda
@@ -108,9 +110,19 @@ def test_engine_and_device_rules(monkeypatch):
 
     no_form = make_batched_calculator(identity_prior, plain_like, D, 0)
     assert no_form.device_spec is None and not no_form.uses_callback
-    with pytest.raises(ValueError, match="engine='torch'"):
-        ns.resolve_engine("auto", cuda, no_form)
+    assert ns.resolve_engine("auto", cuda, no_form) == "cuda"
+    for engine in ("cuda5", "cuda3", "cuda2"):
+        with pytest.raises(ValueError, match="engine='torch'"):
+            ns.resolve_engine(engine, cuda, no_form)
     assert ns.resolve_engine("torch", cuda, no_form) == "torch"
+
+    callback = make_batched_calculator(
+        identity_prior, lambda th: float(-np.sum((np.asarray(th) - 0.5) ** 2)), D, 0)
+    assert callback.uses_callback and callback.form == "callback"
+    for engine in ("auto",) + ns.KERNEL_ENGINES:
+        with pytest.raises(ValueError, match="engine='torch'"):
+            ns.resolve_engine(engine, cuda, callback)
+    assert ns.resolve_engine("torch", cuda, callback) == "torch"
 
 
 def test_calculator_paths():
