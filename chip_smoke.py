@@ -15,10 +15,16 @@ bench geometries, and the SASS of B1's Gaussian instantiations from
 ``cuobjdump``), holds B1's route for a likelihood evaluated in torch
 (``slice_step``: the kernel ``csrc/slice_step.cu`` replayed from a CUDA
 graph) bitwise against the plain engine and B1 at gaussian.ini's shape, the
-bench and D = 40, with 1, 7 and 32 rounds per replay, and times it beside
-both, then drives the port's paths and checks what comes out and
-which kernels ran (each path with every launch count set to 0 just before
-it):
+bench and D = 40, with 1, 7 and 32 rounds per replay, times it beside both
+and times its kernel's own share of a round (rounds whose calc is one copy
+of a constant logL), holds B1's fused route (``slice_fused``: gaussian.ini's
+likelihood written in torch, lowered by ``ops/fused_like.py`` into
+``csrc/slice_epoch_fused.cu``) bitwise against its plain version at every G
+at gaussian.ini's shape and the bench, counts and lists its decisions that
+differ from the traced route's and B1's on the same inputs, holds the zoo's
+own Gaussian lowered bitwise against B1, and times the three routes, then
+drives the port's paths and checks what comes out and which kernels ran
+(each path with every launch count set to 0 just before it):
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
@@ -43,14 +49,21 @@ it):
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
-  form): the traced route ``csrc/slice_step.cu`` and B2, within 3 sigma of
-  0, its dead/s beside the functor run's;
+  form): the fused route ``csrc/slice_epoch_fused.cu`` and B2, within 3
+  sigma of 0, its dead/s beside the functor run's;
 * ``run_quickstart_torch``: the reference quickstart written per point in
   torch (4-D, sigma 0.1, ``UniformPrior(-1, 1)``, one derived r^2, nlive
-  200, clustering on) through ``run()``: the traced route and B2 (never B1),
-  within 3 sigma of -4 log 2, the r^2 column in the chains;
+  200, clustering on) through ``run()``: the fused route and B2, within 3
+  sigma of -4 log 2, the r^2 column in the chains;
 * ``run_gaussian_prior``: a 5-D Gaussian likelihood N(0, 0.5^2) under a
-  ``GaussianPrior(1, 1)``, within 3 sigma of its closed-form evidence;
+  ``GaussianPrior(1, 1)`` (its erfinv lowered into the kernel), within 3
+  sigma of its closed-form evidence;
+* ``run_traced_route``: a 4-D Gaussian written with
+  ``torch.linalg.vector_norm``, which the lowering refuses (the op is
+  outside its table): the traced route ``csrc/slice_step.cu`` and B2, the
+  refusal as the metrics' ``route_reason``, within 3 sigma of 0;
+  (each fused run's libraries are built before its clock starts, as a
+  second run of the same model finds them);
 
 then the structure-cost studies of ``polychordlite_tpu_torch.experiments``,
 each kernel first held against its plain version on the card:
@@ -365,6 +378,7 @@ def main() -> None:
         from polychordlite_tpu_torch.inidriver import run_ini
         from polychordlite_tpu_torch.models import gaussian, gaussian_shells, himmelblau
         from polychordlite_tpu_torch.ops import (
+            fused_like,
             pallas_dirs,
             pallas_slice,
             pallas_slice_v3,
@@ -375,6 +389,7 @@ def main() -> None:
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
         from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
         from polychordlite_tpu_torch.output import PolyChordOutput
+        from polychordlite_tpu_torch.parallel.mesh import GRANULE
         from polychordlite_tpu_torch.priors import (
             BlockPrior,
             GaussianPrior,
@@ -816,6 +831,15 @@ def main() -> None:
             per_epoch = pallas_slice_v4.LAUNCHES["slice_step"] - before[0]
             replays = pallas_slice_v4.TRACED["replays"] - before[1]["replays"]
             ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args), 3)  # noqa: B023
+            # the kernel's own share of a round: the same graph of rounds
+            # with a calc that is one copy of a constant logL (every probe
+            # below every bound: each repeat shrinks max_shrink times)
+            fixed = torch.full((B,), float(args[1].min()) - 1.0, device=dev)
+            runner = pallas_slice_v4.TracedEpoch(cfg, B, R, D, pallas_slice_v4.ROUNDS, dev)
+            before = pallas_slice_v4.LAUNCHES["slice_step"]
+            runner(lambda p: (None, None, fixed), kw, *args)  # noqa: B023
+            const_rounds = pallas_slice_v4.LAUNCHES["slice_step"] - before - 1
+            const_ms = cuda_ms(lambda: runner(lambda p: (None, None, fixed), kw, *args), 3)  # noqa: B023
             evals = int(want[2].sum())
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "evals": evals,
@@ -824,10 +848,113 @@ def main() -> None:
                 "ms": ms, "plain_ms": plain_ms, "b1_ms": b1_ms,
                 "plain_over_route": plain_ms / ms, "route_over_b1": ms / b1_ms if b1_ms else None,
                 "us_per_round": ms * 1e3 / max(per_epoch - 1, 1),
+                "const_calc_rounds": const_rounds, "const_calc_ms": const_ms,
+                "kernel_us_per_round": const_ms * 1e3 / max(const_rounds, 1),
+                "kernel_share_of_round": (const_ms / max(const_rounds, 1))
+                / (ms / max(per_epoch - 1, 1)),
                 "evals_per_s": evals / (ms / 1e3),
                 "bound": bound(slice_step_bytes(B, D, per_epoch, R), 0),
             }
         results["slice_step"] = {**out["bench"], "max_abs_err": 0.0}
+        return out
+
+    def torch_gaussian(n_dims, mu=0.5, sigma=0.1):
+        """gaussian.ini's likelihood as a user writes it in torch: batched,
+        with its two derived parameters and no device form."""
+        norm = -n_dims * (math.log(sigma) + 0.5 * math.log(2 * math.pi))
+        log_vn = 0.5 * n_dims * math.log(math.pi) - math.lgamma(1 + 0.5 * n_dims)
+
+        def loglikelihood(theta):
+            r2 = ((theta - mu) ** 2).sum(-1)
+            r = torch.sqrt(r2)
+            return norm - 0.5 * r2 / sigma ** 2, torch.stack([r, n_dims * torch.log(r) + log_vn], -1)
+
+        return loglikelihood
+
+    # ---- 6c. B1's fused route: the likelihood lowered into the kernel -------
+    @phase("slice_fused")
+    def _():
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        builds = {}
+        for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH)):
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            zoo_calc, cfg, args = geometry(tag, geo)  # the zoo Gaussian: B1's functor
+            calc = make_batched_calculator(identity_prior, torch_gaussian(D), D, 2, device=dev)
+            low = fused_like.lowering(calc)
+            zoo_low = fused_like.lower(zoo_calc)  # the zoo's own torch form, lowered
+            if not isinstance(low, fused_like.Lowered):
+                raise AssertionError(f"gaussian.ini in torch was not lowered: {low.reason}")
+            G = pallas_slice_v4.choose_group(B, D, n_sm)
+            t0 = time.perf_counter()
+            low.build(GROUPS)
+            zoo_low.build([G])
+            names = [low.library_name(g) for g in GROUPS] + [zoo_low.library_name(G)]
+            with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+                for n in names:
+                    if n in nvcc.build_log:
+                        f.write(f"==== {n}\n{nvcc.build_log[n]}\n")
+            builds[tag] = {"seconds": time.perf_counter() - t0,
+                           "by_group": dict(low.build_seconds), "zoo": dict(zoo_low.build_seconds),
+                           "ptxas": {n: ptxas_summary(nvcc.build_log[n]) for n in names
+                                     if n in nvcc.build_log}}
+            res, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                low.plain_logL, cfg, kw, *args, count_steps=True))  # noqa: B023
+            want, steps = res[:3], res[3]
+            pairs = []
+            for g in GROUPS:
+                pairs += [(f"{k}_G{g}_vs_plain", a, b) for k, a, b in zip(
+                    ("t", "logL", "nlike"),
+                    pallas_slice_v4.slice_epoch_fused(calc, cfg, kw, *args, group=g), want)]
+            mism = decisions(f"{tag}: the fused kernel differs from its plain version", pairs)
+            got = pallas_slice_v4.slice_epoch_fused(calc, cfg, kw, *args)
+            zoo_calc.__dict__["fused"] = zoo_low
+            zoo_fused = pallas_slice_v4.slice_epoch_fused(zoo_calc, cfg, kw, *args)
+            b1 = pallas_slice_v4.slice_epoch(zoo_calc, cfg, kw, *args)
+            mism.update(decisions(f"{tag}: the zoo Gaussian lowered differs from B1", [
+                (f"{k}_zoo_fused_vs_B1", a, b) for k, a, b in zip(("t", "logL", "nlike"),
+                                                                 zoo_fused, b1)]))
+            traced = pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args)
+            against = {}
+            for name, other in (("traced_route", traced), ("b1_functor", b1)):
+                diff = (got[0] != other[0]) | (got[2] != other[2])
+                lanes = torch.nonzero(diff.any(1)).flatten().tolist()
+                listed = []
+                for b in lanes:
+                    r = int(torch.nonzero(diff[b]).flatten()[0])
+                    listed.append({"lane": b, "repeat": r,
+                                   "abs_logL_minus_bound": abs(float(got[1][b, r])
+                                                               - float(args[1][b])),
+                                   "other_abs_logL_minus_bound": abs(float(other[1][b, r])
+                                                                     - float(args[1][b]))})
+                against[name] = {"t_or_nlike_mismatches": int(diff.sum()),
+                                 "lanes": len(lanes), "listed": listed[:50]}
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(calc, cfg, kw, *args), 5)  # noqa: B023
+            ms_by_group = {g: cuda_ms(lambda g=g: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
+                calc, cfg, kw, *args, group=g), 5) for g in GROUPS}  # noqa: B023
+            zoo_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(zoo_calc, cfg, kw, *args), 5)  # noqa: B023
+            b1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(zoo_calc, cfg, kw, *args), 5)  # noqa: B023
+            traced_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(  # noqa: B023
+                calc, cfg, kw, *args), 3)  # noqa: B023
+            lane_max = int(steps.max())
+            evals = int(want[2].sum())
+            out[tag] = {
+                "B": B, "R": R, "D": D, "group": G, "valid_lanes": int(args[2].sum()),
+                "evals": evals, "lowered": {"terms": low.n_terms, "term_ops": len(low.term),
+                                            "combine_ops": len(low.combine),
+                                            "consts": len(low.consts),
+                                            "flops_per_probe": low.flops_per_probe()},
+                "mismatches": mism, "decisions_against": against,
+                "ms": ms, "ms_by_group": ms_by_group, "zoo_lowered_ms": zoo_ms, "b1_ms": b1_ms,
+                "traced_ms": traced_ms, "plain_ms": plain_ms,
+                "fused_over_b1": ms / b1_ms, "zoo_lowered_over_b1": zoo_ms / b1_ms,
+                "traced_over_fused": traced_ms / ms,
+                "lane_steps_max": lane_max, "us_per_micro_step": ms * 1e3 / lane_max,
+                "evals_per_s": evals / (ms / 1e3), "build": builds[tag],
+                "bound": bound(slice_epoch_bytes(B, R, D),
+                               int(steps.to(torch.int64).sum()) * low.flops_per_probe()),
+            }
+        results["slice_fused"] = {**out["bench"], "max_abs_err": 0.0}
         return out
 
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
@@ -898,12 +1025,28 @@ def main() -> None:
             "epoch_timers_s": last.get("epoch_timers"),
         }
 
-    # ---- 7b. any torch likelihood through run(): the traced route ---------
-    def traced_run(name, like, n_dims, **kw):
+    # ---- 7b. any torch likelihood through run(): the fused route, and the
+    # traced route for a model the lowering refuses
+    def prebuild(like, n_dims, nlive, nDerived=0, prior=identity_prior):
+        """Lower the model as run() will and build its fused libraries at
+        every G up to D (the run's batch picks one), before the run's clock
+        starts: a second run of the same model finds them built."""
+        calc = make_batched_calculator(prior, like, n_dims, nDerived, device=dev)
+        low = fused_like.lowering(calc)
+        if not isinstance(low, fused_like.Lowered):
+            raise AssertionError(f"the model was not lowered: {low.reason}")
+        B_phys = -(-(-(-nlive // 8) * 8) // GRANULE) * GRANULE
+        t0 = time.perf_counter()
+        low.build([g for g in GROUPS if g <= n_dims])
+        return {"seconds": time.perf_counter() - t0, "by_group": dict(low.build_seconds),
+                "run_group": pallas_slice_v4.choose_group(B_phys, n_dims, n_sm)}
+
+    def route_run(name, like, n_dims, route="slice_epoch_fused", **kw):
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
-        path must take the traced route and B2 only, with chained epochs
-        kept (a replay divergence would warn, and warnings are errors)."""
+        path must take ``route`` (the fused route, or the traced route) and
+        B2 only, with chained epochs kept (a replay divergence would warn,
+        and warnings are errors)."""
         with tempfile.TemporaryDirectory() as base:
             reset_launches()
             t0 = time.perf_counter()
@@ -917,22 +1060,25 @@ def main() -> None:
             stats = PolyChordOutput(base, "test")
             last = read_metrics(base, "test")[-1]
             chains = np.loadtxt(os.path.join(base, "test.txt"), ndmin=2)
-        if (last.get("engine"), last.get("route")) != ("cuda", "slice_step"):
+        if (last.get("engine"), last.get("route")) != ("cuda", route):
             raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
-                                 f"{last.get('route')!r}, not the traced route")
+                                 f"{last.get('route')!r} ({last.get('route_reason')}), "
+                                 f"not {route}")
         if last.get("chained_epochs") is not True:
             raise AssertionError(f"{name}: chained epochs were switched off during the run")
-        if not only(ran, ("gram_schmidt", "slice_step")):
-            raise AssertionError(f"{name}: the path did not run slice_step and B2 (only): {ran}")
+        if not only(ran, ("gram_schmidt", route)):
+            raise AssertionError(f"{name}: the path did not run {route} and B2 (only): {ran}")
         add_launches(ran)
         return last, stats, wall, ran, chains
 
-    def traced_record(last, stats, wall, ran, truth):
+    def route_record(last, stats, wall, ran, truth):
         pull = (stats.logZ - truth) / stats.logZerr
         if not (math.isfinite(stats.logZ) and abs(pull) < 3.0):
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is {pull:.2f} sigma "
                                  f"from {truth}")
-        return {"engine_used": last["engine"], "route": last["route"], "form": last["form"],
+        return {"engine_used": last["engine"], "route": last["route"],
+                "route_reason": last.get("route_reason"),
+                "fused_build_seconds": last.get("fused_build_seconds"), "form": last["form"],
                 "chained_epochs": last["chained_epochs"], "ndead": stats.ndead,
                 "logZ": stats.logZ, "logZerr": stats.logZerr, "oracle": truth,
                 "pull_sigma": pull, "wall_s": wall, "dead_per_s": stats.ndead / wall,
@@ -941,28 +1087,17 @@ def main() -> None:
                 "host_totals_s": last.get("host_totals"),
                 "epoch_timers_s": last.get("epoch_timers")}
 
-    def torch_gaussian(n_dims, mu=0.5, sigma=0.1):
-        """gaussian.ini's likelihood as a user writes it in torch: batched,
-        with its two derived parameters and no device form."""
-        norm = -n_dims * (math.log(sigma) + 0.5 * math.log(2 * math.pi))
-        log_vn = 0.5 * n_dims * math.log(math.pi) - math.lgamma(1 + 0.5 * n_dims)
-
-        def loglikelihood(theta):
-            r2 = ((theta - mu) ** 2).sum(-1)
-            r = torch.sqrt(r2)
-            return norm - 0.5 * r2 / sigma ** 2, torch.stack([r, n_dims * torch.log(r) + log_vn], -1)
-
-        return loglikelihood
-
     @phase("run_gaussian_ini_torch")
     def _():
-        last, stats, wall, ran, _ = traced_run(
+        built = prebuild(torch_gaussian(INI["nDims"]), INI["nDims"], INI["nlive"],
+                         INI["nDerived"])
+        last, stats, wall, ran, _ = route_run(
             "gaussian.ini", torch_gaussian(INI["nDims"]), INI["nDims"], nDerived=INI["nDerived"],
             nlive=INI["nlive"], num_repeats=INI["num_repeats"], do_clustering=False,
             precision_criterion=0.001)
         if last["form"] != "batched":
             raise AssertionError(f"the batched likelihood was read as {last['form']!r}")
-        rec = traced_record(last, stats, wall, ran, 0.0)
+        rec = {**route_record(last, stats, wall, ran, 0.0), "prebuild": built}
         functor = results.get("run_gaussian_ini", {})
         rec["functor_run_dead_per_s"] = functor.get("dead_per_s")
         rec["functor_run_wall_s"] = functor.get("wall_s")
@@ -975,7 +1110,8 @@ def main() -> None:
 
     @phase("run_quickstart_torch")
     def _():
-        last, stats, wall, ran, chains = traced_run(
+        built = prebuild(quickstart, 4, 200, 1, UniformPrior(-1, 1))
+        last, stats, wall, ran, chains = route_run(
             "quickstart", quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=200,
             do_clustering=True)
         if last["form"] != "per_point":
@@ -986,8 +1122,9 @@ def main() -> None:
         r2_err = float(np.abs(chains[:, 6] - (chains[:, 2:6] ** 2).sum(1)).max())
         if not r2_err < 1e-5:
             raise AssertionError(f"the r^2 column is {r2_err} from theta's")
-        return {**traced_record(last, stats, wall, ran, -4 * math.log(2.0)),
-                "chain_rows": int(chains.shape[0]), "max_abs_r2_err": r2_err}
+        return {**route_record(last, stats, wall, ran, -4 * math.log(2.0)),
+                "chain_rows": int(chains.shape[0]), "max_abs_r2_err": r2_err,
+                "prebuild": built}
 
     @phase("run_gaussian_prior")
     def _():
@@ -1000,9 +1137,25 @@ def main() -> None:
         # Z = prod_d N(mu_p; 0, s_like^2 + s_p^2)
         var = s_like ** 2 + s_p ** 2
         truth = D * (-0.5 * math.log(2 * math.pi * var) - 0.5 * mu_p ** 2 / var)
-        last, stats, wall, ran, _ = traced_run(
+        built = prebuild(like, D, 200, 0, GaussianPrior(mu_p, s_p))
+        last, stats, wall, ran, _ = route_run(
             "gaussian_prior", like, D, prior=GaussianPrior(mu_p, s_p), nlive=200)
-        return traced_record(last, stats, wall, ran, truth)
+        return {**route_record(last, stats, wall, ran, truth), "prebuild": built}
+
+    @phase("run_traced_route")
+    def _():
+        D, mu, sigma = 4, 0.5, 0.1
+        norm = -D * (math.log(sigma) + 0.5 * math.log(2 * math.pi))
+
+        def like(theta):  # torch.linalg.vector_norm: outside the lowering's table
+            return norm - 0.5 * (torch.linalg.vector_norm(theta - mu, dim=-1) / sigma) ** 2
+
+        last, stats, wall, ran, _ = route_run("vector_norm", like, D, route="slice_step",
+                                               nlive=200)
+        if "linalg_vector_norm" not in str(last.get("route_reason")):
+            raise AssertionError(f"route_reason {last.get('route_reason')!r} does not name "
+                                 "the refused op")
+        return route_record(last, stats, wall, ran, 0.0)
 
     # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
     shells = {}
@@ -1473,6 +1626,9 @@ def main() -> None:
          "lane_efficiency", bound(slice_epoch_bytes(Bb, Rb, Db, counted=True), flops), None),
         ("slice_step", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
          "slice_step", results["slice_step"]["bound"], None),
+        ("slice_epoch_fused", "slice_epoch_fused.cu",
+         "polychordlite_tpu/ops/pallas_slice_v4.py:508", "slice_fused",
+         results["slice_fused"]["bound"], None),
     ] + [
         (name, source, replaces, res, results[res]["bound"], None)
         for name, source, replaces, res in (
@@ -1489,11 +1645,16 @@ def main() -> None:
     ]
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
-                    "slice_epoch_v2", "slice_step")  # the others: their studies' own launches
+                    "slice_epoch_v2", "slice_step", "slice_epoch_fused")  # the others: their
+    # studies' own launches
     se = results["slice_epoch"]
-    redesigned = {  # B1's G = 1 form, in this run
+    redesigned = {  # B1's G = 1 form, and the traced route, in this run
         "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],
                         "previous": "the G = 1 form, in this run"},
+        "slice_epoch_fused": {"group": results["slice_fused"]["group"],
+                              "previous_ms": results["slice_fused"]["traced_ms"],
+                              "previous": "the traced route (slice_step) on the same model "
+                                          "and inputs, in this run"},
     }
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]

@@ -46,7 +46,7 @@ from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
 from ..ops.precision import F32_SAFE_LOGL
-from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route
+from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
 from ..parallel.mesh import make_epoch_runner
 from ..priors import identity_prior
 from ..settings import PolyChordSettings
@@ -102,8 +102,9 @@ def resolve_device(device=None) -> torch.device:
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: ``"cuda"`` on a CUDA device, the plain
     torch engine on the CPU.  ``"cuda"`` runs any torch model, batched or
-    per point (B1's functor kernel for a model with a device form, the
-    traced route ``csrc/slice_step.cu`` for the others) and refuses a
+    per point (B1's functor kernel for a model with a device form, B1 with
+    the likelihood lowered into it or the traced route ``csrc/slice_step.cu``
+    for the others: ``ops/slice_kernel.py::cuda_route``) and refuses a
     host-callback model; the other kernel engines of :data:`KERNEL_ENGINES`
     are forced by name and need a device form.  ``engine="torch"`` is the
     plain engine on any device."""
@@ -239,6 +240,13 @@ def _kernel_launches() -> dict:
             **pallas_slice_v3.LAUNCHES, **pallas_slice.LAUNCHES}
 
 
+def _fused_build_seconds(calc) -> dict:
+    """The fused route's library build (or load) seconds by G, where the
+    run lowered its model (``ops/fused_like.py``)."""
+    low = calc.__dict__.get("fused")
+    return {str(g): round(t, 3) for g, t in getattr(low, "build_seconds", {}).items()}
+
+
 def _feedback(s: PolyChordSettings, level: int, msg: str) -> None:
     if s.feedback >= level:
         print(msg, flush=True)
@@ -275,6 +283,9 @@ def nested_sampling(
     )
     n_grades = len(s.grade_dims) if s.grade_dims else 1
     engine = resolve_engine(s.engine, device, calc)
+    # the kernel the engine runs for this model, chosen once (a torch
+    # likelihood is lowered into B1 here, or refused with its reason)
+    route, reason = epoch_route(engine, calc), route_reason(engine, calc)
 
     # --- resume or generate ------------------------------------------------
     io_mod.check_directories(s)
@@ -340,7 +351,8 @@ def nested_sampling(
     run_epoch, B = make_epoch_runner(
         calc, cfg, s.resolved_batch_size(), device, generator
     )
-    _feedback(s, 1, f"chain batch {B} on {device}, engine {run_epoch.engine_used()}")
+    _feedback(s, 1, f"chain batch {B} on {device}, engine {run_epoch.engine_used()}, "
+                    f"route {route} ({reason})")
 
     metrics = RunMetrics(
         io_mod.root_path(s) + ".metrics.jsonl" if s.write_stats else None,
@@ -648,9 +660,12 @@ def nested_sampling(
                 "kernel_launches": {
                     k: v - launches0[k] for k, v in _kernel_launches().items()
                 },
-                # the model's form (ops/evaluate.py), the kernel its engine ran,
-                # and the traced route's graph replays and rounds in this run
-                "form": calc.form, "route": epoch_route(engine, calc),
+                # the model's form (ops/evaluate.py), the kernel its engine ran
+                # (chosen before the run) and why, the fused route's library
+                # build seconds by G (0 when the library was reused), and the
+                # traced route's graph replays and rounds in this run
+                "form": calc.form, "route": route, "route_reason": reason,
+                "fused_build_seconds": _fused_build_seconds(calc),
                 "traced_route": {
                     k: v - traced0[k] for k, v in pallas_slice_v4.TRACED.items()
                 },

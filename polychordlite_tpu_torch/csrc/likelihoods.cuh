@@ -37,6 +37,16 @@ struct AffinePrior {
     float s[SLICE_MAXD];
 };
 
+// The prior from host arrays a[D] and s[D]; entries past D are zero.
+inline AffinePrior affine_prior(const float* prior_a, const float* prior_s, int D) {
+    AffinePrior prior;
+    for (int d = 0; d < SLICE_MAXD; ++d) {
+        prior.a[d] = d < D ? prior_a[d] : 0.0f;
+        prior.s[d] = d < D ? prior_s[d] : 0.0f;
+    }
+    return prior;
+}
+
 // random_gaussian's inverse covariance, row-major D x D: 4 KB at D = 32,
 // too large for the functor (kernel parameters), so it is copied into
 // constant memory on the launch's stream before the kernel.
@@ -363,11 +373,7 @@ template <class Launch>
 int with_likelihood(int id, const float* c, const float* prior_a,
                     const float* prior_s, int D, float logzero, cudaStream_t stream,
                     Launch&& launch) {
-    AffinePrior prior;
-    for (int d = 0; d < SLICE_MAXD; ++d) {
-        prior.a[d] = d < D ? prior_a[d] : 0.0f;
-        prior.s[d] = d < D ? prior_s[d] : 0.0f;
-    }
+    const AffinePrior prior = affine_prior(prior_a, prior_s, D);
     switch (id) {
         case LIKE_GAUSSIAN:
             launch(GaussianLike{prior, c[0], c[1], c[2], logzero});

@@ -1,0 +1,299 @@
+// Free-running slice-sampling epoch: one chain on a group of G lanes.  The
+// kernel template and its launch, included by the two entries that
+// instantiate it: slice_epoch.cu (the functors of likelihoods.cuh, every G)
+// and slice_epoch_fused.cu (a likelihood lowered from torch by
+// ops/fused_like.py, the one G the launch picks).
+//
+// Replaces the TPU kernel polychordlite_tpu/ops/pallas_slice_v4.py::
+// build_epoch_fn_pallas_v4 (kernel body :136-418).  It carries over v4's
+// semantics, not its layout: each chain runs its R repeats of Neal
+// stepping-out and shrinkage on the chord x0 + t n̂ with the state machine
+// of pallas_slice_v4.py:215-348, which lives in slice_machine.cuh
+// (slice_repeat) and is shared with the v3 and v2 kernels.  v4's sliding
+// window, DMA ring and SMEM base exist only because per-lane indexing is
+// costly on the TPU; a lane's stalls there never change its own counter
+// stream, so a chain that runs freely makes the same decisions.  A chain
+// stops after the same bound on micro-steps over the epoch that v4 has
+// (pallas_slice_v4.py:134).
+//
+// What bounds it on the card (PERF.md): not bytes and not the
+// arithmetic rate, but one micro-step's dependent chain with too few warps
+// to hide it.  A micro-step is the murmur3 hash (E7's body20_hash: +0.11
+// µs over body20's 0.11 µs per iteration), the state machine, and per
+// coordinate the probe, the wall test, the prior and an IEEE division — a
+// Newton sequence with a slow-path CALL in SASS, 32 of them in the
+// one-thread kernel's unrolled loop (body20_div: +0.50 µs for 20) — then
+// the index-order sum.  One thread per chain takes 2.7 µs per micro-step,
+// and 4x the chains take only 1.3x the time: at B = 8192 there are ~2
+// warps per SM, at gaussian.ini's B = 512 16 warps on the whole card.
+//
+// The design: G lanes of one warp (G in 1, 2, 4, ..., 32) hold one chain.
+// Lane g owns the coordinates d = g + k G and keeps their x0, n̂ and prior
+// coefficients in registers.  Every lane of the group runs the same scalar
+// state machine and draws the same murmur3 uniform, so nothing is broadcast
+// for the decisions.  A probe's per-coordinate stage (likelihoods.cuh:
+// term) runs on the lane that owns the coordinate, so the group shares the
+// D divisions; the wall flag is reduced over the group's lanes by a ballot
+// and the terms reach every lane by __shfl_sync, where each lane adds them
+// in index order (combine) exactly as the one-thread form does.  The 32 / G
+// chains of a warp run one loop of micro-steps together (group_epoch), each
+// chain in its own repeat and phase: so the warp's ballots and shuffles
+// take the full mask.  (Per-group masks, with each chain's loops
+// free-running, made the chains of a warp take turns: 33 WARPSYNCs per
+// micro-step, and at G = 2 a micro-step cost twice G = 1's.)  Nothing
+// synchronises beyond the warp.  More lanes per chain put more warps on the
+// card (latency hidden) and spend G times the issue slots on each chain's
+// machine and sums (throughput), so the launch picks G from B, D and the
+// SM count (ops/pallas_slice_v4.py::choose_group).  G = 1 is the same
+// template with the group parts compiled out: one thread per chain, its
+// repeats one slice_repeat after another (chain_epoch).  It keeps that loop
+// because the warp-wide loop at G = 1 (group_epoch<1> with the one-thread
+// like_eval) made the same decisions and step counts but took 1.28x the
+// time at the bench geometry (2.14-2.15 ms against 1.67-1.68) and 1.25x at
+// gaussian.ini's (0.79-0.82 against 0.64-0.66), the counted form likewise:
+// chip_smoke.py's measure_first and lane_efficiency phases, both trees
+// twice in one run on an H100 80GB HBM3 at 700 W (PERF.md, section 6).
+//
+// The counted form (slice_epoch_counted_launch) replaces the instrumented
+// TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
+// the repository's top-level experiments/): the G = 1 kernel, instantiated
+// with COUNTED, also writes the micro-steps each lane executed and, per
+// warp, the largest of its 32 lanes' (__reduce_max_sync).  A warp runs as
+// long as its slowest lane, so sum(lane steps) / (32 * sum(warp max)) is
+// the share of issued lane-steps that did work: the lane efficiency of the
+// one-thread design.  Its t, logL and nlike are B1's bit for bit.
+//
+// Every float operation is an explicitly rounded intrinsic, in the same
+// order as the plain torch engine (ops/slice_kernel.py) and the torch
+// likelihoods (models/examples.py), so the kernel at every G and its plain
+// version agree bit for bit.
+//
+// Layout: x0 (D, B), nhat (R, D, B) and w (R, B) with the chain axis
+// minor; outputs t, logL (R, B) float32 and nlike (R, B) int32.  With
+// G > 1 a warp's load of one coordinate touches G rows of 32 / G chains
+// each; chains of a warp sit in different repeats (they run freely), so a
+// repeat's directions cannot be staged for the block — they are read once
+// per repeat, a few hundred bytes against the repeat's ~10 probes.
+
+#pragma once
+
+#include "slice_machine.cuh"
+
+struct EpochArgs {
+    const float* x0t;
+    const float* bound;
+    const float* valid;
+    const float* nhat;
+    const float* w;
+    float* t_out;
+    float* logL_out;
+    int* nlike_out;
+    int B, D, R;
+    uint32_t k0, k1;
+    int max_step, max_shrink;
+    long long cap;
+    int* lane_steps;  // the counted form's outputs, else null
+    int* warp_max;
+};
+
+// Lane g of the group of G lanes that holds one chain: the functor, the
+// prior coefficients of the coordinates d = g + k G it owns, and its
+// group's lanes in the warp.  like_eval on it is the two-stage form; every
+// lane of the warp calls it together (group_epoch), so its warp operations
+// take the full mask.
+template <int G, class Like>
+struct GroupLane {
+    static constexpr int K = SLICE_MAXD / G;
+    const Like& like;
+    float a[K], s[K];
+    int g;
+    unsigned mask;
+    float logzero;
+};
+
+template <int G, class Like>
+__device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const float* x0,
+                                           const float* n, float t, int D) {
+    constexpr int K = GroupLane<G, Like>::K, NT = Like::NT;
+    bool inside = true;
+    float own[NT][K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {  // the per-coordinate stage, on the owner
+        const int d = L.g + k * G;
+        float o[NT] = {};
+        if (d < D) L.like.term(probe_theta(x0[k], n[k], t, L.a[k], L.s[k], inside), d, o);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) own[j][k] = o[j];
+    }
+    inside = (__ballot_sync(0xffffffffu, inside) & L.mask) == L.mask;
+    // every term to every lane of the group, in batches of 8 slots under a
+    // warp-uniform test so that a batch's shuffles issue back to back
+    float T[NT][SLICE_MAXD];
+#pragma unroll
+    for (int c = 0; c < SLICE_MAXD; c += 8) {
+        if (c < D) {
+#pragma unroll
+            for (int d = c; d < c + 8; ++d)
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    T[j][d] = __shfl_sync(0xffffffffu, own[j][d / G], d % G, G);
+        }
+    }
+    return like_result(L.like.combine(T, D), inside, L.logzero);
+}
+
+__device__ __forceinline__ void write_repeat(const EpochArgs& a, int r, int b, float t,
+                                             float logL, int cnt) {
+    const size_t o = (size_t)r * a.B + b;
+    a.nlike_out[o] = cnt;
+    a.t_out[o] = t;
+    a.logL_out[o] = logL;
+}
+
+// G = 1: the R repeats of chain b, one slice_repeat after the other.
+// Returns the micro-steps the chain took.
+template <class Like>
+__device__ __forceinline__ long long chain_epoch(const Like& like, const EpochArgs& a, int b) {
+    const int B = a.B, D = a.D, R = a.R;
+    long long steps = 0;
+    int r = 0;
+    if (a.valid[b] > 0.5f) {
+        float x0[SLICE_MAXD], n[SLICE_MAXD];
+        slice_load(x0, a.x0t, 0, D, B, b);
+        const float bnd = a.bound[b];
+        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        for (; r < R; ++r) {
+            slice_load(n, a.nhat, (size_t)r * D * B, D, B, b);
+            const float wr = a.w[(size_t)r * B + b];
+            const SliceRepeat rep =
+                slice_repeat(like, x0, n, wr, bnd, mix32(h_lane, (uint32_t)r), D, a.max_step,
+                             a.max_shrink, a.cap - steps);
+            steps += rep.steps;
+            write_repeat(a, r, b, rep.t, rep.logL, rep.cnt);
+            if (!rep.accepted) {  // the epoch's budget: the chain stops here
+                ++r;
+                break;
+            }
+            slice_advance(x0, n, rep.t, D);
+        }
+    }
+    for (; r < R; ++r) write_repeat(a, r, b, 0.0f, like.logzero, 0);  // invalid, never reached
+    return steps;
+}
+
+// G > 1: chain b on lane g of its group, in one loop of micro-steps that
+// every lane of the warp runs together — each iteration, each chain of the
+// warp takes its next micro-step, whatever repeat it is in, so the warp
+// operations of like_eval see the whole warp converged.  A chain that is
+// done (or out of range) still runs the iteration and keeps nothing.  The
+// decisions, the budget and the records are slice_repeat's and
+// chain_epoch's: a repeat that the budget ends unaccepted records t = 0,
+// logL = logzero and its count, and the chain stops.  Lane 0 writes.
+template <int G, class Like>
+__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const EpochArgs& a,
+                                            int b, bool in_range) {
+    constexpr int K = SLICE_MAXD / G;
+    const int B = a.B, D = a.D, R = a.R, g = L.g;
+    bool done = !(in_range && a.valid[b] > 0.5f);
+    int r = 0;
+    long long steps = 0;
+    float x0[K] = {}, n[K] = {}, wr = 0.0f, bnd = 0.0f;
+    uint32_t h_lane = 0;
+    SliceState s;
+    s.start();
+    if (!done) {
+        slice_load<G>(x0, a.x0t, 0, D, B, b, g);
+        slice_load<G>(n, a.nhat, 0, D, B, b, g);
+        wr = a.w[b];
+        bnd = a.bound[b];
+        h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+    }
+    uint32_t h_rep = mix32(h_lane, 0u);
+    for (;;) {
+        if (!done && steps >= a.cap) {  // the budget ends the chain
+            if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, s.cnt);
+            ++r;
+            done = true;
+        }
+        if (!__any_sync(0xffffffffu, !done)) break;
+        float t = 0.0f, logL = L.logzero;
+        const bool accepted = slice_micro(L, s, x0, n, wr, bnd, h_rep, D, a.max_step,
+                                          a.max_shrink, t, logL);
+        if (!done) {
+            ++steps;
+            if (accepted) {
+                if (g == 0) write_repeat(a, r, b, t, logL, s.cnt);
+                slice_advance<G>(x0, n, t, D, g);
+                if (++r < R) {
+                    slice_load<G>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
+                    wr = a.w[(size_t)r * B + b];
+                    h_rep = mix32(h_lane, (uint32_t)r);
+                    s.start();
+                } else {
+                    done = true;
+                }
+            }
+        }
+    }
+    if (in_range && g == 0)
+        for (; r < R; ++r) write_repeat(a, r, b, 0.0f, L.logzero, 0);  // invalid, never reached
+}
+
+template <class Like, int G, bool COUNTED>
+__global__ void slice_epoch_kernel(Like like, EpochArgs a) {
+    static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
+    const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
+    const int b = lane_id / G;  // the chain
+    long long steps = 0;        // micro-steps of this chain in the epoch
+    if constexpr (G == 1) {
+        if (b < a.B) steps = chain_epoch(like, a, b);
+    } else {  // every lane of the warp runs group_epoch (no early return)
+        constexpr int K = SLICE_MAXD / G;
+        const int g = lane_id % G;  // this lane's place in its group
+        const unsigned mask = (0xffffffffu >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
+        GroupLane<G, Like> L{like, {}, {}, g, mask, like.logzero};
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int j = 0; j < G; ++j) {  // static indices into the parameter
+                if (g == j) {
+                    L.a[k] = like.prior.a[j + k * G];
+                    L.s[k] = like.prior.s[j + k * G];
+                }
+            }
+        }
+        group_epoch(L, a, b, b < a.B);
+    }
+    if constexpr (COUNTED) {  // every thread of the warp gets here (no early return)
+        const int s = (int)steps;
+        if (b < a.B) a.lane_steps[b] = s;
+        const int m = __reduce_max_sync(0xffffffffu, s);
+        if ((threadIdx.x & 31) == 0) a.warp_max[b >> 5] = m;
+    }
+}
+
+// Launch slice_epoch_kernel<Like, G, COUNTED> on `stream`: one warp per
+// block, 32 / G chains each.
+template <class Like, int G, bool COUNTED>
+void launch_epoch(const Like& like, const EpochArgs& a, cudaStream_t stream) {
+    const int threads = 32;
+    const int blocks = (int)(((long long)a.B * G + threads - 1) / threads);
+    slice_epoch_kernel<Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
+}
+
+// Whether a launch of `group` lanes per chain can take these arguments.
+inline bool epoch_args_ok(const EpochArgs& a, int group) {
+    return a.D >= 1 && a.D <= SLICE_MAXD && a.R >= 1 && a.B >= 1 && group >= 1 &&
+           group <= 32 && !(group & (group - 1));
+}
+
+inline EpochArgs epoch_args(const void* x0t, const void* bound, const void* valid,
+                            const void* nhat, const void* w, void* t_out, void* logL_out,
+                            void* nlike_out, int B, int D, int R, unsigned int k0,
+                            unsigned int k1, int max_step, int max_shrink, long long cap,
+                            void* lane_steps, void* warp_max) {
+    return EpochArgs{(const float*)x0t, (const float*)bound, (const float*)valid,
+                     (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
+                     (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                     (int*)lane_steps, (int*)warp_max};
+}

@@ -1,0 +1,47 @@
+// B1 with a likelihood lowered from torch: the fused route.
+//
+// Replaces, for a model without a hand-written functor, the TPU kernel
+// polychordlite_tpu/ops/pallas_slice_v4.py::build_epoch_fn_pallas_v4 (:508),
+// which evaluates any traced jnp likelihood inside its body
+// (pallas_slice_v4.py:266, resolved by pallas_slice.py::_validated_tile_logL).
+// ops/fused_like.py traces the model's torch prior and likelihood, lowers
+// the trace to B1's two-stage functor interface (likelihoods.cuh) and writes
+// it, with the group size G and the dimension D, into the generated header
+// fused_like.cuh, found through -I at build time (utils/nvcc.py).  This entry
+// instantiates slice_epoch.cuh's kernel for that functor at that one G only,
+// so that one build takes seconds; each model graph and G is a library of its
+// own, named by a hash of the header.  The model's constants (captured
+// tensors and numbers, a lowered prior's parameters) are not in the source:
+// they come in one float32 device buffer, `consts`, so a family of models
+// with one graph shares one library.  A prior with an affine form stays B1's
+// AffinePrior (prior_a, prior_s, host arrays).
+//
+// What bounds it is B1's micro-step (slice_epoch.cuh), with the lowered
+// body in place of the hand-written one: its per-coordinate chain runs on
+// the lane that owns the coordinate (term), its sums and scalar tail on
+// every lane of the group (combine), the constants read through the
+// read-only cache.  Every float operation is a rounded intrinsic under
+// --fmad=false, so the kernel agrees bit for bit with fused_like.py's plain
+// version, Lowered.plain_logL.
+
+#include "slice_epoch.cuh"
+#include "fused_ops.cuh"
+#include "fused_like.cuh"
+
+// The arguments of slice_epoch.cu's entries, with the compiled G first and a
+// device pointer for the constants.  Returns cudaErrorInvalidValue for
+// another G or D, else cudaGetLastError() after the launch.
+extern "C" int slice_epoch_fused_launch(
+    int group, const float* consts, const float* prior_a, const float* prior_s,
+    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
+    long long cap, float logzero, void* stream) {
+    const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D,
+                                   R, k0, k1, max_step, max_shrink, cap, nullptr, nullptr);
+    if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group))
+        return (int)cudaErrorInvalidValue;
+    const FusedLike like{affine_prior(prior_a, prior_s, D), consts, logzero};
+    launch_epoch<FusedLike, FUSED_G, false>(like, a, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}

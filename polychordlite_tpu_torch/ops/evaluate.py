@@ -25,7 +25,8 @@ path numerically, ``polychordlite_tpu/ops/pallas_slice.py:125-160``):
   on the host, as the reference does; only when neither form above runs.
 
 ``calc.form`` names the form.  The first two run on the device: on a card
-through B1's route for a traced likelihood (``ops/pallas_slice_v4.py``).
+through B1 with the likelihood lowered into it (``ops/fused_like.py``), or
+else B1's route for a traced likelihood (``ops/pallas_slice_v4.py``).
 
 When the prior has an ``affine`` descriptor (``priors.py``) and the
 likelihood a ``device_form`` (``models/examples.py``), ``calc.device_spec``
@@ -124,22 +125,38 @@ def _attempt(fn):
         return None
 
 
+#: the tolerance at which two forms of a model agree: rtol 1e-5, with an
+#: atol of 1e-6 for float32 sums taken in another order near zero
+FORM_RTOL, FORM_ATOL = 1e-5, 1e-6
+
+
+def same_values(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether two tensors agree at the forms' tolerance, infinities and
+    NaNs equal."""
+    return x.shape == y.shape and torch.allclose(x, y, rtol=FORM_RTOL, atol=FORM_ATOL,
+                                                 equal_nan=True)
+
+
 def _same(a, b) -> bool:
-    """Whether two (theta, phi, logL) triples agree: allclose at rtol 1e-5,
-    with an atol of 1e-6 for float32 sums taken in another order near zero,
-    infinities and NaNs equal."""
-    return all(x.shape == y.shape and torch.allclose(x, y, rtol=1e-5, atol=1e-6, equal_nan=True)
-               for x, y in zip(a, b))
+    """Whether two (theta, phi, logL) triples agree (:func:`same_values`)."""
+    return all(same_values(x, y) for x, y in zip(a, b))
+
+
+def probe_cubes(n_dims: int, device) -> torch.Tensor:
+    """The :data:`PROBE_POINTS` seeded cubes a model's form is decided on:
+    drawn from [-0.05, 1.05]^D and clamped as the calc clamps them, so some
+    lie on the cube's walls (one point more where D equals their number)."""
+    rng = np.random.default_rng(20240131)
+    n = PROBE_POINTS + (n_dims == PROBE_POINTS)  # never as many points as coordinates
+    return torch.as_tensor(rng.uniform(-0.05, 1.05, (n, n_dims)).clip(0.0, 1.0),
+                           dtype=real_dtype(), device=device)
 
 
 def _model_form(batched, point, n_dims: int, device) -> str:
     """``"batched"``, ``"per_point"`` or ``"callback"`` (module docstring)
     from the raw evaluators ``batched(cube (B, D))`` and ``point(cube (D,))``,
     each returning (theta, phi, logL)."""
-    rng = np.random.default_rng(20240131)
-    n = PROBE_POINTS + (n_dims == PROBE_POINTS)  # never as many points as coordinates
-    cube = torch.as_tensor(rng.uniform(-0.05, 1.05, (n, n_dims)).clip(0.0, 1.0),
-                           dtype=real_dtype(), device=device)
+    cube = probe_cubes(n_dims, device)
     by_batch = _attempt(lambda: batched(cube))
     each = _attempt(lambda: [point(c) for c in cube])
     by_point = None if each is None else tuple(torch.stack(v) for v in zip(*each))
@@ -249,6 +266,11 @@ def make_batched_calculator(
     calc_point_batch.form = form
     calc_point_batch.uses_callback = use_callback
     calc_point_batch.n_phi = n_phi
+    calc_point_batch.n_dims = n_dims
+    calc_point_batch.logzero = float(logzero)
+    # what the fused route lowers (ops/fused_like.py), and where it was decided
+    calc_point_batch.model = (prior_fn, loglike_fn, n_derived)
+    calc_point_batch.device = torch.device("cpu") if device is None else torch.device(device)
     calc_point_batch.device_spec = None
     affine = getattr(prior_fn, "affine", None)
     device_form = getattr(loglike_fn, "device_form", None)

@@ -32,6 +32,14 @@ version is :func:`slice_step_plain` over :class:`StepState`, driven the
 same way by :func:`slice_records_rounds_plain`; both are bitwise
 ``slice_kernel.slice_records_plain`` for the same calc.
 
+:func:`slice_epoch_fused` is B1's route for a model without a device
+functor whose likelihood ``ops/fused_like.py`` can lower: the same kernel
+template (``csrc/slice_epoch.cuh``) instantiated by
+``csrc/slice_epoch_fused.cu`` with the lowered functor, one library per
+model graph and G; its plain version runs ``slice_kernel.slice_records_plain``
+on ``Lowered.plain_logL``, and :func:`validate_fused` holds the kernel
+bitwise against that plain version before a run uses it.
+
 Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
 come from one batched evaluation of the calc, and everything is packed into
@@ -55,7 +63,7 @@ from .slice_kernel import EpochConfig, slice_records_plain
 SLICE_MAXD = 32
 
 #: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0}
+LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0}
 #: the traced route's CUDA-graph replays and the rounds they ran, since the
 #: last reset
 TRACED = {"replays": 0, "rounds": 0}
@@ -66,7 +74,7 @@ WARP = 32  # lanes of a warp: the kernels run one warp per block
 #: the lanes a chain may be spread over (the kernel's instantiations)
 GROUPS = (1, 2, 4, 8, 16, 32)
 #: slice_epoch's launches by G since the last reset
-GROUP_LAUNCHES = {g: 0 for g in GROUPS}
+GROUP_LAUNCHES = {g: 0 for g in GROUPS}  # slice_epoch and slice_epoch_fused
 #: the warps per SM that choose_group aims for (PERF.md: the epoch's
 #: time against G at the bench and gaussian.ini geometries)
 TARGET_WARPS_PER_SM = 8
@@ -146,18 +154,20 @@ def functor_args(calc, D: int):
 
 
 def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
-                        x0, bound, valid, nhats, ws, cap=None, extra=(), ints=()):
+                        x0, bound, valid, nhats, ws, cap=None, extra=(), ints=(), functor=None):
     """Check the inputs of a slice-epoch kernel, launch it on the current
     stream and return (t, logL, nlike), each (B, R).  The model must have a
     device form (``calc.device_spec``) whose functor is in
-    :data:`FUNCTORS`.  ``cap`` is the kernel's micro-step budget
+    :data:`FUNCTORS`, unless ``functor`` gives the entry's first four
+    arguments itself (an int, the constants as a host array or a device
+    tensor, the prior's a and s).  ``cap`` is the kernel's micro-step budget
     (``cfg.step_cap`` by default); ``extra`` are further output tensors on
     the device and ``ints`` further int arguments, passed after the stream
     in that order."""
     B, R, D = nhats.shape
     if D > SLICE_MAXD:
         raise ValueError(f"D={D} exceeds the kernels' maximum {SLICE_MAXD}")
-    fid, consts, prior_a, prior_s = functor_args(calc, D)
+    fid, consts, prior_a, prior_s = functor_args(calc, D) if functor is None else functor
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError(f"{entry}: inconsistent shapes")
     dev = x0.device
@@ -183,7 +193,8 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         status = fn(
-            fid, consts.ctypes.data, prior_a.ctypes.data, prior_s.ctypes.data,
+            fid, consts.data_ptr() if isinstance(consts, torch.Tensor) else consts.ctypes.data,
+            prior_a.ctypes.data, prior_s.ctypes.data,
             x0t.data_ptr(), bound_f.data_ptr(), valid_f.data_ptr(),
             nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
             l_out.data_ptr(), n_out.data_ptr(), B, D, R,
@@ -259,13 +270,56 @@ def lane_efficiency(lane_steps: torch.Tensor, warp_max: torch.Tensor) -> float:
     return int(lane_steps.to(torch.int64).sum()) / issued if issued else float("nan")
 
 
-def validate_functor(calc, cfg: EpochConfig, device, records=None) -> None:
+def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
+                      group=None):
+    """Run the slice repeats of every lane with the model's likelihood
+    lowered into B1 (``ops/fused_like.py``): (t, logL) float32 and nlike
+    int32, each (B, R), with the inputs of :func:`slice_epoch`.  CPU
+    tensors: the plain version, ``slice_records_plain`` on
+    ``Lowered.plain_logL``; CUDA tensors: ``csrc/slice_epoch_fused.cu``
+    with ``group`` lanes per chain (:func:`choose_group` by default), its
+    library built at first use.  A model the lowering refused raises, naming
+    the reason."""
+    from .fused_like import Refused, lowering
+
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group {group} is not one of {GROUPS}")
+    low = lowering(calc)
+    if isinstance(low, Refused):
+        raise ValueError(f"the fused route cannot run this model: {low.reason}")
+    if x0.device.type == "cpu":
+        return slice_records_plain(low.plain_logL, cfg, key_words, x0, bound, valid, nhats, ws)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    B, R, D = nhats.shape
+    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
+    functor = (G, low.device_consts(x0.device), *low.prior)
+    out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
+                              x0, bound, valid, nhats, ws, functor=functor)
+    LAUNCHES["slice_epoch_fused"] += 1
+    GROUP_LAUNCHES[G] += 1
+    return out
+
+
+def validate_fused(calc, cfg: EpochConfig, device, group: int) -> None:
+    """Check the fused kernel at ``group`` lanes per chain against its plain
+    version, ``Lowered.plain_logL``, bitwise, on :func:`validate_functor`'s
+    probe epoch; raise on any difference.  (:func:`fused_like.lower`
+    already held the plain version to the calc.)"""
+    from .fused_like import lowering
+
+    validate_functor(calc, cfg, device,
+                     lambda *a: slice_epoch_fused(*a, group=group), want=lowering(calc).plain_logL)
+
+
+def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) -> None:
     """Check the kernel's likelihood functor against the torch calc on 1280
     cubes, some outside the walls; raise on any difference.
 
     ``records`` is the wrapper of the engine that will run the functor
     (:func:`slice_epoch` by default; see ``slice_kernel.kernel_wrapper``);
-    its second output is the logL.  The kernel is run with zero directions and zero widths,
+    its second output is the logL; ``want`` gives the logL it must equal
+    (the calc's by default).  The kernel is run with zero directions and zero widths,
     so every probe is the seed itself, and with an unbounded contour: the
     lane steps out and shrinks on the spot and accepts its seed with the
     functor's logL (a seed outside the walls is a forced logzero accept)."""
@@ -286,11 +340,12 @@ def validate_functor(calc, cfg: EpochConfig, device, records=None) -> None:
         torch.ones(B, dtype=torch.bool, device=device),
         torch.zeros((B, 1, D), device=device), torch.zeros((B, 1), device=device),
     )[1]
-    _, _, want = calc(x0)
-    if not torch.equal(got[:, 0], want.to(torch.float32)):
-        diff = (got[:, 0].double() - want.double()).abs().max().item()
+    expect = calc(x0)[2] if want is None else want(x0)
+    if not torch.equal(got[:, 0], expect.to(torch.float32)):
+        diff = (got[:, 0].double() - expect.double()).abs().max().item()
         raise RuntimeError(
-            f"the CUDA likelihood functor disagrees with the torch calc "
+            f"the CUDA likelihood functor disagrees with "
+            f"{'the torch calc' if want is None else 'its plain version'} "
             f"(max |dlogL| = {diff:.3g}); not running the kernel"
         )
 

@@ -12,9 +12,12 @@ slice repeats on each of B chains and returns the packed
   kernel.
 * ``"cuda"`` — the hand-written kernel ``csrc/slice_epoch.cu``, through
   ``ops/pallas_slice_v4.py`` (the JAX package's ``"pallas"`` / ``"pallas4"``),
-  for a model with a device functor; for any other torch model, the
+  for a model with a device functor; else, for a torch model whose
+  likelihood ``ops/fused_like.py`` lowers, the same kernel with the lowered
+  functor (``csrc/slice_epoch_fused.cu``); for any other torch model, the
   traced route of the same module, ``csrc/slice_step.cu`` with the
   likelihood evaluated in torch between its launches (bitwise ``"torch"``).
+  :func:`cuda_route` makes the choice once per model, and names its reason.
 * ``"cuda5"`` — the speculative-packet kernel ``csrc/slice_epoch_v5.cu``,
   through ``ops/pallas_slice_v5.py`` (the JAX package's forced
   ``"pallas5"``); decision-exact with ``"cuda"``, so a run gives the same
@@ -148,22 +151,43 @@ def slice_records_plain(
     return t_out, l_out, n_out
 
 
+def cuda_route(calc) -> Tuple[str, str]:
+    """(route, reason): the kernel that ``engine="cuda"`` runs for ``calc``,
+    in this order, as the JAX package's one ``"pallas"`` engine evaluates
+    any traced likelihood in its kernel:
+
+    1. ``"slice_epoch"``, B1's functor kernel, for a model with a device
+       form (``calc.device_spec``);
+    2. ``"slice_epoch_fused"``, B1 with the likelihood lowered into it,
+       for a model ``ops/fused_like.py`` lowers (once per calc, kept on it);
+    3. ``"slice_step"``, the traced route, for any other model; the reason
+       is what refused lowering (the op, the condition).  The route itself
+       refuses a host-callback model on the card."""
+    if getattr(calc, "device_spec", None) is not None:
+        return "slice_epoch", f"device functor {calc.device_spec['likelihood']['name']!r}"
+    from .fused_like import Refused, lowering
+
+    low = lowering(calc)
+    if isinstance(low, Refused):
+        return "slice_step", low.reason
+    return "slice_epoch_fused", (f"lowered: {low.n_terms} per-coordinate term(s), "
+                                 f"{len(low.term)} + {len(low.combine)} statements")
+
+
 def kernel_wrapper(engine: str):
     """The wrapper of an engine's CUDA kernel: (calc, cfg, key_words, x0,
     bound, valid, nhats, ws) -> (t, logL, nlike[, cube]).  On CPU tensors
-    each wrapper runs its own plain version.  ``"cuda"`` chooses by the
-    model's form, as the JAX package's one ``"pallas"`` engine does: B1's
-    functor kernel for a model with a device form (``calc.device_spec``),
-    else the traced route (``csrc/slice_step.cu``), which refuses a
-    host-callback model on the card.  The other engines need a functor."""
+    each wrapper runs its own plain version.  ``"cuda"`` takes
+    :func:`cuda_route`'s route; the other engines need a functor."""
     from .pallas_slice_v3 import slice_epoch_v3
-    from .pallas_slice_v4 import slice_epoch, slice_epoch_traced
+    from .pallas_slice_v4 import slice_epoch, slice_epoch_fused, slice_epoch_traced
     from .pallas_slice_v5 import slice_epoch_v5
 
+    routes = {"slice_epoch": slice_epoch, "slice_epoch_fused": slice_epoch_fused,
+              "slice_step": slice_epoch_traced}
+
     def cuda(calc, cfg, *args):
-        if getattr(calc, "device_spec", None) is not None:
-            return slice_epoch(calc, cfg, *args)
-        return slice_epoch_traced(calc, cfg, *args)
+        return routes[cuda_route(calc)[0]](calc, cfg, *args)
 
     return {"cuda": cuda, "cuda5": slice_epoch_v5, "cuda3": slice_epoch_v3,
             "cuda2": slice_epoch_v2}[engine]
@@ -171,13 +195,24 @@ def kernel_wrapper(engine: str):
 
 def epoch_route(engine: str, calc) -> str:
     """The kernel that ``engine`` runs for ``calc`` (the run metrics'
-    ``route``): ``"plain"`` for the torch engine, ``"slice_step"`` for
-    ``"cuda"`` on a model without a device form, else the engine's kernel."""
+    ``route``): ``"plain"`` for the torch engine, :func:`cuda_route`'s for
+    ``"cuda"``, else the forced engine's kernel."""
+    return _route(engine, calc)[0]
+
+
+def route_reason(engine: str, calc) -> str:
+    """Why :func:`epoch_route` chose its kernel (the run metrics'
+    ``route_reason``): for the traced route, what refused lowering."""
+    return _route(engine, calc)[1]
+
+
+def _route(engine: str, calc) -> Tuple[str, str]:
     if engine == "torch":
-        return "plain"
+        return "plain", "engine='torch'"
     if engine == "cuda":
-        return "slice_epoch" if getattr(calc, "device_spec", None) is not None else "slice_step"
-    return {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}[engine]
+        return cuda_route(calc)
+    kernel = {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}
+    return kernel[engine], f"engine={engine!r} forced"
 
 
 def build_epoch_fn(calc, cfg: EpochConfig):

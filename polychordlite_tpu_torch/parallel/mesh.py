@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.pallas_slice import key_words
-from ..ops.slice_kernel import EpochConfig, build_epoch_fn, unpack_epoch
+from ..ops.slice_kernel import EpochConfig, build_epoch_fn, epoch_route, unpack_epoch
 
 GRANULE = 128
 
@@ -51,6 +51,12 @@ def make_epoch_runner(
         from ..ops.slice_kernel import kernel_wrapper
 
         validate_functor(calc, cfg, device, kernel_wrapper(cfg.engine))
+    elif (cfg.engine == "cuda" and device.type == "cuda"
+          and epoch_route(cfg.engine, calc) == "slice_epoch_fused"):
+        # the lowered functor, in its kernel, at the G the run's batch takes
+        from ..ops.pallas_slice_v4 import _sm_count, choose_group, validate_fused
+
+        validate_fused(calc, cfg, device, choose_group(B_phys, D, _sm_count(device)))
 
     # cumulative epoch-phase timers (host clock, seconds)
     timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "unpack": 0.0}

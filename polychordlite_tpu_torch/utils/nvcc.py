@@ -7,6 +7,12 @@ root, named by a hash of the sources, the shared headers (``csrc/*.cuh``)
 and the flags, so a changed source is rebuilt and an unchanged one is
 reused.  :func:`build_all` starts one ``nvcc`` per library at once.  A
 build failure raises: nothing falls back to another engine.
+
+A library may also take one generated header (the fused route's
+likelihood functor, ``ops/fused_like.py``): its text is written to
+``build/torch_kernels/gen/<library>/`` as :data:`GENERATED_HEADER`, that
+directory goes on the include path, and the text is hashed into the
+library's name with the sources.
 """
 
 from __future__ import annotations
@@ -18,10 +24,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+GEN_DIR = BUILD_DIR / "gen"
+#: the file name a generated header is included by
+GENERATED_HEADER = "fused_like.cuh"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,24 +53,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
-    """Where ``lib<name>`` built from ``csrc/<sources>`` lives."""
+def library_path(name: str, sources: Sequence[str], header: Optional[str] = None) -> Path:
+    """Where ``lib<name>`` built from ``csrc/<sources>`` (and the generated
+    ``header`` text, if any) lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
+    if header is not None:
+        digest.update(GENERATED_HEADER.encode())
+        digest.update(header.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str, sources: Sequence[str]):
+def _start(name: str, sources: Sequence[str], header: Optional[str] = None):
     """Start nvcc for ``lib<name>`` unless it is built; returns (so, proc)."""
-    so = library_path(name, sources)
+    so = library_path(name, sources, header)
     if so.exists():
         return so, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    include = []
+    if header is not None:
+        gen = GEN_DIR / so.stem
+        gen.mkdir(parents=True, exist_ok=True)
+        (gen / GENERATED_HEADER).write_text(header)
+        include = ["-I", str(gen)]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in sources)],
+        [_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp), *(str(CSRC / s) for s in sources)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     proc.tmp = tmp
@@ -85,19 +104,29 @@ def _finish(name: str, so: Path, proc, t0: float) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile (if needed) and load ``lib<name>`` from ``csrc/<sources>``."""
+def is_loaded(name: str) -> bool:
+    """Whether ``lib<name>`` is loaded in this process already."""
+    return name in _LIBS
+
+
+def load(name: str, sources: Sequence[str], header: Optional[str] = None) -> ctypes.CDLL:
+    """Compile (if needed) and load ``lib<name>`` from ``csrc/<sources>``
+    and the generated ``header`` text."""
     if name in _LIBS:
         return _LIBS[name]
     t0 = time.perf_counter()
-    return _finish(name, *_start(name, sources), t0)
+    return _finish(name, *_start(name, sources, header), t0)
 
 
-def build_all(libraries: Dict[str, Sequence[str]]) -> None:
-    """Build the libraries ``{name: sources}`` with one ``nvcc`` each, all
-    started together, and load them."""
+def build_all(libraries: Dict[str, Sequence[str]],
+              headers: Optional[Dict[str, str]] = None) -> None:
+    """Build the libraries ``{name: sources}`` (with the generated header
+    ``headers[name]``, where given) with one ``nvcc`` each, all started
+    together, and load them."""
+    headers = headers or {}
     t0 = time.perf_counter()
-    started = {n: _start(n, srcs) for n, srcs in libraries.items() if n not in _LIBS}
+    started = {n: _start(n, srcs, headers.get(n)) for n, srcs in libraries.items()
+               if n not in _LIBS}
     try:
         for n, (so, proc) in started.items():
             _finish(n, so, proc, t0)

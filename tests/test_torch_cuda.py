@@ -26,6 +26,7 @@ import polychordlite_tpu_torch as pt  # noqa: E402
 from polychordlite_tpu_torch.models import gaussian, gaussian_shells  # noqa: E402
 from polychordlite_tpu_torch.models import LIKELIHOODS  # noqa: E402
 from polychordlite_tpu_torch.ops import (  # noqa: E402
+    fused_like,
     pallas_dirs,
     pallas_slice,
     pallas_slice_v3,
@@ -42,6 +43,7 @@ from polychordlite_tpu_torch.ops.slice_kernel import (  # noqa: E402
 from polychordlite_tpu_torch.priors import (  # noqa: E402
     BlockPrior,
     GaussianPrior,
+    LogUniformPrior,
     PriorBlock,
     UniformPrior,
     identity_prior,
@@ -293,7 +295,7 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     after = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
-        "slice_epoch_v2_counted": 0, "slice_step": 0}
+        "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -591,28 +593,135 @@ def test_traced_route_refuses_a_likelihood_that_syncs(dev):
             torch.ones((B, 2, 3), device=dev) / math.sqrt(3), torch.ones((B, 2), device=dev))
 
 
-def test_quickstart_runs_on_the_card(dev):
-    """The per-point torch quickstart through run(): the traced route and
-    B2, chained epochs kept (their replay check holds), and the same run as
-    the plain engine's on the card."""
+def test_quickstart_runs_on_the_card(dev, monkeypatch):
+    """The per-point torch quickstart through run(): on the fused route
+    (B1 with the lowered likelihood) and B2, and with the lowering refused
+    on the traced route and B2, the same run as the plain engine's on the
+    card; chained epochs kept (their replay check holds), each within
+    3 sigma of -4 log 2."""
     results = {}
-    for engine in ("auto", "torch"):
-        with tempfile.TemporaryDirectory() as base:
-            with warnings.catch_warnings():
-                warnings.simplefilter("error")  # a replay divergence would warn
-                out = pt.run(_quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100,
-                             num_repeats=8, do_clustering=False, read_resume=False,
-                             base_dir=base, seed=5, feedback=-1, device="cuda", engine=engine)
-            with open(os.path.join(base, "test.metrics.jsonl")) as f:
-                last = json.loads(f.read().splitlines()[-1])
-            assert last["form"] == "per_point" and last["chained_epochs"] is True
-            ran = last["kernel_launches"]
-            if engine == "auto":
-                assert last["engine"] == "cuda" and last["route"] == "slice_step"
-                assert ran["slice_step"] > 0 and ran["gram_schmidt"] > 0
-                assert ran["slice_epoch"] == 0 and last["traced_route"]["replays"] > 0
-            assert abs(out.logZ + 4 * math.log(2.0)) < 3 * out.logZerr
-            results[engine] = (out.ndead, out.logZ, out.logZerr,
-                               np.loadtxt(os.path.join(base, "test.txt")))
-    assert results["auto"][:3] == results["torch"][:3]
-    np.testing.assert_array_equal(results["auto"][3], results["torch"][3])
+    for engine in ("auto", "traced", "torch"):
+        with monkeypatch.context() as m:
+            if engine == "traced":
+                m.setattr(fused_like, "lowering", lambda calc: fused_like.Refused("forced"))
+            with tempfile.TemporaryDirectory() as base:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("error")  # a replay divergence would warn
+                    out = pt.run(_quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1),
+                                 nlive=100, num_repeats=8, do_clustering=False,
+                                 read_resume=False, base_dir=base, seed=5, feedback=-1,
+                                 device="cuda", engine="torch" if engine == "torch" else "auto")
+                with open(os.path.join(base, "test.metrics.jsonl")) as f:
+                    last = json.loads(f.read().splitlines()[-1])
+                results[engine] = (out.ndead, out.logZ, out.logZerr,
+                                   np.loadtxt(os.path.join(base, "test.txt")))
+        assert last["form"] == "per_point" and last["chained_epochs"] is True
+        ran = last["kernel_launches"]
+        if engine == "auto":
+            assert last["engine"] == "cuda" and last["route"] == "slice_epoch_fused"
+            assert ran["slice_epoch_fused"] > 0 and ran["gram_schmidt"] > 0
+            assert ran["slice_epoch"] == ran["slice_step"] == 0
+        if engine == "traced":
+            assert last["route"] == "slice_step" and last["route_reason"] == "forced"
+            assert ran["slice_step"] > 0 and last["traced_route"]["replays"] > 0
+            assert ran["slice_epoch_fused"] == 0
+        assert abs(out.logZ + 4 * math.log(2.0)) < 3 * out.logZerr
+    assert results["traced"][:3] == results["torch"][:3]
+    np.testing.assert_array_equal(results["traced"][3], results["torch"][3])
+
+
+# ---- B1 with a likelihood lowered from torch (csrc/slice_epoch_fused.cu)
+def _fused_models(D, dev):
+    """Models for the fused route: gaussian.ini's likelihood in batched
+    torch, the per-point quickstart (D = 4), a Gaussian likelihood under
+    GaussianPrior (the prior's erfinv lowered into the body), a correlated
+    Gaussian (a (D, D) constant), every library call of the op table, and
+    a LogUniformPrior (a number to a tensor's power)."""
+    def calls(th):
+        u = (th - 0.5) * 4.0
+        v = (torch.exp(-u * u) + torch.log1p(th) - torch.log(th + 0.1) + torch.expm1(-th)
+             + torch.sin(u) * torch.cos(u) + torch.tanh(u) + torch.sqrt(th) + torch.rsqrt(th + 1.0)
+             + (th + 0.5) ** 1.5 + torch.special.ndtri(th.clamp(0.01, 0.99)))
+        return torch.logsumexp(-v * v, -1) - (u * u).sum(-1)
+
+    a = np.random.default_rng(D).normal(size=(D, D))
+    cov = torch.tensor(0.01 * (a @ a.T / D + np.eye(D)), dtype=torch.float32, device=dev)
+    return {
+        "gaussian_ini": (identity_prior, lambda th: -0.5 * (((th - 0.5) ** 2).sum(-1)) / 0.01),
+        "quickstart": (UniformPrior(-1, 1), _quickstart),
+        "gaussian_prior": (GaussianPrior(0.5, 0.2),
+                           lambda th: -0.5 * (((th - 0.5) / 0.1) ** 2).sum(-1)),
+        "correlated": (identity_prior,
+                       lambda th: -0.5 * ((th - 0.5) @ torch.linalg.inv(cov) @ (th - 0.5))),
+        "library_calls": (identity_prior, calls),
+        "log_uniform": (LogUniformPrior(0.1, 10.0),
+                        lambda th: -0.5 * (((th - 2.0) / 0.5) ** 2).sum(-1)),
+    }
+
+
+@pytest.mark.parametrize("model", ["gaussian_ini", "quickstart", "gaussian_prior", "correlated",
+                                   "library_calls", "log_uniform"])
+def test_fused_kernel_every_group_equals_plain(dev, model):
+    """The fused kernel at every G, its libraries built in parallel, bitwise
+    its plain version (slice_records_plain on Lowered.plain_logL), with
+    invalid lanes; the zoo's own Gaussian also bitwise B1's functor."""
+    D = {"quickstart": 4, "correlated": 6, "library_calls": 6, "log_uniform": 5}.get(model, 20)
+    prior, like = _fused_models(D, dev)[model]
+    nd = 1 if model == "quickstart" else 0
+    calc = make_batched_calculator(prior, like, D, nd, device=dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered), low
+    B, R = 1000, 6
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    bound = low.plain_logL(x0) - 2.0
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w = _unit_directions(gen, dev, B, R, D)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = (x0, bound, valid, nh, w * 0.1)
+    want = slice_records_plain(low.plain_logL, cfg, (9, 10), *args)
+    groups = [G for G in pallas_slice_v4.GROUPS if G <= 32]
+    low.build(groups)
+    for G in groups:
+        before = pallas_slice_v4.LAUNCHES["slice_epoch_fused"]
+        got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args, group=G)
+        assert pallas_slice_v4.LAUNCHES["slice_epoch_fused"] == before + 1
+        for k, a, b in zip(("t", "logL", "nlike"), got, want):
+            assert torch.equal(a, b), (G, k, int((a != b).sum()))
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+    pallas_slice_v4.validate_fused(calc, cfg, dev, pallas_slice_v4.choose_group(
+        B, D, torch.cuda.get_device_properties(dev).multi_processor_count))
+
+
+def test_fused_kernel_of_the_zoo_gaussian_equals_b1(dev):
+    """The zoo's Gaussian lowered from its torch form does B1's functor's
+    operations in its order: the fused kernel gives B1's records."""
+    D, B, R = 20, 1024, 8
+    calc = make_batched_calculator(identity_prior, gaussian(D), D, 2, device=dev)
+    assert calc.device_spec is not None
+    low = fused_like.lower(calc)  # the lowering takes any torch model
+    calc.__dict__["fused"] = low
+    gen = torch.Generator(dev).manual_seed(3)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    nh, w = _unit_directions(gen, dev, B, R, D)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = (x0, calc(x0)[2] - 2.0, torch.ones(B, dtype=torch.bool, device=dev), nh, w * 0.1)
+    for a, b in zip(pallas_slice_v4.slice_epoch_fused(calc, cfg, (1, 2), *args),
+                    pallas_slice_v4.slice_epoch(calc, cfg, (1, 2), *args)):
+        assert torch.equal(a, b)
+
+
+def test_fused_build_failure_raises(dev, monkeypatch):
+    """A generated functor that does not compile raises from nvcc; nothing
+    falls back to the traced route."""
+    calc = make_batched_calculator(identity_prior, lambda th: -(th ** 2).sum(-1) * 1.25, 3, 0,
+                                   device=dev)
+    low = fused_like.lowering(calc)
+    monkeypatch.setattr(type(low), "emit_functor", lambda self: "struct FusedLike { broken };")
+    B = 64
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernel_wrapper("cuda")(
+            calc, EpochConfig(n_dims=3, n_phi=1, grade_dims=(3,), num_repeats=(1,)), (0, 0),
+            torch.full((B, 3), 0.5, device=dev), torch.full((B,), -10.0, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev),
+            torch.ones((B, 1, 3), device=dev) / math.sqrt(3), torch.ones((B, 1), device=dev))

@@ -15,6 +15,7 @@ MODULES = [
     "polychordlite_tpu_torch.core.nested_sampling",
     "polychordlite_tpu_torch.ops.pallas_slice_v4",
     "polychordlite_tpu_torch.ops.pallas_slice_v5",
+    "polychordlite_tpu_torch.ops.fused_like",
     "polychordlite_tpu_torch.inidriver",
     "polychordlite_tpu_torch.priors",
     "polychordlite_tpu_torch.ops.chained_epoch",
@@ -43,3 +44,21 @@ def test_import_leaves_jax_out(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout == ""  # importing runs nothing (the studies print their records)
+
+
+def test_lowering_leaves_jax_out():
+    """Tracing and lowering a torch model for the fused route (make_fx)
+    imports no JAX either."""
+    code = (
+        "import sys, torch; from polychordlite_tpu_torch.ops import fused_like; "
+        "from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator; "
+        "calc = make_batched_calculator(lambda c: c, lambda t: -(t ** 2).sum(-1), 3, 0); "
+        "assert isinstance(fused_like.lowering(calc), fused_like.Lowered); "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'polychordlite_tpu.'))]; "
+        "assert not bad, bad"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -28,6 +28,7 @@ from polychordlite_tpu.ops.directions import make_directions as jax_make_directi
 from polychordlite_tpu_torch import priors as ppr
 from polychordlite_tpu_torch.core import nested_sampling as ns
 from polychordlite_tpu_torch.models import gaussian
+from polychordlite_tpu_torch.ops import fused_like
 from polychordlite_tpu_torch.ops import pallas_slice as pps
 from polychordlite_tpu_torch.ops import pallas_slice_v4 as v4
 from polychordlite_tpu_torch.ops.directions import make_directions
@@ -36,6 +37,7 @@ from polychordlite_tpu_torch.ops.slice_kernel import (
     EpochConfig,
     epoch_route,
     kernel_wrapper,
+    route_reason,
     slice_records_plain,
 )
 
@@ -185,17 +187,29 @@ def test_prior_parameters_must_broadcast():
         ppr.GaussianPrior([0.0, 1.0], [1.0, 2.0, 3.0])
 
 
+def norm_like(theta):
+    """A Gaussian through torch.linalg.vector_norm, an op the fused route's
+    lowering does not take: the traced route runs it."""
+    return -0.5 * (torch.linalg.vector_norm(theta - 0.5, dim=-1) / SIGMA) ** 2
+
+
 # ------------------------------------------------------------ engine rules
-@pytest.mark.parametrize("like,n_derived", [(quickstart_torch, 1), (index_like, 0),
-                                            (lambda th: -(th ** 2).sum(-1), 0)])
-def test_auto_on_a_card_takes_the_cuda_engine(monkeypatch, like, n_derived):
+@pytest.mark.parametrize("like,n_derived,route", [
+    (quickstart_torch, 1, "slice_epoch_fused"), (index_like, 0, "slice_epoch_fused"),
+    (lambda th: -(th ** 2).sum(-1), 0, "slice_epoch_fused"), (norm_like, 0, "slice_step")])
+def test_auto_on_a_card_takes_the_cuda_engine(monkeypatch, like, n_derived, route):
+    """Any torch model takes the "cuda" engine on a card: B1 with the
+    likelihood lowered into it, or the traced route where the lowering
+    refuses, with the refusal as the reason."""
     calc = make_batched_calculator(ppr.UniformPrior(-1, 1), like, 4 if n_derived else 2,
                                    n_derived)
     assert calc.device_spec is None and not calc.uses_callback
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     assert ns.resolve_engine("auto", cuda, calc) == "cuda"
-    assert epoch_route("cuda", calc) == "slice_step"
+    assert epoch_route("cuda", calc) == route
+    if route == "slice_step":
+        assert "linalg_vector_norm" in route_reason("cuda", calc)
     callback = make_batched_calculator(
         ppr.identity_prior, lambda th: float(np.sum(np.asarray(th))), 2, 0)
     with pytest.raises(ValueError, match="engine='torch'"):
@@ -237,8 +251,13 @@ def test_rounds_bitwise_plain_engine(form, rounds):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
-    # the "cuda" engine's wrapper takes this route for a model without a functor
+    # the "cuda" engine's wrapper takes the fused route for this model (its
+    # lowering's plain version), and this route for one the lowering refuses
     if rounds == 32:
+        fused = slice_records_plain(fused_like.lowering(calc).plain_logL, cfg, (3, 4), *args)
+        for a, b in zip(kernel_wrapper("cuda")(calc, cfg, (3, 4), *args), fused):
+            assert torch.equal(a, b)
+        calc.__dict__["fused"] = fused_like.Refused("forced")
         for a, b in zip(kernel_wrapper("cuda")(calc, cfg, (3, 4), *args), want):
             assert torch.equal(a, b)
 
@@ -353,11 +372,13 @@ def test_quickstart_run_agrees_with_jax(quick_runs):
 
 
 def test_quickstart_run_through_the_route(quick_runs, monkeypatch, tmp_path):
-    """The run with the CUDA engine's choice forced on the CPU, where the
-    route runs its plain version in rounds: the chained epochs' replay check
-    holds (a divergence would warn), the metrics name the route, and the run
-    is the plain engine's bit for bit."""
+    """The run with the CUDA engine's choice forced on the CPU and the
+    lowering refused, where the traced route runs its plain version in
+    rounds: the chained epochs' replay check holds (a divergence would
+    warn), the metrics name the route and its reason, and the run is the
+    plain engine's bit for bit."""
     monkeypatch.setattr(ns, "resolve_engine", lambda engine, device, calc: "cuda")
+    monkeypatch.setattr(fused_like, "lowering", lambda calc: fused_like.Refused("forced"))
     v4.LAUNCHES["slice_step"] = 0
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -370,6 +391,7 @@ def test_quickstart_run_through_the_route(quick_runs, monkeypatch, tmp_path):
 
         last = json.loads(f.read().splitlines()[-1])
     assert last["engine"] == "cuda" and last["route"] == "slice_step"
+    assert last["route_reason"] == "forced"
     assert last["form"] == "per_point" and last["chained_epochs"] is True
     port = quick_runs["port"]
     assert (out.ndead, out.logZ, out.logZerr) == (port.ndead, port.logZ, port.logZerr)
