@@ -4,18 +4,21 @@
 
 Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 (one ``nvcc`` each, started together; ptxas registers, stack and spills
-reported), checks each kernel against its plain torch version on the card
-(B2 Gram-Schmidt, bitwise, at the bench and gaussian.ini shapes; B1 v4 at
-every group size G of lanes per chain, B3 v5, B4 v3, B5
-v2 at four geometries, B1 also against its G = 1 form; E1, the counted
-v4, in the ``lane_efficiency`` study), measures what B1's micro-step costs
+reported, by G for the Gaussian kernels of B1, B3 and B5), checks each
+kernel against its plain torch version on the card (B2 Gram-Schmidt,
+bitwise, at the bench and gaussian.ini shapes; B1 v4, B3 v5 and B5 v2 at
+every group size G of lanes per chain, and B4 v3, at four geometries, B1,
+B3 and B5 also against their G = 1 forms, B3-B5 against B1, each G timed,
+B3's resident warps by G read from the card; E1, the counted v4, in the
+``lane_efficiency`` study), measures what B1's micro-step costs
 (``measure_first``: E7's ``body20`` with an IEEE division and with the
 hash, B1 at every G at the gaussian.ini, 4-D and 8-D zoo, bench and 4x
-bench geometries, and the SASS of B1's Gaussian instantiations from
-``cuobjdump``), holds B1's route for a likelihood evaluated in torch
-(``slice_step``: the kernel ``csrc/slice_step.cu`` replayed from a CUDA
-graph) bitwise against the plain engine and B1 at gaussian.ini's shape, the
-bench and D = 40, with 1, 7 and 32 rounds per replay, times it beside both
+bench geometries, B3 and B5 at every G at the zoo's, and the SASS of B1's
+Gaussian instantiations from ``cuobjdump``), holds B1's route for a
+likelihood evaluated in torch (``slice_step``: the kernel
+``csrc/slice_step.cu`` replayed from a CUDA graph) bitwise against the
+plain engine and B1 at gaussian.ini's shape, the bench and D = 40, with 1,
+7 and 32 rounds per replay, times it beside both
 and times its kernel's own share of a round (rounds whose calc is one copy
 of a constant logL), holds B1's fused route (``slice_fused``: gaussian.ini's
 likelihood written in torch, lowered by ``ops/fused_like.py`` into
@@ -36,8 +39,9 @@ drives the port's paths and checks what comes out and which kernels ran
   the fresh process starts with every launch count at 0 and writes the
   launches of its run into its ``.metrics.jsonl``;
 * ``run_gaussian_shells_v5``: the same settings through
-  ``run(..., engine="cuda5")`` (the speculative-packet kernel), which must
-  give the CLI run's result bit for bit;
+  ``run(..., engine="cuda5")`` (the speculative-packet kernel, at the G
+  that ``choose_packet_group`` picks, which must be > 1), which must give
+  the CLI run's result bit for bit;
 * ``run_zoo_inis``: the nine other analytic inis of ``ini/`` at their
   shipped settings (``base_dir`` and ``seed`` added) through
   ``inidriver.run_ini`` on the default device, and ``ini/eggbox.ini``
@@ -45,7 +49,7 @@ drives the port's paths and checks what comes out and which kernels ran
   of its oracle (:data:`ZOO_ORACLES`);
 * ``run_himmelblau_ab``: ``ini/himmelblau.ini`` through
   ``run(engine="cuda3")`` (B4), bitwise the ``run_zoo_inis`` run, and
-  ``run(engine="cuda2")`` (B5), within 3 sigma of -log 100;
+  ``run(engine="cuda2")`` (B5, at a G > 1), within 3 sigma of -log 100;
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
@@ -325,6 +329,38 @@ def ptxas_summary(log: str):
             "max_spill_bytes": max(spill, default=None)}
 
 
+def ptxas_kernels(log: str, pattern: str):
+    """Registers, stack frame and spill bytes that ptxas reports for each
+    kernel whose mangled name matches ``pattern``, keyed by the pattern's
+    groups joined with ","."""
+    import re
+
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m[1]
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m[1]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == entry and entry:
+            k = re.search(pattern, entry)
+            if k:
+                out.setdefault(",".join(k.groups()), {}).update(
+                    stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            k = re.search(pattern, entry)
+            if k:
+                out.setdefault(",".join(k.groups()), {})["registers"] = int(m[1])
+    return out
+
+
 def read_metrics(base: str, root: str):
     with open(os.path.join(base, f"{root}.metrics.jsonl")) as f:
         return [json.loads(ln) for ln in f.read().splitlines()]
@@ -435,9 +471,24 @@ def main() -> None:
         with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
             for name, log in nvcc.build_log.items():
                 f.write(f"==== {name}\n{log}\n")
+        log = nvcc.build_log.get
+        # the Gaussian functor's kernels of B1, B3 and B5 by G (the others
+        # are in ptxas.txt): registers, stack, spills
+        gaussian_kernels = {
+            "B1": ptxas_kernels(log("slice_epoch", ""),
+                                r"slice_epoch_kernelI8V4Policy12GaussianLikeLi(\d+)ELb([01])E"),
+            "B3": ptxas_kernels(log("slice_epoch_v5", ""),
+                                r"slice_epoch_v5_kernelI12GaussianLikeLi(\d+)EE"),
+            "B5": ptxas_kernels(log("slice_epoch_v2", ""),
+                                r"slice_epoch_kernelI8V2Policy12GaussianLikeLi(\d+)ELb0E()"),
+            "E3": ptxas_kernels(log("slice_epoch_v2", ""),
+                                r"slice_epoch_v2_counted_kernelI12GaussianLike()E"),
+        }
+        results["ptxas_gaussian"] = gaussian_kernels
         return {"seconds": round(time.perf_counter() - t0, 3),
                 "per_library": {k: round(v, 3) for k, v in nvcc.build_seconds.items()},
-                "ptxas": ptxas}
+                "ptxas": ptxas,
+                "gaussian_kernels_by_group": gaussian_kernels}
 
     # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise -----------
     @phase("gram_schmidt")
@@ -590,6 +641,20 @@ def main() -> None:
                 "ms_by_group": ms, "us_per_micro_step_by_group":
                     {G: t * 1e3 / lane_max for G, t in ms.items()},
                 "best_group": min(ms, key=ms.get)}
+            if tag in ("zoo_d4", "zoo_d8"):  # B3 and B5 by G beside B1
+                for name, fn, groups, chosen in (
+                        ("b3", pallas_slice_v5.slice_epoch_v5, pallas_slice_v5.PACKET_GROUPS,
+                         pallas_slice_v5.packet_group_for(calc, B, D, dev)),
+                        ("b5", pallas_slice.slice_epoch_v2, GROUPS,
+                         pallas_slice_v4.choose_group(B, D, n_sm))):
+                    decisions(f"{tag}: {name} at some G differs from B1", [
+                        (f"{k}_G{G}", a, b) for G in groups for k, a, b in zip(
+                            ("t", "logL", "nlike"), fn(calc, cfg, kw, *args, group=G), one)])
+                    t_by_g = {G: cuda_ms(lambda G=G, fn=fn: fn(  # noqa: B023
+                        calc, cfg, kw, *args, group=G), 5) for G in groups}  # noqa: B023
+                    by_group[tag].update({f"{name}_chosen_group": chosen,
+                                          f"{name}_ms_by_group": t_by_g,
+                                          f"{name}_best_group": min(t_by_g, key=t_by_g.get)})
         x4 = by_group["bench_x4"]["ms_by_group"][1] / by_group["bench"]["ms_by_group"][1]
         sass = sass_report(str(nvcc.library_path("slice_epoch", LIBRARIES["slice_epoch"])),
                            os.path.join(OUT, "slice_epoch_gaussian.sass"))
@@ -640,7 +705,10 @@ def main() -> None:
                                   "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         return out
 
-    # ---- 4. speculative slice epoch (B3) against its plain version and B1 --
+    # ---- 4. speculative slice epoch (B3) at every G against its plain version,
+    # its G = 1 form and B1
+    PACKET_GROUPS = pallas_slice_v5.PACKET_GROUPS
+
     @phase("slice_epoch_v5")
     def _():
         out = {}
@@ -650,29 +718,37 @@ def main() -> None:
             pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice_v5.slice_epoch_v5)
             kw = (0x01234567, 0x89ABCDEF)
 
-            def plain(calc=calc, cfg=cfg, args=args):
-                return pallas_slice_v5.slice_records_packet_plain(
-                    lambda p: calc(p)[2], cfg, kw, *args)
+            def v5(G=None, calc=calc, cfg=cfg, args=args):
+                return pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args, group=G)
 
-            got = pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args)
-            want, plain_ms = cuda_once(plain)
+            got = v5()
+            want, plain_ms = cuda_once(
+                lambda: pallas_slice_v5.slice_records_packet_plain(  # noqa: B023
+                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
-            mism = {
-                f"{k}_vs_{other}": int((a != b).sum())
-                for other, ref in (("plain", want), ("v4", v4))
-                for k, a, b in zip(("t", "logL", "nlike"), got, ref)
-            }
-            if any(mism.values()):
-                raise AssertionError(f"{tag}: B3 differs {mism}")
+            one = v5(1)
+            pairs = [(f"{k}_vs_{other}", a, b) for other, ref in
+                     (("plain", want), ("v4", v4), ("G1", one))
+                     for k, a, b in zip(("t", "logL", "nlike"), got, ref)]
+            for G in PACKET_GROUPS:
+                pairs += [(f"{k}_G{G}_vs_plain", a, b) for k, a, b in
+                          zip(("t", "logL", "nlike"), v5(G), want)]
+            mism = decisions(f"{tag}: B3 differs", pairs)
             err = max((got[0] - want[0]).abs().max().item(),
                       (got[1] - want[1]).abs().max().item())
             evals = int(got[2].sum())
-            ms = cuda_ms(lambda: pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args), 5)  # noqa: B023
+            ms_by_group = {G: cuda_ms(lambda G=G: v5(G), 5) for G in PACKET_GROUPS}  # noqa: B023
+            ms = cuda_ms(v5, 5)
             v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()),
+                "group": pallas_slice_v5.packet_group_for(calc, B, D, dev),
+                "resident_warps_by_group": {G: pallas_slice_v5.resident_warps(calc, D, dev, G)
+                                            for G in PACKET_GROUPS},
                 "evals": evals, "mismatches": mism, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "v4_ms": v4_ms,
+                "ms": ms, "g1_ms": ms_by_group[1], "ms_by_group": ms_by_group,
+                "best_group": min(ms_by_group, key=ms_by_group.get),
+                "plain_ms": plain_ms, "v4_ms": v4_ms, "over_v4": ms / v4_ms,
                 "evals_per_s": evals / (ms / 1e3), "plain_evals_per_s": evals / (plain_ms / 1e3),
             }
         results["slice_epoch_v5"] = {**out["bench"],
@@ -724,30 +800,39 @@ def main() -> None:
             pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice.slice_epoch_v2)
             kw = (0x01234567, 0x89ABCDEF)
 
-            def plain(calc=calc, cfg=cfg, args=args):
-                return pallas_slice.slice_records_lockstep_plain(
-                    lambda p: calc(p)[2], cfg, kw, *args)
+            def v2(G=None, calc=calc, cfg=cfg, args=args):
+                return pallas_slice.slice_epoch_v2(calc, cfg, kw, *args, group=G)
 
-            got = pallas_slice.slice_epoch_v2(calc, cfg, kw, *args)
-            want, plain_ms = cuda_once(plain)
+            got = v2()
+            want, plain_ms = cuda_once(
+                lambda: pallas_slice.slice_records_lockstep_plain(  # noqa: B023
+                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
-            mism = {
-                f"{k}_vs_{other}": int((a != b).sum())
-                for other, ref in (("plain", want), ("v4", v4))
-                for k, a, b in zip(("t", "logL", "nlike", "cube"), got, ref)
-            }
-            if any(mism.values()):
-                raise AssertionError(f"{tag}: B5 differs {mism}")
+            one = v2(1)
+            names = ("t", "logL", "nlike", "cube")
+            pairs = [(f"{k}_vs_{other}", a, b) for other, ref in
+                     (("plain", want), ("v4", v4), ("G1", one))
+                     for k, a, b in zip(names, got, ref)]
+            for G in GROUPS:
+                pairs += [(f"{k}_G{G}_vs_plain", a, b) for k, a, b in zip(names, v2(G), want)]
+            mism = decisions(f"{tag}: B5 differs", pairs)
             rebuilt = args[0][:, None, :] + torch.cumsum(v4[0][:, :, None] * args[3], dim=1)
             cube_vs_v4 = (got[3] - rebuilt).abs().max().item()
             if not cube_vs_v4 <= 1e-5:
                 raise AssertionError(f"{tag}: B5's cube is {cube_vs_v4} from B1's rebuild")
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            ms = cuda_ms(lambda: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args), 5)  # noqa: B023
+            ms_by_group = {G: cuda_ms(lambda G=G: v2(G), 5) for G in GROUPS}  # noqa: B023
+            ms = cuda_ms(v2, 5)
+            v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            evals = int(got[2].sum())
             out[tag] = {
-                "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
+                "B": B, "R": R, "D": D, "group": pallas_slice_v4.choose_group(B, D, n_sm),
+                "evals": evals, "mismatches": mism,
                 "max_abs_err": err, "max_abs_cube_vs_v4_rebuild": cube_vs_v4,
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": ms, "g1_ms": ms_by_group[1], "ms_by_group": ms_by_group,
+                "best_group": min(ms_by_group, key=ms_by_group.get),
+                "plain_ms": plain_ms, "v4_ms": v4_ms, "over_v4": ms / v4_ms,
+                "evals_per_s": evals / (ms / 1e3),
             }
         results["slice_epoch_v2"] = {**out["bench"],
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
@@ -964,10 +1049,21 @@ def main() -> None:
                 pallas_epoch_v2.LAUNCHES, pallas_slice_repeat.LAUNCHES)
     launches = {k: 0 for c in counters for k in c}
 
+    group_counters = (pallas_slice_v4.GROUP_LAUNCHES, pallas_slice_v5.GROUP_LAUNCHES,
+                      pallas_slice.GROUP_LAUNCHES)
+
     def reset_launches():
-        for c in counters + (pallas_slice_v4.GROUP_LAUNCHES,):
+        for c in counters + group_counters:
             for k in c:
                 c[k] = 0
+
+    def ran_above_one(name, counts):
+        """The launches by G of a path's kernel, which must have run at G > 1
+        only."""
+        groups = {G: c for G, c in counts.items() if c}
+        if 1 in groups or not groups:
+            raise AssertionError(f"{name} ran at G = 1 on the path: launches by G {groups}")
+        return groups
 
     def read_launches():
         return {k: v for c in counters for k, v in c.items()}
@@ -997,7 +1093,6 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ran = read_launches()
-            groups = {G: c for G, c in pallas_slice_v4.GROUP_LAUNCHES.items() if c}
             stats = PolyChordOutput(base, "test")
             with open(os.path.join(base, "test.metrics.jsonl")) as f:
                 last = json.loads(f.read().splitlines()[-1])
@@ -1007,8 +1102,7 @@ def main() -> None:
             raise AssertionError("chained epochs were switched off during the run")
         if not only(ran, ("gram_schmidt", "slice_epoch")):
             raise AssertionError(f"the path did not run B1 and B2 (only): {ran}")
-        if 1 in groups or not groups:
-            raise AssertionError(f"B1 ran at G = 1 on the path: launches by G {groups}")
+        groups = ran_above_one("B1", pallas_slice_v4.GROUP_LAUNCHES)
         add_launches(ran)
         if not (math.isfinite(stats.logZ) and abs(stats.logZ - 0.0) < 3 * stats.logZerr):
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is not within 3 sigma of 0")
@@ -1245,6 +1339,7 @@ def main() -> None:
             raise AssertionError(f"engine_used is {last.get('engine')!r}, not 'cuda5'")
         if not only(ran, ("gram_schmidt", "slice_epoch_v5")):
             raise AssertionError(f"the run did not run B3 and B2 (only): {ran}")
+        groups = ran_above_one("B3", pallas_slice_v5.GROUP_LAUNCHES)
         add_launches(ran)
         cli = shells["last"]
         same = {k: last[k] == cli[k] for k in ("ndead", "logZ", "logZerr")}
@@ -1256,6 +1351,7 @@ def main() -> None:
         return {
             "engine_used": last["engine"], "ndead": last["ndead"], "logZ": last["logZ"],
             "logZerr": last["logZerr"], "identical_to_cli": same, "launches": ran,
+            "slice_epoch_v5_launches_by_group": groups,
             "wall_s": wall, "dead_per_s": last["ndead"] / wall,
             "device_frac": last.get("device_frac"),
             "host_totals_s": last.get("host_totals"),
@@ -1346,11 +1442,15 @@ def main() -> None:
                 raise AssertionError(f"engine_used is {last.get('engine')!r}, not {engine!r}")
             if not only(ran, ("gram_schmidt", kernel)):
                 raise AssertionError(f"the {engine} run did not run {kernel} and B2 (only): {ran}")
+            if engine == "cuda2":
+                groups = ran_above_one("B5", pallas_slice.GROUP_LAUNCHES)
             add_launches(ran)
             rec = {"engine_used": engine, "ndead": last["ndead"], "logZ": last["logZ"],
                    "logZerr": last["logZerr"], "launches": {k: v for k, v in ran.items() if v},
                    "wall_s": wall, "dead_per_s": last["ndead"] / wall,
                    "device_frac": last.get("device_frac")}
+            if engine == "cuda2":
+                rec["slice_epoch_v2_launches_by_group"] = groups
             if engine == "cuda3":  # the same decisions: the B1 run, bit for bit
                 ref = read_metrics(zoo["himmelblau"], "himmelblau")[-1]
                 same = {k: last[k] == ref[k] for k in ("ndead", "logZ", "logZerr")}
@@ -1648,9 +1748,15 @@ def main() -> None:
                     "slice_epoch_v2", "slice_step", "slice_epoch_fused")  # the others: their
     # studies' own launches
     se = results["slice_epoch"]
-    redesigned = {  # B1's G = 1 form, and the traced route, in this run
+    redesigned = {  # B1's, B3's and B5's G = 1 forms, and the traced route, in this run
         "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],
                         "previous": "the G = 1 form, in this run"},
+        "slice_epoch_v5": {"group": results["slice_epoch_v5"]["group"],
+                           "previous_ms": results["slice_epoch_v5"]["g1_ms"],
+                           "previous": "the G = 1 form (one thread per chain), in this run"},
+        "slice_epoch_v2": {"group": results["slice_epoch_v2"]["group"],
+                           "previous_ms": results["slice_epoch_v2"]["g1_ms"],
+                           "previous": "the G = 1 form (one thread per chain), in this run"},
         "slice_epoch_fused": {"group": results["slice_fused"]["group"],
                               "previous_ms": results["slice_fused"]["traced_ms"],
                               "previous": "the traced route (slice_step) on the same model "

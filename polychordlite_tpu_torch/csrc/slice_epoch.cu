@@ -13,18 +13,10 @@ static int launch(int group, int functor, const float* consts, const float* prio
     const int bad = with_likelihood(
         functor, consts, prior_a, prior_s, a.D, logzero, st, [&](auto like) {
             using L = decltype(like);
-            if constexpr (COUNTED) {
-                launch_epoch<L, 1, true>(like, a, st);
-            } else {
-                switch (group) {
-                    case 1: launch_epoch<L, 1, false>(like, a, st); break;
-                    case 2: launch_epoch<L, 2, false>(like, a, st); break;
-                    case 4: launch_epoch<L, 4, false>(like, a, st); break;
-                    case 8: launch_epoch<L, 8, false>(like, a, st); break;
-                    case 16: launch_epoch<L, 16, false>(like, a, st); break;
-                    default: launch_epoch<L, 32, false>(like, a, st); break;
-                }
-            }
+            if constexpr (COUNTED)
+                launch_epoch<V4Policy, L, 1, true>(like, a, st);
+            else
+                launch_epoch_group<V4Policy>(group, like, a, st);
         });
     if (bad) return bad;
     return (int)cudaGetLastError();
@@ -44,7 +36,7 @@ extern "C" int slice_epoch_launch(
     long long cap, float logzero, void* stream, int group) {
     return launch<false>(group, functor, consts, prior_a, prior_s,
                          epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                    D, R, k0, k1, max_step, max_shrink, cap, nullptr, nullptr),
+                                    D, R, k0, k1, max_step, max_shrink, cap),
                          logzero, stream);
 }
 

@@ -1,8 +1,11 @@
 // Free-running slice-sampling epoch: one chain on a group of G lanes.  The
-// kernel template and its launch, included by the two entries that
-// instantiate it: slice_epoch.cu (the functors of likelihoods.cuh, every G)
-// and slice_epoch_fused.cu (a likelihood lowered from torch by
-// ops/fused_like.py, the one G the launch picks).
+// kernel template and its launch, included by the entries that instantiate
+// it: slice_epoch.cu (the functors of likelihoods.cuh, every G),
+// slice_epoch_fused.cu (a likelihood lowered from torch by
+// ops/fused_like.py, the one G the launch picks) and slice_epoch_v2.cu (B5:
+// the same loop under v2's budget, writing the cube — V2Policy below);
+// slice_epoch_v5.cu (B3) evaluates each packet slot with GroupLane's
+// like_eval.
 //
 // Replaces the TPU kernel polychordlite_tpu/ops/pallas_slice_v4.py::
 // build_epoch_fn_pallas_v4 (kernel body :136-418).  It carries over v4's
@@ -79,22 +82,34 @@
 
 #include "slice_machine.cuh"
 
-struct EpochArgs {
-    const float* x0t;
-    const float* bound;
-    const float* valid;
-    const float* nhat;
-    const float* w;
-    float* t_out;
-    float* logL_out;
-    int* nlike_out;
-    int B, D, R;
-    uint32_t k0, k1;
-    int max_step, max_shrink;
-    long long cap;
-    int* lane_steps;  // the counted form's outputs, else null
-    int* warp_max;
+// Where an epoch counts its micro-step budget and what it does at a repeat's
+// end: the policy of the kernels built on this template.
+//   PER_REPEAT  the budget counts each repeat's micro-steps (v2, v3), not the
+//               epoch's (v4);
+//   STOP        a repeat the budget ends unaccepted stops the chain (v4,
+//               v3); otherwise the chain keeps x0 and goes on to its next
+//               repeat (v2);
+//   CUBE        every repeat writes cube row r = x0 after the advance (v2).
+// Either way such a repeat records t = 0, logL = logzero and its count.
+struct V4Policy {  // B1 (slice_epoch.cu, slice_epoch_fused.cu)
+    static constexpr bool PER_REPEAT = false, STOP = true, CUBE = false;
 };
+struct V2Policy {  // B5 (slice_epoch_v2.cu)
+    static constexpr bool PER_REPEAT = true, STOP = false, CUBE = true;
+};
+
+// B5's cube row r of chain b: each lane writes the coordinates it owns.
+template <class Policy, int G>
+__device__ __forceinline__ void repeat_end(const EpochArgs& a, int r, int b, const float* x0,
+                                           int g) {
+    if constexpr (Policy::CUBE) {
+#pragma unroll
+        for (int k = 0; k < SLICE_MAXD / G; ++k) {
+            const int d = g + k * G;
+            if (d < a.D) a.cube_out[((size_t)r * a.D + d) * a.B + b] = x0[k];
+        }
+    }
+}
 
 // Lane g of the group of G lanes that holds one chain: the functor, the
 // prior coefficients of the coordinates d = g + k G it owns, and its
@@ -142,24 +157,38 @@ __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const fl
     return like_result(L.like.combine(T, D), inside, L.logzero);
 }
 
-__device__ __forceinline__ void write_repeat(const EpochArgs& a, int r, int b, float t,
-                                             float logL, int cnt) {
-    const size_t o = (size_t)r * a.B + b;
-    a.nlike_out[o] = cnt;
-    a.t_out[o] = t;
-    a.logL_out[o] = logL;
+// The lanes of the group of G that holds lane `lane` of a warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+    return (0xffffffffu >> (32 - G)) << ((lane & 31) & ~(G - 1));
+}
+
+// Lane g's prior coefficients: those of the coordinates d = g + k G.
+template <int G, class Like>
+__device__ __forceinline__ void group_prior(GroupLane<G, Like>& L) {
+#pragma unroll
+    for (int k = 0; k < SLICE_MAXD / G; ++k) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {  // static indices into the parameter
+            if (L.g == j) {
+                L.a[k] = L.like.prior.a[j + k * G];
+                L.s[k] = L.like.prior.s[j + k * G];
+            }
+        }
+    }
 }
 
 // G = 1: the R repeats of chain b, one slice_repeat after the other.
 // Returns the micro-steps the chain took.
-template <class Like>
+template <class Policy, class Like>
 __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochArgs& a, int b) {
     const int B = a.B, D = a.D, R = a.R;
     long long steps = 0;
     int r = 0;
-    if (a.valid[b] > 0.5f) {
-        float x0[SLICE_MAXD], n[SLICE_MAXD];
-        slice_load(x0, a.x0t, 0, D, B, b);
+    const bool valid = a.valid[b] > 0.5f;
+    float x0[SLICE_MAXD], n[SLICE_MAXD];
+    if (valid || Policy::CUBE) slice_load(x0, a.x0t, 0, D, B, b);
+    if (valid) {
         const float bnd = a.bound[b];
         const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
         for (; r < R; ++r) {
@@ -167,17 +196,21 @@ __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochAr
             const float wr = a.w[(size_t)r * B + b];
             const SliceRepeat rep =
                 slice_repeat(like, x0, n, wr, bnd, mix32(h_lane, (uint32_t)r), D, a.max_step,
-                             a.max_shrink, a.cap - steps);
+                             a.max_shrink, Policy::PER_REPEAT ? a.cap : a.cap - steps);
             steps += rep.steps;
             write_repeat(a, r, b, rep.t, rep.logL, rep.cnt);
-            if (!rep.accepted) {  // the epoch's budget: the chain stops here
+            if (rep.accepted) slice_advance(x0, n, rep.t, D);
+            repeat_end<Policy, 1>(a, r, b, x0, 0);
+            if (Policy::STOP && !rep.accepted) {  // the budget: the chain stops here
                 ++r;
                 break;
             }
-            slice_advance(x0, n, rep.t, D);
         }
     }
-    for (; r < R; ++r) write_repeat(a, r, b, 0.0f, like.logzero, 0);  // invalid, never reached
+    for (; r < R; ++r) {  // invalid, never reached
+        write_repeat(a, r, b, 0.0f, like.logzero, 0);
+        repeat_end<Policy, 1>(a, r, b, x0, 0);
+    }
     return steps;
 }
 
@@ -187,9 +220,11 @@ __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochAr
 // operations of like_eval see the whole warp converged.  A chain that is
 // done (or out of range) still runs the iteration and keeps nothing.  The
 // decisions, the budget and the records are slice_repeat's and
-// chain_epoch's: a repeat that the budget ends unaccepted records t = 0,
-// logL = logzero and its count, and the chain stops.  Lane 0 writes.
-template <int G, class Like>
+// chain_epoch's under the same policy: a repeat that the budget ends
+// unaccepted records t = 0, logL = logzero and its count, and the chain
+// stops (STOP) or keeps x0 for its next repeat.  Lane 0 writes the
+// records; each lane writes the cube coordinates it owns.
+template <class Policy, int G, class Like>
 __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const EpochArgs& a,
                                             int b, bool in_range) {
     constexpr int K = SLICE_MAXD / G;
@@ -201,8 +236,8 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     uint32_t h_lane = 0;
     SliceState s;
     s.start();
+    if (!done || (Policy::CUBE && in_range)) slice_load<G>(x0, a.x0t, 0, D, B, b, g);
     if (!done) {
-        slice_load<G>(x0, a.x0t, 0, D, B, b, g);
         slice_load<G>(n, a.nhat, 0, D, B, b, g);
         wr = a.w[b];
         bnd = a.bound[b];
@@ -210,59 +245,64 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     }
     uint32_t h_rep = mix32(h_lane, 0u);
     for (;;) {
-        if (!done && steps >= a.cap) {  // the budget ends the chain
+        bool over = false;  // the budget ended this repeat, and the chain goes on
+        if (!done && steps >= a.cap) {  // the budget ends the repeat unaccepted
             if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, s.cnt);
-            ++r;
-            done = true;
+            if (Policy::STOP) {
+                repeat_end<Policy, G>(a, r++, b, x0, g);
+                done = true;
+            } else {
+                over = true;
+            }
         }
         if (!__any_sync(0xffffffffu, !done)) break;
         float t = 0.0f, logL = L.logzero;
         const bool accepted = slice_micro(L, s, x0, n, wr, bnd, h_rep, D, a.max_step,
                                           a.max_shrink, t, logL);
         if (!done) {
-            ++steps;
-            if (accepted) {
-                if (g == 0) write_repeat(a, r, b, t, logL, s.cnt);
-                slice_advance<G>(x0, n, t, D, g);
+            bool end = over;  // (an ended repeat's micro-step is dropped)
+            if (!over) {
+                ++steps;
+                if (accepted) {
+                    if (g == 0) write_repeat(a, r, b, t, logL, s.cnt);
+                    slice_advance<G>(x0, n, t, D, g);
+                    end = true;
+                }
+            }
+            if (end) {  // the cube row, then the next repeat
+                repeat_end<Policy, G>(a, r, b, x0, g);
                 if (++r < R) {
                     slice_load<G>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
                     wr = a.w[(size_t)r * B + b];
                     h_rep = mix32(h_lane, (uint32_t)r);
                     s.start();
+                    if (Policy::PER_REPEAT) steps = 0;
                 } else {
                     done = true;
                 }
             }
         }
     }
-    if (in_range && g == 0)
-        for (; r < R; ++r) write_repeat(a, r, b, 0.0f, L.logzero, 0);  // invalid, never reached
+    if (in_range) {
+        for (; r < R; ++r) {  // invalid, never reached
+            if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, 0);
+            repeat_end<Policy, G>(a, r, b, x0, g);
+        }
+    }
 }
 
-template <class Like, int G, bool COUNTED>
+template <class Policy, class Like, int G, bool COUNTED>
 __global__ void slice_epoch_kernel(Like like, EpochArgs a) {
     static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
     const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
     const int b = lane_id / G;  // the chain
     long long steps = 0;        // micro-steps of this chain in the epoch
     if constexpr (G == 1) {
-        if (b < a.B) steps = chain_epoch(like, a, b);
+        if (b < a.B) steps = chain_epoch<Policy>(like, a, b);
     } else {  // every lane of the warp runs group_epoch (no early return)
-        constexpr int K = SLICE_MAXD / G;
-        const int g = lane_id % G;  // this lane's place in its group
-        const unsigned mask = (0xffffffffu >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
-        GroupLane<G, Like> L{like, {}, {}, g, mask, like.logzero};
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-#pragma unroll
-            for (int j = 0; j < G; ++j) {  // static indices into the parameter
-                if (g == j) {
-                    L.a[k] = like.prior.a[j + k * G];
-                    L.s[k] = like.prior.s[j + k * G];
-                }
-            }
-        }
-        group_epoch(L, a, b, b < a.B);
+        GroupLane<G, Like> L{like, {}, {}, lane_id % G, group_mask<G>(threadIdx.x), like.logzero};
+        group_prior(L);
+        group_epoch<Policy>(L, a, b, b < a.B);
     }
     if constexpr (COUNTED) {  // every thread of the warp gets here (no early return)
         const int s = (int)steps;
@@ -272,28 +312,30 @@ __global__ void slice_epoch_kernel(Like like, EpochArgs a) {
     }
 }
 
-// Launch slice_epoch_kernel<Like, G, COUNTED> on `stream`: one warp per
-// block, 32 / G chains each.
-template <class Like, int G, bool COUNTED>
+// Launch slice_epoch_kernel<Policy, Like, G, COUNTED> on `stream`: one warp
+// per block, 32 / G chains each.
+template <class Policy, class Like, int G, bool COUNTED = false>
 void launch_epoch(const Like& like, const EpochArgs& a, cudaStream_t stream) {
     const int threads = 32;
     const int blocks = (int)(((long long)a.B * G + threads - 1) / threads);
-    slice_epoch_kernel<Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
+    slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
+}
+
+// Launch at `group` lanes per chain (one of 1, 2, 4, ..., 32).
+template <class Policy, class Like>
+void launch_epoch_group(int group, const Like& like, const EpochArgs& a, cudaStream_t st) {
+    switch (group) {
+        case 1: launch_epoch<Policy, Like, 1>(like, a, st); break;
+        case 2: launch_epoch<Policy, Like, 2>(like, a, st); break;
+        case 4: launch_epoch<Policy, Like, 4>(like, a, st); break;
+        case 8: launch_epoch<Policy, Like, 8>(like, a, st); break;
+        case 16: launch_epoch<Policy, Like, 16>(like, a, st); break;
+        default: launch_epoch<Policy, Like, 32>(like, a, st); break;
+    }
 }
 
 // Whether a launch of `group` lanes per chain can take these arguments.
 inline bool epoch_args_ok(const EpochArgs& a, int group) {
     return a.D >= 1 && a.D <= SLICE_MAXD && a.R >= 1 && a.B >= 1 && group >= 1 &&
            group <= 32 && !(group & (group - 1));
-}
-
-inline EpochArgs epoch_args(const void* x0t, const void* bound, const void* valid,
-                            const void* nhat, const void* w, void* t_out, void* logL_out,
-                            void* nlike_out, int B, int D, int R, unsigned int k0,
-                            unsigned int k1, int max_step, int max_shrink, long long cap,
-                            void* lane_steps, void* warp_max) {
-    return EpochArgs{(const float*)x0t, (const float*)bound, (const float*)valid,
-                     (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
-                     (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
-                     (int*)lane_steps, (int*)warp_max};
 }

@@ -38,10 +38,10 @@ extern "C" int slice_epoch_fused_launch(
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
     long long cap, float logzero, void* stream) {
     const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D,
-                                   R, k0, k1, max_step, max_shrink, cap, nullptr, nullptr);
+                                   R, k0, k1, max_step, max_shrink, cap);
     if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group))
         return (int)cudaErrorInvalidValue;
     const FusedLike like{affine_prior(prior_a, prior_s, D), consts, logzero};
-    launch_epoch<FusedLike, FUSED_G, false>(like, a, (cudaStream_t)stream);
+    launch_epoch<V4Policy, FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

@@ -1,13 +1,18 @@
 // The per-lane slice-sampling state machine of one repeat, shared by the
-// epoch kernels: slice_epoch.cu (B1, where every lane of a chain's group
-// runs it in step, and its counted form E1, one thread per chain),
-// slice_epoch_v3.cu (B4), slice_epoch_v2.cu (B5 and its counted
-// form E3), slice_epoch_v3_instr.cu (E2, which keeps a lane's SliceState
-// across its bodies), prototypes.cu (E4, E5) and slice_step.cu (B1's route
-// for a likelihood evaluated in torch, which keeps the state in device
-// memory between its launches).  Each kernel owns only its
-// outer loop over repeats and what its TPU original does at a repeat's end
-// (where the budget is counted, whether the kernel writes the cube).
+// epoch kernels: slice_epoch.cuh's template (B1 in slice_epoch.cu, where
+// every lane of a chain's group runs it in step, and its counted form E1,
+// one thread per chain; B5 in slice_epoch_v2.cu), slice_epoch_v3.cu (B4),
+// slice_epoch_v2.cu's counted form E3, slice_epoch_v3_instr.cu (E2, which
+// keeps a lane's SliceState across its bodies), prototypes.cu (E4, E5) and
+// slice_step.cu (B1's route for a likelihood evaluated in torch, which keeps
+// the state in device memory between its launches).  Each kernel owns only
+// its outer loop over repeats and what its TPU original does at a repeat's
+// end (where the budget is counted, whether the kernel writes the cube).
+// B3's packet machine (packet_machine.cuh) builds on the pieces at the end:
+// the epoch's arguments, its records, the advance and the loads.
+//
+// No warp operation lives here: with the intrinsics mapped to plain float
+// operations, the header also builds as host C++ (tests/test_torch_v5.py).
 //
 // One repeat on the chord x0 + t n̂ (pallas_slice_v4.py:215-348; Neal 2003,
 // chordal_sampling.f90:163-273):
@@ -179,4 +184,47 @@ __device__ __forceinline__ void slice_load(float* v, const float* __restrict__ s
         const int d = g + k * G;
         if (d < D) v[k] = src[offset + (size_t)d * B + b];
     }
+}
+
+// The arguments of a free-running epoch kernel (slice_epoch.cuh: B1, B5 at
+// G > 1; slice_epoch_v5.cu: B3).  Layout: x0 (D, B), nhat (R, D, B) and w
+// (R, B) with the chain axis minor; outputs t, logL (R, B) float32, nlike
+// (R, B) int32 and, where the kernel writes it (B5), cube (R, D, B) float32.
+struct EpochArgs {
+    const float* x0t;
+    const float* bound;
+    const float* valid;
+    const float* nhat;
+    const float* w;
+    float* t_out;
+    float* logL_out;
+    int* nlike_out;
+    int B, D, R;
+    uint32_t k0, k1;
+    int max_step, max_shrink;
+    long long cap;
+    int* lane_steps;  // the counted form's outputs, else null
+    int* warp_max;
+    float* cube_out;  // B5's cube, else null
+};
+
+inline EpochArgs epoch_args(const void* x0t, const void* bound, const void* valid,
+                            const void* nhat, const void* w, void* t_out, void* logL_out,
+                            void* nlike_out, int B, int D, int R, unsigned int k0,
+                            unsigned int k1, int max_step, int max_shrink, long long cap,
+                            void* lane_steps = nullptr, void* warp_max = nullptr,
+                            void* cube_out = nullptr) {
+    return EpochArgs{(const float*)x0t, (const float*)bound, (const float*)valid,
+                     (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
+                     (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                     (int*)lane_steps, (int*)warp_max, (float*)cube_out};
+}
+
+// Record repeat r of chain b.
+__device__ __forceinline__ void write_repeat(const EpochArgs& a, int r, int b, float t,
+                                             float logL, int cnt) {
+    const size_t o = (size_t)r * a.B + b;
+    a.nlike_out[o] = cnt;
+    a.t_out[o] = t;
+    a.logL_out[o] = logL;
 }

@@ -5,7 +5,8 @@ counter hash and per-epoch key words (counterpart of
 :func:`slice_epoch_v2` is the wrapper of the hand-written CUDA kernel
 ``csrc/slice_epoch_v2.cu`` (B5, the JAX package's ``"pallas2"`` engine):
 each chain runs its R repeats freely under v2's per-repeat budget and the
-kernel writes the cube.  For CPU tensors it runs
+kernel writes the cube; a chain holds G lanes of a warp, as B1's does.
+For CPU tensors it runs
 :func:`slice_records_lockstep_plain`, v2's own structure in torch (every
 repeat a while loop of 4-micro-step bodies over all lanes, the cube
 carried); for CUDA tensors it launches the kernel or raises.  Both make
@@ -313,31 +314,44 @@ def slice_records_lockstep_plain(
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0}
+#: slice_epoch_v2's launches by G since the last reset (the G of
+#: ``pallas_slice_v4.GROUPS``), apart from B1's
+GROUP_LAUNCHES = {g: 0 for g in (1, 2, 4, 8, 16, 32)}
 
 
-def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws):
+def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None):
     """Run the slice repeats of every lane with v2's budget and cube:
     (t, logL) float32, nlike int32, each (B, R), and cube (B, R, D)
     float32, with the inputs of ``pallas_slice_v4.slice_epoch``.  CPU
     tensors: the plain version; CUDA tensors: the kernel, which needs
-    ``calc.device_spec``."""
+    ``calc.device_spec``, with ``group`` lanes per chain (one of
+    ``pallas_slice_v4.GROUPS``; ``pallas_slice_v4.choose_group`` by
+    default, as for B1).  Every G gives the same result bit for bit."""
+    if group is not None and group not in GROUP_LAUNCHES:
+        raise ValueError(f"group {group} is not one of {tuple(GROUP_LAUNCHES)}")
     if x0.device.type == "cpu":
         return slice_records_lockstep_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
-    from .pallas_slice_v4 import launch_slice_kernel  # it imports this module
+    # pallas_slice_v4 imports this module
+    from .pallas_slice_v4 import _sm_count, choose_group, launch_slice_kernel
 
     B, R, D = nhats.shape
+    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
     cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
     t, logL, nlike = launch_slice_kernel(
-        nvcc.load("slice_epoch_v2", ["slice_epoch_v2.cu"]), "slice_epoch_v2_launch",
-        calc, cfg, key_words, x0, bound, valid, nhats, ws,
-        cap=v2_repeat_budget(cfg), extra=(cube,),
+        _lib(), "slice_epoch_v2_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
+        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(G,),
     )
     LAUNCHES["slice_epoch_v2"] += 1
+    GROUP_LAUNCHES[G] += 1
     return t, logL, nlike, cube.permute(2, 0, 1)
+
+
+def _lib():
+    return nvcc.load("slice_epoch_v2", ["slice_epoch_v2.cu"])
 
 
 def slice_epoch_v2_counted(calc, cfg, key_words, x0, bound, valid, nhats, ws):
@@ -361,7 +375,7 @@ def slice_epoch_v2_counted(calc, cfg, key_words, x0, bound, valid, nhats, ws):
     steps = torch.empty((R, B), dtype=torch.int32, device=x0.device)
     iters = torch.zeros(R, dtype=torch.int32, device=x0.device)
     t, logL, nlike = launch_slice_kernel(
-        nvcc.load("slice_epoch_v2", ["slice_epoch_v2.cu"]), "slice_epoch_v2_counted_launch",
+        _lib(), "slice_epoch_v2_counted_launch",
         calc, cfg, key_words, x0, bound, valid, nhats, ws,
         cap=v2_repeat_budget(cfg), extra=(cube, steps, iters),
     )

@@ -2,14 +2,16 @@
 ``polychordlite_tpu/ops/pallas_slice_v5.py``).
 
 :func:`slice_epoch_v5` is the wrapper of the hand-written CUDA kernel
-``csrc/slice_epoch_v5.cu``: each lane plans a packet of P = 4 probe
+``csrc/slice_epoch_v5.cu``: each chain plans a packet of P = 4 probe
 positions before any likelihood result (INIT ``[tR, tL, +w, -w]``, the
 stepping-out ladders ``±w (step + j)``, the shrink chain under "all
 rejected"), evaluates the four, and consumes them in order up to the first
-one that diverts its state machine (see the source for the design).  For
-CPU tensors it runs :func:`slice_records_packet_plain`, the same packet
-machine in plain torch vectorised over lanes; for CUDA tensors it launches
-the kernel or raises.
+one that diverts its state machine (``csrc/packet_machine.cuh``).  A chain
+holds G = 4 Gs lanes of a warp, one sub-group of Gs lanes per packet slot
+(G = 1: one thread evaluates the four in turn); :func:`choose_packet_group`
+picks G from the card's SMs and the warps each G's kernel keeps resident.  For CPU tensors it runs :func:`slice_records_packet_plain`, the
+same packet machine in plain torch vectorised over lanes; for CUDA tensors
+it launches the kernel or raises.
 
 Both are decision-exact with the v4 engines (``ops/pallas_slice_v4.py``,
 ``ops/slice_kernel.py::slice_records_plain``): the uniform of slot j is
@@ -22,6 +24,8 @@ The epoch record is assembled as for v4 (``assemble_epoch``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,17 +40,70 @@ from .pallas_slice import (
     uniform_from_hash,
 )
 from ..utils import nvcc
-from .pallas_slice_v4 import launch_slice_kernel
+from .pallas_slice_v4 import (
+    TARGET_WARPS_PER_SM,
+    WARP,
+    _sm_count,
+    functor_args,
+    launch_slice_kernel,
+)
 from .slice_kernel import EpochConfig
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch_v5": 0}
 
 P = 4  # probes per packet (the INIT plan [tR, tL, +w, -w] needs 4)
+#: the lanes a chain may be spread over (the kernel's instantiations): one
+#: thread, or P sub-groups of 1, 2, 4 or 8 lanes
+PACKET_GROUPS = (1, 4, 8, 16, 32)
+#: slice_epoch_v5's launches by G since the last reset
+GROUP_LAUNCHES = {g: 0 for g in PACKET_GROUPS}
 
 
 def _lib():
     return nvcc.load("slice_epoch_v5", ["slice_epoch_v5.cu"])
+
+
+def choose_packet_group(B: int, D: int, n_sm: int, resident_warps) -> int:
+    """G = P Gs, the lanes of a warp that hold one chain: Gs is the smallest
+    power of two whose B P Gs / 32 warps reach ``TARGET_WARPS_PER_SM`` on
+    each of the card's ``n_sm`` SMs, with Gs <= min(D, 8) (every lane of a
+    sub-group owns a coordinate; four sub-groups fill at most a warp), and
+    Gs doubles only while the doubled G's warps fit in one wave of
+    ``resident_warps(G)``, the warps of the G kernel that an SM keeps
+    resident (PERF.md, section 6: at the bench G = 8's 15.5 warps per SM
+    overflow the 12 that its registers allow, and ran 1.2x slower than G = 4
+    and G = 16)."""
+    gs_max = 1 << (min(D, WARP // P).bit_length() - 1)
+    gs = 1
+    while (gs < gs_max and B * P * gs < TARGET_WARPS_PER_SM * n_sm * WARP
+           and B * P * 2 * gs <= resident_warps(P * 2 * gs) * n_sm * WARP):
+        gs *= 2
+    return P * gs
+
+
+def resident_warps(calc, D: int, dev: torch.device, group: int) -> int:
+    """The warps of the kernel at ``group`` lanes per chain for
+    ``calc.device_spec``'s functor that one SM of ``dev`` keeps resident
+    (CUDA's occupancy query; the kernel's registers decide)."""
+    fid, consts, prior_a, prior_s = functor_args(calc, D)
+    fn = _lib().slice_epoch_v5_resident_warps
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        warps = fn(fid, consts.ctypes.data, prior_a.ctypes.data, prior_s.ctypes.data, D,
+                   0.0, torch.cuda.current_stream(dev).cuda_stream, group)
+    if warps < 0:
+        nvcc.check(-warps, "slice_epoch_v5_resident_warps")
+    return warps
+
+
+def packet_group_for(calc, B: int, D: int, dev: torch.device) -> int:
+    """The G that :func:`slice_epoch_v5` picks on ``dev`` for B chains of D
+    coordinates of ``calc``'s functor."""
+    return choose_packet_group(B, D, _sm_count(dev),
+                               lambda G: resident_warps(calc, D, dev, G))
 
 
 def _ladder(t, ins, step, max_step):
@@ -254,18 +311,26 @@ def slice_records_packet_plain(
     return t_out, l_out, n_out
 
 
-def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
+                   group=None):
     """Run the slice repeats of every lane in packets: (t, logL) float32
     and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, which needs ``calc.device_spec``."""
+    tensors: the kernel, which needs ``calc.device_spec``, with ``group``
+    lanes per chain (one of :data:`PACKET_GROUPS`; :func:`packet_group_for`
+    by default).  Every G gives the same result bit for bit."""
+    if group is not None and group not in PACKET_GROUPS:
+        raise ValueError(f"group {group} is not one of {PACKET_GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_packet_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
+    B, R, D = nhats.shape
+    G = packet_group_for(calc, B, D, x0.device) if group is None else group
     out = launch_slice_kernel(_lib(), "slice_epoch_v5_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws)
+                              x0, bound, valid, nhats, ws, ints=(G,))
     LAUNCHES["slice_epoch_v5"] += 1
+    GROUP_LAUNCHES[G] += 1
     return out

@@ -1,15 +1,17 @@
-"""What the redesigned slice epoch decides on the host, on the CPU: the lanes
-per chain (``choose_group``), and the plain versions of E7's bodies
-``body20_div`` and ``body20_hash`` — the measurements that chose the design —
-against a numpy loop of the same rounded float32 operations."""
+"""What the redesigned slice epochs decide on the host, on the CPU: the lanes
+per chain (``choose_group`` for B1 and B5, ``choose_packet_group`` for B3)
+and what the wrappers pass to their entries, and the plain versions of E7's
+bodies ``body20_div`` and ``body20_hash`` — the measurements that chose the
+design — against a numpy loop of the same rounded float32 operations."""
 
 import numpy as np
 import pytest
 import torch
 
 from polychordlite_tpu_torch.experiments import prof_pallas_while
-from polychordlite_tpu_torch.ops import pallas_slice_v4
+from polychordlite_tpu_torch.ops import pallas_slice, pallas_slice_v4, pallas_slice_v5
 from polychordlite_tpu_torch.ops.pallas_slice_v4 import GROUPS, choose_group
+from polychordlite_tpu_torch.ops.pallas_slice_v5 import PACKET_GROUPS, choose_packet_group
 
 H100_SMS = 132
 
@@ -70,6 +72,125 @@ def test_group_argument_is_checked():
         pallas_slice_v4.slice_epoch(None, None, (0, 0), x0, torch.zeros(4),
                                     torch.ones(4, dtype=torch.bool), torch.zeros((4, 1, 2)),
                                     torch.zeros((4, 1)), group=3)
+
+
+# ---- B3 (speculative packets) and B5 (v2) --------------------------------
+
+
+#: the warps per SM that an H100 keeps of B3's Gaussian kernels by G, as
+#: CUDA's occupancy query reads them (PERF.md, section 6; 173, 129, 127, 104
+#: registers at G = 4 ... 32)
+GAUSSIAN_RESIDENT = {4: 8, 8: 12, 16: 16, 32: 16}
+RESIDENT_FORMS = {
+    "unbounded": lambda G: 64,  # registers never bind: the target alone decides
+    "gaussian": GAUSSIAN_RESIDENT.get,
+    "heavy": lambda G: 8,  # a functor whose kernels hold 8 warps an SM at every G
+}
+
+
+@pytest.mark.parametrize("resident", sorted(RESIDENT_FORMS))
+@pytest.mark.parametrize("D", [1, 2, 3, 20, 32])
+@pytest.mark.parametrize("B", [1, 32, 504, 512, 2048, 8192, 32768])
+def test_packet_group_rule(B, D, resident):
+    """G = 4 Gs divides the warp, every lane of a sub-group owns a
+    coordinate (Gs <= D), and Gs is the smallest that reaches the target
+    warps (or the largest that D, the warp and one wave of the doubled G
+    kernel's resident warps allow)."""
+    warps = RESIDENT_FORMS[resident]
+    G = choose_packet_group(B, D, H100_SMS, warps)
+    target = pallas_slice_v4.TARGET_WARPS_PER_SM * H100_SMS * 32
+
+    def one_wave(g):
+        return B * g <= warps(g) * H100_SMS * 32
+
+    assert G in PACKET_GROUPS and G >= 4 and 32 % G == 0
+    Gs = G // 4
+    assert Gs <= D
+    assert Gs == 1 or (B * 4 * (Gs // 2) < target and one_wave(G))
+    assert B * G >= target or 2 * Gs > D or G == 32 or not one_wave(2 * G)
+
+
+def test_packet_group_at_the_recorded_geometries():
+    """The values PERF.md records, with the Gaussian kernels' resident warps:
+    the bench's 8,192 20-D chains (G = 4: G = 8 would reach the target but
+    its 15.5 warps per SM need a second wave of its 12; without that bound
+    the rule gives 8), gaussian.ini's 512 and the shells' 512 2-D chains on
+    an H100's 132 SMs."""
+    def rule(B, D):
+        return choose_packet_group(B, D, H100_SMS, GAUSSIAN_RESIDENT.get)
+
+    assert rule(8192, 20) == 4
+    assert choose_packet_group(8192, 20, H100_SMS, RESIDENT_FORMS["unbounded"]) == 8
+    assert rule(1024, 20) == 32
+    assert rule(512, 20) == 32
+    assert rule(512, 2) == 8
+    assert rule(512, 1) == 4
+
+
+class _OnCard:  # what the wrappers read of a CUDA tensor before launching
+    def __init__(self, *shape):
+        self.shape, self.device = shape, torch.device("cuda")
+
+
+def test_packet_and_v2_launches_pass_the_group(monkeypatch):
+    """On the card, B3 launches at choose_packet_group's G (or the one asked
+    for) and B5 at choose_group's, each entry given G; each counts its
+    launch by G in its own GROUP_LAUNCHES, none in B1's.  The launch is
+    recorded instead of made, and B3's kernels keep the Gaussian's resident
+    warps."""
+    launched = []
+
+    def record(lib, entry, *a, ints=(), **k):
+        launched.append((entry, ints))
+        return None, None, None
+
+    for mod in (pallas_slice_v5, pallas_slice_v4):  # B5 imports v4's at the call
+        monkeypatch.setattr(mod, "_sm_count", lambda dev: H100_SMS)
+        monkeypatch.setattr(mod, "launch_slice_kernel", record)
+    monkeypatch.setattr(pallas_slice_v5, "_lib", lambda: None)
+    monkeypatch.setattr(pallas_slice_v5, "resident_warps",
+                        lambda calc, D, dev, G: GAUSSIAN_RESIDENT[G])
+    monkeypatch.setattr(pallas_slice, "_lib", lambda: None)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
+    counters = (pallas_slice_v5.GROUP_LAUNCHES, pallas_slice.GROUP_LAUNCHES,
+                pallas_slice_v4.GROUP_LAUNCHES)
+    saved = [dict(c) for c in counters]
+    for c in counters:
+        c.update({g: 0 for g in c})
+    try:
+        args = (_OnCard(512, 20), _OnCard(512), _OnCard(512), _OnCard(512, 40, 20),
+                _OnCard(512, 40))
+        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args)
+        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args, group=1)
+        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args, group=8)
+        monkeypatch.setattr(pallas_slice, "v2_repeat_budget", lambda cfg: 48)
+        pallas_slice.slice_epoch_v2(None, None, (0, 0), *args)
+        pallas_slice.slice_epoch_v2(None, None, (0, 0), *args, group=2)
+        assert launched == [("slice_epoch_v5_launch", (32,)), ("slice_epoch_v5_launch", (1,)),
+                            ("slice_epoch_v5_launch", (8,)), ("slice_epoch_v2_launch", (16,)),
+                            ("slice_epoch_v2_launch", (2,))]
+        assert {g: c for g, c in pallas_slice_v5.GROUP_LAUNCHES.items() if c} == {32: 1, 1: 1,
+                                                                                   8: 1}
+        assert {g: c for g, c in pallas_slice.GROUP_LAUNCHES.items() if c} == {16: 1, 2: 1}
+        assert not any(pallas_slice_v4.GROUP_LAUNCHES.values())
+        assert tuple(pallas_slice.GROUP_LAUNCHES) == GROUPS
+    finally:
+        for c, old in zip(counters, saved):
+            c.update(old)
+
+
+@pytest.mark.parametrize("wrapper,group", [(pallas_slice_v5.slice_epoch_v5, 2),
+                                           (pallas_slice_v5.slice_epoch_v5, 64),
+                                           (pallas_slice.slice_epoch_v2, 3),
+                                           (pallas_slice.slice_epoch_v2, 64)])
+def test_packet_and_v2_group_argument_is_checked(wrapper, group):
+    """B3 takes G in {1, 4, 8, 16, 32} (G = 2 has no packet slot per lane
+    group), B5 B1's G; anything else raises before any launch."""
+    x0 = torch.zeros((4, 2))
+    with pytest.raises(ValueError, match=f"group {group} "):
+        wrapper(None, None, (0, 0), x0, torch.zeros(4), torch.ones(4, dtype=torch.bool),
+                torch.zeros((4, 1, 2)), torch.zeros((4, 1)), group=group)
 
 
 # ---- E7's new bodies, against numpy -------------------------------------

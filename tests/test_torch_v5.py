@@ -5,8 +5,11 @@ package's v5 kernel in interpret mode through the same direction seam and
 key words that ``tests/test_torch_kernels.py`` uses for v4, and bitwise to
 the port's v4 plain engine on the edge cases of the JAX package's own
 v5-against-v4 test (``tests/test_pallas_engine.py:191-198``) and on lanes
-stopped by the epoch's budget.  The CUDA kernel is compared with the same
-plain version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+stopped by the epoch's budget.  The kernel's packet machine
+(``csrc/packet_machine.cuh``), built by ``g++`` as host C++ and driven one
+lane at a time with the Gaussian functor, is held bitwise to the same plain
+version.  The CUDA kernel is compared with the same plain version on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Deviation from the JAX v5 kernel, by design: the budget of an epoch is
 v4's, counted in consumed probes (``EpochConfig.step_cap``), so a budget
@@ -17,6 +20,8 @@ below, where v5 is held to v4's budget instead.
 """
 
 import math
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -35,13 +40,14 @@ from polychordlite_tpu_torch.models.examples import gaussian, gaussian_shells
 from polychordlite_tpu_torch.ops import pallas_slice as pps
 from polychordlite_tpu_torch.ops.directions import make_directions
 from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
-from polychordlite_tpu_torch.ops.pallas_slice_v4 import slice_epoch, validate_functor
+from polychordlite_tpu_torch.ops.pallas_slice_v4 import functor_args, slice_epoch, validate_functor
 from polychordlite_tpu_torch.ops.pallas_slice_v5 import (
     slice_epoch_v5,
     slice_records_packet_plain,
 )
 from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
 from polychordlite_tpu_torch.priors import BlockPrior, PriorBlock, UniformPrior, identity_prior
+from polychordlite_tpu_torch.utils import nvcc
 
 torch.set_num_threads(2)
 
@@ -258,3 +264,135 @@ def test_shells_through_both_engines_on_cpu():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert (a[1][:504] >= bound[:504, None]).all() and (a[2][:504] > 0).all()
+
+
+# ------------------------------------------ the packet machine as host C++
+# What the kernel sources need of CUDA on the host: the rounded intrinsics as
+# plain float operations (built with -ffp-contract=off) and the runtime's
+# names that likelihoods.cuh mentions.
+_STUB_CUDA_RUNTIME = r"""
+#pragma once
+#include <math.h>
+#include <stddef.h>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__
+#define __fadd_rn(a, b) ((a) + (b))
+#define __fsub_rn(a, b) ((a) - (b))
+#define __fmul_rn(a, b) ((a) * (b))
+#define __fdiv_rn(a, b) ((a) / (b))
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyHostToDevice = 1 };
+template <class... A> inline int cudaMemcpyToSymbolAsync(A...) { return 0; }
+"""
+
+_PACKET_MAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include "packet_machine.cuh"
+
+template <class T>
+static T* take(size_t n) {
+    T* p = (T*)malloc(sizeof(T) * (n ? n : 1));
+    if (fread(p, sizeof(T), n, stdin) != n) exit(1);
+    return p;
+}
+
+// stdin: B, D, R, max_step, max_shrink (int32), k0, k1 (uint32), cap (int64),
+// logzero, mu, sigma, norm, a[D], s[D], x0 (D, B), bound (B), valid (B),
+// n-hat (R, D, B), w (R, B) as float32; stdout: t, logL (R, B) float32 and
+// nlike (R, B) int32, from packet_chain_epoch one lane at a time.
+int main() {
+    const int* n = take<int>(5);
+    const int B = n[0], D = n[1], R = n[2];
+    const uint32_t* k = take<uint32_t>(2);
+    const long long cap = *take<long long>(1);
+    const float* c = take<float>(4);
+    const float* pa = take<float>(D);
+    const float* ps = take<float>(D);
+    const float* x0t = take<float>((size_t)D * B);
+    const float* bound = take<float>(B);
+    const float* valid = take<float>(B);
+    const float* nhat = take<float>((size_t)R * D * B);
+    const float* w = take<float>((size_t)R * B);
+    float* t = (float*)malloc(sizeof(float) * R * B);
+    float* logL = (float*)malloc(sizeof(float) * R * B);
+    int* nlike = (int*)malloc(sizeof(int) * R * B);
+    const GaussianLike like{affine_prior(pa, ps, D), c[1], c[2], c[3], c[0]};
+    const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t, logL, nlike, B, D, R, k[0],
+                                   k[1], n[3], n[4], cap);
+    for (int b = 0; b < B; ++b) packet_chain_epoch(like, a, b);
+    fwrite(t, sizeof(float), (size_t)R * B, stdout);
+    fwrite(logL, sizeof(float), (size_t)R * B, stdout);
+    fwrite(nlike, sizeof(int), (size_t)R * B, stdout);
+    return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def packet_host(tmp_path_factory):
+    """packet_machine.cuh with a one-lane main program, built by g++ (skips without it)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on the PATH")
+    tmp = tmp_path_factory.mktemp("packet_host")
+    (tmp / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
+    (tmp / "main.cpp").write_text(_PACKET_MAIN)
+    exe = tmp / "packet"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-I", str(tmp), "-I",
+                    str(nvcc.CSRC), str(tmp / "main.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def _run_packet_host(exe, calc, cfg, key_words, x0, bound, valid, nhats, ws):
+    B, R, Dn = nhats.shape
+    _, consts, prior_a, prior_s = functor_args(calc, Dn)
+    f32 = np.float32
+    stdin = b"".join([
+        np.array([B, Dn, R, cfg.max_step, cfg.max_shrink], np.int32).tobytes(),
+        np.array(key_words, np.uint32).tobytes(), np.int64(cfg.step_cap).tobytes(),
+        np.array([cfg.logzero, *consts], f32).tobytes(), prior_a.tobytes(), prior_s.tobytes(),
+        x0.t().contiguous().numpy().astype(f32).tobytes(), bound.numpy().astype(f32).tobytes(),
+        valid.numpy().astype(f32).tobytes(),
+        nhats.permute(1, 2, 0).contiguous().numpy().astype(f32).tobytes(),
+        ws.t().contiguous().numpy().astype(f32).tobytes(),
+    ])
+    out = subprocess.run([str(exe)], input=stdin, capture_output=True, check=True,
+                         timeout=300).stdout
+    n = R * B
+    t = np.frombuffer(out[:4 * n], f32).reshape(R, B).T
+    logL = np.frombuffer(out[4 * n:8 * n], f32).reshape(R, B).T
+    nlike = np.frombuffer(out[8 * n:], np.int32).reshape(R, B).T
+    return t, logL, nlike
+
+
+@pytest.mark.parametrize("caps,capped", [({}, False), ({"max_step": 2, "max_shrink": 3}, False),
+                                         ({}, True)])
+def test_packet_machine_as_host_cpp_is_bitwise_the_plain_version(packet_host, caps, capped):
+    """packet_plan, packet_resolve and the one-thread epoch of
+    csrc/packet_machine.cuh, compiled as host C++ with the Gaussian functor
+    of likelihoods.cuh: t, logL and nlike bitwise slice_records_packet_plain
+    at the default caps, at max_step = 2 and max_shrink = 3 (forced
+    accepts), and at a budget that ends lanes inside a packet."""
+    B, R = 512, 5
+    cls = CappedConfig if capped else EpochConfig
+    cfg = cls(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
+    calc = make_batched_calculator(UniformPrior([0.0] * D, [1.0] * D), gaussian(D, sigma=SIGMA),
+                                   D, 2)
+    args = _ball_inputs(B, R, SIGMA, 5.0 if caps else 0.0)
+    want = [a.numpy() for a in slice_records_packet_plain(lambda p: calc(p)[2], cfg, (7, 9),
+                                                          *args)]
+    got = _run_packet_host(packet_host, calc, cfg, (7, 9), *args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    t, logL, nlike = got
+    assert (nlike[:100] == 0).all() and (nlike[100:].sum(1) > 0).all()
+    if capped:  # lanes stopped inside a repeat, some inside a packet
+        assert ((t == 0) & (nlike > 0))[100:].any(1).mean() > 0.5
+        assert (nlike[100:].sum(1) <= cfg.step_cap).all()
+    if caps:  # the forced accepts happened
+        assert (logL[100:] == np.float32(cfg.logzero)).any()
