@@ -4,16 +4,16 @@
 
 Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 (one ``nvcc`` each, started together; ptxas registers, stack and spills
-reported, by G for the Gaussian kernels of B1, B3 and B5), checks each
-kernel against its plain torch version on the card (B2 Gram-Schmidt,
-bitwise, at the bench and gaussian.ini shapes; B1 v4, B3 v5 and B5 v2 at
-every group size G of lanes per chain, and B4 v3, at four geometries, B1,
-B3 and B5 also against their G = 1 forms, B3-B5 against B1, each G timed,
+reported, by G for the Gaussian kernels of B1, B3, B4, B5 and E2), checks
+each kernel against its plain torch version on the card (B2 Gram-Schmidt,
+bitwise, at the bench and gaussian.ini shapes; B1 v4, B3 v5, B4 v3 and B5
+v2 at every group size G of lanes per chain, at four geometries, B1, B3,
+B4 and B5 also against their G = 1 forms, B3-B5 against B1, each G timed,
 B3's resident warps by G read from the card; E1, the counted v4, in the
 ``lane_efficiency`` study), measures what B1's micro-step costs
 (``measure_first``: E7's ``body20`` with an IEEE division and with the
 hash, B1 at every G at the gaussian.ini, 4-D and 8-D zoo, bench and 4x
-bench geometries, B3 and B5 at every G at the zoo's, and the SASS of B1's
+bench geometries, B3, B4 and B5 at every G at the zoo's, and the SASS of B1's
 Gaussian instantiations from ``cuobjdump``), holds B1's route for a
 likelihood evaluated in torch (``slice_step``: the kernel
 ``csrc/slice_step.cu`` replayed from a CUDA graph) bitwise against the
@@ -48,8 +48,9 @@ drives the port's paths and checks what comes out and which kernels ran
   through ``python3 -m polychordlite_tpu_torch``; each logZ within 3 sigma
   of its oracle (:data:`ZOO_ORACLES`);
 * ``run_himmelblau_ab``: ``ini/himmelblau.ini`` through
-  ``run(engine="cuda3")`` (B4), bitwise the ``run_zoo_inis`` run, and
-  ``run(engine="cuda2")`` (B5, at a G > 1), within 3 sigma of -log 100;
+  ``run(engine="cuda3")`` (B4, at a G > 1), bitwise the ``run_zoo_inis``
+  run, and ``run(engine="cuda2")`` (B5, at a G > 1), within 3 sigma of
+  -log 100;
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
@@ -75,9 +76,12 @@ each kernel first held against its plain version on the card:
 * ``lockstep_waste``: E3, the counted v2 kernel (bitwise B5 and its plain
   version at three geometries), and its study at the bench geometry;
 * ``v3_iters``: E2, v3's grid steps as a cooperative kernel with their body
-  counts (bitwise B4, B1 and its plain version; the skeleton one body per
-  step), its study (real and skeleton, beside B4), and the numpy
-  simulation's projected lane efficiencies beside E1's and E3's;
+  counts, at every G whose grid is co-resident (bitwise B4 at the same G,
+  B1 and its plain version; the other G refused; the skeleton one body per
+  step; the occupancy the launch reads), its study (real at B4's G and at
+  G = 1, skeleton, beside B4 at both: the price per step of v3's steps),
+  and the numpy simulation's projected lane efficiencies beside E1's and
+  E3's;
 * ``grid_overhead``: E6, the grid-step skeleton, variants A-F and B one
   launch per step;
 * ``while_cost``: E7, the loop-body cost of every body, beside B1's time
@@ -472,17 +476,21 @@ def main() -> None:
             for name, log in nvcc.build_log.items():
                 f.write(f"==== {name}\n{log}\n")
         log = nvcc.build_log.get
-        # the Gaussian functor's kernels of B1, B3 and B5 by G (the others
-        # are in ptxas.txt): registers, stack, spills
+        # the Gaussian functor's kernels of B1, B3, B4, B5 and E2 by G (the
+        # others are in ptxas.txt): registers, stack, spills
         gaussian_kernels = {
             "B1": ptxas_kernels(log("slice_epoch", ""),
                                 r"slice_epoch_kernelI8V4Policy12GaussianLikeLi(\d+)ELb([01])E"),
             "B3": ptxas_kernels(log("slice_epoch_v5", ""),
                                 r"slice_epoch_v5_kernelI12GaussianLikeLi(\d+)EE"),
+            "B4": ptxas_kernels(log("slice_epoch_v3", ""),
+                                r"slice_epoch_kernelI8V3Policy12GaussianLikeLi(\d+)ELb0E"),
             "B5": ptxas_kernels(log("slice_epoch_v2", ""),
                                 r"slice_epoch_kernelI8V2Policy12GaussianLikeLi(\d+)ELb0E()"),
             "E3": ptxas_kernels(log("slice_epoch_v2", ""),
                                 r"slice_epoch_v2_counted_kernelI12GaussianLike()E"),
+            "E2": ptxas_kernels(log("slice_epoch_v3_instr", ""),
+                                r"slice_epoch_v3_instr_kernelI12GaussianLikeLi(\d+)ELb([01])E"),
         }
         results["ptxas_gaussian"] = gaussian_kernels
         return {"seconds": round(time.perf_counter() - t0, 3),
@@ -641,10 +649,12 @@ def main() -> None:
                 "ms_by_group": ms, "us_per_micro_step_by_group":
                     {G: t * 1e3 / lane_max for G, t in ms.items()},
                 "best_group": min(ms, key=ms.get)}
-            if tag in ("zoo_d4", "zoo_d8"):  # B3 and B5 by G beside B1
+            if tag in ("zoo_d4", "zoo_d8"):  # B3, B4 and B5 by G beside B1
                 for name, fn, groups, chosen in (
                         ("b3", pallas_slice_v5.slice_epoch_v5, pallas_slice_v5.PACKET_GROUPS,
                          pallas_slice_v5.packet_group_for(calc, B, D, dev)),
+                        ("b4", pallas_slice_v3.slice_epoch_v3, GROUPS,
+                         pallas_slice_v4.choose_group(B, D, n_sm)),
                         ("b5", pallas_slice.slice_epoch_v2, GROUPS,
                          pallas_slice_v4.choose_group(B, D, n_sm))):
                     decisions(f"{tag}: {name} at some G differs from B1", [
@@ -755,7 +765,8 @@ def main() -> None:
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         return out
 
-    # ---- 5. v3 (B4) and v2 (B5) against their plain versions and B1 -------
+    # ---- 5. v3 (B4) and v2 (B5) at every G against their plain versions,
+    # their G = 1 forms and B1
     @phase("slice_epoch_v3")
     def _():
         out = {}
@@ -765,27 +776,37 @@ def main() -> None:
             pallas_slice_v4.validate_functor(calc, cfg, dev, pallas_slice_v3.slice_epoch_v3)
             kw = (0x01234567, 0x89ABCDEF)
 
-            def plain(calc=calc, cfg=cfg, args=args):
-                return pallas_slice_v3.slice_records_window_plain(
-                    lambda p: calc(p)[2], cfg, kw, *args)
+            def v3(G=None, calc=calc, cfg=cfg, args=args):
+                return pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G)
 
-            got = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
-            want, plain_ms = cuda_once(plain)
+            got = v3()
+            want, plain_ms = cuda_once(
+                lambda: pallas_slice_v3.slice_records_window_plain(  # noqa: B023
+                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
             v4 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
-            mism = {
-                f"{k}_vs_{other}": int((a != b).sum())
-                for other, ref in (("plain", want), ("v4", v4))
-                for k, a, b in zip(("t", "logL", "nlike"), got, ref)
-            }
-            if any(mism.values()):
-                raise AssertionError(f"{tag}: B4 differs {mism}")
+            one = v3(1)
+            names = ("t", "logL", "nlike")
+            pairs = [(f"{k}_vs_{other}", a, b) for other, ref in
+                     (("plain", want), ("v4", v4), ("G1", one))
+                     for k, a, b in zip(names, got, ref)]
+            for G in GROUPS:
+                got_g = v3(G)
+                pairs += [(f"{k}_G{G}_vs_{other}", a, b) for other, ref in
+                          (("plain", want), ("v4", v4)) for k, a, b in zip(names, got_g, ref)]
+            mism = decisions(f"{tag}: B4 differs", pairs)
             err = max((got[0] - want[0]).abs().max().item(),
                       (got[1] - want[1]).abs().max().item())
-            ms = cuda_ms(lambda: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args), 5)  # noqa: B023
+            ms_by_group = {G: cuda_ms(lambda G=G: v3(G), 5) for G in GROUPS}  # noqa: B023
+            ms = cuda_ms(v3, 5)
             v4_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
+            evals = int(got[2].sum())
             out[tag] = {
-                "B": B, "R": R, "D": D, "evals": int(got[2].sum()), "mismatches": mism,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "v4_ms": v4_ms,
+                "B": B, "R": R, "D": D, "group": pallas_slice_v4.choose_group(B, D, n_sm),
+                "evals": evals, "mismatches": mism, "max_abs_err": err,
+                "ms": ms, "g1_ms": ms_by_group[1], "ms_by_group": ms_by_group,
+                "best_group": min(ms_by_group, key=ms_by_group.get),
+                "plain_ms": plain_ms, "v4_ms": v4_ms, "over_v4": ms / v4_ms,
+                "evals_per_s": evals / (ms / 1e3),
             }
         results["slice_epoch_v3"] = {**out["bench"],
                                      "max_abs_err": max(o["max_abs_err"] for o in out.values())}
@@ -1050,7 +1071,7 @@ def main() -> None:
     launches = {k: 0 for c in counters for k in c}
 
     group_counters = (pallas_slice_v4.GROUP_LAUNCHES, pallas_slice_v5.GROUP_LAUNCHES,
-                      pallas_slice.GROUP_LAUNCHES)
+                      pallas_slice_v3.GROUP_LAUNCHES, pallas_slice.GROUP_LAUNCHES)
 
     def reset_launches():
         for c in counters + group_counters:
@@ -1442,15 +1463,14 @@ def main() -> None:
                 raise AssertionError(f"engine_used is {last.get('engine')!r}, not {engine!r}")
             if not only(ran, ("gram_schmidt", kernel)):
                 raise AssertionError(f"the {engine} run did not run {kernel} and B2 (only): {ran}")
-            if engine == "cuda2":
-                groups = ran_above_one("B5", pallas_slice.GROUP_LAUNCHES)
+            by_group = {"cuda3": pallas_slice_v3, "cuda2": pallas_slice}[engine].GROUP_LAUNCHES
+            groups = ran_above_one({"cuda3": "B4", "cuda2": "B5"}[engine], by_group)
             add_launches(ran)
             rec = {"engine_used": engine, "ndead": last["ndead"], "logZ": last["logZ"],
                    "logZerr": last["logZerr"], "launches": {k: v for k, v in ran.items() if v},
                    "wall_s": wall, "dead_per_s": last["ndead"] / wall,
-                   "device_frac": last.get("device_frac")}
-            if engine == "cuda2":
-                rec["slice_epoch_v2_launches_by_group"] = groups
+                   "device_frac": last.get("device_frac"),
+                   f"{kernel}_launches_by_group": groups}
             if engine == "cuda3":  # the same decisions: the B1 run, bit for bit
                 ref = read_metrics(zoo["himmelblau"], "himmelblau")[-1]
                 same = {k: last[k] == ref[k] for k in ("ndead", "logZ", "logZerr")}
@@ -1513,28 +1533,50 @@ def main() -> None:
     def _():
         out = {}
         for tag, geo in STUDY_GEOMETRIES:
+            B, D = geo["B"], geo["D"]
             calc, cfg, args = geometry(tag, geo)
             kw = (0x01234567, 0x89ABCDEF)
-            got = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args)
-            cheap = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, cheap=True)
-            b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args)
-            b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            G0 = pallas_slice_v4.choose_group(B, D, n_sm)
             want = pallas_slice_v3.slice_records_window_plain(
                 lambda p: calc(p)[2], cfg, kw, *args, count_iters=True)  # noqa: B023
+            b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+            cheap = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, cheap=True)
             names = ("t", "logL", "nlike", "iters")
-            out[tag] = {"B": geo["B"], "R": geo["R"], "iters_sum": int(got[3].sum()),
-                        "mismatches": decisions(
-                f"{tag}: E2 differs",
-                [(f"{k}_vs_plain", a, b) for k, a, b in zip(names, got, want)]
-                + [(f"{k}_vs_{o}", a, b) for o, ref in (("B4", b4), ("B1", b1))
-                   for k, a, b in zip(names[:3], got, ref)]
-                + [("cheap_iters_not_1", cheap[3], torch.ones_like(cheap[3]))])}
+            pairs = [("cheap_iters_not_1", cheap[3], torch.ones_like(cheap[3]))]
+            blocks_per_sm, refused = {}, []
+            for G in GROUPS:  # every G whose grid is co-resident; the others refused
+                blocks_per_sm[G] = v3_instr.resident_blocks(calc, D, dev, G)
+                if not v3_instr.co_resident(calc, B, D, dev, G):
+                    try:
+                        v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, group=G)
+                    except RuntimeError as e:
+                        if "resident" not in str(e):
+                            raise
+                    else:
+                        raise AssertionError(f"{tag}: E2 at G={G} launched a grid that is "
+                                             "not co-resident")
+                    refused.append(G)
+                    continue
+                got = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, group=G)
+                b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G)
+                pairs += [(f"{k}_G{G}_vs_plain", a, b) for k, a, b in zip(names, got, want)]
+                pairs += [(f"{k}_G{G}_vs_{o}", a, b) for o, ref in (("B4", b4), ("B1", b1))
+                          for k, a, b in zip(names[:3], got, ref)]
+            if G0 in refused or 1 in refused:
+                raise AssertionError(f"{tag}: E2 at B4's G = {G0} or at G = 1 is not "
+                                     f"co-resident ({blocks_per_sm} blocks per SM)")
+            out[tag] = {"B": B, "R": geo["R"], "group": G0, "iters_sum": int(want[3].sum()),
+                        "resident_blocks_per_sm_by_group": blocks_per_sm,
+                        "refused_groups": refused,
+                        "mismatches": decisions(f"{tag}: E2 differs", pairs)}
             out[tag].update({  # the same kernel unchecked (no wait for its flag), and B4
-                form: cuda_ms(lambda c=c: v3_instr.slice_epoch_v3_instr(  # noqa: B023
-                    calc, cfg, kw, *args, cheap=c, check=False), 5)  # noqa: B023
-                for form, c in (("ms", False), ("cheap_ms", True))})
-            out[tag]["b4_ms"] = cuda_ms(
-                lambda: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args), 5)  # noqa: B023
+                form: cuda_ms(lambda c=c, G=G: v3_instr.slice_epoch_v3_instr(  # noqa: B023
+                    calc, cfg, kw, *args, cheap=c, check=False, group=G), 5)  # noqa: B023
+                for form, c, G in (("ms", False, G0), ("g1_ms", False, 1),
+                                   ("cheap_ms", True, 1))})
+            for form, G in (("b4_ms", G0), ("b4_g1_ms", 1)):
+                out[tag][form] = cuda_ms(lambda G=G: pallas_slice_v3.slice_epoch_v3(  # noqa: B023
+                    calc, cfg, kw, *args, group=G), 5)  # noqa: B023
         calc, cfg, kw, args = study_inputs()
         v3_instr.LAUNCHES["slice_epoch_v3_instr"] = 0
         rec = prof_v3_iters.main()
@@ -1555,8 +1597,8 @@ def main() -> None:
         }
         B, R, D = BENCH["B"], BENCH["R"], BENCH["D"]
         results["v3_iters"] = {
-            "ms": rec["real"]["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
-            "launches": study,
+            "ms": rec["real"]["ms"], "g1_ms": rec["real_g1"]["ms"], "group": rec["group"],
+            "plain_ms": plain_ms, "max_abs_err": 0.0, "launches": study,
             "bound": bound(slice_epoch_bytes(B, R, D) + 4 * (R + 1),
                            int(steps.sum()) * gaussian_probe_flops(D))}
         return {"checks": out, "study": rec, "study_launches": study, "plain_ms": plain_ms,
@@ -1748,15 +1790,23 @@ def main() -> None:
                     "slice_epoch_v2", "slice_step", "slice_epoch_fused")  # the others: their
     # studies' own launches
     se = results["slice_epoch"]
-    redesigned = {  # B1's, B3's and B5's G = 1 forms, and the traced route, in this run
+    redesigned = {  # B1's, B3's, B4's, B5's and E2's G = 1 forms, and the traced route, in
+        # this run
         "slice_epoch": {"group": se["group"], "previous_ms": se["g1_ms"],
                         "previous": "the G = 1 form, in this run"},
         "slice_epoch_v5": {"group": results["slice_epoch_v5"]["group"],
                            "previous_ms": results["slice_epoch_v5"]["g1_ms"],
                            "previous": "the G = 1 form (one thread per chain), in this run"},
+        "slice_epoch_v3": {"group": results["slice_epoch_v3"]["group"],
+                           "previous_ms": results["slice_epoch_v3"]["g1_ms"],
+                           "previous": "the G = 1 form (one thread per chain), in this run"},
         "slice_epoch_v2": {"group": results["slice_epoch_v2"]["group"],
                            "previous_ms": results["slice_epoch_v2"]["g1_ms"],
                            "previous": "the G = 1 form (one thread per chain), in this run"},
+        "slice_epoch_v3_instr": {"group": results["v3_iters"]["group"],
+                                 "previous_ms": results["v3_iters"]["g1_ms"],
+                                 "previous": "the G = 1 form (one thread per chain), in this "
+                                             "run"},
         "slice_epoch_fused": {"group": results["slice_fused"]["group"],
                               "previous_ms": results["slice_fused"]["traced_ms"],
                               "previous": "the traced route (slice_step) on the same model "

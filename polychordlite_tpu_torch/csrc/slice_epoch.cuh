@@ -2,10 +2,11 @@
 // kernel template and its launch, included by the entries that instantiate
 // it: slice_epoch.cu (the functors of likelihoods.cuh, every G),
 // slice_epoch_fused.cu (a likelihood lowered from torch by
-// ops/fused_like.py, the one G the launch picks) and slice_epoch_v2.cu (B5:
-// the same loop under v2's budget, writing the cube — V2Policy below);
+// ops/fused_like.py, the one G the launch picks), slice_epoch_v2.cu (B5:
+// the same loop under v2's budget, writing the cube — V2Policy below) and
+// slice_epoch_v3.cu (B4: the same loop under v3's budget — V3Policy);
 // slice_epoch_v5.cu (B3) evaluates each packet slot with GroupLane's
-// like_eval.
+// like_eval, and slice_epoch_v3_instr.cu (E2) runs v3's grid steps on it.
 //
 // Replaces the TPU kernel polychordlite_tpu/ops/pallas_slice_v4.py::
 // build_epoch_fn_pallas_v4 (kernel body :136-418).  It carries over v4's
@@ -96,6 +97,9 @@ struct V4Policy {  // B1 (slice_epoch.cu, slice_epoch_fused.cu)
 };
 struct V2Policy {  // B5 (slice_epoch_v2.cu)
     static constexpr bool PER_REPEAT = true, STOP = false, CUBE = true;
+};
+struct V3Policy {  // B4 (slice_epoch_v3.cu)
+    static constexpr bool PER_REPEAT = true, STOP = true, CUBE = false;
 };
 
 // B5's cube row r of chain b: each lane writes the coordinates it owns.

@@ -3,7 +3,8 @@
 :func:`slice_epoch_v3` is the wrapper of the hand-written CUDA kernel
 ``csrc/slice_epoch_v3.cu`` (B4, the JAX package's ``"pallas3"`` engine):
 each chain runs its repeats freely with the state machine it shares with
-B1, each repeat under the budget of one v3 grid step.  For CPU tensors it
+B1, each repeat under the budget of one v3 grid step; a chain holds G lanes
+of a warp, on B1's template under v3's budget policy.  For CPU tensors it
 runs :func:`slice_records_window_plain`, v3's own structure in plain torch;
 for CUDA tensors it launches the kernel or raises.
 
@@ -28,10 +29,12 @@ import torch
 
 from ..utils import nvcc
 from .pallas_slice import BODY, PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
-from .pallas_slice_v4 import launch_slice_kernel
+from .pallas_slice_v4 import GROUPS, _sm_count, choose_group, launch_slice_kernel
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch_v3": 0}
+#: slice_epoch_v3's launches by G since the last reset, apart from B1's
+GROUP_LAUNCHES = {g: 0 for g in GROUPS}
 
 RC = 4  # direction-window slots (pallas_slice_v3.py:68)
 
@@ -117,20 +120,28 @@ def slice_records_window_plain(
     return t_out, l_out, n_out
 
 
-def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws):
+def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None):
     """Run the slice repeats of every lane under v3's budget: (t, logL)
     float32 and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, which needs ``calc.device_spec``."""
+    tensors: the kernel, which needs ``calc.device_spec``, with ``group``
+    lanes per chain (one of ``pallas_slice_v4.GROUPS``;
+    ``pallas_slice_v4.choose_group`` by default, as for B1).  Every G gives
+    the same result bit for bit."""
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_window_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
+    B, R, D = nhats.shape
+    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
     out = launch_slice_kernel(
         nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"]), "slice_epoch_v3_launch",
-        calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
+        calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY, ints=(G,),
     )
     LAUNCHES["slice_epoch_v3"] += 1
+    GROUP_LAUNCHES[G] += 1
     return out

@@ -49,6 +49,7 @@ from polychordlite_tpu_torch.priors import (  # noqa: E402
     identity_prior,
 )
 
+from polychordlite_tpu_torch.utils import nvcc  # noqa: E402
 from polychordlite_tpu_torch.utils.inifile import read_ini  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -236,14 +237,16 @@ def test_v2_kernel_every_group(dev, G, D, caps):
     assert (got[3][invalid] == args[0][invalid][:, None, :]).all()
 
 
+@pytest.mark.parametrize("cap", [4, 5])
 @pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
-def test_v2_kernel_budget_that_binds(dev, G, monkeypatch):
-    """v2's per-repeat budget cut to one body of 4 micro-steps, so that it
-    binds: every G gives the records and cube of the plain version under
-    that budget and of E3's one-thread counted kernel, a repeat it ends
-    records t = 0 and logzero and keeps x for its cube row, and the chain
-    goes on."""
-    D, R, B, cap = 3, 6, 999, 4
+def test_v2_kernel_budget_that_binds(dev, G, cap, monkeypatch):
+    """v2's per-repeat budget cut to 4 or 5 micro-steps, so that it binds:
+    every G gives the records and cube of E3's one-thread counted kernel and
+    of its own G = 1 form under that budget, and at 4, one whole body, those
+    of the plain version (v2's loop runs whole bodies of 4, so a budget of 5
+    is 8 there); a repeat it ends records t = 0 and logzero and keeps x for
+    its cube row, and the chain goes on."""
+    D, R, B = 3, 6, 999
     calc, args = _group_args(dev, D, R, B)
     cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
     lib = pallas_slice._lib()
@@ -255,13 +258,18 @@ def test_v2_kernel_budget_that_binds(dev, G, monkeypatch):
         return (*out, cube.permute(2, 0, 1))
 
     got = run("slice_epoch_v2_launch", ints=(G,))
+    one = run("slice_epoch_v2_launch", ints=(1,))
     e3 = run("slice_epoch_v2_counted_launch",
              counts=(torch.empty((R, B), dtype=torch.int32, device=dev),
                      torch.zeros(R, dtype=torch.int32, device=dev)))
     monkeypatch.setattr(pallas_slice, "v2_repeat_budget", lambda cfg: cap)
     want = pallas_slice.slice_records_lockstep_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
-    for k in range(4):
-        assert torch.equal(got[k], want[k]) and torch.equal(got[k], e3[k]), k
+    refs = {"E3": e3, "G1": one}
+    if cap % pallas_slice.BODY == 0:
+        refs["plain"] = want
+    for name, ref in refs.items():
+        for k in range(4):
+            assert torch.equal(got[k], ref[k]), (name, k)
     t, logL, nlike, cube = got
     valid = args[2]
     ended = valid[:, None] & (t == 0) & (logL == np.float32(cfg.logzero))
@@ -269,6 +277,67 @@ def test_v2_kernel_budget_that_binds(dev, G, monkeypatch):
     assert ended.any() and (~ended & valid[:, None]).any()
     assert (cube == prev).all(2)[ended].all()
     assert (nlike[valid][:, -1] > 0).any()  # chains went on to their last repeat
+
+
+@pytest.mark.parametrize("caps", [{}, {"max_step": 2, "max_shrink": 3}])
+@pytest.mark.parametrize("D", [2, 4, 20, 32])
+@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
+def test_v3_kernel_every_group(dev, G, D, caps):
+    """B4 with G lanes per chain on B1's loop under v3's policy, bitwise its
+    plain version (v3's windowed grid steps), B1 and its G = 1 form, at
+    B = 999 chains with invalid lanes; one launch counted at G."""
+    R, B = 6, 999
+    calc, args = _group_args(dev, D, R, B)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
+    before = pallas_slice_v3.GROUP_LAUNCHES[G]
+    got = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=G)
+    assert pallas_slice_v3.GROUP_LAUNCHES[G] == before + 1
+    want = pallas_slice_v3.slice_records_window_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    one = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=1)
+    for k in range(3):
+        for ref in (want, b1, one):
+            assert torch.equal(got[k], ref[k]), k
+    assert (got[2][~args[2]] == 0).all() and (got[2][args[2]].sum(1) > 0).all()
+
+
+@pytest.mark.parametrize("cap", [4, 8])
+@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
+def test_v3_kernel_budget_that_binds(dev, G, cap, monkeypatch):
+    """B4's per-repeat budget cut to one or two bodies of 4 micro-steps, so
+    that it binds (at 4 nearly every chain stops, at 8 some do): every G
+    gives v2's plain records under the same per-repeat budget cut at each
+    chain's first repeat that the budget ended (the chain stops there: every
+    later record is t = 0, logzero, nlike 0), and its own G = 1 form.
+    v3's own plain version is no reference here: its budget is per grid
+    step, not per repeat, and a lane that overruns it loses its repeat to a
+    recycled ring slot (ROADMAP C9)."""
+    D, R, B = 3, 6, 999
+    calc, args = _group_args(dev, D, R, B)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    lib = nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"])
+
+    def run(g):
+        return pallas_slice_v4.launch_slice_kernel(lib, "slice_epoch_v3_launch", calc, cfg, (5, 6),
+                                                   *args, cap=cap, ints=(g,))
+
+    got, one = run(G), run(1)
+    monkeypatch.setattr(pallas_slice, "v2_repeat_budget", lambda cfg: cap)
+    t, logL, nlike, _ = pallas_slice.slice_records_lockstep_plain(
+        lambda p: calc(p)[2], cfg, (5, 6), *args)
+    valid = args[2]
+    logzero = np.float32(cfg.logzero)
+    ended = valid[:, None] & (t == 0) & (logL == logzero)
+    first = torch.where(ended.any(1), ended.int().argmax(1), R)  # R: never ended
+    after = torch.arange(R, device=dev)[None, :] > first[:, None]
+    want = (t.masked_fill(after, 0.0), logL.masked_fill(after, logzero),
+            nlike.masked_fill(after, 0))
+    for k in range(3):
+        assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), k
+    stopped = valid & (first < R)
+    assert stopped.any() and (first[stopped] > 0).any()
+    if cap == 8:  # at 4 nearly every chain meets a repeat that needs more
+        assert (valid & (first == R)).any()  # chains that ran to R
 
 
 @pytest.mark.parametrize("name", sorted(LIKELIHOODS))
@@ -284,187 +353,6 @@ def test_packet_resident_warps(dev, name):
     G = pallas_slice_v5.packet_group_for(calc, 8192, D, dev)
     assert G == pallas_slice_v5.choose_packet_group(
         8192, D, torch.cuda.get_device_properties(dev).multi_processor_count, warps.get)
-
-
-@pytest.mark.parametrize("prior", [identity_prior, UniformPrior(0.0, 1.0)])
-@pytest.mark.parametrize("D,R,B", [(4, 6, 1000), (20, 8, 1024)])
-def test_slice_kernel_equals_plain(dev, prior, D, R, B):
-    like = gaussian(D, sigma=0.2)
-    calc = make_batched_calculator(prior, like, D, 2)
-    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
-    pallas_slice_v4.validate_functor(calc, cfg, dev)
-    gen = torch.Generator(dev).manual_seed(D)
-    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
-    r0 = 1.5 * 0.2 * math.sqrt(D)
-    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2, device=dev)
-    valid = torch.arange(B, device=dev) >= 64
-    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
-                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
-    args = (x0, bound, valid, nh, w)
-    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
-    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert (got[2][:64] == 0).all() and (got[2][64:].sum(1) > 0).all()
-
-
-def test_kernel_refuses_model_without_device_form(dev):
-    calc = make_batched_calculator(identity_prior, lambda th: -(th ** 2).sum(1), 3, 0)
-    cfg = EpochConfig(n_dims=3, n_phi=1, grade_dims=(3,), num_repeats=(2,))
-    B = 128
-    with pytest.raises(ValueError, match="engine='torch'"):
-        pallas_slice_v4.slice_epoch(
-            calc, cfg, (0, 0), torch.full((B, 3), 0.5, device=dev),
-            torch.zeros(B, device=dev), torch.ones(B, dtype=torch.bool, device=dev),
-            torch.ones((B, 2, 3), device=dev) / math.sqrt(3), torch.ones((B, 2), device=dev),
-        )
-
-
-def test_run_on_the_card(dev):
-    """run() on the card: the kernel engine and the plain engine give the
-    same run, since they share directions and agree bit for bit."""
-    results = {}
-    for engine in ("cuda", "torch"):
-        with tempfile.TemporaryDirectory() as base:
-            pallas_slice_v4.LAUNCHES["slice_epoch"] = 0
-            with warnings.catch_warnings():
-                warnings.simplefilter("error")  # a replay divergence would warn
-                out = pt.run(gaussian(4), 4, nDerived=2, nlive=100, num_repeats=8,
-                             do_clustering=False, read_resume=False, base_dir=base,
-                             seed=3, feedback=-1, device="cuda", engine=engine)
-            assert (pallas_slice_v4.LAUNCHES["slice_epoch"] > 1) == (engine == "cuda")
-            with open(os.path.join(base, "test.metrics.jsonl")) as f:
-                assert json.loads(f.read().splitlines()[-1])["chained_epochs"] is True
-            assert abs(out.logZ) < 3 * out.logZerr
-            results[engine] = (out.ndead, out.logZ, out.logZerr,
-                               np.loadtxt(os.path.join(base, "test.txt")))
-    assert results["cuda"][:3] == results["torch"][:3]
-    np.testing.assert_array_equal(results["cuda"][3], results["torch"][3])
-
-
-class CappedConfig(EpochConfig):
-    """An epoch budget small enough to stop lanes mid-repeat."""
-
-    @property
-    def step_cap(self) -> int:
-        return 13
-
-
-@pytest.mark.parametrize("capped", [False, True])
-@pytest.mark.parametrize("D", [1, 2, 3, 20, 32])
-@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
-def test_slice_kernel_every_group(dev, G, D, capped):
-    """B1 with G lanes per chain, bitwise its plain version and its G = 1
-    form, at dimensions below, at and above G, B = 999 chains (not a
-    multiple of a warp), invalid lanes, and a budget that stops lanes
-    mid-epoch; one launch counted at G."""
-    R, B = 6, 999
-    like = gaussian(D, sigma=0.2)
-    calc = make_batched_calculator(UniformPrior(0.0, 1.0), like, D, 2)
-    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
-                                                     num_repeats=(R,))
-    gen = torch.Generator(dev).manual_seed(D)
-    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
-    r0 = 1.5 * 0.2 * math.sqrt(D)
-    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2, device=dev)
-    valid = torch.arange(B, device=dev) % 7 != 3
-    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
-                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
-    args = (x0, bound, valid, nh, w)
-    before = pallas_slice_v4.GROUP_LAUNCHES[G]
-    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice_v4.GROUP_LAUNCHES[G] == before + 1
-    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
-    one = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=1)
-    for a, b, c in zip(got, want, one):
-        assert torch.equal(a, b) and torch.equal(a, c)
-    assert (got[2][~valid] == 0).all()
-    assert bool((got[1][valid] == np.float32(cfg.logzero)).any()) == capped
-
-
-def _group_args(dev, D, R, B):
-    like = gaussian(D, sigma=0.2)
-    calc = make_batched_calculator(UniformPrior(0.0, 1.0), like, D, 2)
-    gen = torch.Generator(dev).manual_seed(D)
-    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)
-    r0 = 1.5 * 0.2 * math.sqrt(D)
-    bound = torch.full((B,), like.device_form["norm"] - 0.5 * (r0 / 0.2) ** 2, device=dev)
-    valid = torch.arange(B, device=dev) % 7 != 3
-    nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
-                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
-    return calc, (x0, bound, valid, nh, w)
-
-
-@pytest.mark.parametrize("capped", [False, True])
-@pytest.mark.parametrize("D", [1, 2, 3, 20, 32])
-@pytest.mark.parametrize("G", pallas_slice_v5.PACKET_GROUPS)
-def test_packet_kernel_every_group(dev, G, D, capped):
-    """B3 with G = 4 Gs lanes per chain (one packet slot per sub-group)
-    bitwise its plain version and its G = 1 form, at B = 999 chains with
-    invalid lanes and a budget that stops lanes inside a packet; one launch
-    counted at G."""
-    R, B = 6, 999
-    calc, args = _group_args(dev, D, R, B)
-    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
-                                                     num_repeats=(R,))
-    before = pallas_slice_v5.GROUP_LAUNCHES[G]
-    got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice_v5.GROUP_LAUNCHES[G] == before + 1
-    want = pallas_slice_v5.slice_records_packet_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
-    one = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args, group=1)
-    for k in range(3):
-        assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), k
-    assert (got[2][~args[2]] == 0).all()
-    assert bool((got[1][args[2]] == np.float32(cfg.logzero)).any()) == capped
-
-
-@pytest.mark.parametrize("caps", [{}, {"max_step": 2, "max_shrink": 3}])
-@pytest.mark.parametrize("D", [1, 2, 3, 20, 32])
-@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
-def test_v2_kernel_every_group(dev, G, D, caps):
-    """B5 with G lanes per chain on B1's loop under v2's policy, bitwise its
-    plain version (cube included) and its G = 1 form, at B = 999 chains with
-    invalid lanes (their cube rows the seed); one launch counted at G."""
-    R, B = 6, 999
-    calc, args = _group_args(dev, D, R, B)
-    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
-    before = pallas_slice.GROUP_LAUNCHES[G]
-    got = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice.GROUP_LAUNCHES[G] == before + 1
-    want = pallas_slice.slice_records_lockstep_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
-    one = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=1)
-    for k in range(4):
-        assert torch.equal(got[k], want[k]) and torch.equal(got[k], one[k]), k
-    invalid = ~args[2]
-    assert (got[3][invalid] == args[0][invalid][:, None, :]).all()
-
-
-@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
-def test_v2_kernel_budget_that_binds(dev, G):
-    """v2's per-repeat budget cut to 5 micro-steps, so that it binds: every G
-    gives the G = 1 form's records and cube, a repeat it ends records t = 0
-    and logzero and keeps x for its cube row, and the chain goes on."""
-    D, R, B = 3, 6, 999
-    calc, args = _group_args(dev, D, R, B)
-    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
-    lib = pallas_slice._lib()
-
-    def run(g):
-        cube = torch.empty((R, D, B), device=dev)
-        out = pallas_slice_v4.launch_slice_kernel(lib, "slice_epoch_v2_launch", calc, cfg, (5, 6),
-                                                  *args, cap=5, extra=(cube,), ints=(g,))
-        return (*out, cube.permute(2, 0, 1))
-
-    got, one = run(G), run(1)
-    for a, b in zip(got, one):
-        assert torch.equal(a, b)
-    t, logL, nlike, cube = got
-    valid = args[2]
-    ended = valid[:, None] & (t == 0) & (logL == np.float32(cfg.logzero))
-    prev = torch.cat([args[0][:, None, :], cube[:, :-1]], 1)
-    assert ended.any() and (~ended & valid[:, None]).any()
-    assert (cube == prev).all(2)[ended].all()
-    assert (nlike[valid][:, -1] > 0).any()  # chains went on to their last repeat
 
 
 @pytest.mark.parametrize("prior", [identity_prior, UniformPrior([0.0] * 4, [1.0] * 4)])
@@ -608,7 +496,7 @@ def _ini_calc(name, dev):
 @pytest.mark.parametrize("name", sorted(LIKELIHOODS))
 def test_every_functor_through_every_kernel(dev, name):
     """Each likelihood's functor against its torch calc through all four
-    kernels and B1, B3 and B5 at every group size, and one epoch of B1 at
+    kernels and B1, B3, B4 and B5 at every group size, and one epoch of B1 at
     every group size at the ini's dimension against the plain engine on a
     live set of the ini's prior."""
     s, calc = _ini_calc(name, dev)
@@ -616,8 +504,9 @@ def test_every_functor_through_every_kernel(dev, name):
     cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
     for engine in ("cuda", "cuda3", "cuda2", "cuda5"):
         pallas_slice_v4.validate_functor(calc, cfg, dev, kernel_wrapper(engine))
-    for G in pallas_slice_v4.GROUPS:  # B1 and B5 at every group size
-        for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice.slice_epoch_v2):
+    for G in pallas_slice_v4.GROUPS:  # B1, B4 and B5 at every group size
+        for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice_v3.slice_epoch_v3,
+                        pallas_slice.slice_epoch_v2):
             pallas_slice_v4.validate_functor(calc, cfg, dev, functools.partial(wrapper, group=G))
     for G in pallas_slice_v5.PACKET_GROUPS:  # B3 at every group size
         pallas_slice_v4.validate_functor(
@@ -708,18 +597,44 @@ def test_v3_instr_and_counted_v2_kernels(dev, tag):
     assert (cheap[3] == 1).all() and (cheap[2] == 0).all() and (cheap[0] == 0).all()
 
 
-def test_v3_instr_refuses_a_grid_that_is_not_co_resident(dev):
-    """More blocks of 32 lanes than 132 SMs x 32 resident blocks can hold:
-    the cooperative launch raises instead of hanging at its barrier."""
-    B = 132 * 32 * 32 + 32
+@pytest.mark.parametrize("G", [1, 2, 8, 32])
+def test_v3_instr_refuses_a_grid_that_is_not_co_resident(dev, G):
+    """At G lanes per chain, one block of 32 lanes more than 132 SMs x 32
+    resident blocks can hold: co_resident says no, and the cooperative
+    launch raises instead of hanging at its barrier."""
+    B = (132 * 32 + 1) * 32 // G
     like = gaussian(2, sigma=0.2)
     calc = make_batched_calculator(identity_prior, like, 2, 2)
     cfg = EpochConfig(n_dims=2, n_phi=2, grade_dims=(2,), num_repeats=(1,))
     args = (torch.full((B, 2), 0.5, device=dev), torch.zeros(B, device=dev),
             torch.ones(B, dtype=torch.bool, device=dev),
             torch.ones((B, 1, 2), device=dev) / math.sqrt(2), torch.ones((B, 1), device=dev))
+    assert not v3_instr.co_resident(calc, B, 2, dev, G)
     with pytest.raises(RuntimeError, match="resident"):
-        v3_instr.slice_epoch_v3_instr(calc, cfg, (1, 2), *args)
+        v3_instr.slice_epoch_v3_instr(calc, cfg, (1, 2), *args, group=G)
+
+
+@pytest.mark.parametrize("D,R,B", [(4, 6, 1000), (20, 8, 1024)])
+@pytest.mark.parametrize("G", pallas_slice_v4.GROUPS)
+def test_v3_instr_every_group(dev, G, D, R, B):
+    """E2 with G lanes per chain (every grid co-resident at these shapes):
+    iters bitwise its plain version's, t, logL and nlike bitwise the plain
+    version's, B4's at the same G and B1's."""
+    like, args = _ball_args(dev, D, R, B, 100)
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), like, D, 2)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    kw = (9, 10)
+    assert v3_instr.co_resident(calc, B, D, dev, G)
+    got = v3_instr.slice_epoch_v3_instr(calc, cfg, kw, *args, group=G)
+    want = pallas_slice_v3.slice_records_window_plain(lambda p: calc(p)[2], cfg, kw, *args,
+                                                      count_iters=True)
+    b4 = pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G)
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    for k in range(3):
+        assert torch.equal(got[k], b4[k]) and torch.equal(got[k], b1[k]), k
+    assert (got[3] >= 1).all() and (got[2][64:].sum(1) > 0).all()
 
 
 @pytest.mark.parametrize("variant", prof_grid_overhead.VARIANTS)

@@ -1,5 +1,6 @@
 """What the redesigned slice epochs decide on the host, on the CPU: the lanes
-per chain (``choose_group`` for B1 and B5, ``choose_packet_group`` for B3)
+per chain (``choose_group`` for B1, B4, B5 and E2, ``choose_packet_group``
+for B3)
 and what the wrappers pass to their entries, and the plain versions of E7's
 bodies ``body20_div`` and ``body20_hash`` — the measurements that chose the
 design — against a numpy loop of the same rounded float32 operations."""
@@ -8,8 +9,13 @@ import numpy as np
 import pytest
 import torch
 
-from polychordlite_tpu_torch.experiments import prof_pallas_while
-from polychordlite_tpu_torch.ops import pallas_slice, pallas_slice_v4, pallas_slice_v5
+from polychordlite_tpu_torch.experiments import prof_pallas_while, v3_instr
+from polychordlite_tpu_torch.ops import (
+    pallas_slice,
+    pallas_slice_v3,
+    pallas_slice_v4,
+    pallas_slice_v5,
+)
 from polychordlite_tpu_torch.ops.pallas_slice_v4 import GROUPS, choose_group
 from polychordlite_tpu_torch.ops.pallas_slice_v5 import PACKET_GROUPS, choose_packet_group
 
@@ -74,7 +80,7 @@ def test_group_argument_is_checked():
                                     torch.zeros((4, 1)), group=3)
 
 
-# ---- B3 (speculative packets) and B5 (v2) --------------------------------
+# ---- B3 (speculative packets), B4 (v3), B5 (v2) and E2 ------------------
 
 
 #: the warps per SM that an H100 keeps of B3's Gaussian kernels by G, as
@@ -134,8 +140,8 @@ class _OnCard:  # what the wrappers read of a CUDA tensor before launching
 
 def test_packet_and_v2_launches_pass_the_group(monkeypatch):
     """On the card, B3 launches at choose_packet_group's G (or the one asked
-    for) and B5 at choose_group's, each entry given G; each counts its
-    launch by G in its own GROUP_LAUNCHES, none in B1's.  The launch is
+    for) and B4 and B5 at choose_group's, each entry given G; each counts
+    its launch by G in its own GROUP_LAUNCHES, none in B1's.  The launch is
     recorded instead of made, and B3's kernels keep the Gaussian's resident
     warps."""
     launched = []
@@ -144,9 +150,11 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
         launched.append((entry, ints))
         return None, None, None
 
-    for mod in (pallas_slice_v5, pallas_slice_v4):  # B5 imports v4's at the call
+    # B5 imports v4's names at the call, B4 at its own import
+    for mod in (pallas_slice_v5, pallas_slice_v4, pallas_slice_v3):
         monkeypatch.setattr(mod, "_sm_count", lambda dev: H100_SMS)
         monkeypatch.setattr(mod, "launch_slice_kernel", record)
+    monkeypatch.setattr(pallas_slice_v3.nvcc, "load", lambda *a: None)
     monkeypatch.setattr(pallas_slice_v5, "_lib", lambda: None)
     monkeypatch.setattr(pallas_slice_v5, "resident_warps",
                         lambda calc, D, dev, G: GAUSSIAN_RESIDENT[G])
@@ -154,7 +162,7 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
     empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
     counters = (pallas_slice_v5.GROUP_LAUNCHES, pallas_slice.GROUP_LAUNCHES,
-                pallas_slice_v4.GROUP_LAUNCHES)
+                pallas_slice_v3.GROUP_LAUNCHES, pallas_slice_v4.GROUP_LAUNCHES)
     saved = [dict(c) for c in counters]
     for c in counters:
         c.update({g: 0 for g in c})
@@ -167,14 +175,24 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
         monkeypatch.setattr(pallas_slice, "v2_repeat_budget", lambda cfg: 48)
         pallas_slice.slice_epoch_v2(None, None, (0, 0), *args)
         pallas_slice.slice_epoch_v2(None, None, (0, 0), *args, group=2)
+        monkeypatch.setattr(pallas_slice_v3, "cap_body", lambda cfg: 12)
+        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *args)
+        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *args, group=4)
+        bench = (_OnCard(8192, 20), _OnCard(8192), _OnCard(8192), _OnCard(8192, 100, 20),
+                 _OnCard(8192, 100))
+        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *bench)
         assert launched == [("slice_epoch_v5_launch", (32,)), ("slice_epoch_v5_launch", (1,)),
                             ("slice_epoch_v5_launch", (8,)), ("slice_epoch_v2_launch", (16,)),
-                            ("slice_epoch_v2_launch", (2,))]
+                            ("slice_epoch_v2_launch", (2,)), ("slice_epoch_v3_launch", (16,)),
+                            ("slice_epoch_v3_launch", (4,)), ("slice_epoch_v3_launch", (8,))]
         assert {g: c for g, c in pallas_slice_v5.GROUP_LAUNCHES.items() if c} == {32: 1, 1: 1,
                                                                                    8: 1}
         assert {g: c for g, c in pallas_slice.GROUP_LAUNCHES.items() if c} == {16: 1, 2: 1}
+        assert {g: c for g, c in pallas_slice_v3.GROUP_LAUNCHES.items() if c} == {16: 1, 4: 1,
+                                                                                   8: 1}
         assert not any(pallas_slice_v4.GROUP_LAUNCHES.values())
         assert tuple(pallas_slice.GROUP_LAUNCHES) == GROUPS
+        assert tuple(pallas_slice_v3.GROUP_LAUNCHES) == GROUPS
     finally:
         for c, old in zip(counters, saved):
             c.update(old)
@@ -183,14 +201,61 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
 @pytest.mark.parametrize("wrapper,group", [(pallas_slice_v5.slice_epoch_v5, 2),
                                            (pallas_slice_v5.slice_epoch_v5, 64),
                                            (pallas_slice.slice_epoch_v2, 3),
-                                           (pallas_slice.slice_epoch_v2, 64)])
+                                           (pallas_slice.slice_epoch_v2, 64),
+                                           (pallas_slice_v3.slice_epoch_v3, 3),
+                                           (pallas_slice_v3.slice_epoch_v3, 64)])
 def test_packet_and_v2_group_argument_is_checked(wrapper, group):
     """B3 takes G in {1, 4, 8, 16, 32} (G = 2 has no packet slot per lane
-    group), B5 B1's G; anything else raises before any launch."""
+    group), B4 and B5 B1's G; anything else raises before any launch."""
     x0 = torch.zeros((4, 2))
     with pytest.raises(ValueError, match=f"group {group} "):
         wrapper(None, None, (0, 0), x0, torch.zeros(4), torch.ones(4, dtype=torch.bool),
                 torch.zeros((4, 1, 2)), torch.zeros((4, 1)), group=group)
+
+
+def test_v3_instr_launches_pass_the_group(monkeypatch):
+    """On the card, E2 launches at the G that B4 takes at the same B and D
+    (choose_group's: 16 at gaussian.ini's 512 20-D chains, 8 at the bench's
+    8,192), or at the one asked for, and its skeleton at G = 1; its entries
+    take G last.  The launch is recorded instead of made."""
+    launched = []
+
+    def record(lib, entry, *a, ints=(), **k):
+        launched.append((entry, ints))
+        return None, None, None
+
+    monkeypatch.setattr(v3_instr, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(v3_instr, "launch_slice_kernel", record)
+    monkeypatch.setattr(v3_instr.nvcc, "load", lambda *a: None)
+    monkeypatch.setattr(v3_instr, "cap_body", lambda cfg: 12)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
+    zeros = torch.zeros
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **k: zeros(*a, **k))
+    run = (_OnCard(512, 20), _OnCard(512), _OnCard(512), _OnCard(512, 40, 20), _OnCard(512, 40))
+    bench = (_OnCard(8192, 20), _OnCard(8192), _OnCard(8192), _OnCard(8192, 100, 20),
+             _OnCard(8192, 100))
+    for args in (run, bench):
+        v3_instr.slice_epoch_v3_instr(None, None, (0, 0), *args, check=False)
+    v3_instr.slice_epoch_v3_instr(None, None, (0, 0), *bench, check=False, group=2)
+    v3_instr.slice_epoch_v3_instr(None, None, (0, 0), *bench, check=False, cheap=True)
+    assert launched == [("slice_epoch_v3_instr_launch", (16,)),
+                        ("slice_epoch_v3_instr_launch", (8,)),
+                        ("slice_epoch_v3_instr_launch", (2,)),
+                        ("slice_epoch_v3_cheap_launch", (1,))]
+    assert [G for _, (G,) in launched[:2]] == [choose_group(512, 20, H100_SMS),
+                                               choose_group(8192, 20, H100_SMS)]
+
+
+@pytest.mark.parametrize("cheap,group", [(False, 3), (False, 64), (True, 2), (True, 8)])
+def test_v3_instr_group_argument_is_checked(cheap, group):
+    """E2 takes B1's G, its skeleton G = 1 only; anything else raises before
+    any launch."""
+    x0 = torch.zeros((4, 2))
+    with pytest.raises(ValueError, match=f"group {group} "):
+        v3_instr.slice_epoch_v3_instr(None, None, (0, 0), x0, torch.zeros(4),
+                                      torch.ones(4, dtype=torch.bool), torch.zeros((4, 1, 2)),
+                                      torch.zeros((4, 1)), cheap=cheap, group=group)
 
 
 # ---- E7's new bodies, against numpy -------------------------------------

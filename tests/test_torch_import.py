@@ -1,7 +1,10 @@
 """The port imports without JAX, and importing a module runs nothing.
 Checked in a fresh interpreter, because the test process itself has already
-imported jax (tests/conftest.py)."""
+imported jax (tests/conftest.py).  And no test file of the port defines a
+test twice: pytest collects only the later definition of a name."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -62,3 +65,23 @@ def test_lowering_leaves_jax_out():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
+
+
+PORT_TESTS = sorted(os.path.basename(p) for p in
+                    glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
+
+
+@pytest.mark.parametrize("name", PORT_TESTS)
+def test_no_test_is_defined_twice(name):
+    """A second top-level definition of a test's name shadows the first,
+    which then never runs; each test_* name is defined once per file."""
+    with open(os.path.join(REPO, "tests", name)) as f:
+        tree = ast.parse(f.read(), name)
+    seen, twice = set(), []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if node.name.startswith(("test_", "Test")):
+                if node.name in seen:
+                    twice.append(f"{node.name} (line {node.lineno})")
+                seen.add(node.name)
+    assert not twice, f"{name} defines again: {twice}"
