@@ -4,9 +4,12 @@
 
 Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 (one ``nvcc`` each, started together; ptxas registers, stack and spills
-reported, by G for the Gaussian kernels of B1, B3, B4, B5 and E2), checks
-each kernel against its plain torch version on the card (B2 Gram-Schmidt,
-bitwise, at the bench and gaussian.ini shapes; B1 v4, B3 v5, B4 v3 and B5
+reported, by G for the Gaussian kernels of B1, B3, B4, B5 and E2, and by
+dimension bucket), checks each kernel against its plain torch version on
+the card (B2 Gram-Schmidt, bitwise, at the bench and gaussian.ini shapes,
+and its warp-per-basis kernel at the bases a B = 512, R = 2 D epoch draws
+at D = 40, 64, 128 and at (5, 64, 64, 8192), each beside
+``torch.linalg.qr``; B1 v4, B3 v5, B4 v3 and B5
 v2 at every group size G of lanes per chain, at four geometries, B1, B3,
 B4 and B5 also against their G = 1 forms, B3-B5 against B1, each G timed,
 B3's resident warps by G read from the card; E1, the counted v4, in the
@@ -25,7 +28,12 @@ likelihood written in torch, lowered by ``ops/fused_like.py`` into
 ``csrc/slice_epoch_fused.cu``) bitwise against its plain version at every G
 at gaussian.ini's shape and the bench, counts and lists its decisions that
 differ from the traced route's and B1's on the same inputs, holds the zoo's
-own Gaussian lowered bitwise against B1, and times the three routes, then
+own Gaussian lowered bitwise against B1, and times the three routes, holds
+the kernel template's wide bucket (``slice_epoch_d128``: B1's functor, the
+fused route with a per-point torch Gaussian, B4 and B5 at D = 40, 64 and
+128, B = 512, R = 2 D, at each G the bucket has, bitwise their plain
+versions and G = 32; ms, registers, bounds, and the 32 bucket's B1 at the
+bench beside them), then
 drives the port's paths and checks what comes out and which kernels ran
 (each path with every launch count set to 0 just before it):
 
@@ -67,6 +75,10 @@ drives the port's paths and checks what comes out and which kernels ran
   ``torch.linalg.vector_norm``, which the lowering refuses (the op is
   outside its table): the traced route ``csrc/slice_step.cu`` and B2, the
   refusal as the metrics' ``route_reason``, within 3 sigma of 0;
+* ``run_gaussian_d64``: gaussian.ini's settings at D = 64 (num_repeats
+  128), the likelihood written per point in torch: the fused route in the
+  wide bucket (B1's launches by bucket and G in the metrics) and B2's wide
+  kernel, within 3 sigma of 0;
   (each fused run's libraries are built before its clock starts, as a
   second run of the same model finds them);
 
@@ -131,8 +143,13 @@ SHELLS = dict(B=512, R=10, D=2, B_valid=504)
 # num_repeats 20) and its 8-D random_gaussian.ini (num_repeats 40)
 ZOO_D4 = dict(B=512, R=20, D=4, B_valid=504)
 ZOO_D8 = dict(B=512, R=40, D=8, B_valid=504)
-# ... and a 40-D model, beyond B1's SLICE_MAXD, on the traced route
+# ... and a 40-D model, in the kernels' wide bucket (32 < D <= 128), on the
+# traced route
 TRACED_D40 = dict(B=512, R=40, D=40, B_valid=504)
+# the wide bucket's checked dimensions (B = 512, R = 2 D, as gaussian.ini's
+# ratio), and the 64-D Gaussian run (gaussian.ini's settings at D = 64)
+WIDE_DIMS = (40, 64, 128)
+D64 = dict(nDims=64, nlive=500, num_repeats=128)
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -243,7 +260,7 @@ def sass_report(so: str, keep: str):
     out, kept = {}, []
     for block in sass.split("Function : ")[1:]:
         name = block.split()[0]
-        m = re.search(r"slice_epoch_kernel.*12GaussianLikeLi(\d+)ELb([01])E", name)
+        m = re.search(r"slice_epoch_kernel.*12GaussianLikeILi32EELi(\d+)ELb([01])E", name)
         if not m:
             continue
         tag = f"G={m[1]}" + (" counted" if m[2] == "1" else "")
@@ -476,21 +493,25 @@ def main() -> None:
             for name, log in nvcc.build_log.items():
                 f.write(f"==== {name}\n{log}\n")
         log = nvcc.build_log.get
-        # the Gaussian functor's kernels of B1, B3, B4, B5 and E2 by G (the
-        # others are in ptxas.txt): registers, stack, spills
+        # the Gaussian functor's kernels of B1, B3, B4, B5 and E2 by G in the
+        # 32 bucket, and of B1, B4 and B5 by G in the 128 bucket (keys
+        # "bucket,G"; the others are in ptxas.txt): registers, stack, spills
+        like = r"12GaussianLikeILi(32|128)EE"
         gaussian_kernels = {
             "B1": ptxas_kernels(log("slice_epoch", ""),
-                                r"slice_epoch_kernelI8V4Policy12GaussianLikeLi(\d+)ELb([01])E"),
+                                rf"slice_epoch_kernelI8V4Policy{like}Li(\d+)ELb([01])E"),
             "B3": ptxas_kernels(log("slice_epoch_v5", ""),
-                                r"slice_epoch_v5_kernelI12GaussianLikeLi(\d+)EE"),
+                                rf"slice_epoch_v5_kernelI{like}Li(\d+)EE"),
             "B4": ptxas_kernels(log("slice_epoch_v3", ""),
-                                r"slice_epoch_kernelI8V3Policy12GaussianLikeLi(\d+)ELb0E"),
+                                rf"slice_epoch_kernelI8V3Policy{like}Li(\d+)ELb0E"),
             "B5": ptxas_kernels(log("slice_epoch_v2", ""),
-                                r"slice_epoch_kernelI8V2Policy12GaussianLikeLi(\d+)ELb0E()"),
+                                rf"slice_epoch_kernelI8V2Policy{like}Li(\d+)ELb0E"),
             "E3": ptxas_kernels(log("slice_epoch_v2", ""),
-                                r"slice_epoch_v2_counted_kernelI12GaussianLike()E"),
+                                rf"slice_epoch_v2_counted_kernelI{like}E"),
             "E2": ptxas_kernels(log("slice_epoch_v3_instr", ""),
-                                r"slice_epoch_v3_instr_kernelI12GaussianLikeLi(\d+)ELb([01])E"),
+                                rf"slice_epoch_v3_instr_kernelI{like}Li(\d+)ELb([01])E"),
+            "B2": ptxas_kernels(log("gram_schmidt", ""),
+                                r"(gram_schmidt_wide_kernel|gram_schmidt_kernelILi(?:20|32)E)"),
         }
         results["ptxas_gaussian"] = gaussian_kernels
         return {"seconds": round(time.perf_counter() - t0, 3),
@@ -498,14 +519,30 @@ def main() -> None:
                 "ptxas": ptxas,
                 "gaussian_kernels_by_group": gaussian_kernels}
 
-    # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise -----------
+    # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise: the
+    # thread-per-basis kernel at the bench and gaussian.ini's shapes, the
+    # warp-per-basis kernel at the bases a B = 512, R = 2 D epoch draws at
+    # D = 40, 64, 128 and at the bench's chains at D = 64
     @phase("gram_schmidt")
     def _():
         out = {}
-        for tag, shape in (("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512))):
+        shapes = [("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512))] + [
+            (f"d{d}", (2, d, d, 512)) for d in WIDE_DIMS] + [("d64_bench", (5, 64, 64, BENCH["B"]))]
+        for tag, shape in shapes:
+            wide = shape[1] > pallas_dirs.NARROW_MAXD
             g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(1), device=dev)
-            q_plain = pallas_dirs.gram_schmidt_plain(g)
+            # the narrow shapes keep PR 6-10's repeats (plain 3, QR 5); the
+            # wide ones' plain version takes seconds, so it runs once
+            if wide:
+                q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
+            else:
+                q_plain = pallas_dirs.gram_schmidt_plain(g)
+                plain_ms = cuda_ms(lambda: pallas_dirs.gram_schmidt_plain(g), 3)  # noqa: B023
+            counted = dict(pallas_dirs.LAUNCHES)
             q = pallas_dirs.gram_schmidt_lanes(g)
+            kernel = "gram_schmidt_wide" if wide else "gram_schmidt"
+            if pallas_dirs.LAUNCHES[kernel] != counted[kernel] + 1:
+                raise AssertionError(f"{tag}: {kernel} was not the kernel launched")
             mism = int((q != q_plain).sum())
             if mism:
                 raise AssertionError(f"{tag}: the kernel differs from the plain version in "
@@ -519,17 +556,19 @@ def main() -> None:
             # (NB*B, D, D) with the vectors as columns; the port never calls it
             mats = g.permute(0, 3, 1, 2).reshape(-1, shape[1], shape[2]).contiguous()
             out[tag] = {
-                "shape": list(shape), "max_abs_err": err, "orth_err": orth,
+                "shape": list(shape), "kernel": kernel, "max_abs_err": err, "orth_err": orth,
                 "mismatches": mism,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
-                "plain_ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_plain(g), 3),  # noqa: B023
-                "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 5),  # noqa: B023
+                "plain_ms": plain_ms,
+                "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 2 if wide else 5),  # noqa: B023
             }
             nb, d, _, b = shape
             out[tag]["bound_ms"], out[tag]["bound_by"] = bound(
                 2 * 4 * nb * d * d * b, gram_schmidt_flops(nb, d, b))
+            out[tag]["ms_over_library"] = out[tag]["ms"] / out[tag]["library_ms"]
         results["gram_schmidt"] = {**out["bench"],
                                    "max_abs_err": max(o["max_abs_err"] for o in out.values())}
+        results["gram_schmidt_wide"] = out["d64"]
         return out
 
     def ball_inputs(B, D, like, gen):
@@ -909,16 +948,7 @@ def main() -> None:
         kw = (0x01234567, 0x89ABCDEF)
         for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH), ("d40", TRACED_D40)):
             B, R, D = geo["B"], geo["R"], geo["D"]
-            if tag == "d40":  # unit directions: B2 stops at dim 32
-                gen = torch.Generator(dev).manual_seed(SEED)
-                calc = make_batched_calculator(identity_prior, gaussian(D), D, 2, device=dev)
-                x0, bnd, valid, _ = live_set_inputs(B, D, calc, gen, B_valid=geo["B_valid"])
-                nh = torch.randn((B, R, D), generator=gen, device=dev)
-                args = (x0, bnd, valid, nh / nh.norm(dim=2, keepdim=True),
-                        torch.full((B, R), 0.2, device=dev))
-                cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
-            else:
-                calc, cfg, args = geometry(tag, geo)
+            calc, cfg, args = geometry(tag, geo)  # D = 40: B2's wide kernel
             want, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
                 lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
             pairs = []
@@ -927,7 +957,7 @@ def main() -> None:
                 pairs += [(f"{k}_rounds{rounds}_vs_plain", a, b)
                           for k, a, b in zip(("t", "logL", "nlike"), got, want)]
             b1_ms = None
-            if D <= pallas_slice_v4.SLICE_MAXD:  # the same decisions as B1's functor
+            if D <= pallas_slice_v4.SLICE_MAXD_WIDE:  # the same decisions as B1's functor
                 pairs += [(f"{k}_vs_B1", a, b) for k, a, b in zip(
                     ("t", "logL", "nlike"), want, pallas_slice_v4.slice_epoch(calc, cfg, kw, *args))]
                 b1_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5)  # noqa: B023
@@ -1063,6 +1093,101 @@ def main() -> None:
         results["slice_fused"] = {**out["bench"], "max_abs_err": 0.0}
         return out
 
+    def per_point_gaussian(theta):
+        """gaussian.ini's likelihood as a user writes it per point in torch
+        (sigma 0.1, mu 0.5, normalised), at the point's dimension."""
+        D = theta.shape[-1]
+        return (-0.5 * torch.sum(((theta - 0.5) / 0.1) ** 2)
+                - D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)))
+
+    # ---- 6d. the wide bucket (32 < D <= 128): B1 (functor and fused), B4
+    # and B5 at every G it has, bitwise their plain versions and G = 32
+    @phase("slice_epoch_d128")
+    def _():
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        wide = pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.SLICE_MAXD_WIDE]
+        fused = {}
+        for D in WIDE_DIMS:
+            calc = make_batched_calculator(identity_prior, per_point_gaussian, D, 0, device=dev)
+            low = fused_like.lowering(calc)
+            if not isinstance(low, fused_like.Lowered):
+                raise AssertionError(f"the {D}-D per-point Gaussian was not lowered: {low.reason}")
+            fused[D] = (calc, low)
+        t0 = time.perf_counter()  # every fused library of the phase, one nvcc each
+        names = {low.library_name(G): low.source(G) for _, low in fused.values() for G in wide}
+        nvcc.build_all({n: [fused_like.SOURCE] for n in names}, headers=names)
+        fused_build = {"seconds": time.perf_counter() - t0,
+                       "ptxas": {n: ptxas_summary(nvcc.build_log[n]) for n in names
+                                 if n in nvcc.build_log}}
+        with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+            for n in names:
+                if n in nvcc.build_log:
+                    f.write(f"==== {n}\n{nvcc.build_log[n]}\n")
+        ptx = results.get("ptxas_gaussian", {})
+        for D in WIDE_DIMS:
+            B, R = 512, 2 * D
+            geo = dict(B=B, R=R, D=D, B_valid=RUN["B_valid"])
+            calc, cfg, args = geometry(f"d{D}", geo)  # the zoo Gaussian, B2's directions
+            pp_calc, low = fused[D]
+            res, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: calc(p)[2], cfg, kw, *args, count_steps=True))  # noqa: B023
+            want, steps = res[:3], res[3]
+            v3_want, v3_plain_ms = cuda_once(
+                lambda: pallas_slice_v3.slice_records_window_plain(  # noqa: B023
+                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
+            v2_want, v2_plain_ms = cuda_once(
+                lambda: pallas_slice.slice_records_lockstep_plain(  # noqa: B023
+                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
+            pp_res, pp_plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                low.plain_logL, cfg, kw, *args, count_steps=True))  # noqa: B023
+            pp_want, pp_steps = pp_res[:3], pp_res[3]
+            kernels = {
+                "B1": (lambda G: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=G),  # noqa: B023
+                       want, plain_ms),
+                "B4": (lambda G: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G),  # noqa: B023
+                       v3_want, v3_plain_ms),
+                "B5": (lambda G: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args, group=G),  # noqa: B023
+                       v2_want, v2_plain_ms),
+                "fused": (lambda G: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
+                    pp_calc, cfg, kw, *args, group=G), pp_want, pp_plain_ms),  # noqa: B023
+            }
+            G_rule = pallas_slice_v4.choose_group(B, D, n_sm)
+            evals = int(want[2].sum())
+            flops = int(steps.to(torch.int64).sum()) * gaussian_probe_flops(D)
+            rec = {"B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "group": G_rule,
+                   "evals": evals, "lane_steps_max": int(steps.max())}
+            pairs = []
+            for name, (fn, ref, p_ms) in kernels.items():
+                g32 = fn(32)
+                for G in wide:
+                    got = fn(G)
+                    pairs += [(f"{name}_{k}_G{G}_vs_plain", a, b)
+                              for k, a, b in zip(("t", "logL", "nlike", "cube"), got, ref)]
+                    pairs += [(f"{name}_{k}_G{G}_vs_G32", a, b)
+                              for k, a, b in zip(("t", "logL", "nlike", "cube"), got, g32)]
+                ms_by_group = {G: cuda_ms(lambda G=G: fn(G), 5) for G in wide}  # noqa: B023
+                key = "128," + "{G}" + (",0" if name == "B1" else "")
+                rec[name] = {
+                    "ms": ms_by_group[G_rule], "ms_by_group": ms_by_group, "plain_ms": p_ms,
+                    "bound": bound(slice_epoch_bytes(B, R, D, cube=name == "B5"),
+                                   flops if name != "fused" else
+                                   int(pp_steps.to(torch.int64).sum()) * low.flops_per_probe()),
+                    "us_per_micro_step": ms_by_group[G_rule] * 1e3 / int(steps.max()),
+                    "ptxas_by_group": ({G: ptx.get(name, {}).get(key.format(G=G)) for G in wide}
+                                       if name != "fused" else fused_build["ptxas"]),
+                }
+            if D > 32:  # the same decisions as B1's functor: B4 at the rule's G
+                pairs += [(f"B4_{k}_vs_B1", a, b) for k, a, b in zip(
+                    ("t", "logL", "nlike"), kernels["B4"][0](G_rule), want)]
+            rec["mismatches"] = decisions(f"d{D}: a wide-bucket kernel differs", pairs)
+            rec["b1_bench_32_bucket_ms"] = results.get("slice_epoch", {}).get("ms")
+            out[f"d{D}"] = rec
+        out["fused_build"] = fused_build
+        d64 = out["d64"]
+        results["slice_epoch_d128"] = d64
+        return out
+
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
                 pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
@@ -1079,10 +1204,12 @@ def main() -> None:
                 c[k] = 0
 
     def ran_above_one(name, counts):
-        """The launches by G of a path's kernel, which must have run at G > 1
-        only."""
-        groups = {G: c for G, c in counts.items() if c}
-        if 1 in groups or not groups:
+        """The launches by G (by "bucket/G" where the counts are kept by
+        (bucket, G)) of a path's kernel, which must have run at G > 1 only."""
+        groups = {"/".join(map(str, k)) if isinstance(k, tuple) else k: c
+                  for k, c in counts.items() if c}
+        if not groups or any((k[1] if isinstance(k, tuple) else k) == 1
+                             for k, c in counts.items() if c):
             raise AssertionError(f"{name} ran at G = 1 on the path: launches by G {groups}")
         return groups
 
@@ -1152,16 +1279,18 @@ def main() -> None:
             raise AssertionError(f"the model was not lowered: {low.reason}")
         B_phys = -(-(-(-nlive // 8) * 8) // GRANULE) * GRANULE
         t0 = time.perf_counter()
-        low.build([g for g in GROUPS if g <= n_dims])
+        buckets = pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.bucket(n_dims)]
+        low.build([g for g in buckets if g <= n_dims])
         return {"seconds": time.perf_counter() - t0, "by_group": dict(low.build_seconds),
                 "run_group": pallas_slice_v4.choose_group(B_phys, n_dims, n_sm)}
 
-    def route_run(name, like, n_dims, route="slice_epoch_fused", **kw):
+    def route_run(name, like, n_dims, route="slice_epoch_fused", dirs="gram_schmidt", **kw):
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
         path must take ``route`` (the fused route, or the traced route) and
-        B2 only, with chained epochs kept (a replay divergence would warn,
-        and warnings are errors)."""
+        B2's kernel ``dirs`` only (its warp-per-basis kernel above D = 32),
+        with chained epochs kept (a replay divergence would warn, and
+        warnings are errors)."""
         with tempfile.TemporaryDirectory() as base:
             reset_launches()
             t0 = time.perf_counter()
@@ -1181,8 +1310,9 @@ def main() -> None:
                                  f"not {route}")
         if last.get("chained_epochs") is not True:
             raise AssertionError(f"{name}: chained epochs were switched off during the run")
-        if not only(ran, ("gram_schmidt", route)):
-            raise AssertionError(f"{name}: the path did not run {route} and B2 (only): {ran}")
+        if not only(ran, (dirs, route)):
+            raise AssertionError(f"{name}: the path did not run {route} and {dirs} (only): "
+                                 f"{ran}")
         add_launches(ran)
         return last, stats, wall, ran, chains
 
@@ -1271,6 +1401,31 @@ def main() -> None:
             raise AssertionError(f"route_reason {last.get('route_reason')!r} does not name "
                                  "the refused op")
         return route_record(last, stats, wall, ran, 0.0)
+
+    @phase("run_gaussian_d64")
+    def _():
+        """gaussian.ini's settings at D = 64 (nlive 500, no clustering,
+        precision_criterion 0.001, num_repeats 2 D, 64 uniform [0, 1]
+        parameters), the likelihood per point in torch: the fused route in
+        the 128 bucket and B2's wide kernel; logZ = 0 (the mass outside the
+        cube is below 4e-5), gated at 3 sigma."""
+        D = D64["nDims"]
+        built = prebuild(per_point_gaussian, D, D64["nlive"])
+        last, stats, wall, ran, _ = route_run(
+            "gaussian_d64", per_point_gaussian, D, dirs="gram_schmidt_wide",
+            nlive=D64["nlive"], num_repeats=D64["num_repeats"], do_clustering=False,
+            precision_criterion=0.001)
+        groups = last.get("group_launches") or {}
+        if last["form"] != "per_point" or not groups or any(
+                not k.startswith(f"{pallas_slice_v4.SLICE_MAXD_WIDE}/") for k in groups):
+            raise AssertionError(f"form {last['form']!r}, B1's launches by bucket/G {groups}: "
+                                 "not the per-point model in the 128 bucket")
+        B_phys = -(-(-(-D64["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        rec = {**route_record(last, stats, wall, ran, 0.0), "prebuild": built,
+               "group_launches": groups, "B": B_phys,
+               "epoch_record_mb": B_phys * D64["num_repeats"] * (2 * D + 2) * 4 / 1e6}
+        results["run_gaussian_d64"] = rec
+        return rec
 
     # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
     shells = {}
@@ -1812,17 +1967,35 @@ def main() -> None:
                               "previous": "the traced route (slice_step) on the same model "
                                           "and inputs, in this run"},
     }
+    # the 128 bucket's numbers (D = 64, B = 512, R = 128; B2 at the bases
+    # that epoch draws) beside the entries of B1, the fused route, B4, B5, B2
+    wide = results["slice_epoch_d128"]
+    d128 = {name: {"D": wide["D"], "B": wide["B"], "R": wide["R"], "group": wide["group"],
+                   "ms": wide[k]["ms"], "ms_by_group": wide[k]["ms_by_group"],
+                   "plain_ms": wide[k]["plain_ms"], "bound_ms": wide[k]["bound"][0],
+                   "bound_by": wide[k]["bound"][1]}
+            for name, k in (("slice_epoch", "B1"), ("slice_epoch_fused", "fused"),
+                            ("slice_epoch_v3", "B4"), ("slice_epoch_v2", "B5"))}
+    gw = results["gram_schmidt_wide"]
+    d128["gram_schmidt"] = {"kernel": "gram_schmidt_wide", "shape": gw["shape"], "ms": gw["ms"],
+                            "plain_ms": gw["plain_ms"], "bound_ms": gw["bound_ms"],
+                            "bound_by": gw["bound_by"], "library_ms": gw["library_ms"],
+                            "launches": launches["gram_schmidt_wide"]}
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]
         plain_ms = r.get("plain_ms", results["slice_epoch"]["plain_ms"])  # E1's plain: B1's
+        n = launches[name] if name in PATH_KERNELS else r["launches"]
+        if name == "gram_schmidt":  # B2's two kernels
+            n += launches["gram_schmidt_wide"]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-            "launches": launches[name] if name in PATH_KERNELS else r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            **redesigned.get(name, {}),
+            **redesigned.get(name, {}), **({"d128": d128[name]} if name in d128 else {}),
         })
     missing = [k["name"] for k in kernels if not k["launches"]]
+    if not launches["gram_schmidt_wide"]:
+        missing.append("gram_schmidt_wide")
     if missing:
         fail(f"kernels never launched on their paths: {missing}")
     emit({"kernels": kernels})

@@ -45,6 +45,8 @@ from ..ops import pallas_slice_v4
 from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
+from ..ops.pallas_slice_v4 import SLICE_MAXD_WIDE, check_functor_dims
+from ..ops.pallas_slice_v5 import check_dims as check_v5_dims
 from ..ops.precision import F32_SAFE_LOGL
 from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
 from ..parallel.mesh import make_epoch_runner
@@ -107,7 +109,9 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     for the others: ``ops/slice_kernel.py::cuda_route``) and refuses a
     host-callback model; the other kernel engines of :data:`KERNEL_ENGINES`
     are forced by name and need a device form.  ``engine="torch"`` is the
-    plain engine on any device."""
+    plain engine on any device, at any dimension; the kernel engines stop at
+    D = 128 (``"cuda5"`` and random_gaussian's functor at 32), and above
+    they raise here, once."""
     if engine == "auto":
         if device.type != "cuda":
             return "torch"
@@ -115,6 +119,16 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
+        D = calc.n_dims
+        if D > SLICE_MAXD_WIDE:
+            raise ValueError(
+                f"the CUDA kernels stop at D = {SLICE_MAXD_WIDE}, and this model has D = {D}; "
+                "pass engine='torch' to run it on the plain engine")
+        if engine == "cuda5":
+            check_v5_dims(D)
+        spec = getattr(calc, "device_spec", None)
+        if spec is not None:  # the functor route and the forced engines take it
+            check_functor_dims(spec["likelihood"]["name"], D)
         if engine == "cuda":
             if calc.uses_callback:
                 raise ValueError(
@@ -268,6 +282,7 @@ def nested_sampling(
     t_start = time.time()
     launches0 = _kernel_launches()
     traced0 = dict(pallas_slice_v4.TRACED)
+    groups0 = dict(pallas_slice_v4.GROUP_LAUNCHES)
 
     # --- RNG: host generator, device generator and murmur key, all from seed
     seed = s.seed if s.seed >= 0 else int(time.time_ns() % (2**31))
@@ -659,6 +674,11 @@ def nested_sampling(
                 # kernel launches during this run (the functor check included)
                 "kernel_launches": {
                     k: v - launches0[k] for k, v in _kernel_launches().items()
+                },
+                # B1's launches (functor and fused) by "bucket/G"
+                "group_launches": {
+                    f"{b}/{g}": v - groups0[b, g]
+                    for (b, g), v in pallas_slice_v4.GROUP_LAUNCHES.items() if v > groups0[b, g]
                 },
                 # the model's form (ops/evaluate.py), the kernel its engine ran
                 # (chosen before the run) and why, the fused route's library

@@ -27,20 +27,30 @@
 // but the grouped B1); slice_epoch.cu's group form runs the first on the
 // lane that owns coordinate d and the second on every lane of the group.
 // The rounded operations and their order are the same either way.
+//
+// Each functor is a template on its dimension bucket M (slice_common.cuh):
+// SLICE_MAXD = 32 or SLICE_MAXD_WIDE = 128, the bound on D that sizes its
+// prior and its loops.  combine reads T[j][d] through whatever the caller
+// hands it: an array in registers in the 32 bucket, the terms staged in
+// shared memory in the 128 bucket (slice_epoch.cuh).
 #pragma once
 
 #include "slice_common.cuh"
 
-// theta[d] = a[d] + s[d] * cube[d]; entries past D are unused.
-struct AffinePrior {
-    float a[SLICE_MAXD];
-    float s[SLICE_MAXD];
+// theta[d] = a[d] + s[d] * cube[d] for d < MAXD, the bucket's bound on the
+// dimension; entries past D are unused.
+template <int MAXD>
+struct AffinePriorT {
+    float a[MAXD];
+    float s[MAXD];
 };
+using AffinePrior = AffinePriorT<SLICE_MAXD>;
 
 // The prior from host arrays a[D] and s[D]; entries past D are zero.
-inline AffinePrior affine_prior(const float* prior_a, const float* prior_s, int D) {
-    AffinePrior prior;
-    for (int d = 0; d < SLICE_MAXD; ++d) {
+template <int MAXD = SLICE_MAXD>
+inline AffinePriorT<MAXD> affine_prior(const float* prior_a, const float* prior_s, int D) {
+    AffinePriorT<MAXD> prior;
+    for (int d = 0; d < MAXD; ++d) {
         prior.a[d] = d < D ? prior_a[d] : 0.0f;
         prior.s[d] = d < D ? prior_s[d] : 0.0f;
     }
@@ -49,7 +59,9 @@ inline AffinePrior affine_prior(const float* prior_a, const float* prior_s, int 
 
 // random_gaussian's inverse covariance, row-major D x D: 4 KB at D = 32,
 // too large for the functor (kernel parameters), so it is copied into
-// constant memory on the launch's stream before the kernel.
+// constant memory on the launch's stream before the kernel.  Sized for the
+// SLICE_MAXD bucket only (at 128 it would fill the 64 KB constant bank), so
+// random_gaussian's functor stops at D = 32.
 __constant__ float c_like_matrix[SLICE_MAXD * SLICE_MAXD];
 
 // theta of one coordinate of the probe x0 + t n̂ under the prior a + s cube;
@@ -72,9 +84,9 @@ template <class Like>
 __device__ __forceinline__ float like_eval(const Like& like, const float* x0, const float* n,
                                            float t, int D) {
     bool inside = true;
-    float T[Like::NT][SLICE_MAXD];
+    float T[Like::NT][Like::MAXD];
 #pragma unroll
-    for (int d = 0; d < SLICE_MAXD; ++d) {
+    for (int d = 0; d < Like::MAXD; ++d) {
         if (d < D) {
             float o[Like::NT];
             like.term(probe_theta(x0[d], n[d], t, like.prior.a[d], like.prior.s[d], inside), d,
@@ -86,6 +98,22 @@ __device__ __forceinline__ float like_eval(const Like& like, const float* x0, co
     return like_result(like.combine(T, D), inside, like.logzero);
 }
 
+// f(d) for the coordinates d = 0 .. D-1 in index order, a combine's loop:
+// unrolled over the bucket with a guard in the SLICE_MAXD bucket, where T
+// sits in registers; a run-time loop in the wide bucket, where the guarded
+// 128 steps would read the staged terms one dependent load at a time.
+template <int MAXD, class F>
+__device__ __forceinline__ void for_each_coordinate(int D, F&& f) {
+    if constexpr (MAXD == SLICE_MAXD) {
+#pragma unroll
+        for (int d = 0; d < MAXD; ++d)
+            if (d < D) f(d);
+    } else {
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) f(d);
+    }
+}
+
 // logaddexp(l1, l2) - log 2, spelled out as torch's form does it.
 __device__ __forceinline__ float mix_of_two(float l1, float l2, float log_two) {
     const float m = fmaxf(l1, l2);
@@ -94,13 +122,15 @@ __device__ __forceinline__ float mix_of_two(float l1, float l2, float log_two) {
 }
 
 // cosf once per call site: kept out of line so that the unrolled loops over
-// SLICE_MAXD coordinates do not copy its range reduction 32 times.
+// a bucket's coordinates do not copy its range reduction 32 times.
 __device__ __noinline__ float like_cosf(float x) { return cosf(x); }
 
 // The normalised Gaussian (models/examples.py::gaussian): the chi-square
 // summed over coordinates 0..D-1 in index order.
+template <int M>
 struct GaussianLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float mu, sigma, norm, logzero;
     static constexpr int NT = 1;
 
@@ -108,11 +138,10 @@ struct GaussianLike {
         const float z = __fdiv_rn(__fsub_rn(th, mu), sigma);
         out[0] = __fmul_rn(z, z);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float chi2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) chi2 = __fadd_rn(chi2, T[0][d]);
+        for_each_coordinate<MAXD>(D, [&](int d) { chi2 = __fadd_rn(chi2, T[0][d]); });
         return __fsub_rn(norm, __fmul_rn(0.5f, chi2));
     }
 };
@@ -121,23 +150,23 @@ struct GaussianLike {
 // (models/examples.py::gaussian_shells): rest = sum of theta_d^2 over
 // d = 1..D-1 in index order, the two radii, each shell's logL, and their
 // mixture.
+template <int M>
 struct GaussianShellsLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float centre, radius, two_s2, neg_a, log_two, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float th0 = 0.0f, rest = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                if (d == 0)
-                    th0 = T[0][d];
-                else
-                    rest = __fadd_rn(rest, __fmul_rn(T[0][d], T[0][d]));
-            }
-        }
+        for_each_coordinate<MAXD>(D, [&](int d) {
+            if (d == 0)
+                th0 = T[0][d];
+            else
+                rest = __fadd_rn(rest, __fmul_rn(T[0][d], T[0][d]));
+        });
         const float c1 = __fadd_rn(th0, centre);
         const float c2 = __fsub_rn(th0, centre);
         const float r1 = sqrtf(__fadd_rn(__fmul_rn(c1, c1), rest));
@@ -152,8 +181,10 @@ struct GaussianShellsLike {
 
 // models/examples.py::half_gaussian: the Gaussian with the first
 // coordinate's mean at 0 (a half-Gaussian on [0, 1]).
+template <int M>
 struct HalfGaussianLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float mu, sigma, norm, logzero;
     static constexpr int NT = 1;
 
@@ -161,37 +192,39 @@ struct HalfGaussianLike {
         const float z = __fdiv_rn(__fsub_rn(th, d == 0 ? 0.0f : mu), sigma);
         out[0] = __fmul_rn(z, z);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float chi2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) chi2 = __fadd_rn(chi2, T[0][d]);
+        for_each_coordinate<MAXD>(D, [&](int d) { chi2 = __fadd_rn(chi2, T[0][d]); });
         return __fsub_rn(norm, __fmul_rn(0.5f, chi2));
     }
 };
 
 // models/examples.py::pyramidal: norm - max_d(|theta_d - mu| / sigma)^2 / factor.
+template <int M>
 struct PyramidalLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float mu, sigma, norm, factor, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const {
         out[0] = __fdiv_rn(fabsf(__fsub_rn(th, mu)), sigma);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float m = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) m = d == 0 ? T[0][d] : fmaxf(m, T[0][d]);
+        for_each_coordinate<MAXD>(D, [&](int d) { m = d == 0 ? T[0][d] : fmaxf(m, T[0][d]); });
         return __fsub_rn(norm, __fdiv_rn(__fmul_rn(m, m), factor));
     }
 };
 
 // models/examples.py::rastrigin: -sum_d (log_norm + theta_d^2 - A cos(2 pi theta_d)),
 // with 2 pi the float32 of the torch form's Python constant.
+template <int M>
 struct RastriginLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float log_norm, A, two_pi, logzero;
     static constexpr int NT = 1;
 
@@ -199,19 +232,21 @@ struct RastriginLike {
         const float c = like_cosf(__fmul_rn(th, two_pi));
         out[0] = __fsub_rn(__fadd_rn(__fmul_rn(th, th), log_norm), __fmul_rn(c, A));
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float total = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) total = d == 0 ? T[0][d] : __fadd_rn(total, T[0][d]);
+        for_each_coordinate<MAXD>(
+            D, [&](int d) { total = d == 0 ? T[0][d] : __fadd_rn(total, T[0][d]); });
         return -total;
     }
 };
 
 // models/examples.py::twin_gaussian: an equal mixture of two Gaussians at
 // (-off, -off, 0, ...) and (+off, +off, 0, ...).
+template <int M>
 struct TwinGaussianLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float off, sigma, norm, log_two, logzero;
     static constexpr int NT = 2;
 
@@ -221,15 +256,13 @@ struct TwinGaussianLike {
         out[0] = __fmul_rn(z1, z1);
         out[1] = __fmul_rn(z2, z2);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float c1 = 0.0f, c2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                c1 = d == 0 ? T[0][d] : __fadd_rn(c1, T[0][d]);
-                c2 = d == 0 ? T[1][d] : __fadd_rn(c2, T[1][d]);
-            }
-        }
+        for_each_coordinate<MAXD>(D, [&](int d) {
+            c1 = d == 0 ? T[0][d] : __fadd_rn(c1, T[0][d]);
+            c2 = d == 0 ? T[1][d] : __fadd_rn(c2, T[1][d]);
+        });
         const float l1 = __fsub_rn(norm, __fmul_rn(0.5f, c1));
         const float l2 = __fsub_rn(norm, __fmul_rn(0.5f, c2));
         return mix_of_two(l1, l2, log_two);
@@ -238,13 +271,16 @@ struct TwinGaussianLike {
 
 // models/examples.py::himmelblau: norm - (x^2 + y - 11)^2 - (x + y^2 - 7)^2
 // on the first two coordinates.
+template <int M>
 struct HimmelblauLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float norm, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         const float th0 = D > 0 ? T[0][0] : 0.0f;
         const float th1 = D > 1 ? T[0][1] : 0.0f;
         const float a = __fsub_rn(__fadd_rn(__fmul_rn(th0, th0), th1), 11.0f);
@@ -255,46 +291,47 @@ struct HimmelblauLike {
 
 // models/examples.py::rosenbrock: norm - sum_{d<D-1} ((a - theta_d)^2 +
 // b (theta_{d+1} - theta_d^2)^2).
+template <int M>
 struct RosenbrockLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float a, b, norm, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const { out[0] = th; }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float prev = 0.0f, total = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d) {
-            if (d < D) {
-                const float th = T[0][d];
-                if (d > 0) {
-                    const float u = __fsub_rn(a, prev);
-                    const float v = __fsub_rn(th, __fmul_rn(prev, prev));
-                    const float term = __fadd_rn(__fmul_rn(u, u), __fmul_rn(__fmul_rn(v, v), b));
-                    total = d == 1 ? term : __fadd_rn(total, term);
-                }
-                prev = th;
+        for_each_coordinate<MAXD>(D, [&](int d) {
+            const float th = T[0][d];
+            if (d > 0) {
+                const float u = __fsub_rn(a, prev);
+                const float v = __fsub_rn(th, __fmul_rn(prev, prev));
+                const float term = __fadd_rn(__fmul_rn(u, u), __fmul_rn(__fmul_rn(v, v), b));
+                total = d == 1 ? term : __fadd_rn(total, term);
             }
-        }
+            prev = th;
+        });
         return __fsub_rn(norm, total);
     }
 };
 
 // models/examples.py::eggbox: -(2 + prod_d cos(theta_d / 2))^5, the fifth
 // power as q * (q^2)^2 (JAX's integer_pow order).
+template <int M>
 struct EggboxLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const {
         out[0] = like_cosf(__fdiv_rn(th, 2.0f));
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float p = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) p = d == 0 ? T[0][d] : __fmul_rn(p, T[0][d]);
+        for_each_coordinate<MAXD>(D, [&](int d) { p = d == 0 ? T[0][d] : __fmul_rn(p, T[0][d]); });
         const float q = __fadd_rn(p, 2.0f);
         const float q2 = __fmul_rn(q, q);
         return -__fmul_rn(q, __fmul_rn(q2, q2));
@@ -303,19 +340,20 @@ struct EggboxLike {
 
 // models/examples.py::gaussian_shell: one shell at the origin,
 // -A - (|theta| - radius)^2 / (2 sigma^2).
+template <int M>
 struct GaussianShellLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float radius, two_s2, neg_a, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const {
         out[0] = __fmul_rn(th, th);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
         float s = 0.0f;
-#pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
-            if (d < D) s = d == 0 ? T[0][d] : __fadd_rn(s, T[0][d]);
+        for_each_coordinate<MAXD>(D, [&](int d) { s = d == 0 ? T[0][d] : __fadd_rn(s, T[0][d]); });
         const float dr = __fsub_rn(sqrtf(s), radius);
         return __fsub_rn(neg_a, __fdiv_rn(__fmul_rn(dr, dr), two_s2));
     }
@@ -325,18 +363,21 @@ struct GaussianShellLike {
 // q = sum_i d_i (sum_j M_ij d_j), d = theta - mu, both sums in index order
 // from 0, M = c_like_matrix.  The d_j are indexed at run time, so they go
 // to local memory (this functor only).
+template <int M>
 struct RandomGaussianLike {
-    AffinePrior prior;
+    static constexpr int MAXD = M;
+    AffinePriorT<M> prior;
     float mu, norm, logzero;
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const {
         out[0] = __fsub_rn(th, mu);
     }
-    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], int D) const {
-        float dv[SLICE_MAXD];
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
+        float dv[MAXD];
 #pragma unroll
-        for (int d = 0; d < SLICE_MAXD; ++d)
+        for (int d = 0; d < MAXD; ++d)
             if (d < D) dv[d] = T[0][d];
         float q = 0.0f;
         for (int i = 0; i < D; ++i) {
@@ -364,55 +405,58 @@ enum {
     LIKE_RANDOM_GAUSSIAN = 10,
 };
 
-// Build the functor `id` from host arrays — its constants c[], the prior's
-// a[D] and s[D] — and call launch(functor).  random_gaussian's c[] ends
+// Build the functor `id` of the MAXD bucket (SLICE_MAXD or SLICE_MAXD_WIDE)
+// from host arrays — its constants c[], the prior's a[D] and s[D] — and
+// call launch(functor).  random_gaussian's c[] ends
 // with its D x D matrix, which goes to c_like_matrix on `stream` first.
 // Returns 0, a CUDA error of that copy, or cudaErrorInvalidValue for an
-// unknown id.
-template <class Launch>
+// unknown id (and for random_gaussian above the SLICE_MAXD bucket).
+template <int MAXD = SLICE_MAXD, class Launch>
 int with_likelihood(int id, const float* c, const float* prior_a,
                     const float* prior_s, int D, float logzero, cudaStream_t stream,
                     Launch&& launch) {
-    const AffinePrior prior = affine_prior(prior_a, prior_s, D);
+    const AffinePriorT<MAXD> prior = affine_prior<MAXD>(prior_a, prior_s, D);
     switch (id) {
         case LIKE_GAUSSIAN:
-            launch(GaussianLike{prior, c[0], c[1], c[2], logzero});
+            launch(GaussianLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
         case LIKE_GAUSSIAN_SHELLS:
-            launch(GaussianShellsLike{prior, c[0], c[1], c[2], c[3], c[4], logzero});
+            launch(GaussianShellsLike<MAXD>{prior, c[0], c[1], c[2], c[3], c[4], logzero});
             return 0;
         case LIKE_HALF_GAUSSIAN:
-            launch(HalfGaussianLike{prior, c[0], c[1], c[2], logzero});
+            launch(HalfGaussianLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
         case LIKE_PYRAMIDAL:
-            launch(PyramidalLike{prior, c[0], c[1], c[2], c[3], logzero});
+            launch(PyramidalLike<MAXD>{prior, c[0], c[1], c[2], c[3], logzero});
             return 0;
         case LIKE_RASTRIGIN:
-            launch(RastriginLike{prior, c[0], c[1], c[2], logzero});
+            launch(RastriginLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
         case LIKE_TWIN_GAUSSIAN:
-            launch(TwinGaussianLike{prior, c[0], c[1], c[2], c[3], logzero});
+            launch(TwinGaussianLike<MAXD>{prior, c[0], c[1], c[2], c[3], logzero});
             return 0;
         case LIKE_HIMMELBLAU:
-            launch(HimmelblauLike{prior, c[0], logzero});
+            launch(HimmelblauLike<MAXD>{prior, c[0], logzero});
             return 0;
         case LIKE_ROSENBROCK:
-            launch(RosenbrockLike{prior, c[0], c[1], c[2], logzero});
+            launch(RosenbrockLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
         case LIKE_EGGBOX:
-            launch(EggboxLike{prior, logzero});
+            launch(EggboxLike<MAXD>{prior, logzero});
             return 0;
         case LIKE_GAUSSIAN_SHELL:
-            launch(GaussianShellLike{prior, c[0], c[1], c[2], logzero});
+            launch(GaussianShellLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
-        case LIKE_RANDOM_GAUSSIAN: {
-            const cudaError_t e = cudaMemcpyToSymbolAsync(
-                c_like_matrix, c + 2, sizeof(float) * D * D, 0, cudaMemcpyHostToDevice,
-                stream);
-            if (e != cudaSuccess) return (int)e;
-            launch(RandomGaussianLike{prior, c[0], c[1], logzero});
-            return 0;
-        }
+        case LIKE_RANDOM_GAUSSIAN:
+            if constexpr (MAXD == SLICE_MAXD) {  // c_like_matrix holds D <= SLICE_MAXD
+                const cudaError_t e = cudaMemcpyToSymbolAsync(
+                    c_like_matrix, c + 2, sizeof(float) * D * D, 0, cudaMemcpyHostToDevice,
+                    stream);
+                if (e != cudaSuccess) return (int)e;
+                launch(RandomGaussianLike<MAXD>{prior, c[0], c[1], logzero});
+                return 0;
+            }
+            return (int)cudaErrorInvalidValue;
         default:
             return (int)cudaErrorInvalidValue;
     }

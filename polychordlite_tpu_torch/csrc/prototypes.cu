@@ -46,7 +46,7 @@
 #define PROTO_BLOCK 1024  // chains of one (8, 128) block of E5
 #define PROTO_THREADS 32  // one warp per block, as the slice kernels
 
-__global__ void proto_epoch_kernel(GaussianLike like, const int* __restrict__ seed,
+__global__ void proto_epoch_kernel(GaussianLike<SLICE_MAXD> like, const int* __restrict__ seed,
                                    const float* __restrict__ x0_in,
                                    const float* __restrict__ bound,
                                    const float* __restrict__ nhats,
@@ -77,7 +77,7 @@ __global__ void proto_epoch_kernel(GaussianLike like, const int* __restrict__ se
     nlike_out[b] = nlike;
 }
 
-__global__ void proto_repeat_kernel(GaussianLike like, const int* __restrict__ seed,
+__global__ void proto_repeat_kernel(GaussianLike<SLICE_MAXD> like, const int* __restrict__ seed,
                                     const float* __restrict__ x0_in,
                                     const float* __restrict__ nhat,
                                     const float* __restrict__ w,
@@ -92,7 +92,7 @@ __global__ void proto_repeat_kernel(GaussianLike like, const int* __restrict__ s
     slice_load(n, nhat, 0, D, B, g);
     const uint32_t block = (uint32_t)g / PROTO_BLOCK, lane = (uint32_t)g % PROTO_BLOCK;
     const uint32_t h = mix32((uint32_t)seed[0] + 7919u * block, lane);
-    const SliceRepeat rep = slice_repeat<GaussianLike, true>(
+    const SliceRepeat rep = slice_repeat<GaussianLike<SLICE_MAXD>, true>(
         like, x0, n, w[g], bound[g], h, D, PROTO_MAX_STEP, PROTO_MAX_SHRINK, PROTO_MAX_INNER);
     if (rep.accepted) slice_advance(x0, n, rep.t, D);
 #pragma unroll
@@ -102,13 +102,13 @@ __global__ void proto_repeat_kernel(GaussianLike like, const int* __restrict__ s
     nlike_out[g] = rep.cnt;
 }
 
-static GaussianLike proto_like(int D, float sigma, float norm, float logzero) {
+static GaussianLike<SLICE_MAXD> proto_like(int D, float sigma, float norm, float logzero) {
     AffinePrior prior;
     for (int d = 0; d < SLICE_MAXD; ++d) {
         prior.a[d] = 0.0f;
         prior.s[d] = d < D ? 1.0f : 0.0f;
     }
-    return GaussianLike{prior, 0.5f, sigma, norm, logzero};
+    return GaussianLike<SLICE_MAXD>{prior, 0.5f, sigma, norm, logzero};
 }
 
 // E4: seed int32[1], x0 (D, B), bound (B,), nhats (R, D, B), ws (R, B)

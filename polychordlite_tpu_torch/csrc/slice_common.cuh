@@ -1,5 +1,5 @@
 // Pieces shared by the slice-epoch kernels (likelihoods.cuh and every
-// slice_epoch*.cu) and probes.cu: the bound on the dimension, the phases of
+// slice_epoch*.cu) and probes.cu: the bounds on the dimension, the phases of
 // the per-lane state machine (ops/pallas_slice.py), and the murmur3 counter
 // hash the uniforms come from.
 #pragma once
@@ -7,7 +7,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The two dimension buckets of the slice-epoch template (slice_epoch.cuh):
+// D <= SLICE_MAXD, every kernel and G; SLICE_MAXD < D <= SLICE_MAXD_WIDE,
+// B1, B4 and B5 at G = SLICE_MAXD_WIDE / SLICE_LANE_CAP = 32 lanes per
+// chain, so that no lane owns more than SLICE_LANE_CAP coordinates.
 #define SLICE_MAXD 32
+#define SLICE_MAXD_WIDE 128
+#define SLICE_LANE_CAP 4
 
 enum { PH_INIT_R = 0, PH_INIT_L, PH_STEP_R, PH_STEP_L, PH_SHRINK, PH_DONE };
 

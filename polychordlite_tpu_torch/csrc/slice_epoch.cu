@@ -1,22 +1,25 @@
 // B1's entries for the device functors of likelihoods.cuh: the slice epoch
-// at any G (slice_epoch_launch) and its counted G = 1 form
-// (slice_epoch_counted_launch).  The kernel, its design and what bounds it
-// are in slice_epoch.cuh.
+// at any G (slice_epoch_launch; D <= 32 in the SLICE_MAXD bucket, up to 128
+// in the SLICE_MAXD_WIDE bucket at G = 32) and its counted G = 1 form
+// (slice_epoch_counted_launch, D <= 32).  The kernel, its design and what
+// bounds it are in slice_epoch.cuh.
 
 #include "slice_epoch.cuh"
 
 template <bool COUNTED>
 static int launch(int group, int functor, const float* consts, const float* prior_a,
                   const float* prior_s, const EpochArgs& a, float logzero, void* stream) {
-    if (!epoch_args_ok(a, group) || (COUNTED && group != 1)) return (int)cudaErrorInvalidValue;
+    if (!epoch_args_ok(a, group, COUNTED ? SLICE_MAXD : SLICE_MAXD_WIDE) ||
+        (COUNTED && group != 1))
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, a.D, logzero, st, [&](auto like) {
+    const int bad = with_bucket_likelihood(
+        functor, consts, prior_a, prior_s, a, logzero, st, [&](auto like) {
             using L = decltype(like);
-            if constexpr (COUNTED)
-                launch_epoch<V4Policy, L, 1, true>(like, a, st);
-            else
+            if constexpr (!COUNTED)
                 launch_epoch_group<V4Policy>(group, like, a, st);
+            else if constexpr (L::MAXD == SLICE_MAXD)
+                launch_epoch<V4Policy, L, 1, true>(like, a, st);
         });
     if (bad) return bad;
     return (int)cudaGetLastError();
@@ -26,8 +29,8 @@ static int launch(int group, int functor, const float* consts, const float* prio
 // above.  `functor` is a LIKE_* id of likelihoods.cuh, `consts` its
 // constants, and prior_a, prior_s the prior's D-vectors — these three are
 // host arrays.  `cap` bounds a chain's micro-steps over the epoch; `group`
-// is G, the lanes per chain (1, 2, 4, 8, 16 or 32).  Returns
-// cudaGetLastError() after the launch.
+// is G, the lanes per chain (1, 2, 4, 8, 16 or 32; 32 for D > 32).
+// Returns cudaGetLastError() after the launch.
 extern "C" int slice_epoch_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,

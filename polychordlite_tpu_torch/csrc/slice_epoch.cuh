@@ -58,6 +58,22 @@
 // chip_smoke.py's measure_first and lane_efficiency phases, both trees
 // twice in one run on an H100 80GB HBM3 at 700 W (PERF.md, section 6).
 //
+// Two dimension buckets (slice_common.cuh).  The functor's MAXD sizes every
+// per-lane array, K = MAXD / G slots a lane.  In the SLICE_MAXD = 32 bucket
+// every G is instantiated and the code is the design above.  Above D = 32
+// the SLICE_MAXD_WIDE = 128 bucket holds a chain on G = 32 lanes only
+// (K <= SLICE_LANE_CAP = 4: G = 1 would keep 128 coordinates a thread; G =
+// 16 measured slower than G = 32 at every wide shape timed, PERF.md section
+// 6), and its combine does not take the terms into registers — NT x 128
+// floats a lane would spill — but from shared memory: each lane stores the
+// terms it owns into its chain's row (NT x 128 + 1 floats; one warp, so one
+// chain, a block), a __syncwarp, and every lane of the group runs the same
+// index-order combine from the row (broadcast reads).  The order of every
+// float operation is the 32 bucket's, so each G is bitwise the plain
+// version and G = 32.  What bounds a wide micro-step is that combine: a
+// chain of D dependent adds (the index order the torch calc fixes), with
+// one warp a chain and 512 chains on 132 SMs.
+//
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
 // TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
 // the repository's top-level experiments/): the G = 1 kernel, instantiated
@@ -103,12 +119,12 @@ struct V3Policy {  // B4 (slice_epoch_v3.cu)
 };
 
 // B5's cube row r of chain b: each lane writes the coordinates it owns.
-template <class Policy, int G>
+template <class Policy, int G, int MAXD = SLICE_MAXD>
 __device__ __forceinline__ void repeat_end(const EpochArgs& a, int r, int b, const float* x0,
                                            int g) {
     if constexpr (Policy::CUBE) {
 #pragma unroll
-        for (int k = 0; k < SLICE_MAXD / G; ++k) {
+        for (int k = 0; k < MAXD / G; ++k) {
             const int d = g + k * G;
             if (d < a.D) a.cube_out[((size_t)r * a.D + d) * a.B + b] = x0[k];
         }
@@ -122,7 +138,7 @@ __device__ __forceinline__ void repeat_end(const EpochArgs& a, int r, int b, con
 // take the full mask.
 template <int G, class Like>
 struct GroupLane {
-    static constexpr int K = SLICE_MAXD / G;
+    static constexpr int K = Like::MAXD / G;
     const Like& like;
     float a[K], s[K];
     int g;
@@ -130,10 +146,17 @@ struct GroupLane {
     float logzero;
 };
 
+// The terms of the 128 bucket's chain, staged in shared memory: T[j][d].
+template <int MAXD>
+struct StagedTerms {
+    const float* p;
+    __device__ __forceinline__ const float* operator[](int j) const { return p + j * MAXD; }
+};
+
 template <int G, class Like>
 __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const float* x0,
                                            const float* n, float t, int D) {
-    constexpr int K = GroupLane<G, Like>::K, NT = Like::NT;
+    constexpr int K = GroupLane<G, Like>::K, NT = Like::NT, MAXD = Like::MAXD;
     bool inside = true;
     float own[NT][K];
 #pragma unroll
@@ -145,20 +168,41 @@ __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const fl
         for (int j = 0; j < NT; ++j) own[j][k] = o[j];
     }
     inside = (__ballot_sync(0xffffffffu, inside) & L.mask) == L.mask;
-    // every term to every lane of the group, in batches of 8 slots under a
-    // warp-uniform test so that a batch's shuffles issue back to back
-    float T[NT][SLICE_MAXD];
+    if constexpr (MAXD == SLICE_MAXD) {
+        // every term to every lane of the group, in batches of 8 slots under a
+        // warp-uniform test so that a batch's shuffles go out back to back
+        float T[NT][SLICE_MAXD];
 #pragma unroll
-    for (int c = 0; c < SLICE_MAXD; c += 8) {
-        if (c < D) {
+        for (int c = 0; c < SLICE_MAXD; c += 8) {
+            if (c < D) {
 #pragma unroll
-            for (int d = c; d < c + 8; ++d)
+                for (int d = c; d < c + 8; ++d)
 #pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    T[j][d] = __shfl_sync(0xffffffffu, own[j][d / G], d % G, G);
+                    for (int j = 0; j < NT; ++j)
+                        T[j][d] = __shfl_sync(0xffffffffu, own[j][d / G], d % G, G);
+            }
         }
+        return like_result(L.like.combine(T, D), inside, L.logzero);
+    } else {
+        // the 128 bucket: NT x MAXD terms per chain would spill from every
+        // lane's registers, so each lane stages the terms it owns in its
+        // chain's row of shared memory (one warp per block; the odd row
+        // stride puts the chains of a warp on distinct banks) and every lane
+        // of the group combines from there, in the same index order
+        __shared__ float staged[32 / G][NT * MAXD + 1];
+        float* row = staged[(threadIdx.x & 31) / G];
+        __syncwarp();  // the previous micro-step's combine has read the row
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int d = L.g + k * G;
+            if (d < D) {
+#pragma unroll
+                for (int j = 0; j < NT; ++j) row[j * MAXD + d] = own[j][k];
+            }
+        }
+        __syncwarp();
+        return like_result(L.like.combine(StagedTerms<MAXD>{row}, D), inside, L.logzero);
     }
-    return like_result(L.like.combine(T, D), inside, L.logzero);
 }
 
 // The lanes of the group of G that holds lane `lane` of a warp.
@@ -171,7 +215,7 @@ __device__ __forceinline__ unsigned group_mask(int lane) {
 template <int G, class Like>
 __device__ __forceinline__ void group_prior(GroupLane<G, Like>& L) {
 #pragma unroll
-    for (int k = 0; k < SLICE_MAXD / G; ++k) {
+    for (int k = 0; k < Like::MAXD / G; ++k) {
 #pragma unroll
         for (int j = 0; j < G; ++j) {  // static indices into the parameter
             if (L.g == j) {
@@ -186,6 +230,7 @@ __device__ __forceinline__ void group_prior(GroupLane<G, Like>& L) {
 // Returns the micro-steps the chain took.
 template <class Policy, class Like>
 __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochArgs& a, int b) {
+    static_assert(Like::MAXD == SLICE_MAXD, "one thread per chain in the SLICE_MAXD bucket only");
     const int B = a.B, D = a.D, R = a.R;
     long long steps = 0;
     int r = 0;
@@ -231,7 +276,7 @@ __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochAr
 template <class Policy, int G, class Like>
 __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const EpochArgs& a,
                                             int b, bool in_range) {
-    constexpr int K = SLICE_MAXD / G;
+    constexpr int MAXD = Like::MAXD, K = MAXD / G;
     const int B = a.B, D = a.D, R = a.R, g = L.g;
     bool done = !(in_range && a.valid[b] > 0.5f);
     int r = 0;
@@ -240,9 +285,9 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     uint32_t h_lane = 0;
     SliceState s;
     s.start();
-    if (!done || (Policy::CUBE && in_range)) slice_load<G>(x0, a.x0t, 0, D, B, b, g);
+    if (!done || (Policy::CUBE && in_range)) slice_load<G, MAXD>(x0, a.x0t, 0, D, B, b, g);
     if (!done) {
-        slice_load<G>(n, a.nhat, 0, D, B, b, g);
+        slice_load<G, MAXD>(n, a.nhat, 0, D, B, b, g);
         wr = a.w[b];
         bnd = a.bound[b];
         h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
@@ -253,7 +298,7 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
         if (!done && steps >= a.cap) {  // the budget ends the repeat unaccepted
             if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, s.cnt);
             if (Policy::STOP) {
-                repeat_end<Policy, G>(a, r++, b, x0, g);
+                repeat_end<Policy, G, MAXD>(a, r++, b, x0, g);
                 done = true;
             } else {
                 over = true;
@@ -269,14 +314,14 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
                 ++steps;
                 if (accepted) {
                     if (g == 0) write_repeat(a, r, b, t, logL, s.cnt);
-                    slice_advance<G>(x0, n, t, D, g);
+                    slice_advance<G, MAXD>(x0, n, t, D, g);
                     end = true;
                 }
             }
             if (end) {  // the cube row, then the next repeat
-                repeat_end<Policy, G>(a, r, b, x0, g);
+                repeat_end<Policy, G, MAXD>(a, r, b, x0, g);
                 if (++r < R) {
-                    slice_load<G>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
+                    slice_load<G, MAXD>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
                     wr = a.w[(size_t)r * B + b];
                     h_rep = mix32(h_lane, (uint32_t)r);
                     s.start();
@@ -290,7 +335,7 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     if (in_range) {
         for (; r < R; ++r) {  // invalid, never reached
             if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, 0);
-            repeat_end<Policy, G>(a, r, b, x0, g);
+            repeat_end<Policy, G, MAXD>(a, r, b, x0, g);
         }
     }
 }
@@ -298,6 +343,8 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
 template <class Policy, class Like, int G, bool COUNTED>
 __global__ void slice_epoch_kernel(Like like, EpochArgs a) {
     static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
+    static_assert(Like::MAXD == SLICE_MAXD || G * SLICE_LANE_CAP >= Like::MAXD,
+                  "at most SLICE_LANE_CAP coordinates per lane above SLICE_MAXD");
     const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
     const int b = lane_id / G;  // the chain
     long long steps = 0;        // micro-steps of this chain in the epoch
@@ -325,21 +372,44 @@ void launch_epoch(const Like& like, const EpochArgs& a, cudaStream_t stream) {
     slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
 }
 
-// Launch at `group` lanes per chain (one of 1, 2, 4, ..., 32).
+// Launch at `group` lanes per chain: one of 1, 2, 4, ..., 32 in the
+// SLICE_MAXD bucket, 32 in the SLICE_MAXD_WIDE bucket (the only
+// instantiation there, SLICE_LANE_CAP coordinates per lane at most).
 template <class Policy, class Like>
 void launch_epoch_group(int group, const Like& like, const EpochArgs& a, cudaStream_t st) {
-    switch (group) {
-        case 1: launch_epoch<Policy, Like, 1>(like, a, st); break;
-        case 2: launch_epoch<Policy, Like, 2>(like, a, st); break;
-        case 4: launch_epoch<Policy, Like, 4>(like, a, st); break;
-        case 8: launch_epoch<Policy, Like, 8>(like, a, st); break;
-        case 16: launch_epoch<Policy, Like, 16>(like, a, st); break;
-        default: launch_epoch<Policy, Like, 32>(like, a, st); break;
+    if constexpr (Like::MAXD == SLICE_MAXD) {
+        switch (group) {
+            case 1: launch_epoch<Policy, Like, 1>(like, a, st); break;
+            case 2: launch_epoch<Policy, Like, 2>(like, a, st); break;
+            case 4: launch_epoch<Policy, Like, 4>(like, a, st); break;
+            case 8: launch_epoch<Policy, Like, 8>(like, a, st); break;
+            case 16: launch_epoch<Policy, Like, 16>(like, a, st); break;
+            default: launch_epoch<Policy, Like, 32>(like, a, st); break;
+        }
+    } else {
+        static_assert(Like::MAXD == SLICE_MAXD_WIDE && SLICE_MAXD_WIDE / SLICE_LANE_CAP == 32,
+                      "the wide bucket's only instantiation is G = 32");
+        launch_epoch<Policy, Like, 32>(like, a, st);
     }
 }
 
-// Whether a launch of `group` lanes per chain can take these arguments.
-inline bool epoch_args_ok(const EpochArgs& a, int group) {
-    return a.D >= 1 && a.D <= SLICE_MAXD && a.R >= 1 && a.B >= 1 && group >= 1 &&
-           group <= 32 && !(group & (group - 1));
+// Whether a launch of `group` lanes per chain can take these arguments: D
+// up to `maxd` (SLICE_MAXD_WIDE for the entries with both buckets), and
+// above SLICE_MAXD only at the wide bucket's G.
+inline bool epoch_args_ok(const EpochArgs& a, int group, int maxd = SLICE_MAXD) {
+    return a.D >= 1 && a.D <= maxd && a.R >= 1 && a.B >= 1 && group >= 1 &&
+           group <= 32 && !(group & (group - 1)) &&
+           (a.D <= SLICE_MAXD || group * SLICE_LANE_CAP >= SLICE_MAXD_WIDE);
+}
+
+// with_likelihood (likelihoods.cuh) in the bucket of a.D: launch(functor)
+// with the functor of the SLICE_MAXD bucket for D <= SLICE_MAXD, else of the
+// SLICE_MAXD_WIDE bucket.
+template <class Launch>
+int with_bucket_likelihood(int id, const float* c, const float* prior_a, const float* prior_s,
+                           const EpochArgs& a, float logzero, cudaStream_t st,
+                           Launch&& launch) {
+    if (a.D <= SLICE_MAXD)
+        return with_likelihood<SLICE_MAXD>(id, c, prior_a, prior_s, a.D, logzero, st, launch);
+    return with_likelihood<SLICE_MAXD_WIDE>(id, c, prior_a, prior_s, a.D, logzero, st, launch);
 }

@@ -7,7 +7,8 @@
 // ops/fused_like.py traces the model's torch prior and likelihood, lowers
 // the trace to B1's two-stage functor interface (likelihoods.cuh) and writes
 // it, with the group size G and the dimension D, into the generated header
-// fused_like.cuh, found through -I at build time (utils/nvcc.py).  This entry
+// fused_like.cuh, found through -I at build time (utils/nvcc.py), in the
+// dimension bucket of D (FUSED_MAXD: 32, or 128 at G = 32).  This entry
 // instantiates slice_epoch.cuh's kernel for that functor at that one G only,
 // so that one build takes seconds; each model graph and G is a library of its
 // own, named by a hash of the header.  The model's constants (captured
@@ -39,9 +40,9 @@ extern "C" int slice_epoch_fused_launch(
     long long cap, float logzero, void* stream) {
     const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D,
                                    R, k0, k1, max_step, max_shrink, cap);
-    if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group))
+    if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD))
         return (int)cudaErrorInvalidValue;
-    const FusedLike like{affine_prior(prior_a, prior_s, D), consts, logzero};
+    const FusedLike like{affine_prior<FusedLike::MAXD>(prior_a, prior_s, D), consts, logzero};
     launch_epoch<V4Policy, FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

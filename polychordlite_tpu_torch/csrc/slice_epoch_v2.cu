@@ -105,16 +105,19 @@ template <bool COUNTED>
 static int launch(int group, int functor, const float* consts, const float* prior_a,
                   const float* prior_s, const EpochArgs& a, float logzero, void* stream,
                   int* iters) {
-    if (!epoch_args_ok(a, group) || (COUNTED && group != 1)) return (int)cudaErrorInvalidValue;
+    if (!epoch_args_ok(a, group, COUNTED ? SLICE_MAXD : SLICE_MAXD_WIDE) ||
+        (COUNTED && group != 1))
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, a.D, logzero, st, [&](auto like) {
+    const int bad = with_bucket_likelihood(
+        functor, consts, prior_a, prior_s, a, logzero, st, [&](auto like) {
             using L = decltype(like);
-            if constexpr (COUNTED) {  // one warp per block: warp w holds lanes 32w..32w+31
+            if constexpr (!COUNTED) {
+                launch_epoch_group<V2Policy>(group, like, a, st);
+            } else if constexpr (L::MAXD == SLICE_MAXD) {
+                // one warp per block: warp w holds lanes 32w..32w+31
                 const int blocks = (a.B + 31) / 32;
                 slice_epoch_v2_counted_kernel<L><<<blocks, 32, 0, st>>>(like, a, iters);
-            } else {
-                launch_epoch_group<V2Policy>(group, like, a, st);
             }
         });
     if (bad) return bad;
@@ -123,8 +126,9 @@ static int launch(int group, int functor, const float* consts, const float* prio
 
 // The interface of slice_epoch_launch (slice_epoch.cu), with `cap` the
 // micro-steps one repeat may take, cube_out an (R, D, B) float32 device
-// array and `group` G, the lanes per chain (1, 2, 4, 8, 16 or 32).  Returns
-// cudaGetLastError() after the launch.
+// array and `group` G, the lanes per chain (1, 2, 4, 8, 16 or 32; 32 for
+// D > 32, the SLICE_MAXD_WIDE bucket).  Returns cudaGetLastError() after
+// the launch.
 extern "C" int slice_epoch_v2_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,

@@ -48,7 +48,8 @@
 
 // The interface of slice_epoch_launch (slice_epoch.cu), with `cap` the
 // micro-steps one repeat may take and `group` G, the lanes per chain (1, 2,
-// 4, 8, 16 or 32).  Returns cudaGetLastError() after the launch.
+// 4, 8, 16 or 32; 32 for D > 32, the SLICE_MAXD_WIDE bucket).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int slice_epoch_v3_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
@@ -57,10 +58,10 @@ extern "C" int slice_epoch_v3_launch(
     long long cap, float logzero, void* stream, int group) {
     const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
                                    D, R, k0, k1, max_step, max_shrink, cap);
-    if (!epoch_args_ok(a, group)) return (int)cudaErrorInvalidValue;
+    if (!epoch_args_ok(a, group, SLICE_MAXD_WIDE)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, st,
+    const int bad = with_bucket_likelihood(
+        functor, consts, prior_a, prior_s, a, logzero, st,
         [&](auto like) { launch_epoch_group<V3Policy>(group, like, a, st); });
     if (bad) return bad;
     return (int)cudaGetLastError();

@@ -165,22 +165,22 @@ __device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const floa
 }
 
 // x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.  A
-// lane of a group of G holds coordinates d = g + k G at index k.
-template <int G = 1>
+// lane of a group of G holds coordinates d = g + k G at index k, k < MAXD / G.
+template <int G = 1, int MAXD = SLICE_MAXD>
 __device__ __forceinline__ void slice_advance(float* x0, const float* n, float t, int D,
                                               int g = 0) {
 #pragma unroll
-    for (int k = 0; k < SLICE_MAXD / G; ++k)
+    for (int k = 0; k < MAXD / G; ++k)
         if (g + k * G < D) x0[k] = __fadd_rn(x0[k], __fmul_rn(t, n[k]));
 }
 
 // Load lane b's seed (D, B) or direction of repeat r (R, D, B), chain axis
 // minor: coordinates d = g + k G to index k.
-template <int G = 1>
+template <int G = 1, int MAXD = SLICE_MAXD>
 __device__ __forceinline__ void slice_load(float* v, const float* __restrict__ src,
                                            size_t offset, int D, int B, int b, int g = 0) {
 #pragma unroll
-    for (int k = 0; k < SLICE_MAXD / G; ++k) {
+    for (int k = 0; k < MAXD / G; ++k) {
         const int d = g + k * G;
         if (d < D) v[k] = src[offset + (size_t)d * B + b];
     }

@@ -12,9 +12,13 @@ As in the reference (``chordal_sampling.f90:94-145``,
 * each direction is whitened by the cluster Cholesky L, normalised, and
   the initial slice width is w = 3 |L n̂| (``chordal_sampling.f90:73-82``).
 
-The Gaussians and the permutation come from an explicit ``torch.Generator``
-on the run's device.  :func:`make_directions` also takes them precomputed
-(``gauss``, ``perm``), which lets tests feed it the JAX package's draws.
+The bases come from the Gram-Schmidt kernels (``use_kernel``, every kernel
+engine) or from their plain version (the plain engine, on any device and
+at any dimension); the two agree bit for bit where a kernel exists, so the
+choice changes no run.  The Gaussians and the permutation come from an
+explicit ``torch.Generator`` on the run's device.  :func:`make_directions`
+also takes them precomputed (``gauss``, ``perm``), which lets tests feed it
+the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from .pallas_dirs import gram_schmidt_lanes
+from .pallas_dirs import gram_schmidt_lanes, gram_schmidt_plain
 
 
 def shared_permutation(R: int, generator: torch.Generator, device) -> torch.Tensor:
@@ -63,13 +67,17 @@ def make_directions(
     generator: Optional[torch.Generator] = None,
     gauss: Optional[List[torch.Tensor]] = None,
     perm: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
 ):
     """Whitened slice directions for a batch of chains.
 
     Returns (nhats (B,R,D) unit directions in cube space, w (B,R) initial
     widths, speeds (B,R) int64 grade of each slot).  ``gauss`` (per grade,
     ``(n_bases, sub, sub, B)``) and ``perm`` (R,) replace the draws from
-    ``generator`` when given."""
+    ``generator`` when given.  ``use_kernel`` (``directions.py:127-134``)
+    orthonormalises through :func:`gram_schmidt_lanes`, the kernel on a
+    CUDA tensor (up to dim 128; above, it raises); ``False`` asks for
+    :func:`gram_schmidt_plain` on any device, as the plain engine does."""
     B = cholesky.shape[0]
     device = cholesky.device
     R = int(sum(num_repeats))
@@ -82,7 +90,8 @@ def make_directions(
     for g, reps in enumerate(num_repeats):
         start = int(sum(grade_dims[:g]))
         sub = n_dims - start
-        qt = gram_schmidt_lanes(gauss[g])  # (NB, sub, sub, B), orthonormal columns
+        # (NB, sub, sub, B), orthonormal columns
+        qt = (gram_schmidt_lanes if use_kernel else gram_schmidt_plain)(gauss[g])
         n_bases = qt.shape[0]
         dirs = qt.permute(3, 0, 2, 1).reshape(B, n_bases * sub, sub)[:, :reps]
         full = torch.zeros((B, reps, n_dims), dtype=torch.float32, device=device)

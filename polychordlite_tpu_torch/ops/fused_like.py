@@ -25,9 +25,9 @@ the JAX package does).  A prior with an ``affine`` descriptor stays B1's
 and NaN -> logzero stay the kernel's (``like_result``).
 
 **Op table.**  Over static shapes, a value that is not a constant holding at
-most :data:`SLICE_MAXD` elements and a constant at most ``SLICE_MAXD**2``
-(the (D, D) matrix): elementwise arithmetic and comparisons, ``neg``,
-``abs``, ``pow``; ``exp``, ``log``, ``log1p``, ``expm1``,
+most :data:`SLICE_MAXD_WIDE` elements and a constant at most
+``SLICE_MAXD_WIDE**2`` (the (D, D) matrix): elementwise arithmetic and
+comparisons, ``neg``, ``abs``, ``pow``; ``exp``, ``log``, ``log1p``, ``expm1``,
 ``sqrt``, ``rsqrt``, ``sin``, ``cos``, ``tanh``, ``erfinv``, ``ndtri``;
 ``where``, ``clamp``, ``maximum``, ``minimum``; ``sum``, ``mean``,
 ``amax``, ``logsumexp``; ``select``, ``slice``, ``view``, ``unsqueeze``,
@@ -36,7 +36,10 @@ most :data:`SLICE_MAXD` elements and a constant at most ``SLICE_MAXD**2``
 once, here (a matrix inverted inside the likelihood becomes a constant).
 Anything else refuses lowering with the op's name as the reason (:class:`Refused`),
 as do data-dependent control flow, a larger shape, a dtype other than
-float32 or bool, and D > :data:`SLICE_MAXD`.
+float32 or bool, and D > :data:`SLICE_MAXD_WIDE`.  The header names the
+kernel template's dimension bucket of D (``FUSED_MAXD``: 32, or 128 where
+the combine reads the terms staged in shared memory,
+``csrc/slice_epoch.cuh``).
 
 **IR.**  Two statement lists over references (below).  ``term`` is the
 per-coordinate chain, evaluated for coordinate d on the lane that owns it;
@@ -69,10 +72,11 @@ import torch
 from ..utils import nvcc
 from .evaluate import probe_cubes, same_values
 
-#: the kernels' bound on the dimension (SLICE_MAXD of ``csrc/slice_common.cuh``)
-SLICE_MAXD = 32
+#: the kernel template's dimension buckets (SLICE_MAXD and SLICE_MAXD_WIDE of
+#: ``csrc/slice_common.cuh``)
+SLICE_MAXD, SLICE_MAXD_WIDE = 32, 128
 #: the most elements of a value that is not a constant, and of a constant
-MAX_ELEMENTS, MAX_CONST_ELEMENTS = SLICE_MAXD, SLICE_MAXD * SLICE_MAXD
+MAX_ELEMENTS, MAX_CONST_ELEMENTS = SLICE_MAXD_WIDE, SLICE_MAXD_WIDE * SLICE_MAXD_WIDE
 SOURCE = "slice_epoch_fused.cu"
 
 # A reference is a tuple:
@@ -338,7 +342,8 @@ class Lowered:
         combine = body(self.combine, "s") + [f"        return {ref_c(self.out)};"]
         return "\n".join([
             "struct FusedLike {",
-            "    AffinePrior prior;",
+            "    static constexpr int MAXD = FUSED_MAXD;",
+            "    AffinePriorT<MAXD> prior;",
             "    const float* __restrict__ c;  // the model's constants (device)",
             "    float logzero;",
             f"    static constexpr int NT = {self.n_terms};",
@@ -347,8 +352,8 @@ class Lowered:
             "        (void)d;",
             *term,
             "    }",
-            "    __device__ __forceinline__ float combine(const float (&T)[NT][SLICE_MAXD], "
-            "int) const {",
+            "    template <class TT>",
+            "    __device__ __forceinline__ float combine(const TT& T, int) const {",
             *combine,
             "    }",
             "};",
@@ -361,6 +366,7 @@ class Lowered:
             "// torch trace; built by slice_epoch_fused.cu.  Do not edit.",
             "#pragma once",
             f"#define FUSED_D {self.n_dims}",
+            f"#define FUSED_MAXD {SLICE_MAXD if self.n_dims <= SLICE_MAXD else SLICE_MAXD_WIDE}",
             f"#define FUSED_G {group}",
             f"#define FUSED_NC {len(self.consts)}",
             "",
@@ -905,8 +911,8 @@ def lower(calc) -> Lowered:
     if getattr(calc, "model", None) is None:
         raise Refused("no model to trace")
     D = calc.n_dims
-    if D > SLICE_MAXD:
-        raise Refused(f"D = {D} exceeds SLICE_MAXD = {SLICE_MAXD}")
+    if D > SLICE_MAXD_WIDE:
+        raise Refused(f"D = {D} exceeds SLICE_MAXD_WIDE = {SLICE_MAXD_WIDE}")
     prior_fn = calc.model[0]
     affine = getattr(prior_fn, "affine", None)
     low = _Lowering(trace(calc, affine is not None), D, calc.device)

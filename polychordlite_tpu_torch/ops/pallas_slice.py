@@ -314,9 +314,10 @@ def slice_records_lockstep_plain(
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0}
-#: slice_epoch_v2's launches by G since the last reset (the G of
-#: ``pallas_slice_v4.GROUPS``), apart from B1's
-GROUP_LAUNCHES = {g: 0 for g in (1, 2, 4, 8, 16, 32)}
+#: slice_epoch_v2's launches by (bucket, G) since the last reset (the keys of
+#: ``pallas_slice_v4.GROUP_LAUNCHES``), apart from B1's
+GROUP_LAUNCHES = {(b, g): 0 for b, gs in ((32, (1, 2, 4, 8, 16, 32)), (128, (32,)))
+                  for g in gs}
 
 
 def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None):
@@ -324,11 +325,12 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     (t, logL) float32, nlike int32, each (B, R), and cube (B, R, D)
     float32, with the inputs of ``pallas_slice_v4.slice_epoch``.  CPU
     tensors: the plain version; CUDA tensors: the kernel, which needs
-    ``calc.device_spec``, with ``group`` lanes per chain (one of
-    ``pallas_slice_v4.GROUPS``; ``pallas_slice_v4.choose_group`` by
-    default, as for B1).  Every G gives the same result bit for bit."""
-    if group is not None and group not in GROUP_LAUNCHES:
-        raise ValueError(f"group {group} is not one of {tuple(GROUP_LAUNCHES)}")
+    ``calc.device_spec``, with ``group`` lanes per chain (one of the
+    bucket's ``pallas_slice_v4.BUCKET_GROUPS``; ``pallas_slice_v4.
+    choose_group`` by default, as for B1).  Every G gives the same result
+    bit for bit."""
+    if group is not None and group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"group {group} is not one of (1, 2, 4, 8, 16, 32)")
     if x0.device.type == "cpu":
         return slice_records_lockstep_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
@@ -336,17 +338,17 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     # pallas_slice_v4 imports this module
-    from .pallas_slice_v4 import _sm_count, choose_group, launch_slice_kernel
+    from .pallas_slice_v4 import launch_group, launch_slice_kernel
 
     B, R, D = nhats.shape
-    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
+    key = launch_group(B, D, x0.device, group)
     cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
     t, logL, nlike = launch_slice_kernel(
         _lib(), "slice_epoch_v2_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
-        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(G,),
+        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(key[1],),
     )
     LAUNCHES["slice_epoch_v2"] += 1
-    GROUP_LAUNCHES[G] += 1
+    GROUP_LAUNCHES[key] += 1
     return t, logL, nlike, cube.permute(2, 0, 1)
 
 

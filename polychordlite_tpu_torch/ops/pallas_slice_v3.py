@@ -29,12 +29,14 @@ import torch
 
 from ..utils import nvcc
 from .pallas_slice import BODY, PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
-from .pallas_slice_v4 import GROUPS, _sm_count, choose_group, launch_slice_kernel
+from .pallas_slice_v4 import GROUPS, launch_group, launch_slice_kernel
+from .pallas_slice_v4 import GROUP_LAUNCHES as _B1_GROUP_LAUNCHES
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch_v3": 0}
-#: slice_epoch_v3's launches by G since the last reset, apart from B1's
-GROUP_LAUNCHES = {g: 0 for g in GROUPS}
+#: slice_epoch_v3's launches by (bucket, G) since the last reset (the keys of
+#: ``pallas_slice_v4.GROUP_LAUNCHES``), apart from B1's
+GROUP_LAUNCHES = dict.fromkeys(_B1_GROUP_LAUNCHES, 0)
 
 RC = 4  # direction-window slots (pallas_slice_v3.py:68)
 
@@ -125,7 +127,7 @@ def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     float32 and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
     tensors: the kernel, which needs ``calc.device_spec``, with ``group``
-    lanes per chain (one of ``pallas_slice_v4.GROUPS``;
+    lanes per chain (one of the bucket's ``pallas_slice_v4.BUCKET_GROUPS``;
     ``pallas_slice_v4.choose_group`` by default, as for B1).  Every G gives
     the same result bit for bit."""
     if group is not None and group not in GROUPS:
@@ -137,11 +139,12 @@ def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
-    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
+    key = launch_group(B, D, x0.device, group)
     out = launch_slice_kernel(
         nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"]), "slice_epoch_v3_launch",
-        calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY, ints=(G,),
+        calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
+        ints=(key[1],),
     )
     LAUNCHES["slice_epoch_v3"] += 1
-    GROUP_LAUNCHES[G] += 1
+    GROUP_LAUNCHES[key] += 1
     return out

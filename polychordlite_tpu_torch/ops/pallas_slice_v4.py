@@ -59,8 +59,14 @@ from ..utils import nvcc
 from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
 from .slice_kernel import EpochConfig, slice_records_plain
 
-#: the kernels' bound on the dimension (SLICE_MAXD of ``csrc/slice_common.cuh``)
-SLICE_MAXD = 32
+#: the kernel template's two dimension buckets and the most coordinates a
+#: lane owns in the wide one (SLICE_MAXD, SLICE_MAXD_WIDE and SLICE_LANE_CAP
+#: of ``csrc/slice_common.cuh``): D <= 32 at every G of :data:`GROUPS`;
+#: 32 < D <= 128 at G = 128 / 4 = 32 only (B1, B4, B5 and the fused route;
+#: B3 and the studies stop at 32).  G = 16, at 8 coordinates a lane, took
+#: 1.36-1.38x G = 32's time at D = 40, 64 and 128 (B = 512; PERF.md, section
+#: 6), so the wide bucket does not build it.
+SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
 
 #: kernel launches since the last reset (compare-with-plain launches included)
 LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0}
@@ -73,8 +79,12 @@ ROUNDS = 32
 WARP = 32  # lanes of a warp: the kernels run one warp per block
 #: the lanes a chain may be spread over (the kernel's instantiations)
 GROUPS = (1, 2, 4, 8, 16, 32)
-#: slice_epoch's launches by G since the last reset
-GROUP_LAUNCHES = {g: 0 for g in GROUPS}  # slice_epoch and slice_epoch_fused
+#: the G instantiated in each bucket
+BUCKET_GROUPS = {SLICE_MAXD: GROUPS,
+                 SLICE_MAXD_WIDE: tuple(g for g in GROUPS if g * LANE_CAP >= SLICE_MAXD_WIDE)}
+#: slice_epoch's and slice_epoch_fused's launches by (bucket, G) since the
+#: last reset
+GROUP_LAUNCHES = {(b, g): 0 for b, gs in BUCKET_GROUPS.items() for g in gs}
 #: the warps per SM that choose_group aims for (PERF.md: the epoch's
 #: time against G at the bench and gaussian.ini geometries)
 TARGET_WARPS_PER_SM = 8
@@ -107,18 +117,42 @@ def _lib():
     return nvcc.load("slice_epoch", ["slice_epoch.cu"])
 
 
+def bucket(D: int) -> int:
+    """The dimension bucket of the kernel template that takes D: raises
+    above :data:`SLICE_MAXD_WIDE`, naming the plain engine, which has no
+    bound."""
+    if D <= SLICE_MAXD:
+        return SLICE_MAXD
+    if D <= SLICE_MAXD_WIDE:
+        return SLICE_MAXD_WIDE
+    raise ValueError(f"D={D} exceeds the CUDA slice kernels' maximum {SLICE_MAXD_WIDE}; "
+                     "engine='torch' runs any D")
+
+
 def choose_group(B: int, D: int, n_sm: int) -> int:
     """G, the lanes of a warp that hold one chain: the smallest power of two
     whose B G / 32 warps reach :data:`TARGET_WARPS_PER_SM` on each of the
     card's ``n_sm`` SMs, and never more lanes than coordinates (G <= D, so
     every lane owns one).  More lanes per chain hide the micro-step's
     dependent chain behind more warps, but spend G times the issue slots on
-    each chain's state machine and sums."""
+    each chain's state machine and sums.  Above D = 32 (the wide bucket) G
+    is the bucket's one, 128 / :data:`LANE_CAP` = 32: no lane owns more
+    than LANE_CAP coordinates, so G >= D / LANE_CAP and never G = 1."""
     g_max = 1 << (min(D, WARP).bit_length() - 1)
-    g = 1
+    g = BUCKET_GROUPS[bucket(D)][0]
     while g < g_max and B * g < TARGET_WARPS_PER_SM * n_sm * WARP:
         g *= 2
     return g
+
+
+def launch_group(B: int, D: int, dev: torch.device, group=None):
+    """(bucket, G) of a kernel launch on ``dev``: ``group`` if given (it must
+    be one of the bucket's :data:`BUCKET_GROUPS`), else :func:`choose_group`."""
+    b = bucket(D)
+    G = choose_group(B, D, _sm_count(dev)) if group is None else group
+    if G not in BUCKET_GROUPS[b]:
+        raise ValueError(f"group {G} is not one of {BUCKET_GROUPS[b]} at D={D}")
+    return b, G
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -127,6 +161,15 @@ def _sm_count(dev: torch.device) -> int:
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
+
+
+def check_functor_dims(name: str, D: int) -> None:
+    """Raise if the device functor ``name`` cannot take D: random_gaussian's
+    matrix lives in a constant bank sized for :data:`SLICE_MAXD`."""
+    if name == "random_gaussian" and D > SLICE_MAXD:
+        raise ValueError(
+            f"random_gaussian's functor stops at D = {SLICE_MAXD} (its matrix lives in a "
+            f"constant bank sized for it), not D = {D}; use engine='torch' for this model")
 
 
 def functor_args(calc, D: int):
@@ -145,6 +188,7 @@ def functor_args(calc, D: int):
         [np.zeros(0, np.float32)]
         + [np.atleast_1d(np.asarray(spec["likelihood"][k], np.float32)).ravel() for k in keys]
     )
+    check_functor_dims(name, D)
     if name == "random_gaussian" and consts.size != 2 + D * D:
         raise ValueError(f"random_gaussian's matrix is not {D} x {D}")
     prior_a, prior_s = (np.ascontiguousarray(v, dtype=np.float32) for v in spec["prior"])
@@ -165,8 +209,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     the device and ``ints`` further int arguments, passed after the stream
     in that order."""
     B, R, D = nhats.shape
-    if D > SLICE_MAXD:
-        raise ValueError(f"D={D} exceeds the kernels' maximum {SLICE_MAXD}")
+    bucket(D)  # raises above the wide bucket
     fid, consts, prior_a, prior_s = functor_args(calc, D) if functor is None else functor
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError(f"{entry}: inconsistent shapes")
@@ -212,8 +255,9 @@ def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
     int32, each (B, R).  ``x0 (B,D)``, ``bound (B,)``, ``valid (B,)`` bool,
     ``nhats (B,R,D)``, ``ws (B,R)``.  CPU tensors: the plain version; CUDA
     tensors: the kernel, which needs ``calc.device_spec``, with ``group``
-    lanes per chain (one of :data:`GROUPS`; :func:`choose_group` by
-    default).  Every G gives the same result bit for bit."""
+    lanes per chain (one of the bucket's :data:`BUCKET_GROUPS`;
+    :func:`choose_group` by default).  Every G gives the same result bit
+    for bit."""
     if group is not None and group not in GROUPS:
         raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
@@ -223,11 +267,11 @@ def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
-    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
+    key = launch_group(B, D, x0.device, group)
     out = launch_slice_kernel(_lib(), "slice_epoch_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, ints=(G,))
+                              x0, bound, valid, nhats, ws, ints=(key[1],))
     LAUNCHES["slice_epoch"] += 1
-    GROUP_LAUNCHES[G] += 1
+    GROUP_LAUNCHES[key] += 1
     return out
 
 
@@ -277,8 +321,8 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     int32, each (B, R), with the inputs of :func:`slice_epoch`.  CPU
     tensors: the plain version, ``slice_records_plain`` on
     ``Lowered.plain_logL``; CUDA tensors: ``csrc/slice_epoch_fused.cu``
-    with ``group`` lanes per chain (:func:`choose_group` by default), its
-    library built at first use.  A model the lowering refused raises, naming
+    with ``group`` lanes per chain (:func:`launch_group`), its library
+    built at first use.  A model the lowering refused raises, naming
     the reason."""
     from .fused_like import Refused, lowering
 
@@ -292,12 +336,13 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
-    G = choose_group(B, D, _sm_count(x0.device)) if group is None else group
+    key = launch_group(B, D, x0.device, group)
+    G = key[1]
     functor = (G, low.device_consts(x0.device), *low.prior)
     out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
                               x0, bound, valid, nhats, ws, functor=functor)
     LAUNCHES["slice_epoch_fused"] += 1
-    GROUP_LAUNCHES[G] += 1
+    GROUP_LAUNCHES[key] += 1
     return out
 
 

@@ -41,6 +41,7 @@ from .pallas_slice import (
 )
 from ..utils import nvcc
 from .pallas_slice_v4 import (
+    SLICE_MAXD,
     TARGET_WARPS_PER_SM,
     WARP,
     _sm_count,
@@ -62,6 +63,14 @@ GROUP_LAUNCHES = {g: 0 for g in PACKET_GROUPS}
 
 def _lib():
     return nvcc.load("slice_epoch_v5", ["slice_epoch_v5.cu"])
+
+
+def check_dims(D: int) -> None:
+    """Raise above B3's bound on the dimension, SLICE_MAXD = 32 (the packet
+    machine's x0[SLICE_MAXD], n[SLICE_MAXD] per thread)."""
+    if D > SLICE_MAXD:
+        raise ValueError(f"engine='cuda5' (the packet kernel) stops at D = {SLICE_MAXD}, "
+                         f"not D = {D}; engine='cuda' or 'torch' runs it")
 
 
 def choose_packet_group(B: int, D: int, n_sm: int, resident_warps) -> int:
@@ -318,9 +327,12 @@ def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, w
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
     tensors: the kernel, which needs ``calc.device_spec``, with ``group``
     lanes per chain (one of :data:`PACKET_GROUPS`; :func:`packet_group_for`
-    by default).  Every G gives the same result bit for bit."""
+    by default).  Every G gives the same result bit for bit.  The packet
+    machine keeps a chain's coordinates per thread, so it stops at D =
+    ``SLICE_MAXD`` (32), on either device; above, it raises."""
     if group is not None and group not in PACKET_GROUPS:
         raise ValueError(f"group {group} is not one of {PACKET_GROUPS}")
+    check_dims(nhats.shape[2])
     if x0.device.type == "cpu":
         return slice_records_packet_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws

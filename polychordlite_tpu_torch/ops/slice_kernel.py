@@ -157,14 +157,19 @@ def cuda_route(calc) -> Tuple[str, str]:
     any traced likelihood in its kernel:
 
     1. ``"slice_epoch"``, B1's functor kernel, for a model with a device
-       form (``calc.device_spec``);
+       form (``calc.device_spec``); a functor that cannot take the model's D
+       raises here, before the run (random_gaussian above 32);
     2. ``"slice_epoch_fused"``, B1 with the likelihood lowered into it,
        for a model ``ops/fused_like.py`` lowers (once per calc, kept on it);
     3. ``"slice_step"``, the traced route, for any other model; the reason
        is what refused lowering (the op, the condition).  The route itself
        refuses a host-callback model on the card."""
     if getattr(calc, "device_spec", None) is not None:
-        return "slice_epoch", f"device functor {calc.device_spec['likelihood']['name']!r}"
+        from .pallas_slice_v4 import check_functor_dims
+
+        name = calc.device_spec["likelihood"]["name"]
+        check_functor_dims(name, calc.n_dims)
+        return "slice_epoch", f"device functor {name!r}"
     from .fused_like import Refused, lowering
 
     low = lowering(calc)
@@ -176,8 +181,8 @@ def cuda_route(calc) -> Tuple[str, str]:
 
 def kernel_wrapper(engine: str):
     """The wrapper of an engine's CUDA kernel: (calc, cfg, key_words, x0,
-    bound, valid, nhats, ws) -> (t, logL, nlike[, cube]).  On CPU tensors
-    each wrapper runs its own plain version.  ``"cuda"`` takes
+    bound, valid, nhats, ws, group=None) -> (t, logL, nlike[, cube]).  On
+    CPU tensors each wrapper runs its own plain version.  ``"cuda"`` takes
     :func:`cuda_route`'s route; the other engines need a functor."""
     from .pallas_slice_v3 import slice_epoch_v3
     from .pallas_slice_v4 import slice_epoch, slice_epoch_fused, slice_epoch_traced
@@ -186,8 +191,8 @@ def kernel_wrapper(engine: str):
     routes = {"slice_epoch": slice_epoch, "slice_epoch_fused": slice_epoch_fused,
               "slice_step": slice_epoch_traced}
 
-    def cuda(calc, cfg, *args):
-        return routes[cuda_route(calc)[0]](calc, cfg, *args)
+    def cuda(calc, cfg, *args, **kw):
+        return routes[cuda_route(calc)[0]](calc, cfg, *args, **kw)
 
     return {"cuda": cuda, "cuda5": slice_epoch_v5, "cuda3": slice_epoch_v3,
             "cuda2": slice_epoch_v2}[engine]
@@ -238,9 +243,11 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,
               generator=None, directions=None):
         if directions is None:
+            # the plain engine asks for the plain Gram-Schmidt by name: its
+            # runs reach no kernel, at any dimension
             directions = make_directions(
                 cholesky, grade_dims=cfg.grade_dims, num_repeats=cfg.num_repeats,
-                n_dims=cfg.n_dims, generator=generator,
+                n_dims=cfg.n_dims, generator=generator, use_kernel=cfg.engine != "torch",
             )
         nhats, ws, speeds = directions
         seed_f = seed_cube.to(torch.float32)

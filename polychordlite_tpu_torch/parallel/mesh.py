@@ -27,6 +27,20 @@ from ..ops.slice_kernel import EpochConfig, build_epoch_fn, epoch_route, unpack_
 GRANULE = 128
 
 
+def run_group(engine: str, calc, B: int, D: int, device: torch.device):
+    """G, the lanes per chain that ``engine``'s kernel picks for B chains of
+    D coordinates of ``calc`` on ``device`` (None on the CPU, where the
+    wrappers run their plain versions)."""
+    if device.type != "cuda":
+        return None
+    from ..ops.pallas_slice_v4 import _sm_count, choose_group
+    from ..ops.pallas_slice_v5 import packet_group_for
+
+    if engine == "cuda5":
+        return packet_group_for(calc, B, D, device)
+    return choose_group(B, D, _sm_count(device))
+
+
 def make_epoch_runner(
     calc: Callable,
     cfg: EpochConfig,
@@ -46,17 +60,20 @@ def make_epoch_runner(
     tail = len(cfg.grade_dims) + 1  # per-grade nlike + overflow flag
 
     epoch_fn = build_epoch_fn(calc, cfg)
-    if cfg.engine != "torch" and calc.device_spec is not None:  # the functor, in its kernel
+    # the functor (or the lowered one), in its kernel, at the (bucket, G) that
+    # the run's batch takes
+    if cfg.engine != "torch" and calc.device_spec is not None:
         from ..ops.pallas_slice_v4 import validate_functor
         from ..ops.slice_kernel import kernel_wrapper
 
-        validate_functor(calc, cfg, device, kernel_wrapper(cfg.engine))
+        wrapper = kernel_wrapper(cfg.engine)
+        group = run_group(cfg.engine, calc, B_phys, D, device)
+        validate_functor(calc, cfg, device, lambda *a: wrapper(*a, group=group))
     elif (cfg.engine == "cuda" and device.type == "cuda"
           and epoch_route(cfg.engine, calc) == "slice_epoch_fused"):
-        # the lowered functor, in its kernel, at the G the run's batch takes
-        from ..ops.pallas_slice_v4 import _sm_count, choose_group, validate_fused
+        from ..ops.pallas_slice_v4 import validate_fused
 
-        validate_fused(calc, cfg, device, choose_group(B_phys, D, _sm_count(device)))
+        validate_fused(calc, cfg, device, run_group(cfg.engine, calc, B_phys, D, device))
 
     # cumulative epoch-phase timers (host clock, seconds)
     timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "unpack": 0.0}

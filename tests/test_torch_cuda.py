@@ -169,9 +169,9 @@ def test_slice_kernel_every_group(dev, G, D, capped):
     nh, w, _ = make_directions((0.2 * torch.eye(D, device=dev)).expand(B, D, D),
                                grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
     args = (x0, bound, valid, nh, w)
-    before = pallas_slice_v4.GROUP_LAUNCHES[G]
+    before = pallas_slice_v4.GROUP_LAUNCHES[32, G]
     got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice_v4.GROUP_LAUNCHES[G] == before + 1
+    assert pallas_slice_v4.GROUP_LAUNCHES[32, G] == before + 1
     want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
     one = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=1)
     for a, b, c in zip(got, want, one):
@@ -226,9 +226,9 @@ def test_v2_kernel_every_group(dev, G, D, caps):
     R, B = 6, 999
     calc, args = _group_args(dev, D, R, B)
     cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
-    before = pallas_slice.GROUP_LAUNCHES[G]
+    before = pallas_slice.GROUP_LAUNCHES[32, G]
     got = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice.GROUP_LAUNCHES[G] == before + 1
+    assert pallas_slice.GROUP_LAUNCHES[32, G] == before + 1
     want = pallas_slice.slice_records_lockstep_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
     one = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=1)
     for k in range(4):
@@ -289,9 +289,9 @@ def test_v3_kernel_every_group(dev, G, D, caps):
     R, B = 6, 999
     calc, args = _group_args(dev, D, R, B)
     cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,), **caps)
-    before = pallas_slice_v3.GROUP_LAUNCHES[G]
+    before = pallas_slice_v3.GROUP_LAUNCHES[32, G]
     got = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice_v3.GROUP_LAUNCHES[G] == before + 1
+    assert pallas_slice_v3.GROUP_LAUNCHES[32, G] == before + 1
     want = pallas_slice_v3.slice_records_window_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
     b1 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
     one = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=1)
@@ -931,3 +931,169 @@ def test_fused_build_failure_raises(dev, monkeypatch):
             torch.full((B, 3), 0.5, device=dev), torch.full((B,), -10.0, device=dev),
             torch.ones(B, dtype=torch.bool, device=dev),
             torch.ones((B, 1, 3), device=dev) / math.sqrt(3), torch.ones((B, 1), device=dev))
+
+
+# ---- the wide bucket: 32 < D <= 128 (csrc/slice_epoch.cuh, csrc/gram_schmidt.cu)
+WIDE_D = [33, 40, 64, 100, 128]
+WIDE_GROUPS = pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.SLICE_MAXD_WIDE]
+
+
+@pytest.mark.parametrize("dim", WIDE_D)
+def test_gram_schmidt_wide_kernel_equals_plain(dev, dim):
+    """B2's warp-per-basis kernel above dim 32 bitwise its plain version (the
+    kernel's order of summation), at a chain count that is not a multiple
+    of a warp; one launch counted as the wide kernel's."""
+    g = torch.randn((2, dim, dim, 300), generator=torch.Generator(dev).manual_seed(dim),
+                    device=dev)
+    before = dict(pallas_dirs.LAUNCHES)
+    q = pallas_dirs.gram_schmidt_lanes(g)
+    assert pallas_dirs.LAUNCHES["gram_schmidt_wide"] == before["gram_schmidt_wide"] + 1
+    assert pallas_dirs.LAUNCHES["gram_schmidt"] == before["gram_schmidt"]
+    assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+    eye = torch.eye(dim, device=dev)[None, :, :, None]
+    assert (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max() < 1e-5
+    assert pallas_dirs._lib().gram_schmidt_max_dim() == pallas_dirs.MAXD
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("D", WIDE_D)
+@pytest.mark.parametrize("G", WIDE_GROUPS)
+def test_wide_slice_kernel_every_group(dev, G, D, capped):
+    """B1 in the 128 bucket (the terms staged in shared memory) at each of
+    its G, bitwise its plain version and G = 32, at B = 999 chains with
+    invalid lanes and a budget that stops lanes mid-epoch; one launch
+    counted at (128, G); G = 8 is not instantiated and raises."""
+    R, B = 4, 999
+    calc, args = _group_args(dev, D, R, B)
+    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
+                                                     num_repeats=(R,))
+    before = pallas_slice_v4.GROUP_LAUNCHES[128, G]
+    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=G)
+    assert pallas_slice_v4.GROUP_LAUNCHES[128, G] == before + 1
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    g32 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=32)
+    for a, b, c in zip(got, want, g32):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    valid = args[2]
+    assert (got[2][~valid] == 0).all() and (got[2][valid].sum(1) > 0).all()
+    assert bool((got[1][valid] == np.float32(cfg.logzero)).any()) == capped
+    with pytest.raises(ValueError, match="not one of"):
+        pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=8)
+
+
+@pytest.mark.parametrize("D", WIDE_D)
+@pytest.mark.parametrize("G", WIDE_GROUPS)
+def test_wide_v2_v3_kernels_every_group(dev, G, D):
+    """B5 (v2's policy, cube included) and B4 (v3's) in the 128 bucket at
+    each of its G, bitwise their plain versions and G = 32, B4 also B1."""
+    R, B = 4, 999
+    calc, args = _group_args(dev, D, R, B)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    before = (pallas_slice.GROUP_LAUNCHES[128, G], pallas_slice_v3.GROUP_LAUNCHES[128, G])
+    v2 = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=G)
+    v3 = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=G)
+    assert (pallas_slice.GROUP_LAUNCHES[128, G], pallas_slice_v3.GROUP_LAUNCHES[128, G]) == (
+        before[0] + 1, before[1] + 1)
+    v2_want = pallas_slice.slice_records_lockstep_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    v2_32 = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args, group=32)
+    for k in range(4):
+        assert torch.equal(v2[k], v2_want[k]) and torch.equal(v2[k], v2_32[k]), k
+    v3_want = pallas_slice_v3.slice_records_window_plain(lambda p: calc(p)[2], cfg, (5, 6),
+                                                          *args)
+    refs = (v3_want, pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args, group=32),
+            pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, group=G))
+    for k in range(3):
+        for ref in refs:
+            assert torch.equal(v3[k], ref[k]), k
+
+
+def _per_point_gaussian(theta):
+    """gaussian.ini's likelihood per point (sigma 0.1, mu 0.5, normalised)."""
+    D = theta.shape[-1]
+    return (-0.5 * torch.sum(((theta - 0.5) / 0.1) ** 2)
+            - D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)))
+
+
+@pytest.mark.parametrize("D", WIDE_D)
+def test_wide_fused_kernel_every_group_equals_plain(dev, D):
+    """A per-point torch Gaussian lowered into the 128 bucket: the fused
+    kernel at each of its G (libraries built in parallel) bitwise its plain
+    version, with invalid lanes, and validate_fused at the rule's G."""
+    calc = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0, device=dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered), low
+    assert "#define FUSED_MAXD 128" in low.source(32)
+    B, R = 999, 4
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w, _ = make_directions((0.05 * torch.eye(D, device=dev)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = (x0, low.plain_logL(x0) - 2.0, valid, nh, w)
+    want = slice_records_plain(low.plain_logL, cfg, (9, 10), *args)
+    low.build(WIDE_GROUPS)
+    for G in WIDE_GROUPS:
+        before = pallas_slice_v4.GROUP_LAUNCHES[128, G]
+        got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args, group=G)
+        assert pallas_slice_v4.GROUP_LAUNCHES[128, G] == before + 1
+        for k, a, b in zip(("t", "logL", "nlike"), got, want):
+            assert torch.equal(a, b), (G, k, int((a != b).sum()))
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+    pallas_slice_v4.validate_fused(calc, cfg, dev, pallas_slice_v4.choose_group(
+        B, D, torch.cuda.get_device_properties(dev).multi_processor_count))
+
+
+@pytest.mark.parametrize("name", sorted(LIKELIHOODS))
+def test_every_functor_in_the_wide_bucket(dev, name):
+    """Each likelihood's functor at D = 40 against its torch calc through B1,
+    B4 and B5 at each of the 128 bucket's G; random_gaussian's, whose matrix
+    lives in a constant bank sized for D <= 32, refuses, naming the bound."""
+    D = 40
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), LIKELIHOODS[name](D), D, 0,
+                                   device=dev)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(2,))
+    if name == "random_gaussian":
+        with pytest.raises(ValueError, match="D = 32"):
+            pallas_slice_v4.validate_functor(calc, cfg, dev)
+        return
+    for G in WIDE_GROUPS:
+        for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice_v3.slice_epoch_v3,
+                        pallas_slice.slice_epoch_v2):
+            pallas_slice_v4.validate_functor(calc, cfg, dev, functools.partial(wrapper, group=G))
+
+
+def test_plain_engine_runs_above_the_kernels_bounds_on_the_card(dev):
+    """engine="torch" on the card at D = 40: its directions come from the
+    plain Gram-Schmidt by name, so the run launches no kernel at all, and it
+    finishes."""
+    launches0 = dict(pallas_dirs.LAUNCHES)
+    with tempfile.TemporaryDirectory() as base:
+        out = pt.run(gaussian(40), 40, nDerived=2, nlive=100, num_repeats=4,
+                     do_clustering=False, read_resume=False, base_dir=base, seed=4,
+                     feedback=-1, device="cuda", engine="torch", max_ndead=400)
+        with open(os.path.join(base, "test.metrics.jsonl")) as f:
+            last = json.loads(f.read().splitlines()[-1])
+    assert pallas_dirs.LAUNCHES == launches0
+    assert last["engine"] == "torch" and not any(last["kernel_launches"].values())
+    assert out.ndead >= 400 and math.isfinite(out.logZ)
+
+
+def test_wide_run_takes_the_fused_route(dev):
+    """A per-point torch Gaussian at D = 40 through run() on the card: the
+    fused route in the 128 bucket and B2's wide kernel, chained epochs
+    kept."""
+    with tempfile.TemporaryDirectory() as base:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a replay divergence would warn
+            out = pt.run(_per_point_gaussian, 40, nlive=100, num_repeats=8,
+                         do_clustering=False, read_resume=False, base_dir=base, seed=6,
+                         feedback=-1, device="cuda", max_ndead=600)
+        with open(os.path.join(base, "test.metrics.jsonl")) as f:
+            last = json.loads(f.read().splitlines()[-1])
+    ran = last["kernel_launches"]
+    assert last["route"] == "slice_epoch_fused" and last["chained_epochs"] is True
+    assert ran["slice_epoch_fused"] > 0 and ran["gram_schmidt_wide"] > 0
+    assert ran["gram_schmidt"] == ran["slice_epoch"] == ran["slice_step"] == 0
+    assert set(last["group_launches"]) == {"128/32"}
+    assert out.ndead >= 600 and math.isfinite(out.logZ)

@@ -187,7 +187,7 @@ def _branch(theta):
 REFUSALS = {  # likelihood, D, the reason's words
     "data_dependent_branch": (_branch, 3, "data-dependent"),
     "op_outside_the_table": (lambda th: torch.lgamma(th + 1.0).sum(-1), 3, "aten.lgamma"),
-    "d40": (lambda th: -(th ** 2).sum(-1), 40, "D = 40"),
+    "d129": (lambda th: -(th ** 2).sum(-1), 129, "D = 129"),
 }
 
 
@@ -309,8 +309,7 @@ _HOST_MAIN = r"""
 #define __fmul_rn(a, b) ((a) * (b))
 #define __fdiv_rn(a, b) ((a) / (b))
 #define __ldg(p) (*(p))
-#define SLICE_MAXD 32
-struct AffinePrior { float a[SLICE_MAXD]; float s[SLICE_MAXD]; };
+template <int M> struct AffinePriorT { float a[M]; float s[M]; };
 #include "fused_ops.cuh"
 #include "fused_like.cuh"
 
@@ -330,7 +329,7 @@ int main() {
     if (fread(p, sizeof(float), (size_t)FUSED_D * B, stdin) != (size_t)FUSED_D * B) return 1;
     for (int b = 0; b < B; ++b) {
         bool inside = true;
-        float T[FusedLike::NT][SLICE_MAXD];
+        float T[FusedLike::NT][FusedLike::MAXD];
         for (int d = 0; d < FUSED_D; ++d) {
             const float x = p[b * FUSED_D + d];
             inside = inside && x >= 0.0f && x <= 1.0f;

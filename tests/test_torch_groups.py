@@ -141,7 +141,8 @@ class _OnCard:  # what the wrappers read of a CUDA tensor before launching
 def test_packet_and_v2_launches_pass_the_group(monkeypatch):
     """On the card, B3 launches at choose_packet_group's G (or the one asked
     for) and B4 and B5 at choose_group's, each entry given G; each counts
-    its launch by G in its own GROUP_LAUNCHES, none in B1's.  The launch is
+    its launch by G (B4 and B5 by the dimension bucket and G) in its own
+    GROUP_LAUNCHES, none in B1's.  The launch is
     recorded instead of made, and B3's kernels keep the Gaussian's resident
     warps."""
     launched = []
@@ -150,9 +151,11 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
         launched.append((entry, ints))
         return None, None, None
 
-    # B5 imports v4's names at the call, B4 at its own import
-    for mod in (pallas_slice_v5, pallas_slice_v4, pallas_slice_v3):
+    # B5 imports v4's names at the call, B4 at its own import; both pick G
+    # through v4's launch_group
+    for mod in (pallas_slice_v5, pallas_slice_v4):
         monkeypatch.setattr(mod, "_sm_count", lambda dev: H100_SMS)
+    for mod in (pallas_slice_v5, pallas_slice_v4, pallas_slice_v3):
         monkeypatch.setattr(mod, "launch_slice_kernel", record)
     monkeypatch.setattr(pallas_slice_v3.nvcc, "load", lambda *a: None)
     monkeypatch.setattr(pallas_slice_v5, "_lib", lambda: None)
@@ -187,12 +190,15 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
                             ("slice_epoch_v3_launch", (4,)), ("slice_epoch_v3_launch", (8,))]
         assert {g: c for g, c in pallas_slice_v5.GROUP_LAUNCHES.items() if c} == {32: 1, 1: 1,
                                                                                    8: 1}
-        assert {g: c for g, c in pallas_slice.GROUP_LAUNCHES.items() if c} == {16: 1, 2: 1}
-        assert {g: c for g, c in pallas_slice_v3.GROUP_LAUNCHES.items() if c} == {16: 1, 4: 1,
-                                                                                   8: 1}
+        assert {k: c for k, c in pallas_slice.GROUP_LAUNCHES.items() if c} == {(32, 16): 1,
+                                                                               (32, 2): 1}
+        assert {k: c for k, c in pallas_slice_v3.GROUP_LAUNCHES.items() if c} == {
+            (32, 16): 1, (32, 4): 1, (32, 8): 1}
         assert not any(pallas_slice_v4.GROUP_LAUNCHES.values())
-        assert tuple(pallas_slice.GROUP_LAUNCHES) == GROUPS
-        assert tuple(pallas_slice_v3.GROUP_LAUNCHES) == GROUPS
+        # B4 and B5 count by B1's (bucket, G)
+        assert tuple(pallas_slice.GROUP_LAUNCHES) == tuple(pallas_slice_v4.GROUP_LAUNCHES)
+        assert tuple(pallas_slice_v3.GROUP_LAUNCHES) == tuple(pallas_slice_v4.GROUP_LAUNCHES)
+        assert tuple(g for b, g in pallas_slice_v4.GROUP_LAUNCHES if b == 32) == GROUPS
     finally:
         for c, old in zip(counters, saved):
             c.update(old)

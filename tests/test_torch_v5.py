@@ -320,7 +320,7 @@ int main() {
     float* t = (float*)malloc(sizeof(float) * R * B);
     float* logL = (float*)malloc(sizeof(float) * R * B);
     int* nlike = (int*)malloc(sizeof(int) * R * B);
-    const GaussianLike like{affine_prior(pa, ps, D), c[1], c[2], c[3], c[0]};
+    const GaussianLike<SLICE_MAXD> like{affine_prior(pa, ps, D), c[1], c[2], c[3], c[0]};
     const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t, logL, nlike, B, D, R, k[0],
                                    k[1], n[3], n[4], cap);
     for (int b = 0; b < B; ++b) packet_chain_epoch(like, a, b);
