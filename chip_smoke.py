@@ -8,8 +8,8 @@ reported, by G for the Gaussian kernels of B1, B3, B4, B5 and E2, and by
 dimension bucket), checks each kernel against its plain torch version on
 the card (B2 Gram-Schmidt, bitwise, at the bench and gaussian.ini shapes,
 and its warp-per-basis kernel at the bases a B = 512, R = 2 D epoch draws
-at D = 40, 64, 128 and at (5, 64, 64, 8192), each beside
-``torch.linalg.qr``; B1 v4, B3 v5, B4 v3 and B5
+at D = 40, 64, 128, at the 64-D run's (2, 64, 64, 256) and at
+(5, 64, 64, 8192), each beside ``torch.linalg.qr``; B1 v4, B3 v5, B4 v3 and B5
 v2 at every group size G of lanes per chain, at four geometries, B1, B3,
 B4 and B5 also against their G = 1 forms, B3-B5 against B1, each G timed,
 B3's resident warps by G read from the card; E1, the counted v4, in the
@@ -32,8 +32,14 @@ own Gaussian lowered bitwise against B1, and times the three routes, holds
 the kernel template's wide bucket (``slice_epoch_d128``: B1's functor, the
 fused route with a per-point torch Gaussian, B4 and B5 at D = 40, 64 and
 128, B = 512, R = 2 D, at each G the bucket has, bitwise their plain
-versions and G = 32; ms, registers, bounds, and the 32 bucket's B1 at the
-bench beside them), then
+versions and G = 32; the fused route also at the 64-D run's B = 256; ms,
+registers, bounds, and the 32 bucket's B1 at the bench beside them), holds
+the double kernels of ``precision='highest'`` (``f64_kernels``: B1's fused
+route and the traced route at gaussian.ini's shape and the bench, the
+traced route also at the 40-D run's (B 128, R 80, D 40), B2 narrow at the
+first two and wide at (2, 64, 64, 512) and the 40-D run's (2, 40, 40, 128),
+each bitwise its float64 plain version and timed beside its float32 twin
+and, for B2, float64 ``torch.linalg.qr``), then
 drives the port's paths and checks what comes out and which kernels ran
 (each path with every launch count set to 0 just before it):
 
@@ -76,9 +82,22 @@ drives the port's paths and checks what comes out and which kernels ran
   outside its table): the traced route ``csrc/slice_step.cu`` and B2, the
   refusal as the metrics' ``route_reason``, within 3 sigma of 0;
 * ``run_gaussian_d64``: gaussian.ini's settings at D = 64 (num_repeats
-  128), the likelihood written per point in torch: the fused route in the
-  wide bucket (B1's launches by bucket and G in the metrics) and B2's wide
-  kernel, within 3 sigma of 0;
+  128) at nlive 250, the likelihood written per point in torch: the fused
+  route in the wide bucket (B1's launches by bucket and G in the metrics)
+  and B2's wide kernel, within 3 sigma of 0;
+* ``run_highest``: tests/test_precision.py's big likelihood (1e7 plus a
+  normalised Gaussian, sigma 0.1, UniformPrior(-1, 1)) at gaussian.ini's
+  width (D = 20, nlive 500, num_repeats 40) through
+  ``run(precision='highest')``: the fused route and B2 in double only,
+  within 3 sigma of 1e7 - 20 log 2; the same model at the default
+  precision raises C13's error before its first epoch;
+* ``run_traced_highest_d40``: a 40-D Gaussian written with
+  ``torch.linalg.vector_norm`` at ``precision='highest'`` (nlive 100,
+  num_repeats 80): the traced route and B2's warp-per-basis kernel in
+  double, within 3 sigma of 0;
+* ``run_maximise_nlives``: gaussian.ini's likelihood per point with
+  ``maximise=True`` and ``nlives={-30: 250}``: ``<root>.maximum`` at the
+  peak, nlive 500 then 250 in the metrics, no chain dispatched;
   (each fused run's libraries are built before its clock starts, as a
   second run of the same model finds them);
 
@@ -106,7 +125,8 @@ each kernel first held against its plain version on the card:
   its time per launch from a captured CUDA graph of 20 launches back to
   back, and its study (one repeat, then 100 launches back to back).
 
-Each phase prints one JSON line; the line before the last lists the
+Each phase prints one JSON line, then one line gives every phase's
+seconds; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
 and launches on the paths, and the last line is ``{"ok": true, "device": ...}``.  Any failed
 phase exits non-zero without that line.  Without a CUDA device, or without
@@ -149,7 +169,17 @@ TRACED_D40 = dict(B=512, R=40, D=40, B_valid=504)
 # the wide bucket's checked dimensions (B = 512, R = 2 D, as gaussian.ini's
 # ratio), and the 64-D Gaussian run (gaussian.ini's settings at D = 64)
 WIDE_DIMS = (40, 64, 128)
-D64 = dict(nDims=64, nlive=500, num_repeats=128)
+# (nlive 250, half gaussian.ini's, to keep the script's time), and what
+# run() gives the kernels there: B = 256 lanes, all valid; B2 two bases
+D64 = dict(nDims=64, nlive=250, num_repeats=128)
+D64_RUN = dict(B=256, R=128, D=64, B_valid=256)
+# the 40-D run at precision='highest' (traced route and B2's wide kernel in
+# double; nlive 100, num_repeats 2 D), and its kernels' geometry: 104 valid
+# lanes of 128, B2 two bases
+D40_HIGHEST = dict(nDims=40, nlive=100, num_repeats=80)
+D40_RUN = dict(B=128, R=80, D=40, B_valid=104)
+# tests/test_precision.py's big likelihood, run at gaussian.ini's width
+BIG = dict(offset=1.0e7, sigma=0.1)
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -180,10 +210,11 @@ ZOO_ORACLES = {
     "twin_gaussian": (-2.236031473448633, 0.10162701830093217, "JAX package, CPU"),
     "random_gaussian": (-0.15459852089235782, 0.08891872190328032, "JAX package, CPU"),
 }
-# H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, float32 FLOP/s
+# H100 SXM peaks (NVIDIA datasheet): HBM bytes/s, float32 and float64 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 
 
 def emit(obj) -> None:
@@ -300,11 +331,12 @@ def ini_copy(base: str, name: str) -> str:
     return path
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the float32 operations over the float32 peak."""
+    the operations over the peak of their type (float32 by default; the
+    double kernels pass F64_FLOPS_PER_S)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -411,6 +443,7 @@ def lse(values) -> float:
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -444,6 +477,7 @@ def main() -> None:
         )
         from polychordlite_tpu_torch.ops.directions import make_directions
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
+        from polychordlite_tpu_torch.ops.precision import real_dtype_scope
         from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
         from polychordlite_tpu_torch.output import PolyChordOutput
         from polychordlite_tpu_torch.parallel.mesh import GRANULE
@@ -468,14 +502,16 @@ def main() -> None:
     label = f"{torch.cuda.get_device_name(0)}, power limit {card.split(',')[-1].strip()}"
     results = {}
     failed = []
+    seconds = {}  # each phase's wall seconds, in order
 
     def phase(name):
         def wrap(fn):
             t0 = time.perf_counter()
             try:
                 out = fn()
+                seconds[name] = time.perf_counter() - t0
                 emit({"phase": name, "ok": True, "card": label,
-                      "seconds": time.perf_counter() - t0, **out})
+                      "seconds": seconds[name], **out})
             except Exception as e:  # report every phase, fail at the end
                 traceback.print_exc()
                 emit({"phase": name, "ok": False, "error": f"{type(e).__name__}: {e}"})
@@ -527,12 +563,14 @@ def main() -> None:
     def _():
         out = {}
         shapes = [("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512))] + [
-            (f"d{d}", (2, d, d, 512)) for d in WIDE_DIMS] + [("d64_bench", (5, 64, 64, BENCH["B"]))]
+            (f"d{d}", (2, d, d, 512)) for d in WIDE_DIMS] + [
+            ("d64_run", (2, D64_RUN["D"], D64_RUN["D"], D64_RUN["B"])),
+            ("d64_bench", (5, 64, 64, BENCH["B"]))]
         for tag, shape in shapes:
             wide = shape[1] > pallas_dirs.NARROW_MAXD
             g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(1), device=dev)
-            # the narrow shapes keep PR 6-10's repeats (plain 3, QR 5); the
-            # wide ones' plain version takes seconds, so it runs once
+            # the narrow shapes time the plain version over 3 calls; the wide
+            # ones' takes seconds, so it runs once
             if wide:
                 q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
             else:
@@ -560,7 +598,8 @@ def main() -> None:
                 "mismatches": mism,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
                 "plain_ms": plain_ms,
-                "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 2 if wide else 5),  # noqa: B023
+                # one call after a warm-up (3 s at the bench's bases)
+                "library_ms": cuda_ms(lambda: torch.linalg.qr(mats), 1),  # noqa: B023
             }
             nb, d, _, b = shape
             out[tag]["bound_ms"], out[tag]["bound_by"] = bound(
@@ -569,6 +608,7 @@ def main() -> None:
         results["gram_schmidt"] = {**out["bench"],
                                    "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         results["gram_schmidt_wide"] = out["d64"]
+        results["gram_schmidt_d64_run"] = out["d64_run"]
         return out
 
     def ball_inputs(B, D, like, gen):
@@ -935,12 +975,14 @@ def main() -> None:
         return out
 
     # ---- 6b. B1's route for a likelihood evaluated in torch ----------------
-    def slice_step_bytes(B: int, D: int, launches: int, R: int) -> int:
+    def slice_step_bytes(B: int, D: int, launches: int, R: int, real: int = 4) -> int:
         """Bytes the traced route must move: per launch and lane the state
-        read and written (ten int32, one int64, three float32: 132 bytes),
-        x and its direction read and the probe written (12 D bytes), plus
-        the (R, B) records written once."""
-        return launches * B * (132 + 12 * D) + 12 * R * B
+        read and written (ten int32, one int64, three floats: 120 bytes in
+        float32) and logL, bound and w read, x and its direction read and
+        the probe written (3 D floats), plus the (R, B) records written once;
+        floats of ``real`` bytes (8 for the double kernel)."""
+        return (launches * B * (2 * (48 + 3 * real) + 3 * real + 3 * D * real)
+                + (2 * real + 4) * R * B)
 
     @phase("slice_step")
     def _():
@@ -971,11 +1013,15 @@ def main() -> None:
             # with a calc that is one copy of a constant logL (every probe
             # below every bound: each repeat shrinks max_shrink times)
             fixed = torch.full((B,), float(args[1].min()) - 1.0, device=dev)
-            runner = pallas_slice_v4.TracedEpoch(cfg, B, R, D, pallas_slice_v4.ROUNDS, dev)
+
+            def const(p, fixed=fixed):
+                return None, None, fixed
+
+            runner = pallas_slice_v4.TracedEpoch(const, cfg, B, R, D, pallas_slice_v4.ROUNDS, dev)
             before = pallas_slice_v4.LAUNCHES["slice_step"]
-            runner(lambda p: (None, None, fixed), kw, *args)  # noqa: B023
+            runner(const, kw, *args)
             const_rounds = pallas_slice_v4.LAUNCHES["slice_step"] - before - 1
-            const_ms = cuda_ms(lambda: runner(lambda p: (None, None, fixed), kw, *args), 3)  # noqa: B023
+            const_ms = cuda_ms(lambda: runner(const, kw, *args), 3)  # noqa: B023
             evals = int(want[2].sum())
             out[tag] = {
                 "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "evals": evals,
@@ -1183,9 +1229,207 @@ def main() -> None:
             rec["mismatches"] = decisions(f"d{D}: a wide-bucket kernel differs", pairs)
             rec["b1_bench_32_bucket_ms"] = results.get("slice_epoch", {}).get("ms")
             out[f"d{D}"] = rec
+        # the fused route at the 64-D run's geometry (run_gaussian_d64: B =
+        # 256, R = 128), at every G of the bucket, bitwise its plain version
+        B, R, D = D64_RUN["B"], D64_RUN["R"], D64_RUN["D"]
+        _, cfg, args = geometry("d64_run", D64_RUN)
+        pp_calc, low = fused[D]
+        res, plain_ms = cuda_once(lambda: slice_records_plain(
+            low.plain_logL, cfg, kw, *args, count_steps=True))
+        want, steps = res[:3], res[3]
+        pairs = []
+        for G in wide:
+            pairs += [(f"fused_{k}_G{G}_vs_plain", a, b) for k, a, b in zip(
+                ("t", "logL", "nlike"),
+                pallas_slice_v4.slice_epoch_fused(pp_calc, cfg, kw, *args, group=G), want)]
+        out["d64_run_fused"] = {
+            "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()),
+            "group": pallas_slice_v4.choose_group(B, D, n_sm),
+            "mismatches": decisions("d64_run: the fused kernel differs", pairs),
+            "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(pp_calc, cfg, kw, *args), 5),
+            "plain_ms": plain_ms, "lane_steps_max": int(steps.max()),
+            "bound": bound(slice_epoch_bytes(B, R, D),
+                           int(steps.to(torch.int64).sum()) * low.flops_per_probe()),
+        }
         out["fused_build"] = fused_build
-        d64 = out["d64"]
-        results["slice_epoch_d128"] = d64
+        results["slice_epoch_d128"] = {**out["d64"], "d64_run_fused": out["d64_run_fused"]}
+        return out
+
+    # ---- 6e. the double kernels (precision='highest'): B1's fused route on
+    # gaussian.ini's likelihood per point in torch, the traced route on a
+    # model the lowering refuses, and B2 narrow and wide, each bitwise its
+    # float64 plain version and timed beside its float32 twin on the same
+    # (rounded) inputs
+    def vector_norm_gaussian(theta):
+        """A normalised Gaussian (mu 0.5, sigma 0.1) written with
+        torch.linalg.vector_norm, outside the lowering's table."""
+        D = theta.shape[-1]
+        return (-D * (math.log(0.1) + 0.5 * math.log(2 * math.pi))
+                - 0.5 * (torch.linalg.vector_norm(theta - 0.5, dim=-1) / 0.1) ** 2)
+
+    def dtype_calc(like, n_dims, dtype, prior=identity_prior, n_derived=0):
+        with real_dtype_scope(dtype):
+            return make_batched_calculator(prior, like, n_dims, n_derived, device=dev)
+
+    def f64_inputs(geo, calc64, calc32):
+        """gaussian.ini's mid-run inputs (live_set_inputs) in float64, and
+        the same values rounded to float32 with the float32 calc's bounds."""
+        B, R, D = geo["B"], geo["R"], geo["D"]
+        gen = torch.Generator(dev).manual_seed(SEED)
+        x0, bnd, valid, chol = live_set_inputs(B, D, calc64, gen, B_valid=geo.get("B_valid", B))
+        x0, chol = x0.double(), chol.double()
+        nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
+                                   generator=gen)
+        args64 = (x0, bnd, valid, nh, w)
+        x32 = x0.float()
+        args32 = (x32, bnd.float(), valid, nh.float(), w.float())
+        return args64, args32
+
+    def slice_epoch_bytes64(B: int, R: int, D: int) -> int:
+        """slice_epoch_bytes with every float array in float64 (nlike int32)."""
+        return 8 * (D * B + R * D * B + R * B + 2 * B + 2 * R * B) + 4 * R * B
+
+    @phase("f64_kernels")
+    def _():
+        out = {"f64_flops_per_s": F64_FLOPS_PER_S}
+        kw = (0x01234567, 0x89ABCDEF)
+        # B2 in double: the thread-per-basis kernel at the bench and
+        # gaussian.ini's bases, the warp-per-basis kernel at (2, 64, 64, 512)
+        # and at the 40-D run's bases
+        for tag, shape in (("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512)),
+                           ("wide_d64", (2, 64, 64, 512)),
+                           ("wide_d40_run", (2, D40_RUN["D"], D40_RUN["D"], D40_RUN["B"]))):
+            g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(1), device=dev,
+                            dtype=torch.float64)
+            wide = shape[1] > pallas_dirs.NARROW_MAXD
+            kernel = "gram_schmidt_wide_f64" if wide else "gram_schmidt_f64"
+            q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
+            before = pallas_dirs.LAUNCHES[kernel]
+            q = pallas_dirs.gram_schmidt_lanes(g)
+            if pallas_dirs.LAUNCHES[kernel] != before + 1 or q.dtype != torch.float64:
+                raise AssertionError(f"gs {tag}: {kernel} was not the kernel launched")
+            mism = int((q != q_plain).sum())
+            if mism:
+                raise AssertionError(f"gs {tag}: the double kernel differs from its plain "
+                                     f"version in {mism} entries")
+            qtq = torch.einsum("nikb,nijb->nkjb", q, q)
+            orth = (qtq - torch.eye(shape[1], device=dev, dtype=torch.float64)[
+                None, :, :, None]).abs().max().item()
+            if not orth <= 1e-12:
+                raise AssertionError(f"gs {tag}: max|QtQ - I| {orth:.3g}")
+            g32 = g.float()
+            nb, d, _, b = shape
+            # the yardstick: one batched Householder QR of the same bases in
+            # float64, once (the port never calls it)
+            mats = g.permute(0, 3, 1, 2).reshape(-1, d, d).contiguous()
+            out[f"gram_schmidt_{tag}"] = {
+                "shape": list(shape), "kernel": kernel, "mismatches": mism, "orth_err": orth,
+                "max_abs_err": (q - q_plain).abs().max().item(),
+                "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
+                "f32_twin_ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g32), 20),  # noqa: B023
+                "plain_ms": plain_ms,
+                "library_ms": cuda_once(lambda: torch.linalg.qr(mats))[1],  # noqa: B023
+                "bound": bound(2 * 8 * nb * d * d * b, gram_schmidt_flops(nb, d, b), F64_FLOPS_PER_S),
+            }
+        # B1's fused route and the traced route in double, at gaussian.ini's
+        # shape and the bench geometry
+        calc64 = dtype_calc(per_point_gaussian, 20, torch.float64)
+        calc32 = dtype_calc(per_point_gaussian, 20, torch.float32)
+        vn64 = dtype_calc(vector_norm_gaussian, 20, torch.float64)
+        vn32 = dtype_calc(vector_norm_gaussian, 20, torch.float32)
+        low64, low32 = fused_like.lowering(calc64), fused_like.lowering(calc32)
+        for low in (low64, low32):
+            if not isinstance(low, fused_like.Lowered):
+                raise AssertionError(f"gaussian.ini per point was not lowered: {low.reason}")
+        for calc in (vn64, vn32):
+            if not isinstance(fused_like.lowering(calc), fused_like.Refused):
+                raise AssertionError("the vector_norm Gaussian was lowered")
+        t0 = time.perf_counter()
+        Gs = sorted({pallas_slice_v4.choose_group(g["B"], 20, n_sm) for g in (RUN, BENCH)})
+        names = {low.library_name(G): low.source(G) for low in (low64, low32) for G in Gs}
+        nvcc.build_all({n: [fused_like.SOURCE] for n in names}, headers=names)
+        out["fused_build"] = {"seconds": time.perf_counter() - t0,
+                              "ptxas": {n: ptxas_summary(nvcc.build_log[n]) for n in names
+                                        if n in nvcc.build_log}}
+        with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+            for n in names:
+                if n in nvcc.build_log:
+                    f.write(f"==== {n}\n{nvcc.build_log[n]}\n")
+        for tag, geo in (("gaussian_ini", RUN), ("bench", BENCH)):
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+            args64, args32 = f64_inputs(geo, calc64, calc32)
+            res, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                low64.plain_logL, cfg, kw, *args64, count_steps=True))  # noqa: B023
+            want, steps = res[:3], res[3]
+            got = pallas_slice_v4.slice_epoch_fused(calc64, cfg, kw, *args64)
+            if got[0].dtype != torch.float64:
+                raise AssertionError(f"{tag}: the fused route did not run in double")
+            pairs = [(f"fused_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"),
+                                                                      got, want)]
+            # the traced route in double on the refused model, its plain version
+            # the plain engine on its calc
+            vn_want, vn_plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: vn64(p)[2], cfg, kw, *args64))  # noqa: B023
+            before = pallas_slice_v4.LAUNCHES["slice_step_f64"]
+            vn_got = pallas_slice_v4.slice_epoch_traced(vn64, cfg, kw, *args64)
+            step_launches = pallas_slice_v4.LAUNCHES["slice_step_f64"] - before
+            pairs += [(f"traced_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"),
+                                                                        vn_got, vn_want)]
+            mism = decisions(f"{tag}: a double kernel differs from its plain version", pairs)
+            errs = {k: max((a.double() - b.double()).abs().max().item() for a, b in
+                           ((got[0], want[0]), (got[1], want[1]))) for k, got, want in
+                    (("fused", got, want), ("traced", vn_got, vn_want))}
+            G = pallas_slice_v4.choose_group(B, D, n_sm)
+            evals = int(want[2].sum())
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(calc64, cfg, kw, *args64), 5)  # noqa: B023
+            ms32 = cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(calc32, cfg, kw, *args32), 5)  # noqa: B023
+            vn_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(vn64, cfg, kw, *args64), 3)  # noqa: B023
+            vn_ms32 = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(vn32, cfg, kw, *args32), 3)  # noqa: B023
+            flops = int(steps.to(torch.int64).sum()) * low64.flops_per_probe()
+            out[tag] = {
+                "B": B, "R": R, "D": D, "group": G, "evals": evals, "mismatches": mism,
+                "fused": {"ms": ms, "f32_twin_ms": ms32, "plain_ms": plain_ms,
+                          "max_abs_err": errs["fused"],
+                          "lane_steps_max": int(steps.max()),
+                          "us_per_micro_step": ms * 1e3 / int(steps.max()),
+                          "bound": bound(slice_epoch_bytes64(B, R, D), flops, F64_FLOPS_PER_S)},
+                "traced": {"ms": vn_ms, "f32_twin_ms": vn_ms32, "plain_ms": vn_plain_ms,
+                           "max_abs_err": errs["traced"],
+                           "launches_per_epoch": step_launches,
+                           "route_reason": fused_like.lowering(vn64).reason,
+                           "bound": bound(slice_step_bytes(B, D, step_launches, R, real=8), 0,
+                                          F64_FLOPS_PER_S)},
+            }
+        # the traced route in double at the 40-D run's geometry
+        # (run_traced_highest_d40), its directions through B2's wide kernel
+        B, R, D = D40_RUN["B"], D40_RUN["R"], D40_RUN["D"]
+        vn64, vn32 = (dtype_calc(vector_norm_gaussian, D, dt)
+                      for dt in (torch.float64, torch.float32))
+        cfg = EpochConfig(n_dims=D, n_phi=vn64.n_phi, grade_dims=(D,), num_repeats=(R,))
+        args64, args32 = f64_inputs(D40_RUN, vn64, vn32)
+        want, plain_ms = cuda_once(lambda: slice_records_plain(
+            lambda p: vn64(p)[2], cfg, kw, *args64))
+        before = pallas_slice_v4.LAUNCHES["slice_step_f64"]
+        got = pallas_slice_v4.slice_epoch_traced(vn64, cfg, kw, *args64)
+        step_launches = pallas_slice_v4.LAUNCHES["slice_step_f64"] - before
+        mism = decisions("d40_run: the double traced route differs from its plain version",
+                         [(f"traced_{k}_vs_plain", a, b)
+                          for k, a, b in zip(("t", "logL", "nlike"), got, want)])
+        out["d40_run"] = {
+            "B": B, "R": R, "D": D, "valid_lanes": int(args64[2].sum()), "mismatches": mism,
+            "traced": {
+                "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(
+                    vn64, cfg, kw, *args64), 3),
+                "f32_twin_ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(
+                    vn32, cfg, kw, *args32), 3),
+                "plain_ms": plain_ms, "launches_per_epoch": step_launches,
+                "max_abs_err": max((a - b).abs().max().item()
+                                   for a, b in zip(got[:2], want[:2])),
+                "bound": bound(slice_step_bytes(B, D, step_launches, R, real=8), 0,
+                               F64_FLOPS_PER_S)},
+        }
+        results["f64_kernels"] = out
         return out
 
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
@@ -1269,11 +1513,12 @@ def main() -> None:
 
     # ---- 7b. any torch likelihood through run(): the fused route, and the
     # traced route for a model the lowering refuses
-    def prebuild(like, n_dims, nlive, nDerived=0, prior=identity_prior):
-        """Lower the model as run() will and build its fused libraries at
-        every G up to D (the run's batch picks one), before the run's clock
-        starts: a second run of the same model finds them built."""
-        calc = make_batched_calculator(prior, like, n_dims, nDerived, device=dev)
+    def prebuild(like, n_dims, nlive, nDerived=0, prior=identity_prior, dtype=torch.float32):
+        """Lower the model as run() will (in ``dtype``: float64 for a run at
+        precision='highest') and build its fused libraries at every G up to
+        D (the run's batch picks one), before the run's clock starts: a
+        second run of the same model finds them built."""
+        calc = dtype_calc(like, n_dims, dtype, prior, nDerived)
         low = fused_like.lowering(calc)
         if not isinstance(low, fused_like.Lowered):
             raise AssertionError(f"the model was not lowered: {low.reason}")
@@ -1284,13 +1529,16 @@ def main() -> None:
         return {"seconds": time.perf_counter() - t0, "by_group": dict(low.build_seconds),
                 "run_group": pallas_slice_v4.choose_group(B_phys, n_dims, n_sm)}
 
-    def route_run(name, like, n_dims, route="slice_epoch_fused", dirs="gram_schmidt", **kw):
+    def route_run(name, like, n_dims, route="slice_epoch_fused", dirs="gram_schmidt",
+                  kernels=None, **kw):
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
         path must take ``route`` (the fused route, or the traced route) and
-        B2's kernel ``dirs`` only (its warp-per-basis kernel above D = 32),
-        with chained epochs kept (a replay divergence would warn, and
-        warnings are errors)."""
+        launch B2's kernel ``dirs`` (its warp-per-basis kernel above D = 32)
+        and the route's kernel only (``kernels``, the counters' names, where
+        they are not ``dirs`` and ``route``: the double instantiations at
+        precision='highest'), with chained epochs kept (a replay divergence
+        would warn, and warnings are errors)."""
         with tempfile.TemporaryDirectory() as base:
             reset_launches()
             t0 = time.perf_counter()
@@ -1310,9 +1558,9 @@ def main() -> None:
                                  f"not {route}")
         if last.get("chained_epochs") is not True:
             raise AssertionError(f"{name}: chained epochs were switched off during the run")
-        if not only(ran, (dirs, route)):
-            raise AssertionError(f"{name}: the path did not run {route} and {dirs} (only): "
-                                 f"{ran}")
+        kernels = kernels or (dirs, route)
+        if not only(ran, kernels):
+            raise AssertionError(f"{name}: the path did not run {kernels} (only): {ran}")
         add_launches(ran)
         return last, stats, wall, ran, chains
 
@@ -1404,7 +1652,7 @@ def main() -> None:
 
     @phase("run_gaussian_d64")
     def _():
-        """gaussian.ini's settings at D = 64 (nlive 500, no clustering,
+        """gaussian.ini's settings at D = 64 (nlive 250, no clustering,
         precision_criterion 0.001, num_repeats 2 D, 64 uniform [0, 1]
         parameters), the likelihood per point in torch: the fused route in
         the 128 bucket and B2's wide kernel; logZ = 0 (the mass outside the
@@ -1421,10 +1669,146 @@ def main() -> None:
             raise AssertionError(f"form {last['form']!r}, B1's launches by bucket/G {groups}: "
                                  "not the per-point model in the 128 bucket")
         B_phys = -(-(-(-D64["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        if B_phys != D64_RUN["B"]:
+            raise AssertionError(f"the run's batch is {B_phys} lanes, not the {D64_RUN['B']} "
+                                 "the kernels were held at")
         rec = {**route_record(last, stats, wall, ran, 0.0), "prebuild": built,
                "group_launches": groups, "B": B_phys,
                "epoch_record_mb": B_phys * D64["num_repeats"] * (2 * D + 2) * 4 / 1e6}
         results["run_gaussian_d64"] = rec
+        return rec
+
+    # ---- 7c. the run modes: precision='highest' (the fused route and the
+    # traced route in double), maximise and an nlives schedule
+    def big_likelihood(theta):
+        """tests/test_precision.py's big likelihood per point in torch:
+        OFFSET 1e7 plus a normalised Gaussian of sigma 0.1 at the origin
+        (ulp(1e7) = 1 in float32), with r^2 derived."""
+        r2 = torch.sum(theta ** 2)
+        D = theta.shape[-1]
+        return BIG["offset"] - D * (math.log(BIG["sigma"]) + 0.5 * math.log(2 * math.pi)) \
+            - r2 / (2 * BIG["sigma"] ** 2), [r2]
+
+    @phase("run_highest")
+    def _():
+        """The big likelihood at gaussian.ini's full width (D = 20, nlive 500,
+        num_repeats 40, precision_criterion 0.001) under UniformPrior(-1, 1):
+        run(precision='highest') on the card takes the fused route in double
+        and B2 in double, and logZ = 1e7 - 20 log 2 within 3 sigma; the same
+        model at the default precision raises C13's error before its first
+        epoch."""
+        D = INI["nDims"]
+        prior = UniformPrior(-1, 1)
+        kw = dict(nDerived=1, prior=prior, nlive=INI["nlive"], num_repeats=INI["num_repeats"],
+                  do_clustering=False, precision_criterion=0.001)
+        built = prebuild(big_likelihood, D, INI["nlive"], 1, prior, torch.float64)
+        last, stats, wall, ran, _ = route_run(
+            "big likelihood", big_likelihood, D,
+            kernels=("gram_schmidt_f64", "slice_epoch_fused_f64"), precision="highest", **kw)
+        if last.get("dtype") != "float64":
+            raise AssertionError(f"the run's dtype is {last.get('dtype')!r}, not float64")
+        truth = BIG["offset"] - D * math.log(2.0)
+        rec = {**route_record(last, stats, wall, ran, truth), "prebuild": built,
+               "dtype": last["dtype"], "chains_dispatched": last.get("chains_dispatched")}
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            try:
+                pt.run(big_likelihood, D, read_resume=False, base_dir=base, seed=SEED,
+                       feedback=-1, device="cuda", **kw)
+            except ValueError as e:
+                if "precision='highest'" not in str(e):
+                    raise
+                rec["default_precision_error"] = str(e)
+            else:
+                raise AssertionError("the default precision ran the big likelihood")
+            rec["default_precision_launches"] = {k: v for k, v in read_launches().items() if v}
+        if any(k.startswith("slice_") for k in rec["default_precision_launches"]):
+            raise AssertionError("the default-precision run reached an epoch before raising")
+        results["run_highest"] = rec
+        return rec
+
+    @phase("run_traced_highest_d40")
+    def _():
+        """A 40-D normalised Gaussian written with torch.linalg.vector_norm
+        (refused by the lowering) at precision='highest': the traced route
+        and B2's warp-per-basis kernel, both in double; logZ = 0 within 3
+        sigma (nlive 100, num_repeats 2 D)."""
+        D = D40_HIGHEST["nDims"]
+        last, stats, wall, ran, _ = route_run(
+            "vector_norm d40", vector_norm_gaussian, D, route="slice_step",
+            kernels=("gram_schmidt_wide_f64", "slice_step_f64"), precision="highest",
+            nlive=D40_HIGHEST["nlive"], num_repeats=D40_HIGHEST["num_repeats"],
+            do_clustering=False)
+        B_phys = -(-(-(-D40_HIGHEST["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        if B_phys != D40_RUN["B"]:
+            raise AssertionError(f"the run's batch is {B_phys} lanes, not the {D40_RUN['B']} "
+                                 "the kernels were held at")
+        if last.get("dtype") != "float64" or "linalg_vector_norm" not in str(
+                last.get("route_reason")):
+            raise AssertionError(f"dtype {last.get('dtype')!r}, route_reason "
+                                 f"{last.get('route_reason')!r}")
+        rec = {**route_record(last, stats, wall, ran, 0.0), "dtype": last["dtype"]}
+        results["run_traced_highest_d40"] = rec
+        return rec
+
+    @phase("run_maximise_nlives")
+    def _():
+        """gaussian.ini's likelihood per point in torch through run() with
+        maximise=True and nlives={-30: 250}: <root>.maximum holds the peak
+        (0.5 in every coordinate within 0.02, logL within 0.5 of the
+        analytic maximum and no lower than the run's best point), the
+        metrics show nlive going from 500 to 250, and no chain ran while
+        the schedule moved nlive."""
+        D = INI["nDims"]
+        built = prebuild(per_point_gaussian, D, INI["nlive"])
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                pt.run(per_point_gaussian, D, nlive=INI["nlive"], num_repeats=INI["num_repeats"],
+                       do_clustering=False, precision_criterion=0.001, maximise=True,
+                       nlives={-30.0: 250}, read_resume=False, base_dir=base, seed=SEED,
+                       feedback=-1, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            stats = PolyChordOutput(base, "test")
+            recs = read_metrics(base, "test")
+            text = open(os.path.join(base, "test.maximum")).read().splitlines()
+            best_dead = float(np.loadtxt(os.path.join(base, "test_dead.txt"), ndmin=2)[:, 0].max())
+        last = recs[-1]
+        if last.get("route") != "slice_epoch_fused" or not only(
+                ran, ("gram_schmidt", "slice_epoch_fused")):
+            raise AssertionError(f"route {last.get('route')!r}, launches {ran}")
+        add_launches(ran)
+        max_logL = float(text[text.index("Maximum LogLikelihood:") + 1])
+        point = np.array([float(x) for x in text[text.index("Maximum Likelihood point:") + 1]
+                          .split()])
+        peak = -D * math.log(0.1 * math.sqrt(2 * math.pi))
+        lives = [r["nlive"] for r in recs[:-1]]
+        checks = {
+            "point_within_0.02": bool(point.shape == (D,) and np.all(np.abs(point - 0.5) < 0.02)),
+            "max_logL_within_0.5": abs(max_logL - peak) < 0.5,
+            "max_logL_at_least_best_point": max_logL >= best_dead,
+            "nlive_500_to_250": max(lives) == INI["nlive"] and min(lives) == 250,
+            "no_chain_under_the_schedule": last.get("chains_dispatched") == 0,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"run_maximise_nlives: {checks}; max logL {max_logL}, "
+                                 f"best point {best_dead}, point {point.tolist()}, nlive {lives}")
+        rec = {"checks": checks, "max_logL": max_logL, "analytic_max_logL": peak,
+               "best_dead_logL": best_dead, "max_abs_point_minus_peak":
+               float(np.abs(point - 0.5).max()), "nlive_by_record": lives,
+               "chains_dispatched": last.get("chains_dispatched"), "ndead": stats.ndead,
+               "logZ": stats.logZ, "logZerr": stats.logZerr, "wall_s": wall,
+               "launches": {k: v for k, v in ran.items() if v}, "prebuild": built,
+               "host_totals_s": last.get("host_totals")}
+        pull = stats.logZ / stats.logZerr
+        if not abs(pull) < 3.0:
+            raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is {pull:.2f} sigma "
+                                 "from 0")
+        results["run_maximise_nlives"] = rec
         return rec
 
     # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
@@ -1942,7 +2326,8 @@ def main() -> None:
     ]
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
-                    "slice_epoch_v2", "slice_step", "slice_epoch_fused")  # the others: their
+                    "slice_epoch_v2", "slice_step", "slice_epoch_fused", "slice_epoch_fused_f64",
+                    "slice_step_f64", "gram_schmidt_f64")  # the others: their
     # studies' own launches
     se = results["slice_epoch"]
     redesigned = {  # B1's, B3's, B4's, B5's and E2's G = 1 forms, and the traced route, in
@@ -1968,7 +2353,8 @@ def main() -> None:
                                           "and inputs, in this run"},
     }
     # the 128 bucket's numbers (D = 64, B = 512, R = 128; B2 at the bases
-    # that epoch draws) beside the entries of B1, the fused route, B4, B5, B2
+    # that epoch draws; the fused route and B2 also at the 64-D run's B =
+    # 256) beside the entries of B1, the fused route, B4, B5, B2
     wide = results["slice_epoch_d128"]
     d128 = {name: {"D": wide["D"], "B": wide["B"], "R": wide["R"], "group": wide["group"],
                    "ms": wide[k]["ms"], "ms_by_group": wide[k]["ms_by_group"],
@@ -1976,11 +2362,13 @@ def main() -> None:
                    "bound_by": wide[k]["bound"][1]}
             for name, k in (("slice_epoch", "B1"), ("slice_epoch_fused", "fused"),
                             ("slice_epoch_v3", "B4"), ("slice_epoch_v2", "B5"))}
+    d128["slice_epoch_fused"]["d64_run"] = wide["d64_run_fused"]
     gw = results["gram_schmidt_wide"]
     d128["gram_schmidt"] = {"kernel": "gram_schmidt_wide", "shape": gw["shape"], "ms": gw["ms"],
                             "plain_ms": gw["plain_ms"], "bound_ms": gw["bound_ms"],
                             "bound_by": gw["bound_by"], "library_ms": gw["library_ms"],
-                            "launches": launches["gram_schmidt_wide"]}
+                            "launches": launches["gram_schmidt_wide"],
+                            "d64_run": results["gram_schmidt_d64_run"]}
     for name, source, replaces, res, (bound_ms, bound_by), library_ms in rows:
         r = results[res]
         plain_ms = r.get("plain_ms", results["slice_epoch"]["plain_ms"])  # E1's plain: B1's
@@ -1989,15 +2377,47 @@ def main() -> None:
             n += launches["gram_schmidt_wide"]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+            "dtype": "float32",
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             **redesigned.get(name, {}), **({"d128": d128[name]} if name in d128 else {}),
         })
+    # the double instantiations (precision='highest') at the bench geometry,
+    # their float32 twins timed beside them in the same phase; launches on
+    # run_highest (B1 fused, B2 narrow) and run_traced_highest_d40 (the traced
+    # route, B2 wide)
+    f64 = results["f64_kernels"]
+    gs_b, gs_w = f64["gram_schmidt_bench"], f64["gram_schmidt_wide_d64"]
+    for name, source, replaces, rec, extra in (
+        ("slice_epoch_fused_f64", "slice_epoch_fused.cu",
+         "polychordlite_tpu/ops/pallas_slice_v4.py:508", f64["bench"]["fused"],
+         {"group": f64["bench"]["group"],
+          "gaussian_ini": f64["gaussian_ini"]["fused"]}),
+        ("slice_step_f64", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
+         f64["bench"]["traced"], {"gaussian_ini": f64["gaussian_ini"]["traced"],
+                                  "d40_run": f64["d40_run"]["traced"]}),
+        ("gram_schmidt_f64", "gram_schmidt.cu", "polychordlite_tpu/ops/pallas_dirs.py:71", gs_b,
+         {"gaussian_ini": f64["gram_schmidt_gaussian_ini"],
+          "wide": {**gs_w, "launches": launches["gram_schmidt_wide_f64"]},
+          "wide_d40_run": f64["gram_schmidt_wide_d40_run"]}),
+    ):
+        n = launches[name] + (launches["gram_schmidt_wide_f64"] if name == "gram_schmidt_f64"
+                              else 0)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+            "dtype": "float64", "launches": n, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+            "bound_by": rec["bound"][1], "library_ms": rec.get("library_ms"),
+            "f32_twin_ms": rec["f32_twin_ms"],
+            **extra,
+        })
     missing = [k["name"] for k in kernels if not k["launches"]]
-    if not launches["gram_schmidt_wide"]:
-        missing.append("gram_schmidt_wide")
+    for name in ("gram_schmidt_wide", "gram_schmidt_wide_f64"):
+        if not launches[name]:
+            missing.append(name)
     if missing:
         fail(f"kernels never launched on their paths: {missing}")
+    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

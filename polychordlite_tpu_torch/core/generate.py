@@ -2,7 +2,8 @@
 (counterpart of ``polychordlite_tpu/core/generate.py``).
 
 ``generate_live_points`` draws uniform hypercube points with the run's
-device generator and evaluates them in batches with the calc
+device generator, in the calc's dtype (float64 under
+``precision='highest'``), and evaluates them in batches with the calc
 (``generate.F90:186-261``); ``generate_seeds`` (numpy, unchanged) picks
 slice seeds on the host (``GenerateSeed``, ``generate.F90:19-55``).
 """
@@ -42,7 +43,7 @@ def generate_live_points(
         round_idx += 1
         t0 = time.perf_counter()
         cube = torch.rand((batch, s.nDims), generator=generator, device=device,
-                          dtype=torch.float32)
+                          dtype=calc.dtype)
         theta, phi, logL = calc(cube)
         packed = torch.cat([cube, theta, phi, logL[:, None]], dim=1)
         packed = packed.cpu().numpy().astype(np.float64)

@@ -26,8 +26,16 @@ check voided, and chaining cools down for 4 e-folds — for every nursery
 of the chain, the last one included (the JAX package skips the cooldown
 there: ROADMAP C4).
 
-Ported so far: synchronous mode, single-grade likelihoods, float32.  The
-other modes raise ``NotImplementedError``.
+Run modes (``_check_supported``): ``precision='highest'`` runs the whole
+path in float64 (``ops/precision.py``: the calc, the live points, the
+directions, the slice engine, the chain and its replay check; on the card
+B1's fused or traced route and B2 in double); ``maximise=True`` runs the
+post-run maximiser (``core/maximiser.py``) and writes ``<root>.maximum``;
+an ``nlives`` schedule is followed by the bookkeeping of ``core/rti.py``
+(no chained dispatch under a schedule: a chain keeps nlive fixed); a
+resume file in the reference's text format is read
+(``utils/legacy_resume.py``).  Asynchronous mode (``synchronous=False``)
+and several speed grades raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
 from ..ops.pallas_slice_v4 import SLICE_MAXD_WIDE, check_functor_dims
 from ..ops.pallas_slice_v5 import check_dims as check_v5_dims
-from ..ops.precision import F32_SAFE_LOGL
+from ..ops.precision import F32_SAFE_LOGL, PRECISIONS, calc_dtype, real_dtype_scope
 from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
 from ..parallel.mesh import make_epoch_runner
 from ..priors import identity_prior
@@ -111,7 +119,11 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     are forced by name and need a device form.  ``engine="torch"`` is the
     plain engine on any device, at any dimension; the kernel engines stop at
     D = 128 (``"cuda5"`` and random_gaussian's functor at 32), and above
-    they raise here, once."""
+    they raise here, once.  At ``precision='highest'`` (a float64 calc)
+    ``"cuda"`` takes the fused or the traced route in double, and the
+    forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"``, whose kernels are
+    float32, raise (as the JAX package sends float64 away from its float32
+    kernels, ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
     if engine == "auto":
         if device.type != "cuda":
             return "torch"
@@ -119,6 +131,11 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
+        if engine != "cuda" and calc_dtype(calc) == torch.float64:
+            raise ValueError(
+                f"engine={engine!r} runs a float32 kernel, and precision='highest' runs in "
+                "float64; use engine='cuda' (B1's fused or traced route in double) or "
+                "engine='torch'")
         D = calc.n_dims
         if D > SLICE_MAXD_WIDE:
             raise ValueError(
@@ -152,12 +169,12 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
 
 
 def _check_supported(s: PolyChordSettings) -> None:
-    """Raise for the run modes the port does not have yet."""
+    """Raise for the run modes the port does not have yet, and for an
+    unknown ``precision``."""
+    if getattr(s, "precision", "single") not in PRECISIONS:
+        raise ValueError(f"precision must be one of {tuple(PRECISIONS)}, not {s.precision!r}")
     missing = {
-        "precision='highest'": getattr(s, "precision", "single") == "highest",
         "synchronous=False": not s.synchronous,
-        "maximise=True": bool(s.maximise),
-        "an nlives schedule": bool(s.nlives),
         "several speed grades": len(s.grade_dims) > 1,
     }
     for what, asked in missing.items():
@@ -230,15 +247,16 @@ def _end_chain_on_reorganisation(turbo, nursery_queue, reorganised: bool) -> Non
         turbo["voided"] += 1
 
 
-def live_rows_match(host_cube, host_logL, dev_cube, dev_logL) -> bool:
+def live_rows_match(host_cube, host_logL, dev_cube, dev_logL, dtype=np.float32) -> bool:
     """Whether the host's live set and the device's final one hold the same
-    (logL, cube) rows, in float32, as multisets: the same number of rows,
-    each row found on both sides, a NaN equal to a NaN.  (The reference
-    compares sorted logL alone, so ties pass whatever their points and one
-    NaN reads as a divergence: ROADMAP C14.)"""
+    (logL, cube) rows, in the run's ``dtype`` (float32, or float64 at
+    precision='highest'), as multisets: the same number of rows, each row
+    found on both sides, a NaN equal to a NaN.  (The reference compares
+    sorted logL alone, so ties pass whatever their points and one NaN reads
+    as a divergence: ROADMAP C14.)"""
     def rows(cube, logL):
-        a = np.column_stack([np.asarray(logL, np.float32),
-                             np.asarray(cube, np.float32).reshape(len(logL), -1)])
+        a = np.column_stack([np.asarray(logL, dtype),
+                             np.asarray(cube, dtype).reshape(len(logL), -1)])
         return a[np.lexsort(a.T[::-1])]
 
     if len(host_logL) != len(dev_logL):
@@ -275,10 +293,19 @@ def nested_sampling(
 ):
     """Run the sampler.  Returns a dict with logZ, logZerr, ndead, nlike and
     the final state (the [logZ, varlogZ, ndead, nlike] output of
-    NestedSampling, nested_sampling.F90:394-402, plus extras)."""
+    NestedSampling, nested_sampling.F90:394-402, plus extras).  The run
+    computes in the dtype of ``precision`` (``ops/precision.py``), set for
+    this thread alone and restored on exit, however the run ends
+    (``polychordlite_tpu/core/nested_sampling.py:184-189``)."""
     s = settings.finalise()
     _check_supported(s)
     device = resolve_device(device)
+    with real_dtype_scope(PRECISIONS[getattr(s, "precision", "single")]):
+        return _run(loglikelihood, prior, dumper, s, device)
+
+
+def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.device):
+    """The body of :func:`nested_sampling`, in the run's dtype."""
     t_start = time.time()
     launches0 = _kernel_launches()
     traced0 = dict(pallas_slice_v4.TRACED)
@@ -345,14 +372,14 @@ def nested_sampling(
     # the f32 contour test loses shells beyond F32_SAFE_LOGL where the
     # contour ends, at the top of the live set; the reference only warns
     # about any live point (its fault C8: a tail beyond the limit, as
-    # rosenbrock.ini's, carries no evidence), and f64 is not ported
+    # rosenbrock.ini's, carries no evidence).  A float64 run has no limit.
     top = float(rti.all_live()[:, s.l0].max(initial=s.logzero))
-    if abs(top) > F32_SAFE_LOGL:
+    if calc.dtype == torch.float32 and abs(top) > F32_SAFE_LOGL:
         raise ValueError(
             f"the best live logL is {top:.3g}: the float32 contour test loses "
-            f"resolution beyond F32_SAFE_LOGL = {F32_SAFE_LOGL:.0g} (ulp(1e7) = 1), "
-            "and precision='highest' (float64) is not ported yet; shift the "
-            "likelihood by a constant"
+            f"resolution beyond F32_SAFE_LOGL = {F32_SAFE_LOGL:.0g} (ulp(1e7) = 1); "
+            "run it with precision='highest' (float64), or shift the likelihood "
+            "by a constant"
         )
     cfg = EpochConfig(
         n_dims=s.nDims,
@@ -363,6 +390,7 @@ def nested_sampling(
         engine=engine,
     )
     R = cfg.total_repeats
+    np_real = np.float32 if calc.dtype == torch.float32 else np.float64
     run_epoch, B = make_epoch_runner(
         calc, cfg, s.resolved_batch_size(), device, generator
     )
@@ -414,13 +442,16 @@ def nested_sampling(
         if turbo_K < 0:  # auto: host-callback likelihoods dispatch per epoch
             turbo_K = 0 if calc.uses_callback else 8
         turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
-                 "cooldown": 0, "voided": 0}
+                 "cooldown": 0, "voided": 0, "chains": 0}
 
         def _turbo_ok():
+            # a chain keeps nlive fixed on the device: none under an nlives
+            # schedule (nested_sampling.py:448 of the JAX package)
             return (
                 turbo["enabled"]
                 and turbo["cooldown"] == 0
                 and rti.ncluster == 1
+                and not s.nlives
                 and rti.total_nlive() == s.nlive
             )
 
@@ -435,6 +466,7 @@ def nested_sampling(
                     _next_epoch_key(), live[:, s.h], live[:, s.l0],
                     rti.cholesky[0], K,
                 )
+                turbo["chains"] += 1
                 return ("chain", h, rti.epoch)
             return ("single", _dispatch())
 
@@ -604,7 +636,8 @@ def nested_sampling(
                 if rti.ncluster == 1 and running and failures <= nfail:
                     dev_logL, dev_cube = turbo["verify"]
                     live = rti.live[0]
-                    if not live_rows_match(live[:, s.h], live[:, s.l0], dev_cube, dev_logL):
+                    if not live_rows_match(live[:, s.h], live[:, s.l0], dev_cube, dev_logL,
+                                           np_real):
                         import warnings
 
                         warnings.warn(
@@ -624,6 +657,12 @@ def nested_sampling(
             writer.flush()
         if s.write_resume:
             resume_mod.write_resume_file(s, rti, rng, key)
+
+        # --- optional maximisation (nested_sampling.py:708-712) -----------
+        if s.maximise:
+            from .maximiser import maximise
+
+            maximise(calc, s, rti)
 
         # --- drain the remaining live points (nested_sampling.F90:381-384) -
         while rti.ncluster > 0:
@@ -667,7 +706,9 @@ def nested_sampling(
             engine=run_epoch.engine_used(),
             extra={
                 "epoch_timers": epoch_timers, "chained_epochs": turbo["enabled"],
-                "chains_voided": turbo["voided"],
+                "chains_voided": turbo["voided"], "chains_dispatched": turbo["chains"],
+                # the run's dtype (ops/precision.py)
+                "dtype": str(calc.dtype).replace("torch.", ""),
                 # the host phases over the whole run (host_breakdown above
                 # holds the last interval only)
                 "host_totals": {k: round(v, 3) for k, v in metrics._phase_tot.items()},

@@ -26,6 +26,12 @@
 // The file includes nothing: it is also compiled as host C++ by the CPU
 // tests (tests/test_torch_fused.py), with the intrinsics mapped to plain
 // float operations.
+//
+// A functor generated at precision='highest' is double: fused_max and
+// fused_min have double overloads, and sin, cos and pow double forms kept
+// out of line (fused_sin, fused_cos, fused_pow).  erfinv and ndtri have no
+// double sequence: the lowering refuses them at float64 (the traced route
+// evaluates them in torch).
 #pragma once
 
 __device__ __forceinline__ float fused_max(float a, float b) {
@@ -36,9 +42,21 @@ __device__ __forceinline__ float fused_min(float a, float b) {
     return a != a ? a : (b != b ? b : (a < b ? a : b));
 }
 
+__device__ __forceinline__ double fused_max(double a, double b) {
+    return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+__device__ __forceinline__ double fused_min(double a, double b) {
+    return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+
 __device__ __noinline__ float fused_sinf(float x) { return sinf(x); }
 __device__ __noinline__ float fused_cosf(float x) { return cosf(x); }
 __device__ __noinline__ float fused_powf(float x, float y) { return powf(x, y); }
+
+__device__ __noinline__ double fused_sin(double x) { return sin(x); }
+__device__ __noinline__ double fused_cos(double x) { return cos(x); }
+__device__ __noinline__ double fused_pow(double x, double y) { return pow(x, y); }
 
 // Giles's polynomial times x, from w = -log(y), y = (1 - x)(1 + x).
 __device__ __forceinline__ float fused_giles(float x, float y) {

@@ -50,53 +50,80 @@
 // products per basis — with five shuffle steps in each, hidden only by the
 // other bases on the SM.
 
+// Double: a run at precision='highest' draws its directions in
+// float64, so both kernels are templates on the scalar type T, the float
+// instantiations the code above.  In double, a block of the
+// thread-per-basis kernel needs 8 * dim^2 * 32 bytes of shared memory,
+// past the 227 KB a block may have above dim 30; there the block holds 16
+// chains (gs_lanes: half a warp, 128 KB at dim 32).  Its v[DIM] and qv[DIM]
+// take twice the registers.  The wide kernel's one basis takes dim^2 * 8
+// bytes, 128 KB at dim 128: one basis an SM there.  The sums keep their
+// order, so each double kernel is bitwise gram_schmidt_plain in float64.
+
 #include <cuda_runtime.h>
 
 #include <utility>
 
+#include "rounded.cuh"
+
 #define GS_MAXD 32
 #define GS_MAXD_WIDE 128
 #define GS_ROWS (GS_MAXD_WIDE / 32)  // rows per lane in the wide kernel
+// the shared memory a block may have (bytes)
+#define GS_SMEM_MAX 232448
 
-template <int DIM>
-__global__ void gram_schmidt_kernel(const float* __restrict__ g, float* __restrict__ q,
-                                    int B) {
-    extern __shared__ float qs[];  // [k][i][lane]: finished column k, row i
-    const int lane = threadIdx.x;  // blockDim.x == 32
-    const int b = blockIdx.x * 32 + lane;
+// The chains of a block of the thread-per-basis kernel: 32, or 16 where a
+// block of 32 would need more shared memory than a block may have (double
+// above dim 30).
+template <class T>
+constexpr int gs_lanes(int dim) {
+    return (int)sizeof(T) * dim * dim * 32 <= GS_SMEM_MAX ? 32 : 16;
+}
+
+// The norm's rounded square root, clamped from below (the plain version's
+// clamp_min(sqrt(norm), 1e-30) in the type's own literal).
+__device__ __forceinline__ float gs_den(float nrm) { return fmaxf(__fsqrt_rn(nrm), 1e-30f); }
+__device__ __forceinline__ double gs_den(double nrm) { return fmax(__dsqrt_rn(nrm), 1e-30); }
+
+template <class T, int DIM, int LANES>
+__global__ void gram_schmidt_kernel(const T* __restrict__ g, T* __restrict__ q, int B) {
+    extern __shared__ __align__(16) unsigned char gs_smem[];
+    T* qs = reinterpret_cast<T*>(gs_smem);  // [k][i][lane]: finished column k, row i
+    const int lane = threadIdx.x;  // blockDim.x == LANES
+    const int b = blockIdx.x * LANES + lane;
     if (b >= B) return;
     const size_t sj = (size_t)B;        // stride of the column index
     const size_t si = (size_t)DIM * B;  // stride of the row index
     const size_t base = (size_t)blockIdx.y * DIM * DIM * B + b;
-    const float* gb = g + base;
-    float* qb = q + base;
+    const T* gb = g + base;
+    T* qb = q + base;
 
-    float v[DIM];
+    T v[DIM];
     for (int j = 0; j < DIM; ++j) {
 #pragma unroll
         for (int i = 0; i < DIM; ++i) v[i] = gb[i * si + j * sj];
         for (int sweep = 0; sweep < 2; ++sweep) {
             for (int k = 0; k < j; ++k) {
-                const float* qk = qs + k * DIM * 32 + lane;
-                float qv[DIM];
+                const T* qk = qs + k * DIM * LANES + lane;
+                T qv[DIM];
 #pragma unroll
-                for (int i = 0; i < DIM; ++i) qv[i] = qk[i * 32];
-                float c = 0.0f;
+                for (int i = 0; i < DIM; ++i) qv[i] = qk[i * LANES];
+                T c = T(0);
 #pragma unroll
-                for (int i = 0; i < DIM; ++i) c = __fadd_rn(c, __fmul_rn(qv[i], v[i]));
+                for (int i = 0; i < DIM; ++i) c = rn_add(c, rn_mul(qv[i], v[i]));
 #pragma unroll
-                for (int i = 0; i < DIM; ++i) v[i] = __fsub_rn(v[i], __fmul_rn(c, qv[i]));
+                for (int i = 0; i < DIM; ++i) v[i] = rn_sub(v[i], rn_mul(c, qv[i]));
             }
         }
-        float nrm = 0.0f;
+        T nrm = T(0);
 #pragma unroll
-        for (int i = 0; i < DIM; ++i) nrm = __fadd_rn(nrm, __fmul_rn(v[i], v[i]));
-        const float den = fmaxf(__fsqrt_rn(nrm), 1e-30f);
-        float* qj = qs + j * DIM * 32 + lane;
+        for (int i = 0; i < DIM; ++i) nrm = rn_add(nrm, rn_mul(v[i], v[i]));
+        const T den = gs_den(nrm);
+        T* qj = qs + j * DIM * LANES + lane;
 #pragma unroll
         for (int i = 0; i < DIM; ++i) {
-            const float x = __fdiv_rn(v[i], den);
-            qj[i * 32] = x;
+            const T x = rn_div(v[i], den);
+            qj[i * LANES] = x;
             qb[i * si + j * sj] = x;
         }
     }
@@ -104,54 +131,57 @@ __global__ void gram_schmidt_kernel(const float* __restrict__ g, float* __restri
 
 // The dot product of two columns held as rows i = lane + 32 m: each lane's
 // rows in order, then the butterfly over the warp.
-__device__ __forceinline__ float warp_dot(const float (&a)[GS_ROWS], const float (&b)[GS_ROWS]) {
-    float c = 0.0f;
+template <class T>
+__device__ __forceinline__ T warp_dot(const T (&a)[GS_ROWS], const T (&b)[GS_ROWS]) {
+    T c = T(0);
 #pragma unroll
-    for (int m = 0; m < GS_ROWS; ++m) c = __fadd_rn(c, __fmul_rn(a[m], b[m]));
+    for (int m = 0; m < GS_ROWS; ++m) c = rn_add(c, rn_mul(a[m], b[m]));
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c = __fadd_rn(c, __shfl_xor_sync(0xffffffffu, c, off));
+    for (int off = 16; off > 0; off >>= 1) c = rn_add(c, __shfl_xor_sync(0xffffffffu, c, off));
     return c;
 }
 
 // GS_MAXD < dim <= GS_MAXD_WIDE: basis (blockIdx.y, chain blockIdx.x) on the
 // block's one warp.
-__global__ void gram_schmidt_wide_kernel(const float* __restrict__ g, float* __restrict__ q,
-                                         int dim, int B) {
-    extern __shared__ float qw[];  // [k][i]: finished column k, row i
+template <class T>
+__global__ void gram_schmidt_wide_kernel(const T* __restrict__ g, T* __restrict__ q, int dim,
+                                         int B) {
+    extern __shared__ __align__(16) unsigned char gs_smem[];
+    T* qw = reinterpret_cast<T*>(gs_smem);  // [k][i]: finished column k, row i
     const int lane = threadIdx.x;  // blockDim.x == 32
     const int b = blockIdx.x;
     const size_t sj = (size_t)B;        // stride of the column index
     const size_t si = (size_t)dim * B;  // stride of the row index
     const size_t base = (size_t)blockIdx.y * dim * dim * B + b;
-    const float* gb = g + base;
-    float* qb = q + base;
+    const T* gb = g + base;
+    T* qb = q + base;
 
     for (int j = 0; j < dim; ++j) {
-        float v[GS_ROWS];
+        T v[GS_ROWS];
 #pragma unroll
         for (int m = 0; m < GS_ROWS; ++m) {
             const int i = lane + 32 * m;
-            v[m] = i < dim ? gb[i * si + j * sj] : 0.0f;
+            v[m] = i < dim ? gb[i * si + j * sj] : T(0);
         }
         for (int sweep = 0; sweep < 2; ++sweep) {
             for (int k = 0; k < j; ++k) {
-                float qv[GS_ROWS];
+                T qv[GS_ROWS];
 #pragma unroll
                 for (int m = 0; m < GS_ROWS; ++m) {
                     const int i = lane + 32 * m;
-                    qv[m] = i < dim ? qw[k * dim + i] : 0.0f;
+                    qv[m] = i < dim ? qw[k * dim + i] : T(0);
                 }
-                const float c = warp_dot(qv, v);
+                const T c = warp_dot(qv, v);
 #pragma unroll
-                for (int m = 0; m < GS_ROWS; ++m) v[m] = __fsub_rn(v[m], __fmul_rn(c, qv[m]));
+                for (int m = 0; m < GS_ROWS; ++m) v[m] = rn_sub(v[m], rn_mul(c, qv[m]));
             }
         }
-        const float den = fmaxf(__fsqrt_rn(warp_dot(v, v)), 1e-30f);
+        const T den = gs_den(warp_dot(v, v));
 #pragma unroll
         for (int m = 0; m < GS_ROWS; ++m) {
             const int i = lane + 32 * m;
             if (i < dim) {
-                const float x = __fdiv_rn(v[m], den);
+                const T x = rn_div(v[m], den);
                 qw[j * dim + i] = x;
                 qb[i * si + j * sj] = x;
             }
@@ -160,23 +190,49 @@ __global__ void gram_schmidt_wide_kernel(const float* __restrict__ g, float* __r
     }
 }
 
-static int gram_schmidt_wide(const float* g, float* q, int n_bases, int dim, int B,
+template <class T>
+static int gram_schmidt_wide(const T* g, T* q, int n_bases, int dim, int B,
                              cudaStream_t stream) {
-    const int smem = (int)sizeof(float) * dim * dim;
-    const cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_wide_kernel,
+    const int smem = (int)sizeof(T) * dim * dim;
+    const cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_wide_kernel<T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)sizeof(float) * GS_MAXD_WIDE * GS_MAXD_WIDE);
+                                               (int)sizeof(T) * GS_MAXD_WIDE * GS_MAXD_WIDE);
     if (e != cudaSuccess) return (int)e;
-    gram_schmidt_wide_kernel<<<dim3(B, n_bases), 32, smem, stream>>>(g, q, dim, B);
+    gram_schmidt_wide_kernel<T><<<dim3(B, n_bases), 32, smem, stream>>>(g, q, dim, B);
     return (int)cudaGetLastError();
 }
 
-using GramSchmidtKernel = void (*)(const float*, float*, int);
+template <class T>
+using GramSchmidtKernel = void (*)(const T*, T*, int);
 
-template <int... Ds>
-static GramSchmidtKernel kernel_for(int dim, std::integer_sequence<int, Ds...>) {
-    static const GramSchmidtKernel kernels[] = {gram_schmidt_kernel<Ds + 1>...};
+template <class T, int... Ds>
+static GramSchmidtKernel<T> kernel_for(int dim, std::integer_sequence<int, Ds...>) {
+    static const GramSchmidtKernel<T> kernels[] = {
+        gram_schmidt_kernel<T, Ds + 1, gs_lanes<T>(Ds + 1)>...};
     return kernels[dim - 1];
+}
+
+// The launch of either kernel in the scalar type T; see the entries below.
+template <class T>
+static int gram_schmidt(const void* g, void* q, int n_bases, int dim, int B, void* stream) {
+    if (dim < 1 || dim > GS_MAXD_WIDE || n_bases < 1 || n_bases > 65535 || B < 1)
+        return (int)cudaErrorInvalidValue;
+    if (dim > GS_MAXD)
+        return gram_schmidt_wide((const T*)g, (T*)q, n_bases, dim, B, (cudaStream_t)stream);
+    const GramSchmidtKernel<T> kernel =
+        kernel_for<T>(dim, std::make_integer_sequence<int, GS_MAXD>{});
+    const int lanes = gs_lanes<T>(dim);
+    const int smem = (int)sizeof(T) * dim * dim * lanes;
+    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute((const void*)kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((B + lanes - 1) / lanes, n_bases);
+    kernel<<<grid, lanes, smem, (cudaStream_t)stream>>>((const T*)g, (T*)q, B);
+    return (int)cudaGetLastError();
 }
 
 // The largest dim of the two kernels.
@@ -187,22 +243,11 @@ extern "C" int gram_schmidt_max_dim() { return GS_MAXD_WIDE; }
 // Returns cudaGetLastError() after the launch.
 extern "C" int gram_schmidt_f32(const void* g, void* q, int n_bases, int dim, int B,
                                 void* stream) {
-    if (dim < 1 || dim > GS_MAXD_WIDE || n_bases < 1 || n_bases > 65535 || B < 1)
-        return (int)cudaErrorInvalidValue;
-    if (dim > GS_MAXD)
-        return gram_schmidt_wide((const float*)g, (float*)q, n_bases, dim, B,
-                                 (cudaStream_t)stream);
-    const GramSchmidtKernel kernel =
-        kernel_for(dim, std::make_integer_sequence<int, GS_MAXD>{});
-    const int smem = (int)sizeof(float) * dim * dim * 32;
-    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute((const void*)kernel,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((B + 31) / 32, n_bases);
-    kernel<<<grid, 32, smem, (cudaStream_t)stream>>>((const float*)g, (float*)q, B);
-    return (int)cudaGetLastError();
+    return gram_schmidt<float>(g, q, n_bases, dim, B, stream);
+}
+
+// The same in float64.
+extern "C" int gram_schmidt_f64(const void* g, void* q, int n_bases, int dim, int B,
+                                void* stream) {
+    return gram_schmidt<double>(g, q, n_bases, dim, B, stream);
 }

@@ -33,26 +33,36 @@
 // prior and its loops.  combine reads T[j][d] through whatever the caller
 // hands it: an array in registers in the 32 bucket, the terms staged in
 // shared memory in the 128 bucket (slice_epoch.cuh).
+//
+// The functors here are float32.  A functor's scalar type is the type of
+// its logzero (real_of): the fused route's generated functor is double in a
+// run at precision='highest', and the generic pieces below (the prior, the
+// probe, like_eval) follow it.
 #pragma once
 
 #include "slice_common.cuh"
 
+// The scalar type of a functor: float, or double for a functor generated at
+// precision='highest' (ops/fused_like.py).
+template <class Like>
+using real_of = decltype(Like::logzero);
+
 // theta[d] = a[d] + s[d] * cube[d] for d < MAXD, the bucket's bound on the
 // dimension; entries past D are unused.
-template <int MAXD>
+template <int MAXD, class T = float>
 struct AffinePriorT {
-    float a[MAXD];
-    float s[MAXD];
+    T a[MAXD];
+    T s[MAXD];
 };
 using AffinePrior = AffinePriorT<SLICE_MAXD>;
 
 // The prior from host arrays a[D] and s[D]; entries past D are zero.
-template <int MAXD = SLICE_MAXD>
-inline AffinePriorT<MAXD> affine_prior(const float* prior_a, const float* prior_s, int D) {
-    AffinePriorT<MAXD> prior;
+template <int MAXD = SLICE_MAXD, class T = float>
+inline AffinePriorT<MAXD, T> affine_prior(const T* prior_a, const T* prior_s, int D) {
+    AffinePriorT<MAXD, T> prior;
     for (int d = 0; d < MAXD; ++d) {
-        prior.a[d] = d < D ? prior_a[d] : 0.0f;
-        prior.s[d] = d < D ? prior_s[d] : 0.0f;
+        prior.a[d] = d < D ? prior_a[d] : T(0);
+        prior.s[d] = d < D ? prior_s[d] : T(0);
     }
     return prior;
 }
@@ -66,14 +76,16 @@ __constant__ float c_like_matrix[SLICE_MAXD * SLICE_MAXD];
 
 // theta of one coordinate of the probe x0 + t n̂ under the prior a + s cube;
 // clears `inside` if the cube coordinate leaves [0, 1].
-__device__ __forceinline__ float probe_theta(float x0, float n, float t, float a, float s,
-                                             bool& inside) {
-    const float p = __fadd_rn(x0, __fmul_rn(t, n));
-    inside = inside && (p >= 0.0f) && (p <= 1.0f);
-    return __fadd_rn(__fmul_rn(p, s), a);
+template <class T>
+__device__ __forceinline__ T probe_theta(T x0, exactly<T> n, exactly<T> t, exactly<T> a,
+                                         exactly<T> s, bool& inside) {
+    const T p = rn_add(x0, rn_mul(t, n));
+    inside = inside && (p >= T(0)) && (p <= T(1));
+    return rn_add(rn_mul(p, s), a);
 }
 
-__device__ __forceinline__ float like_result(float logL, bool inside, float logzero) {
+template <class T>
+__device__ __forceinline__ T like_result(T logL, bool inside, exactly<T> logzero) {
     if (logL != logL) logL = logzero;
     return inside ? logL : logzero;
 }
@@ -81,14 +93,16 @@ __device__ __forceinline__ float like_result(float logL, bool inside, float logz
 // Both stages in one thread: the logL of the probe x0 + t n̂ (x0, n indexed
 // by coordinate).
 template <class Like>
-__device__ __forceinline__ float like_eval(const Like& like, const float* x0, const float* n,
-                                           float t, int D) {
+__device__ __forceinline__ real_of<Like> like_eval(const Like& like, const real_of<Like>* x0,
+                                                   const real_of<Like>* n, real_of<Like> t,
+                                                   int D) {
+    using Real = real_of<Like>;
     bool inside = true;
-    float T[Like::NT][Like::MAXD];
+    Real T[Like::NT][Like::MAXD];
 #pragma unroll
     for (int d = 0; d < Like::MAXD; ++d) {
         if (d < D) {
-            float o[Like::NT];
+            Real o[Like::NT];
             like.term(probe_theta(x0[d], n[d], t, like.prior.a[d], like.prior.s[d], inside), d,
                       o);
 #pragma unroll

@@ -1,11 +1,24 @@
 // Pieces shared by the slice-epoch kernels (likelihoods.cuh and every
 // slice_epoch*.cu) and probes.cu: the bounds on the dimension, the phases of
-// the per-lane state machine (ops/pallas_slice.py), and the murmur3 counter
-// hash the uniforms come from.
+// the per-lane state machine (ops/pallas_slice.py), the murmur3 counter
+// hash the uniforms come from, and the rounded arithmetic of the scalar
+// type (rounded.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rounded.cuh"
+
+// A parameter of type T that takes no part in deducing T: the scalar type
+// of the slice kernels' templates (float, or double for B1's fused and
+// traced routes at precision='highest') is deduced from their state alone.
+template <class T>
+struct same_type {
+    using type = T;
+};
+template <class T>
+using exactly = typename same_type<T>::type;
 
 // The two dimension buckets of the slice-epoch template (slice_epoch.cuh):
 // D <= SLICE_MAXD, every kernel and G; SLICE_MAXD < D <= SLICE_MAXD_WIDE,
@@ -39,7 +52,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 }
 
 // The uniform of draw `it` of a repeat: the top 24 bits of
-// fmix(mix(h_rep, it)) times 2^-24, exact in float32.
+// fmix(mix(h_rep, it)) times 2^-24, exact in float32 (and so in double: a
+// double kernel draws the same u as a float one).
 __device__ __forceinline__ float slice_uniform(uint32_t h_rep, uint32_t it) {
     return (float)(fmix32(mix32(h_rep, it)) >> 8) * 5.9604644775390625e-08f;
 }

@@ -88,6 +88,12 @@
 // likelihoods (models/examples.py), so the kernel at every G and its plain
 // version agree bit for bit.
 //
+// The template follows its functor's scalar type (real_of, likelihoods.cuh):
+// float for every kernel, double for the fused route at
+// precision='highest', whose state, directions, bound, records and staged
+// terms are then double (slice_epoch_fused.cu).  Double doubles the
+// registers of the chain state and the wide bucket's staged row.
+//
 // Layout: x0 (D, B), nhat (R, D, B) and w (R, B) with the chain axis
 // minor; outputs t, logL (R, B) float32 and nlike (R, B) int32.  With
 // G > 1 a warp's load of one coordinate touches G rows of 32 / G chains
@@ -119,8 +125,8 @@ struct V3Policy {  // B4 (slice_epoch_v3.cu)
 };
 
 // B5's cube row r of chain b: each lane writes the coordinates it owns.
-template <class Policy, int G, int MAXD = SLICE_MAXD>
-__device__ __forceinline__ void repeat_end(const EpochArgs& a, int r, int b, const float* x0,
+template <class Policy, int G, int MAXD = SLICE_MAXD, class T>
+__device__ __forceinline__ void repeat_end(const EpochArgsT<T>& a, int r, int b, const T* x0,
                                            int g) {
     if constexpr (Policy::CUBE) {
 #pragma unroll
@@ -138,31 +144,35 @@ __device__ __forceinline__ void repeat_end(const EpochArgs& a, int r, int b, con
 // take the full mask.
 template <int G, class Like>
 struct GroupLane {
+    using Real = real_of<Like>;
     static constexpr int K = Like::MAXD / G;
     const Like& like;
-    float a[K], s[K];
+    Real a[K], s[K];
     int g;
     unsigned mask;
-    float logzero;
+    Real logzero;
 };
 
 // The terms of the 128 bucket's chain, staged in shared memory: T[j][d].
-template <int MAXD>
+template <int MAXD, class Real = float>
 struct StagedTerms {
-    const float* p;
-    __device__ __forceinline__ const float* operator[](int j) const { return p + j * MAXD; }
+    const Real* p;
+    __device__ __forceinline__ const Real* operator[](int j) const { return p + j * MAXD; }
 };
 
 template <int G, class Like>
-__device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const float* x0,
-                                           const float* n, float t, int D) {
+__device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
+                                                   const real_of<Like>* x0,
+                                                   const real_of<Like>* n, real_of<Like> t,
+                                                   int D) {
+    using Real = real_of<Like>;
     constexpr int K = GroupLane<G, Like>::K, NT = Like::NT, MAXD = Like::MAXD;
     bool inside = true;
-    float own[NT][K];
+    Real own[NT][K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {  // the per-coordinate stage, on the owner
         const int d = L.g + k * G;
-        float o[NT] = {};
+        Real o[NT] = {};
         if (d < D) L.like.term(probe_theta(x0[k], n[k], t, L.a[k], L.s[k], inside), d, o);
 #pragma unroll
         for (int j = 0; j < NT; ++j) own[j][k] = o[j];
@@ -171,7 +181,7 @@ __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const fl
     if constexpr (MAXD == SLICE_MAXD) {
         // every term to every lane of the group, in batches of 8 slots under a
         // warp-uniform test so that a batch's shuffles go out back to back
-        float T[NT][SLICE_MAXD];
+        Real T[NT][SLICE_MAXD];
 #pragma unroll
         for (int c = 0; c < SLICE_MAXD; c += 8) {
             if (c < D) {
@@ -189,8 +199,8 @@ __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const fl
         // chain's row of shared memory (one warp per block; the odd row
         // stride puts the chains of a warp on distinct banks) and every lane
         // of the group combines from there, in the same index order
-        __shared__ float staged[32 / G][NT * MAXD + 1];
-        float* row = staged[(threadIdx.x & 31) / G];
+        __shared__ Real staged[32 / G][NT * MAXD + 1];
+        Real* row = staged[(threadIdx.x & 31) / G];
         __syncwarp();  // the previous micro-step's combine has read the row
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -201,7 +211,8 @@ __device__ __forceinline__ float like_eval(const GroupLane<G, Like>& L, const fl
             }
         }
         __syncwarp();
-        return like_result(L.like.combine(StagedTerms<MAXD>{row}, D), inside, L.logzero);
+        return like_result(L.like.combine(StagedTerms<MAXD, Real>{row}, D), inside,
+                           L.logzero);
     }
 }
 
@@ -229,21 +240,23 @@ __device__ __forceinline__ void group_prior(GroupLane<G, Like>& L) {
 // G = 1: the R repeats of chain b, one slice_repeat after the other.
 // Returns the micro-steps the chain took.
 template <class Policy, class Like>
-__device__ __forceinline__ long long chain_epoch(const Like& like, const EpochArgs& a, int b) {
+__device__ __forceinline__ long long chain_epoch(const Like& like,
+                                                 const EpochArgsT<real_of<Like>>& a, int b) {
     static_assert(Like::MAXD == SLICE_MAXD, "one thread per chain in the SLICE_MAXD bucket only");
+    using Real = real_of<Like>;
     const int B = a.B, D = a.D, R = a.R;
     long long steps = 0;
     int r = 0;
     const bool valid = a.valid[b] > 0.5f;
-    float x0[SLICE_MAXD], n[SLICE_MAXD];
+    Real x0[SLICE_MAXD], n[SLICE_MAXD];
     if (valid || Policy::CUBE) slice_load(x0, a.x0t, 0, D, B, b);
     if (valid) {
-        const float bnd = a.bound[b];
+        const Real bnd = a.bound[b];
         const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
         for (; r < R; ++r) {
             slice_load(n, a.nhat, (size_t)r * D * B, D, B, b);
-            const float wr = a.w[(size_t)r * B + b];
-            const SliceRepeat rep =
+            const Real wr = a.w[(size_t)r * B + b];
+            const SliceRepeatT<Real> rep =
                 slice_repeat(like, x0, n, wr, bnd, mix32(h_lane, (uint32_t)r), D, a.max_step,
                              a.max_shrink, Policy::PER_REPEAT ? a.cap : a.cap - steps);
             steps += rep.steps;
@@ -257,7 +270,7 @@ __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochAr
         }
     }
     for (; r < R; ++r) {  // invalid, never reached
-        write_repeat(a, r, b, 0.0f, like.logzero, 0);
+        write_repeat(a, r, b, Real(0), like.logzero, 0);
         repeat_end<Policy, 1>(a, r, b, x0, 0);
     }
     return steps;
@@ -274,16 +287,18 @@ __device__ __forceinline__ long long chain_epoch(const Like& like, const EpochAr
 // stops (STOP) or keeps x0 for its next repeat.  Lane 0 writes the
 // records; each lane writes the cube coordinates it owns.
 template <class Policy, int G, class Like>
-__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const EpochArgs& a,
-                                            int b, bool in_range) {
+__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L,
+                                            const EpochArgsT<real_of<Like>>& a, int b,
+                                            bool in_range) {
+    using Real = real_of<Like>;
     constexpr int MAXD = Like::MAXD, K = MAXD / G;
     const int B = a.B, D = a.D, R = a.R, g = L.g;
     bool done = !(in_range && a.valid[b] > 0.5f);
     int r = 0;
     long long steps = 0;
-    float x0[K] = {}, n[K] = {}, wr = 0.0f, bnd = 0.0f;
+    Real x0[K] = {}, n[K] = {}, wr = Real(0), bnd = Real(0);
     uint32_t h_lane = 0;
-    SliceState s;
+    SliceStateT<Real> s;
     s.start();
     if (!done || (Policy::CUBE && in_range)) slice_load<G, MAXD>(x0, a.x0t, 0, D, B, b, g);
     if (!done) {
@@ -296,7 +311,7 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     for (;;) {
         bool over = false;  // the budget ended this repeat, and the chain goes on
         if (!done && steps >= a.cap) {  // the budget ends the repeat unaccepted
-            if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, s.cnt);
+            if (g == 0) write_repeat(a, r, b, Real(0), L.logzero, s.cnt);
             if (Policy::STOP) {
                 repeat_end<Policy, G, MAXD>(a, r++, b, x0, g);
                 done = true;
@@ -305,7 +320,7 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
             }
         }
         if (!__any_sync(0xffffffffu, !done)) break;
-        float t = 0.0f, logL = L.logzero;
+        Real t = Real(0), logL = L.logzero;
         const bool accepted = slice_micro(L, s, x0, n, wr, bnd, h_rep, D, a.max_step,
                                           a.max_shrink, t, logL);
         if (!done) {
@@ -334,14 +349,14 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L, const E
     }
     if (in_range) {
         for (; r < R; ++r) {  // invalid, never reached
-            if (g == 0) write_repeat(a, r, b, 0.0f, L.logzero, 0);
+            if (g == 0) write_repeat(a, r, b, Real(0), L.logzero, 0);
             repeat_end<Policy, G, MAXD>(a, r, b, x0, g);
         }
     }
 }
 
 template <class Policy, class Like, int G, bool COUNTED>
-__global__ void slice_epoch_kernel(Like like, EpochArgs a) {
+__global__ void slice_epoch_kernel(Like like, EpochArgsT<real_of<Like>> a) {
     static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
     static_assert(Like::MAXD == SLICE_MAXD || G * SLICE_LANE_CAP >= Like::MAXD,
                   "at most SLICE_LANE_CAP coordinates per lane above SLICE_MAXD");
@@ -366,7 +381,7 @@ __global__ void slice_epoch_kernel(Like like, EpochArgs a) {
 // Launch slice_epoch_kernel<Policy, Like, G, COUNTED> on `stream`: one warp
 // per block, 32 / G chains each.
 template <class Policy, class Like, int G, bool COUNTED = false>
-void launch_epoch(const Like& like, const EpochArgs& a, cudaStream_t stream) {
+void launch_epoch(const Like& like, const EpochArgsT<real_of<Like>>& a, cudaStream_t stream) {
     const int threads = 32;
     const int blocks = (int)(((long long)a.B * G + threads - 1) / threads);
     slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
@@ -376,7 +391,8 @@ void launch_epoch(const Like& like, const EpochArgs& a, cudaStream_t stream) {
 // SLICE_MAXD bucket, 32 in the SLICE_MAXD_WIDE bucket (the only
 // instantiation there, SLICE_LANE_CAP coordinates per lane at most).
 template <class Policy, class Like>
-void launch_epoch_group(int group, const Like& like, const EpochArgs& a, cudaStream_t st) {
+void launch_epoch_group(int group, const Like& like, const EpochArgsT<real_of<Like>>& a,
+                        cudaStream_t st) {
     if constexpr (Like::MAXD == SLICE_MAXD) {
         switch (group) {
             case 1: launch_epoch<Policy, Like, 1>(like, a, st); break;
@@ -396,7 +412,8 @@ void launch_epoch_group(int group, const Like& like, const EpochArgs& a, cudaStr
 // Whether a launch of `group` lanes per chain can take these arguments: D
 // up to `maxd` (SLICE_MAXD_WIDE for the entries with both buckets), and
 // above SLICE_MAXD only at the wide bucket's G.
-inline bool epoch_args_ok(const EpochArgs& a, int group, int maxd = SLICE_MAXD) {
+template <class T>
+inline bool epoch_args_ok(const EpochArgsT<T>& a, int group, int maxd = SLICE_MAXD) {
     return a.D >= 1 && a.D <= maxd && a.R >= 1 && a.B >= 1 && group >= 1 &&
            group <= 32 && !(group & (group - 1)) &&
            (a.D <= SLICE_MAXD || group * SLICE_LANE_CAP >= SLICE_MAXD_WIDE);

@@ -24,22 +24,32 @@
 // read-only cache.  Every float operation is a rounded intrinsic under
 // --fmad=false, so the kernel agrees bit for bit with fused_like.py's plain
 // version, Lowered.plain_logL.
+//
+// At precision='highest' the generated functor is double (its logzero, its
+// constants, its statements; fused_like.py writes the dtype into the
+// header, so it is part of the library's hash), and so is every array of
+// this entry and the chain state of the template: the entry's pointers and
+// logzero take the functor's scalar type, fused_real.
 
 #include "slice_epoch.cuh"
 #include "fused_ops.cuh"
 #include "fused_like.cuh"
 
+using fused_real = real_of<FusedLike>;
+
 // The arguments of slice_epoch.cu's entries, with the compiled G first and a
-// device pointer for the constants.  Returns cudaErrorInvalidValue for
-// another G or D, else cudaGetLastError() after the launch.
+// device pointer for the constants, every float array and logzero of type
+// fused_real.  Returns cudaErrorInvalidValue for another G or D, else
+// cudaGetLastError() after the launch.
 extern "C" int slice_epoch_fused_launch(
-    int group, const float* consts, const float* prior_a, const float* prior_s,
+    int group, const fused_real* consts, const fused_real* prior_a, const fused_real* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream) {
-    const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D,
-                                   R, k0, k1, max_step, max_shrink, cap);
+    long long cap, fused_real logzero, void* stream) {
+    const EpochArgsT<fused_real> a =
+        epoch_args<fused_real>(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D, R,
+                               k0, k1, max_step, max_shrink, cap);
     if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD))
         return (int)cudaErrorInvalidValue;
     const FusedLike like{affine_prior<FusedLike::MAXD>(prior_a, prior_s, D), consts, logzero};

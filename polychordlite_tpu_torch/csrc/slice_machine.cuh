@@ -14,6 +14,12 @@
 // No warp operation lives here: with the intrinsics mapped to plain float
 // operations, the header also builds as host C++ (tests/test_torch_v5.py).
 //
+// Every piece is a template on the scalar type T of the chain's state (x0,
+// n̂, t, w, the bound, logL): float for every kernel, double for B1's fused
+// and traced routes at precision='highest' (slice_epoch_fused.cu,
+// slice_step.cu).  The float code is the one the kernels have always run.
+// The uniform stays slice_uniform's 24-bit draw, exact in either type.
+//
 // One repeat on the chord x0 + t n̂ (pallas_slice_v4.py:215-348; Neal 2003,
 // chordal_sampling.f90:163-273):
 //   INIT_R -> INIT_L -> STEP_R / STEP_L -> SHRINK,
@@ -36,21 +42,24 @@
 
 #include "likelihoods.cuh"
 
-struct SliceRepeat {
+template <class T = float>
+struct SliceRepeatT {
     bool accepted;
-    float t;          // the accepted chord position (0 when not accepted)
-    float logL;       // its logL (logzero for a forced accept or none)
+    T t;              // the accepted chord position (0 when not accepted)
+    T logL;           // its logL (logzero for a forced accept or none)
     int cnt;          // likelihood calls counted (logL > logzero)
     long long steps;  // micro-steps taken
 };
+using SliceRepeat = SliceRepeatT<float>;
 
 // The state of one lane inside one repeat.  slice_repeat runs it to the
 // end; a kernel that must stop a lane between micro-steps (the cooperative
 // v3 of slice_epoch_v3_instr.cu) keeps it across its bodies.
-struct SliceState {
+template <class T = float>
+struct SliceStateT {
     int phase, rstep, lstep, nshrink, cnt;
     bool need_r, need_l;
-    float tL, tR;
+    T tL, tR;
     uint32_t it;  // micro-steps of the repeat so far: the uniform's counter
 
     __device__ __forceinline__ void start() {
@@ -58,38 +67,40 @@ struct SliceState {
         rstep = lstep = 1;
         nshrink = cnt = 0;
         need_r = need_l = false;
-        tL = tR = 0.0f;
+        tL = tR = T(0);
         it = 0;
     }
 };
+using SliceState = SliceStateT<float>;
 
 // A micro-step in two halves around the likelihood call: slice_propose
 // draws the uniform, advances `it` and returns the chord position t of the
 // probe; slice_decide takes that probe's logL and applies the transition.
 // slice_micro runs both with the functor between them; slice_step.cu runs
 // them in two launches, with the likelihood evaluated in torch in between.
-template <bool SPLIT_INIT = false>
-__device__ __forceinline__ float slice_propose(SliceState& s, float wr, uint32_t h_rep) {
-    const float u = slice_uniform(h_rep, SPLIT_INIT && s.it > 0 ? s.it + 1 : s.it);
+template <bool SPLIT_INIT = false, class T>
+__device__ __forceinline__ T slice_propose(SliceStateT<T>& s, exactly<T> wr, uint32_t h_rep) {
+    const T u = (T)slice_uniform(h_rep, SPLIT_INIT && s.it > 0 ? s.it + 1 : s.it);
     ++s.it;
     switch (s.phase) {
         case PH_INIT_R:
-            s.tL = __fmul_rn(-u, wr);
-            s.tR = __fmul_rn(__fsub_rn(1.0f, u), wr);
+            s.tL = rn_mul(-u, wr);
+            s.tR = rn_mul(rn_sub(T(1), u), wr);
             return s.tR;
         case PH_INIT_L: return s.tL;
-        case PH_STEP_R: return __fmul_rn(wr, (float)s.rstep);
-        case PH_STEP_L: return __fmul_rn(-wr, (float)s.lstep);
-        default: return __fadd_rn(s.tL, __fmul_rn(u, __fsub_rn(s.tR, s.tL)));
+        case PH_STEP_R: return rn_mul(wr, (T)s.rstep);
+        case PH_STEP_L: return rn_mul(-wr, (T)s.lstep);
+        default: return rn_add(s.tL, rn_mul(u, rn_sub(s.tR, s.tL)));
     }
 }
 
 // The transition after the probe at t scored logL.  Returns true when the
 // repeat accepts, with logL_store the accepted logL (logzero for a forced
 // accept).
-__device__ __forceinline__ bool slice_decide(SliceState& s, float t, float logL, float bnd,
-                                             float logzero, int max_step, int max_shrink,
-                                             float& logL_store) {
+template <class T>
+__device__ __forceinline__ bool slice_decide(SliceStateT<T>& s, exactly<T> t, exactly<T> logL,
+                                             exactly<T> bnd, exactly<T> logzero, int max_step,
+                                             int max_shrink, T& logL_store) {
     const bool inside = (logL >= bnd) && (logL > logzero);
     if (logL > logzero) ++s.cnt;
     switch (s.phase) {
@@ -126,7 +137,7 @@ __device__ __forceinline__ bool slice_decide(SliceState& s, float t, float logL,
                 logL_store = logzero;  // forced: logzero, x0 still moves
                 return true;
             }
-            if (t > 0.0f) s.tR = t; else s.tL = t;
+            if (t > T(0)) s.tR = t; else s.tL = t;
             ++s.nshrink;
             break;
     }
@@ -136,48 +147,49 @@ __device__ __forceinline__ bool slice_decide(SliceState& s, float t, float logL,
 // One micro-step of the machine.  Returns true when the repeat accepts,
 // with t the accepted chord position and logL_store its logL (logzero for
 // a forced accept).
-template <class Like, bool SPLIT_INIT = false>
-__device__ __forceinline__ bool slice_micro(const Like& like, SliceState& s, const float* x0,
-                                            const float* n, float wr, float bnd,
+template <class Like, bool SPLIT_INIT = false, class T>
+__device__ __forceinline__ bool slice_micro(const Like& like, SliceStateT<T>& s, const T* x0,
+                                            const T* n, exactly<T> wr, exactly<T> bnd,
                                             uint32_t h_rep, int D, int max_step,
-                                            int max_shrink, float& t, float& logL_store) {
+                                            int max_shrink, T& t, T& logL_store) {
     t = slice_propose<SPLIT_INIT>(s, wr, h_rep);
     return slice_decide(s, t, like_eval(like, x0, n, t, D), bnd, like.logzero, max_step,
                         max_shrink, logL_store);
 }
 
-template <class Like, bool SPLIT_INIT = false>
-__device__ __forceinline__ SliceRepeat slice_repeat(const Like& like, const float* x0,
-                                                    const float* n, float wr, float bnd,
-                                                    uint32_t h_rep, int D, int max_step,
-                                                    int max_shrink, long long budget) {
-    SliceState s;
+template <class Like, bool SPLIT_INIT = false, class T = real_of<Like>>
+__device__ __forceinline__ SliceRepeatT<T> slice_repeat(const Like& like, const T* x0,
+                                                        const T* n, exactly<T> wr,
+                                                        exactly<T> bnd, uint32_t h_rep, int D,
+                                                        int max_step, int max_shrink,
+                                                        long long budget) {
+    SliceStateT<T> s;
     s.start();
-    float t = 0.0f, logL_store = like.logzero;
+    T t = T(0), logL_store = like.logzero;
     long long steps = 0;
     while (steps < budget) {
         ++steps;
         if (slice_micro<Like, SPLIT_INIT>(like, s, x0, n, wr, bnd, h_rep, D, max_step,
                                           max_shrink, t, logL_store))
-            return SliceRepeat{true, t, logL_store, s.cnt, steps};
+            return SliceRepeatT<T>{true, t, logL_store, s.cnt, steps};
     }
-    return SliceRepeat{false, 0.0f, like.logzero, s.cnt, steps};
+    return SliceRepeatT<T>{false, T(0), like.logzero, s.cnt, steps};
 }
 
 // x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.  A
 // lane of a group of G holds coordinates d = g + k G at index k, k < MAXD / G.
-template <int G = 1, int MAXD = SLICE_MAXD>
-__device__ __forceinline__ void slice_advance(float* x0, const float* n, float t, int D,
+template <int G = 1, int MAXD = SLICE_MAXD, class T>
+__device__ __forceinline__ void slice_advance(T* x0, const T* n, exactly<T> t, int D,
                                               int g = 0) {
 #pragma unroll
     for (int k = 0; k < MAXD / G; ++k)
-        if (g + k * G < D) x0[k] = __fadd_rn(x0[k], __fmul_rn(t, n[k]));
+        if (g + k * G < D) x0[k] = rn_add(x0[k], rn_mul(t, n[k]));
 }
 
 // Load lane b's seed (D, B) or direction of repeat r (R, D, B), chain axis
 // minor: coordinates d = g + k G to index k.
-template <int G = 1, int MAXD = SLICE_MAXD>
-__device__ __forceinline__ void slice_load(float* v, const float* __restrict__ src,
+template <int G = 1, int MAXD = SLICE_MAXD, class T>
+__device__ __forceinline__ void slice_load(T* v, const T* __restrict__ src,
                                            size_t offset, int D, int B, int b, int g = 0) {
 #pragma unroll
     for (int k = 0; k < MAXD / G; ++k) {
@@ -188,16 +200,18 @@ __device__ __forceinline__ void slice_load(float* v, const float* __restrict__ s
 
 // The arguments of a free-running epoch kernel (slice_epoch.cuh: B1, B5 at
 // G > 1; slice_epoch_v5.cu: B3).  Layout: x0 (D, B), nhat (R, D, B) and w
-// (R, B) with the chain axis minor; outputs t, logL (R, B) float32, nlike
-// (R, B) int32 and, where the kernel writes it (B5), cube (R, D, B) float32.
-struct EpochArgs {
-    const float* x0t;
-    const float* bound;
-    const float* valid;
-    const float* nhat;
-    const float* w;
-    float* t_out;
-    float* logL_out;
+// (R, B) with the chain axis minor; outputs t, logL (R, B) of the scalar
+// type T (float32; float64 for the fused route at precision='highest'),
+// nlike (R, B) int32 and, where the kernel writes it (B5), cube (R, D, B).
+template <class T = float>
+struct EpochArgsT {
+    const T* x0t;
+    const T* bound;
+    const T* valid;
+    const T* nhat;
+    const T* w;
+    T* t_out;
+    T* logL_out;
     int* nlike_out;
     int B, D, R;
     uint32_t k0, k1;
@@ -205,24 +219,27 @@ struct EpochArgs {
     long long cap;
     int* lane_steps;  // the counted form's outputs, else null
     int* warp_max;
-    float* cube_out;  // B5's cube, else null
+    T* cube_out;  // B5's cube, else null
 };
+using EpochArgs = EpochArgsT<float>;
 
-inline EpochArgs epoch_args(const void* x0t, const void* bound, const void* valid,
-                            const void* nhat, const void* w, void* t_out, void* logL_out,
-                            void* nlike_out, int B, int D, int R, unsigned int k0,
-                            unsigned int k1, int max_step, int max_shrink, long long cap,
-                            void* lane_steps = nullptr, void* warp_max = nullptr,
-                            void* cube_out = nullptr) {
-    return EpochArgs{(const float*)x0t, (const float*)bound, (const float*)valid,
-                     (const float*)nhat, (const float*)w, (float*)t_out, (float*)logL_out,
-                     (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
-                     (int*)lane_steps, (int*)warp_max, (float*)cube_out};
+template <class T = float>
+inline EpochArgsT<T> epoch_args(const void* x0t, const void* bound, const void* valid,
+                                const void* nhat, const void* w, void* t_out, void* logL_out,
+                                void* nlike_out, int B, int D, int R, unsigned int k0,
+                                unsigned int k1, int max_step, int max_shrink, long long cap,
+                                void* lane_steps = nullptr, void* warp_max = nullptr,
+                                void* cube_out = nullptr) {
+    return EpochArgsT<T>{(const T*)x0t, (const T*)bound, (const T*)valid,
+                         (const T*)nhat, (const T*)w, (T*)t_out, (T*)logL_out,
+                         (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                         (int*)lane_steps, (int*)warp_max, (T*)cube_out};
 }
 
 // Record repeat r of chain b.
-__device__ __forceinline__ void write_repeat(const EpochArgs& a, int r, int b, float t,
-                                             float logL, int cnt) {
+template <class T>
+__device__ __forceinline__ void write_repeat(const EpochArgsT<T>& a, int r, int b,
+                                             exactly<T> t, exactly<T> logL, int cnt) {
     const size_t o = (size_t)r * a.B + b;
     a.nlike_out[o] = cnt;
     a.t_out[o] = t;

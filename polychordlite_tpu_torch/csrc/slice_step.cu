@@ -41,8 +41,14 @@
 //
 // Layouts: x0, x (D, B), n̂ (R, D, B), w (R, B), bound, valid, logL (B,);
 // the integer state (S_INTS, B) int32, the float state (F_FLOATS, B),
-// steps (B,) int64; the probe (B, D); records t, logL (R, B) float32 and
-// nlike (R, B) int32.
+// steps (B,) int64; the probe (B, D); records t, logL (R, B) and nlike
+// (R, B) int32.
+//
+// The kernel is a template on the scalar type T of its float arrays and
+// state: float (slice_step_launch), or double (slice_step_launch_f64) for a
+// run at precision='highest', where torch evaluates the likelihood in
+// float64 between the launches.  Double doubles the bytes of x, n̂, the
+// probe and the float state a round moves.
 
 #include "slice_machine.cuh"
 
@@ -51,31 +57,33 @@ enum { S_PHASE, S_RSTEP, S_LSTEP, S_NSHRINK, S_CNT, S_NEED_R, S_NEED_L, S_IT, S_
        S_INTS };
 enum { F_TL, F_TR, F_T, F_FLOATS };
 
+template <class T>
 struct StepArgs {
-    const float* x0t;    // (D, B) seeds, read by the first launch
-    const float* valid;  // (B,), read by the first launch
-    const float* bound;  // (B,)
-    const float* nhat;   // (R, D, B)
-    const float* w;      // (R, B)
-    const float* logL;   // (B,) the likelihood of the last probes
+    const T* x0t;    // (D, B) seeds, read by the first launch
+    const T* valid;  // (B,), read by the first launch
+    const T* bound;  // (B,)
+    const T* nhat;   // (R, D, B)
+    const T* w;      // (R, B)
+    const T* logL;   // (B,) the likelihood of the last probes
     int* ist;            // (S_INTS, B)
     long long* steps;    // (B,) micro-steps of the chain in the epoch
-    float* fst;          // (F_FLOATS, B): tL, tR and the pending probe's t
-    float* x;            // (D, B) the chain's position
-    float* probe;        // (B, D)
-    float* t_out;
-    float* logL_out;
+    T* fst;          // (F_FLOATS, B): tL, tR and the pending probe's t
+    T* x;            // (D, B) the chain's position
+    T* probe;        // (B, D)
+    T* t_out;
+    T* logL_out;
     int* nlike_out;
     int* active;         // set to 1 when a lane is left running
     int B, D, R;
     uint32_t k0, k1;
     int max_step, max_shrink;
     long long cap;
-    float logzero;
+    T logzero;
 };
 
-__device__ __forceinline__ void write_record(const StepArgs& a, int r, int b, float t, float logL,
-                                             int cnt) {
+template <class T>
+__device__ __forceinline__ void write_record(const StepArgs<T>& a, int r, int b, exactly<T> t,
+                                             exactly<T> logL, int cnt) {
     const size_t o = (size_t)r * a.B + b;
     a.t_out[o] = t;
     a.logL_out[o] = logL;
@@ -85,13 +93,14 @@ __device__ __forceinline__ void write_record(const StepArgs& a, int r, int b, fl
 // One kernel for both kinds of launch (`first` a run-time flag), so that the
 // epoch's first launch, outside the CUDA graph, loads the function the
 // graph's launches use.
-__global__ void slice_step_kernel(StepArgs a, bool first) {
+template <class T>
+__global__ void slice_step_kernel(StepArgs<T> a, bool first) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= a.B) return;
     const size_t B = a.B;
     const int D = a.D, R = a.R;
     int* v = a.ist;
-    SliceState s;
+    SliceStateT<T> s;
     int rep;
     long long steps;
     uint32_t h_lane;
@@ -103,7 +112,7 @@ __global__ void slice_step_kernel(StepArgs a, bool first) {
         steps = 0;
         h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
         for (int d = 0; d < D; ++d) a.x[d * B + b] = a.x0t[d * B + b];
-        for (int r = 0; r < R; ++r) write_record(a, r, b, 0.0f, a.logzero, 0);
+        for (int r = 0; r < R; ++r) write_record(a, r, b, T(0), a.logzero, 0);
     } else {
         s.phase = v[S_PHASE * B + b];
         s.rstep = v[S_RSTEP * B + b];
@@ -119,32 +128,32 @@ __global__ void slice_step_kernel(StepArgs a, bool first) {
         h_lane = (uint32_t)v[S_HLANE * B + b];
         steps = a.steps[b];
         if (s.phase != PH_DONE) {  // consume the logL of this lane's probe
-            const float t = a.fst[F_T * B + b];
-            float stored = a.logzero;
+            const T t = a.fst[F_T * B + b];
+            T stored = a.logzero;
             ++steps;
             const bool acc = slice_decide(s, t, a.logL[b], a.bound[b], a.logzero, a.max_step,
                                           a.max_shrink, stored);
             const bool capped = !acc && steps >= a.cap;
-            if (acc || capped) write_record(a, rep, b, acc ? t : 0.0f, acc ? stored : a.logzero,
+            if (acc || capped) write_record(a, rep, b, acc ? t : T(0), acc ? stored : a.logzero,
                                             s.cnt);
             if (acc) {  // x moves to the probe: the same two rounded operations
-                const float* n = a.nhat + (size_t)rep * D * B;
+                const T* n = a.nhat + (size_t)rep * D * B;
                 for (int d = 0; d < D; ++d)
-                    a.x[d * B + b] = __fadd_rn(a.x[d * B + b], __fmul_rn(t, n[d * B + b]));
+                    a.x[d * B + b] = rn_add(a.x[d * B + b], rn_mul(t, n[d * B + b]));
                 s.start();
                 if (++rep >= R) s.phase = PH_DONE;
             }
             if (capped || (acc && steps >= a.cap)) s.phase = PH_DONE;  // the epoch's budget
         }
     }
-    float t = 0.0f;
+    T t = T(0);
     if (s.phase != PH_DONE) {
         t = slice_propose(s, a.w[(size_t)rep * B + b], mix32(h_lane, (uint32_t)rep));
         *a.active = 1;
     }
-    const float* n = a.nhat + (size_t)(rep < R ? rep : R - 1) * D * B;
-    float* p = a.probe + (size_t)b * D;
-    for (int d = 0; d < D; ++d) p[d] = __fadd_rn(a.x[d * B + b], __fmul_rn(t, n[d * B + b]));
+    const T* n = a.nhat + (size_t)(rep < R ? rep : R - 1) * D * B;
+    T* p = a.probe + (size_t)b * D;
+    for (int d = 0; d < D; ++d) p[d] = rn_add(a.x[d * B + b], rn_mul(t, n[d * B + b]));
     a.fst[F_T * B + b] = t;
     a.fst[F_TL * B + b] = s.tL;
     a.fst[F_TR * B + b] = s.tR;
@@ -161,10 +170,29 @@ __global__ void slice_step_kernel(StepArgs a, bool first) {
     a.steps[b] = steps;
 }
 
+template <class T>
+static int launch(int first, const void* x0t, const void* valid, const void* bound,
+                  const void* nhat, const void* w, const void* logL, void* ist, void* steps,
+                  void* fst, void* x, void* probe, void* t_out, void* logL_out,
+                  void* nlike_out, void* active, int B, int D, int R, unsigned int k0,
+                  unsigned int k1, int max_step, int max_shrink, long long cap, T logzero,
+                  void* stream) {
+    if (B < 1 || D < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    const StepArgs<T> a{(const T*)x0t, (const T*)valid, (const T*)bound, (const T*)nhat,
+                        (const T*)w, (const T*)logL, (int*)ist, (long long*)steps, (T*)fst,
+                        (T*)x, (T*)probe, (T*)t_out, (T*)logL_out, (int*)nlike_out,
+                        (int*)active, B, D, R, k0, k1, max_step, max_shrink, cap, logzero};
+    const int threads = 128;
+    const int blocks = (B + threads - 1) / threads;
+    const cudaStream_t st = (cudaStream_t)stream;
+    slice_step_kernel<T><<<blocks, threads, 0, st>>>(a, first != 0);
+    return (int)cudaGetLastError();
+}
+
 // One launch on `stream`: the first one of an epoch (`first` != 0: set up
 // from x0t and valid, then propose) or a round (consume logL, propose).
-// All arrays are device arrays in the layouts above, contiguous.  Returns
-// cudaGetLastError() after the launch.
+// All arrays are device arrays in the layouts above, contiguous, float32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int slice_step_launch(int first, const void* x0t, const void* valid,
                                  const void* bound, const void* nhat, const void* w,
                                  const void* logL, void* ist, void* steps, void* fst, void* x,
@@ -172,15 +200,21 @@ extern "C" int slice_step_launch(int first, const void* x0t, const void* valid,
                                  void* active, int B, int D, int R, unsigned int k0,
                                  unsigned int k1, int max_step, int max_shrink, long long cap,
                                  float logzero, void* stream) {
-    if (B < 1 || D < 1 || R < 1) return (int)cudaErrorInvalidValue;
-    const StepArgs a{(const float*)x0t, (const float*)valid, (const float*)bound,
-                     (const float*)nhat, (const float*)w, (const float*)logL, (int*)ist,
-                     (long long*)steps, (float*)fst, (float*)x, (float*)probe, (float*)t_out,
-                     (float*)logL_out, (int*)nlike_out, (int*)active, B, D, R, k0, k1,
-                     max_step, max_shrink, cap, logzero};
-    const int threads = 128;
-    const int blocks = (B + threads - 1) / threads;
-    const cudaStream_t st = (cudaStream_t)stream;
-    slice_step_kernel<<<blocks, threads, 0, st>>>(a, first != 0);
-    return (int)cudaGetLastError();
+    return launch<float>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
+                         t_out, logL_out, nlike_out, active, B, D, R, k0, k1, max_step,
+                         max_shrink, cap, logzero, stream);
+}
+
+// The same with the float arrays and logzero in float64.
+extern "C" int slice_step_launch_f64(int first, const void* x0t, const void* valid,
+                                     const void* bound, const void* nhat, const void* w,
+                                     const void* logL, void* ist, void* steps, void* fst,
+                                     void* x, void* probe, void* t_out, void* logL_out,
+                                     void* nlike_out, void* active, int B, int D, int R,
+                                     unsigned int k0, unsigned int k1, int max_step,
+                                     int max_shrink, long long cap, double logzero,
+                                     void* stream) {
+    return launch<double>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
+                          t_out, logL_out, nlike_out, active, B, D, R, k0, k1, max_step,
+                          max_shrink, cap, logzero, stream);
 }

@@ -18,6 +18,11 @@ Replace-min over the babies in order keeps the live set equal to the
 nlive largest of {initial live} ∪ {babies so far}, so the device update is
 one ``torch.topk`` over the union.  Seeds and directions come from the
 device generator; epoch k's murmur key words are ``fold_in(key, k)``.
+
+The chain runs in the dtype of the live set it is given, which is the
+run's: float64 at ``precision='highest'``, blob included.  (The JAX
+package's blob is always float32, so its replay check compares a float64
+run's live set in float32: reference fault C2, not copied.)
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ def build_chained_fn(run_packed, cfg: EpochConfig, B_log: int, B_phys: int,
                      K: int, nlive: int, device, generator: torch.Generator):
     """Build ``fn(key, chol (D,D), live_cube (nlive,D), live_logL (nlive,))
     -> flat`` where ``flat`` = [K nursery records | K bounds | final
-    live logL | final live cube], one float32 tensor on the device.
+    live logL | final live cube], one tensor on the device of the live
+    set's dtype (the run's: float32, or float64).
 
     ``run_packed(key, packed_in)`` is the runner's epoch on a packed input
     batch of ``B_phys`` lanes ([cube, bound, cholesky, valid] per lane); it
@@ -44,7 +50,7 @@ def build_chained_fn(run_packed, cfg: EpochConfig, B_log: int, B_phys: int,
     def fn(key, chol, live_cube, live_logL):
         lc, ll = live_cube, live_logL
         chol_rows = chol.reshape(1, D * D).expand(B_phys, D * D)
-        valid = (torch.arange(B_phys, device=device) < B_log).to(torch.float32)
+        valid = (torch.arange(B_phys, device=device) < B_log).to(ll.dtype)
         packs, bounds = [], []
         for k in range(K):
             bound0 = ll.min()

@@ -47,14 +47,16 @@ def draw_gaussians(
     n_dims: int,
     generator: torch.Generator,
     device,
+    dtype: torch.dtype = torch.float32,
 ) -> List[torch.Tensor]:
-    """Per grade, (n_bases, sub, sub, B) standard normals (chain axis minor)."""
+    """Per grade, (n_bases, sub, sub, B) standard normals of ``dtype``
+    (chain axis minor)."""
     out = []
     for g, reps in enumerate(num_repeats):
         sub = n_dims - int(sum(grade_dims[:g]))
         n_bases = -(-reps // sub)
         out.append(torch.randn((n_bases, sub, sub, B), generator=generator,
-                               device=device, dtype=torch.float32))
+                               device=device, dtype=dtype))
     return out
 
 
@@ -77,12 +79,15 @@ def make_directions(
     ``generator`` when given.  ``use_kernel`` (``directions.py:127-134``)
     orthonormalises through :func:`gram_schmidt_lanes`, the kernel on a
     CUDA tensor (up to dim 128; above, it raises); ``False`` asks for
-    :func:`gram_schmidt_plain` on any device, as the plain engine does."""
+    :func:`gram_schmidt_plain` on any device, as the plain engine does.
+    Everything is computed in the dtype of ``cholesky``: float32, or float64
+    for a run at ``precision='highest'`` (the Gaussians drawn in float64, B2
+    in double)."""
     B = cholesky.shape[0]
-    device = cholesky.device
+    device, dtype = cholesky.device, cholesky.dtype
     R = int(sum(num_repeats))
     if gauss is None:
-        gauss = draw_gaussians(B, grade_dims, num_repeats, n_dims, generator, device)
+        gauss = draw_gaussians(B, grade_dims, num_repeats, n_dims, generator, device, dtype)
     if perm is None:
         perm = shared_permutation(R, generator, device)
 
@@ -94,7 +99,7 @@ def make_directions(
         qt = (gram_schmidt_lanes if use_kernel else gram_schmidt_plain)(gauss[g])
         n_bases = qt.shape[0]
         dirs = qt.permute(3, 0, 2, 1).reshape(B, n_bases * sub, sub)[:, :reps]
-        full = torch.zeros((B, reps, n_dims), dtype=torch.float32, device=device)
+        full = torch.zeros((B, reps, n_dims), dtype=dtype, device=device)
         full[:, :, start:] = dirs
         blocks.append(full)
     nhats = torch.cat(blocks, dim=1)[:, perm]
@@ -105,16 +110,16 @@ def make_directions(
     speeds = speeds_r[perm].expand(B, R)
 
     # Whiten: the chord direction in cube space is L n̂, and the initial
-    # width is 3x its length.  Full float32: TF32 is switched off for this
+    # width is 3x its length.  Full precision: TF32 is switched off for this
     # product and the caller's setting restored after it.  (The JAX package
     # computes it at the TPU's default matmul precision, bf16 operands; the
     # port does not copy that.)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        whitened = torch.matmul(nhats, cholesky.to(torch.float32).transpose(1, 2))
+        whitened = torch.matmul(nhats, cholesky.transpose(1, 2))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     norms = torch.sqrt(torch.sum(whitened * whitened, dim=2))
-    unit = whitened / torch.clamp_min(norms, torch.finfo(torch.float32).tiny)[:, :, None]
+    unit = whitened / torch.clamp_min(norms, torch.finfo(dtype).tiny)[:, :, None]
     return unit, 3.0 * norms, speeds

@@ -51,10 +51,10 @@ class DerivedMismatchError(ValueError):
     ``nDerived`` — raised loudly rather than silently writing zero columns."""
 
 
-def _normalise_like_output(out, n_phi: int, n_derived_decl: int, B: int):
+def _normalise_like_output(out, n_phi: int, n_derived_decl: int, B: int, dt: torch.dtype):
     """Accept the reference's tuple-or-scalar return convention for a batch:
     ``logL (B,)`` or ``(logL (B,), phi)`` with phi ``(B, k)`` or a sequence
-    of k ``(B,)`` tensors.  Returns (logL (B,), phi (B, n_phi))."""
+    of k ``(B,)`` tensors.  Returns (logL (B,), phi (B, n_phi)) of dtype ``dt``."""
     if isinstance(out, tuple):
         logL, phi = out
         if not isinstance(phi, torch.Tensor):
@@ -70,7 +70,6 @@ def _normalise_like_output(out, n_phi: int, n_derived_decl: int, B: int):
             phi = phi.reshape(B, -1)
     else:
         logL, phi = out, None
-    dt = real_dtype()
     if not isinstance(logL, torch.Tensor):
         raise TypeError("the likelihood did not return a torch tensor")
     logL = logL.to(dt).reshape(B)
@@ -81,12 +80,11 @@ def _normalise_like_output(out, n_phi: int, n_derived_decl: int, B: int):
     return logL, full
 
 
-def _normalise_point_output(out, n_phi: int, n_derived_decl: int):
+def _normalise_point_output(out, n_phi: int, n_derived_decl: int, dt: torch.dtype):
     """The reference's return convention for one point (``theta (D,)``):
     ``logL`` or ``(logL, phi)`` with phi a tensor or a sequence of 0-d
-    tensors or numbers.  Returns (logL (), phi (n_phi,)); works under
-    ``torch.func.vmap``."""
-    dt = real_dtype()
+    tensors or numbers.  Returns (logL (), phi (n_phi,)) of dtype ``dt``;
+    works under ``torch.func.vmap``."""
     logL, phi = out if isinstance(out, tuple) else (out, None)
     if not isinstance(logL, torch.Tensor):
         raise TypeError("the likelihood did not return a torch tensor")
@@ -142,21 +140,22 @@ def _same(a, b) -> bool:
     return all(same_values(x, y) for x, y in zip(a, b))
 
 
-def probe_cubes(n_dims: int, device) -> torch.Tensor:
+def probe_cubes(n_dims: int, device, dtype=None) -> torch.Tensor:
     """The :data:`PROBE_POINTS` seeded cubes a model's form is decided on:
     drawn from [-0.05, 1.05]^D and clamped as the calc clamps them, so some
-    lie on the cube's walls (one point more where D equals their number)."""
+    lie on the cube's walls (one point more where D equals their number),
+    in ``dtype`` (:func:`real_dtype` by default)."""
     rng = np.random.default_rng(20240131)
     n = PROBE_POINTS + (n_dims == PROBE_POINTS)  # never as many points as coordinates
     return torch.as_tensor(rng.uniform(-0.05, 1.05, (n, n_dims)).clip(0.0, 1.0),
-                           dtype=real_dtype(), device=device)
+                           dtype=real_dtype() if dtype is None else dtype, device=device)
 
 
-def _model_form(batched, point, n_dims: int, device) -> str:
+def _model_form(batched, point, n_dims: int, device, dtype) -> str:
     """``"batched"``, ``"per_point"`` or ``"callback"`` (module docstring)
     from the raw evaluators ``batched(cube (B, D))`` and ``point(cube (D,))``,
     each returning (theta, phi, logL)."""
-    cube = probe_cubes(n_dims, device)
+    cube = probe_cubes(n_dims, device, dtype)
     by_batch = _attempt(lambda: batched(cube))
     each = _attempt(lambda: [point(c) for c in cube])
     by_point = None if each is None else tuple(torch.stack(v) for v in zip(*each))
@@ -186,16 +185,19 @@ def make_batched_calculator(
 ):
     """Build ``calc(cube_batch) -> (theta, phi, logL)`` with calculate_point
     semantics, in the model's form (module docstring), decided on
-    ``device`` (the CPU by default).  ``calc.form`` names the form."""
+    ``device`` (the CPU by default).  ``calc.form`` names the form.  The
+    calc computes in :func:`real_dtype` as it is when the calc is made
+    (``calc.dtype``: float64 under ``precision='highest'``)."""
     n_phi = max(n_derived, 1)
+    dt = real_dtype()
 
     def batched(cube):
         theta = prior_fn(cube)
         if not (isinstance(theta, torch.Tensor) and theta.shape == cube.shape):
             raise TypeError("the prior did not map a (B, D) cube to a (B, D) tensor")
-        theta = theta.to(real_dtype())
+        theta = theta.to(dt)
         logL, phi = _normalise_like_output(
-            loglike_fn(theta), n_phi, n_derived, cube.shape[0]
+            loglike_fn(theta), n_phi, n_derived, cube.shape[0], dt
         )
         return theta, phi, logL
 
@@ -203,12 +205,12 @@ def make_batched_calculator(
         theta = prior_fn(cube)
         if not (isinstance(theta, torch.Tensor) and theta.shape == cube.shape):
             raise TypeError("the prior did not map a (D,) cube to a (D,) tensor")
-        theta = theta.to(real_dtype())
-        logL, phi = _normalise_point_output(loglike_fn(theta), n_phi, n_derived)
+        theta = theta.to(dt)
+        logL, phi = _normalise_point_output(loglike_fn(theta), n_phi, n_derived, dt)
         return theta, phi, logL
 
     form = "callback" if force_callback else _model_form(
-        batched, point, n_dims, torch.device("cpu") if device is None else device)
+        batched, point, n_dims, torch.device("cpu") if device is None else device, dt)
     use_callback = form == "callback"
 
     if form == "batched":
@@ -242,7 +244,7 @@ def make_batched_calculator(
 
         def raw_eval(cube):
             th, ph, ll = _host_eval(cube.detach().cpu().numpy().astype(np.float64))
-            kw = dict(dtype=real_dtype(), device=cube.device)
+            kw = dict(dtype=dt, device=cube.device)
             return (
                 torch.as_tensor(th, **kw),
                 torch.as_tensor(ph, **kw),
@@ -268,6 +270,7 @@ def make_batched_calculator(
     calc_point_batch.n_phi = n_phi
     calc_point_batch.n_dims = n_dims
     calc_point_batch.logzero = float(logzero)
+    calc_point_batch.dtype = dt
     # what the fused route lowers (ops/fused_like.py), and where it was decided
     calc_point_batch.model = (prior_fn, loglike_fn, n_derived)
     calc_point_batch.device = torch.device("cpu") if device is None else torch.device(device)

@@ -8,9 +8,9 @@ without a hand-written functor: :func:`lower` traces the calc's own prior
 and likelihood, lowers the trace to a small IR, and that IR has two
 consumers, so that they cannot drift apart:
 
-* :meth:`Lowered.plain_logL` interprets it in torch, float32, one rounded
-  operation at a time, reductions in index order: the kernel's plain
-  version;
+* :meth:`Lowered.plain_logL` interprets it in torch, in the lowering's
+  dtype, one rounded operation at a time, reductions in index order: the
+  kernel's plain version;
 * :meth:`Lowered.emit_functor` writes it as C++ for B1's two-stage functor
   interface (``csrc/likelihoods.cuh``), which ``csrc/slice_epoch_fused.cu``
   instantiates (``ops/pallas_slice_v4.py::slice_epoch_fused``).
@@ -35,8 +35,8 @@ comparisons, ``neg``, ``abs``, ``pow``; ``exp``, ``log``, ``log1p``, ``expm1``,
 ``mv``, ``mm``, ``dot``.  An op whose inputs are all constants is evaluated
 once, here (a matrix inverted inside the likelihood becomes a constant).
 Anything else refuses lowering with the op's name as the reason (:class:`Refused`),
-as do data-dependent control flow, a larger shape, a dtype other than
-float32 or bool, and D > :data:`SLICE_MAXD_WIDE`.  The header names the
+as do data-dependent control flow, a larger shape, a dtype other than the
+lowering's (float32, or float64 below) or bool, and D > :data:`SLICE_MAXD_WIDE`.  The header names the
 kernel template's dimension bucket of D (``FUSED_MAXD``: 32, or 128 where
 the combine reads the terms staged in shared memory,
 ``csrc/slice_epoch.cuh``).
@@ -47,7 +47,7 @@ the values it hands on are ``exports`` (``T[j][d]``).  ``combine`` is
 everything else, scalarised at the static D: the ordered sums and the scalar
 tail; a graph that couples coordinates exports the coordinate and keeps its
 body here.  Model constants (captured tensors and numbers) are slots of one
-float32 buffer, never in the source, so the source — and its hash, the
+buffer of the lowering's dtype, never in the source, so the source — and its hash, the
 library's name — depends on the graph only.
 
 **Validation** before a run uses it: :func:`lower` holds ``plain_logL``
@@ -56,6 +56,17 @@ model-form tolerance (rtol 1e-5, atol 1e-6; the JAX package accepts its tile
 path at 1e-4) and refuses on a mismatch; on the card,
 ``pallas_slice_v4.validate_fused`` holds the kernel bitwise against
 ``plain_logL`` and raises on a mismatch.
+
+**float64.**  A calc made at ``precision='highest'`` (``calc.dtype``) is
+lowered in float64: the trace, the constants, the literals and the plain
+version in float64, and the functor emitted in double (``__dadd_rn`` for
+``__fadd_rn``, ``exp`` for ``expf``, ...; the dtype is in the source and so
+in the library's name).  The prior is always lowered into the body there:
+the ``affine`` descriptors of ``priors.py`` hold float32 values.  ``erfinv``
+and ``ndtri`` are refused (``csrc/fused_ops.cuh`` has float32 sequences
+only), so a model with them takes the traced route.  :func:`lower` holds
+the plain version to the calc at rtol = atol = 1e-12 (:data:`F64_TOL`): the
+two differ only in the order of sums.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import torch
 
 from ..utils import nvcc
 from .evaluate import probe_cubes, same_values
+from .precision import calc_dtype
 
 #: the kernel template's dimension buckets (SLICE_MAXD and SLICE_MAXD_WIDE of
 #: ``csrc/slice_common.cuh``)
@@ -78,6 +90,10 @@ SLICE_MAXD, SLICE_MAXD_WIDE = 32, 128
 #: the most elements of a value that is not a constant, and of a constant
 MAX_ELEMENTS, MAX_CONST_ELEMENTS = SLICE_MAXD_WIDE, SLICE_MAXD_WIDE * SLICE_MAXD_WIDE
 SOURCE = "slice_epoch_fused.cu"
+#: the float64 lowering's tolerance against the calc (rtol, atol)
+F64_TOL = (1e-12, 1e-12)
+#: the dtypes a lowering takes
+DTYPES = (torch.float32, torch.float64)
 
 # A reference is a tuple:
 #   ("x",)        the coordinate's theta (term only)
@@ -86,9 +102,11 @@ SOURCE = "slice_epoch_fused.cu"
 #   ("s", i)      combine statement i
 #   ("c", k)      constant slot k
 #   ("cv", k)     constant slots k .. k + D - 1, slot k + d for coordinate d (term only)
-#   ("k", v)      a float32 literal of an op's own definition (not a model value)
+#   ("k", v)      a literal of an op's own definition (not a model value), in the
+#                 lowering's dtype
 # A statement is (op, args), its value the reference of its position; the
-# operations are the keys of PLAIN.
+# operations are the keys of PLAIN and "f32", a boolean as a real of the
+# lowering's dtype (float32 in the name only).
 BOOL_OPS = frozenset(("lt", "le", "gt", "ge", "eq", "ne"))
 #: float operations per IR statement, for the kernels' bound (the quantile's
 #: rational approximation ~30, a library call ~20)
@@ -108,13 +126,13 @@ class Refused(Exception):
 _LITERALS: Dict[Tuple[float, str], torch.Tensor] = {}
 
 
-def _lit(v: float, device) -> torch.Tensor:
-    """A float32 0-d tensor on ``device``: every operand of the plain
+def _lit(v: float, device, dtype=torch.float32) -> torch.Tensor:
+    """A 0-d tensor of ``dtype`` on ``device``: every operand of the plain
     version is a tensor, so no division becomes a multiplication by a host
     scalar's reciprocal."""
-    key = (float(v), str(device))
+    key = (float(v), str(device), dtype)
     if key not in _LITERALS:
-        _LITERALS[key] = torch.tensor(v, dtype=torch.float32, device=device)
+        _LITERALS[key] = torch.tensor(v, dtype=dtype, device=device)
     return _LITERALS[key]
 
 
@@ -193,7 +211,7 @@ PLAIN = {
     "ne": torch.ne, "where": torch.where, "neg": torch.neg, "abs": torch.abs,
     "exp": torch.exp, "log": torch.log, "log1p": torch.log1p, "expm1": torch.expm1,
     "sqrt": torch.sqrt, "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh,
-    "erfinv": _erfinv, "ndtri": _ndtri, "f32": lambda b: b.to(torch.float32),
+    "erfinv": _erfinv, "ndtri": _ndtri,
 }
 
 # ------------------------------------------------------------------ C++
@@ -204,17 +222,28 @@ _C_CALL = {
     "sin": "fused_sinf", "cos": "fused_cosf", "tanh": "tanhf", "erfinv": "fused_erfinv",
     "ndtri": "fused_ndtri",
 }
+#: the calls of a double functor (no erfinv or ndtri: refused at float64)
+_C_CALL_F64 = {
+    "add": "__dadd_rn", "sub": "__dsub_rn", "mul": "__dmul_rn", "div": "__ddiv_rn",
+    "max": "fused_max", "min": "fused_min", "pow": "fused_pow", "abs": "fabs",
+    "exp": "exp", "log": "log", "log1p": "log1p", "expm1": "expm1", "sqrt": "sqrt",
+    "sin": "fused_sin", "cos": "fused_cos", "tanh": "tanh",
+}
 _C_INFIX = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!="}
+#: the C++ type of each dtype
+_C_TYPE = {torch.float32: "float", torch.float64: "double"}
 
 
-def _c_float(v: float) -> str:
-    v = float(np.float32(v))
+def _c_float(v: float, dtype=torch.float32) -> str:
+    """A literal of ``dtype``: float32 (suffix f) or float64, in hex."""
+    if dtype == torch.float32:
+        v = float(np.float32(v))
     if np.isinf(v):
         return "INFINITY" if v > 0 else "(-INFINITY)"
-    return f"{v.hex()}f"
+    return f"{v.hex()}f" if dtype == torch.float32 else v.hex()
 
 
-def _c_stmt(op: str, a: List[str]) -> str:
+def _c_stmt(op: str, a: List[str], dtype=torch.float32) -> str:
     if op in _C_INFIX:
         return f"({a[0]} {_C_INFIX[op]} {a[1]})"
     if op == "where":
@@ -222,8 +251,9 @@ def _c_stmt(op: str, a: List[str]) -> str:
     if op == "neg":
         return f"(-{a[0]})"
     if op == "f32":
-        return f"({a[0]} ? 1.0f : 0.0f)"
-    return f"{_C_CALL[op]}({', '.join(a)})"
+        return f"({a[0]} ? 1.0f : 0.0f)" if dtype == torch.float32 else f"({a[0]} ? 1.0 : 0.0)"
+    calls = _C_CALL if dtype == torch.float32 else _C_CALL_F64
+    return f"{calls[op]}({', '.join(a)})"
 
 
 # ------------------------------------------------------------------ the IR
@@ -242,6 +272,9 @@ class Lowered:
     out: tuple
     logzero: float
     prior_lowered: bool
+    #: the dtype of the plain version and the kernel: float32, or float64 for
+    #: a calc made at precision='highest'
+    dtype: torch.dtype = torch.float32
     #: seconds each group size's library took to build (or load) in this process
     build_seconds: Dict[int, float] = field(default_factory=dict)
     _device_consts: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
@@ -251,7 +284,7 @@ class Lowered:
         return len(self.exports)
 
     def flops_per_probe(self) -> int:
-        """float32 operations of one probe: the probe and the prior's affine
+        """Floating operations (of :attr:`dtype`) of one probe: the probe and the prior's affine
         map (4 per coordinate), the per-coordinate chain D times, the
         combine, and the machine's ~7."""
         def cost(stmts):
@@ -265,21 +298,25 @@ class Lowered:
         key = str(device)
         if key not in self._device_consts:
             self._device_consts[key] = torch.tensor(
-                np.concatenate([self.consts, *self.prior]), device=device)
+                np.concatenate([self.consts, *self.prior]), dtype=self.dtype, device=device)
         return self._device_consts[key]
 
     # ---- the plain version
     def plain_logL(self, cube: torch.Tensor) -> torch.Tensor:
-        """logL (B,) float32 of the probes ``cube (B, D)`` with the kernel's
-        semantics: theta = cube s + a, the IR's operations in torch one at a
-        time, a NaN as logzero, a probe outside [0, 1]^D as logzero."""
-        dev, D = cube.device, self.n_dims
+        """logL (B,) of :attr:`dtype` of the probes ``cube (B, D)`` with the
+        kernel's semantics: theta = cube s + a, the IR's operations in torch
+        one at a time, a NaN as logzero, a probe outside [0, 1]^D as
+        logzero."""
+        dev, D, dt = cube.device, self.n_dims, self.dtype
         c = self.device_consts(dev)
         a, s = c[-2 * D:-D], c[-D:]
-        p = cube.to(torch.float32)
+        p = cube.to(dt)
         inside = ((p >= 0.0) & (p <= 1.0)).all(dim=1)
         x = torch.add(torch.mul(p, s), a)
         vals: List[torch.Tensor] = []
+
+        def apply(op, args):
+            return args[0].to(dt) if op == "f32" else PLAIN[op](*args)
 
         def term_arg(ref):
             kind = ref[0]
@@ -291,10 +328,10 @@ class Lowered:
                 return c[ref[1]]
             if kind == "cv":
                 return c[ref[1]:ref[1] + D]
-            return _lit(ref[1], dev)
+            return _lit(ref[1], dev, dt)
 
         for op, args in self.term:
-            vals.append(PLAIN[op](*(term_arg(r) for r in args)))
+            vals.append(apply(op, [term_arg(r) for r in args]))
         T = [term_arg(r) for r in self.exports]
         svals: List[torch.Tensor] = []
 
@@ -306,18 +343,21 @@ class Lowered:
                 return svals[ref[1]]
             if kind == "c":
                 return c[ref[1]]
-            return _lit(ref[1], dev)
+            return _lit(ref[1], dev, dt)
 
         for op, args in self.combine:
-            svals.append(PLAIN[op](*(comb_arg(r) for r in args)))
+            svals.append(apply(op, [comb_arg(r) for r in args]))
         out = comb_arg(self.out).expand(p.shape[0])
-        logzero = _lit(self.logzero, dev)
+        logzero = _lit(self.logzero, dev, dt)
         out = torch.where(torch.isnan(out), logzero, out)
         return torch.where(inside, out, logzero)
 
     # ---- the kernel
     def emit_functor(self) -> str:
-        """The C++ functor ``FusedLike`` with B1's two-stage interface."""
+        """The C++ functor ``FusedLike`` with B1's two-stage interface, in
+        float or (at float64) double."""
+        dt, real = self.dtype, _C_TYPE[self.dtype]
+
         def ref_c(ref):
             kind = ref[0]
             if kind == "x":
@@ -330,11 +370,11 @@ class Lowered:
                 return f"__ldg(c + {ref[1]})"
             if kind == "cv":
                 return f"__ldg(c + {ref[1]} + d)"
-            return _c_float(ref[1])
+            return _c_float(ref[1], dt)
 
         def body(stmts, prefix):
-            return [f"        const {'bool' if op in BOOL_OPS else 'float'} {prefix}{i} = "
-                    f"{_c_stmt(op, [ref_c(r) for r in args])};"
+            return [f"        const {'bool' if op in BOOL_OPS else real} {prefix}{i} = "
+                    f"{_c_stmt(op, [ref_c(r) for r in args], dt)};"
                     for i, (op, args) in enumerate(stmts)]
 
         term = body(self.term, "p") + [f"        out[{j}] = {ref_c(r)};"
@@ -343,17 +383,18 @@ class Lowered:
         return "\n".join([
             "struct FusedLike {",
             "    static constexpr int MAXD = FUSED_MAXD;",
-            "    AffinePriorT<MAXD> prior;",
-            "    const float* __restrict__ c;  // the model's constants (device)",
-            "    float logzero;",
+            "    AffinePriorT<MAXD> prior;" if dt == torch.float32
+            else f"    AffinePriorT<MAXD, {real}> prior;",
+            f"    const {real}* __restrict__ c;  // the model's constants (device)",
+            f"    {real} logzero;",
             f"    static constexpr int NT = {self.n_terms};",
             "",
-            "    __device__ __forceinline__ void term(float x, int d, float* out) const {",
+            f"    __device__ __forceinline__ void term({real} x, int d, {real}* out) const {{",
             "        (void)d;",
             *term,
             "    }",
             "    template <class TT>",
-            "    __device__ __forceinline__ float combine(const TT& T, int) const {",
+            f"    __device__ __forceinline__ {real} combine(const TT& T, int) const {{",
             *combine,
             "    }",
             "};",
@@ -453,8 +494,8 @@ def _pow_int(em, x, n: int):
 
 
 class _Lowering:
-    def __init__(self, gm, n_dims: int, device):
-        self.gm, self.D, self.device = gm, n_dims, device
+    def __init__(self, gm, n_dims: int, device, dtype=torch.float32):
+        self.gm, self.D, self.device, self.dtype = gm, n_dims, device, dtype
         self.consts: List[float] = []
         self.term: List[tuple] = []
         self.combine: List[tuple] = []
@@ -464,7 +505,8 @@ class _Lowering:
     # ---- slots and statements
     def slots(self, values) -> int:
         k = len(self.consts)
-        self.consts.extend(float(v) for v in np.asarray(values, np.float32).ravel())
+        np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        self.consts.extend(float(v) for v in np.asarray(values, np_dtype).ravel())
         return k
 
     def em_term(self, op, *args):
@@ -561,7 +603,7 @@ class _Lowering:
             raise Refused(f"aten.{name} is outside the lowering's op table")
         if not isinstance(meta, torch.Tensor):
             raise Refused(f"aten.{name} returns no tensor")
-        if meta.dtype not in (torch.float32, torch.bool):
+        if meta.dtype not in (self.dtype, torch.bool):
             raise Refused(f"dtype {meta.dtype} (aten.{name})")
         if meta.numel() > MAX_ELEMENTS:
             raise Refused(f"shape {tuple(meta.shape)} of aten.{name} is outside the table "
@@ -623,7 +665,7 @@ class _Lowering:
             if isinstance(a, _Val):
                 if a.const is not None:
                     return a.const
-                return torch.zeros(a.shape, dtype=torch.bool if a.boolean else torch.float32,
+                return torch.zeros(a.shape, dtype=torch.bool if a.boolean else self.dtype,
                                    device=self.device)
             return a
 
@@ -689,6 +731,9 @@ class _Lowering:
         if name == "rsub":
             return self.elementwise(shape, boolean, lambda em, a, b: em("sub", b, a),
                                     list(args[:2]))
+        if name in ("erfinv", "special_ndtri") and self.dtype != torch.float32:
+            raise Refused(f"aten.{name} has no float64 sequence in the fused route "
+                          "(csrc/fused_ops.cuh holds float32 ones only)")
         if name in _UNARY:
             op = _UNARY[name]
             return self.elementwise(shape, boolean, lambda em, a: em(op, a), [args[0]])
@@ -731,7 +776,7 @@ class _Lowering:
 
     def reduction(self, name, node, args, kwargs, shape) -> _Val:
         x = args[0]
-        if kwargs.get("dtype") not in (None, torch.float32) or x.boolean:
+        if kwargs.get("dtype") not in (None, self.dtype) or x.boolean:
             raise Refused(f"aten.{name} of a {'boolean' if x.boolean else kwargs['dtype']} value")
         els = self.elements(x)
         nd = els.ndim
@@ -861,7 +906,7 @@ def _prune(low: _Lowering, out):
     comb = [(op, tuple(map(remap, args))) for i, (op, args) in enumerate(low.combine)
             if i in new_s]
     exports = [remap(low.exports[j]) for j in sorted(live_t)] or [("x",)]
-    return term, exports, comb, remap(out), np.asarray(consts, np.float32)
+    return term, exports, comb, remap(out), np.asarray(consts, np.float64)
 
 
 # ------------------------------------------------------------------ entry points
@@ -872,15 +917,16 @@ def _logL_only(out):
 def traced_function(calc, affine: bool):
     """The function the lowering traces: one cube (or, with the prior's
     affine form kept in the kernel, one theta) ``(D,)`` -> logL ``()``, per
-    point or through the batched model at ``x[None]``."""
+    point or through the batched model at ``x[None]``, in the calc's dtype."""
     prior_fn, like_fn, _ = calc.model
+    dt = calc_dtype(calc)
 
     def theta(x):
-        return x if affine else prior_fn(x).to(torch.float32)
+        return x if affine else prior_fn(x).to(dt)
 
     if calc.form == "per_point":
-        return lambda x: _logL_only(like_fn(theta(x))).to(torch.float32).reshape(())
-    return lambda x: _logL_only(like_fn(theta(x[None]))).to(torch.float32).reshape(())
+        return lambda x: _logL_only(like_fn(theta(x))).to(dt).reshape(())
+    return lambda x: _logL_only(like_fn(theta(x[None]))).to(dt).reshape(())
 
 
 def trace(calc, affine: bool):
@@ -888,7 +934,7 @@ def trace(calc, affine: bool):
     from torch.fx.experimental.proxy_tensor import make_fx
 
     D = calc.n_dims
-    x = torch.full((D,), 0.5, dtype=torch.float32, device=calc.device)
+    x = torch.full((D,), 0.5, dtype=calc_dtype(calc), device=calc.device)
     try:
         gm = make_fx(traced_function(calc, affine), tracing_mode="fake",
                      _allow_non_fake_inputs=True)(x)
@@ -903,29 +949,41 @@ def trace(calc, affine: bool):
 
 
 def lower(calc) -> Lowered:
-    """Lower ``calc`` (``ops/evaluate.make_batched_calculator``) for B1, and
-    hold the plain version against the calc's own logL on the probe cubes
-    at the model-form tolerance.  Raises :class:`Refused` with the reason."""
+    """Lower ``calc`` (``ops/evaluate.make_batched_calculator``) for B1 in
+    the calc's dtype, and hold the plain version against the calc's own logL
+    on the probe cubes at the model-form tolerance (:data:`F64_TOL` at
+    float64).  Raises :class:`Refused` with the reason."""
     if getattr(calc, "uses_callback", False):
         raise Refused("a host-callback likelihood")
     if getattr(calc, "model", None) is None:
         raise Refused("no model to trace")
+    dt = calc_dtype(calc)
+    if dt not in DTYPES:
+        raise Refused(f"dtype {dt}")
     D = calc.n_dims
     if D > SLICE_MAXD_WIDE:
         raise Refused(f"D = {D} exceeds SLICE_MAXD_WIDE = {SLICE_MAXD_WIDE}")
     prior_fn = calc.model[0]
-    affine = getattr(prior_fn, "affine", None)
-    low = _Lowering(trace(calc, affine is not None), D, calc.device)
+    # the affine descriptors hold float32 values: a float64 lowering traces
+    # the prior into the body
+    affine = getattr(prior_fn, "affine", None) if dt == torch.float32 else None
+    low = _Lowering(trace(calc, affine is not None), D, calc.device, dt)
     term, exports, comb, out, consts = _prune(low, low.run())
+    np_dt = np.float32 if dt == torch.float32 else np.float64
     if affine is not None:
         prior = tuple(np.broadcast_to(np.asarray(v, np.float32), (D,)).copy() for v in affine)
     else:
-        prior = (np.zeros(D, np.float32), np.ones(D, np.float32))
-    lowered = Lowered(D, prior, consts, term, exports, comb, out,
-                      float(np.float32(calc.logzero)), affine is None)
-    cube = probe_cubes(D, calc.device)
-    got, want = lowered.plain_logL(cube), calc(cube)[2].to(torch.float32)
-    if not same_values(got, want):
+        prior = (np.zeros(D, np_dt), np.ones(D, np_dt))
+    lowered = Lowered(D, prior, consts.astype(np_dt), term, exports, comb, out,
+                      float(np_dt(calc.logzero)), affine is None, dt)
+    cube = probe_cubes(D, calc.device, dt)
+    got, want = lowered.plain_logL(cube), calc(cube)[2].to(dt)
+    if dt == torch.float32:
+        agree = same_values(got, want)
+    else:
+        agree = got.shape == want.shape and torch.allclose(
+            got, want, rtol=F64_TOL[0], atol=F64_TOL[1], equal_nan=True)
+    if not agree:
         diff = (got.double() - want.double()).abs().nan_to_num(nan=float("inf")).max().item()
         raise Refused(f"the lowered body disagrees with the calc on the probe cubes "
                       f"(max |dlogL| = {diff:.3g})")

@@ -9,8 +9,10 @@ same layout.  On a CUDA tensor it launches the hand-written kernels of
 one thread per basis with the finished columns in shared memory; up to
 :data:`MAXD`, one warp per basis with the dot products reduced across its
 lanes.  On a CPU tensor it runs :func:`gram_schmidt_plain`, the same sweeps
-in plain torch with each kernel's order of summation.  Float32 only, as in
-the reference.
+in plain torch with each kernel's order of summation.  Float32, as in the
+reference, and float64 for a run at ``precision='highest'`` (both kernels
+instantiated in double, entry ``gram_schmidt_f64``; their launches counted
+apart, under the names with ``_f64``).
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ from ..utils import nvcc
 
 #: kernel launches since the last reset (compare-with-plain launches
 #: included): the thread-per-basis kernel, and the warp-per-basis kernel
-#: above dim 32
-LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0}
+#: above dim 32, in float32 and in float64
+LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0, "gram_schmidt_f64": 0,
+            "gram_schmidt_wide_f64": 0}
+#: the entry of each dtype
+_ENTRIES = {torch.float32: "gram_schmidt_f32", torch.float64: "gram_schmidt_f64"}
 #: the largest dim of the thread-per-basis kernel, and of both
 #: (GS_MAXD and GS_MAXD_WIDE of ``csrc/gram_schmidt.cu``)
 NARROW_MAXD, MAXD = 32, 128
@@ -108,11 +113,11 @@ def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
 def _lib():
     lib = nvcc.load("gram_schmidt", ["gram_schmidt.cu"])
     if not getattr(lib, "_typed", False):
-        lib.gram_schmidt_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.gram_schmidt_f32.restype = ctypes.c_int
+        for entry in _ENTRIES.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.gram_schmidt_max_dim.argtypes = []
         lib.gram_schmidt_max_dim.restype = ctypes.c_int
         lib._typed = True
@@ -121,12 +126,12 @@ def _lib():
 
 def gram_schmidt_lanes(gauss_t: torch.Tensor) -> torch.Tensor:
     """CGS2-orthonormalise the columns of ``(n_bases, dim, dim, B)`` float32
-    matrices (chain axis minor): the kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    or float64 matrices (chain axis minor): the kernel of that dtype for a
+    CUDA tensor, the plain version for a CPU tensor."""
     if gauss_t.dim() != 4 or gauss_t.shape[1] != gauss_t.shape[2]:
         raise ValueError(f"expected (n_bases, dim, dim, B), got {tuple(gauss_t.shape)}")
-    if gauss_t.dtype != torch.float32:
-        raise TypeError(f"gram_schmidt_lanes is float32-only, got {gauss_t.dtype}")
+    if gauss_t.dtype not in _ENTRIES:
+        raise TypeError(f"gram_schmidt_lanes takes float32 or float64, not {gauss_t.dtype}")
     if gauss_t.device.type == "cpu":
         return gram_schmidt_plain(gauss_t)
     if gauss_t.device.type != "cuda":
@@ -139,8 +144,10 @@ def gram_schmidt_lanes(gauss_t: torch.Tensor) -> torch.Tensor:
     g = gauss_t.contiguous()
     q = torch.empty_like(g)
     stream = torch.cuda.current_stream(g.device).cuda_stream
+    entry = _ENTRIES[g.dtype]
     with torch.cuda.device(g.device):
-        status = lib.gram_schmidt_f32(g.data_ptr(), q.data_ptr(), NB, dim, B, stream)
-    nvcc.check(status, "gram_schmidt_f32")
-    LAUNCHES["gram_schmidt" if dim <= NARROW_MAXD else "gram_schmidt_wide"] += 1
+        status = getattr(lib, entry)(g.data_ptr(), q.data_ptr(), NB, dim, B, stream)
+    nvcc.check(status, entry)
+    name = "gram_schmidt" if dim <= NARROW_MAXD else "gram_schmidt_wide"
+    LAUNCHES[name if g.dtype == torch.float32 else name + "_f64"] += 1
     return q

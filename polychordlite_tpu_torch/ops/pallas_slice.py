@@ -136,24 +136,27 @@ def lane_hash(key_words, B: int, device) -> torch.Tensor:
 
 class LaneMachine:
     """The state of the slice state machine of B lanes in one repeat
-    (``csrc/slice_machine.cuh``), as int64, bool and float32 tensors.  All
-    lanes start in ``PH_DONE``; the caller starts the ones it runs."""
+    (``csrc/slice_machine.cuh``), as int64, bool and ``dtype`` tensors
+    (float32, or float64 for the plain version of the double kernels at
+    ``precision='highest'``; the uniforms are the same 24-bit draws, exact
+    in either).  All lanes start in ``PH_DONE``; the caller starts the ones
+    it runs."""
 
-    def __init__(self, B: int, device, logzero: float):
+    def __init__(self, B: int, device, logzero: float, dtype: torch.dtype = torch.float32):
         def i64(v):
             return torch.full((B,), v, dtype=torch.int64, device=device)
 
-        self.logzero = logzero
+        self.logzero, self.dtype = logzero, dtype
         self.phase = i64(PH_DONE)
         self.it, self.rstep, self.lstep, self.nshrink, self.cnt = i64(0), i64(1), i64(1), i64(0), i64(0)
         self.need_r = torch.zeros(B, dtype=torch.bool, device=device)
         self.need_l = torch.zeros_like(self.need_r)
-        self.tL = torch.zeros(B, dtype=torch.float32, device=device)
+        self.tL = torch.zeros(B, dtype=dtype, device=device)
         self.tR = torch.zeros_like(self.tL)
 
     def step(self, logL_fn, cfg, active, h_rep, w, nhat, x, bound, u=None):
         """One micro-step of every ``active`` lane on the chord x + t n̂, the
-        uniform drawn at (h_rep, it) unless ``u`` (B,) float32 gives it.
+        uniform drawn at (h_rep, it) unless ``u`` (B,) gives it.
         Returns (t, probe, logL, acc, forced); an accepting lane is left for
         the caller to record and restart."""
         t = self.propose(active, h_rep, w, u)
@@ -168,7 +171,7 @@ class LaneMachine:
         lane's probe, 0 where a lane is not ``active``."""
         phase = self.phase
         if u is None:
-            u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(torch.float32)
+            u = uniform_from_hash(_fmix(_mix(h_rep, self.it))).to(self.dtype)
         self.it = torch.where(active, self.it + 1, self.it)
         is_ir = active & (phase == PH_INIT_R)
         is_il = active & (phase == PH_INIT_L)
@@ -179,8 +182,8 @@ class LaneMachine:
         self.tR = torch.where(is_ir, (1.0 - u) * w, self.tR)
         t = torch.where(is_ir, self.tR, 0.0)
         t = torch.where(is_il, self.tL, t)
-        t = torch.where(is_sr, w * self.rstep.to(torch.float32), t)
-        t = torch.where(is_sl, -w * self.lstep.to(torch.float32), t)
+        t = torch.where(is_sr, w * self.rstep.to(self.dtype), t)
+        t = torch.where(is_sl, -w * self.lstep.to(self.dtype), t)
         return torch.where(is_sh, self.tL + u * (self.tR - self.tL), t)
 
     def decide(self, cfg, active, t, logL, bound):

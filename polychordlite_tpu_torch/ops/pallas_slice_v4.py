@@ -40,6 +40,12 @@ model graph and G; its plain version runs ``slice_kernel.slice_records_plain``
 on ``Lowered.plain_logL``, and :func:`validate_fused` holds the kernel
 bitwise against that plain version before a run uses it.
 
+At ``precision='highest'`` the fused route and the traced route run in
+double (``slice_epoch_fused_f64`` and ``slice_step_f64`` in
+:data:`LAUNCHES`), their plain versions in float64; the functor kernel and
+the kernels that share :func:`launch_slice_kernel` (B3, B4, B5) are float32
+and raise for a float64 calc.
+
 Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
 come from one batched evaluation of the calc, and everything is packed into
@@ -57,6 +63,7 @@ import torch
 
 from ..utils import nvcc
 from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
+from .precision import calc_dtype
 from .slice_kernel import EpochConfig, slice_records_plain
 
 #: the kernel template's two dimension buckets and the most coordinates a
@@ -68,8 +75,10 @@ from .slice_kernel import EpochConfig, slice_records_plain
 #: 6), so the wide bucket does not build it.
 SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
 
-#: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0}
+#: kernel launches since the last reset (compare-with-plain launches included);
+#: the double instantiations of the fused and traced routes under ``_f64``
+LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
+            "slice_step_f64": 0, "slice_epoch_fused_f64": 0}
 #: the traced route's CUDA-graph replays and the rounds they ran, since the
 #: last reset
 TRACED = {"replays": 0, "rounds": 0}
@@ -207,9 +216,17 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     tensor, the prior's a and s).  ``cap`` is the kernel's micro-step budget
     (``cfg.step_cap`` by default); ``extra`` are further output tensors on
     the device and ``ints`` further int arguments, passed after the stream
-    in that order."""
+    in that order.  The kernel computes in the calc's dtype: a ``functor``
+    lowered from the calc is instantiated in it (float64 for the fused
+    route's double kernel), and a functor of :data:`FUNCTORS` is float32,
+    so a float64 calc without one raises: a float64 run never reaches a
+    float32 kernel."""
     B, R, D = nhats.shape
     bucket(D)  # raises above the wide bucket
+    dtype = calc_dtype(calc)
+    if functor is None and dtype != torch.float32:
+        raise TypeError(f"{entry} is a float32 kernel and this model computes in "
+                        f"{dtype}; at precision='highest' use engine='cuda' or 'torch'")
     fid, consts, prior_a, prior_s = functor_args(calc, D) if functor is None else functor
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError(f"{entry}: inconsistent shapes")
@@ -217,14 +234,13 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     for name, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
         if a.device != dev:
             raise ValueError(f"{entry}: {name} is on {a.device}, x0 on {dev}")
-    f32 = torch.float32
-    x0t = x0.to(f32).t().contiguous()
-    nhat_t = nhats.to(f32).permute(1, 2, 0).contiguous()
-    w_t = ws.to(f32).t().contiguous()
-    bound_f = bound.to(f32).contiguous()
-    valid_f = valid.to(f32).contiguous()
-    t_out = torch.empty((R, B), dtype=f32, device=dev)
-    l_out = torch.empty((R, B), dtype=f32, device=dev)
+    x0t = x0.to(dtype).t().contiguous()
+    nhat_t = nhats.to(dtype).permute(1, 2, 0).contiguous()
+    w_t = ws.to(dtype).t().contiguous()
+    bound_f = bound.to(dtype).contiguous()
+    valid_f = valid.to(dtype).contiguous()
+    t_out = torch.empty((R, B), dtype=dtype, device=dev)
+    l_out = torch.empty((R, B), dtype=dtype, device=dev)
     n_out = torch.empty((R, B), dtype=torch.int32, device=dev)
     for a in extra:
         if a.device != dev or not a.is_contiguous():
@@ -232,8 +248,12 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     k0, k1 = key_words
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = getattr(lib, entry)
-    fn.argtypes = _ARGTYPES + [ctypes.c_void_p] * len(extra) + [ctypes.c_int] * len(ints)
+    argtypes = list(_ARGTYPES)
+    if dtype == torch.float64:  # logzero in the kernel's type
+        argtypes[-2] = ctypes.c_double
+    fn.argtypes = argtypes + [ctypes.c_void_p] * len(extra) + [ctypes.c_int] * len(ints)
     fn.restype = ctypes.c_int
+    logzero = _f32(cfg.logzero) if dtype == torch.float32 else float(cfg.logzero)
     with torch.cuda.device(dev):
         status = fn(
             fid, consts.data_ptr() if isinstance(consts, torch.Tensor) else consts.ctypes.data,
@@ -242,7 +262,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
             nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
             l_out.data_ptr(), n_out.data_ptr(), B, D, R,
             int(k0), int(k1), cfg.max_step, cfg.max_shrink,
-            cfg.step_cap if cap is None else int(cap), _f32(cfg.logzero), stream,
+            cfg.step_cap if cap is None else int(cap), logzero, stream,
             *(a.data_ptr() for a in extra), *(int(i) for i in ints),
         )
     nvcc.check(status, entry)
@@ -317,13 +337,13 @@ def lane_efficiency(lane_steps: torch.Tensor, warp_max: torch.Tensor) -> float:
 def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
                       group=None):
     """Run the slice repeats of every lane with the model's likelihood
-    lowered into B1 (``ops/fused_like.py``): (t, logL) float32 and nlike
-    int32, each (B, R), with the inputs of :func:`slice_epoch`.  CPU
-    tensors: the plain version, ``slice_records_plain`` on
-    ``Lowered.plain_logL``; CUDA tensors: ``csrc/slice_epoch_fused.cu``
-    with ``group`` lanes per chain (:func:`launch_group`), its library
-    built at first use.  A model the lowering refused raises, naming
-    the reason."""
+    lowered into B1 (``ops/fused_like.py``): (t, logL) of the lowering's
+    dtype (float32; float64 at ``precision='highest'``) and nlike int32,
+    each (B, R), with the inputs of :func:`slice_epoch`.  CPU tensors: the
+    plain version, ``slice_records_plain`` on ``Lowered.plain_logL``; CUDA
+    tensors: ``csrc/slice_epoch_fused.cu`` in that dtype with ``group``
+    lanes per chain (:func:`launch_group`), its library built at first use.
+    A model the lowering refused raises, naming the reason."""
     from .fused_like import Refused, lowering
 
     if group is not None and group not in GROUPS:
@@ -341,7 +361,7 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     functor = (G, low.device_consts(x0.device), *low.prior)
     out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
                               x0, bound, valid, nhats, ws, functor=functor)
-    LAUNCHES["slice_epoch_fused"] += 1
+    LAUNCHES["slice_epoch_fused" if low.dtype == torch.float32 else "slice_epoch_fused_f64"] += 1
     GROUP_LAUNCHES[key] += 1
     return out
 
@@ -367,26 +387,29 @@ def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) ->
     (the calc's by default).  The kernel is run with zero directions and zero widths,
     so every probe is the seed itself, and with an unbounded contour: the
     lane steps out and shrinks on the spot and accepts its seed with the
-    functor's logL (a seed outside the walls is a forced logzero accept)."""
+    functor's logL (a seed outside the walls is a forced logzero accept).
+    Everything is in the calc's dtype (float64 at precision='highest')."""
     records = slice_epoch if records is None else records
     D = cfg.n_dims
+    dt = calc_dtype(calc)
     rng = np.random.default_rng(20240131)
     pts = np.concatenate([
         rng.uniform(-0.05, 1.05, (1024, D)),
         np.clip(rng.normal(0.5, 0.1, (256, D)), -0.2, 1.2),
-    ]).astype(np.float32)
+    ]).astype(np.float32 if dt == torch.float32 else np.float64)
     x0 = torch.as_tensor(pts, device=device)
     B = x0.shape[0]
     # one repeat on the plain configuration (a subclass's budget dropped)
     one = EpochConfig(*cfg)._replace(num_repeats=(1,), grade_dims=(D,))
     got = records(
         calc, one, (0, 0), x0,
-        torch.full((B,), -torch.finfo(torch.float32).max, device=device),
+        torch.full((B,), -torch.finfo(dt).max, dtype=dt, device=device),
         torch.ones(B, dtype=torch.bool, device=device),
-        torch.zeros((B, 1, D), device=device), torch.zeros((B, 1), device=device),
+        torch.zeros((B, 1, D), dtype=dt, device=device),
+        torch.zeros((B, 1), dtype=dt, device=device),
     )[1]
     expect = calc(x0)[2] if want is None else want(x0)
-    if not torch.equal(got[:, 0], expect.to(torch.float32)):
+    if not torch.equal(got[:, 0], expect.to(dt)):
         diff = (got[:, 0].double() - expect.double()).abs().max().item()
         raise RuntimeError(
             f"the CUDA likelihood functor disagrees with "
@@ -415,8 +438,8 @@ def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, lo
     nlike_g = (onehot * nlike_rep[:, :, None].to(torch.int64)).sum(dim=1)
     return torch.cat([
         babies,
-        nlike_g.to(torch.float32),
-        torch.zeros((B, 1), dtype=torch.float32, device=seed.device),  # overflow flag (never set)
+        nlike_g.to(babies.dtype),
+        torch.zeros((B, 1), dtype=babies.dtype, device=seed.device),  # overflow flag (never set)
     ], dim=1)
 
 
@@ -427,25 +450,26 @@ def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, lo
 
 class StepState:
     """The lanes of the traced route between two rounds, in torch: the plain
-    version of ``csrc/slice_step.cu``'s device state.  Set up as the first
+    version of ``csrc/slice_step.cu``'s device state, in ``x0``'s dtype
+    (float32, or float64 at precision='highest').  Set up as the first
     launch sets it up: a valid lane in ``PH_INIT_R`` of repeat 0, an invalid
     one done; every record t = 0, logL = logzero, nlike = 0."""
 
     def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
         B, R, _ = nhats.shape
         dev = x0.device
-        f32 = torch.float32
+        real = x0.dtype if x0.dtype == torch.float64 else torch.float32
         self.cfg, self.bound, self.nhats, self.ws = cfg, bound, nhats, ws
-        self.logzero = torch.tensor(cfg.logzero, dtype=f32).item()
+        self.logzero = torch.tensor(cfg.logzero, dtype=real).item()
         self.lanes = torch.arange(B, device=dev)
         self.h_lane = lane_hash(key_words, B, dev)
-        self.m = LaneMachine(B, dev, self.logzero)
+        self.m = LaneMachine(B, dev, self.logzero, real)
         self.m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
         self.rep = torch.where(valid, 0, R).to(torch.int64)
         self.steps = torch.zeros(B, dtype=torch.int64, device=dev)
-        self.x = x0.to(f32).clone()
-        self.t_out = torch.zeros((B, R), dtype=f32, device=dev)
-        self.l_out = torch.full((B, R), self.logzero, dtype=f32, device=dev)
+        self.x = x0.to(real).clone()
+        self.t_out = torch.zeros((B, R), dtype=real, device=dev)
+        self.l_out = torch.full((B, R), self.logzero, dtype=real, device=dev)
         self.n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
         self.t = self.probe = None  # the pending probes
 
@@ -503,12 +527,16 @@ _STEP_ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
+#: slice_step_launch_f64's: logzero a double
+_STEP_ARGTYPES_F64 = _STEP_ARGTYPES[:-2] + [ctypes.c_double, ctypes.c_void_p]
 _STATE_INTS, _STATE_FLOATS = 10, 3  # S_INTS and F_FLOATS of slice_step.cu
 
 
 class TracedEpoch:
     """``csrc/slice_step.cu``'s device state for one calc, configuration and
-    (B, R, D), and the CUDA graph of ``rounds`` rounds that replays it.
+    (B, R, D), and the CUDA graph of ``rounds`` rounds that replays it, in
+    the calc's dtype (float32, or float64 through the entry
+    ``slice_step_launch_f64``).
 
     The buffers are allocated once; each epoch copies its inputs in, runs the
     first launch, captures the graph on its first use (the calc warmed up on
@@ -520,24 +548,29 @@ class TracedEpoch:
     and holds no reference to it: no cycle that only the garbage collector
     could free, at a moment that might fall inside another capture."""
 
-    def __init__(self, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device):
+    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device):
+        dtype = calc_dtype(calc)
         self.cfg, self.rounds, self.device = cfg, rounds, device
         self.shape = (B, R, D)
-        f32 = dict(dtype=torch.float32, device=device)
+        real = dict(dtype=dtype, device=device)
         i32 = dict(dtype=torch.int32, device=device)
-        self.x0t, self.valid, self.bound = (torch.zeros((D, B), **f32), torch.zeros(B, **f32),
-                                            torch.zeros(B, **f32))
-        self.nhat, self.w = torch.zeros((R, D, B), **f32), torch.zeros((R, B), **f32)
-        self.logL = torch.zeros(B, **f32)
+        self.x0t, self.valid, self.bound = (torch.zeros((D, B), **real), torch.zeros(B, **real),
+                                            torch.zeros(B, **real))
+        self.nhat, self.w = torch.zeros((R, D, B), **real), torch.zeros((R, B), **real)
+        self.logL = torch.zeros(B, **real)
         self.ist = torch.zeros((_STATE_INTS, B), **i32)
         self.steps = torch.zeros(B, dtype=torch.int64, device=device)
-        self.fst, self.x = torch.zeros((_STATE_FLOATS, B), **f32), torch.zeros((D, B), **f32)
-        self.probe = torch.zeros((B, D), **f32)
-        self.t_out, self.l_out = torch.zeros((R, B), **f32), torch.zeros((R, B), **f32)
+        self.fst, self.x = torch.zeros((_STATE_FLOATS, B), **real), torch.zeros((D, B), **real)
+        self.probe = torch.zeros((B, D), **real)
+        self.t_out, self.l_out = torch.zeros((R, B), **real), torch.zeros((R, B), **real)
         self.n_out, self.active = torch.zeros((R, B), **i32), torch.zeros(1, **i32)
-        self.fn = nvcc.load("slice_step", ["slice_step.cu"]).slice_step_launch
-        self.fn.argtypes = _STEP_ARGTYPES
+        f64 = dtype == torch.float64
+        lib = nvcc.load("slice_step", ["slice_step.cu"])
+        self.fn = lib.slice_step_launch_f64 if f64 else lib.slice_step_launch
+        self.fn.argtypes = _STEP_ARGTYPES_F64 if f64 else _STEP_ARGTYPES
         self.fn.restype = ctypes.c_int
+        self.logzero = float(cfg.logzero) if f64 else _f32(cfg.logzero)
+        self.counter = "slice_step_f64" if f64 else "slice_step"
         self.graph = None
 
     def _launch(self, first: bool, key_words=(0, 0)) -> None:
@@ -548,7 +581,7 @@ class TracedEpoch:
                 self.active)
         status = self.fn(
             int(first), *(b.data_ptr() for b in bufs), B, D, R, int(key_words[0]),
-            int(key_words[1]), cfg.max_step, cfg.max_shrink, cfg.step_cap, _f32(cfg.logzero),
+            int(key_words[1]), cfg.max_step, cfg.max_shrink, cfg.step_cap, self.logzero,
             torch.cuda.current_stream(self.device).cuda_stream,
         )
         nvcc.check(status, "slice_step_launch")
@@ -595,12 +628,12 @@ class TracedEpoch:
         self.w.copy_(ws.t())
         self.active.zero_()
         self._launch(True, key_words)
-        LAUNCHES["slice_step"] += 1
+        LAUNCHES[self.counter] += 1
         if self.graph is None:
             self._capture(calc)
         while int(self.active.item()):
             self.graph.replay()
-            LAUNCHES["slice_step"] += self.rounds
+            LAUNCHES[self.counter] += self.rounds
             TRACED["replays"] += 1
             TRACED["rounds"] += self.rounds
         return self.t_out.t().contiguous(), self.l_out.t().contiguous(), \
@@ -610,11 +643,13 @@ class TracedEpoch:
 def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
                        rounds: int = ROUNDS):
     """Run the slice repeats of every lane for a model without a device
-    functor: (t, logL) float32 and nlike int32, each (B, R), with the inputs
-    of :func:`slice_epoch`.  CPU tensors: the plain version,
+    functor: (t, logL) of the calc's dtype (float32; float64 at
+    precision='highest') and nlike int32, each (B, R), with the inputs of
+    :func:`slice_epoch`.  CPU tensors: the plain version,
     :func:`slice_records_rounds_plain`; CUDA tensors: ``csrc/slice_step.cu``
-    through a :class:`TracedEpoch` kept on the calc, one per configuration,
-    shape and ``rounds``.  A host-callback calc raises on the card."""
+    in that dtype through a :class:`TracedEpoch` kept on the calc, one per
+    configuration, shape and ``rounds``.  A host-callback calc
+    raises on the card."""
     B, R, D = nhats.shape
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError("slice_epoch_traced: inconsistent shapes")
@@ -636,5 +671,5 @@ def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
     runners = calc.__dict__.setdefault("traced_epochs", {})
     key = (tuple(cfg), cfg.step_cap, B, R, D, rounds, str(x0.device))
     if key not in runners:
-        runners[key] = TracedEpoch(cfg, B, R, D, rounds, x0.device)
+        runners[key] = TracedEpoch(calc, cfg, B, R, D, rounds, x0.device)
     return runners[key](calc, key_words, x0, bound, valid, nhats, ws)

@@ -30,8 +30,13 @@ slice repeats on each of B chains and returns the packed
   forced ``"pallas2"``); the same decisions, a cube that differs from the
   rebuilt one in the last bits, so another chain, held statistically.
 
-The kernel engines are forced only by name: nothing falls back from one to
-another (the JAX package's silent chain, ``slice_kernel.py:162-173``, is
+At ``precision='highest'`` (``calc.dtype`` float64) ``"cuda"`` takes the
+fused route or the traced route, each in double, never the functor kernel:
+the device functors are float32 (:func:`cuda_route`); the forced
+``"cuda5"``, ``"cuda3"`` and ``"cuda2"`` raise
+(``core/nested_sampling.py::resolve_engine``), and ``"torch"`` runs in
+float64.  The kernel engines are forced only by name: nothing falls back
+from one to another (the JAX package's silent chain, ``slice_kernel.py:162-173``, is
 ROADMAP C5).  All produce per (lane, repeat) the accepted chord position t,
 its logL and the repeat's likelihood-call count; positions are rebuilt
 outside as ``seed + cumsum(t n̂)`` (``ops/pallas_slice_v4.py``) except by
@@ -62,6 +67,7 @@ import torch
 
 from .logspace import LOG_ZERO
 from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash, slice_epoch_v2
+from .precision import calc_dtype
 
 #: the kernel engines: "cuda" (B1, v4), "cuda5" (B3, v5), "cuda3" (B4, v3)
 #: and "cuda2" (B5, v2) — the JAX package's "pallas", "pallas5", "pallas3"
@@ -98,33 +104,35 @@ def slice_records_plain(
     logL_fn,
     cfg: EpochConfig,
     key_words: Tuple[int, int],
-    x0: torch.Tensor,      # (B, D) float32 seed cubes
-    bound: torch.Tensor,   # (B,) float32
+    x0: torch.Tensor,      # (B, D) seed cubes, float32 or float64
+    bound: torch.Tensor,   # (B,)
     valid: torch.Tensor,   # (B,) bool
-    nhats: torch.Tensor,   # (B, R, D) float32
-    ws: torch.Tensor,      # (B, R) float32
+    nhats: torch.Tensor,   # (B, R, D)
+    ws: torch.Tensor,      # (B, R)
     count_steps: bool = False,
 ):
     """The plain torch engine: every lane runs its R repeats freely.
 
-    ``logL_fn(probe (B, D)) -> logL (B,)`` float32.  Returns (t (B,R),
-    logL (B,R)) float32 and nlike (B,R) int32 per (lane, repeat); repeats
-    never reached keep t = 0, logL = logzero, nlike = 0.  With
+    Computes in ``x0``'s dtype: float32, or float64 at
+    ``precision='highest'`` (the plain version of the double kernels).
+    ``logL_fn(probe (B, D)) -> logL (B,)`` of that dtype.  Returns (t (B,R),
+    logL (B,R)) of that dtype and nlike (B,R) int32 per (lane, repeat);
+    repeats never reached keep t = 0, logL = logzero, nlike = 0.  With
     ``count_steps``, also the micro-steps each lane executed, (B,) int32."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
-    f32 = torch.float32
-    logzero = torch.tensor(cfg.logzero, dtype=f32).item()
+    real = x0.dtype if x0.dtype == torch.float64 else torch.float32
+    logzero = torch.tensor(cfg.logzero, dtype=real).item()
     lanes = torch.arange(B, device=dev)
     h_lane = lane_hash(key_words, B, dev)
-    m = LaneMachine(B, dev, logzero)
+    m = LaneMachine(B, dev, logzero, real)
     m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
     rep = torch.where(valid, 0, R).to(torch.int64)
     steps = torch.zeros(B, dtype=torch.int64, device=dev)
-    x = x0.to(f32).clone()
-    t_out = torch.zeros((B, R), dtype=f32, device=dev)
-    l_out = torch.full((B, R), logzero, dtype=f32, device=dev)
+    x = x0.to(real).clone()
+    t_out = torch.zeros((B, R), dtype=real, device=dev)
+    l_out = torch.full((B, R), logzero, dtype=real, device=dev)
     n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
     cap = cfg.step_cap
 
@@ -163,19 +171,26 @@ def cuda_route(calc) -> Tuple[str, str]:
        for a model ``ops/fused_like.py`` lowers (once per calc, kept on it);
     3. ``"slice_step"``, the traced route, for any other model; the reason
        is what refused lowering (the op, the condition).  The route itself
-       refuses a host-callback model on the card."""
-    if getattr(calc, "device_spec", None) is not None:
+       refuses a host-callback model on the card.
+
+    For a calc in float64 (``precision='highest'``) step 1 is skipped: the
+    functors are float32, and the reason says so."""
+    spec = getattr(calc, "device_spec", None)
+    f64 = calc_dtype(calc) == torch.float64
+    if spec is not None and not f64:
         from .pallas_slice_v4 import check_functor_dims
 
-        name = calc.device_spec["likelihood"]["name"]
+        name = spec["likelihood"]["name"]
         check_functor_dims(name, calc.n_dims)
         return "slice_epoch", f"device functor {name!r}"
     from .fused_like import Refused, lowering
 
+    why = ("float64: the device functor "
+           f"{spec['likelihood']['name']!r} is float32; " if spec is not None else "")
     low = lowering(calc)
     if isinstance(low, Refused):
-        return "slice_step", low.reason
-    return "slice_epoch_fused", (f"lowered: {low.n_terms} per-coordinate term(s), "
+        return "slice_step", why + low.reason
+    return "slice_epoch_fused", (f"{why}lowered: {low.n_terms} per-coordinate term(s), "
                                  f"{len(low.term)} + {len(low.combine)} statements")
 
 
@@ -240,18 +255,20 @@ def build_epoch_fn(calc, cfg: EpochConfig):
         def records(*args):
             return kernel(calc, cfg, *args)
 
+    dtype = calc_dtype(calc)  # float64 at precision='highest'
+
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,
               generator=None, directions=None):
         if directions is None:
             # the plain engine asks for the plain Gram-Schmidt by name: its
             # runs reach no kernel, at any dimension
             directions = make_directions(
-                cholesky, grade_dims=cfg.grade_dims, num_repeats=cfg.num_repeats,
+                cholesky.to(dtype), grade_dims=cfg.grade_dims, num_repeats=cfg.num_repeats,
                 n_dims=cfg.n_dims, generator=generator, use_kernel=cfg.engine != "torch",
             )
         nhats, ws, speeds = directions
-        seed_f = seed_cube.to(torch.float32)
-        out = records(key_words, seed_f, bound.to(torch.float32), lane_valid, nhats, ws)
+        seed_f = seed_cube.to(dtype)
+        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws)
         return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out)
 
     return epoch

@@ -10,7 +10,8 @@ granule, so they draw the same directions and, the kernels and their plain
 versions agreeing bit for bit, a run gives the same result on any of them.
 
 Each epoch crosses the host-device boundary as one packed upload and one
-fetch of the full epoch record (cube, theta, phi, logL per baby).
+fetch of the full epoch record (cube, theta, phi, logL per baby), in the
+calc's dtype (float64 at ``precision='highest'``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.pallas_slice import key_words
+from ..ops.precision import calc_dtype
 from ..ops.slice_kernel import EpochConfig, build_epoch_fn, epoch_route, unpack_epoch
 
 GRANULE = 128
@@ -60,17 +62,19 @@ def make_epoch_runner(
     tail = len(cfg.grade_dims) + 1  # per-grade nlike + overflow flag
 
     epoch_fn = build_epoch_fn(calc, cfg)
+    real = calc_dtype(calc)
+    np_real = np.float32 if real == torch.float32 else np.float64
+    route = epoch_route(cfg.engine, calc) if cfg.engine != "torch" else "plain"
     # the functor (or the lowered one), in its kernel, at the (bucket, G) that
     # the run's batch takes
-    if cfg.engine != "torch" and calc.device_spec is not None:
+    if route not in ("plain", "slice_epoch_fused", "slice_step"):
         from ..ops.pallas_slice_v4 import validate_functor
         from ..ops.slice_kernel import kernel_wrapper
 
         wrapper = kernel_wrapper(cfg.engine)
         group = run_group(cfg.engine, calc, B_phys, D, device)
         validate_functor(calc, cfg, device, lambda *a: wrapper(*a, group=group))
-    elif (cfg.engine == "cuda" and device.type == "cuda"
-          and epoch_route(cfg.engine, calc) == "slice_epoch_fused"):
+    elif cfg.engine == "cuda" and device.type == "cuda" and route == "slice_epoch_fused":
         from ..ops.pallas_slice_v4 import validate_fused
 
         validate_fused(calc, cfg, device, run_group(cfg.engine, calc, B_phys, D, device))
@@ -84,7 +88,7 @@ def make_epoch_runner(
         flat = np.concatenate(
             [seed_cube, bound[:, None], chol.reshape(B, D * D), np.ones((B, 1))],
             axis=1,
-        ).astype(np.float32)
+        ).astype(np_real)
         if B_phys == B:
             return flat
         pad = np.repeat(flat[:1], B_phys - B, axis=0)
@@ -143,10 +147,10 @@ def make_epoch_runner(
                 run_packed, cfg, B, B_phys, K, nlive, device, generator
             )
         t0 = time.perf_counter()
-        f32 = dict(dtype=torch.float32, device=device)
-        chol_t = torch.as_tensor(np.asarray(chol1, np.float32), **f32)
-        cube_t = torch.as_tensor(np.asarray(live_cube, np.float32), **f32)
-        logL_t = torch.as_tensor(np.asarray(live_logL, np.float32), **f32)
+        on = dict(dtype=real, device=device)
+        chol_t = torch.as_tensor(np.asarray(chol1, np_real), **on)
+        cube_t = torch.as_tensor(np.asarray(live_cube, np_real), **on)
+        logL_t = torch.as_tensor(np.asarray(live_logL, np_real), **on)
         timers["pack"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         flat = chains[sig](key, chol_t, cube_t, logL_t)

@@ -94,8 +94,9 @@ class PolyChordSettings:
     #: "cuda") or "torch" (the plain engine, any device).
     engine: str = "auto"
     #: "single" (float32) or "highest" (float64 — reference precision,
-    #: utils.F90:6; needed when |logL| exceeds ~1e6, see ops/precision.py;
-    #: not ported yet, raises).
+    #: utils.F90:6; needed when |logL| exceeds ~1e6, see ops/precision.py:
+    #: B1's fused and traced routes and B2 in double on the card, the plain
+    #: engine anywhere).
     precision: str = "single"
 
     def __init__(self, nDims: int = 1, nDerived: int = 0, **kwargs):

@@ -16,7 +16,9 @@ checkpoint written by the JAX package: its pickle names that package's
 classes (``RowStore``), which :class:`_PortUnpickler` maps to the port's
 copies without importing the JAX package, and its ``key`` (a raw
 uint32[2] threefry key) becomes the port's raw murmur key of the same
-shape.  Reading the reference's Fortran text format is not ported yet.
+shape.  It also reads the reference's Fortran text format
+(``utils/legacy_resume.py``), as the JAX package does: such a file carries
+no host generator state or key, so the run goes on from its seed.
 """
 
 from __future__ import annotations
@@ -113,15 +115,16 @@ def read_resume_file(s: PolyChordSettings, n_grades: int):
     """Returns (rti, rng_state, key). Halts on dimension/grade mismatch
     (read_write.F90:401-417 semantics).
 
-    Reads the pickle checkpoints of this package and of the JAX package;
-    the reference's Fortran text format raises ``NotImplementedError``."""
+    Reads the pickle checkpoints of this package and of the JAX package,
+    and the reference's Fortran text format (rng_state and key None)."""
     path = resume_path(s)
     with open(path, "rb") as f:
         magic = f.read(1)
     if magic == b"=":  # legacy text format starts with '=== ... ==='
-        raise NotImplementedError(
-            "reading the reference's text resume format is not ported yet"
-        )
+        from .legacy_resume import read_legacy_resume
+
+        rti = read_legacy_resume(path, s, n_grades)
+        return rti, None, None
     with open(path, "rb") as f:
         payload = _PortUnpickler(f).load()
     if payload["nDims"] != s.nDims or payload["nDerived"] != s.nDerived:
@@ -146,7 +149,7 @@ def rti_from_cube_samples(
     cube = np.asarray(cube_samples, dtype=np.float64)
     theta, phi, logL = (
         t.cpu().numpy()
-        for t in calc(torch.as_tensor(cube, dtype=torch.float32, device=device))
+        for t in calc(torch.as_tensor(cube, dtype=calc.dtype, device=device))
     )
     rti = RunTimeInfo(s, n_grades)
     n = cube.shape[0]

@@ -471,7 +471,8 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     after = {**pallas_slice.LAUNCHES, **pallas_slice_v3.LAUNCHES, **pallas_slice_v4.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
-        "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0}
+        "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
+        "slice_step_f64": 0, "slice_epoch_fused_f64": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -1097,3 +1098,156 @@ def test_wide_run_takes_the_fused_route(dev):
     assert ran["gram_schmidt"] == ran["slice_epoch"] == ran["slice_step"] == 0
     assert set(last["group_launches"]) == {"128/32"}
     assert out.ndead >= 600 and math.isfinite(out.logZ)
+
+
+# ---- float64: precision='highest' (B1's fused and traced routes, B2, in double)
+def _f64_calc(prior, like, D, nd, dev):
+    from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+
+    with real_dtype_scope(torch.float64):
+        return make_batched_calculator(prior, like, D, nd, device=dev)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 1000), (3, 3, 3, 999), (2, 20, 20, 512),
+                                   (5, 20, 20, 2048), (2, 30, 30, 300), (2, 31, 31, 300),
+                                   (2, 32, 32, 999), (2, 33, 33, 300), (2, 64, 64, 300),
+                                   (2, 128, 128, 64)])
+def test_gram_schmidt_f64_equals_plain(dev, shape):
+    """Both B2 kernels in double bitwise gram_schmidt_plain in float64: the
+    thread-per-basis kernel at 32 chains a block up to dim 30 and 16 above
+    (its shared memory), the warp-per-basis kernel above dim 32; each
+    launch counted under its _f64 name; columns orthonormal to 1e-12."""
+    dim = shape[1]
+    g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(dim), device=dev,
+                    dtype=torch.float64)
+    name = "gram_schmidt_f64" if dim <= pallas_dirs.NARROW_MAXD else "gram_schmidt_wide_f64"
+    before = dict(pallas_dirs.LAUNCHES)
+    q = pallas_dirs.gram_schmidt_lanes(g)
+    assert pallas_dirs.LAUNCHES == {**before, name: before[name] + 1}
+    assert q.dtype == torch.float64
+    assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+    eye = torch.eye(dim, device=dev, dtype=torch.float64)[None, :, :, None]
+    assert (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max() < 1e-12
+
+
+def _big(theta):
+    r2 = torch.sum(theta ** 2)
+    return 1.0e7 - theta.shape[-1] * math.log(0.1 * math.sqrt(2 * math.pi)) - r2 / 0.02, [r2]
+
+
+def _f64_args(low, dev, B, R, D, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x0 = (0.5 + 0.03 * torch.randn((B, D), generator=gen, device=dev,
+                                   dtype=torch.float64)).clamp(0, 1)
+    nh = torch.randn((B, R, D), generator=gen, device=dev, dtype=torch.float64)
+    nh = nh / nh.norm(dim=2, keepdim=True)
+    valid = torch.arange(B, device=dev) >= 64
+    return (x0, low(x0) - 2.0, valid, nh,
+            torch.full((B, R), 0.05, device=dev, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("model,D,B,R", [("big", 20, 1000, 6), ("big", 4, 512, 8),
+                                         ("gaussian", 64, 300, 4)])
+def test_fused_f64_kernel_every_group_equals_plain(dev, model, D, B, R):
+    """The fused kernel in double at every G of the bucket bitwise its plain
+    version (slice_records_plain on the float64 plain_logL), with invalid
+    lanes, counted as slice_epoch_fused_f64; validate_fused at float64."""
+    like = _big if model == "big" else _per_point_gaussian
+    prior = UniformPrior(-1, 1) if model == "big" else identity_prior
+    calc = _f64_calc(prior, like, D, 1 if model == "big" else 0, dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered) and low.dtype == torch.float64
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = _f64_args(low.plain_logL, dev, B, R, D, D)
+    want = slice_records_plain(low.plain_logL, cfg, (9, 10), *args)
+    groups = [G for G in pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.bucket(D)] if G <= max(D, 32)]
+    low.build(groups)
+    for G in groups:
+        before = pallas_slice_v4.LAUNCHES["slice_epoch_fused_f64"]
+        got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args, group=G)
+        assert pallas_slice_v4.LAUNCHES["slice_epoch_fused_f64"] == before + 1
+        for k, a, b in zip(("t", "logL", "nlike"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (G, k, int((a != b).sum()))
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+    pallas_slice_v4.validate_fused(calc, cfg, dev, groups[-1])
+
+
+F64_OPS = {
+    "exp": lambda th: torch.sum(torch.exp(-3.0 * th)),
+    "log": lambda th: torch.sum(torch.log(th + 0.1)),
+    "log1p": lambda th: torch.sum(torch.log1p(th)),
+    "expm1": lambda th: torch.sum(torch.expm1(th)),
+    "sqrt_rsqrt": lambda th: torch.sum(torch.sqrt(th) + torch.rsqrt(th + 1.0)),
+    "sin_cos": lambda th: torch.sum(torch.sin(7.0 * th) * torch.cos(5.0 * th)),
+    "tanh": lambda th: torch.sum(torch.tanh(3.0 * th - 1.0)),
+    "pow": lambda th: torch.sum((th + 0.1) ** 2.5),
+    "logsumexp_max": lambda th: torch.logsumexp(-th / 0.1, 0) + torch.amax(th).clamp(0.2, 0.8),
+    "matmul": lambda th: -0.5 * (th - 0.5) @ torch.eye(th.shape[-1], dtype=th.dtype,
+                                                       device=th.device) @ (th - 0.5),
+}
+
+
+@pytest.mark.parametrize("op", sorted(F64_OPS))
+def test_fused_f64_library_calls_equal_torch(dev, op):
+    """Every library call of the lowering's table in double: the emitted
+    double exp, log, ... agree bitwise with torch's CUDA float64 ops (the
+    plain version runs them on the card), through validate_fused."""
+    calc = _f64_calc(identity_prior, F64_OPS[op], 4, 0, dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered), low.reason
+    cfg = EpochConfig(n_dims=4, n_phi=1, grade_dims=(4,), num_repeats=(1,))
+    low.build([4])
+    pallas_slice_v4.validate_fused(calc, cfg, dev, 4)
+
+
+def _vn_gaussian(theta):
+    return -0.5 * (torch.linalg.vector_norm(theta - 0.5, dim=-1) / 0.1) ** 2
+
+
+@pytest.mark.parametrize("rounds", [1, 32])
+@pytest.mark.parametrize("model,D", [("vector_norm", 20), ("vector_norm", 40),
+                                     ("gaussian_prior", 5)])
+def test_traced_route_f64_equals_plain(dev, model, D, rounds):
+    """The traced route in double (slice_step_launch_f64) bitwise the plain
+    engine in float64, for a model the lowering refuses (vector_norm) and
+    one it refuses at float64 only (a GaussianPrior's erfinv), counted as
+    slice_step_f64."""
+    if model == "vector_norm":
+        calc = _f64_calc(identity_prior, _vn_gaussian, D, 0, dev)
+    else:
+        calc = _f64_calc(GaussianPrior(0.5, 0.2), lambda th: -0.5 * (((th - 0.5) / 0.1) ** 2)
+                         .sum(-1), D, 0, dev)
+    assert isinstance(fused_like.lowering(calc), fused_like.Refused)
+    B, R = 700, 5
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+    args = _f64_args(lambda p: calc(p)[2], dev, B, R, D, D + rounds)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (3, 4), *args)
+    before = pallas_slice_v4.LAUNCHES["slice_step_f64"]
+    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (3, 4), *args, rounds=rounds)
+    assert pallas_slice_v4.LAUNCHES["slice_step_f64"] > before
+    for k, a, b in zip(("t", "logL", "nlike"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (k, int((a != b).sum()))
+
+
+def test_highest_run_on_the_card(dev):
+    """The big likelihood (|logL| ~ 1e7) through run(precision='highest') on
+    the card: the fused route and B2 in double only, dtype float64 in the
+    metrics, logZ within 3 sigma + 0.2; the float32 kernels launch nothing;
+    a forced float32 engine raises."""
+    with tempfile.TemporaryDirectory() as base:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = pt.run(_big, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100,
+                         num_repeats=8, do_clustering=False, read_resume=False,
+                         base_dir=base, seed=7, feedback=-1, device="cuda",
+                         precision="highest", precision_criterion=0.01)
+        with open(os.path.join(base, "test.metrics.jsonl")) as f:
+            last = json.loads(f.read().splitlines()[-1])
+        with pytest.raises(ValueError, match="engine='cuda'"):
+            pt.run(_big, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100, read_resume=False,
+                   base_dir=base, file_root="v3", seed=7, feedback=-1, device="cuda",
+                   precision="highest", engine="cuda3")
+    ran = {k: v for k, v in last["kernel_launches"].items() if v}
+    assert last["dtype"] == "float64" and last["route"] == "slice_epoch_fused"
+    assert set(ran) == {"gram_schmidt_f64", "slice_epoch_fused_f64"}, ran
+    assert abs(out.logZ - (1.0e7 - 4 * math.log(2))) < 3 * out.logZerr + 0.2

@@ -243,7 +243,12 @@ COPIED = [
     "settings.py", "output.py", "ops/logspace.py", "ops/linalg.py",
     "core/rti.py", "core/clustering.py", "utils/io.py", "utils/feedback.py",
     "utils/metrics.py", "utils/writebehind.py", "utils/native.py",
-    "params.py", "utils/inifile.py",
+    "params.py", "utils/inifile.py", "utils/legacy_resume.py",
+    # the maximiser's functions but _eval_batch (which evaluates through the
+    # port's calc in the run's dtype, where the JAX package casts to float32)
+    "core/maximiser.py::_eval_point", "core/maximiser.py::_nelder_mead",
+    "core/maximiser.py::_jacobian_probes", "core/maximiser.py::_logP_batch",
+    "core/maximiser.py::_dXdtheta", "core/maximiser.py::maximise",
 ]
 
 
@@ -255,10 +260,13 @@ REWORDED = {
 }
 
 
-def _code(source: str, reworded=None) -> str:
+def _code(source: str, reworded=None, function=None) -> str:
     """The module's syntax tree without docstrings (comments are never in
-    it), with the ``reworded`` string constants mapped back."""
+    it), with the ``reworded`` string constants mapped back; or only the
+    tree of its top-level ``function``."""
     tree = ast.parse(source)
+    if function is not None:
+        (tree,) = [n for n in tree.body if getattr(n, "name", None) == function]
     back = {v: k for k, v in (reworded or {}).items()}
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -275,11 +283,13 @@ def _code(source: str, reworded=None) -> str:
 
 @pytest.mark.parametrize("path", COPIED)
 def test_host_copies_kept_in_step(path):
-    """The copied host modules are the reference's code: the same syntax
-    tree, docstrings aside.  Their docstrings and comments may differ, so
-    that the port carries none of the JAX package's TPU measurements."""
+    """The copied host modules (or, for ``file::function``, functions) are
+    the reference's code: the same syntax tree, docstrings aside.  Their
+    docstrings and comments may differ, so that the port carries none of
+    the JAX package's TPU measurements."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path, _, function = path.partition("::")
     with open(os.path.join(repo, "polychordlite_tpu", path)) as f:
-        ref = _code(f.read())
+        ref = _code(f.read(), function=function or None)
     with open(os.path.join(repo, "polychordlite_tpu_torch", path)) as f:
-        assert _code(f.read(), REWORDED.get(path)) == ref
+        assert _code(f.read(), REWORDED.get(path), function or None) == ref

@@ -17,6 +17,7 @@ from polychordlite_tpu_torch.models.examples import gaussian
 from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
 from polychordlite_tpu_torch.output import PolyChordOutput
 from polychordlite_tpu_torch.priors import UniformPrior, identity_prior
+from polychordlite_tpu_torch.settings import PolyChordSettings
 
 torch.set_num_threads(2)
 
@@ -146,12 +147,17 @@ def test_calculator_paths():
 
 
 def test_unported_modes_raise(tmp_path):
-    for extra in ({"synchronous": False}, {"precision": "highest"},
-                  {"maximise": True}, {"nlives": {-10.0: 50}}):
+    """Asynchronous mode and several speed grades are not ported and raise;
+    precision='highest', maximise and an nlives schedule are ported
+    (tests/test_torch_precision.py, tests/test_torch_modes.py) and pass the
+    check."""
+    for extra in ({"synchronous": False}, {"grade_dims": [2, 2], "grade_frac": [1.0, 1.0]}):
         with pytest.raises(NotImplementedError):
             polychordlite_tpu_torch.run(
                 gaussian(D), D, device="cpu", **{**KW, **extra, "base_dir": str(tmp_path)}
             )
+    for extra in ({"precision": "highest"}, {"maximise": True}, {"nlives": {-10.0: 50}}):
+        ns._check_supported(PolyChordSettings(D, 2, **extra).finalise())
 
 
 def test_forced_chain_on_callback_model_runs(tmp_path):

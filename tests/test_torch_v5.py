@@ -267,9 +267,9 @@ def test_shells_through_both_engines_on_cpu():
 
 
 # ------------------------------------------ the packet machine as host C++
-# What the kernel sources need of CUDA on the host: the rounded intrinsics as
-# plain float operations (built with -ffp-contract=off) and the runtime's
-# names that likelihoods.cuh mentions.
+# What the kernel sources need of CUDA on the host: the rounded intrinsics,
+# float and double (csrc/rounded.cuh), as plain operations (built with
+# -ffp-contract=off) and the runtime's names that likelihoods.cuh mentions.
 _STUB_CUDA_RUNTIME = r"""
 #pragma once
 #include <math.h>
@@ -282,6 +282,10 @@ _STUB_CUDA_RUNTIME = r"""
 #define __fsub_rn(a, b) ((a) - (b))
 #define __fmul_rn(a, b) ((a) * (b))
 #define __fdiv_rn(a, b) ((a) / (b))
+#define __dadd_rn(a, b) ((a) + (b))
+#define __dsub_rn(a, b) ((a) - (b))
+#define __dmul_rn(a, b) ((a) * (b))
+#define __ddiv_rn(a, b) ((a) / (b))
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyHostToDevice = 1 };
