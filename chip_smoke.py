@@ -39,7 +39,16 @@ route and the traced route at gaussian.ini's shape and the bench, the
 traced route also at the 40-D run's (B 128, R 80, D 40), B2 narrow at the
 first two and wide at (2, 64, 64, 512) and the 40-D run's (2, 40, 40, 128),
 each bitwise its float64 plain version and timed beside its float32 twin
-and, for B2, float64 ``torch.linalg.qr``), then
+and, for B2, float64 ``torch.linalg.qr``), holds the graded route
+(``graded_step``: ``csrc/slice_step.cu`` with its repeat barrier, the slow
+part of a GradedLikelihood cached across fast-grade repeats, at B = 8,192,
+D = 20, grade_dims (6, 14), num_repeats (8, 32), in float32 and float64,
+and at run_graded's chains, B = 512 with 504 valid, in float32) bitwise
+against its plain version, the traced route on the monolithic form and the
+plain engine, with the rows slow_fn evaluated, the epoch record's
+included, against the monolithic route's, and B2 at the dims speed grades
+give it (1, 2, 14, 20, and run_graded's (3, 14, 14, 512) and (1, 20, 20,
+512)), then
 drives the port's paths and checks what comes out and which kernels ran
 (each path with every launch count set to 0 just before it):
 
@@ -65,6 +74,20 @@ drives the port's paths and checks what comes out and which kernels ran
   ``run(engine="cuda3")`` (B4, at a G > 1), bitwise the ``run_zoo_inis``
   run, and ``run(engine="cuda2")`` (B5, at a G > 1), within 3 sigma of
   -log 100;
+* ``run_grades_ini``: ``python3 -m polychordlite_tpu_torch`` on a copy of
+  ``ini/gaussian.ini`` whose prior lines give p1-p6 speed 1 and p7-p20
+  speed 2, with ``grade_frac = 8 32`` (literal repeats): B1's functor
+  route and B2 at dims 20 and 14, within 3 sigma of 0, two nlike counts
+  in the ``.stats`` file, the fast one larger;
+* ``run_graded``: a 20-D GradedLikelihood (the fixed-point loop of
+  tests/test_graded.py on 6 slow coordinates, 14 fast) with gaussian.ini's
+  settings and grade_frac [8, 32] through ``run()``: engine ``"scan"``,
+  the graded route and B2 only, no chain, at the batch graded_step held,
+  within 3 sigma of 0, and the share of the rows evaluated (probes and the
+  epoch records' babies) that ran slow_fn; the same likelihood as one
+  callable on the fused route, the two within 3 combined sigma; and
+  ``time_speeds`` on the graded calc (the full calc more than twice the
+  fast part's time);
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
@@ -145,6 +168,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -180,6 +204,14 @@ D40_HIGHEST = dict(nDims=40, nlive=100, num_repeats=80)
 D40_RUN = dict(B=128, R=80, D=40, B_valid=104)
 # tests/test_precision.py's big likelihood, run at gaussian.ini's width
 BIG = dict(offset=1.0e7, sigma=0.1)
+# speed grades at gaussian.ini's settings: p1-p6 slow, p7-p20 fast, literal
+# repeats 8 and 32 (40 in all, the ini's num_repeats); the graded route's
+# kernel check at the bench's chains
+GRADED = dict(nDims=20, nlive=500, grade_dims=[6, 14], grade_frac=[8, 32])
+GRADED_STEP = dict(B=8192, B_valid=8192)
+# ... and what run_graded gives the kernels: gaussian.ini's chains (B = 512
+# lanes, 504 valid); B2 one basis at dim 20 and three at dim 14
+GRADED_RUN = dict(B=RUN["B"], B_valid=RUN["B_valid"])
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -479,6 +511,7 @@ def main() -> None:
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
         from polychordlite_tpu_torch.ops.precision import real_dtype_scope
         from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
+        from polychordlite_tpu_torch.core.generate import assign_num_repeats, time_speeds
         from polychordlite_tpu_torch.output import PolyChordOutput
         from polychordlite_tpu_torch.parallel.mesh import GRANULE
         from polychordlite_tpu_torch.priors import (
@@ -487,6 +520,7 @@ def main() -> None:
             UniformPrior,
             identity_prior,
         )
+        from polychordlite_tpu_torch.settings import PolyChordSettings
         from polychordlite_tpu_torch.utils import nvcc
         from polychordlite_tpu_torch.utils.inifile import read_ini
     except ImportError as e:
@@ -1432,6 +1466,174 @@ def main() -> None:
         results["f64_kernels"] = out
         return out
 
+    # ---- 6f. the graded route (engine "scan"): slice_step.cu's repeat
+    # barrier, the slow part of a GradedLikelihood cached across fast-grade
+    # repeats
+    def graded_model(dtype=torch.float32):
+        """run_graded's 20-D likelihood (a normalised Gaussian, mu 0.5, sigma
+        0.1): a GradedLikelihood whose slow part is the fixed-point loop of
+        tests/test_graded.py on the 6 slow coordinates (c <- c/2 + r^2/2,
+        200 steps, exactly r^2 at every step) and whose fast part adds the
+        14 fast coordinates' chi^2; the same likelihood as one callable per
+        point (lambda theta: graded(theta)); the graded calc, and the calc of
+        the one batched callable fast(slow(theta[:, :6]), theta), the
+        monolithic form the kernel checks hold the graded route to."""
+        n_slow, norm = GRADED["grade_dims"][0], -GRADED["nDims"] * (
+            math.log(0.1) + 0.5 * math.log(2 * math.pi))
+
+        def slow(th_s):
+            r2 = (((th_s - 0.5) / 0.1) ** 2).sum(-1)
+            c = r2
+            for _ in range(200):
+                c = c * 0.5 + r2 * 0.5
+            return {"chi2_slow": c}
+
+        def fast(aux, th):
+            return norm - 0.5 * (aux["chi2_slow"] + (((th[..., n_slow:] - 0.5) / 0.1) ** 2)
+                                 .sum(-1))
+
+        graded = pt.GradedLikelihood(slow, fast, n_slow)
+
+        def monolithic(theta):
+            return graded(theta)
+
+        def batched(theta):
+            return fast(slow(theta[:, :n_slow]), theta)
+
+        return (graded, monolithic, dtype_calc(graded, GRADED["nDims"], dtype),
+                dtype_calc(batched, GRADED["nDims"], dtype))
+
+    def graded_step_bytes(B: int, D: int, launches: int, R: int, slow_rows: int,
+                          real: int = 4) -> int:
+        """The traced route's bytes (slice_step_bytes) plus the slow
+        intermediate: one value a chain written at each refresh and read by
+        each fast round (counted as the rows of slow_fn evaluated)."""
+        return slice_step_bytes(B, D, launches, R, real) + 2 * real * slow_rows
+
+    @phase("graded_step")
+    def _():
+        """At the bench's chains (B 8,192, D 20, grade_dims (6, 14),
+        num_repeats (8, 32)) on gaussian.ini's mid-run inputs, in float32
+        and float64, and at run_graded's chains (B 512, 504 valid) in
+        float32: the graded route against its plain version, the traced
+        route on the monolithic form and the plain engine (t, logL, nlike, 0
+        mismatches); its ms per epoch, launches and replays per epoch; the
+        rows slow_fn evaluated, the epoch record's (assemble_epoch) counted
+        in, against the monolithic route's; B2 at the dims speed grades give
+        it (1, 2, 14, 20) against its plain version, at the bench's chains
+        and at run_graded's bases."""
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        D = GRADED["nDims"]
+        grade_dims, num_repeats = tuple(GRADED["grade_dims"]), tuple(GRADED["grade_frac"])
+        R = sum(num_repeats)
+        for tag, geo, dtype, reps in (("f32", GRADED_STEP, torch.float32, 3),
+                                      ("f64", GRADED_STEP, torch.float64, 3),
+                                      ("run", GRADED_RUN, torch.float32, 2)):
+            B = geo["B"]
+            _, _, calc, mono = graded_model(dtype)
+            if not (calc.graded and calc.form == "batched" and not mono.graded):
+                raise AssertionError(f"graded form {calc.form}, monolithic {mono.form}")
+            gen = torch.Generator(dev).manual_seed(SEED)
+            x0, bnd, valid, chol = live_set_inputs(B, D, mono, gen, B_valid=geo["B_valid"])
+            x0, chol = x0.to(dtype), chol.to(dtype)
+            nh, w, sp = make_directions(chol, grade_dims=grade_dims, num_repeats=num_repeats,
+                                        n_dims=D, generator=gen)
+            args = (x0, bnd, valid, nh, w)
+            cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=grade_dims, num_repeats=num_repeats)
+            grades = pallas_slice_v4.repeat_grades(sp)
+            want, plain_engine_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: mono(p)[2], cfg, kw, *args))  # noqa: B023
+            plain, plain_ms = cuda_once(
+                lambda: pallas_slice_v4.slice_records_graded_plain(  # noqa: B023
+                    calc, cfg, kw, *args, grades, pallas_slice_v4.GRADED_ROUNDS))  # noqa: B023
+            counter = "slice_step_graded" + ("_f64" if tag == "f64" else "")
+            before = (pallas_slice_v4.LAUNCHES[counter], dict(pallas_slice_v4.GRADED))
+            got = pallas_slice_v4.slice_epoch_graded(calc, cfg, kw, *args, sp)
+            launches = pallas_slice_v4.LAUNCHES[counter] - before[0]
+            g = {k: v - before[1][k] for k, v in pallas_slice_v4.GRADED.items()}
+            traced0 = pallas_slice_v4.TRACED["rounds"]
+            traced = pallas_slice_v4.slice_epoch_traced(mono, cfg, kw, *args)
+            traced_rounds = pallas_slice_v4.TRACED["rounds"] - traced0
+            pairs = [(f"{k}_vs_{what}", a, b)
+                     for what, ref in (("plain", plain), ("traced", traced),
+                                       ("plain_engine", want))
+                     for k, a, b in zip(("t", "logL", "nlike"), got, ref)]
+            mism = decisions(f"graded_step {tag}: the graded route differs", pairs)
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_graded(  # noqa: B023
+                calc, cfg, kw, *args, sp), reps)  # noqa: B023
+            traced_ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(  # noqa: B023
+                mono, cfg, kw, *args), reps - 1)  # noqa: B023
+            # the epoch record: a fast repeat's babies from the fast part on
+            # that repeat's intermediate, a slow repeat's from the full calc
+            *rec, aux = pallas_slice_v4.slice_epoch_graded(calc, cfg, kw, *args, sp,
+                                                           with_aux=True)
+            assembly0 = dict(pallas_slice_v4.GRADED)
+            pallas_slice_v4.assemble_epoch(calc, cfg, x0, valid, nh, sp, *rec, None, aux)
+            assembly_rows, assembly_fast = (pallas_slice_v4.GRADED[k] - assembly0[k]
+                                            for k in ("assembly_rows", "assembly_fast_rows"))
+            if (assembly_rows, assembly_fast) != (grades.count(0) * B, (R - grades.count(0)) * B):
+                raise AssertionError(f"graded_step {tag}: the epoch record took {assembly_rows} "
+                                     f"rows of the full calc and {assembly_fast} of the fast "
+                                     f"part, not {grades.count(0)} and {R - grades.count(0)} "
+                                     "repeats' babies")
+            assembly_ms = cuda_ms(lambda: pallas_slice_v4.assemble_epoch(  # noqa: B023
+                calc, cfg, x0, valid, nh, sp, *rec, None, aux), reps)  # noqa: B023
+            assembly_mono_ms = cuda_ms(lambda: pallas_slice_v4.assemble_epoch(  # noqa: B023
+                mono, cfg, x0, valid, nh, sp, *traced), reps)  # noqa: B023
+            rounds = g["rounds_full"] + g["rounds_fast"]
+            slow_rows = g["rounds_full"] * B + g["aux_rows"] + assembly_rows
+            rows = (rounds + R) * B  # the probes and the epoch's babies
+            real = 8 if tag == "f64" else 4
+            out[tag] = {
+                "B": B, "R": R, "D": D, "grade_dims": list(grade_dims),
+                "num_repeats": list(num_repeats), "repeat_grades": grades,
+                "valid_lanes": int(valid.sum()), "evals": int(want[2].sum()),
+                "mismatches": mism, "launches_per_epoch": launches,
+                "rounds_per_replay": pallas_slice_v4.GRADED_ROUNDS, "replays_full":
+                g["replays_full"], "replays_fast": g["replays_fast"],
+                "openings": g["openings"], "rounds_per_epoch": rounds,
+                "slow_fn_rows": slow_rows, "assembly_slow_rows": assembly_rows, "rows": rows,
+                "slow_fn_rows_monolithic": (traced_rounds + R) * B,
+                "slow_share": slow_rows / rows,
+                "slow_rows_over_monolithic": slow_rows / ((traced_rounds + R) * B),
+                "ms": ms, "plain_ms": plain_ms, "plain_engine_ms": plain_engine_ms,
+                "traced_monolithic_ms": traced_ms, "traced_rounds": traced_rounds,
+                "traced_over_graded": traced_ms / ms, "assembly_ms": assembly_ms,
+                "assembly_monolithic_ms": assembly_mono_ms,
+                "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got[:2], plain[:2])),
+                "bound": bound(graded_step_bytes(B, D, launches, R, slow_rows, real), 0,
+                               F64_FLOPS_PER_S if tag == "f64" else F32_FLOPS_PER_S),
+            }
+        out["f32"]["f64_twin_ms"] = out["f64"]["ms"]
+        results["slice_step_graded"] = {k: out["f32"][k] for k in ("ms", "plain_ms",
+                                                                   "max_abs_err", "bound")}
+        # B2 at the dims speed grades give it, at the bases the bench's chains
+        # draw, and at the bases run_graded draws
+        nb14, nb20 = -(-num_repeats[1] // 14), -(-num_repeats[0] // 20)
+        for name, dim, nb, B in (("dim1", 1, 8, GRADED_STEP["B"]), ("dim2", 2, 4, GRADED_STEP["B"]),
+                                 ("dim14", 14, nb14, GRADED_STEP["B"]),
+                                 ("dim20", 20, nb20, GRADED_STEP["B"]),
+                                 ("run_dim14", 14, nb14, GRADED_RUN["B"]),
+                                 ("run_dim20", 20, nb20, GRADED_RUN["B"])):
+            g = torch.randn((nb, dim, dim, B), generator=torch.Generator(dev).manual_seed(dim),
+                            device=dev)
+            q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
+            before = pallas_dirs.LAUNCHES["gram_schmidt"]
+            q = pallas_dirs.gram_schmidt_lanes(g)
+            if pallas_dirs.LAUNCHES["gram_schmidt"] != before + 1:
+                raise AssertionError(f"B2 at dim {dim}: gram_schmidt was not launched")
+            mism = int((q != q_plain).sum())
+            if mism or (dim == 1 and not torch.equal(q, torch.sign(g))):
+                raise AssertionError(f"B2 at dim {dim}: {mism} entries differ from its plain "
+                                     "version (or a dim-1 basis is not the sign)")
+            out[f"gram_schmidt_{name}"] = {
+                "shape": [nb, dim, dim, B], "mismatches": mism, "plain_ms": plain_ms,
+                "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
+                "bound": bound(2 * 4 * nb * dim * dim * B, gram_schmidt_flops(nb, dim, B))}
+        results["graded_step"] = out
+        return out
+
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
                 pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
@@ -2025,6 +2227,162 @@ def main() -> None:
             out[engine] = rec
         return out
 
+    # ---- 11b. speed grades: gaussian.ini's settings with two grades through
+    # the ini CLI (B1's functor route), and a GradedLikelihood through run()
+    # (the graded route), beside its monolithic form (the fused route)
+    def graded_ini_copy(base: str) -> str:
+        """ini/gaussian.ini (ini_copy) with p1-p6 at speed 1, p7-p20 at speed
+        2 and ``grade_frac = 8 32``: literal repeats, 40 in all as the ini's
+        num_repeats, so the run does not depend on a timing."""
+        path = ini_copy(base, "gaussian")
+        lines = []
+        with open(path) as f:
+            for ln in f.read().splitlines():
+                if ln.startswith("P :"):
+                    fields = ln.split("|")
+                    k = int(fields[0].split()[-1][1:])  # p<k>
+                    fields[2] = f" {1 if k <= GRADED['grade_dims'][0] else 2} "
+                    ln = "|".join(fields)
+                elif ln.startswith("num_repeats"):
+                    ln += "\ngrade_frac = " + " ".join(str(g) for g in GRADED["grade_frac"])
+                lines.append(ln)
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    def nlike_by_grade(base: str, root: str):
+        with open(os.path.join(base, f"{root}.stats")) as f:
+            line = [ln for ln in f.read().splitlines() if ln.startswith(" nlike:")][0]
+        return [int(x) for x in line.split()[1:]]
+
+    @phase("run_grades_ini")
+    def _():
+        """The ini CLI on gaussian.ini with two speed grades (graded_ini_copy):
+        B1's functor route and B2 at dims 20 and 14, logZ within 3 sigma of
+        0, the .stats nlike line two counts, the fast grade's the larger."""
+        base = tempfile.mkdtemp(prefix="gaussian_grades_")
+        tmpdirs.append(base)
+        ini = graded_ini_copy(base)
+        s, *_ = read_ini(ini)
+        if (list(s.grade_dims), list(s.grade_frac)) != (GRADED["grade_dims"],
+                                                      [float(g) for g in GRADED["grade_frac"]]):
+            raise AssertionError(f"the ini reads grade_dims {s.grade_dims}, grade_frac "
+                                 f"{s.grade_frac}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        last = read_metrics(base, "gaussian")[-1]
+        ran = last["kernel_launches"]
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch"):
+            raise AssertionError(f"engine {last.get('engine')!r}, route {last.get('route')!r}")
+        if not only(ran, ("gram_schmidt", "slice_epoch")):
+            raise AssertionError(f"the CLI run did not run B1 and B2 (only): {ran}")
+        add_launches(ran)
+        out = PolyChordOutput(base, "gaussian")
+        counts = nlike_by_grade(base, "gaussian")
+        if not (len(counts) == 2 and 0 < counts[0] < counts[1]):
+            raise AssertionError(f"the .stats nlike line is {counts}")
+        if not (math.isfinite(out.logZ) and abs(out.logZ) < 3 * out.logZerr):
+            raise AssertionError(f"logZ {out.logZ} +/- {out.logZerr} is not within 3 sigma of 0")
+        return {"engine_used": last["engine"], "route": last["route"],
+                "chained_epochs": last.get("chained_epochs"), "ndead": out.ndead,
+                "logZ": out.logZ, "logZerr": out.logZerr, "pull_sigma": out.logZ / out.logZerr,
+                "nlike_by_grade": counts, "wall_s": wall, "dead_per_s": out.ndead / wall,
+                "launches": {k: v for k, v in ran.items() if v},
+                "device_frac": last.get("device_frac"), "host_totals_s": last.get("host_totals")}
+
+    @phase("run_graded")
+    def _():
+        """graded_model's GradedLikelihood through run() on the card with
+        gaussian.ini's settings and grade_dims [6, 14], grade_frac [8, 32]:
+        engine "scan", the graded route and B2 only, no chain, at the batch
+        graded_step held (GRADED_RUN); then the same likelihood as one
+        callable on the route engine="cuda" picks for it (the fused route);
+        each within 3 sigma of logZ = 0 and the two within 3 combined sigma;
+        the share of the rows evaluated (probes and the epoch records'
+        babies) that ran slow_fn.  Then time_speeds on the graded calc with
+        grade_frac [0.25, 0.75]: the full calc more than twice the fast
+        part's time."""
+        graded, monolithic, calc, _ = graded_model()
+        D = GRADED["nDims"]
+        kw = dict(nlive=GRADED["nlive"], num_repeats=sum(GRADED["grade_frac"]),
+                  grade_dims=GRADED["grade_dims"], grade_frac=GRADED["grade_frac"],
+                  do_clustering=False, precision_criterion=0.001)
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                pt.run(graded, D, read_resume=False, base_dir=base, seed=SEED, feedback=-1,
+                       device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            stats = PolyChordOutput(base, "test")
+            last = read_metrics(base, "test")[-1]
+            counts = nlike_by_grade(base, "test")
+        if (last.get("engine"), last.get("route")) != ("scan", "slice_step_graded"):
+            raise AssertionError(f"engine {last.get('engine')!r}, route {last.get('route')!r}")
+        if not only(ran, ("gram_schmidt", "slice_step_graded")):
+            raise AssertionError(f"the graded run did not run B2 and the graded route (only): "
+                                 f"{ran}")
+        if last.get("chained_epochs") is not False:
+            raise AssertionError("a graded run dispatched chained epochs")
+        if not (len(counts) == 2 and 0 < counts[0] < counts[1]
+                and last["nlike_per_grade"] == counts):
+            raise AssertionError(f"nlike by grade {counts}, metrics {last['nlike_per_grade']}")
+        add_launches(ran)
+        gr = last["graded_route"]
+        B_phys = -(-(-(-GRADED["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        if B_phys != GRADED_RUN["B"]:
+            raise AssertionError(f"the run's batch is {B_phys} lanes, not the "
+                                 f"{GRADED_RUN['B']} the graded route was held at")
+        # the rows the likelihood was evaluated on: the probes, and the
+        # babies of the epoch records; slow_fn ran on the full calc's rows
+        # and on the refreshes of the cached intermediate
+        rows = ((gr["rounds_full"] + gr["rounds_fast"]) * B_phys + gr["assembly_rows"]
+                + gr["assembly_fast_rows"])
+        slow_rows = gr["rounds_full"] * B_phys + gr["aux_rows"] + gr["assembly_rows"]
+        graded_rec = {"ndead": stats.ndead, "logZ": stats.logZ, "logZerr": stats.logZerr,
+                      "pull_sigma": stats.logZ / stats.logZerr, "wall_s": wall,
+                      "dead_per_s": stats.ndead / wall, "device_frac": last.get("device_frac"),
+                      "nlike_by_grade": counts, "graded_route": gr,
+                      "slow_fn_rows": slow_rows, "rows": rows,
+                      "slow_share_of_rows": slow_rows / max(rows, 1),
+                      "launches": {k: v for k, v in ran.items() if v},
+                      "host_totals_s": last.get("host_totals"),
+                      "epoch_timers_s": last.get("epoch_timers")}
+        if not abs(graded_rec["pull_sigma"]) < 3.0:
+            raise AssertionError(f"graded logZ {stats.logZ} +/- {stats.logZerr} is not within "
+                                 "3 sigma of 0")
+        built = prebuild(monolithic, D, GRADED["nlive"])
+        last_m, stats_m, wall_m, ran_m, _ = route_run("graded_monolithic", monolithic, D, **kw)
+        mono_rec = {**route_record(last_m, stats_m, wall_m, ran_m, 0.0), "prebuild": built,
+                    "nlike_by_grade": last_m["nlike_per_grade"],
+                    "slow_share_of_rows": 1.0}  # the whole likelihood at every row
+        both = math.hypot(stats.logZerr, stats_m.logZerr)
+        if not abs(stats.logZ - stats_m.logZ) < 3 * both:
+            raise AssertionError(f"graded logZ {stats.logZ} and monolithic {stats_m.logZ} "
+                                 f"differ by more than 3 combined sigma ({both})")
+        s = PolyChordSettings(D, 0, grade_dims=GRADED["grade_dims"], grade_frac=[0.25, 0.75],
+                              num_repeats=kw["num_repeats"]).finalise()
+        speeds = time_speeds(calc, s, torch.Generator(dev).manual_seed(SEED))
+        rti = types.SimpleNamespace()
+        assign_num_repeats(s, rti, speeds)
+        if not speeds[0] > 2 * speeds[1]:
+            raise AssertionError(f"time_speeds {speeds.tolist()}: the full calc is not twice "
+                                 "the fast part's time")
+        rec = {"graded": graded_rec, "monolithic": mono_rec,
+               "graded_over_monolithic_wall": wall / wall_m,
+               "time_speeds_s_per_row": speeds.tolist(),
+               "time_speeds_ratio": float(speeds[0] / speeds[1]),
+               "time_speeds_num_repeats": [int(n) for n in rti.num_repeats]}
+        results["run_graded"] = rec
+        return rec
+
     # ---- 12. the structure-cost studies (E3, E2, E6, E7) ------------------
     # Each phase holds its kernel against its plain version (and the kernels
     # making the same decisions) on the card, then runs its study at full
@@ -2310,6 +2668,8 @@ def main() -> None:
         ("slice_epoch_fused", "slice_epoch_fused.cu",
          "polychordlite_tpu/ops/pallas_slice_v4.py:508", "slice_fused",
          results["slice_fused"]["bound"], None),
+        ("slice_step_graded", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
+         "slice_step_graded", results["slice_step_graded"]["bound"], None),
     ] + [
         (name, source, replaces, res, results[res]["bound"], None)
         for name, source, replaces, res in (
@@ -2327,7 +2687,7 @@ def main() -> None:
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
                     "slice_epoch_v2", "slice_step", "slice_epoch_fused", "slice_epoch_fused_f64",
-                    "slice_step_f64", "gram_schmidt_f64")  # the others: their
+                    "slice_step_f64", "gram_schmidt_f64", "slice_step_graded")  # the others: their
     # studies' own launches
     se = results["slice_epoch"]
     redesigned = {  # B1's, B3's, B4's, B5's and E2's G = 1 forms, and the traced route, in
@@ -2375,9 +2735,22 @@ def main() -> None:
         n = launches[name] if name in PATH_KERNELS else r["launches"]
         if name == "gram_schmidt":  # B2's two kernels
             n += launches["gram_schmidt_wide"]
+        extra = {}
+        if name == "slice_step_graded":  # its float64 twin, the monolithic traced route,
+            # the slow part's rows, and the run it carried
+            gs = results["graded_step"]
+            extra = {"geometry": {k: gs["f32"][k] for k in ("B", "R", "D", "grade_dims",
+                                                            "num_repeats")},
+                     "f64_twin_ms": gs["f64"]["ms"],
+                     "traced_monolithic_ms": gs["f32"]["traced_monolithic_ms"],
+                     "slow_share": gs["f32"]["slow_share"],
+                     "graded_run_geometry": {k: gs["run"][k] for k in (
+                         "B", "valid_lanes", "mismatches", "ms", "plain_ms", "bound")},
+                     "run_graded": {k: results["run_graded"]["graded"][k]
+                                    for k in ("slow_share_of_rows", "wall_s", "dead_per_s")}}
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-            "dtype": "float32",
+            "dtype": "float32", **extra,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             **redesigned.get(name, {}), **({"d128": d128[name]} if name in d128 else {}),

@@ -11,11 +11,13 @@ torch, with the CUDA sources in ``csrc/``.
 
 __version__ = "0.1.0"
 
+from .models.graded import GradedLikelihood
 from .output import PolyChordOutput
 from .run import run, run_polychord
 from .settings import PolyChordSettings
 
 __all__ = [
+    "GradedLikelihood",
     "run",
     "run_polychord",
     "PolyChordSettings",

@@ -5,7 +5,9 @@
 device generator, in the calc's dtype (float64 under
 ``precision='highest'``), and evaluates them in batches with the calc
 (``generate.F90:186-261``); ``generate_seeds`` (numpy, unchanged) picks
-slice seeds on the host (``GenerateSeed``, ``generate.F90:19-55``).
+slice seeds on the host (``GenerateSeed``, ``generate.F90:19-55``);
+``time_speeds`` times the speed grades and ``assign_num_repeats`` turns
+the times into repeats per grade (``generate.F90:303-455``).
 """
 
 from __future__ import annotations
@@ -104,14 +106,60 @@ def assign_num_repeats(
         rti.thin_posterior = float(s.boost_posterior) / float(num_repeats.sum())
 
 
-def time_speeds(calc, s: PolyChordSettings) -> np.ndarray:
-    """Per-grade likelihood cost (generate.F90:330-455).  Only the single
-    grade is ported: its relative cost is 1."""
-    if len(s.grade_dims) != 1:
-        raise NotImplementedError(
-            "timing several speed grades (graded likelihoods) is not ported yet"
-        )
-    return np.ones(1)
+def _wait(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _seconds_per_row(fn, batches, device: torch.device) -> float:
+    """Host-clock seconds per row of ``fn(batch)`` over ``batches``, the
+    device's queue drained before and after."""
+    _wait(device)
+    t0 = time.perf_counter()
+    for batch in batches:
+        fn(batch)
+    _wait(device)
+    return (time.perf_counter() - t0) / sum(batch.shape[0] for batch in batches)
+
+
+def time_speeds(calc, s: PolyChordSettings, generator: torch.Generator) -> np.ndarray:
+    """Measure per-grade likelihood cost (generate.F90:330-455,
+    ``polychordlite_tpu/core/generate.py:117-166``) on 256 cubes drawn from
+    ``generator`` on the calc's device, after one warm-up, each batch timed
+    to the end of its device work: grade g's evaluation varies only the
+    dimensions from grade g onward.  For a monolithic likelihood all grades
+    cost the same (no partial recomputation), which gives
+    grade_frac-proportional repeats; for a :class:`GradedLikelihood` with
+    two grades the two code paths the ``"scan"`` engine runs are timed
+    instead, the full calc against ``calc.fast_point_batch`` on a cached
+    slow intermediate.  Nothing is drawn or timed for one grade, or for
+    literal repeat counts (every grade_frac above 1)."""
+    n_grades = len(s.grade_dims)
+    speeds = np.ones(n_grades)
+    if n_grades == 1 or not (np.asarray(s.grade_frac) <= 1).any():
+        return speeds
+    B, reps = 256, 3
+    device = calc.device
+    base = torch.rand((B, s.nDims), generator=generator, device=device, dtype=calc.dtype)
+    calc(base)  # warm up
+    if getattr(calc, "graded", False) and n_grades == 2:
+        aux = calc.slow_aux_batch(base)
+        calc.fast_point_batch(aux, base)
+        speeds[0] = max(_seconds_per_row(calc, [base] * reps, device), 1e-12)
+        speeds[1] = max(_seconds_per_row(lambda c: calc.fast_point_batch(aux, c),
+                                         [base] * reps, device), 1e-12)
+        return speeds
+    for g in range(n_grades):
+        start = int(sum(s.grade_dims[:g]))
+        perts = []
+        for _ in range(reps):
+            pert = base.clone()
+            pert[:, start:] = torch.rand((B, s.nDims - start), generator=generator,
+                                         device=device, dtype=calc.dtype)
+            perts.append(pert)
+        speeds[g] = _seconds_per_row(calc, perts, device)
+    return speeds
 
 
 def generate_seeds(

@@ -34,8 +34,11 @@ post-run maximiser (``core/maximiser.py``) and writes ``<root>.maximum``;
 an ``nlives`` schedule is followed by the bookkeeping of ``core/rti.py``
 (no chained dispatch under a schedule: a chain keeps nlive fixed); a
 resume file in the reference's text format is read
-(``utils/legacy_resume.py``).  Asynchronous mode (``synchronous=False``)
-and several speed grades raise ``NotImplementedError``.
+(``utils/legacy_resume.py``).  Several speed grades run on every engine;
+a :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood` runs on
+the ``"scan"`` engine, which keeps its slow part across fast-grade
+repeats (``ops/slice_kernel.py``), with no chained dispatch.
+Asynchronous mode (``synchronous=False``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -111,10 +114,19 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: ``"cuda"`` on a CUDA device, the plain
-    torch engine on the CPU.  ``"cuda"`` runs any torch model, batched or
-    per point (B1's functor kernel for a model with a device form, B1 with
-    the likelihood lowered into it or the traced route ``csrc/slice_step.cu``
-    for the others: ``ops/slice_kernel.py::cuda_route``) and refuses a
+    torch engine on the CPU; for a :class:`GradedLikelihood` calc
+    (``calc.graded``) ``"scan"`` on every device, the one engine that carries
+    its slow part (``polychordlite_tpu/core/nested_sampling.py:77-99``).  A
+    kernel engine forced by name for a graded calc raises, naming
+    ``"scan"`` (the JAX package warns and runs scan instead; the port forces
+    engines by name only, ROADMAP C5); ``"torch"`` runs it as the plain
+    callable ``fast(slow(.), .)``.  ``"scan"`` runs any torch model (the
+    traced route's kernel with a repeat barrier on the card, no bound on D)
+    and refuses a host-callback model on the card.  ``"cuda"`` runs any
+    torch model, batched or per point (B1's functor kernel for a model with
+    a device form, B1 with the likelihood lowered into it or the traced
+    route ``csrc/slice_step.cu`` for the others:
+    ``ops/slice_kernel.py::cuda_route``) and refuses a
     host-callback model; the other kernel engines of :data:`KERNEL_ENGINES`
     are forced by name and need a device form.  ``engine="torch"`` is the
     plain engine on any device, at any dimension; the kernel engines stop at
@@ -124,10 +136,26 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"``, whose kernels are
     float32, raise (as the JAX package sends float64 away from its float32
     kernels, ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
+    graded = bool(getattr(calc, "graded", False))
     if engine == "auto":
-        if device.type != "cuda":
+        if graded:
+            engine = "scan"
+        elif device.type != "cuda":
             return "torch"
-        engine = "cuda"
+        else:
+            engine = "cuda"
+    if graded and engine in KERNEL_ENGINES:
+        raise ValueError(
+            f"engine={engine!r} evaluates the whole likelihood at every probe; a "
+            "GradedLikelihood runs on engine='scan', which keeps its slow part across "
+            "fast-grade repeats (or engine='torch', which calls it as one function)")
+    if engine == "scan":
+        if device.type == "cuda" and calc.uses_callback:
+            raise ValueError(
+                "a host-callback likelihood (one that is not a torch function of a "
+                "tensor) has no route on the card; pass engine='torch' to run it on "
+                "the plain engine")
+        return engine
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
@@ -164,7 +192,7 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine == "torch":
         return "torch"
     raise ValueError(
-        f"unknown engine {engine!r}: use 'auto', 'torch' or one of {KERNEL_ENGINES}"
+        f"unknown engine {engine!r}: use 'auto', 'torch', 'scan' or one of {KERNEL_ENGINES}"
     )
 
 
@@ -173,13 +201,8 @@ def _check_supported(s: PolyChordSettings) -> None:
     unknown ``precision``."""
     if getattr(s, "precision", "single") not in PRECISIONS:
         raise ValueError(f"precision must be one of {tuple(PRECISIONS)}, not {s.precision!r}")
-    missing = {
-        "synchronous=False": not s.synchronous,
-        "several speed grades": len(s.grade_dims) > 1,
-    }
-    for what, asked in missing.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to the torch package yet")
+    if not s.synchronous:
+        raise NotImplementedError("synchronous=False is not ported to the torch package yet")
 
 
 def more_samples_needed(s: PolyChordSettings, rti: RunTimeInfo) -> bool:
@@ -309,6 +332,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     t_start = time.time()
     launches0 = _kernel_launches()
     traced0 = dict(pallas_slice_v4.TRACED)
+    graded0 = dict(pallas_slice_v4.GRADED)
     groups0 = dict(pallas_slice_v4.GROUP_LAUNCHES)
 
     # --- RNG: host generator, device generator and murmur key, all from seed
@@ -324,7 +348,23 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         prior, loglikelihood, s.nDims, s.nDerived, s.logzero, device=device
     )
     n_grades = len(s.grade_dims) if s.grade_dims else 1
+    if calc.graded and n_grades > 1 and int(s.grade_dims[0]) != calc.n_slow:
+        # fast-grade chords must move fast parameters only: a mismatch would
+        # let a fast probe move a slow coordinate against a stale cached
+        # intermediate (polychordlite_tpu/core/nested_sampling.py:209-223)
+        raise ValueError(
+            f"GradedLikelihood with n_slow={calc.n_slow} requires "
+            f"grade_dims[0] == n_slow, got grade_dims={list(s.grade_dims)}"
+        )
     engine = resolve_engine(s.engine, device, calc)
+    if calc.graded and int(getattr(s, "chain_epochs", -1)) > 1:
+        # the JAX package lets a forced chain through here and fails later
+        # (ROADMAP C1)
+        raise ValueError(
+            "chain_epochs > 1 asks for chained epochs, and a GradedLikelihood runs "
+            "without them: the chain has no aux carry (it hands the device its live set "
+            "from epoch to epoch, not the slow intermediate); leave chain_epochs at -1 or 0"
+        )
     # the kernel the engine runs for this model, chosen once (a torch
     # likelihood is lowered into B1 here, or refused with its reason)
     route, reason = epoch_route(engine, calc), route_reason(engine, calc)
@@ -342,7 +382,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         _feedback(s, 1, "Resuming from previous run")
     elif s.cube_samples is not None:
         rti = resume_mod.rti_from_cube_samples(s, s.cube_samples, calc, n_grades, device)
-        assign_num_repeats(s, rti, time_speeds(calc, s))
+        assign_num_repeats(s, rti, time_speeds(calc, s, generator))
         _feedback(s, 1, f"Starting from {rti.total_nlive()} cube samples")
     else:
         _feedback(s, 1, "Generating initial live points")
@@ -350,13 +390,13 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         if s.write_prior:
             io_mod.write_prior_file(s, rti)
             io_mod.write_prior_info(s, s.resolved_nprior(), ndiscarded)
-        speeds = time_speeds(calc, s)
+        speeds = time_speeds(calc, s, generator)
         speeds[0] = max(sec_per_eval, 1e-12)
         assign_num_repeats(s, rti, speeds)
     rti._rng = rng
 
     if rti.num_repeats is None:
-        assign_num_repeats(s, rti, time_speeds(calc, s))
+        assign_num_repeats(s, rti, time_speeds(calc, s, generator))
 
     # trim nprior down to nlive, accumulating the evidence of the deleted
     # shells (nested_sampling.F90:200-204)
@@ -439,8 +479,8 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         # e-folds (actively fragmenting runs would otherwise thrash chains)
         nursery_queue = deque()
         turbo_K = int(getattr(s, "chain_epochs", -1))
-        if turbo_K < 0:  # auto: host-callback likelihoods dispatch per epoch
-            turbo_K = 0 if calc.uses_callback else 8
+        if turbo_K < 0:  # auto: host-callback and graded likelihoods dispatch per epoch
+            turbo_K = 0 if calc.uses_callback or calc.graded else 8
         turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
                  "cooldown": 0, "voided": 0, "chains": 0}
 
@@ -730,6 +770,13 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
                 "traced_route": {
                     k: v - traced0[k] for k, v in pallas_slice_v4.TRACED.items()
                 },
+                # the graded route's (engine "scan") replays and rounds by
+                # graph, repeat openings and slow-intermediate rows, and the
+                # likelihood calls by speed grade
+                "graded_route": {
+                    k: v - graded0[k] for k, v in pallas_slice_v4.GRADED.items()
+                },
+                "nlike_per_grade": [int(n) for n in rti.nlike],
             },
         )
         return {

@@ -25,6 +25,23 @@
 //
 // ops/pallas_slice_v4.py captures a fixed number of rounds (the likelihood
 // and the launch) in one CUDA graph and replays it until `active` reads 0.
+//
+// The repeat barrier (the graded route of a GradedLikelihood, engine
+// "scan"): a lane proposes only while its repeat is below `rep_limit`, an
+// int in device memory, so that one captured graph serves every repeat.  A
+// lane that has reached it (a repeat accepted, the next one started in
+// INIT_R) proposes nothing: its t is 0, its probe is x, it does not set
+// `active`, and its "probe pending" row (S_PEND) is cleared, so the next
+// launch neither consumes a logL for it nor counts a step.  The host raises
+// `rep_limit` by one per repeat and replays the graph of that repeat's grade
+// (the full likelihood, or the fast part on the cached slow intermediate)
+// until `active` reads 0: every repeat then runs in lockstep across the
+// batch, as the JAX package's scan engine runs them
+// (polychordlite_tpu/ops/slice_kernel.py::build_epoch_fn_scan, :193), while
+// each lane's decisions stay those of the free-running route: its uniforms
+// are keyed on (key words, lane, repeat, iteration) and its budget counts
+// only the steps it takes.  With rep_limit = R a lane is pending exactly
+// when it is not done, and the kernel is the traced route's.
 // Every lane is evaluated each round, as the plain engine evaluates every
 // lane, so the likelihood sees the same shapes and bits as in
 // ops/slice_kernel.py::slice_records_plain and the route is bitwise that
@@ -37,7 +54,11 @@
 // thread per chain with D looped, the state structure-of-arrays with the
 // chain axis minor so that loads and stores coalesce (the probe, (B, D)
 // row-major for torch, does not); no bound on D, since the state is not in
-// registers.
+// registers.  Under the repeat barrier the round is the same, plus one
+// launch per repeat that only proposes; each repeat lasts as long as its
+// slowest lane, and the probes of the lanes that wait are evaluated for
+// nothing: what the graded route pays for evaluating the slow part of the
+// likelihood only in slow-grade repeats.
 //
 // Layouts: x0, x (D, B), n̂ (R, D, B), w (R, B), bound, valid, logL (B,);
 // the integer state (S_INTS, B) int32, the float state (F_FLOATS, B),
@@ -54,7 +75,7 @@
 
 // rows of the integer and float state
 enum { S_PHASE, S_RSTEP, S_LSTEP, S_NSHRINK, S_CNT, S_NEED_R, S_NEED_L, S_IT, S_REP, S_HLANE,
-       S_INTS };
+       S_PEND, S_INTS };
 enum { F_TL, F_TR, F_T, F_FLOATS };
 
 template <class T>
@@ -74,6 +95,7 @@ struct StepArgs {
     T* logL_out;
     int* nlike_out;
     int* active;         // set to 1 when a lane is left running
+    const int* rep_limit;  // (1,): a lane proposes only while rep < *rep_limit
     int B, D, R;
     uint32_t k0, k1;
     int max_step, max_shrink;
@@ -104,6 +126,7 @@ __global__ void slice_step_kernel(StepArgs<T> a, bool first) {
     int rep;
     long long steps;
     uint32_t h_lane;
+    bool pending = false;  // the lane's probe of the last launch awaits its logL
     if (first) {
         const bool valid = a.valid[b] > 0.5f;
         s.start();
@@ -127,7 +150,8 @@ __global__ void slice_step_kernel(StepArgs<T> a, bool first) {
         rep = v[S_REP * B + b];
         h_lane = (uint32_t)v[S_HLANE * B + b];
         steps = a.steps[b];
-        if (s.phase != PH_DONE) {  // consume the logL of this lane's probe
+        pending = v[S_PEND * B + b] != 0;
+        if (s.phase != PH_DONE && pending) {  // consume the logL of this lane's probe
             const T t = a.fst[F_T * B + b];
             T stored = a.logzero;
             ++steps;
@@ -147,7 +171,8 @@ __global__ void slice_step_kernel(StepArgs<T> a, bool first) {
         }
     }
     T t = T(0);
-    if (s.phase != PH_DONE) {
+    pending = s.phase != PH_DONE && rep < *a.rep_limit;
+    if (pending) {
         t = slice_propose(s, a.w[(size_t)rep * B + b], mix32(h_lane, (uint32_t)rep));
         *a.active = 1;
     }
@@ -167,6 +192,7 @@ __global__ void slice_step_kernel(StepArgs<T> a, bool first) {
     v[S_IT * B + b] = (int)s.it;
     v[S_REP * B + b] = rep;
     v[S_HLANE * B + b] = (int)h_lane;
+    v[S_PEND * B + b] = pending;
     a.steps[b] = steps;
 }
 
@@ -174,14 +200,15 @@ template <class T>
 static int launch(int first, const void* x0t, const void* valid, const void* bound,
                   const void* nhat, const void* w, const void* logL, void* ist, void* steps,
                   void* fst, void* x, void* probe, void* t_out, void* logL_out,
-                  void* nlike_out, void* active, int B, int D, int R, unsigned int k0,
-                  unsigned int k1, int max_step, int max_shrink, long long cap, T logzero,
-                  void* stream) {
+                  void* nlike_out, void* active, const void* rep_limit, int B, int D, int R,
+                  unsigned int k0, unsigned int k1, int max_step, int max_shrink, long long cap,
+                  T logzero, void* stream) {
     if (B < 1 || D < 1 || R < 1) return (int)cudaErrorInvalidValue;
     const StepArgs<T> a{(const T*)x0t, (const T*)valid, (const T*)bound, (const T*)nhat,
                         (const T*)w, (const T*)logL, (int*)ist, (long long*)steps, (T*)fst,
                         (T*)x, (T*)probe, (T*)t_out, (T*)logL_out, (int*)nlike_out,
-                        (int*)active, B, D, R, k0, k1, max_step, max_shrink, cap, logzero};
+                        (int*)active, (const int*)rep_limit, B, D, R, k0, k1, max_step,
+                        max_shrink, cap, logzero};
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
     const cudaStream_t st = (cudaStream_t)stream;
@@ -191,18 +218,19 @@ static int launch(int first, const void* x0t, const void* valid, const void* bou
 
 // One launch on `stream`: the first one of an epoch (`first` != 0: set up
 // from x0t and valid, then propose) or a round (consume logL, propose).
-// All arrays are device arrays in the layouts above, contiguous, float32.
+// All arrays are device arrays in the layouts above, contiguous, float32;
+// rep_limit is one device int (R for the traced route).
 // Returns cudaGetLastError() after the launch.
 extern "C" int slice_step_launch(int first, const void* x0t, const void* valid,
                                  const void* bound, const void* nhat, const void* w,
                                  const void* logL, void* ist, void* steps, void* fst, void* x,
                                  void* probe, void* t_out, void* logL_out, void* nlike_out,
-                                 void* active, int B, int D, int R, unsigned int k0,
-                                 unsigned int k1, int max_step, int max_shrink, long long cap,
-                                 float logzero, void* stream) {
+                                 void* active, const void* rep_limit, int B, int D, int R,
+                                 unsigned int k0, unsigned int k1, int max_step, int max_shrink,
+                                 long long cap, float logzero, void* stream) {
     return launch<float>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
-                         t_out, logL_out, nlike_out, active, B, D, R, k0, k1, max_step,
-                         max_shrink, cap, logzero, stream);
+                         t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1,
+                         max_step, max_shrink, cap, logzero, stream);
 }
 
 // The same with the float arrays and logzero in float64.
@@ -210,11 +238,11 @@ extern "C" int slice_step_launch_f64(int first, const void* x0t, const void* val
                                      const void* bound, const void* nhat, const void* w,
                                      const void* logL, void* ist, void* steps, void* fst,
                                      void* x, void* probe, void* t_out, void* logL_out,
-                                     void* nlike_out, void* active, int B, int D, int R,
-                                     unsigned int k0, unsigned int k1, int max_step,
-                                     int max_shrink, long long cap, double logzero,
-                                     void* stream) {
+                                     void* nlike_out, void* active, const void* rep_limit,
+                                     int B, int D, int R, unsigned int k0, unsigned int k1,
+                                     int max_step, int max_shrink, long long cap,
+                                     double logzero, void* stream) {
     return launch<double>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
-                          t_out, logL_out, nlike_out, active, B, D, R, k0, k1, max_step,
-                          max_shrink, cap, logzero, stream);
+                          t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1,
+                          max_step, max_shrink, cap, logzero, stream);
 }

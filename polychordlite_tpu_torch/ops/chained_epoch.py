@@ -19,6 +19,11 @@ nlive largest of {initial live} ∪ {babies so far}, so the device update is
 one ``torch.topk`` over the union.  Seeds and directions come from the
 device generator; epoch k's murmur key words are ``fold_in(key, k)``.
 
+A run of a :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood`
+is never chained (``core/nested_sampling.py`` refuses a forced
+``chain_epochs > 1`` for one, ROADMAP C1): the chain carries the live set
+from epoch to epoch, and no slow intermediate.
+
 The chain runs in the dtype of the live set it is given, which is the
 run's: float64 at ``precision='highest'``, blob included.  (The JAX
 package's blob is always float32, so its replay check compares a float64

@@ -28,6 +28,12 @@ path numerically, ``polychordlite_tpu/ops/pallas_slice.py:125-160``):
 through B1 with the likelihood lowered into it (``ops/fused_like.py``), or
 else B1's route for a traced likelihood (``ops/pallas_slice_v4.py``).
 
+A :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood` is
+read the same way, its batched form calling ``fast_fn(slow_fn(theta[:,
+:n_slow]), theta)``; a calc of one that is not a host callback also gets
+``slow_aux_batch`` and ``fast_point_batch`` (``calc.graded``), which the
+``"scan"`` engine uses to keep the slow part across fast-grade repeats.
+
 When the prior has an ``affine`` descriptor (``priors.py``) and the
 likelihood a ``device_form`` (``models/examples.py``), ``calc.device_spec``
 holds both — the prior as per-coordinate float32 arrays ``(a[D], s[D])``,
@@ -42,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.graded import GradedLikelihood
 from .logspace import LOG_ZERO
 from .precision import real_dtype
 
@@ -190,15 +197,18 @@ def make_batched_calculator(
     (``calc.dtype``: float64 under ``precision='highest'``)."""
     n_phi = max(n_derived, 1)
     dt = real_dtype()
+    graded = isinstance(loglike_fn, GradedLikelihood)
 
     def batched(cube):
         theta = prior_fn(cube)
         if not (isinstance(theta, torch.Tensor) and theta.shape == cube.shape):
             raise TypeError("the prior did not map a (B, D) cube to a (B, D) tensor")
         theta = theta.to(dt)
-        logL, phi = _normalise_like_output(
-            loglike_fn(theta), n_phi, n_derived, cube.shape[0], dt
-        )
+        if graded:  # the object's own call is per point: slice the columns here
+            out = loglike_fn.fast_fn(loglike_fn.slow_fn(theta[:, :loglike_fn.n_slow]), theta)
+        else:
+            out = loglike_fn(theta)
+        logL, phi = _normalise_like_output(out, n_phi, n_derived, cube.shape[0], dt)
         return theta, phi, logL
 
     def point(cube):
@@ -284,4 +294,63 @@ def make_batched_calculator(
             "prior": (a, s), "likelihood": dict(device_form),
             "n_dims": n_dims, "logzero": float(logzero),
         }
+    calc_point_batch.graded = False
+    if graded and not use_callback:
+        _attach_graded(calc_point_batch, prior_fn, loglike_fn, form, n_phi, n_derived, dt)
     return calc_point_batch
+
+
+def _attach_graded(calc, prior_fn, like: GradedLikelihood, form: str, n_phi: int,
+                   n_derived: int, dt: torch.dtype) -> None:
+    """The decomposed fast/slow evaluators of a :class:`GradedLikelihood`
+    (``polychordlite_tpu/ops/evaluate.py:264-305``), in the calc's form:
+    ``slow_fn`` and ``fast_fn`` called on the batch, or per point through
+    ``torch.func.vmap``.  ``aux`` is what ``slow_fn`` returns: a tensor, or
+    a dict, list or tuple of tensors, each with the chain axis first."""
+    n_slow, logzero = like.n_slow, calc.logzero
+
+    def theta_of(cube):
+        return prior_fn(cube).to(dt)
+
+    if form == "batched":
+        def slow_eval(cube):
+            return like.slow_fn(theta_of(cube)[:, :n_slow])
+
+        def fast_eval(aux, cube):
+            theta = theta_of(cube)
+            logL, phi = _normalise_like_output(like.fast_fn(aux, theta), n_phi, n_derived,
+                                               cube.shape[0], dt)
+            return theta, phi, logL
+    else:
+        def slow_one(cube):
+            return like.slow_fn(theta_of(cube)[:n_slow])
+
+        def fast_one(aux, cube):
+            theta = theta_of(cube)
+            logL, phi = _normalise_point_output(like.fast_fn(aux, theta), n_phi, n_derived, dt)
+            return theta, phi, logL
+
+        slow_eval, fast_eval = torch.func.vmap(slow_one), torch.func.vmap(fast_one)
+
+    def slow_aux_batch(cube: torch.Tensor):
+        """(B, D) cubes -> the slow intermediate of each, from the prior of
+        the cube clamped to its walls (the calc's clamp)."""
+        return slow_eval(cube.clamp(0.0, 1.0))
+
+    def fast_point_batch(aux, cube: torch.Tensor):
+        """Fast-grade probe evaluation re-using the cached slow intermediate,
+        with calculate_point's semantics (cube walls, NaN guard,
+        ``calculate.f90:36-42``): a probe outside the cube gets logzero and
+        theta = phi = 0, whatever ``aux`` holds."""
+        inside = ((cube >= 0.0) & (cube <= 1.0)).all(dim=1)
+        theta, phi, logL = fast_eval(aux, cube.clamp(0.0, 1.0))
+        logL = torch.where(torch.isnan(logL), logzero, logL)
+        logL = torch.where(inside, logL, logzero)
+        theta = torch.where(inside[:, None], theta, 0.0)
+        phi = torch.where(inside[:, None], phi, 0.0)
+        return theta, phi, logL
+
+    calc.graded = True
+    calc.n_slow = n_slow
+    calc.slow_aux_batch = slow_aux_batch
+    calc.fast_point_batch = fast_point_batch

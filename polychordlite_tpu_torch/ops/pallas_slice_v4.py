@@ -32,6 +32,16 @@ version is :func:`slice_step_plain` over :class:`StepState`, driven the
 same way by :func:`slice_records_rounds_plain`; both are bitwise
 ``slice_kernel.slice_records_plain`` for the same calc.
 
+:func:`slice_epoch_graded` is the ``"scan"`` engine's epoch, the route of
+a :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood`: the
+same kernel with its repeat barrier (``rep_limit``) raised one repeat at a
+time, so that every repeat runs in lockstep across the batch and has one
+speed grade.  :meth:`TracedEpoch.graded` replays, per repeat, the graph of
+its grade: the full calc, or ``calc.fast_point_batch`` on the slow
+intermediate kept in a persistent buffer and refreshed in place after slow
+repeats.  Its plain version is :func:`slice_records_graded_plain`; both are
+bitwise the plain engine on the monolithic form of the model.
+
 :func:`slice_epoch_fused` is B1's route for a model without a device
 functor whose likelihood ``ops/fused_like.py`` can lower: the same kernel
 template (``csrc/slice_epoch.cuh``) instantiated by
@@ -48,9 +58,11 @@ and raise for a float64 calc.
 
 Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
-come from one batched evaluation of the calc, and everything is packed into
-the epoch record (:func:`assemble_epoch`); ``slice_kernel.build_epoch_fn``
-puts the pieces together.
+come from one batched evaluation of the calc (on the graded route, the
+fast part on the cached intermediate for a fast-grade repeat's babies:
+:func:`graded_babies`), and everything is packed into the epoch record
+(:func:`assemble_epoch`); ``slice_kernel.build_epoch_fn`` puts the pieces
+together.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ import gc
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 from ..utils import nvcc
 from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
@@ -78,12 +91,24 @@ SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
 #: kernel launches since the last reset (compare-with-plain launches included);
 #: the double instantiations of the fused and traced routes under ``_f64``
 LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
-            "slice_step_f64": 0, "slice_epoch_fused_f64": 0}
+            "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
+            "slice_step_graded_f64": 0}
 #: the traced route's CUDA-graph replays and the rounds they ran, since the
 #: last reset
 TRACED = {"replays": 0, "rounds": 0}
+#: the graded route's (engine "scan") replays and rounds of each graph (the
+#: full calc, the fast part), the launches that opened a repeat, the rows
+#: of the slow intermediate it computed, and the rows of the full calc and
+#: of the fast part its epoch records took (the babies of slow- and of
+#: fast-grade repeats), since the last reset
+GRADED = {"replays_full": 0, "replays_fast": 0, "rounds_full": 0, "rounds_fast": 0,
+          "openings": 0, "aux_rows": 0, "assembly_rows": 0, "assembly_fast_rows": 0}
 #: rounds (one calc evaluation and one slice_step launch each) in one graph
 ROUNDS = 32
+#: ... of the graded route, where a replay ends its repeat: a repeat of the
+#: 20-D Gaussian takes its slowest lane some 8-12 rounds (counted on the
+#: CPU), so 32 would evaluate the slow calc three times as often as needed
+GRADED_ROUNDS = 8
 
 WARP = 32  # lanes of a warp: the kernels run one warp per block
 #: the lanes a chain may be spread over (the kernel's instantiations)
@@ -419,15 +444,20 @@ def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) ->
 
 
 def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, logL, nlike_rep,
-                   cube=None):
+                   cube=None, aux=None):
     """Packed epoch record from the per-(lane, repeat) kernel outputs.  The
     baby positions are ``cube (B, R, D)`` where the engine wrote them (v2),
-    else rebuilt as ``seed + cumsum(t n̂)``."""
+    else rebuilt as ``seed + cumsum(t n̂)``.  Their theta and phi come from
+    one batched evaluation of the calc, or, given the graded route's
+    ``aux`` (its slow intermediate by repeat), from :func:`graded_babies`."""
     B, R, D = nhats.shape
     n_grades = len(cfg.grade_dims)
     if cube is None:
         cube = seed[:, None, :] + torch.cumsum(t_acc[:, :, None] * nhats, dim=1)
-    theta, phi, _ = calc(cube.reshape(B * R, D))
+    if aux is None:
+        theta, phi, _ = calc(cube.reshape(B * R, D))
+    else:
+        theta, phi = graded_babies(calc, cube, aux)
     vmask = valid[:, None, None]
     theta = torch.where(vmask, theta.reshape(B, R, D), 0.0)
     phi = torch.where(vmask, phi.reshape(B, R, cfg.n_phi), 0.0)
@@ -441,6 +471,39 @@ def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, lo
         nlike_g.to(babies.dtype),
         torch.zeros((B, 1), dtype=babies.dtype, device=seed.device),  # overflow flag (never set)
     ], dim=1)
+
+
+def graded_babies(calc, cube, aux_by_rep):
+    """theta and phi, ``(B, R, D)`` and ``(B, R, n_phi)``, of the babies
+    ``cube (B, R, D)`` of a graded-route epoch, as the JAX scan engine keeps
+    them from its probes: a slow-grade repeat's through the full calc, a
+    fast-grade repeat's through ``calc.fast_point_batch`` on the slow
+    intermediate that repeat ran on (``aux_by_rep[r]``; None for a slow
+    repeat).  A fast-grade repeat leaves the slow coordinates where they
+    were when it opened, so that intermediate is its babies' own.  The
+    rows count under ``GRADED["assembly_rows"]`` (the full calc's) and
+    ``GRADED["assembly_fast_rows"]``."""
+    B, R, D = cube.shape
+    runs = {}  # the repeats that share one intermediate (None: the slow ones)
+    for r, aux in enumerate(aux_by_rep):
+        runs.setdefault(id(aux), (aux, []))[1].append(r)
+    theta = phi = None
+    for aux, reps in runs.values():
+        n = len(reps)
+        rows = cube[:, reps].reshape(B * n, D)  # row b n + j: chain b, repeat reps[j]
+        if aux is None:
+            th, ph, _ = calc(rows)
+            GRADED["assembly_rows"] += B * n
+        else:
+            th, ph, _ = calc.fast_point_batch(
+                tree_map(lambda a: a.repeat_interleave(n, dim=0), aux), rows)  # noqa: B023
+            GRADED["assembly_fast_rows"] += B * n
+        if theta is None:
+            theta = th.new_zeros((B, R, D))
+            phi = ph.new_zeros((B, R, ph.shape[-1]))
+        theta[:, reps] = th.reshape(B, n, D)
+        phi[:, reps] = ph.reshape(B, n, -1)
+    return theta, phi
 
 
 # ---------------------------------------------------------------------------
@@ -471,21 +534,26 @@ class StepState:
         self.t_out = torch.zeros((B, R), dtype=real, device=dev)
         self.l_out = torch.full((B, R), self.logzero, dtype=real, device=dev)
         self.n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
-        self.t = self.probe = None  # the pending probes
+        self.t = self.probe = None  # the probes of the last launch
+        # the lanes whose probe of the last launch awaits its logL (S_PEND)
+        self.pending = torch.zeros(B, dtype=torch.bool, device=dev)
 
 
-def slice_step_plain(st: StepState, logL=None) -> bool:
+def slice_step_plain(st: StepState, logL=None, rep_limit=None) -> bool:
     """One launch of ``csrc/slice_step.cu`` in torch.  Unless ``logL`` is
-    None (the epoch's first launch), consume it, the (B,) logL of
-    ``st.probe``: the transition of every running lane, the records of the
-    repeats that accept or meet the epoch's budget, an accepted lane's move
-    to its probe and the start of its next repeat.  Then propose: the next
-    probes into ``st.probe`` (a lane that is done probes its x with t = 0).
-    Returns whether a lane is left running (the kernel's ``active`` flag)."""
+    None (the epoch's first launch, or one after which no lane has a probe
+    pending), consume it, the (B,) logL of ``st.probe``: the transition of
+    every lane whose probe was pending, the records of the repeats that
+    accept or meet the epoch's budget, an accepted lane's move to its probe
+    and the start of its next repeat.  Then propose: the next probes into
+    ``st.probe`` for the lanes that are running and whose repeat is below
+    ``rep_limit`` (the kernel's repeat barrier; R when None); any other lane
+    probes its x with t = 0 and has no probe pending.  Returns whether a
+    lane proposed (the kernel's ``active`` flag)."""
     m, cfg = st.m, st.cfg
     R = st.nhats.shape[1]
     if logL is not None:
-        active = m.phase != PH_DONE
+        active = (m.phase != PH_DONE) & st.pending
         acc, forced = m.decide(cfg, active, st.t, logL, st.bound)
         st.steps = st.steps + active.to(torch.int64)
         capped = active & ~acc & (st.steps >= cfg.step_cap)
@@ -499,10 +567,11 @@ def slice_step_plain(st: StepState, logL=None) -> bool:
         m.phase = torch.where(acc, torch.where(st.rep >= R, PH_DONE, PH_INIT_R), m.phase)
         m.phase = torch.where(capped | (acc & (st.steps >= cfg.step_cap)), PH_DONE, m.phase)
         m.restart(acc)
-    active = m.phase != PH_DONE
+    active = (m.phase != PH_DONE) & (st.rep < (R if rep_limit is None else rep_limit))
     r_idx = st.rep.clamp(max=R - 1)
     st.t = m.propose(active, _mix(st.h_lane, st.rep), st.ws[st.lanes, r_idx])
     st.probe = st.x + st.t[:, None] * st.nhats[st.lanes, r_idx]
+    st.pending = active
     return bool(active.any())
 
 
@@ -521,28 +590,88 @@ def slice_records_rounds_plain(logL_fn, cfg: EpochConfig, key_words, x0, bound, 
     return st.t_out, st.l_out, st.n_out
 
 
-#: slice_step_launch's arguments: first, 15 device pointers, B, D, R, k0,
+def repeat_grades(speeds) -> list:
+    """The grade of each repeat as ints: ``speeds`` is ``(B, R)`` (the
+    directions' slot grades, shared by the batch: its first row is read) or
+    ``(R,)``.  One host read."""
+    speeds = torch.as_tensor(speeds)
+    return [int(g) for g in (speeds[0] if speeds.dim() == 2 else speeds).tolist()]
+
+
+def graded_schedule(calc, grades):
+    """The graded route's schedule, one ``(r, fast, refresh)`` per repeat r,
+    shared by its plain version and the card's: ``fast`` when the repeat
+    evaluates only the fast part (a fast-grade repeat, ``grades[r]`` > 0, of
+    a :class:`GradedLikelihood` calc, ``calc.graded``), ``refresh`` when the
+    slow intermediate must first be computed from the chains' positions (a
+    slow repeat, or the seeds, moved them since it last was)."""
+    graded = bool(getattr(calc, "graded", False))
+    stale = True
+    for r, grade in enumerate(grades):
+        fast = graded and grade != 0
+        yield r, fast, fast and stale
+        stale = not fast
+
+
+def slice_records_graded_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats,
+                               ws, grades, rounds: int = 1, with_aux: bool = False):
+    """The graded route in torch (the plain version of
+    :meth:`TracedEpoch.graded`): the traced route's launches with the
+    repeat barrier raised one repeat at a time (:func:`graded_schedule`).
+    Repeat r runs in lockstep across the batch: the launch that opens it
+    (``rep_limit`` r + 1; no lane has a probe pending then, so it consumes
+    nothing), then rounds of ``rounds`` until no lane proposed.  A slow
+    repeat evaluates the full calc each round, a fast one
+    ``calc.fast_point_batch(aux, probe)``, with ``aux =
+    calc.slow_aux_batch(x)`` computed before the repeat opens when the
+    schedule says so.  Returns (t, logL, nlike), each (B, R): for a calc
+    whose fast part gives its full logL bit for bit, those of
+    ``slice_kernel.slice_records_plain``, for any ``rounds``; with
+    ``with_aux``, also the intermediate each repeat ran on (None for a
+    slow one), for :func:`assemble_epoch`."""
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    aux, aux_by_rep = None, []
+    for r, fast, refresh in graded_schedule(calc, grades):
+        if refresh:  # before the repeat opens: the chains' slow parameters
+            aux = calc.slow_aux_batch(st.x)
+        running = slice_step_plain(st, None, rep_limit=r + 1)
+        while running:
+            for _ in range(rounds):
+                probe = st.probe
+                logL = calc.fast_point_batch(aux, probe)[2] if fast else calc(probe)[2]
+                running = slice_step_plain(st, logL, rep_limit=r + 1)
+        aux_by_rep.append(aux if fast else None)
+    out = (st.t_out, st.l_out, st.n_out)
+    return (*out, aux_by_rep) if with_aux else out
+
+
+#: slice_step_launch's arguments: first, 16 device pointers, B, D, R, k0,
 #: k1, max_step, max_shrink, cap, logzero, stream
 _STEP_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
+    [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
     + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
 #: slice_step_launch_f64's: logzero a double
 _STEP_ARGTYPES_F64 = _STEP_ARGTYPES[:-2] + [ctypes.c_double, ctypes.c_void_p]
-_STATE_INTS, _STATE_FLOATS = 10, 3  # S_INTS and F_FLOATS of slice_step.cu
+_STATE_INTS, _STATE_FLOATS = 11, 3  # S_INTS and F_FLOATS of slice_step.cu
+
 
 
 class TracedEpoch:
     """``csrc/slice_step.cu``'s device state for one calc, configuration and
-    (B, R, D), and the CUDA graph of ``rounds`` rounds that replays it, in
+    (B, R, D), and the CUDA graphs of ``rounds`` rounds that replay it, in
     the calc's dtype (float32, or float64 through the entry
     ``slice_step_launch_f64``).
 
     The buffers are allocated once; each epoch copies its inputs in, runs the
-    first launch, captures the graph on its first use (the calc warmed up on
+    first launch, captures a graph on its first use (the calc warmed up on
     a side stream first, as capture asks) and replays it until the kernel's
-    ``active`` flag reads 0: one host read per replay.  A calc that cannot
-    run inside a graph (a host sync such as ``.item()``, a copy from host
+    ``active`` flag reads 0: one host read per replay.  The traced route
+    (``__call__``) holds the repeat barrier at R; the graded route
+    (:meth:`graded`) raises it one repeat at a time and replays, per repeat,
+    the graph of its grade: the full calc, or ``calc.fast_point_batch`` on a
+    persistent ``aux`` buffer refreshed in place.  A calc that cannot run
+    inside a graph (a host sync such as ``.item()``, a copy from host
     memory) raises ``ValueError``.  The calc keeps its runners
     (:func:`slice_epoch_traced`), so a runner takes the calc as an argument
     and holds no reference to it: no cycle that only the garbage collector
@@ -564,21 +693,23 @@ class TracedEpoch:
         self.probe = torch.zeros((B, D), **real)
         self.t_out, self.l_out = torch.zeros((R, B), **real), torch.zeros((R, B), **real)
         self.n_out, self.active = torch.zeros((R, B), **i32), torch.zeros(1, **i32)
+        self.rep_limit = torch.full((1,), R, **i32)
         f64 = dtype == torch.float64
         lib = nvcc.load("slice_step", ["slice_step.cu"])
         self.fn = lib.slice_step_launch_f64 if f64 else lib.slice_step_launch
         self.fn.argtypes = _STEP_ARGTYPES_F64 if f64 else _STEP_ARGTYPES
         self.fn.restype = ctypes.c_int
         self.logzero = float(cfg.logzero) if f64 else _f32(cfg.logzero)
-        self.counter = "slice_step_f64" if f64 else "slice_step"
-        self.graph = None
+        suffix = "_f64" if f64 else ""
+        self.counter, self.graded_counter = "slice_step" + suffix, "slice_step_graded" + suffix
+        self.graph = self.fast_graph = self.aux = None
 
     def _launch(self, first: bool, key_words=(0, 0)) -> None:
         B, R, D = self.shape
         cfg = self.cfg
         bufs = (self.x0t, self.valid, self.bound, self.nhat, self.w, self.logL, self.ist,
                 self.steps, self.fst, self.x, self.probe, self.t_out, self.l_out, self.n_out,
-                self.active)
+                self.active, self.rep_limit)
         status = self.fn(
             int(first), *(b.data_ptr() for b in bufs), B, D, R, int(key_words[0]),
             int(key_words[1]), cfg.max_step, cfg.max_shrink, cfg.step_cap, self.logzero,
@@ -586,12 +717,15 @@ class TracedEpoch:
         )
         nvcc.check(status, "slice_step_launch")
 
-    def _capture(self, calc) -> None:
+    def _capture(self, logL_of):
+        """The graph of ``rounds`` rounds, each ``logL = logL_of()`` and one
+        launch; the last round clears ``active`` first, so that the flag
+        tells of that round."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                calc(self.probe)
+                logL_of()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # a graph that the garbage collector frees while this one is being
@@ -603,7 +737,7 @@ class TracedEpoch:
                 graph.capture_begin()
                 try:
                     for i in range(self.rounds):
-                        self.logL.copy_(calc(self.probe)[2])
+                        self.logL.copy_(logL_of())
                         if i == self.rounds - 1:  # the flag then tells of the last round
                             self.active.zero_()
                         self._launch(False)
@@ -618,26 +752,113 @@ class TracedEpoch:
             ) from e
         finally:
             gc.enable()
-        self.graph = graph
+        return graph
 
-    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
+    def _start(self, key_words, x0, bound, valid, nhats, ws, rep_limit: int, counter: str):
         self.x0t.copy_(x0.t())
         self.valid.copy_(valid)
         self.bound.copy_(bound)
         self.nhat.copy_(nhats.permute(1, 2, 0))
         self.w.copy_(ws.t())
+        self.rep_limit.fill_(rep_limit)
         self.active.zero_()
         self._launch(True, key_words)
-        LAUNCHES[self.counter] += 1
-        if self.graph is None:
-            self._capture(calc)
+        LAUNCHES[counter] += 1
+
+    def _replay(self, graph, counter: str, on_replay) -> None:
         while int(self.active.item()):
-            self.graph.replay()
-            LAUNCHES[self.counter] += self.rounds
-            TRACED["replays"] += 1
-            TRACED["rounds"] += self.rounds
+            graph.replay()
+            LAUNCHES[counter] += self.rounds
+            on_replay()
+
+    def _outputs(self):
         return self.t_out.t().contiguous(), self.l_out.t().contiguous(), \
             self.n_out.t().contiguous()
+
+    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
+        self._start(key_words, x0, bound, valid, nhats, ws, self.shape[1], self.counter)
+        if self.graph is None:
+            self.graph = self._capture(lambda: calc(self.probe)[2])
+
+        def count():
+            TRACED["replays"] += 1
+            TRACED["rounds"] += self.rounds
+
+        self._replay(self.graph, self.counter, count)
+        return self._outputs()
+
+    def graded(self, calc, key_words, x0, bound, valid, nhats, ws, grades):
+        """The graded route: :func:`slice_records_graded_plain` on the card,
+        with its outputs and the intermediate of each repeat.  Repeat r
+        opens with ``rep_limit`` r + 1 (the epoch's first launch for r = 0,
+        else one launch outside the graphs that only proposes) and replays
+        the graph of its grade until no lane proposed; before a fast-grade
+        repeat that the schedule refreshes, ``aux`` is computed from the
+        chains' positions and copied into the buffer the fast graph reads."""
+        B = self.shape[0]
+        aux, aux_by_rep = None, []
+        for r, fast, refresh in graded_schedule(calc, grades):
+            if refresh:
+                x = x0 if r == 0 else self.x.t()
+                aux = calc.slow_aux_batch(x.contiguous())
+                if self.aux is None:  # the buffer the fast graph reads
+                    self.aux = tree_map(torch.clone, aux)
+                else:
+                    for dst, src in zip(tree_leaves(self.aux), tree_leaves(aux)):
+                        dst.copy_(src)
+                GRADED["aux_rows"] += B
+            if r == 0:
+                self._start(key_words, x0, bound, valid, nhats, ws, 1, self.graded_counter)
+            else:
+                self.rep_limit.fill_(r + 1)
+                self.active.zero_()
+                self._launch(False)
+                LAUNCHES[self.graded_counter] += 1
+                GRADED["openings"] += 1
+            if fast and self.fast_graph is None:
+                self.fast_graph = self._capture(
+                    lambda: calc.fast_point_batch(self.aux, self.probe)[2])
+            if not fast and self.graph is None:
+                self.graph = self._capture(lambda: calc(self.probe)[2])
+            kind = "fast" if fast else "full"
+
+            def count(kind=kind):
+                GRADED["replays_" + kind] += 1
+                GRADED["rounds_" + kind] += self.rounds
+
+            self._replay(self.fast_graph if fast else self.graph, self.graded_counter, count)
+            aux_by_rep.append(aux if fast else None)
+        return (*self._outputs(), aux_by_rep)
+
+
+def _runner(calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device) -> TracedEpoch:
+    """The calc's :class:`TracedEpoch` for this configuration, shape and
+    ``rounds`` (made on first use)."""
+    runners = calc.__dict__.setdefault("traced_epochs", {})
+    key = (tuple(cfg), cfg.step_cap, B, R, D, rounds, str(device))
+    if key not in runners:
+        runners[key] = TracedEpoch(calc, cfg, B, R, D, rounds, device)
+    return runners[key]
+
+
+def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: int) -> None:
+    B, R, D = nhats.shape
+    if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if rounds < 1:
+        raise ValueError(f"rounds must be at least 1, not {rounds}")
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x0.device}")
+    if x0.device.type == "cpu":
+        return
+    if getattr(calc, "uses_callback", False):
+        raise ValueError(
+            "a host-callback likelihood has no route on the card (the CUDA engine needs "
+            "a torch likelihood); pass engine='torch' to run it on the plain engine"
+        )
+    for arg, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
+        if a.device != x0.device:
+            raise ValueError(f"{name}: {arg} is on {a.device}, x0 on {x0.device}")
 
 
 def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
@@ -650,26 +871,41 @@ def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
     in that dtype through a :class:`TracedEpoch` kept on the calc, one per
     configuration, shape and ``rounds``.  A host-callback calc
     raises on the card."""
-    B, R, D = nhats.shape
-    if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
-        raise ValueError("slice_epoch_traced: inconsistent shapes")
-    if rounds < 1:
-        raise ValueError(f"rounds must be at least 1, not {rounds}")
+    _check_traced_inputs("slice_epoch_traced", calc, x0, bound, valid, nhats, ws, rounds)
     if x0.device.type == "cpu":
         return slice_records_rounds_plain(lambda p: calc(p)[2], cfg, key_words, x0, bound,
                                           valid, nhats, ws, rounds)
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
-    if getattr(calc, "uses_callback", False):
-        raise ValueError(
-            "a host-callback likelihood has no route on the card (the CUDA engine needs "
-            "a torch likelihood); pass engine='torch' to run it on the plain engine"
-        )
-    for name, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
-        if a.device != x0.device:
-            raise ValueError(f"slice_epoch_traced: {name} is on {a.device}, x0 on {x0.device}")
-    runners = calc.__dict__.setdefault("traced_epochs", {})
-    key = (tuple(cfg), cfg.step_cap, B, R, D, rounds, str(x0.device))
-    if key not in runners:
-        runners[key] = TracedEpoch(calc, cfg, B, R, D, rounds, x0.device)
-    return runners[key](calc, key_words, x0, bound, valid, nhats, ws)
+    B, R, D = nhats.shape
+    return _runner(calc, cfg, B, R, D, rounds, x0.device)(calc, key_words, x0, bound, valid,
+                                                          nhats, ws)
+
+
+def slice_epoch_graded(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, speeds,
+                       rounds=None, with_aux: bool = False):
+    """The ``"scan"`` engine's epoch: the slice repeats of every lane run
+    one repeat at a time in lockstep across the batch, each repeat of one
+    grade (``speeds``, the directions' (B, R) slot grades, shared by the
+    batch), with the inputs and outputs of :func:`slice_epoch_traced`.  For
+    a :class:`GradedLikelihood` calc a fast-grade repeat evaluates only its
+    fast part on the cached slow intermediate.  CPU tensors: the plain
+    version, :func:`slice_records_graded_plain` (a round costs the same
+    there however the rounds are grouped, so by default it checks the flag
+    after each); CUDA tensors: ``csrc/slice_step.cu`` with its repeat
+    barrier (:meth:`TracedEpoch.graded`, ``rounds`` per replay, by default
+    :data:`GRADED_ROUNDS`), launches counted under ``slice_step_graded``
+    (``_f64`` in double).  With ``with_aux``, also the slow intermediate
+    each repeat ran on (None for a slow repeat), which
+    :func:`assemble_epoch` takes.  A host-callback calc raises on the card."""
+    cpu = x0.device.type == "cpu"
+    rounds = (1 if cpu else GRADED_ROUNDS) if rounds is None else rounds
+    _check_traced_inputs("slice_epoch_graded", calc, x0, bound, valid, nhats, ws, rounds)
+    grades = repeat_grades(speeds)
+    B, R, D = nhats.shape
+    if len(grades) != R:
+        raise ValueError(f"slice_epoch_graded: {len(grades)} repeat grades for R = {R}")
+    if cpu:
+        return slice_records_graded_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws,
+                                          grades, rounds, with_aux)
+    out = _runner(calc, cfg, B, R, D, rounds, x0.device).graded(
+        calc, key_words, x0, bound, valid, nhats, ws, grades)
+    return out if with_aux else out[:3]

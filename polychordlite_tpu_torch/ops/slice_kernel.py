@@ -29,6 +29,18 @@ slice repeats on each of B chains and returns the packed
   cube as v2 does, through ``ops/pallas_slice.py`` (the JAX package's
   forced ``"pallas2"``); the same decisions, a cube that differs from the
   rebuilt one in the last bits, so another chain, held statistically.
+* ``"scan"`` — the repeats of an epoch one at a time, in lockstep across
+  the batch (the JAX package's ``build_epoch_fn_scan``,
+  ``slice_kernel.py:193-428``), each repeat of one grade: for a
+  :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood` the slow
+  intermediate ``aux`` is carried from repeat to repeat and a fast-grade
+  repeat evaluates only the fast part.  On the card the traced route's
+  kernel ``csrc/slice_step.cu`` held at a repeat barrier
+  (``ops/pallas_slice_v4.py::slice_epoch_graded``, route
+  ``"slice_step_graded"``); on the CPU its plain version.  The same
+  decisions as ``"torch"`` on the monolithic form of the model: a graded
+  run's only engine (``core/nested_sampling.py::resolve_engine``), and
+  open to any torch model.
 
 At ``precision='highest'`` (``calc.dtype`` float64) ``"cuda"`` takes the
 fused route or the traced route, each in double, never the functor kernel:
@@ -73,7 +85,8 @@ from .precision import calc_dtype
 #: and "cuda2" (B5, v2) — the JAX package's "pallas", "pallas5", "pallas3"
 #: and "pallas2"
 KERNEL_ENGINES = ("cuda", "cuda5", "cuda3", "cuda2")
-ENGINES = ("torch",) + KERNEL_ENGINES
+#: and the lockstep engine of a graded model (the JAX package's "scan")
+ENGINES = ("torch", "scan") + KERNEL_ENGINES
 
 
 class EpochConfig(NamedTuple):
@@ -86,7 +99,7 @@ class EpochConfig(NamedTuple):
     logzero: float = LOG_ZERO
     max_step: int = 200   # stepping-out cap (reference warns past 100 and has no cap)
     max_shrink: int = 100  # shrinkage cap (chordal_sampling.f90:240-271)
-    engine: str = "torch"  # "torch" (plain, any device) or a kernel: "cuda", "cuda5", "cuda3", "cuda2"
+    engine: str = "torch"  # "torch" (plain), "scan" (graded) or "cuda", "cuda5", "cuda3", "cuda2"
 
     @property
     def total_repeats(self) -> int:
@@ -215,8 +228,9 @@ def kernel_wrapper(engine: str):
 
 def epoch_route(engine: str, calc) -> str:
     """The kernel that ``engine`` runs for ``calc`` (the run metrics'
-    ``route``): ``"plain"`` for the torch engine, :func:`cuda_route`'s for
-    ``"cuda"``, else the forced engine's kernel."""
+    ``route``): ``"plain"`` for the torch engine, ``"slice_step_graded"``
+    for ``"scan"``, :func:`cuda_route`'s for ``"cuda"``, else the forced
+    engine's kernel."""
     return _route(engine, calc)[0]
 
 
@@ -229,6 +243,11 @@ def route_reason(engine: str, calc) -> str:
 def _route(engine: str, calc) -> Tuple[str, str]:
     if engine == "torch":
         return "plain", "engine='torch'"
+    if engine == "scan":
+        why = ("GradedLikelihood: the slow part is cached across fast-grade repeats"
+               if getattr(calc, "graded", False) else
+               "engine='scan': the repeats run in lockstep, the likelihood in torch")
+        return "slice_step_graded", why
     if engine == "cuda":
         return cuda_route(calc)
     kernel = {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}
@@ -247,12 +266,20 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; have {ENGINES}")
     if cfg.engine == "torch":
-        def records(*args):
+        def records(*args, speeds):
             return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
+    elif cfg.engine == "scan":
+        from .pallas_slice_v4 import slice_epoch_graded
+
+        def records(*args, speeds):
+            # no cube (the babies are rebuilt), and the intermediate of each
+            # repeat, from which assemble_epoch takes a fast repeat's babies
+            t, logL, nlike, aux = slice_epoch_graded(calc, cfg, *args, speeds, with_aux=True)
+            return t, logL, nlike, None, aux
     else:
         kernel = kernel_wrapper(cfg.engine)
 
-        def records(*args):
+        def records(*args, speeds):
             return kernel(calc, cfg, *args)
 
     dtype = calc_dtype(calc)  # float64 at precision='highest'
@@ -268,7 +295,7 @@ def build_epoch_fn(calc, cfg: EpochConfig):
             )
         nhats, ws, speeds = directions
         seed_f = seed_cube.to(dtype)
-        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws)
+        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws, speeds=speeds)
         return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out)
 
     return epoch

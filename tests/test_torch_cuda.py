@@ -472,7 +472,8 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     assert {k: after[k] - before[k] for k in after} == {
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
         "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
-        "slice_step_f64": 0, "slice_epoch_fused_f64": 0}
+        "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
+        "slice_step_graded_f64": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -1251,3 +1252,185 @@ def test_highest_run_on_the_card(dev):
     assert last["dtype"] == "float64" and last["route"] == "slice_epoch_fused"
     assert set(ran) == {"gram_schmidt_f64", "slice_epoch_fused_f64"}, ran
     assert abs(out.logZ - (1.0e7 - 4 * math.log(2))) < 3 * out.logZerr + 0.2
+
+
+# ---- the graded route (engine "scan"): slice_step.cu's repeat barrier
+GRADE_DIMS, GRADE_REPEATS = (6, 14), (3, 9)
+
+
+def _graded_like(n_slow=6, mu=0.5, sigma=0.1):
+    """A batched GradedLikelihood: the slow part r^2 of the slow block
+    through 200 steps of c <- c/2 + r^2/2 (exact at every step), the fast
+    part adds the rest's chi^2; and its monolithic twin."""
+    from polychordlite_tpu_torch import GradedLikelihood
+
+    def slow(th_s):
+        r2 = (((th_s - mu) / sigma) ** 2).sum(-1)
+        c = r2
+        for _ in range(200):
+            c = c * 0.5 + r2 * 0.5
+        return {"chi2": c}
+
+    def fast(aux, th):
+        return -0.5 * (aux["chi2"] + (((th[:, n_slow:] - mu) / sigma) ** 2).sum(-1))
+
+    like = GradedLikelihood(slow, fast, n_slow)
+    return like, lambda th: fast(slow(th[:, :n_slow]), th)
+
+
+def _graded_inputs(calc, dev, B, seed, dtype=torch.float32):
+    D = sum(GRADE_DIMS)
+    gen = torch.Generator(dev).manual_seed(seed)
+    x0 = (0.5 + 0.03 * torch.randn((B, D), generator=gen, device=dev, dtype=dtype)).clamp(0, 1)
+    bound = calc(x0)[2] - 3.0
+    valid = torch.arange(B, device=dev) >= 64
+    chol = (0.05 * torch.eye(D, device=dev, dtype=dtype)).expand(B, D, D)
+    nh, w, sp = make_directions(chol, grade_dims=GRADE_DIMS, num_repeats=GRADE_REPEATS,
+                                n_dims=D, generator=gen)
+    return (x0, bound, valid, nh, w), sp
+
+
+@pytest.mark.parametrize("rounds", [1, 7, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graded_route_equals_plain_and_traced(dev, dtype, rounds):
+    """The graded route (the barrier raised repeat by repeat, the fast graph
+    on the cached slow part) bitwise its plain version, the traced route on
+    the monolithic model and the plain engine, in float32 and float64
+    (slice_step_graded_f64), at 2 grades of 6 + 14 coordinates; lanes that
+    wait at the barrier consume nothing, including the first round after it
+    opens."""
+    from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+
+    like, mono_like = _graded_like()
+    with real_dtype_scope(dtype):
+        calc = make_batched_calculator(identity_prior, like, 20, 0, device=dev)
+        mono = make_batched_calculator(identity_prior, mono_like, 20, 0, device=dev)
+    assert calc.graded and calc.form == "batched" and not mono.graded
+    args, sp = _graded_inputs(mono, dev, 1000, rounds, dtype)
+    cfg = EpochConfig(n_dims=20, n_phi=1, grade_dims=GRADE_DIMS, num_repeats=GRADE_REPEATS)
+    want = slice_records_plain(lambda p: mono(p)[2], cfg, (3, 4), *args)
+    plain = pallas_slice_v4.slice_records_graded_plain(
+        calc, cfg, (3, 4), *args, pallas_slice_v4.repeat_grades(sp), rounds)
+    counter = "slice_step_graded" + ("_f64" if dtype == torch.float64 else "")
+    before, graded0 = pallas_slice_v4.LAUNCHES[counter], dict(pallas_slice_v4.GRADED)
+    got = pallas_slice_v4.slice_epoch_graded(calc, cfg, (3, 4), *args, sp, rounds=rounds)
+    assert pallas_slice_v4.LAUNCHES[counter] > before
+    ran = {k: v - graded0[k] for k, v in pallas_slice_v4.GRADED.items()}
+    assert ran["replays_fast"] > 0 and ran["replays_full"] > 0 and ran["aux_rows"] > 0
+    assert ran["openings"] == sum(GRADE_REPEATS) - 1
+    traced = pallas_slice_v4.slice_epoch_traced(mono, cfg, (3, 4), *args, rounds=rounds)
+    for k, a, b, c, d in zip(("t", "logL", "nlike"), got, plain, traced, want):
+        assert a.dtype == d.dtype and torch.equal(a, b) and torch.equal(a, d), k
+        assert torch.equal(c, d), k
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+
+
+def test_rep_limit_R_is_the_traced_route(dev):
+    """The traced route holds the barrier at R: no repeat opening, the
+    graded counters untouched, its launches one set-up plus whole replays,
+    and its records the plain engine's."""
+    _, mono_like = _graded_like()
+    mono = make_batched_calculator(identity_prior, mono_like, 20, 0, device=dev)
+    args, _ = _graded_inputs(mono, dev, 512, 0)
+    cfg = EpochConfig(n_dims=20, n_phi=1, grade_dims=GRADE_DIMS, num_repeats=GRADE_REPEATS)
+    want = slice_records_plain(lambda p: mono(p)[2], cfg, (1, 1), *args)
+    graded0, traced0 = dict(pallas_slice_v4.GRADED), dict(pallas_slice_v4.TRACED)
+    before = pallas_slice_v4.LAUNCHES["slice_step"]
+    got = pallas_slice_v4.slice_epoch_traced(mono, cfg, (1, 1), *args)
+    runner = mono.traced_epochs[next(iter(mono.traced_epochs))]
+    assert int(runner.rep_limit.item()) == sum(GRADE_REPEATS)
+    assert pallas_slice_v4.GRADED == graded0
+    replays = pallas_slice_v4.TRACED["replays"] - traced0["replays"]
+    assert pallas_slice_v4.LAUNCHES["slice_step"] - before == 1 + replays * pallas_slice_v4.ROUNDS
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_graded_graphs_replay_with_aux_in_place(dev):
+    """Two epochs on one runner: the full and fast graphs are captured once,
+    and the second epoch's cached slow part is refreshed in place in the
+    buffer the fast graph reads (its records still bitwise the plain
+    engine's)."""
+    like, mono_like = _graded_like()
+    calc = make_batched_calculator(identity_prior, like, 20, 0, device=dev)
+    mono = make_batched_calculator(identity_prior, mono_like, 20, 0, device=dev)
+    cfg = EpochConfig(n_dims=20, n_phi=1, grade_dims=GRADE_DIMS, num_repeats=GRADE_REPEATS)
+    seen = []
+    for seed in (11, 12):
+        args, sp = _graded_inputs(mono, dev, 512, seed)
+        want = slice_records_plain(lambda p: mono(p)[2], cfg, (seed, 2), *args)  # noqa: B023
+        got = pallas_slice_v4.slice_epoch_graded(calc, cfg, (seed, 2), *args, sp)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        (runner,) = calc.traced_epochs.values()
+        seen.append((runner.graph, runner.fast_graph, runner.aux["chi2"].data_ptr()))
+    assert seen[0] == seen[1] and None not in seen[0]
+
+
+def test_graded_epoch_record_on_the_card(dev):
+    """The "scan" engine's packed epoch record on the card: a fast-grade
+    repeat's babies from the fast part on the intermediate that repeat ran
+    on (slow_fn on the slow repeats' babies only), and the record bitwise
+    the plain engine's on the monolithic model (this model's fast part is
+    its full logL bit for bit)."""
+    from polychordlite_tpu_torch.ops.slice_kernel import build_epoch_fn
+
+    like, mono_like = _graded_like()
+    calc = make_batched_calculator(identity_prior, like, 20, 0, device=dev)
+    mono = make_batched_calculator(identity_prior, mono_like, 20, 0, device=dev)
+    (x0, bound, valid, nh, w), sp = _graded_inputs(mono, dev, 512, 21)
+    cfg = EpochConfig(n_dims=20, n_phi=1, grade_dims=GRADE_DIMS, num_repeats=GRADE_REPEATS)
+    chol = (0.05 * torch.eye(20, device=dev)).expand(512, 20, 20)
+    graded0 = dict(pallas_slice_v4.GRADED)
+    got = build_epoch_fn(calc, cfg._replace(engine="scan"))(
+        (5, 6), x0, bound, chol, valid, directions=(nh, w, sp))
+    ran = {k: v - graded0[k] for k, v in pallas_slice_v4.GRADED.items()}
+    slow_reps = pallas_slice_v4.repeat_grades(sp).count(0)
+    assert ran["assembly_rows"] == slow_reps * 512
+    assert ran["assembly_fast_rows"] == (sum(GRADE_REPEATS) - slow_reps) * 512
+    want = build_epoch_fn(mono, cfg._replace(engine="torch"))(
+        (5, 6), x0, bound, chol, valid, directions=(nh, w, sp))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim,NB", [(1, 8), (2, 4), (3, 3), (14, 3), (20, 1)])
+def test_gram_schmidt_grade_dims_equal_plain(dev, dim, NB, dtype):
+    """B2 at the dims speed grades give it (n_dims minus the earlier grades'
+    coordinates: 1, 2 and 3 for grade_dims (2, 1) and (1, 2), 14 and 20 for
+    (6, 14)), at the bases a B = 512 epoch draws, bitwise its plain version;
+    a dim-1 basis is the sign of its Gaussian."""
+    g = torch.randn((NB, dim, dim, 512), generator=torch.Generator(dev).manual_seed(dim),
+                    device=dev, dtype=dtype)
+    q = pallas_dirs.gram_schmidt_lanes(g)
+    assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+    if dim == 1:
+        assert torch.equal(q, torch.sign(g))
+
+
+def test_graded_run_on_the_card(dev):
+    """A 20-D GradedLikelihood (6 slow + 14 fast coordinates, literal repeats
+    8 and 32) through run() on the card: engine "scan" on the graded route,
+    B2 and slice_step_graded the only kernels, nlike by grade in the
+    metrics, logZ within 3 sigma of 0 (a normalised Gaussian in the cube)."""
+    like, _ = _graded_like()
+    norm = -20 * (math.log(0.1) + 0.5 * math.log(2 * math.pi))
+
+    def fast_norm(aux, th, fast=like.fast_fn):
+        return norm + fast(aux, th)
+
+    graded = pt.GradedLikelihood(like.slow_fn, fast_norm, 6)
+    with tempfile.TemporaryDirectory() as base:
+        out = pt.run(graded, 20, nlive=100, num_repeats=40, grade_dims=[6, 14],
+                     grade_frac=[8, 32], do_clustering=False, read_resume=False,
+                     base_dir=base, seed=5, feedback=-1, device="cuda",
+                     precision_criterion=0.01)
+        with open(os.path.join(base, "test.metrics.jsonl")) as f:
+            last = json.loads(f.read().splitlines()[-1])
+    ran = {k: v for k, v in last["kernel_launches"].items() if v}
+    assert (last["engine"], last["route"]) == ("scan", "slice_step_graded")
+    assert set(ran) == {"gram_schmidt", "slice_step_graded"}, ran
+    assert last["chained_epochs"] is False and last["graded_route"]["replays_fast"] > 0
+    nl = last["nlike_per_grade"]
+    assert len(nl) == 2 and nl[1] > nl[0] > 0
+    assert abs(out.logZ) < 3 * out.logZerr

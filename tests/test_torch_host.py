@@ -243,7 +243,7 @@ COPIED = [
     "settings.py", "output.py", "ops/logspace.py", "ops/linalg.py",
     "core/rti.py", "core/clustering.py", "utils/io.py", "utils/feedback.py",
     "utils/metrics.py", "utils/writebehind.py", "utils/native.py",
-    "params.py", "utils/inifile.py", "utils/legacy_resume.py",
+    "params.py", "utils/inifile.py", "utils/legacy_resume.py", "models/graded.py",
     # the maximiser's functions but _eval_batch (which evaluates through the
     # port's calc in the run's dtype, where the JAX package casts to float32)
     "core/maximiser.py::_eval_point", "core/maximiser.py::_nelder_mead",

@@ -147,16 +147,17 @@ def test_calculator_paths():
 
 
 def test_unported_modes_raise(tmp_path):
-    """Asynchronous mode and several speed grades are not ported and raise;
-    precision='highest', maximise and an nlives schedule are ported
-    (tests/test_torch_precision.py, tests/test_torch_modes.py) and pass the
-    check."""
-    for extra in ({"synchronous": False}, {"grade_dims": [2, 2], "grade_frac": [1.0, 1.0]}):
-        with pytest.raises(NotImplementedError):
-            polychordlite_tpu_torch.run(
-                gaussian(D), D, device="cpu", **{**KW, **extra, "base_dir": str(tmp_path)}
-            )
-    for extra in ({"precision": "highest"}, {"maximise": True}, {"nlives": {-10.0: 50}}):
+    """Asynchronous mode is not ported and raises; precision='highest',
+    maximise, an nlives schedule and several speed grades are ported
+    (tests/test_torch_precision.py, tests/test_torch_modes.py,
+    tests/test_torch_graded.py) and pass the check."""
+    with pytest.raises(NotImplementedError):
+        polychordlite_tpu_torch.run(
+            gaussian(D), D, device="cpu",
+            **{**KW, "synchronous": False, "base_dir": str(tmp_path)}
+        )
+    for extra in ({"precision": "highest"}, {"maximise": True}, {"nlives": {-10.0: 50}},
+                  {"grade_dims": [2, 2], "grade_frac": [1.0, 1.0]}):
         ns._check_supported(PolyChordSettings(D, 2, **extra).finalise())
 
 
