@@ -2,7 +2,7 @@
 
 PYTHON ?= python
 
-.PHONY: test bench baseline capi cpp cc_example clean
+.PHONY: test bench baseline capi cpp cc_example clean capi_torch cpp_torch cc_example_torch
 
 test:
 	$(PYTHON) -m pytest tests/ -q
@@ -43,6 +43,23 @@ cc_example: cpp
 		$(shell python3-config --embed --ldflags)
 	PYTHONPATH="$(CURDIR):$(shell $(PYTHON) -c 'import sys; print(":".join(p for p in sys.path if p.endswith("site-packages")))')" \
 		JAX_PLATFORMS=cpu ./bin/gaussian_cc
+
+# the PyTorch/CUDA port's C ABI (polychordlite_tpu_torch/cabi), built into
+# build/cabi/ by the port's own build module (the same commands it runs at first
+# use); the shim imports polychordlite_tpu_torch.capi
+capi_torch:
+	$(PYTHON) -m polychordlite_tpu_torch.utils.cabi capi
+
+cpp_torch:
+	$(PYTHON) -m polychordlite_tpu_torch.utils.cabi cpp
+
+# examples/cc/gaussian_cc.cpp, unchanged, against the port's headers; the run
+# goes to the CUDA card (polychordlite_tpu_torch.capi.DEVICE)
+cc_example_torch:
+	$(PYTHON) -m polychordlite_tpu_torch.utils.cabi cc_example
+	mkdir -p chains/clusters
+	PYTHONPATH="$(shell $(PYTHON) -c 'from polychordlite_tpu_torch.utils.cabi import embedded_env; print(embedded_env()["PYTHONPATH"])')" \
+		./build/cabi/gaussian_cc
 
 # native single-core baseline used by bench.py
 baseline: /tmp/slice_baseline_bench

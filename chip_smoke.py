@@ -43,12 +43,22 @@ and, for B2, float64 ``torch.linalg.qr``), holds the graded route
 (``graded_step``: ``csrc/slice_step.cu`` with its repeat barrier, the slow
 part of a GradedLikelihood cached across fast-grade repeats, at B = 8,192,
 D = 20, grade_dims (6, 14), num_repeats (8, 32), in float32 and float64,
-and at run_graded's chains, B = 512 with 504 valid, in float32) bitwise
+and at run_graded's chains, B = 256, all valid, in float32) bitwise
 against its plain version, the traced route on the monolithic form and the
 plain engine, with the rows slow_fn evaluated, the epoch record's
 included, against the monolithic route's, and B2 at the dims speed grades
-give it (1, 2, 14, 20, and run_graded's (3, 14, 14, 512) and (1, 20, 20,
-512)), then
+give it (1, 2, 14, 20, and run_graded's (3, 14, 14, 256) and (1, 20, 20,
+256)), holds the host route (``host_route``: ``csrc/slice_step.cu``
+launched round by round, a numpy Gaussian called on the host between two
+launches on the pending probes only) over two epochs at gaussian.ini's
+chains in float32 and float64, and at run_callback's and capi_cc's batches,
+against its plain version, the traced route on the likelihood's torch form
+and (float32) the plain engine on the same model, with the epoch records
+from the probes it kept against the re-evaluated ones, the user's calls
+against nlike and the host time of a round by part, and B2 at those runs'
+bases, holds the traced route at the data-driven inis' batches
+(``data_driven_step``: fitting at B 512, object_detection at B 128, the
+inis' block priors; B2 at object_detection's (5, 12, 12, 128)), then
 drives the port's paths and checks what comes out and which kernels ran
 (each path with every launch count set to 0 just before it):
 
@@ -81,13 +91,31 @@ drives the port's paths and checks what comes out and which kernels ran
   in the ``.stats`` file, the fast one larger;
 * ``run_graded``: a 20-D GradedLikelihood (the fixed-point loop of
   tests/test_graded.py on 6 slow coordinates, 14 fast) with gaussian.ini's
-  settings and grade_frac [8, 32] through ``run()``: engine ``"scan"``,
+  settings at nlive 250 and grade_frac [8, 32] through ``run()``: engine ``"scan"``,
   the graded route and B2 only, no chain, at the batch graded_step held,
   within 3 sigma of 0, and the share of the rows evaluated (probes and the
   epoch records' babies) that ran slow_fn; the same likelihood as one
   callable on the fused route, the two within 3 combined sigma; and
   ``time_speeds`` on the graded calc (the full calc more than twice the
   fast part's time);
+* ``run_callback``: the 4-D quickstart written with numpy (a host
+  callback; nlive 200) through ``run()`` with the default engine: engine
+  ``"scan"`` on the host route and B2 only, within 3 sigma of -4 log 2,
+  its dead/s, ``device_frac``, user calls and the host time of a round by
+  part;
+* ``capi_cc``: ``examples/cc/gaussian_cc.cpp``, unchanged, built against
+  the port's C++ layer (``polychordlite_tpu_torch/cabi``) as a program that
+  embeds the interpreter (or, where this Python has no shared libpython,
+  loaded into this process with ``ctypes.PyDLL``; the mode is printed) at
+  its own settings (20-D, nlive 200, num_repeats 40, seed 17): the host
+  route and B2, within 3 sigma of 0;
+* ``run_fitting_ini`` and ``run_object_detection_ini``: ``python3 -m
+  polychordlite_tpu_torch`` on copies of ``ini/fitting.ini`` and
+  ``ini/object_detection.ini`` (``base_dir`` and a seed added, the data
+  from the repository's ``data/``): the traced route (the lowering's
+  refusal in ``route_reason``) and B2, at the batches data_driven_step
+  held, each within 3 combined sigma of the JAX package's run of the same
+  ini on the CPU (:data:`DATA_ORACLES`);
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
@@ -159,6 +187,7 @@ the package beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -204,14 +233,40 @@ D40_HIGHEST = dict(nDims=40, nlive=100, num_repeats=80)
 D40_RUN = dict(B=128, R=80, D=40, B_valid=104)
 # tests/test_precision.py's big likelihood, run at gaussian.ini's width
 BIG = dict(offset=1.0e7, sigma=0.1)
-# speed grades at gaussian.ini's settings: p1-p6 slow, p7-p20 fast, literal
-# repeats 8 and 32 (40 in all, the ini's num_repeats); the graded route's
-# kernel check at the bench's chains
-GRADED = dict(nDims=20, nlive=500, grade_dims=[6, 14], grade_frac=[8, 32])
+# speed grades at gaussian.ini's settings but nlive 250 (half the ini's, to
+# keep the script's time): p1-p6 slow, p7-p20 fast, literal repeats 8 and
+# 32 (40 in all, the ini's num_repeats); the graded route's kernel check at
+# the bench's chains
+GRADED = dict(nDims=20, nlive=250, grade_dims=[6, 14], grade_frac=[8, 32])
 GRADED_STEP = dict(B=8192, B_valid=8192)
-# ... and what run_graded gives the kernels: gaussian.ini's chains (B = 512
-# lanes, 504 valid); B2 one basis at dim 20 and three at dim 14
-GRADED_RUN = dict(B=RUN["B"], B_valid=RUN["B_valid"])
+# ... and what run_graded gives the kernels: B = 256 lanes, all valid; B2
+# one basis at dim 20 and three at dim 14
+GRADED_RUN = dict(B=256, B_valid=256)
+# the host route (a host-callback likelihood, a numpy Gaussian) is held at
+# gaussian.ini's chains (RUN) and at what run_callback (the 4-D quickstart
+# in numpy, nlive 200, num_repeats 20: B = 256 lanes, 200 valid) and
+# capi_cc (examples/cc/gaussian_cc.cpp: 20-D, nlive 200, num_repeats 40)
+# give it; B2 at their bases, (5, 4, 4, 256) and (2, 20, 20, 256)
+QUICK_RUN = dict(B=256, R=20, D=4, B_valid=200)
+CC_RUN = dict(B=256, R=40, D=20, B_valid=200)
+# the data-driven inis at their own settings, on the traced route:
+# ini/fitting.ini (20-D, nlive 500, num_repeats 40: B = 512, 504 valid; B2
+# at gaussian.ini's (2, 20, 20, 512)) and ini/object_detection.ini (12-D,
+# nlive 50, num_repeats 50: B = 128, 56 valid; B2 at (5, 12, 12, 128))
+DATA_RUNS = {"fitting": dict(B=512, R=40, D=20, B_valid=504),
+             "object_detection": dict(B=128, R=50, D=12, B_valid=56)}
+#: their oracles, the JAX package's runs of the same inis on the CPU (JAX
+#: 0.9.0, commit 428c4d3, base_dir changed and seed 7 added): (logZ, sigma,
+#: seed, commit, how).  object_detection at its own settings; fitting at
+#: precision='highest' with its data and model built under jax.enable_x64,
+#: because the JAX package's float32 run of fitting.ini climbs on rounding
+#: spikes of its likelihood without end (ROADMAP C20; the port evaluates
+#: fitting in float64)
+DATA_ORACLES = {
+    "fitting": (-132.28871930726797, 0.14527662021739973, 7, "428c4d3",
+                "JAX package, CPU, precision='highest'"),
+    "object_detection": (-112.916916, 0.507222, 7, "428c4d3", "JAX package, CPU, its CLI"),
+}
 SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] box
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
@@ -498,7 +553,12 @@ def main() -> None:
         )
         from polychordlite_tpu_torch.experiments.bench_geometry import slice_inputs
         from polychordlite_tpu_torch.inidriver import run_ini
-        from polychordlite_tpu_torch.models import gaussian, gaussian_shells, himmelblau
+        from polychordlite_tpu_torch.models import (
+            gaussian,
+            gaussian_shells,
+            get_likelihood,
+            himmelblau,
+        )
         from polychordlite_tpu_torch.ops import (
             fused_like,
             pallas_dirs,
@@ -521,7 +581,7 @@ def main() -> None:
             identity_prior,
         )
         from polychordlite_tpu_torch.settings import PolyChordSettings
-        from polychordlite_tpu_torch.utils import nvcc
+        from polychordlite_tpu_torch.utils import cabi, nvcc
         from polychordlite_tpu_torch.utils.inifile import read_ini
     except ImportError as e:
         fail(f"cannot import the port beside this script ({e})")
@@ -1514,7 +1574,7 @@ def main() -> None:
     def _():
         """At the bench's chains (B 8,192, D 20, grade_dims (6, 14),
         num_repeats (8, 32)) on gaussian.ini's mid-run inputs, in float32
-        and float64, and at run_graded's chains (B 512, 504 valid) in
+        and float64, and at run_graded's chains (B 256, all valid) in
         float32: the graded route against its plain version, the traced
         route on the monolithic form and the plain engine (t, logL, nlike, 0
         mismatches); its ms per epoch, launches and replays per epoch; the
@@ -1632,6 +1692,247 @@ def main() -> None:
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
                 "bound": bound(2 * 4 * nb * dim * dim * B, gram_schmidt_flops(nb, dim, B))}
         results["graded_step"] = out
+        return out
+
+    # ---- 6f. the host route: a host-callback likelihood on slice_step.cu,
+    # round by round, the user's function called between two launches
+    def numpy_gaussian(D):
+        """A normalised Gaussian at 0.5 (sigma 0.1) written with numpy for
+        one point: a host callback.  Its chi-square is summed over the
+        coordinates in order in float64, as numpy_gaussian_torch's is."""
+        norm = -D * math.log(0.1 * math.sqrt(2 * math.pi))
+
+        def like(theta):
+            theta = np.asarray(theta, dtype=np.float64)
+            r2 = 0.0
+            for d in range(theta.shape[0]):
+                x = theta[d] - 0.5
+                r2 = r2 + x * x
+            return norm - r2 * 50.0  # 1 / (2 sigma^2), exact
+
+        return like
+
+    def numpy_gaussian_torch(D):
+        """numpy_gaussian's torch form, batched, in float64 in the same
+        order: the same logL bit for bit."""
+        norm = -D * math.log(0.1 * math.sqrt(2 * math.pi))
+
+        def like(theta):
+            t = theta.double()
+            r2 = torch.zeros(t.shape[0], dtype=torch.float64, device=t.device)
+            for d in range(t.shape[1]):
+                x = t[:, d] - 0.5
+                r2 = r2 + x * x
+            return norm - r2 * 50.0
+
+        return like
+
+    def host_delta(before):
+        return {k: v - before[k] for k, v in pallas_slice_v4.HOST.items()}
+
+    def gram_schmidt_hold(name, nb, dim, B):
+        """B2 at (nb, dim, dim, B) bitwise its plain version, launched once."""
+        g = torch.randn((nb, dim, dim, B), generator=torch.Generator(dev).manual_seed(dim),
+                        device=dev)
+        q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))
+        before = pallas_dirs.LAUNCHES["gram_schmidt"]
+        q = pallas_dirs.gram_schmidt_lanes(g)
+        if pallas_dirs.LAUNCHES["gram_schmidt"] != before + 1:
+            raise AssertionError(f"B2 at {name}: gram_schmidt was not launched")
+        mism = int((q != q_plain).sum())
+        if mism:
+            raise AssertionError(f"B2 at {name}: {mism} entries differ from its plain version")
+        return {"shape": [nb, dim, dim, B], "mismatches": mism, "plain_ms": plain_ms,
+                "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),
+                "bound": bound(2 * 4 * nb * dim * dim * B, gram_schmidt_flops(nb, dim, B))}
+
+    @phase("host_route")
+    def _():
+        """The host route (pallas_slice_v4.slice_epoch_host: csrc/slice_step.cu
+        launched round by round, the probes and the lanes' rows copied to
+        pinned memory, the numpy likelihood called on the pending probes)
+        on a numpy Gaussian at gaussian.ini's chains (B 512, 504 valid, R
+        40, D 20), two epochs (the second seeded from the first's babies),
+        in float32 and float64, and at run_callback's and capi_cc's batches:
+        against its plain version, the traced route on the torch form, and
+        (at RUN, float32) the plain engine on the same callback model (t,
+        logL, nlike; 0 mismatches); the babies (the accepted probes, their
+        cube, theta and phi) against the plain version's, their theta and
+        phi against the calc's re-evaluation of their cubes, their cubes
+        within R rounding steps of the rebuilt seed + cumsum(t n), and the
+        epoch record built from them with no call of the user's function.
+        User calls against nlike, ms per epoch of the three (the second
+        epoch's), the per-round split of the host time.  B2 at the two
+        runs' bases."""
+        out = {}
+        for tag, geo, dtype, epochs in (("run", RUN, torch.float32, 2),
+                                        ("run_f64", RUN, torch.float64, 2),
+                                        ("quickstart", QUICK_RUN, torch.float32, 1),
+                                        ("capi_cc", CC_RUN, torch.float32, 1)):
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            calc = dtype_calc(numpy_gaussian(D), D, dtype)
+            form = dtype_calc(numpy_gaussian_torch(D), D, dtype)
+            if not (calc.form == "callback" and form.form == "batched"):
+                raise AssertionError(f"forms {calc.form}, {form.form}")
+            gen = torch.Generator(dev).manual_seed(SEED)
+            x0, bnd, valid, chol = live_set_inputs(B, D, form, gen, B_valid=geo["B_valid"])
+            x0, bnd, chol = x0.to(dtype), bnd.to(dtype), chol.to(dtype)
+            nh, w, sp = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
+                                        generator=gen)
+            cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+            counter = "slice_step_host" + ("_f64" if dtype == torch.float64 else "")
+            recs = []
+            for epoch in range(epochs):
+                kw = (0x01234567 + epoch, 0x89ABCDEF)
+                args = (x0, bnd, valid, nh, w)
+                before = (pallas_slice_v4.LAUNCHES[counter], dict(pallas_slice_v4.HOST),
+                          calc.user_calls)
+                (*got, babies), ms = cuda_once(
+                    lambda: pallas_slice_v4.slice_epoch_host(calc, cfg, kw, *args))  # noqa: B023
+                launches = pallas_slice_v4.LAUNCHES[counter] - before[0]
+                host = host_delta(before[1])
+                user_calls = calc.user_calls - before[2]
+                (*plain, plain_babies), plain_ms = cuda_once(
+                    lambda: pallas_slice_v4.slice_records_host_plain(  # noqa: B023
+                        calc, cfg, kw, *args))  # noqa: B023
+                traced, traced_ms = cuda_once(
+                    lambda: pallas_slice_v4.slice_epoch_traced(form, cfg, kw, *args))  # noqa: B023
+                pairs = [(f"{k}_vs_{what}", a, b)
+                         for what, ref in (("plain", plain), ("traced_torch_form", traced))
+                         for k, a, b in zip(("t", "logL", "nlike"), got, ref)]
+                pairs += [(f"baby_{k}_vs_plain", a, b.to(a.device)) for k, a, b in
+                          zip(("cube", "theta", "phi"), babies, plain_babies)]
+                rec = {}
+                if tag == "run":  # the plain engine (engine="torch") on the same model
+                    engine, engine_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                        lambda p: calc(p)[2], cfg, kw, *args, count_steps=True))  # noqa: B023
+                    pairs += [(f"{k}_vs_plain_engine", a, b)
+                              for k, a, b in zip(("t", "logL", "nlike"), got, engine[:3])]
+                    if host["probe_calls"] != int(engine[3].sum()):
+                        raise AssertionError(f"host_route: {host['probe_calls']} user calls, "
+                                             f"{int(engine[3].sum())} consumed probes")
+                    rec["plain_engine_ms"] = engine_ms
+                # the babies' theta and phi against the calc's re-evaluation of
+                # their cubes, on the rows an accepted probe reached
+                cube, theta, phi = babies
+                rows = valid[:, None] & (torch.cummax((got[0] != 0).int(), dim=1).values > 0)
+                th_all, ph_all, _ = calc(cube.reshape(B * R, D))
+                pairs += [("baby_theta_vs_re_evaluation", theta[rows],
+                           th_all.reshape(B, R, D)[rows]),
+                          ("baby_phi_vs_re_evaluation", phi[rows], ph_all.reshape(B, R, 1)[rows])]
+                mism = decisions(f"host_route {tag} epoch {epoch}", pairs)
+                rebuilt = x0[:, None, :] + torch.cumsum(got[0][:, :, None] * nh, dim=1)
+                gap = (cube - rebuilt).abs().max().item()
+                if gap > R * torch.finfo(dtype).eps:
+                    raise AssertionError(f"host_route {tag}: a kept probe lies {gap} from the "
+                                         "rebuilt cube")
+                calls0 = calc.user_calls
+                record, assembly_ms = cuda_once(lambda: pallas_slice_v4.assemble_epoch(  # noqa: B023
+                    calc, cfg, x0, valid, nh, sp, *got, cube=cube,  # noqa: B023
+                    theta_phi=(theta, phi)))  # noqa: B023
+                if calc.user_calls != calls0:
+                    raise AssertionError(f"host_route {tag}: the epoch record called the "
+                                         "user's function")
+                nlike = int(got[2].sum())
+                rounds = max(host["rounds"], 1)
+                rec.update({
+                    "epoch": epoch, "mismatches": mism, "ms": ms, "plain_ms": plain_ms,
+                    "traced_torch_form_ms": traced_ms, "launches": launches,
+                    "rounds": host["rounds"], "user_calls": user_calls,
+                    "probe_calls": host["probe_calls"], "nlike": nlike,
+                    "calls_over_nlike": host["probe_calls"] / max(nlike, 1),
+                    "calls_if_every_lane": rounds * B,
+                    "us_per_round": {k[:-2]: host[k] * 1e6 / rounds
+                                     for k in ("launch_s", "copy_out_s", "user_s", "copy_in_s")},
+                    "us_per_user_call": host["user_s"] * 1e6 / max(host["probe_calls"], 1),
+                    "assembly_ms": assembly_ms, "record_user_calls": calc.user_calls - calls0,
+                    "baby_rows_reached": int(rows.sum()), "cube_gap_vs_rebuilt": gap,
+                })
+                recs.append(rec)
+                last = record[:, (R - 1) * (2 * D + 2):(R - 1) * (2 * D + 2) + D]
+                x0 = torch.where(valid[:, None], last, x0)
+                bnd = torch.minimum(calc(x0)[2], bnd + 1.0)
+            out[tag] = {"B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
+                        "dtype": str(dtype).replace("torch.", ""), "epochs": recs,
+                        "bound": bound(slice_step_bytes(B, D, recs[-1]["launches"], R,
+                                                        8 if dtype == torch.float64 else 4), 0,
+                                       F64_FLOPS_PER_S if dtype == torch.float64
+                                       else F32_FLOPS_PER_S)}
+        for k in ("quickstart", "capi_cc"):
+            geo = QUICK_RUN if k == "quickstart" else CC_RUN
+            out[f"gram_schmidt_{k}"] = gram_schmidt_hold(
+                k, -(-geo["R"] // geo["D"]), geo["D"], geo["B"])
+        timed = out["run"]["epochs"][-1]
+        results["slice_step_host"] = {
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"], "max_abs_err": 0.0,
+            "bound": out["run"]["bound"], "f64_twin_ms": out["run_f64"]["epochs"][-1]["ms"],
+            "plain_engine_ms": timed["plain_engine_ms"],
+            "traced_torch_form_ms": timed["traced_torch_form_ms"],
+            "us_per_round": timed["us_per_round"], "calls_over_nlike": timed["calls_over_nlike"],
+            "record_user_calls": timed["record_user_calls"]}
+        return out
+
+    # ---- 6g. the data-driven models on the traced route, at the batches
+    # their inis' runs give it
+    def data_calc(name, D):
+        _, blocks, *_ = read_ini(os.path.join(HERE, "ini", f"{name}.ini"))
+        return make_batched_calculator(
+            BlockPrior(blocks, D), get_likelihood(name, D, data_dir=os.path.join(HERE, "data")),
+            D, 0, device=dev)
+
+    @phase("data_driven_step")
+    def _():
+        """fitting and object_detection with their inis' block priors, at the
+        batches run_fitting_ini and run_object_detection_ini give the
+        kernels, on mid-run inputs (a live set: the best nlive of 4 nlive
+        prior draws, bounds between two live points' logL, its Cholesky):
+        the traced route (the lowering refuses both, its reason recorded)
+        against the plain engine, t, logL, nlike, 0 mismatches; ms per
+        epoch, launches, bound; B2 at object_detection's bases."""
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        for name, geo in DATA_RUNS.items():
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            calc = data_calc(name, D)
+            low = fused_like.lowering(calc)
+            if calc.form != "batched" or not isinstance(low, fused_like.Refused):
+                raise AssertionError(f"{name}: form {calc.form}, lowering {low}")
+            gen = torch.Generator(dev).manual_seed(SEED)
+            nlive = geo["B_valid"]
+            draws = torch.rand((4 * nlive, D), generator=gen, device=dev)
+            top = torch.topk(calc(draws)[2], nlive).indices
+            live = draws[top]
+            live_logL = calc(live)[2]
+            pick = torch.randint(0, nlive, (B,), generator=gen, device=dev)
+            other = torch.randint(0, nlive, (B,), generator=gen, device=dev)
+            x0 = live[pick]
+            bnd = torch.minimum(live_logL[pick], live_logL[other])
+            valid = torch.arange(B, device=dev) < geo["B_valid"]
+            chol = torch.linalg.cholesky(torch.cov(live.T)
+                                         + 1e-9 * torch.eye(D, device=dev)).expand(B, D, D)
+            nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
+                                       generator=gen)
+            cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+            args = (x0, bnd, valid, nh, w)
+            want, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
+            before = (pallas_slice_v4.LAUNCHES["slice_step"], dict(pallas_slice_v4.TRACED))
+            got = pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args)
+            launches = pallas_slice_v4.LAUNCHES["slice_step"] - before[0]
+            replays = pallas_slice_v4.TRACED["replays"] - before[1]["replays"]
+            mism = decisions(f"data_driven_step {name}", [
+                (f"{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got, want)])
+            ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args), 3)  # noqa: B023
+            out[name] = {"B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
+                         "evals": int(want[2].sum()), "route_reason": low.reason,
+                         "mismatches": mism, "launches_per_epoch": launches,
+                         "replays_per_epoch": replays, "ms": ms, "plain_ms": plain_ms,
+                         "plain_over_route": plain_ms / ms,
+                         "bound": bound(slice_step_bytes(B, D, launches, R), 0)}
+        ob = DATA_RUNS["object_detection"]
+        out["gram_schmidt_object_detection"] = gram_schmidt_hold(
+            "object_detection", -(-ob["R"] // ob["D"]), ob["D"], ob["B"])
+        results["data_driven_step"] = out
         return out
 
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
@@ -2297,7 +2598,8 @@ def main() -> None:
     @phase("run_graded")
     def _():
         """graded_model's GradedLikelihood through run() on the card with
-        gaussian.ini's settings and grade_dims [6, 14], grade_frac [8, 32]:
+        gaussian.ini's settings at nlive 250 and grade_dims [6, 14],
+        grade_frac [8, 32]:
         engine "scan", the graded route and B2 only, no chain, at the batch
         graded_step held (GRADED_RUN); then the same likelihood as one
         callable on the route engine="cuda" picks for it (the fused route);
@@ -2382,6 +2684,188 @@ def main() -> None:
                "time_speeds_num_repeats": [int(n) for n in rti.num_repeats]}
         results["run_graded"] = rec
         return rec
+
+    # ---- 11c. host-callback likelihoods and the C ABI through the port ----
+    def batch_of(nlive):
+        """The physical batch run() gives the kernels at nlive."""
+        return -(-(-(-nlive // 8) * 8) // GRANULE) * GRANULE
+
+    def host_run_record(name, last, stats, wall, truth, held, nlive):
+        """Checks and record of a run on the host route: engine "scan", route
+        "slice_step_host", B2 and the host route the only kernels, at the
+        batch host_route held (``held``, which nlive must give), within 3
+        sigma of ``truth``."""
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last.get("engine"), last.get("route")) != ("scan", "slice_step_host"):
+            raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
+                                 f"{last.get('route')!r} ({last.get('route_reason')})")
+        if set(ran) != {"gram_schmidt", "slice_step_host"}:
+            raise AssertionError(f"{name}: the path did not run B2 and the host route (only): "
+                                 f"{ran}")
+        if last.get("chained_epochs") is not False:
+            raise AssertionError(f"{name}: a callback run dispatched chained epochs")
+        if (batch_of(nlive), min(nlive, held["B"])) != (held["B"], held["B_valid"]):
+            raise AssertionError(f"{name}: the run's batch is {batch_of(nlive)} lanes, not the "
+                                 f"{held['B']} ({held['B_valid']} valid) the host route was "
+                                 "held at")
+        pull = (stats.logZ - truth) / stats.logZerr
+        if not (math.isfinite(stats.logZ) and abs(pull) < 3.0):
+            raise AssertionError(f"{name}: logZ {stats.logZ} +/- {stats.logZerr} is "
+                                 f"{pull:.2f} sigma from {truth}")
+        add_launches(ran)
+        host = last["host_route"]
+        rounds = max(host["rounds"], 1)
+        return {"engine_used": last["engine"], "route": last["route"],
+                "route_reason": last.get("route_reason"), "form": last["form"],
+                "ndead": stats.ndead, "logZ": stats.logZ, "logZerr": stats.logZerr,
+                "oracle": truth, "pull_sigma": pull, "wall_s": wall,
+                "dead_per_s": stats.ndead / wall, "device_frac": last.get("device_frac"),
+                "host_calls": last["host_calls"], "host_route": host,
+                "host_us_per_round": {k[:-2]: host[k] * 1e6 / rounds
+                                      for k in ("launch_s", "copy_out_s", "user_s",
+                                                "copy_in_s")},
+                "launches": ran, "host_totals_s": last.get("host_totals"),
+                "epoch_timers_s": last.get("epoch_timers")}
+
+    @phase("run_callback")
+    def _():
+        """The reference quickstart written with numpy (4-D, sigma 0.1,
+        UniformPrior(-1, 1), r^2 derived; bench.py's quickstart, nlive
+        200) through run() with the default engine on the card: engine
+        "scan" on the host route; logZ = -4 log 2 within 3 sigma."""
+        def quickstart(theta):
+            theta = np.asarray(theta, dtype=np.float64)
+            r2 = float(np.sum(theta ** 2))
+            return -math.log(2 * math.pi * 0.1 * 0.1) * 2.0 - r2 / 2 / 0.1 ** 2, [r2]
+
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                pt.run(quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1),
+                       nlive=QUICK_RUN["B_valid"], read_resume=False, base_dir=base,
+                       seed=SEED, feedback=-1, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = PolyChordOutput(base, "test")
+            last = read_metrics(base, "test")[-1]
+        rec = host_run_record("run_callback", last, stats, wall, -4 * math.log(2.0), QUICK_RUN,
+                              QUICK_RUN["B_valid"])
+        results["run_callback"] = rec
+        return rec
+
+    @phase("capi_cc")
+    def _():
+        """examples/cc/gaussian_cc.cpp, unchanged, through the port's C++
+        layer (cabi/polychord.hpp over the C shim) at its own settings
+        (20-D, nlive 200, num_repeats 40, seed 17): as a program that embeds
+        the interpreter where this Python has a shared libpython, else in
+        this process through ctypes.PyDLL (the choice printed); the run on
+        the card's host route, logZ = 0 within 3 sigma."""
+        mode = "embedded" if cabi.embedding_possible() else "in_process"
+        print(f"capi_cc: build mode {mode}", flush=True)
+        base = tempfile.mkdtemp(prefix="capi_cc_")
+        tmpdirs.append(base)
+        t0 = time.perf_counter()
+        if mode == "embedded":
+            exe = cabi.build("cc_example")
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            proc = subprocess.run([str(exe)], cwd=base, env=cabi.embedded_env(),
+                                  capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0 or "Traceback" in proc.stderr:
+                raise AssertionError(f"gaussian_cc exited {proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            dumps = [ln for ln in proc.stdout.splitlines() if ln.startswith("dumper:")]
+        else:
+            import ctypes
+
+            so = cabi.build_in_process("gaussian_cc_in_process", [cabi.EXAMPLE], cpp=True,
+                                       defines=["main=gaussian_cc_main"])
+            entry = getattr(ctypes.PyDLL(str(so)), "_Z16gaussian_cc_mainv")  # C++ name
+            entry.argtypes, entry.restype = [], ctypes.c_int
+            build_s = time.perf_counter() - t0
+            cwd = os.getcwd()
+            os.chdir(base)
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    entry()
+            finally:
+                os.chdir(cwd)
+            wall = time.perf_counter() - t0
+            dumps = []  # printed by C stdio, not Python's stdout
+        chains = os.path.join(base, "chains")
+        stats = PolyChordOutput(chains, "gaussian_cc")
+        recs = read_metrics(chains, "gaussian_cc")
+        # the example sets its own nlive: the live points of its first record
+        rec = host_run_record("capi_cc", recs[-1], stats, wall, 0.0, CC_RUN, recs[0]["nlive"])
+        rec.update(build_mode=mode, build_s=build_s, dumper_lines=len(dumps),
+                   last_dumper_line=dumps[-1] if dumps else None)
+        results["capi_cc"] = rec
+        return rec
+
+    def data_ini_run(name):
+        """python -m polychordlite_tpu_torch on a copy of ini/<name>.ini
+        (base_dir and seed added; its data_dir = data read from the
+        repository): engine "cuda" on the traced route (the lowering's
+        refusal in route_reason) and B2 only, at the batch data_driven_step
+        held, within 3 combined sigma of the JAX package's CPU run."""
+        base = tempfile.mkdtemp(prefix=f"{name}_cli_")
+        tmpdirs.append(base)
+        ini = ini_copy(base, name)
+        s, *_ = read_ini(ini)
+        held = DATA_RUNS[name]
+        if (batch_of(s.nlive), s.num_repeats, s.nDims) != (held["B"], held["R"], held["D"]):
+            raise AssertionError(f"{name}: the run's batch {batch_of(s.nlive)}, R "
+                                 f"{s.num_repeats}, D {s.nDims} are not those held")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("logZ = ")]
+        last = read_metrics(base, name)[-1]
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_step"):
+            raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
+                                 f"{last.get('route')!r} ({last.get('route_reason')})")
+        if not only(ran, ("gram_schmidt", "slice_step")):
+            raise AssertionError(f"{name}: the run did not run B2 and the traced route (only): "
+                                 f"{ran}")
+        add_launches(ran)
+        out = PolyChordOutput(base, name)
+        ref, ref_err, seed, commit, how = DATA_ORACLES[name]
+        both = math.hypot(out.logZerr, ref_err)
+        pull = (out.logZ - ref) / both
+        if not (math.isfinite(out.logZ) and abs(pull) < 3.0):
+            raise AssertionError(f"{name}: logZ {out.logZ} +/- {out.logZerr} is {pull:.2f} "
+                                 f"combined sigma from the oracle {ref} +/- {ref_err}")
+        rec = {"summary": summary[-1] if summary else None, "engine_used": last["engine"],
+               "route": last["route"], "route_reason": last.get("route_reason"),
+               "form": last.get("form"), "chained_epochs": last.get("chained_epochs"),
+               "ndead": out.ndead, "logZ": out.logZ, "logZerr": out.logZerr,
+               "oracle": {"logZ": ref, "logZerr": ref_err, "seed": seed, "commit": commit,
+                          "from": how},
+               "pull_combined_sigma": pull, "wall_s": wall, "dead_per_s": out.ndead / wall,
+               "device_frac": last.get("device_frac"), "launches": ran,
+               "traced_route": last.get("traced_route"),
+               "host_totals_s": last.get("host_totals"),
+               "epoch_timers_s": last.get("epoch_timers")}
+        results[f"run_{name}_ini"] = rec
+        return rec
+
+    @phase("run_fitting_ini")
+    def _():
+        return data_ini_run("fitting")
+
+    @phase("run_object_detection_ini")
+    def _():
+        return data_ini_run("object_detection")
 
     # ---- 12. the structure-cost studies (E3, E2, E6, E7) ------------------
     # Each phase holds its kernel against its plain version (and the kernels
@@ -2670,6 +3154,8 @@ def main() -> None:
          results["slice_fused"]["bound"], None),
         ("slice_step_graded", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
          "slice_step_graded", results["slice_step_graded"]["bound"], None),
+        ("slice_step_host", "slice_step.cu", "polychordlite_tpu/ops/pallas_slice_v4.py:508",
+         "slice_step_host", results["slice_step_host"]["bound"], None),
     ] + [
         (name, source, replaces, res, results[res]["bound"], None)
         for name, source, replaces, res in (
@@ -2687,7 +3173,8 @@ def main() -> None:
     kernels = []
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
                     "slice_epoch_v2", "slice_step", "slice_epoch_fused", "slice_epoch_fused_f64",
-                    "slice_step_f64", "gram_schmidt_f64", "slice_step_graded")  # the others: their
+                    "slice_step_f64", "gram_schmidt_f64", "slice_step_graded",
+                    "slice_step_host")  # the others: their
     # studies' own launches
     se = results["slice_epoch"]
     redesigned = {  # B1's, B3's, B4's, B5's and E2's G = 1 forms, and the traced route, in
@@ -2748,6 +3235,26 @@ def main() -> None:
                          "B", "valid_lanes", "mismatches", "ms", "plain_ms", "bound")},
                      "run_graded": {k: results["run_graded"]["graded"][k]
                                     for k in ("slow_share_of_rows", "wall_s", "dead_per_s")}}
+        if name == "slice_step":  # the data-driven models' batches, and their runs
+            dd = results["data_driven_step"]
+            extra = {k: {**{f: dd[k][f] for f in ("B", "valid_lanes", "R", "D", "ms",
+                                                  "plain_ms", "launches_per_epoch",
+                                                  "mismatches", "route_reason")},
+                         "bound_ms": dd[k]["bound"][0], "bound_by": dd[k]["bound"][1],
+                         "launches_on_run": results[f"run_{k}_ini"]["launches"].get(
+                             "slice_step", 0)}
+                     for k in DATA_RUNS}
+        if name == "slice_step_host":  # the host route beside the plain engine and the
+            # traced route on the same model, its round's host time, and its runs
+            sh = results["slice_step_host"]
+            extra = {"reaches": "the JAX package's host-callback path: jax.pure_callback in "
+                                "its scan engine (polychordlite_tpu/ops/evaluate.py:208)",
+                     **{k: sh[k] for k in ("f64_twin_ms", "plain_engine_ms",
+                                           "traced_torch_form_ms", "us_per_round",
+                                           "calls_over_nlike", "record_user_calls")},
+                     "runs": {k: {f: results[k][f] for f in ("dead_per_s", "device_frac",
+                                                             "host_calls", "wall_s")}
+                              for k in ("run_callback", "capi_cc")}}
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
             "dtype": "float32", **extra,

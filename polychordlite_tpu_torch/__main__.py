@@ -17,7 +17,7 @@ import sys
 
 from .core.nested_sampling import resolve_device
 from .inidriver import run_ini
-from .models import LIKELIHOODS
+from .models import EXAMPLES
 
 
 def main(argv=None) -> int:
@@ -30,7 +30,7 @@ def main(argv=None) -> int:
         "--likelihood",
         default=None,
         help="example likelihood name (default: inferred from file_root); "
-        f"available: {', '.join(sorted(LIKELIHOODS))}",
+        f"available: {', '.join(sorted(EXAMPLES))}",
     )
     ap.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",

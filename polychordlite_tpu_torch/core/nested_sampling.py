@@ -37,8 +37,12 @@ resume file in the reference's text format is read
 (``utils/legacy_resume.py``).  Several speed grades run on every engine;
 a :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood` runs on
 the ``"scan"`` engine, which keeps its slow part across fast-grade
-repeats (``ops/slice_kernel.py``), with no chained dispatch.
-Asynchronous mode (``synchronous=False``) raises ``NotImplementedError``.
+repeats (``ops/slice_kernel.py``), with no chained dispatch.  A
+host-callback likelihood (Python, numpy or C) runs on ``"scan"`` too, on
+the card the host route; it dispatches one epoch at a time unless
+``chain_epochs`` > 1 forces a chain, which runs the route K times in one
+dispatch.  Asynchronous mode (``synchronous=False``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -116,19 +120,23 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: ``"cuda"`` on a CUDA device, the plain
     torch engine on the CPU; for a :class:`GradedLikelihood` calc
     (``calc.graded``) ``"scan"`` on every device, the one engine that carries
-    its slow part (``polychordlite_tpu/core/nested_sampling.py:77-99``).  A
-    kernel engine forced by name for a graded calc raises, naming
-    ``"scan"`` (the JAX package warns and runs scan instead; the port forces
-    engines by name only, ROADMAP C5); ``"torch"`` runs it as the plain
-    callable ``fast(slow(.), .)``.  ``"scan"`` runs any torch model (the
-    traced route's kernel with a repeat barrier on the card, no bound on D)
-    and refuses a host-callback model on the card.  ``"cuda"`` runs any
-    torch model, batched or per point (B1's functor kernel for a model with
-    a device form, B1 with the likelihood lowered into it or the traced
-    route ``csrc/slice_step.cu`` for the others:
-    ``ops/slice_kernel.py::cuda_route``) and refuses a
-    host-callback model; the other kernel engines of :data:`KERNEL_ENGINES`
-    are forced by name and need a device form.  ``engine="torch"`` is the
+    its slow part (``polychordlite_tpu/core/nested_sampling.py:77-99``), and
+    for a host-callback calc (a Python, numpy or C likelihood,
+    ``calc.uses_callback``) ``"scan"`` on every device too, as the JAX
+    package sends it to its scan engine (``:104-106``): on the card the
+    host route, B1's traced kernel driven round by round with the user's
+    function called between two launches.  A kernel engine forced by name
+    for a graded or a callback calc raises, naming ``"scan"`` (the JAX
+    package warns and runs scan instead; the port forces engines by name
+    only, ROADMAP C5); ``"torch"`` runs either on the plain engine.
+    ``"scan"`` runs any model (the traced route's kernel with a repeat
+    barrier on the card for a torch model, the host route for a callback,
+    no bound on D).  ``"cuda"`` runs any torch model, batched or per point
+    (B1's functor kernel for a model with a device form, B1 with the
+    likelihood lowered into it or the traced route ``csrc/slice_step.cu``
+    for the others: ``ops/slice_kernel.py::cuda_route``); the other kernel
+    engines of :data:`KERNEL_ENGINES` are forced by name and need a device
+    form.  ``engine="torch"`` is the
     plain engine on any device, at any dimension; the kernel engines stop at
     D = 128 (``"cuda5"`` and random_gaussian's functor at 32), and above
     they raise here, once.  At ``precision='highest'`` (a float64 calc)
@@ -137,8 +145,9 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     float32, raise (as the JAX package sends float64 away from its float32
     kernels, ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
     graded = bool(getattr(calc, "graded", False))
+    callback = bool(calc.uses_callback)
     if engine == "auto":
-        if graded:
+        if graded or callback:
             engine = "scan"
         elif device.type != "cuda":
             return "torch"
@@ -149,12 +158,13 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
             f"engine={engine!r} evaluates the whole likelihood at every probe; a "
             "GradedLikelihood runs on engine='scan', which keeps its slow part across "
             "fast-grade repeats (or engine='torch', which calls it as one function)")
+    if callback and engine in KERNEL_ENGINES:
+        raise ValueError(
+            f"engine={engine!r} evaluates the likelihood in its kernel or in torch on the "
+            "card; a host-callback likelihood (one that is not a torch function of a "
+            "tensor) runs on engine='scan' (on the card the host route, which calls it "
+            "between the kernel's launches) or on engine='torch' (the plain engine)")
     if engine == "scan":
-        if device.type == "cuda" and calc.uses_callback:
-            raise ValueError(
-                "a host-callback likelihood (one that is not a torch function of a "
-                "tensor) has no route on the card; pass engine='torch' to run it on "
-                "the plain engine")
         return engine
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
@@ -175,12 +185,6 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
         if spec is not None:  # the functor route and the forced engines take it
             check_functor_dims(spec["likelihood"]["name"], D)
         if engine == "cuda":
-            if calc.uses_callback:
-                raise ValueError(
-                    "a host-callback likelihood (one that is not a torch function of a "
-                    "tensor) has no route on the card; pass engine='torch' to run it on "
-                    "the plain engine"
-                )
             return engine
         if getattr(calc, "device_spec", None) is None:
             raise ValueError(
@@ -333,6 +337,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     launches0 = _kernel_launches()
     traced0 = dict(pallas_slice_v4.TRACED)
     graded0 = dict(pallas_slice_v4.GRADED)
+    host0 = dict(pallas_slice_v4.HOST)
     groups0 = dict(pallas_slice_v4.GROUP_LAUNCHES)
 
     # --- RNG: host generator, device generator and murmur key, all from seed
@@ -347,6 +352,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     calc = make_batched_calculator(
         prior, loglikelihood, s.nDims, s.nDerived, s.logzero, device=device
     )
+    calls0 = int(getattr(calc, "user_calls", 0))
     n_grades = len(s.grade_dims) if s.grade_dims else 1
     if calc.graded and n_grades > 1 and int(s.grade_dims[0]) != calc.n_slow:
         # fast-grade chords must move fast parameters only: a mismatch would
@@ -479,7 +485,9 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         # e-folds (actively fragmenting runs would otherwise thrash chains)
         nursery_queue = deque()
         turbo_K = int(getattr(s, "chain_epochs", -1))
-        if turbo_K < 0:  # auto: host-callback and graded likelihoods dispatch per epoch
+        # auto: host-callback and graded likelihoods dispatch per epoch; a
+        # forced chain of a callback runs its route K times in one dispatch
+        if turbo_K < 0:
             turbo_K = 0 if calc.uses_callback or calc.graded else 8
         turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
                  "cooldown": 0, "voided": 0, "chains": 0}
@@ -777,6 +785,14 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
                     k: v - graded0[k] for k, v in pallas_slice_v4.GRADED.items()
                 },
                 "nlike_per_grade": [int(n) for n in rti.nlike],
+                # a host-callback likelihood: the calls of the user's function
+                # in this run, and the host route's rounds, its calls on
+                # probes, and the host seconds of a round's parts (launch,
+                # copy out, user calls, copy in)
+                "host_calls": int(getattr(calc, "user_calls", 0)) - calls0,
+                "host_route": {
+                    k: v - host0[k] for k, v in pallas_slice_v4.HOST.items()
+                },
             },
         )
         return {

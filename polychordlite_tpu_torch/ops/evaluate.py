@@ -26,7 +26,17 @@ path numerically, ``polychordlite_tpu/ops/pallas_slice.py:125-160``):
 
 ``calc.form`` names the form.  The first two run on the device: on a card
 through B1 with the likelihood lowered into it (``ops/fused_like.py``), or
-else B1's route for a traced likelihood (``ops/pallas_slice_v4.py``).
+else B1's route for a traced likelihood (``ops/pallas_slice_v4.py``).  A
+callback calc has ``calc.host_point_batch``, which evaluates ``(n, D)``
+cubes held in host memory (a pinned buffer's numpy view, say) and returns
+numpy arrays, building no tensor: the host route of
+``ops/pallas_slice_v4.py`` calls it between two launches of B1's traced
+kernel, and the calc itself is a thin torch wrapper around it.  Its prior
+runs on the host too: per point on a float64 numpy row, as the JAX
+package's ``_host_eval`` calls it (a numpy prior, or the C ABI's), or, for
+one of the port's torch priors (the ini's block prior, say), on the whole
+batch as a CPU tensor of the calc's dtype.  ``calc.user_calls`` counts the calls
+of the user's likelihood.
 
 A :class:`~polychordlite_tpu_torch.models.graded.GradedLikelihood` is
 read the same way, its batched form calling ``fast_fn(slow_fn(theta[:,
@@ -181,6 +191,20 @@ def _model_form(batched, point, n_dims: int, device, dtype) -> str:
     return "callback"
 
 
+def _torch_prior(prior_fn) -> bool:
+    """Whether a host-callback calc calls the prior on the batch as a CPU
+    tensor of the calc's dtype (the dtype in which the JAX package's
+    callback evaluates its priors): the port's own priors (:mod:`..priors`, the ini's
+    block prior among them), which are torch functions of a tensor.  Any
+    other prior (a numpy prior, or the C ABI's) is called per point on a
+    float64 numpy row, as the JAX package's ``_host_eval`` calls it, and
+    what it raises propagates."""
+    from ..priors import BlockPrior, GaussianPrior, UniformPrior, identity_prior
+
+    return prior_fn is identity_prior or isinstance(
+        prior_fn, (UniformPrior, GaussianPrior, BlockPrior))
+
+
 def make_batched_calculator(
     prior_fn: Callable,
     loglike_fn: Callable,
@@ -228,14 +252,18 @@ def make_batched_calculator(
     elif form == "per_point":
         raw_eval = torch.func.vmap(point)
     else:
+        torch_prior = _torch_prior(prior_fn)
 
         def _host_eval(cube_np):
             B = cube_np.shape[0]
             thetas = np.zeros((B, n_dims))
             phis = np.zeros((B, n_phi))
             logLs = np.full((B,), logzero)
+            if torch_prior:  # on the batch
+                batch = np.asarray(prior_fn(torch.from_numpy(cube_np).to(dt)), dtype=np.float64)
             for i in range(B):
-                theta = np.asarray(prior_fn(cube_np[i]), dtype=np.float64)
+                theta = (batch[i].copy() if torch_prior
+                         else np.asarray(prior_fn(cube_np[i]), dtype=np.float64))
                 out = loglike_fn(theta)
                 if isinstance(out, tuple):
                     logL, phi = out
@@ -252,28 +280,52 @@ def make_batched_calculator(
                 logLs[i] = logL
             return thetas, phis, logLs
 
-        def raw_eval(cube):
-            th, ph, ll = _host_eval(cube.detach().cpu().numpy().astype(np.float64))
-            kw = dict(dtype=dt, device=cube.device)
-            return (
-                torch.as_tensor(th, **kw),
-                torch.as_tensor(ph, **kw),
-                torch.as_tensor(ll, **kw),
-            )
+        np_dt = np.float32 if dt == torch.float32 else np.float64
+        lz = np_dt(logzero)
 
-    def calc_point_batch(cube: torch.Tensor):
-        """(B, D) cube -> (theta (B,D), phi (B,n_phi), logL (B,)).
+        def host_point_batch(cube_np: np.ndarray):
+            """(n, D) cubes in host memory -> (theta (n, D), phi (n, n_phi),
+            logL (n,)) numpy arrays of the calc's dtype, with
+            :func:`calc_point_batch`'s semantics: the likelihood is called
+            on each cube clamped to the walls (one call a row), and a cube
+            outside them gets logL = logzero and theta = phi = 0; a NaN logL
+            counts as logzero."""
+            cube_np = np.asarray(cube_np)
+            inside = ((cube_np >= 0.0) & (cube_np <= 1.0)).all(axis=1)
+            th, ph, ll = _host_eval(np.clip(cube_np, 0.0, 1.0).astype(np.float64))
+            calc_point_batch.user_calls += len(cube_np)
+            ll = ll.astype(np_dt)
+            ll[np.isnan(ll) | ~inside] = lz
+            th, ph = th.astype(np_dt), ph.astype(np_dt)
+            th[~inside] = 0.0
+            ph[~inside] = 0.0
+            return th, ph, ll
 
-        Out-of-cube points: theta = 0, logL = logzero, likelihood untouched
-        (calculate.f90:36-42). NaN likelihoods are treated as unphysical.
-        """
-        inside = ((cube >= 0.0) & (cube <= 1.0)).all(dim=1)
-        theta, phi, logL = raw_eval(cube.clamp(0.0, 1.0))
-        logL = torch.where(torch.isnan(logL), logzero, logL)
-        logL = torch.where(inside, logL, logzero)
-        theta = torch.where(inside[:, None], theta, 0.0)
-        phi = torch.where(inside[:, None], phi, 0.0)
-        return theta, phi, logL
+    if use_callback:
+
+        def calc_point_batch(cube: torch.Tensor):
+            """(B, D) cube -> (theta (B,D), phi (B,n_phi), logL (B,)) on the
+            cube's device, from :func:`host_point_batch` on the host."""
+            return tuple(torch.from_numpy(a).to(cube.device)
+                         for a in host_point_batch(cube.detach().cpu().numpy()))
+
+        calc_point_batch.host_point_batch = host_point_batch
+        calc_point_batch.user_calls = 0
+    else:
+
+        def calc_point_batch(cube: torch.Tensor):
+            """(B, D) cube -> (theta (B,D), phi (B,n_phi), logL (B,)).
+
+            Out-of-cube points: theta = 0, logL = logzero, likelihood untouched
+            (calculate.f90:36-42). NaN likelihoods are treated as unphysical.
+            """
+            inside = ((cube >= 0.0) & (cube <= 1.0)).all(dim=1)
+            theta, phi, logL = raw_eval(cube.clamp(0.0, 1.0))
+            logL = torch.where(torch.isnan(logL), logzero, logL)
+            logL = torch.where(inside, logL, logzero)
+            theta = torch.where(inside[:, None], theta, 0.0)
+            phi = torch.where(inside[:, None], phi, 0.0)
+            return theta, phi, logL
 
     calc_point_batch.form = form
     calc_point_batch.uses_callback = use_callback

@@ -42,6 +42,18 @@ intermediate kept in a persistent buffer and refreshed in place after slow
 repeats.  Its plain version is :func:`slice_records_graded_plain`; both are
 bitwise the plain engine on the monolithic form of the model.
 
+:func:`slice_epoch_host` is the ``"scan"`` engine's epoch for a
+host-callback likelihood (Python, numpy, or the C ABI's function
+pointers), the host route: the same kernel driven by :class:`HostEpoch`
+round by round with no graph (a host call cannot be captured), the
+probes and the lanes' pending flags copied to pinned host memory after
+each launch and the user's function called on the pending probes only
+(:class:`ProbeKeeper`), which also keeps the accepted probes (cube, theta
+and phi) as the epoch's babies, as the JAX package's scan engine does.
+Its plain version is :func:`slice_records_host_plain`; both make the
+plain engine's decisions on the same calc (t, logL and nlike bit for
+bit).
+
 :func:`slice_epoch_fused` is B1's route for a model without a device
 functor whose likelihood ``ops/fused_like.py`` can lower: the same kernel
 template (``csrc/slice_epoch.cuh``) instantiated by
@@ -50,9 +62,10 @@ model graph and G; its plain version runs ``slice_kernel.slice_records_plain``
 on ``Lowered.plain_logL``, and :func:`validate_fused` holds the kernel
 bitwise against that plain version before a run uses it.
 
-At ``precision='highest'`` the fused route and the traced route run in
-double (``slice_epoch_fused_f64`` and ``slice_step_f64`` in
-:data:`LAUNCHES`), their plain versions in float64; the functor kernel and
+At ``precision='highest'`` the fused route, the traced route and the host
+route run in double (``slice_epoch_fused_f64``, ``slice_step_f64`` and
+``slice_step_host_f64`` in :data:`LAUNCHES`), their plain versions in
+float64; the functor kernel and
 the kernels that share :func:`launch_slice_kernel` (B3, B4, B5) are float32
 and raise for a float64 calc.
 
@@ -60,7 +73,8 @@ Outside the kernel, as in the JAX package (``pallas_slice_v4.py:524-559``):
 the baby positions are rebuilt as ``seed + cumsum(t n̂)``, theta and phi
 come from one batched evaluation of the calc (on the graded route, the
 fast part on the cached intermediate for a fast-grade repeat's babies:
-:func:`graded_babies`), and everything is packed into the epoch record
+:func:`graded_babies`; the host route passes its kept probes instead),
+and everything is packed into the epoch record
 (:func:`assemble_epoch`); ``slice_kernel.build_epoch_fn`` puts the pieces
 together.
 """
@@ -69,6 +83,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import time
 
 import numpy as np
 import torch
@@ -92,7 +107,7 @@ SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
 #: the double instantiations of the fused and traced routes under ``_f64``
 LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
             "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
-            "slice_step_graded_f64": 0}
+            "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0}
 #: the traced route's CUDA-graph replays and the rounds they ran, since the
 #: last reset
 TRACED = {"replays": 0, "rounds": 0}
@@ -103,6 +118,14 @@ TRACED = {"replays": 0, "rounds": 0}
 #: fast-grade repeats), since the last reset
 GRADED = {"replays_full": 0, "replays_fast": 0, "rounds_full": 0, "rounds_fast": 0,
           "openings": 0, "aux_rows": 0, "assembly_rows": 0, "assembly_fast_rows": 0}
+#: the host route's rounds (a launch that consumed the user's logL), the
+#: user's likelihood calls on its probes (one per probe a lane consumes;
+#: its epoch records make none), and the host seconds of a round's parts:
+#: the launch enqueued, the copy of the probes and the lanes' rows to
+#: pinned memory waited for (the kernel's run included), the user's calls,
+#: and the logL written and copied back
+HOST = {"rounds": 0, "probe_calls": 0,
+        "launch_s": 0.0, "copy_out_s": 0.0, "user_s": 0.0, "copy_in_s": 0.0}
 #: rounds (one calc evaluation and one slice_step launch each) in one graph
 ROUNDS = 32
 #: ... of the graded route, where a replay ends its repeat: a repeat of the
@@ -444,17 +467,21 @@ def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) ->
 
 
 def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, logL, nlike_rep,
-                   cube=None, aux=None):
+                   cube=None, aux=None, theta_phi=None):
     """Packed epoch record from the per-(lane, repeat) kernel outputs.  The
-    baby positions are ``cube (B, R, D)`` where the engine wrote them (v2),
-    else rebuilt as ``seed + cumsum(t n̂)``.  Their theta and phi come from
-    one batched evaluation of the calc, or, given the graded route's
-    ``aux`` (its slow intermediate by repeat), from :func:`graded_babies`."""
+    baby positions are ``cube (B, R, D)`` where the engine wrote them (v2,
+    the host route's kept probes), else rebuilt as ``seed + cumsum(t n̂)``.
+    Their theta and phi are ``theta_phi`` where the engine kept them (the
+    host route), else come from one batched evaluation of the calc, or,
+    given the graded route's ``aux`` (its slow intermediate by repeat),
+    from :func:`graded_babies`."""
     B, R, D = nhats.shape
     n_grades = len(cfg.grade_dims)
     if cube is None:
         cube = seed[:, None, :] + torch.cumsum(t_acc[:, :, None] * nhats, dim=1)
-    if aux is None:
+    if theta_phi is not None:
+        theta, phi = theta_phi
+    elif aux is None:
         theta, phi, _ = calc(cube.reshape(B * R, D))
     else:
         theta, phi = graded_babies(calc, cube, aux)
@@ -654,6 +681,7 @@ _STEP_ARGTYPES = (
 #: slice_step_launch_f64's: logzero a double
 _STEP_ARGTYPES_F64 = _STEP_ARGTYPES[:-2] + [ctypes.c_double, ctypes.c_void_p]
 _STATE_INTS, _STATE_FLOATS = 11, 3  # S_INTS and F_FLOATS of slice_step.cu
+_S_REP, _S_PEND = 8, 10  # the rows S_REP and S_PEND of its integer state
 
 
 
@@ -841,7 +869,10 @@ def _runner(calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device)
     return runners[key]
 
 
-def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: int) -> None:
+def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: int,
+                         host: bool = False) -> None:
+    """Check a traced-route wrapper's inputs; on the card, a host-callback
+    calc raises unless ``host`` (the host route), which needs one."""
     B, R, D = nhats.shape
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError(f"{name}: inconsistent shapes")
@@ -849,12 +880,17 @@ def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: i
         raise ValueError(f"rounds must be at least 1, not {rounds}")
     if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x0.device}")
+    callback = bool(getattr(calc, "uses_callback", False))
+    if host and not callback:
+        raise ValueError(f"{name}: the host route runs a host-callback likelihood; a torch "
+                         "likelihood takes the traced route")
     if x0.device.type == "cpu":
         return
-    if getattr(calc, "uses_callback", False):
+    if callback and not host:
         raise ValueError(
-            "a host-callback likelihood has no route on the card (the CUDA engine needs "
-            "a torch likelihood); pass engine='torch' to run it on the plain engine"
+            "a host-callback likelihood cannot run inside a CUDA graph: on the card it runs "
+            "on engine='scan' (the host route, slice_step_host), or on engine='torch' (the "
+            "plain engine)"
         )
     for arg, a in (("bound", bound), ("valid", valid), ("nhats", nhats), ("ws", ws)):
         if a.device != x0.device:
@@ -909,3 +945,197 @@ def slice_epoch_graded(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
     out = _runner(calc, cfg, B, R, D, rounds, x0.device).graded(
         calc, key_words, x0, bound, valid, nhats, ws, grades)
     return out if with_aux else out[:3]
+
+
+# ---------------------------------------------------------------------------
+# B1's route for a host-callback likelihood (csrc/slice_step.cu, no graph)
+# ---------------------------------------------------------------------------
+
+
+class ProbeKeeper:
+    """The host side of the host route, shared by :class:`HostEpoch` and its
+    plain version :func:`slice_records_host_plain`.
+
+    After each launch it is shown the probes, the lanes whose probe is
+    pending (the kernel's ``S_PEND`` row) and each lane's repeat counter
+    (``S_REP``).  :meth:`evaluate` calls the user's likelihood
+    (``calc.host_point_batch``) on the pending lanes' probes only, one call
+    a probe, and gives every other lane logzero, which the kernel does not
+    consume.  :meth:`note` keeps, for each lane whose repeat counter moved
+    since the last launch, the probe that launch accepted (its cube, theta
+    and phi) as the baby of the repeat it ended: the kernel moves the lane
+    to that probe, and the JAX package's scan engine emits its accepted
+    probes as the babies (``polychordlite_tpu/ops/slice_kernel.py:337-392``).
+    :meth:`babies` gives them to the epoch record."""
+
+    def __init__(self, calc, B: int, R: int, D: int):
+        np_dt = np.float32 if calc_dtype(calc) == torch.float32 else np.float64
+        self.calc, self.logzero = calc, np_dt(calc.logzero)
+        self.cube, self.theta = np.zeros((B, R, D), np_dt), np.zeros((B, R, D), np_dt)
+        self.phi = np.zeros((B, R, calc.n_phi), np_dt)
+        self.kept = np.zeros((B, R), bool)
+        # the lanes' last evaluated probes
+        self.p_cube, self.p_theta = np.zeros((B, D), np_dt), np.zeros((B, D), np_dt)
+        self.p_phi = np.zeros((B, calc.n_phi), np_dt)
+        self.rep = None
+
+    def note(self, rep: np.ndarray) -> None:
+        """Keep the probes that the last launch accepted: a lane accepts at
+        most one a launch, and its repeat counter moves exactly then."""
+        if self.rep is not None:
+            lanes = np.nonzero(rep != self.rep)[0]
+            r = self.rep[lanes]
+            self.cube[lanes, r] = self.p_cube[lanes]
+            self.theta[lanes, r] = self.p_theta[lanes]
+            self.phi[lanes, r] = self.p_phi[lanes]
+            self.kept[lanes, r] = True
+        self.rep = rep.copy()
+
+    def evaluate(self, probe: np.ndarray, pending: np.ndarray) -> np.ndarray:
+        """The (B,) logL of a launch's probes: the user's likelihood on the
+        pending lanes' probes, logzero on the others."""
+        lanes = np.nonzero(pending)[0]
+        cube = probe[lanes]
+        theta, phi, ll = self.calc.host_point_batch(cube)
+        logL = np.full(len(pending), self.logzero)
+        logL[lanes] = ll
+        self.p_cube[lanes], self.p_theta[lanes], self.p_phi[lanes] = cube, theta, phi
+        HOST["probe_calls"] += len(lanes)
+        HOST["rounds"] += 1
+        return logL
+
+    def babies(self, x0: torch.Tensor):
+        """cube, theta and phi, ``(B, R, D)``, ``(B, R, D)`` and ``(B, R,
+        n_phi)`` on ``x0``'s device, of the epoch's babies: a repeat's
+        accepted probe, as the lane's position moved to it.  A repeat that
+        accepted none (its lane met the epoch's budget: its record is t = 0
+        and logL = logzero) holds the lane's last accepted probe, or before
+        the first its seed ``x0`` with theta = phi = 0, as an invalid lane's
+        rows are; the sampler drops a logzero baby unread."""
+        B, R, _ = self.cube.shape
+        last = np.maximum.accumulate(np.where(self.kept, np.arange(R), -1), axis=1)
+        lanes, at = np.arange(B)[:, None], np.maximum(last, 0)
+        some = (last >= 0)[:, :, None]
+        seed = x0.detach().cpu().numpy()[:, None, :]
+        cube = np.where(some, self.cube[lanes, at], seed).astype(self.cube.dtype)
+        theta = np.where(some, self.theta[lanes, at], 0).astype(self.theta.dtype)
+        phi = np.where(some, self.phi[lanes, at], 0).astype(self.phi.dtype)
+        return tuple(torch.from_numpy(a).to(x0.device) for a in (cube, theta, phi))
+
+
+def _host_rounds(keeper: ProbeKeeper, launch, read) -> None:
+    """The host route's loop: the first launch, then rounds of the user's
+    likelihood on the pending probes and one launch, until a launch leaves
+    no lane pending.  ``launch(logL)`` runs one launch (``None``: the
+    epoch's first); ``read()`` returns the probes, the pending flags and
+    the repeat counters after it, as numpy arrays."""
+    launch(None)
+    while True:
+        probe, pending, rep = read()
+        keeper.note(rep)
+        if not pending.any():
+            return
+        t0 = time.perf_counter()
+        logL = keeper.evaluate(probe, pending)
+        HOST["user_s"] += time.perf_counter() - t0
+        launch(logL)
+
+
+def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+    """The host route in torch (the plain version of :class:`HostEpoch`):
+    :func:`slice_step_plain` round by round, the user's likelihood called
+    through :class:`ProbeKeeper` on the pending lanes' probes only.  Returns
+    (t, logL, nlike), each (B, R), bitwise ``slice_kernel.slice_records_plain``
+    on the same callback calc (the kernel consumes a logL only where a probe
+    is pending), and the babies (cube, theta, phi) of
+    :meth:`ProbeKeeper.babies`."""
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    keeper = ProbeKeeper(calc, *nhats.shape)
+
+    def launch(logL):
+        slice_step_plain(st, None if logL is None else torch.from_numpy(logL).to(st.x.device))
+
+    def read():
+        return st.probe.cpu().numpy(), st.pending.cpu().numpy(), st.rep.cpu().numpy()
+
+    _host_rounds(keeper, launch, read)
+    return st.t_out, st.l_out, st.n_out, keeper.babies(x0)
+
+
+class HostEpoch(TracedEpoch):
+    """``csrc/slice_step.cu`` driven round by round for a host-callback
+    calc, with no CUDA graph (a host call cannot be captured): each round
+    launches once, copies the probes ``(B, D)`` and the lanes' rows
+    ``S_REP``, ``S_HLANE``, ``S_PEND`` into pinned host buffers on the
+    kernel's stream and waits for them on an event (one synchronisation a
+    round; whether a lane is left running is read from the same copy),
+    calls the user's likelihood on the pending lanes' probes
+    (:class:`ProbeKeeper`), writes their logL (logzero elsewhere) into a
+    pinned buffer and copies it back on the stream before the next launch.
+    The buffers are :class:`TracedEpoch`'s; the double entry
+    ``slice_step_launch_f64`` at precision='highest'.  Launches count under
+    ``slice_step_host`` (``_f64``), the rounds and the host time of their
+    parts in :data:`HOST`."""
+
+    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, device):
+        super().__init__(calc, cfg, B, R, D, 1, device)
+        dtype = calc_dtype(calc)
+        self.probe_h = torch.empty((B, D), dtype=dtype, pin_memory=True)
+        self.rows_h = torch.empty((3, B), dtype=torch.int32, pin_memory=True)
+        self.logL_h = torch.empty(B, dtype=dtype, pin_memory=True)
+        self.done = torch.cuda.Event()
+        self.counter = "slice_step_host" + ("_f64" if dtype == torch.float64 else "")
+
+    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
+        B, R, D = self.shape
+        keeper = ProbeKeeper(calc, B, R, D)
+        stream = torch.cuda.current_stream(self.device)
+
+        def launch(logL):
+            t0 = time.perf_counter()
+            if logL is None:
+                self._start(key_words, x0, bound, valid, nhats, ws, R, self.counter)
+            else:
+                self.logL_h.numpy()[:] = logL
+                self.logL.copy_(self.logL_h, non_blocking=True)
+                t1 = time.perf_counter()
+                HOST["copy_in_s"] += t1 - t0
+                t0 = t1
+                self._launch(False)
+                LAUNCHES[self.counter] += 1
+            HOST["launch_s"] += time.perf_counter() - t0
+
+        def read():
+            t0 = time.perf_counter()
+            self.probe_h.copy_(self.probe, non_blocking=True)
+            self.rows_h.copy_(self.ist[_S_REP:_S_PEND + 1], non_blocking=True)
+            self.done.record(stream)
+            self.done.synchronize()
+            HOST["copy_out_s"] += time.perf_counter() - t0
+            rows = self.rows_h.numpy()
+            return self.probe_h.numpy(), rows[_S_PEND - _S_REP] != 0, rows[0]
+
+        _host_rounds(keeper, launch, read)
+        return (*self._outputs(), keeper.babies(x0))
+
+
+def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+    """The ``"scan"`` engine's epoch for a host-callback likelihood (the
+    host route, ``"slice_step_host"``): (t, logL) of the calc's dtype and
+    nlike int32, each (B, R), with the inputs of :func:`slice_epoch`, and
+    the babies ``(cube, theta, phi)``, the accepted probes, which
+    :func:`assemble_epoch` takes as they are.  CPU tensors:
+    the plain version, :func:`slice_records_host_plain`; CUDA tensors:
+    ``csrc/slice_step.cu`` through a :class:`HostEpoch` kept on the calc.
+    A calc without a host evaluator (a torch model) raises: it takes the
+    traced route."""
+    _check_traced_inputs("slice_epoch_host", calc, x0, bound, valid, nhats, ws, 1,
+                         host=True)
+    if x0.device.type == "cpu":
+        return slice_records_host_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws)
+    B, R, D = nhats.shape
+    runners = calc.__dict__.setdefault("host_epochs", {})
+    key = (tuple(cfg), cfg.step_cap, B, R, D, str(x0.device))
+    if key not in runners:
+        runners[key] = HostEpoch(calc, cfg, B, R, D, x0.device)
+    return runners[key](calc, key_words, x0, bound, valid, nhats, ws)

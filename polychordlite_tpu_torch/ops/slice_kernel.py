@@ -40,7 +40,19 @@ slice repeats on each of B chains and returns the packed
   ``"slice_step_graded"``); on the CPU its plain version.  The same
   decisions as ``"torch"`` on the monolithic form of the model: a graded
   run's only engine (``core/nested_sampling.py::resolve_engine``), and
-  open to any torch model.
+  open to any torch model.  For a host-callback model (a Python, numpy or
+  C likelihood; ``calc.uses_callback``) it is the host route on the card:
+  the same kernel driven round by round with no graph, the user's function
+  called on the host between two launches on the pending probes only
+  (``ops/pallas_slice_v4.py::slice_epoch_host``, route
+  ``"slice_step_host"``); on the CPU its plain version.  The same decisions
+  as ``"torch"`` on the same model; its babies are the accepted probes
+  with the theta and phi they were evaluated to, as the JAX package's scan
+  engine keeps them, so a cube differs from the rebuilt one in the last
+  bits and a run is another chain, held statistically.  It is
+  ``engine="auto"``'s choice for such a model on every device, as the JAX
+  package sends it to its scan engine
+  (``polychordlite_tpu/core/nested_sampling.py:104-106``).
 
 At ``precision='highest'`` (``calc.dtype`` float64) ``"cuda"`` takes the
 fused route or the traced route, each in double, never the functor kernel:
@@ -52,7 +64,7 @@ from one to another (the JAX package's silent chain, ``slice_kernel.py:162-173``
 ROADMAP C5).  All produce per (lane, repeat) the accepted chord position t,
 its logL and the repeat's likelihood-call count; positions are rebuilt
 outside as ``seed + cumsum(t n̂)`` (``ops/pallas_slice_v4.py``) except by
-``"cuda2"``.  The per-lane state machine for one repeat (Neal 2003;
+``"cuda2"`` and the host route.  The per-lane state machine for one repeat (Neal 2003;
 ``chordal_sampling.f90:163-273``; ``pallas_slice.LaneMachine``):
 
     INIT_R  draw u, set the interval [-u w, (1-u) w], evaluate its right end
@@ -229,8 +241,8 @@ def kernel_wrapper(engine: str):
 def epoch_route(engine: str, calc) -> str:
     """The kernel that ``engine`` runs for ``calc`` (the run metrics'
     ``route``): ``"plain"`` for the torch engine, ``"slice_step_graded"``
-    for ``"scan"``, :func:`cuda_route`'s for ``"cuda"``, else the forced
-    engine's kernel."""
+    for ``"scan"`` (``"slice_step_host"`` for a host-callback calc),
+    :func:`cuda_route`'s for ``"cuda"``, else the forced engine's kernel."""
     return _route(engine, calc)[0]
 
 
@@ -243,6 +255,9 @@ def route_reason(engine: str, calc) -> str:
 def _route(engine: str, calc) -> Tuple[str, str]:
     if engine == "torch":
         return "plain", "engine='torch'"
+    if engine == "scan" and getattr(calc, "uses_callback", False):
+        return "slice_step_host", ("the likelihood is a host function (Python, numpy or C), "
+                                   "called on the host between the kernel's launches")
     if engine == "scan":
         why = ("GradedLikelihood: the slow part is cached across fast-grade repeats"
                if getattr(calc, "graded", False) else
@@ -268,6 +283,13 @@ def build_epoch_fn(calc, cfg: EpochConfig):
     if cfg.engine == "torch":
         def records(*args, speeds):
             return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
+    elif cfg.engine == "scan" and calc.uses_callback:
+        from .pallas_slice_v4 import slice_epoch_host
+
+        def records(*args, speeds):
+            # the babies are the accepted probes the host kept
+            t, logL, nlike, (cube, theta, phi) = slice_epoch_host(calc, cfg, *args)
+            return t, logL, nlike, cube, None, (theta, phi)
     elif cfg.engine == "scan":
         from .pallas_slice_v4 import slice_epoch_graded
 

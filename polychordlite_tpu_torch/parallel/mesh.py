@@ -13,8 +13,8 @@ Each epoch crosses the host-device boundary as one packed upload and one
 fetch of the full epoch record (cube, theta, phi, logL per baby), in the
 calc's dtype (float64 at ``precision='highest'``).  Every engine of
 ``ops/slice_kernel.py`` runs behind the same runner, ``"scan"`` (a graded
-model's) included; a graded run never asks for a chain
-(``core/nested_sampling.py``).
+model's, and a host callback's host route) included; a graded run never
+asks for a chain (``core/nested_sampling.py``).
 """
 
 from __future__ import annotations
@@ -70,8 +70,9 @@ def make_epoch_runner(
     route = epoch_route(cfg.engine, calc) if cfg.engine != "torch" else "plain"
     # the functor (or the lowered one), in its kernel, at the (bucket, G) that
     # the run's batch takes; the traced and graded routes evaluate the calc
-    # itself, in torch
-    if route not in ("plain", "slice_epoch_fused", "slice_step", "slice_step_graded"):
+    # itself, in torch, and the host route on the host
+    if route not in ("plain", "slice_epoch_fused", "slice_step", "slice_step_graded",
+                     "slice_step_host"):
         from ..ops.pallas_slice_v4 import validate_functor
         from ..ops.slice_kernel import kernel_wrapper
 

@@ -24,8 +24,11 @@ Differences from the reference (documented deviations):
   statistics); ``engine="torch"`` is the plain engine anywhere.  On a card
   ``"cuda"`` runs a torch model without a device form (no affine prior or
   no device functor) on the v4 kernel's traced route, bitwise the plain
-  engine; the forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"`` raise for it,
-  and every kernel engine raises for a host-callback model.
+  engine; the forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"`` raise for it.
+  A host-callback model runs on ``"scan"`` on any device (on the card the
+  host route: the v4 kernel's traced route driven round by round, the
+  model called on the host between two launches), and every kernel engine
+  raises for it, naming ``"scan"``.
 """
 
 from __future__ import annotations

@@ -473,7 +473,7 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
         "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
         "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
-        "slice_step_graded_f64": 0}
+        "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -1434,3 +1434,220 @@ def test_graded_run_on_the_card(dev):
     nl = last["nlike_per_grade"]
     assert len(nl) == 2 and nl[1] > nl[0] > 0
     assert abs(out.logZ) < 3 * out.logZerr
+
+
+# ------------------------------------------------ the host route (callbacks)
+HOST_SIGMA_HALF_INV = 50.0  # 1 / (2 sigma^2) at sigma 0.1, exact in binary
+
+
+def _host_norm(D):
+    return -D * math.log(0.1 * math.sqrt(2 * math.pi))
+
+
+def _numpy_gaussian(D):
+    """A normalised Gaussian at 0.5 written with numpy, one point a call:
+    a host callback.  Its sum runs over the coordinates in order in
+    float64, as :func:`_torch_gaussian`'s does."""
+    norm = _host_norm(D)
+
+    def like(theta):
+        theta = np.asarray(theta, dtype=np.float64)
+        r2 = 0.0
+        for d in range(theta.shape[0]):
+            x = theta[d] - 0.5
+            r2 = r2 + x * x
+        return norm - r2 * HOST_SIGMA_HALF_INV
+
+    return like
+
+
+def _torch_gaussian(D):
+    """The same likelihood batched in torch, in float64 and in the same
+    order: the same logL bit for bit, rounded to the calc's dtype."""
+    norm = _host_norm(D)
+
+    def like(theta):
+        t = theta.double()
+        r2 = torch.zeros(t.shape[0], dtype=torch.float64, device=t.device)
+        for d in range(t.shape[1]):
+            x = t[:, d] - 0.5
+            r2 = r2 + x * x
+        return norm - r2 * HOST_SIGMA_HALF_INV
+
+    return like
+
+
+def _host_inputs(dev, calc, D, B, R, dtype, B_valid):
+    g = torch.Generator(dev).manual_seed(3)
+    x0 = (0.5 + 0.06 * torch.randn(B, D, generator=g, device=dev, dtype=dtype)).clamp(0, 1)
+    x0[:2, 0] = torch.tensor([0.0, 0.999], dtype=dtype, device=dev)
+    bound = calc(x0)[2] - 3.0
+    valid = torch.arange(B, device=dev) < B_valid
+    chol = (0.06 * torch.eye(D, device=dev, dtype=dtype)).expand(B, D, D)
+    nh, w, sp = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=g)
+    return x0, bound, valid, nh, w, sp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_host_route_equals_plain_engine_and_plain_version(dev, dtype):
+    """The host route (csrc/slice_step.cu round by round, the numpy
+    likelihood called on the pending probes) against the plain engine and
+    its plain version, bit for bit, over two epochs (the second seeded from
+    the first's babies); launches counted under slice_step_host (_f64), one
+    user call a consumed probe; the babies (the accepted probes) bitwise
+    the plain version's, their theta and phi the calc's re-evaluation of
+    their cubes, and the epoch record built from them with no user call."""
+    from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+
+    D, B, R = 20, 512, 8
+    with real_dtype_scope(dtype):
+        calc = make_batched_calculator(identity_prior, _numpy_gaussian(D), D, 0, device=dev)
+    assert calc.uses_callback and calc.dtype == dtype
+    x0, bound, valid, nh, w, sp = _host_inputs(dev, calc, D, B, R, dtype, 504)
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+    counter = "slice_step_host" + ("_f64" if dtype == torch.float64 else "")
+    for epoch in range(2):
+        kw = (11 + epoch, 12)
+        *want, steps = slice_records_plain(lambda p: calc(p)[2], cfg, kw, x0, bound, valid,
+                                           nh, w, count_steps=True)
+        *plain, plain_babies = pallas_slice_v4.slice_records_host_plain(calc, cfg, kw, x0,
+                                                                        bound, valid, nh, w)
+        before = (pallas_slice_v4.LAUNCHES[counter], dict(pallas_slice_v4.HOST))
+        *got, babies = pallas_slice_v4.slice_epoch_host(calc, cfg, kw, x0, bound, valid, nh, w)
+        host = {k: v - before[1][k] for k, v in pallas_slice_v4.HOST.items()}
+        assert pallas_slice_v4.LAUNCHES[counter] - before[0] == host["rounds"] + 1
+        assert host["probe_calls"] == int(steps.sum())
+        for a, b, c in zip(got, want, plain):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        for a, b in zip(babies, plain_babies):
+            assert a.device == x0.device and torch.equal(a, b)
+        cube, theta, phi = babies
+        rows = valid[:, None] & (torch.cummax((got[0] != 0).int(), dim=1).values > 0)
+        th_all, ph_all, _ = calc(cube.reshape(B * R, D))
+        assert torch.equal(theta[rows], th_all.reshape(B, R, D)[rows])
+        assert torch.equal(phi[rows], ph_all.reshape(B, R, 1)[rows])
+        calls0 = calc.user_calls
+        rec = pallas_slice_v4.assemble_epoch(calc, cfg, x0, valid, nh, sp, *got, cube=cube,
+                                             theta_phi=(theta, phi))
+        assert calc.user_calls == calls0
+        last = rec[:, (R - 1) * (2 * D + 2):(R - 1) * (2 * D + 2) + D]
+        x0 = torch.where(valid[:, None], last, x0)
+        bound = calc(x0)[2] - 2.0
+
+
+def test_host_route_equals_traced_route_on_the_torch_form(dev):
+    """The numpy likelihood on the host route and its torch form on the
+    traced route make the same decisions: t, logL and nlike bit for bit."""
+    D, B, R = 20, 512, 8
+    calc = make_batched_calculator(identity_prior, _numpy_gaussian(D), D, 0, device=dev)
+    form = make_batched_calculator(identity_prior, _torch_gaussian(D), D, 0, device=dev)
+    assert calc.uses_callback and not form.uses_callback
+    x0, bound, valid, nh, w, _ = _host_inputs(dev, form, D, B, R, torch.float32, 504)
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+    *got, _ = pallas_slice_v4.slice_epoch_host(calc, cfg, (5, 6), x0, bound, valid, nh, w)
+    want = pallas_slice_v4.slice_epoch_traced(form, cfg, (5, 6), x0, bound, valid, nh, w)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_callback_run_on_the_card(dev):
+    """run() on a numpy likelihood (the 4-D quickstart) with the default
+    engine on the card: engine "scan", the host route and B2 the only
+    kernels, host_calls in the metrics, logZ within 3 sigma of -4 log 2;
+    a forced chain (chain_epochs 4) drives the host route four times a
+    dispatch and its replay check holds (a divergence warns: an error
+    here)."""
+    def quickstart(theta):
+        theta = np.asarray(theta, dtype=np.float64)
+        r2 = float(np.sum(theta ** 2))
+        return -math.log(2 * math.pi * 0.01) * 2.0 - r2 / 2 / 0.01, [r2]
+
+    for chain in (-1, 4):
+        with tempfile.TemporaryDirectory() as base, warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = pt.run(quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100,
+                         read_resume=False, base_dir=base, seed=9, feedback=-1,
+                         chain_epochs=chain, device="cuda")
+            with open(os.path.join(base, "test.metrics.jsonl")) as f:
+                last = json.loads(f.read().splitlines()[-1])
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        assert (last["engine"], last["route"]) == ("scan", "slice_step_host")
+        assert set(ran) == {"gram_schmidt", "slice_step_host"}, ran
+        assert last["chained_epochs"] is (chain > 1)
+        assert last["host_calls"] >= last["host_route"]["probe_calls"] > 0
+        assert abs(out.logZ + 4 * math.log(2.0)) < 3 * out.logZerr
+
+
+@pytest.mark.parametrize("name,D", [("fitting", 20), ("object_detection", 12)])
+def test_data_driven_traced_route_equals_plain(dev, name, D):
+    """The data-driven models with the inis' block priors on the traced
+    route (the lowering refuses both) against the plain engine, bit for
+    bit, at 504 valid lanes of 512."""
+    from polychordlite_tpu_torch.models import get_likelihood
+
+    _, blocks, *_ = read_ini(os.path.join(REPO, "ini", f"{name}.ini"))
+    calc = make_batched_calculator(BlockPrior(blocks, D), get_likelihood(
+        name, D, data_dir=os.path.join(REPO, "data")), D, 0, device=dev)
+    assert calc.form == "batched" and isinstance(fused_like.lowering(calc), fused_like.Refused)
+    g = torch.Generator(dev).manual_seed(4)
+    live = torch.rand((500, D), generator=g, device=dev)
+    logL = calc(live)[2]
+    pick = torch.randint(0, 500, (512,), generator=g, device=dev)
+    x0, bound = live[pick], logL[pick] - 1.0
+    valid = torch.arange(512, device=dev) < 504
+    chol = torch.linalg.cholesky(torch.cov(live.T)).expand(512, D, D)
+    nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(8,), n_dims=D, generator=g)
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(8,))
+    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (1, 2), x0, bound, valid, nh, w)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), x0, bound, valid, nh, w)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_c_abi_in_process_on_the_card(dev, tmp_path):
+    """The port's shim and a C driver loaded with ctypes.PyDLL into this
+    process, capi.DEVICE at its default (the card): a 2-D Gaussian through
+    polychord_c_interface on the host route."""
+    import ctypes
+    import shutil
+
+    from polychordlite_tpu_torch import capi
+    from polychordlite_tpu_torch.utils import cabi
+
+    if shutil.which("gcc") is None:
+        pytest.skip("no C toolchain")
+    assert capi.DEVICE is None
+    src = tmp_path / "driver.c"
+    src.write_text(r"""
+#include <math.h>
+#include <string.h>
+#include "capi.h"
+static double loglike(double *theta, int nDims, double *phi, int nDerived) {
+    double r2 = 0.0;
+    for (int i = 0; i < nDims; i++) { double d = theta[i] - 0.5; r2 += d * d; }
+    if (nDerived > 0) phi[0] = sqrt(r2);
+    return -r2 / (2 * 0.01) - nDims * log(0.1 * sqrt(2 * M_PI));
+}
+void run_gaussian(const char *base) {
+    char base_dir[256], file_root[16] = "capi";
+    strncpy(base_dir, base, 255);
+    double grade_frac[1] = {1.0};
+    int grade_dims[1] = {2};
+    int comm = 0;
+    polychord_c_interface(loglike, NULL, NULL, 50, 4, -1, -1, false, 0, 0.01, -1e30, -1, 0.0,
+                          true, true, false, false, false, false, true, false, true, false,
+                          false, 0.36787944117144233, true, 2, 1, base_dir, file_root, 1,
+                          grade_frac, grade_dims, 0, NULL, NULL, 3, &comm);
+}
+""")
+    lib = ctypes.PyDLL(str(cabi.build_in_process("test_cuda_capi_driver", [src])))
+    lib.run_gaussian.argtypes = [ctypes.c_char_p]
+    chains = tmp_path / "chains"
+    (chains / "clusters").mkdir(parents=True)
+    lib.run_gaussian(str(chains).encode())
+    with open(chains / "capi.metrics.jsonl") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    assert (last["engine"], last["route"]) == ("scan", "slice_step_host")
+    assert last["kernel_launches"]["slice_step_host"] > 0
+    out = pt.PolyChordOutput(str(chains), "capi")
+    assert abs(out.logZ) < 3 * out.logZerr + 0.2

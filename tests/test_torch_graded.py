@@ -483,8 +483,8 @@ def test_engine_rules_for_a_graded_model(monkeypatch):
     """"auto" resolves to "scan" for a graded calc on every device; a kernel
     engine forced by name raises naming "scan" (the JAX package warns and
     overrides: ROADMAP C); "torch" stays the plain engine; "scan" runs any
-    torch model and refuses a host callback on the card; the routes are
-    named."""
+    torch model, and a host callback on the card on the host route; the
+    routes are named."""
     calc, mono = graded_calc(), mono_calc()
     assert ns.resolve_engine("auto", CPU, calc) == "scan"
     assert ns.resolve_engine("scan", CPU, mono) == "scan"
@@ -498,8 +498,8 @@ def test_engine_rules_for_a_graded_model(monkeypatch):
             ns.resolve_engine(engine, cuda, calc)
     callback = make_batched_calculator(UniformPrior(-1, 1), GRADED, NDIMS, 1,
                                        force_callback=True)
-    with pytest.raises(ValueError, match="engine='torch'"):
-        ns.resolve_engine("scan", cuda, callback)
+    assert ns.resolve_engine("scan", cuda, callback) == "scan"
+    assert epoch_route("scan", callback) == "slice_step_host"
     assert epoch_route("scan", calc) == "slice_step_graded"
     assert route_reason("scan", calc).startswith("GradedLikelihood")
     assert epoch_route("scan", mono) == "slice_step_graded"

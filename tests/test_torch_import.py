@@ -31,6 +31,9 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.sim_iter_distribution",
     "polychordlite_tpu_torch.experiments.pallas_epoch_v2",
     "polychordlite_tpu_torch.experiments.pallas_slice_repeat",
+    "polychordlite_tpu_torch.models.data_driven",
+    "polychordlite_tpu_torch.capi",
+    "polychordlite_tpu_torch.utils.cabi",
 ]
 
 
@@ -65,6 +68,33 @@ def test_lowering_leaves_jax_out():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_c_sources_import_only_the_port():
+    """The port's C shim embeds an interpreter and imports modules by name:
+    each name is the port's, never the JAX package's."""
+    import re
+
+    names = []
+    for path in glob.glob(os.path.join(REPO, "polychordlite_tpu_torch", "cabi", "*")):
+        with open(path) as f:
+            names += re.findall(r'PyImport_ImportModule\("([^"]+)"\)', f.read())
+    assert names and all(n.split(".")[0] == "polychordlite_tpu_torch" for n in names), names
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py imports neither jax nor anything of the JAX package,
+    at the top or inside a function."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.append(node.module)
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "polychordlite_tpu")]
+    assert mods and not bad, bad
 
 
 PORT_TESTS = sorted(os.path.basename(p) for p in

@@ -97,8 +97,9 @@ def test_engine_and_device_rules(monkeypatch):
 
     # with a card: every kernel engine for a model with a device form; "cuda"
     # (the traced route) for a torch model without one, the forced A/B
-    # kernels refusing it; a host-callback model refused (naming
-    # engine='torch') by every kernel engine
+    # kernels refusing it; a host-callback model on "scan" (the host route),
+    # refused by every kernel engine (naming engine='scan' and
+    # engine='torch')
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     assert ns.resolve_device(None) == cuda
@@ -120,8 +121,9 @@ def test_engine_and_device_rules(monkeypatch):
     callback = make_batched_calculator(
         identity_prior, lambda th: float(-np.sum((np.asarray(th) - 0.5) ** 2)), D, 0)
     assert callback.uses_callback and callback.form == "callback"
-    for engine in ("auto",) + ns.KERNEL_ENGINES:
-        with pytest.raises(ValueError, match="engine='torch'"):
+    assert ns.resolve_engine("auto", cuda, callback) == "scan"
+    for engine in ns.KERNEL_ENGINES:
+        with pytest.raises(ValueError, match="engine='scan'.*engine='torch'"):
             ns.resolve_engine(engine, cuda, callback)
     assert ns.resolve_engine("torch", cuda, callback) == "torch"
 

@@ -200,7 +200,8 @@ def norm_like(theta):
 def test_auto_on_a_card_takes_the_cuda_engine(monkeypatch, like, n_derived, route):
     """Any torch model takes the "cuda" engine on a card: B1 with the
     likelihood lowered into it, or the traced route where the lowering
-    refuses, with the refusal as the reason."""
+    refuses, with the refusal as the reason; a host callback takes "scan"
+    (the host route) and is refused by a forced "cuda"."""
     calc = make_batched_calculator(ppr.UniformPrior(-1, 1), like, 4 if n_derived else 2,
                                    n_derived)
     assert calc.device_spec is None and not calc.uses_callback
@@ -212,8 +213,9 @@ def test_auto_on_a_card_takes_the_cuda_engine(monkeypatch, like, n_derived, rout
         assert "linalg_vector_norm" in route_reason("cuda", calc)
     callback = make_batched_calculator(
         ppr.identity_prior, lambda th: float(np.sum(np.asarray(th))), 2, 0)
-    with pytest.raises(ValueError, match="engine='torch'"):
-        ns.resolve_engine("auto", cuda, callback)
+    assert ns.resolve_engine("auto", cuda, callback) == "scan"
+    with pytest.raises(ValueError, match="engine='scan'"):
+        ns.resolve_engine("cuda", cuda, callback)
 
 
 # --------------------------------------------------- the route on the CPU
