@@ -58,14 +58,32 @@ from the probes it kept against the re-evaluated ones, the user's calls
 against nlike and the host time of a round by part, and B2 at those runs'
 bases, holds the traced route at the data-driven inis' batches
 (``data_driven_step``: fitting at B 512, object_detection at B 128, the
-inis' block priors; B2 at object_detection's (5, 12, 12, 128)), then
-drives the port's paths and checks what comes out and which kernels ran
+inis' block priors; B2 at object_detection's (5, 12, 12, 128)), holds
+the chain batch over shards (``sharded_epoch``: the runner of every engine
+and route, the plain engine, B1's functor, fused and traced routes, the
+graded route, B3, B4 and B5, over [cuda] * 2 and [cuda] * 4 at
+gaussian.ini's chains and the bench's, the graded route at run_graded's,
+bitwise its one-shard epoch at the same logical B; each kernel at a shard's
+``lane0`` bitwise its plain version; B1 at the bench at lane0 0 and 8,192),
+then drives the port's paths and checks what comes out and which kernels ran
 (each path with every launch count set to 0 just before it):
 
 * ``run_gaussian_ini``: ``run()`` on the 20-D Gaussian of
   ``ini/gaussian.ini`` (nlive 500, num_repeats 40, no clustering), engine
   ``"cuda"`` (the v4 kernel, at the G that ``choose_group`` picks, which
   must be > 1) and the Gram-Schmidt kernel;
+* ``run_two_process``: gaussian.ini's settings at batch_size 512 through
+  ``run()`` in two processes on this card, joined over gloo with the
+  environment torchrun gives them, each waited for with its own timeout:
+  both ranks' logZ, logZerr, ndead and nlike those of one process at the
+  same batch (one epoch at a time, as a sharded run dispatches), rank 0's
+  ``.stats`` and ``.txt`` byte for byte that process's, no file from rank
+  1, dead/s of both;
+* ``run_async``: gaussian.ini's settings through ``run(engine="cuda",
+  synchronous=False)``: the bias warning, B1 and B2 only, no chain, within
+  3 sigma of 0; dead/s, ``device_frac`` and the epoch timers beside the
+  synchronous run one epoch at a time and ``run_gaussian_ini``'s chained
+  run;
 * ``run_gaussian_shells_ini``: ``python3 -m polychordlite_tpu_torch`` on a
   copy of ``ini/gaussian_shells.ini`` (2-D, two shells, clustering, nlive
   500, num_repeats 10) with only ``base_dir`` and a fixed ``seed`` added;
@@ -176,6 +194,13 @@ each kernel first held against its plain version on the card:
   its time per launch from a captured CUDA graph of 20 launches back to
   back, and its study (one repeat, then 100 launches back to back).
 
+The runs through the CLI, the C++ example and the 64-D run go in
+processes of their own, started after ``run_async`` one after another (the
+64-D run beside them) and run behind the in-process runs; each phase waits
+for its own process and checks what it wrote.  Their dead/s are taken
+while the in-process runs share the card and the host; every kernel timing
+comes before they start or after the last has ended.
+
 Each phase prints one JSON line, then one line gives every phase's
 seconds; the line before the last lists the
 kernels with their times, bounds (from this run's shapes and step counts)
@@ -199,6 +224,7 @@ import time
 import traceback
 import types
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "chiprun_out")
@@ -391,6 +417,17 @@ def sass_report(so: str, keep: str):
     return out
 
 
+def qr_ms(g) -> float:
+    """The yardstick of B2 at the bases ``g`` (nb, dim, dim, B): one
+    batched ``torch.linalg.qr`` of the same bases, (nb B, dim, dim) with the
+    vectors as columns, after a warm-up; the port never calls it."""
+    import torch
+
+    nb, dim, _, B = g.shape
+    mats = g.permute(0, 3, 1, 2).reshape(-1, dim, dim).contiguous()
+    return cuda_ms(lambda: torch.linalg.qr(mats), 1)
+
+
 def cuda_once(fn):
     """(result, device ms) of one call of ``fn()``, from CUDA events."""
     import torch
@@ -522,6 +559,60 @@ def shell_evidences(out, base: str, root: str):
         x = float((post[:, 0] * post[:, 2]).sum() / post[:, 0].sum())
         sides[1 if x > 0 else -1].append(float(lz[c]))
     return lz[np.isfinite(lz) & (lz > -1e29)], sides
+
+
+def gaussian_batch_run(base: str, cfg: dict) -> dict:
+    """gaussian.ini's likelihood through run() at ``cfg``'s settings (no
+    clustering, precision_criterion 0.001) into ``base``, in this process
+    (a rank of a process group where torchrun's environment names one): the
+    administrator's result, which every rank holds (logZ, logZerr, ndead,
+    nlike), this process's device_frac (the gather across processes left
+    out) and epoch timers, and the wall seconds inside run()."""
+    import polychordlite_tpu_torch as pt
+    from polychordlite_tpu_torch.models import gaussian
+
+    run_module = sys.modules["polychordlite_tpu_torch.run"]  # the package's run() hides it
+    kept, sampler = {}, run_module.nested_sampling
+    run_module.nested_sampling = lambda *a, **k: kept.setdefault("out", sampler(*a, **k))
+    try:
+        t0 = time.perf_counter()
+        pt.run(gaussian(cfg["nDims"]), cfg["nDims"], nDerived=cfg["nDerived"],
+               nlive=cfg["nlive"], num_repeats=cfg["num_repeats"], do_clustering=False,
+               precision_criterion=0.001, read_resume=False, base_dir=base, seed=cfg["seed"],
+               feedback=-1, batch_size=cfg["batch_size"], chain_epochs=cfg["chain_epochs"])
+        wall = time.perf_counter() - t0
+    finally:
+        run_module.nested_sampling = sampler
+    out = kept["out"]
+    return {"logZ": out["logZ"], "logZerr": out["logZerr"], "ndead": out["ndead"],
+            "nlike": out["nlike"], "wall_s": wall, "device_frac": out["metrics"]["device_frac"],
+            "epoch_timers_s": out["metrics"]["epoch_timers"]}
+
+
+def per_point_gaussian(theta):
+    """gaussian.ini's likelihood as a user writes it per point in torch
+    (sigma 0.1, mu 0.5, normalised), at the point's dimension."""
+    import torch
+
+    D = theta.shape[-1]
+    return (-0.5 * torch.sum(((theta - 0.5) / 0.1) ** 2)
+            - D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)))
+
+
+def d64_run(base: str) -> dict:
+    """run_gaussian_d64's run() into ``base``, in this process: gaussian.ini's
+    settings at D = 64 (D64; no clustering, precision_criterion 0.001), the
+    likelihood per point in torch, warnings as errors (a replay divergence
+    would warn); the wall seconds inside run()."""
+    import polychordlite_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pt.run(per_point_gaussian, D64["nDims"], nlive=D64["nlive"],
+               num_repeats=D64["num_repeats"], do_clustering=False, precision_criterion=0.001,
+               read_resume=False, base_dir=base, seed=SEED, feedback=-1, device="cuda")
+    return {"wall_s": time.perf_counter() - t0}
 
 
 def lse(values) -> float:
@@ -1233,13 +1324,6 @@ def main() -> None:
         results["slice_fused"] = {**out["bench"], "max_abs_err": 0.0}
         return out
 
-    def per_point_gaussian(theta):
-        """gaussian.ini's likelihood as a user writes it per point in torch
-        (sigma 0.1, mu 0.5, normalised), at the point's dimension."""
-        D = theta.shape[-1]
-        return (-0.5 * torch.sum(((theta - 0.5) / 0.1) ** 2)
-                - D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)))
-
     # ---- 6d. the wide bucket (32 < D <= 128): B1 (functor and fused), B4
     # and B5 at every G it has, bitwise their plain versions and G = 32
     @phase("slice_epoch_d128")
@@ -1690,6 +1774,7 @@ def main() -> None:
             out[f"gram_schmidt_{name}"] = {
                 "shape": [nb, dim, dim, B], "mismatches": mism, "plain_ms": plain_ms,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),  # noqa: B023
+                "library_ms": qr_ms(g),
                 "bound": bound(2 * 4 * nb * dim * dim * B, gram_schmidt_flops(nb, dim, B))}
         results["graded_step"] = out
         return out
@@ -1744,6 +1829,7 @@ def main() -> None:
             raise AssertionError(f"B2 at {name}: {mism} entries differ from its plain version")
         return {"shape": [nb, dim, dim, B], "mismatches": mism, "plain_ms": plain_ms,
                 "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 20),
+                "library_ms": qr_ms(g),
                 "bound": bound(2 * 4 * nb * dim * dim * B, gram_schmidt_flops(nb, dim, B))}
 
     @phase("host_route")
@@ -1935,6 +2021,159 @@ def main() -> None:
         results["data_driven_step"] = out
         return out
 
+    # ---- 6h. the chain batch over shards (parallel/mesh.py): every engine
+    # and route over 2 and 4 shards on this card, bitwise its one-shard
+    # epoch at the same logical B; every kernel at a non-zero lane0 bitwise
+    # its plain version; B1 at the bench at lane0 = 0 and at a shard's lane0
+    @phase("sharded_epoch")
+    def _():
+        """The runner of each route (the plain engine; B1's functor, fused and
+        traced routes; the graded and host routes; B3, B4, B5) at
+        gaussian.ini's chains (batch 504, which 2 and 4 shards round to B
+        512; R 40, D 20) and the bench's (B 8,192, R 100) (the plain engine
+        and the host route, a numpy Gaussian, which take a second or more an
+        epoch, at gaussian.ini's chains only), the graded route at run_graded's (B 256,
+        grade_dims (6, 14), repeats (8, 32)), on gaussian.ini's mid-run
+        inputs: over [cuda] * 2 and [cuda] * 4, cube, theta, phi, logL and
+        nlike equal to the one-shard epoch's (0 mismatches), the epoch's wall
+        ms for each.  Then each kernel's wrapper at lane0 = 3 B against its
+        plain version at the same lane0 (the host route at run_callback's
+        chains), and B1 at the bench at lane0 0 and 8,192."""
+        from polychordlite_tpu_torch.ops.pallas_slice import seed_key
+        from polychordlite_tpu_torch.ops.slice_kernel import epoch_route
+        from polychordlite_tpu_torch.parallel import mesh
+
+        D = INI["nDims"]
+        zoo = dtype_calc(gaussian(D), D, torch.float32, n_derived=2)
+        graded_calc = graded_model()[2]
+        models = {
+            "plain": (zoo, "torch", None),
+            "B1": (zoo, "cuda", "slice_epoch"),
+            "fused": (dtype_calc(torch_gaussian(D), D, torch.float32, n_derived=2), "cuda",
+                      "slice_epoch_fused"),
+            "traced": (dtype_calc(vector_norm_gaussian, D, torch.float32), "cuda", "slice_step"),
+            "graded": (graded_calc, "scan", "slice_step_graded"),
+            "host": (dtype_calc(numpy_gaussian(D), D, torch.float32), "scan", "slice_step_host"),
+            "B3": (zoo, "cuda5", "slice_epoch_v5"),
+            "B4": (zoo, "cuda3", "slice_epoch_v3"),
+            "B5": (zoo, "cuda2", "slice_epoch_v2"),
+        }
+        out = {"routes": {}, "lane0": {}}
+        for name, (calc, engine, route) in models.items():
+            shapes = ((("run_graded", GRADED_RUN["B"], GRADED["grade_dims"], GRADED["grade_frac"]),)
+                      if name == "graded" else
+                      (("gaussian_ini", 504, [D], [RUN["R"]]), ("bench", BENCH["B"], [D],
+                                                                [BENCH["R"]])))
+            if name in ("plain", "host"):
+                shapes = shapes[:1]
+            for tag, batch, grade_dims, reps in shapes:
+                D = calc.n_dims
+                cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=tuple(grade_dims),
+                                  num_repeats=tuple(reps), engine=engine)
+                if engine != "torch" and epoch_route(engine, calc) != route:
+                    raise AssertionError(f"{name}: route {epoch_route(engine, calc)}")
+                B = mesh.shard_layout(batch, 4)[0]
+                gen = torch.Generator(dev).manual_seed(SEED)
+                # the host route's inputs from its model's torch twin (the same logL)
+                icalc = (dtype_calc(numpy_gaussian_torch(D), D, torch.float32)
+                         if name == "host" else calc)
+                x0, bnd, _, chol = live_set_inputs(B, D, icalc, gen, B_valid=B)
+                host = [a.double().cpu().numpy() for a in (x0, bnd, chol)]
+                rec = {"B": B, "R": sum(reps)}
+                epochs = {}
+                for n in (1, 2, 4):
+                    g = torch.Generator(dev).manual_seed(SEED)
+                    run, Bn = mesh.make_epoch_runner(calc, cfg, B, dev, g, devices=[dev] * n)
+                    if Bn != B or run.n_shards != n:
+                        raise AssertionError(f"{name}/{tag}: B {Bn}, {run.n_shards} shards")
+                    if name not in ("plain", "host"):  # warm-up: graphs, fused libraries,
+                        # first launches
+                        run(seed_key(SEED), *host)
+                        g.manual_seed(SEED)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    epochs[n] = run(seed_key(SEED), *host)
+                    rec[f"ms_{n}"] = (time.perf_counter() - t0) * 1e3
+                for n in (2, 4):
+                    mism = {k: int((a != b).sum()) for k, a, b in zip(
+                        ("cube", "theta", "phi", "logL", "nlike"), epochs[1], epochs[n])}
+                    rec[f"mismatches_{n}"] = mism
+                    if any(mism.values()):
+                        raise AssertionError(f"{name}/{tag}: {n} shards differ from one {mism}")
+                rec["nlike"] = int(epochs[1][4].sum())
+                out["routes"][f"{name}/{tag}"] = rec
+        # each kernel at a shard's lane0 against its plain version
+        L = 3 * RUN["B"]
+        kw = (0x01234567, 0x89ABCDEF)
+        calc, cfg, args = geometry("gaussian_ini", RUN)
+        f = lambda p: calc(p)[2]  # noqa: E731
+        tcalc = models["fused"][0]
+        low = fused_like.lowering(tcalc)
+        vcalc = models["traced"][0]
+        checks = {
+            "B1": (lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, lane0=L),
+                   lambda: slice_records_plain(f, cfg, kw, *args, lane0=L)),
+            "fused": (lambda: pallas_slice_v4.slice_epoch_fused(tcalc, cfg, kw, *args, lane0=L),
+                      lambda: slice_records_plain(low.plain_logL, cfg, kw, *args, lane0=L)),
+            "traced": (lambda: pallas_slice_v4.slice_epoch_traced(vcalc, cfg, kw, *args,
+                                                                  lane0=L),
+                       lambda: pallas_slice_v4.slice_records_rounds_plain(
+                           lambda p: vcalc(p)[2], cfg, kw, *args, lane0=L)),
+            "B3": (lambda: pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args, lane0=L),
+                   lambda: pallas_slice_v5.slice_records_packet_plain(f, cfg, kw, *args,
+                                                                      lane0=L)),
+            "B4": (lambda: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, lane0=L),
+                   lambda: pallas_slice_v3.slice_records_window_plain(f, cfg, kw, *args,
+                                                                      lane0=L)),
+            "B5": (lambda: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args, lane0=L),
+                   lambda: pallas_slice.slice_records_lockstep_plain(f, cfg, kw, *args,
+                                                                     lane0=L)),
+        }
+        gD = GRADED["nDims"]
+        ggen = torch.Generator(dev).manual_seed(SEED)
+        gx0, gbnd, gvalid, gchol = live_set_inputs(GRADED_RUN["B"], gD, graded_calc, ggen,
+                                                   B_valid=GRADED_RUN["B"])
+        gcfg = EpochConfig(n_dims=gD, n_phi=graded_calc.n_phi,
+                           grade_dims=tuple(GRADED["grade_dims"]),
+                           num_repeats=tuple(GRADED["grade_frac"]))
+        gnh, gw, gsp = make_directions(gchol, grade_dims=gcfg.grade_dims,
+                                       num_repeats=gcfg.num_repeats, n_dims=gD, generator=ggen)
+        gargs = (gx0, gbnd, gvalid, gnh, gw)
+        checks["graded"] = (
+            lambda: pallas_slice_v4.slice_epoch_graded(graded_calc, gcfg, kw, *gargs, gsp,
+                                                       lane0=L),
+            lambda: pallas_slice_v4.slice_records_graded_plain(
+                graded_calc, gcfg, kw, *gargs, pallas_slice_v4.repeat_grades(gsp), lane0=L))
+        qB, qR, qD = QUICK_RUN["B"], QUICK_RUN["R"], QUICK_RUN["D"]
+        hcalc = dtype_calc(numpy_gaussian(qD), qD, torch.float32)
+        hgen = torch.Generator(dev).manual_seed(SEED)
+        hx0, hbnd, hvalid, hchol = live_set_inputs(qB, qD, dtype_calc(numpy_gaussian_torch(qD),
+                                                                      qD, torch.float32),
+                                                   hgen, B_valid=QUICK_RUN["B_valid"])
+        hcfg = EpochConfig(n_dims=qD, n_phi=hcalc.n_phi, grade_dims=(qD,), num_repeats=(qR,))
+        hnh, hw, _ = make_directions(hchol, grade_dims=(qD,), num_repeats=(qR,), n_dims=qD,
+                                     generator=hgen)
+        hargs = (hx0, hbnd.float(), hvalid, hnh, hw)
+        checks["host"] = (
+            lambda: pallas_slice_v4.slice_epoch_host(hcalc, hcfg, kw, *hargs, lane0=L)[:3],
+            lambda: pallas_slice_v4.slice_records_host_plain(hcalc, hcfg, kw, *hargs,
+                                                             lane0=L)[:3])
+        for name, (kernel, plain) in checks.items():
+            got, want = kernel(), plain()
+            mism = [int((a != b).sum()) for a, b in zip(got, want)]
+            if any(mism):
+                raise AssertionError(f"{name} at lane0 = {L}: {mism} entries differ from its "
+                                     "plain version")
+            out["lane0"][name] = {"lane0": L, "mismatches": mism}
+        # B1 at the bench, at lane0 = 0 and at the second of two shards' lane0
+        calc, cfg, args = geometry("bench", BENCH)
+        out["b1_bench_ms"] = {
+            str(l0): cuda_ms(lambda: pallas_slice_v4.slice_epoch(  # noqa: B023
+                calc, cfg, kw, *args, lane0=l0), 5)  # noqa: B023
+            for l0 in (0, BENCH["B"])}
+        results["sharded_epoch"] = out
+        return out
+
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
                 pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
@@ -2003,7 +2242,9 @@ def main() -> None:
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is not within 3 sigma of 0")
         if stats.ndead != last["ndead"] or stats.ndead < INI["nlive"]:
             raise AssertionError(".stats does not match the run")
-        results["run_gaussian_ini"] = {"wall_s": wall, "dead_per_s": stats.ndead / wall}
+        results["run_gaussian_ini"] = {"wall_s": wall, "dead_per_s": stats.ndead / wall,
+                                       "device_frac": last.get("device_frac"),
+                                       "epoch_timers_s": last.get("epoch_timers")}
         return {
             "engine_used": last["engine"], "chained_epochs": last["chained_epochs"],
             "ndead": stats.ndead, "logZ": stats.logZ,
@@ -2013,6 +2254,161 @@ def main() -> None:
             "host_totals_s": last.get("host_totals"),
             "epoch_timers_s": last.get("epoch_timers"),
         }
+
+    # ---- 7a. the chain batch over two processes on this card, and
+    # dispatch-ahead mode (synchronous=False)
+    # a function of this module in a process of its own (its arguments and
+    # its result in JSON): the two processes' runs and the 64-D run
+    tmpdirs = []
+    worker = os.path.join(tempfile.mkdtemp(prefix="worker_"), "worker.py")
+    tmpdirs.append(os.path.dirname(worker))
+    with open(worker, "w") as f:
+        f.write(r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = getattr(chip_smoke, sys.argv[2])(*(json.loads(a) for a in sys.argv[3:]))
+print("RESULT " + json.dumps(out), flush=True)
+''')
+
+    @phase("run_two_process")
+    def _():
+        """gaussian.ini's settings at batch_size 512 through run() in two
+        processes on this card, joined by torch.distributed over gloo (the
+        environment torchrun gives: RANK, WORLD_SIZE, MASTER_ADDR,
+        MASTER_PORT, LOCAL_RANK; each process waited for with its own
+        timeout), against one process (this one) at the same batch, one
+        epoch at a time (chain_epochs = 0: a run over shards never chains):
+        the same logZ, logZerr, ndead and nlike on both ranks and the one
+        process, rank 0's .stats and .txt byte for byte the one process's,
+        no file from rank 1, rank 0's metrics naming 2 shards in 2 processes
+        and B1's and B2's launches; dead/s of both runs, and each rank's
+        device_frac (the gloo gather left out) and epoch timers (the gather's
+        seconds among them)."""
+        import socket
+
+        cfg = {**INI, "seed": SEED, "batch_size": 512, "chain_epochs": 0}
+        with tempfile.TemporaryDirectory() as base:
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+
+            def start(d, extra):
+                return subprocess.Popen(
+                    [sys.executable, worker, HERE, "gaussian_batch_run",
+                     json.dumps(os.path.join(base, d)), json.dumps({**cfg, "chain_epochs": -1})],
+                    env={**env, **extra}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+
+            def result(procs):
+                outs = []
+                try:
+                    for p in procs:
+                        so, se = p.communicate(timeout=400)
+                        if p.returncode != 0:
+                            raise AssertionError(f"a process exited {p.returncode}: {se[-3000:]}")
+                        line = [ln for ln in so.splitlines() if ln.startswith("RESULT ")]
+                        outs.append(json.loads(line[-1][len("RESULT "):]))
+                finally:
+                    for p in procs:
+                        if p.poll() is None:
+                            p.kill()
+                            p.communicate()
+                return outs
+
+            reset_launches()
+            one = gaussian_batch_run(os.path.join(base, "one"), cfg)
+            one_ran = read_launches()
+            if not only(one_ran, ("gram_schmidt", "slice_epoch")):
+                raise AssertionError(f"the one process did not run B1 and B2 (only): {one_ran}")
+            add_launches(one_ran)
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = str(s.getsockname()[1])
+            ranks = result([start(f"rank{i}", {"RANK": str(i), "LOCAL_RANK": str(i),
+                                               "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+                                               "MASTER_PORT": port}) for i in range(2)])
+            wall2 = max(r["wall_s"] for r in ranks)  # inside run(), as the one process's
+            for i, r in enumerate(ranks):
+                for k in ("logZ", "logZerr", "ndead", "nlike"):
+                    if r[k] != one[k]:
+                        raise AssertionError(f"rank {i}: {k} {r[k]} is not the one process's "
+                                             f"{one[k]}")
+            same = {}
+            for suffix in (".stats", ".txt"):
+                with open(os.path.join(base, "one", "test" + suffix), "rb") as f:
+                    a = f.read()
+                with open(os.path.join(base, "rank0", "test" + suffix), "rb") as f:
+                    same[suffix] = a == f.read()
+            if not all(same.values()):
+                raise AssertionError(f"rank 0's files differ from the one process's: {same}")
+            rank1 = [os.path.join(d, n) for d, _, ns in os.walk(os.path.join(base, "rank1"))
+                     for n in ns]
+            if rank1:
+                raise AssertionError(f"rank 1 wrote {rank1}")
+            last = read_metrics(os.path.join(base, "rank0"), "test")[-1]
+            one_last = read_metrics(os.path.join(base, "one"), "test")[-1]
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last["shards"], last["processes"], last["route"]) != (2, 2, "slice_epoch") or \
+                set(ran) != {"slice_epoch", "gram_schmidt"}:
+            raise AssertionError(f"rank 0 ran {last['shards']} shards in {last['processes']} "
+                                 f"processes, route {last['route']}, launches {ran}")
+        if abs(one["logZ"]) >= 3 * one["logZerr"]:
+            raise AssertionError(f"logZ {one['logZ']} +/- {one['logZerr']} is not within 3 "
+                                 "sigma of 0")
+        one = {**one, "dead_per_s": one["ndead"] / one["wall_s"],
+               "host_totals_s": one_last.get("host_totals")}
+        results["run_two_process"] = {"one_process": one}
+        return {"one_process": one,
+                "two_processes": {"ranks": ranks, "wall_s": wall2,
+                                  "dead_per_s": ranks[0]["ndead"] / wall2,
+                                  "rank0_launches": ran},
+                "files_equal": same}
+
+    @phase("run_async")
+    def _():
+        """gaussian.ini's settings at batch_size 512 through
+        run(engine="cuda") with synchronous=False (dispatch-ahead: the next
+        epoch is dispatched when one is collected, before the host consumes
+        it): it warns that it biases logZ high, runs B1 and B2 only, no
+        chain, within 3 sigma of 0; dead/s, device_frac and the epoch timers
+        beside the synchronous runs of this call at the same settings: one
+        epoch at a time (run_two_process's one process, batch_size 512) and
+        chained (run_gaussian_ini)."""
+        with tempfile.TemporaryDirectory() as base:
+            reset_launches()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                pt.run(gaussian(INI["nDims"]), INI["nDims"], nDerived=INI["nDerived"],
+                       nlive=INI["nlive"], num_repeats=INI["num_repeats"], do_clustering=False,
+                       precision_criterion=0.001, read_resume=False, base_dir=base, seed=SEED,
+                       feedback=-1, device="cuda", engine="cuda", batch_size=512,
+                       synchronous=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_launches()
+            stats = PolyChordOutput(base, "test")
+            last = read_metrics(base, "test")[-1]
+        said = [str(w.message) for w in caught]
+        if not any("biases logZ high" in m for m in said) or len(said) != 1:
+            raise AssertionError(f"the warnings were {said}, not the bias warning alone")
+        if not only(ran, ("gram_schmidt", "slice_epoch")) or last["chained_epochs"]:
+            raise AssertionError(f"launches {ran}, chained {last['chained_epochs']}")
+        add_launches(ran)
+        if not (math.isfinite(stats.logZ) and abs(stats.logZ) < 3 * stats.logZerr):
+            raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is not within 3 sigma "
+                                 "of 0")
+        recs = {"async": {"logZ": stats.logZ, "logZerr": stats.logZerr, "ndead": stats.ndead,
+                          "wall_s": wall, "dead_per_s": stats.ndead / wall,
+                          "synchronous": last["synchronous"],
+                          "device_frac": last.get("device_frac"),
+                          "epoch_timers_s": last.get("epoch_timers"),
+                          "host_totals_s": last.get("host_totals"),
+                          "launches": {k: v for k, v in ran.items() if v}}}
+        recs["sync"] = results["run_two_process"]["one_process"]
+        recs["sync_chained"] = results["run_gaussian_ini"]
+        results["run_async"] = recs
+        return recs
 
     # ---- 7b. any torch likelihood through run(): the fused route, and the
     # traced route for a model the lowering refuses
@@ -2083,6 +2479,92 @@ def main() -> None:
                 "host_totals_s": last.get("host_totals"),
                 "epoch_timers_s": last.get("epoch_timers")}
 
+    # ---- 7b'. the runs in processes of their own start here, in two threads
+    # of this script, and go on behind the in-process runs below: the CLI
+    # runs and the C++ example one after another, the 64-D run beside them;
+    # each phase waits for its own.  They share the card and the host with
+    # the in-process runs (their dead/s are taken under that load); every
+    # kernel timing comes before them or after the last
+    def cli(args, cwd=HERE, env=None, timeout=600):
+        """A process of its own, waited for: (CompletedProcess, wall s)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+        return proc, time.perf_counter() - t0
+
+    def ini_job(prefix, make_ini, timeout=600):
+        """``python -m polychordlite_tpu_torch`` on the ini ``make_ini(base)``
+        writes into a new directory: (base, ini, CompletedProcess, wall s)."""
+        base = tempfile.mkdtemp(prefix=prefix)
+        tmpdirs.append(base)
+        ini = make_ini(base)
+        return (base, ini, *cli([sys.executable, "-m", "polychordlite_tpu_torch", ini],
+                                timeout=timeout))
+
+    def graded_ini_copy(base: str) -> str:
+        """ini/gaussian.ini (ini_copy) with p1-p6 at speed 1, p7-p20 at speed
+        2 and ``grade_frac = 8 32``: literal repeats, 40 in all as the ini's
+        num_repeats, so the run does not depend on a timing."""
+        path = ini_copy(base, "gaussian")
+        lines = []
+        with open(path) as f:
+            for ln in f.read().splitlines():
+                if ln.startswith("P :"):
+                    fields = ln.split("|")
+                    k = int(fields[0].split()[-1][1:])  # p<k>
+                    fields[2] = f" {1 if k <= GRADED['grade_dims'][0] else 2} "
+                    ln = "|".join(fields)
+                elif ln.startswith("num_repeats"):
+                    ln += "\ngrade_frac = " + " ".join(str(g) for g in GRADED["grade_frac"])
+                lines.append(ln)
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    def capi_job():
+        """examples/cc/gaussian_cc.cpp built into a program that embeds the
+        interpreter, and run in a new directory: (base, build s,
+        CompletedProcess, wall s); None where this Python has no shared
+        libpython to embed (the phase then runs the example in this
+        process)."""
+        if not cabi.embedding_possible():
+            return None
+        base = tempfile.mkdtemp(prefix="capi_cc_")
+        tmpdirs.append(base)
+        t0 = time.perf_counter()
+        exe = cabi.build("cc_example")
+        build_s = time.perf_counter() - t0
+        return (base, build_s, *cli([str(exe)], cwd=base, env=cabi.embedded_env(),
+                                    timeout=900))
+
+    def d64_job():
+        """d64_run in a process of its own: (base, CompletedProcess, wall s)."""
+        base = tempfile.mkdtemp(prefix="gaussian_d64_")
+        tmpdirs.append(base)
+        return (base, *cli([sys.executable, worker, HERE, "d64_run", json.dumps(base)],
+                           timeout=900))
+
+    def job_result(name):
+        """A job's result; a process that failed raises."""
+        out = jobs[name].result()
+        proc = out[-2]
+        if proc.returncode != 0 or (name == "capi_cc" and "Traceback" in proc.stderr):
+            raise AssertionError(f"{name}: the process exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        return out
+
+    cli_jobs, side_jobs = ThreadPoolExecutor(max_workers=1), ThreadPoolExecutor(max_workers=1)
+    jobs = {"d64": side_jobs.submit(d64_job)}
+    for name, job in (
+            ("shells", lambda: ini_job("shells_cli_", lambda b: ini_copy(b, "gaussian_shells"))),
+            ("eggbox", lambda: ini_job("eggbox_cli_", lambda b: ini_copy(b, "eggbox"))),
+            ("grades", lambda: ini_job("gaussian_grades_", graded_ini_copy)),
+            ("capi_cc", capi_job),
+            ("fitting", lambda: ini_job("fitting_cli_", lambda b: ini_copy(b, "fitting"), 900)),
+            ("object_detection", lambda: ini_job("object_detection_cli_",
+                                                 lambda b: ini_copy(b, "object_detection"), 900))):
+        jobs[name] = cli_jobs.submit(job)
+
     @phase("run_gaussian_ini_torch")
     def _():
         built = prebuild(torch_gaussian(INI["nDims"]), INI["nDims"], INI["nlive"],
@@ -2152,34 +2634,6 @@ def main() -> None:
             raise AssertionError(f"route_reason {last.get('route_reason')!r} does not name "
                                  "the refused op")
         return route_record(last, stats, wall, ran, 0.0)
-
-    @phase("run_gaussian_d64")
-    def _():
-        """gaussian.ini's settings at D = 64 (nlive 250, no clustering,
-        precision_criterion 0.001, num_repeats 2 D, 64 uniform [0, 1]
-        parameters), the likelihood per point in torch: the fused route in
-        the 128 bucket and B2's wide kernel; logZ = 0 (the mass outside the
-        cube is below 4e-5), gated at 3 sigma."""
-        D = D64["nDims"]
-        built = prebuild(per_point_gaussian, D, D64["nlive"])
-        last, stats, wall, ran, _ = route_run(
-            "gaussian_d64", per_point_gaussian, D, dirs="gram_schmidt_wide",
-            nlive=D64["nlive"], num_repeats=D64["num_repeats"], do_clustering=False,
-            precision_criterion=0.001)
-        groups = last.get("group_launches") or {}
-        if last["form"] != "per_point" or not groups or any(
-                not k.startswith(f"{pallas_slice_v4.SLICE_MAXD_WIDE}/") for k in groups):
-            raise AssertionError(f"form {last['form']!r}, B1's launches by bucket/G {groups}: "
-                                 "not the per-point model in the 128 bucket")
-        B_phys = -(-(-(-D64["nlive"] // 8) * 8) // GRANULE) * GRANULE
-        if B_phys != D64_RUN["B"]:
-            raise AssertionError(f"the run's batch is {B_phys} lanes, not the {D64_RUN['B']} "
-                                 "the kernels were held at")
-        rec = {**route_record(last, stats, wall, ran, 0.0), "prebuild": built,
-               "group_launches": groups, "B": B_phys,
-               "epoch_record_mb": B_phys * D64["num_repeats"] * (2 * D + 2) * 4 / 1e6}
-        results["run_gaussian_d64"] = rec
-        return rec
 
     # ---- 7c. the run modes: precision='highest' (the fused route and the
     # traced route in double), maximise and an nlives schedule
@@ -2316,21 +2770,10 @@ def main() -> None:
 
     # ---- 8. the ini CLI on ini/gaussian_shells.ini (clustering) -----------
     shells = {}
-    tmpdirs = []
 
     @phase("run_gaussian_shells_ini")
     def _():
-        base = tempfile.mkdtemp(prefix="shells_cli_")
-        tmpdirs.append(base)
-        ini = ini_copy(base, "gaussian_shells")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
-            capture_output=True, text=True, timeout=600,
-        )
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        base, ini, proc, wall = job_result("shells")
         summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("logZ = ")]
         if not summary:
             raise AssertionError("the CLI printed no summary line")
@@ -2467,16 +2910,7 @@ def main() -> None:
             out[name] = zoo_record(name, base, wall, ran, "run_ini")
             add_launches(ran)
             zoo[name] = base
-        base = tempfile.mkdtemp(prefix="eggbox_cli_")
-        tmpdirs.append(base)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "polychordlite_tpu_torch", ini_copy(base, "eggbox")],
-            cwd=HERE, capture_output=True, text=True, timeout=600,
-        )
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the eggbox CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        base, _, proc, wall = job_result("eggbox")
         ran = read_metrics(base, "eggbox")[-1]["kernel_launches"]
         out["eggbox_cli"] = zoo_record("eggbox", base, wall, ran, "python -m polychordlite_tpu_torch")
         add_launches(ran)
@@ -2531,26 +2965,6 @@ def main() -> None:
     # ---- 11b. speed grades: gaussian.ini's settings with two grades through
     # the ini CLI (B1's functor route), and a GradedLikelihood through run()
     # (the graded route), beside its monolithic form (the fused route)
-    def graded_ini_copy(base: str) -> str:
-        """ini/gaussian.ini (ini_copy) with p1-p6 at speed 1, p7-p20 at speed
-        2 and ``grade_frac = 8 32``: literal repeats, 40 in all as the ini's
-        num_repeats, so the run does not depend on a timing."""
-        path = ini_copy(base, "gaussian")
-        lines = []
-        with open(path) as f:
-            for ln in f.read().splitlines():
-                if ln.startswith("P :"):
-                    fields = ln.split("|")
-                    k = int(fields[0].split()[-1][1:])  # p<k>
-                    fields[2] = f" {1 if k <= GRADED['grade_dims'][0] else 2} "
-                    ln = "|".join(fields)
-                elif ln.startswith("num_repeats"):
-                    ln += "\ngrade_frac = " + " ".join(str(g) for g in GRADED["grade_frac"])
-                lines.append(ln)
-        with open(path, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        return path
-
     def nlike_by_grade(base: str, root: str):
         with open(os.path.join(base, f"{root}.stats")) as f:
             line = [ln for ln in f.read().splitlines() if ln.startswith(" nlike:")][0]
@@ -2561,20 +2975,12 @@ def main() -> None:
         """The ini CLI on gaussian.ini with two speed grades (graded_ini_copy):
         B1's functor route and B2 at dims 20 and 14, logZ within 3 sigma of
         0, the .stats nlike line two counts, the fast grade's the larger."""
-        base = tempfile.mkdtemp(prefix="gaussian_grades_")
-        tmpdirs.append(base)
-        ini = graded_ini_copy(base)
+        base, ini, proc, wall = job_result("grades")
         s, *_ = read_ini(ini)
         if (list(s.grade_dims), list(s.grade_frac)) != (GRADED["grade_dims"],
                                                       [float(g) for g in GRADED["grade_frac"]]):
             raise AssertionError(f"the ini reads grade_dims {s.grade_dims}, grade_frac "
                                  f"{s.grade_frac}")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
-                              capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
         last = read_metrics(base, "gaussian")[-1]
         ran = last["kernel_launches"]
         if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch"):
@@ -2755,6 +3161,46 @@ def main() -> None:
         results["run_callback"] = rec
         return rec
 
+    @phase("run_gaussian_d64")
+    def _():
+        """gaussian.ini's settings at D = 64 (nlive 250, no clustering,
+        precision_criterion 0.001, num_repeats 2 D, 64 uniform [0, 1]
+        parameters), the likelihood per point in torch, run in a process of
+        its own (d64_run, started with the CLI runs): the fused route in the
+        128 bucket and B2's wide kernel, with chained epochs; logZ = 0 (the
+        mass outside the cube is below 4e-5), gated at 3 sigma."""
+        D = D64["nDims"]
+        base, proc, _ = job_result("d64")
+        wall = json.loads([ln for ln in proc.stdout.splitlines()
+                           if ln.startswith("RESULT ")][-1][len("RESULT "):])["wall_s"]
+        stats = PolyChordOutput(base, "test")
+        last = read_metrics(base, "test")[-1]
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch_fused"):
+            raise AssertionError(f"engine {last.get('engine')!r}, route {last.get('route')!r} "
+                                 f"({last.get('route_reason')}), not slice_epoch_fused")
+        if last.get("chained_epochs") is not True:
+            raise AssertionError("chained epochs were switched off during the run")
+        if not only(ran, ("gram_schmidt_wide", "slice_epoch_fused")):
+            raise AssertionError(f"the path did not run B2 wide and the fused route (only): {ran}")
+        add_launches(ran)
+        # the libraries the run loaded, built before it (slice_epoch_d128)
+        built = prebuild(per_point_gaussian, D, D64["nlive"])
+        groups = last.get("group_launches") or {}
+        if last["form"] != "per_point" or not groups or any(
+                not k.startswith(f"{pallas_slice_v4.SLICE_MAXD_WIDE}/") for k in groups):
+            raise AssertionError(f"form {last['form']!r}, B1's launches by bucket/G {groups}: "
+                                 "not the per-point model in the 128 bucket")
+        B_phys = -(-(-(-D64["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        if B_phys != D64_RUN["B"]:
+            raise AssertionError(f"the run's batch is {B_phys} lanes, not the {D64_RUN['B']} "
+                                 "the kernels were held at")
+        rec = {**route_record(last, stats, wall, ran, 0.0), "prebuild": built,
+               "group_launches": groups, "B": B_phys,
+               "epoch_record_mb": B_phys * D64["num_repeats"] * (2 * D + 2) * 4 / 1e6}
+        results["run_gaussian_d64"] = rec
+        return rec
+
     @phase("capi_cc")
     def _():
         """examples/cc/gaussian_cc.cpp, unchanged, through the port's C++
@@ -2763,25 +3209,17 @@ def main() -> None:
         the interpreter where this Python has a shared libpython, else in
         this process through ctypes.PyDLL (the choice printed); the run on
         the card's host route, logZ = 0 within 3 sigma."""
-        mode = "embedded" if cabi.embedding_possible() else "in_process"
+        mode = "embedded" if jobs["capi_cc"].result() is not None else "in_process"
         print(f"capi_cc: build mode {mode}", flush=True)
-        base = tempfile.mkdtemp(prefix="capi_cc_")
-        tmpdirs.append(base)
-        t0 = time.perf_counter()
         if mode == "embedded":
-            exe = cabi.build("cc_example")
-            build_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            proc = subprocess.run([str(exe)], cwd=base, env=cabi.embedded_env(),
-                                  capture_output=True, text=True, timeout=900)
-            wall = time.perf_counter() - t0
-            if proc.returncode != 0 or "Traceback" in proc.stderr:
-                raise AssertionError(f"gaussian_cc exited {proc.returncode}: "
-                                     f"{proc.stderr[-3000:]}")
+            base, build_s, proc, wall = job_result("capi_cc")
             dumps = [ln for ln in proc.stdout.splitlines() if ln.startswith("dumper:")]
         else:
             import ctypes
 
+            base = tempfile.mkdtemp(prefix="capi_cc_")
+            tmpdirs.append(base)
+            t0 = time.perf_counter()
             so = cabi.build_in_process("gaussian_cc_in_process", [cabi.EXAMPLE], cpp=True,
                                        defines=["main=gaussian_cc_main"])
             entry = getattr(ctypes.PyDLL(str(so)), "_Z16gaussian_cc_mainv")  # C++ name
@@ -2814,20 +3252,12 @@ def main() -> None:
         repository): engine "cuda" on the traced route (the lowering's
         refusal in route_reason) and B2 only, at the batch data_driven_step
         held, within 3 combined sigma of the JAX package's CPU run."""
-        base = tempfile.mkdtemp(prefix=f"{name}_cli_")
-        tmpdirs.append(base)
-        ini = ini_copy(base, name)
+        base, ini, proc, wall = job_result(name)
         s, *_ = read_ini(ini)
         held = DATA_RUNS[name]
         if (batch_of(s.nlive), s.num_repeats, s.nDims) != (held["B"], held["R"], held["D"]):
             raise AssertionError(f"{name}: the run's batch {batch_of(s.nlive)}, R "
                                  f"{s.num_repeats}, D {s.nDims} are not those held")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "polychordlite_tpu_torch", ini], cwd=HERE,
-                              capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
         summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("logZ = ")]
         last = read_metrics(base, name)[-1]
         ran = {k: v for k, v in last["kernel_launches"].items() if v}
@@ -3120,6 +3550,8 @@ def main() -> None:
                            o["lane_steps_sum"] * gaussian_probe_flops(D))}
         return {"checks": out, "study": rec, "study_launches": study}
 
+    cli_jobs.shutdown()
+    side_jobs.shutdown()
     for d in tmpdirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -3171,6 +3603,10 @@ def main() -> None:
         )
     ]
     kernels = []
+    # the kernels' names in sharded_epoch
+    SHARDED_ROUTES = {"slice_epoch": "B1", "slice_epoch_fused": "fused", "slice_step": "traced",
+                      "slice_step_graded": "graded", "slice_step_host": "host",
+                      "slice_epoch_v5": "B3", "slice_epoch_v3": "B4", "slice_epoch_v2": "B5"}
     PATH_KERNELS = ("slice_epoch", "gram_schmidt", "slice_epoch_v5", "slice_epoch_v3",
                     "slice_epoch_v2", "slice_step", "slice_epoch_fused", "slice_epoch_fused_f64",
                     "slice_step_f64", "gram_schmidt_f64", "slice_step_graded",
@@ -3255,6 +3691,17 @@ def main() -> None:
                      "runs": {k: {f: results[k][f] for f in ("dead_per_s", "device_frac",
                                                              "host_calls", "wall_s")}
                               for k in ("run_callback", "capi_cc")}}
+        shard_name = SHARDED_ROUTES.get(name)
+        if shard_name is not None:  # the route over 2 and 4 shards, and at lane0 = 3 B
+            sh = results["sharded_epoch"]
+            shards = {
+                tag.split("/")[1]: {k: v for k, v in rec.items() if k.startswith(("B", "ms_"))}
+                for tag, rec in sh["routes"].items() if tag.startswith(shard_name + "/")}
+            if shards:  # the host route runs on one device
+                extra["sharded_epoch"] = shards
+            extra["lane0_check"] = sh["lane0"][shard_name]
+            if name == "slice_epoch":
+                extra["bench_ms_by_lane0"] = sh["b1_bench_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
             "dtype": "float32", **extra,

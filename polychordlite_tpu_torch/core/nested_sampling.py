@@ -6,7 +6,17 @@ device; the host administrator consumes it with the exact reference
 bookkeeping (``core/rti.py``), in synchronous mode
 (``nested_sampling.F90:262-287``): seeds are drawn from the state as
 updated by the previous nursery, one nursery (or chain of K nurseries,
-``ops/chained_epoch.py``) in flight.
+``ops/chained_epoch.py``) in flight.  With ``synchronous=False``
+(dispatch-ahead, ``nested_sampling.F90:288-313``) the next nursery is
+dispatched as soon as one is collected, before the host consumes it: its
+seeds are one nursery staler, which biases logZ high (the run warns).
+
+The chain batch is split over shards of local devices (``mesh_shape``)
+and over the processes of a ``torch.distributed`` group (under
+``torchrun``; ``parallel/distributed.py``), bitwise the one-device run at
+the same B (``parallel/mesh.py``).  Administration runs the same on every
+process: a clock seed and the timed speeds are root's, the resume decision
+is agreed by all, and only process 0 writes files.
 
 Randomness: the host generator is ``np.random.default_rng(seed)`` as in the
 JAX package; the device generator is a ``torch.Generator`` on the run's
@@ -41,8 +51,7 @@ repeats (``ops/slice_kernel.py``), with no chained dispatch.  A
 host-callback likelihood (Python, numpy or C) runs on ``"scan"`` too, on
 the card the host route; it dispatches one epoch at a time unless
 ``chain_epochs`` > 1 forces a chain, which runs the route K times in one
-dispatch.  Asynchronous mode (``synchronous=False``) raises
-``NotImplementedError``.
+dispatch.  Chained epochs run in synchronous mode on one shard only.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ..ops.pallas_slice_v4 import SLICE_MAXD_WIDE, check_functor_dims
 from ..ops.pallas_slice_v5 import check_dims as check_v5_dims
 from ..ops.precision import F32_SAFE_LOGL, PRECISIONS, calc_dtype, real_dtype_scope
 from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
+from ..parallel import distributed
 from ..parallel.mesh import make_epoch_runner
 from ..priors import identity_prior
 from ..settings import PolyChordSettings
@@ -104,7 +114,9 @@ def default_dumper(live, dead, logweights, logZ, logZerr):
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``: the run goes to the card, and without one it
     raises (naming ``device="cpu"``, the explicit way to run on the CPU).
-    Nothing falls back to the CPU by itself."""
+    Nothing falls back to the CPU by itself.  A rank of a process group of
+    several takes the card ``LOCAL_RANK % device_count`` for ``"cuda"``
+    without an index (two ranks on a one-card host share it)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -113,6 +125,9 @@ def resolve_device(device=None) -> torch.device:
         )
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None and distributed.process_count() > 1:
+        device = torch.device("cuda", distributed.local_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(device)  # the rank's default streams and graphs on its card
     return device
 
 
@@ -201,12 +216,10 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
 
 
 def _check_supported(s: PolyChordSettings) -> None:
-    """Raise for the run modes the port does not have yet, and for an
-    unknown ``precision``."""
+    """Raise for an unknown ``precision``.  Every run mode of the JAX
+    package is ported."""
     if getattr(s, "precision", "single") not in PRECISIONS:
         raise ValueError(f"precision must be one of {tuple(PRECISIONS)}, not {s.precision!r}")
-    if not s.synchronous:
-        raise NotImplementedError("synchronous=False is not ported to the torch package yet")
 
 
 def more_samples_needed(s: PolyChordSettings, rti: RunTimeInfo) -> bool:
@@ -243,6 +256,10 @@ def _dump(dumper, s: PolyChordSettings, rti: RunTimeInfo) -> None:
 
 
 def _write_products(s: PolyChordSettings, rti: RunTimeInfo, nlikesum, rng, key):
+    # file output is owned by process 0 only, as in the reference, where all
+    # writes happen on the MPI administrator (nested_sampling.F90:329-334)
+    if not distributed.is_root():
+        return
     if s.write_resume:
         resume_mod.write_resume_file(s, rti, rng, key)
     if s.write_live:
@@ -317,21 +334,28 @@ def nested_sampling(
     dumper: Callable,
     settings: PolyChordSettings,
     device: Optional[torch.device] = None,
+    paramnames: Optional[list] = None,
 ):
     """Run the sampler.  Returns a dict with logZ, logZerr, ndead, nlike and
     the final state (the [logZ, varlogZ, ndead, nlike] output of
     NestedSampling, nested_sampling.F90:394-402, plus extras).  The run
     computes in the dtype of ``precision`` (``ops/precision.py``), set for
     this thread alone and restored on exit, however the run ends
-    (``polychordlite_tpu/core/nested_sampling.py:184-189``)."""
+    (``polychordlite_tpu/core/nested_sampling.py:184-189``).  Under
+    ``torchrun`` (``WORLD_SIZE`` > 1) the process group is joined first
+    (:func:`~polychordlite_tpu_torch.parallel.distributed.initialise_distributed`).
+    ``paramnames``, (name, latex) pairs, are written to ``<root>.paramnames``
+    beside the properties file, by process 0 as every file."""
     s = settings.finalise()
     _check_supported(s)
+    distributed.initialise_distributed()
     device = resolve_device(device)
     with real_dtype_scope(PRECISIONS[getattr(s, "precision", "single")]):
-        return _run(loglikelihood, prior, dumper, s, device)
+        return _run(loglikelihood, prior, dumper, s, device, paramnames)
 
 
-def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.device):
+def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.device,
+         paramnames=None):
     """The body of :func:`nested_sampling`, in the run's dtype."""
     t_start = time.time()
     launches0 = _kernel_launches()
@@ -342,6 +366,9 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
 
     # --- RNG: host generator, device generator and murmur key, all from seed
     seed = s.seed if s.seed >= 0 else int(time.time_ns() % (2**31))
+    if distributed.process_count() > 1:
+        # every process must administer identically: adopt root's clock seed
+        seed = int(distributed.broadcast_from_root(np.int64(seed)))
     rng = np.random.default_rng(seed)
     key = seed_key(seed)
     generator = torch.Generator(device=device)
@@ -376,10 +403,29 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     route, reason = epoch_route(engine, calc), route_reason(engine, calc)
 
     # --- resume or generate ------------------------------------------------
+    root = distributed.is_root()
     io_mod.check_directories(s)
-    io_mod.write_properties_file(s)  # anesthetic compat marker
+    if root and paramnames:
+        io_mod.write_paramnames_file(s, paramnames)  # and the properties file
+    elif root:
+        io_mod.write_properties_file(s)  # anesthetic compat marker
     resumed = False
-    if s.read_resume and resume_mod.resume_file_exists(s):
+    want_resume = s.read_resume and resume_mod.resume_file_exists(s)
+    if distributed.process_count() > 1:
+        # process 0 alone writes resume files: every process must follow the
+        # same decision, or the administrations part and the next gather
+        # hangs.  The flags are gathered so that every process, those that
+        # see the file too, raises the same error
+        # (polychordlite_tpu/core/nested_sampling.py:241-256)
+        all_resume, any_resume = distributed.all_any_flags(want_resume)
+        if any_resume and not all_resume:
+            raise RuntimeError(
+                "the resume file is visible on some processes but not all: runs over "
+                "several hosts need base_dir on a filesystem all processes share (or "
+                "read_resume=False)"
+            )
+        want_resume = all_resume
+    if want_resume:
         rti, rng_state, key_saved = resume_mod.read_resume_file(s, n_grades)
         if rng_state is not None:
             rng.bit_generator.state = rng_state
@@ -393,7 +439,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     else:
         _feedback(s, 1, "Generating initial live points")
         rti, ndiscarded, sec_per_eval = generate_live_points(calc, s, generator, device)
-        if s.write_prior:
+        if s.write_prior and root:
             io_mod.write_prior_file(s, rti)
             io_mod.write_prior_info(s, s.resolved_nprior(), ndiscarded)
         speeds = time_speeds(calc, s, generator)
@@ -409,7 +455,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     if not resumed:
         while rti.total_nlive() > s.nlive:
             delete_outermost_point(rti)
-        if s.write_resume:
+        if s.write_resume and root:
             resume_mod.write_resume_file(s, rti, rng, key)
 
     num_repeats = tuple(int(x) for x in rti.num_repeats)
@@ -437,18 +483,35 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
     )
     R = cfg.total_repeats
     np_real = np.float32 if calc.dtype == torch.float32 else np.float64
+    if not s.synchronous:
+        # dispatch-ahead staleness carries a small positive logZ bias at any
+        # batch width (the JAX package's 64-seed calibration of the same
+        # sampler: mean pull +0.25 to +0.32, logZ bias +0.04 to +0.06,
+        # width-independent; benchmarks/calibration_study.json).  Synchronous
+        # mode measures unbiased at the same widths.
+        import warnings
+
+        warnings.warn(
+            "synchronous=False (dispatch-ahead) overlaps device and host work but "
+            "biases logZ high by ~+0.05 (~0.3 sigma of a typical run's error bar; "
+            "benchmarks/calibration_study.json, 64 seeds/config). Use synchronous=True "
+            "(the default) when evidence accuracy matters more than throughput.",
+            stacklevel=3,
+        )
     run_epoch, B = make_epoch_runner(
-        calc, cfg, s.resolved_batch_size(), device, generator
+        calc, cfg, s.resolved_batch_size(), device, generator,
+        n_devices=s.mesh_shape,
     )
-    _feedback(s, 1, f"chain batch {B} on {device}, engine {run_epoch.engine_used()}, "
-                    f"route {route} ({reason})")
+    _feedback(s, 1, f"chain batch {B} over {run_epoch.n_shards} shard(s) in "
+                    f"{run_epoch.n_processes} process(es) on {device}, engine "
+                    f"{run_epoch.engine_used()}, route {route} ({reason})")
 
     metrics = RunMetrics(
-        io_mod.root_path(s) + ".metrics.jsonl" if s.write_stats else None,
+        io_mod.root_path(s) + ".metrics.jsonl" if s.write_stats and root else None,
         resume=resumed,
     )
     nlikesum = np.zeros(n_grades, dtype=np.int64)
-    any_writes = (
+    any_writes = root and (
         s.write_resume or s.write_live or s.write_dead
         or s.write_stats or s.equals or s.posteriors
     )
@@ -486,9 +549,12 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         nursery_queue = deque()
         turbo_K = int(getattr(s, "chain_epochs", -1))
         # auto: host-callback and graded likelihoods dispatch per epoch; a
-        # forced chain of a callback runs its route K times in one dispatch
+        # forced chain of a callback runs its route K times in one dispatch.
+        # A chain is synchronous, on one shard
+        one_shard = run_epoch.n_shards == 1
         if turbo_K < 0:
-            turbo_K = 0 if calc.uses_callback or calc.graded else 8
+            turbo_K = 8 if (s.synchronous and one_shard and not calc.uses_callback
+                            and not calc.graded) else 0
         turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
                  "cooldown": 0, "voided": 0, "chains": 0}
 
@@ -498,6 +564,8 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             return (
                 turbo["enabled"]
                 and turbo["cooldown"] == 0
+                and s.synchronous
+                and one_shard
                 and rti.ncluster == 1
                 and not s.nlives
                 and rti.total_nlive() == s.nlive
@@ -523,8 +591,12 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             if not nursery_queue:
                 if pending[0] == "single":
                     handle, bound, cluster_ids, epoch_at_dispatch = pending[1]
+                    gathered = run_epoch.timers["gather"]
                     with metrics.device_epoch():
                         outs = run_epoch.collect(handle)
+                    # the gather across processes waits for the other
+                    # processes' hosts: host time, not the device's
+                    metrics.device_time -= run_epoch.timers["gather"] - gathered
                     nursery_queue.append(
                         (*outs, bound, cluster_ids, epoch_at_dispatch)
                     )
@@ -540,6 +612,12 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
                              np.full(B, b0), zero_ids, epoch_at)
                         )
                     turbo["verify"] = final_live
+                if not s.synchronous:
+                    # dispatch-ahead (nested_sampling.F90:288-313): enqueue
+                    # the next nursery before consuming this one, so that the
+                    # device computes behind the host's bookkeeping; babies
+                    # up to two nurseries stale
+                    pending = _dispatch_any()
             (b_cube, b_theta, b_phi, b_logL, nlike, bound, cluster_ids,
              epoch_at_dispatch) = nursery_queue.popleft()
             nlike = nlike.sum(axis=0)
@@ -696,18 +774,19 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
                         turbo["enabled"] = False
                 turbo["verify"] = None
 
-            if not nursery_queue and running and failures <= nfail and rti.ncluster > 0:
+            if (s.synchronous and not nursery_queue and running and failures <= nfail
+                    and rti.ncluster > 0):
                 # synchronous mode (nested_sampling.F90:262-287): seeds drawn
                 # from the state as updated by this nursery
                 pending = _dispatch_any()
 
         if writer is not None:
             writer.flush()
-        if s.write_resume:
+        if s.write_resume and root:
             resume_mod.write_resume_file(s, rti, rng, key)
 
         # --- optional maximisation (nested_sampling.py:708-712) -----------
-        if s.maximise:
+        if s.maximise and root:  # it changes no state, and writes <root>.maximum
             from .maximiser import maximise
 
             maximise(calc, s, rti)
@@ -718,14 +797,15 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             delete_cluster(rti)
 
         update_posteriors(rti)
-        if s.write_live:
-            io_mod.write_phys_live_points(s, rti)
-        if s.equals or s.posteriors:
-            io_mod.write_posterior_files(s, rti)
-        if s.write_dead:
-            io_mod.write_dead_points(s, rti)
-        if s.write_stats:
-            io_mod.write_stats_file(s, rti, nlikesum)
+        if root:
+            if s.write_live:
+                io_mod.write_phys_live_points(s, rti)
+            if s.equals or s.posteriors:
+                io_mod.write_posterior_files(s, rti)
+            if s.write_dead:
+                io_mod.write_dead_points(s, rti)
+            if s.write_stats:
+                io_mod.write_stats_file(s, rti, nlikesum)
         _dump(dumper, s, rti)
 
         logZ, varlogZ, *_ = calculate_logZ_estimate(rti)
@@ -754,6 +834,10 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             engine=run_epoch.engine_used(),
             extra={
                 "epoch_timers": epoch_timers, "chained_epochs": turbo["enabled"],
+                # the chain batch's shards over all processes, the processes,
+                # and the dispatch mode
+                "shards": run_epoch.n_shards, "processes": run_epoch.n_processes,
+                "synchronous": bool(s.synchronous),
                 "chains_voided": turbo["voided"], "chains_dispatched": turbo["chains"],
                 # the run's dtype (ops/precision.py)
                 "dtype": str(calc.dtype).replace("torch.", ""),
@@ -806,6 +890,8 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
                 "engine_used": run_epoch.engine_used(),
                 "chained_epochs": turbo["enabled"],
                 "epoch_timers": epoch_timers,
+                # this process's calls of a host-callback likelihood
+                "host_calls": int(getattr(calc, "user_calls", 0)) - calls0,
             },
             "rti": rti,
         }

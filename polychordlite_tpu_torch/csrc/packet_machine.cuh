@@ -208,7 +208,7 @@ __device__ __forceinline__ void packet_chain_epoch(const Like& like, const Epoch
         float x0[SLICE_MAXD], n[SLICE_MAXD];
         slice_load(x0, a.x0t, 0, D, B, b);
         const float bnd = a.bound[b];
-        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
         for (; r < R; ++r) {
             slice_load(n, a.nhat, (size_t)r * D * B, D, B, b);
             const float wr = a.w[(size_t)r * B + b];

@@ -30,16 +30,21 @@ static int launch(int group, int functor, const float* consts, const float* prio
 // constants, and prior_a, prior_s the prior's D-vectors — these three are
 // host arrays.  `cap` bounds a chain's micro-steps over the epoch; `group`
 // is G, the lanes per chain (1, 2, 4, 8, 16 or 32; 32 for D > 32).
+// `lane0` is the first lane of the launch in the whole chain batch (a
+// shard's first logical lane, 0 for an unsharded launch): chain b draws the
+// uniforms of lane lane0 + b, so a shard runs its lanes as the one-device
+// launch runs them.  Every entry of the slice kernels takes it after k1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int slice_epoch_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, int group) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, int group) {
     return launch<false>(group, functor, consts, prior_a, prior_s,
-                         epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                    D, R, k0, k1, max_step, max_shrink, cap),
+                         at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                             cap), lane0),
                          logzero, stream);
 }
 
@@ -49,11 +54,11 @@ extern "C" int slice_epoch_counted_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, void* lane_steps, void* warp_max) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* lane_steps, void* warp_max) {
     return launch<true>(1, functor, consts, prior_a, prior_s,
-                        epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                   D, R, k0, k1, max_step, max_shrink, cap, lane_steps,
-                                   warp_max),
+                        at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                            nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                                            lane_steps, warp_max), lane0),
                         logzero, stream);
 }

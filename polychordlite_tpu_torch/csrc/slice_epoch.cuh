@@ -252,7 +252,7 @@ __device__ __forceinline__ long long chain_epoch(const Like& like,
     if (valid || Policy::CUBE) slice_load(x0, a.x0t, 0, D, B, b);
     if (valid) {
         const Real bnd = a.bound[b];
-        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
         for (; r < R; ++r) {
             slice_load(n, a.nhat, (size_t)r * D * B, D, B, b);
             const Real wr = a.w[(size_t)r * B + b];
@@ -305,7 +305,7 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L,
         slice_load<G, MAXD>(n, a.nhat, 0, D, B, b, g);
         wr = a.w[b];
         bnd = a.bound[b];
-        h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
     }
     uint32_t h_rep = mix32(h_lane, 0u);
     for (;;) {

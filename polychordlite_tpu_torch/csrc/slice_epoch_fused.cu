@@ -45,11 +45,11 @@ extern "C" int slice_epoch_fused_launch(
     int group, const fused_real* consts, const fused_real* prior_a, const fused_real* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, fused_real logzero, void* stream) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, fused_real logzero, void* stream) {
     const EpochArgsT<fused_real> a =
-        epoch_args<fused_real>(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D, R,
-                               k0, k1, max_step, max_shrink, cap);
+        at_lane0(epoch_args<fused_real>(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                        D, R, k0, k1, max_step, max_shrink, cap), lane0);
     if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD))
         return (int)cudaErrorInvalidValue;
     const FusedLike like{affine_prior<FusedLike::MAXD>(prior_a, prior_s, D), consts, logzero};

@@ -74,7 +74,7 @@ __global__ void slice_epoch_v2_counted_kernel(Like like, EpochArgs a, int* __res
     if (lane) slice_load(x0, a.x0t, 0, D, B, b);
     const bool live = lane && a.valid[b] > 0.5f;
     const float bnd = lane ? a.bound[b] : 0.0f;
-    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
     for (int r = 0; r < R; ++r) {
         const size_t o = (size_t)r * B + b;
         int steps = 0;  // micro-steps of this lane in repeat r
@@ -133,12 +133,12 @@ extern "C" int slice_epoch_v2_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, void* cube_out, int group) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* cube_out, int group) {
     return launch<false>(group, functor, consts, prior_a, prior_s,
-                         epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                    D, R, k0, k1, max_step, max_shrink, cap, nullptr, nullptr,
-                                    cube_out),
+                         at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                             cap, nullptr, nullptr, cube_out), lane0),
                          logzero, stream, nullptr);
 }
 
@@ -150,12 +150,12 @@ extern "C" int slice_epoch_v2_counted_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, void* cube_out, void* steps_out,
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* cube_out, void* steps_out,
     void* iters) {
     return launch<true>(1, functor, consts, prior_a, prior_s,
-                        epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                   D, R, k0, k1, max_step, max_shrink, cap, steps_out, nullptr,
-                                   cube_out),
+                        at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                            nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
+                                            steps_out, nullptr, cube_out), lane0),
                         logzero, stream, (int*)iters);
 }

@@ -54,10 +54,11 @@ extern "C" int slice_epoch_v3_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, int group) {
-    const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                   D, R, k0, k1, max_step, max_shrink, cap);
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, int group) {
+    const EpochArgs a = at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                            nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                            cap), lane0);
     if (!epoch_args_ok(a, group, SLICE_MAXD_WIDE)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int bad = with_bucket_likelihood(

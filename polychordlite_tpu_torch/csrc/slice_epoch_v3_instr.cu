@@ -106,7 +106,7 @@ __device__ __forceinline__ void instr_one(const Like& like, const InstrArgs& ia,
         slice_load(x0, a.x0t, 0, D, B, b);
         bnd = a.bound[b];
     }
-    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
 
     // one while-loop body of step r (v3_instr.py:155-275)
     auto body = [&](int window_hi) {
@@ -177,7 +177,7 @@ __device__ __forceinline__ void instr_group(const Like& like, const InstrArgs& i
         slice_load<G>(x0, a.x0t, 0, D, B, b, g);
         bnd = a.bound[b];
     }
-    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+    const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
 
     // one body for every chain of the warp; a chain that takes no part
     // (`run` false) or stands outside its window keeps nothing
@@ -313,11 +313,13 @@ extern "C" int slice_epoch_v3_instr_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, void* iters, void* overflow, int group) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* iters, void* overflow,
+        int group) {
     return launch<false>(group, functor, consts, prior_a, prior_s,
-                         epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                    D, R, k0, k1, max_step, max_shrink, 0),
+                         at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                             0), lane0),
                          cap, logzero, stream, iters, overflow);
 }
 
@@ -328,11 +330,13 @@ extern "C" int slice_epoch_v3_cheap_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, void* iters, void* overflow, int group) {
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* iters, void* overflow,
+        int group) {
     return launch<true>(group, functor, consts, prior_a, prior_s,
-                        epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
-                                   D, R, k0, k1, max_step, max_shrink, 0),
+                        at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                            nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                            0), lane0),
                         cap, logzero, stream, iters, overflow);
 }
 

@@ -87,7 +87,7 @@ __device__ __forceinline__ void packet_group_epoch(const GroupLane<Gs, Like>& L,
         slice_load<Gs>(n, a.nhat, 0, D, B, b, g);
         wr = a.w[b];
         bnd = a.bound[b];
-        h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
     }
     uint32_t h_rep = mix32(h_lane, 0u);
     for (;;) {
@@ -167,10 +167,11 @@ extern "C" int slice_epoch_v5_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
     const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
-    int R, unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-    long long cap, float logzero, void* stream, int group) {
-    const EpochArgs a = epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D,
-                                   R, k0, k1, max_step, max_shrink, cap);
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, int group) {
+    const EpochArgs a = at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
+                                            nlike_out, B, D, R, k0, k1, max_step, max_shrink,
+                                            cap), lane0);
     if (!epoch_args_ok(a, group) || group == 2) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (int)(((long long)B * group + 31) / 32);

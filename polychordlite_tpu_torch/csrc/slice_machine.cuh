@@ -220,6 +220,9 @@ struct EpochArgsT {
     int* lane_steps;  // the counted form's outputs, else null
     int* warp_max;
     T* cube_out;  // B5's cube, else null
+    // the launch's first lane in the whole batch: a shard's lanes hash as the
+    // same lanes of the one-device launch (0 there)
+    uint32_t lane0 = 0;
 };
 using EpochArgs = EpochArgsT<float>;
 
@@ -234,6 +237,13 @@ inline EpochArgsT<T> epoch_args(const void* x0t, const void* bound, const void* 
                          (const T*)nhat, (const T*)w, (T*)t_out, (T*)logL_out,
                          (int*)nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
                          (int*)lane_steps, (int*)warp_max, (T*)cube_out};
+}
+
+// The same arguments for a shard whose lane b is lane lane0 + b of the batch.
+template <class T>
+inline EpochArgsT<T> at_lane0(EpochArgsT<T> a, unsigned int lane0) {
+    a.lane0 = lane0;
+    return a;
 }
 
 // Record repeat r of chain b.

@@ -98,6 +98,7 @@ struct StepArgs {
     const int* rep_limit;  // (1,): a lane proposes only while rep < *rep_limit
     int B, D, R;
     uint32_t k0, k1;
+    uint32_t lane0;  // the launch's first lane in the whole batch (a shard's)
     int max_step, max_shrink;
     long long cap;
     T logzero;
@@ -133,7 +134,7 @@ __global__ void slice_step_kernel(StepArgs<T> a, bool first) {
         if (!valid) s.phase = PH_DONE;
         rep = valid ? 0 : R;
         steps = 0;
-        h_lane = mix32(mix32(a.k0, a.k1), (uint32_t)b);
+        h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
         for (int d = 0; d < D; ++d) a.x[d * B + b] = a.x0t[d * B + b];
         for (int r = 0; r < R; ++r) write_record(a, r, b, T(0), a.logzero, 0);
     } else {
@@ -201,13 +202,13 @@ static int launch(int first, const void* x0t, const void* valid, const void* bou
                   const void* nhat, const void* w, const void* logL, void* ist, void* steps,
                   void* fst, void* x, void* probe, void* t_out, void* logL_out,
                   void* nlike_out, void* active, const void* rep_limit, int B, int D, int R,
-                  unsigned int k0, unsigned int k1, int max_step, int max_shrink, long long cap,
-                  T logzero, void* stream) {
+                  unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+                  int max_shrink, long long cap, T logzero, void* stream) {
     if (B < 1 || D < 1 || R < 1) return (int)cudaErrorInvalidValue;
     const StepArgs<T> a{(const T*)x0t, (const T*)valid, (const T*)bound, (const T*)nhat,
                         (const T*)w, (const T*)logL, (int*)ist, (long long*)steps, (T*)fst,
                         (T*)x, (T*)probe, (T*)t_out, (T*)logL_out, (int*)nlike_out,
-                        (int*)active, (const int*)rep_limit, B, D, R, k0, k1, max_step,
+                        (int*)active, (const int*)rep_limit, B, D, R, k0, k1, lane0, max_step,
                         max_shrink, cap, logzero};
     const int threads = 128;
     const int blocks = (B + threads - 1) / threads;
@@ -219,17 +220,20 @@ static int launch(int first, const void* x0t, const void* valid, const void* bou
 // One launch on `stream`: the first one of an epoch (`first` != 0: set up
 // from x0t and valid, then propose) or a round (consume logL, propose).
 // All arrays are device arrays in the layouts above, contiguous, float32;
-// rep_limit is one device int (R for the traced route).
+// rep_limit is one device int (R for the traced route); lane0 is the
+// launch's first lane in the whole batch (slice_epoch.cu), read by the
+// first launch alone.
 // Returns cudaGetLastError() after the launch.
 extern "C" int slice_step_launch(int first, const void* x0t, const void* valid,
                                  const void* bound, const void* nhat, const void* w,
                                  const void* logL, void* ist, void* steps, void* fst, void* x,
                                  void* probe, void* t_out, void* logL_out, void* nlike_out,
                                  void* active, const void* rep_limit, int B, int D, int R,
-                                 unsigned int k0, unsigned int k1, int max_step, int max_shrink,
-                                 long long cap, float logzero, void* stream) {
+                                 unsigned int k0, unsigned int k1, unsigned int lane0,
+                                 int max_step, int max_shrink, long long cap, float logzero,
+                                 void* stream) {
     return launch<float>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
-                         t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1,
+                         t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1, lane0,
                          max_step, max_shrink, cap, logzero, stream);
 }
 
@@ -240,9 +244,10 @@ extern "C" int slice_step_launch_f64(int first, const void* x0t, const void* val
                                      void* x, void* probe, void* t_out, void* logL_out,
                                      void* nlike_out, void* active, const void* rep_limit,
                                      int B, int D, int R, unsigned int k0, unsigned int k1,
-                                     int max_step, int max_shrink, long long cap,
+                                     unsigned int lane0, int max_step, int max_shrink,
+                                         long long cap,
                                      double logzero, void* stream) {
     return launch<double>(first, x0t, valid, bound, nhat, w, logL, ist, steps, fst, x, probe,
-                          t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1,
+                          t_out, logL_out, nlike_out, active, rep_limit, B, D, R, k0, k1, lane0,
                           max_step, max_shrink, cap, logzero, stream);
 }

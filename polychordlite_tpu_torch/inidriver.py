@@ -22,7 +22,6 @@ import os
 from .core.nested_sampling import default_dumper, nested_sampling
 from .models import EXAMPLES, get_likelihood
 from .priors import BlockPrior, identity_prior
-from .utils import io as io_mod
 from .utils.inifile import read_ini
 
 
@@ -69,7 +68,5 @@ def run_ini(inifile: str, likelihood_name=None, loglikelihood=None, device=None)
 
     prior = BlockPrior(blocks, settings.nDims) if blocks else identity_prior
 
-    if settings.write_paramnames and paramnames:
-        io_mod.write_paramnames_file(settings, list(paramnames) + list(derived))
-
-    return nested_sampling(like, prior, default_dumper, settings, device=device)
+    names = list(paramnames) + list(derived) if settings.write_paramnames and paramnames else None
+    return nested_sampling(like, prior, default_dumper, settings, device=device, paramnames=names)

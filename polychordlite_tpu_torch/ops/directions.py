@@ -60,6 +60,38 @@ def draw_gaussians(
     return out
 
 
+def draw_directions(
+    B: int,
+    grade_dims: Sequence[int],
+    num_repeats: Sequence[int],
+    n_dims: int,
+    generator: torch.Generator,
+    device,
+    dtype: torch.dtype = torch.float32,
+):
+    """(gauss, perm): what :func:`make_directions` draws from ``generator``
+    for a batch of B chains, in the same order."""
+    gauss = draw_gaussians(B, grade_dims, num_repeats, n_dims, generator, device, dtype)
+    return gauss, shared_permutation(int(sum(num_repeats)), generator, device)
+
+
+def shard_draws(draws, lo: int, n: int, width: int, device):
+    """A shard's part of :func:`draw_directions`'s draws for the whole
+    batch: the Gaussians of chains lo..lo+n-1, padded to ``width`` chains
+    with copies of chain lo (the shard's invalid lanes), on ``device``, and
+    the shared permutation.  Gram-Schmidt works on each chain's bases alone,
+    so the shard's directions are its chains' directions of the whole
+    batch, bit for bit."""
+    gauss, perm = draws
+    out = []
+    for g in gauss:
+        cols = g[..., lo:lo + n]
+        if width > n:
+            cols = torch.cat([cols, cols[..., :1].expand(*cols.shape[:-1], width - n)], dim=-1)
+        out.append(cols.to(device).contiguous())
+    return out, perm.to(device)
+
+
 def make_directions(
     cholesky: torch.Tensor,  # (B, D, D) per-chain cluster Cholesky
     *,

@@ -127,10 +127,13 @@ def key_words(key):
     return int(k[0]), int(k[-1])
 
 
-def lane_hash(key_words, B: int, device) -> torch.Tensor:
-    """h_lane = mix(mix(k0, k1), lane) of lanes 0..B-1, int64 words."""
+def lane_hash(key_words, B: int, device, lane0: int = 0) -> torch.Tensor:
+    """h_lane = mix(mix(k0, k1), lane) of lanes lane0..lane0+B-1, int64
+    words: ``lane0`` is a shard's first lane in the whole batch (the
+    kernels' ``lane0`` argument), so a shard's lanes draw the uniforms of the
+    same lanes of the one-device batch."""
     k0, k1 = key_words
-    lanes = torch.arange(B, device=device)
+    lanes = torch.arange(lane0, lane0 + B, device=device)
     return _mix(_mix(torch.full((B,), k0, dtype=torch.int64, device=device), k1), lanes)
 
 
@@ -261,6 +264,7 @@ def slice_records_lockstep_plain(
     nhats: torch.Tensor,   # (B, R, D) float32
     ws: torch.Tensor,      # (B, R) float32
     count_steps: bool = False,
+    lane0: int = 0,
 ):
     """v2's lockstep epoch in plain torch: per repeat, a while loop of
     4-micro-step bodies over all lanes until every lane has accepted or the
@@ -278,7 +282,7 @@ def slice_records_lockstep_plain(
     R = nhats.shape[1]
     dev = x0.device
     logzero = torch.tensor(cfg.logzero, dtype=torch.float32).item()
-    h_lane = lane_hash(key_words, B, dev)
+    h_lane = lane_hash(key_words, B, dev, lane0)
     x = x0.to(torch.float32).clone()
     t_out = torch.zeros((B, R), dtype=torch.float32, device=dev)
     l_out = torch.full((B, R), logzero, dtype=torch.float32, device=dev)
@@ -323,7 +327,7 @@ GROUP_LAUNCHES = {(b, g): 0 for b, gs in ((32, (1, 2, 4, 8, 16, 32)), (128, (32,
                   for g in gs}
 
 
-def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None):
+def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None, lane0=0):
     """Run the slice repeats of every lane with v2's budget and cube:
     (t, logL) float32, nlike int32, each (B, R), and cube (B, R, D)
     float32, with the inputs of ``pallas_slice_v4.slice_epoch``.  CPU
@@ -331,12 +335,13 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     ``calc.device_spec``, with ``group`` lanes per chain (one of the
     bucket's ``pallas_slice_v4.BUCKET_GROUPS``; ``pallas_slice_v4.
     choose_group`` by default, as for B1).  Every G gives the same result
-    bit for bit."""
+    bit for bit.  ``lane0`` is the first lane's index in the whole batch
+    (a shard's; ``lane_hash``)."""
     if group is not None and group not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"group {group} is not one of (1, 2, 4, 8, 16, 32)")
     if x0.device.type == "cpu":
         return slice_records_lockstep_plain(
-            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
@@ -348,7 +353,7 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
     t, logL, nlike = launch_slice_kernel(
         _lib(), "slice_epoch_v2_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
-        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(key[1],),
+        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(key[1],), lane0=lane0,
     )
     LAUNCHES["slice_epoch_v2"] += 1
     GROUP_LAUNCHES[key] += 1

@@ -58,6 +58,7 @@ def slice_records_window_plain(
     ws: torch.Tensor,      # (B, R) float32
     count_iters: bool = False,
     cheap: bool = False,
+    lane0: int = 0,
 ):
     """v3's windowed epoch in plain torch (see the module docstring).
 
@@ -74,7 +75,7 @@ def slice_records_window_plain(
     rc = min(RC, R)
     logzero = torch.tensor(cfg.logzero, dtype=torch.float32).item()
     lanes = torch.arange(B, device=dev)
-    h_lane = lane_hash(key_words, B, dev)
+    h_lane = lane_hash(key_words, B, dev, lane0)
     m = LaneMachine(B, dev, logzero)
     m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
     rep = torch.where(valid, 0, R).to(torch.int64)
@@ -122,19 +123,19 @@ def slice_records_window_plain(
     return t_out, l_out, n_out
 
 
-def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None):
+def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None, lane0=0):
     """Run the slice repeats of every lane under v3's budget: (t, logL)
     float32 and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
     tensors: the kernel, which needs ``calc.device_spec``, with ``group``
     lanes per chain (one of the bucket's ``pallas_slice_v4.BUCKET_GROUPS``;
     ``pallas_slice_v4.choose_group`` by default, as for B1).  Every G gives
-    the same result bit for bit."""
+    the same result bit for bit.  ``lane0``: ``pallas_slice.lane_hash``."""
     if group is not None and group not in GROUPS:
         raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_window_plain(
-            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
@@ -143,7 +144,7 @@ def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     out = launch_slice_kernel(
         nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"]), "slice_epoch_v3_launch",
         calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
-        ints=(key[1],),
+        ints=(key[1],), lane0=lane0,
     )
     LAUNCHES["slice_epoch_v3"] += 1
     GROUP_LAUNCHES[key] += 1

@@ -165,7 +165,7 @@ FUNCTORS = {
 
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 11
-    + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -255,7 +255,8 @@ def functor_args(calc, D: int):
 
 
 def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
-                        x0, bound, valid, nhats, ws, cap=None, extra=(), ints=(), functor=None):
+                        x0, bound, valid, nhats, ws, cap=None, extra=(), ints=(), functor=None,
+                        lane0=0):
     """Check the inputs of a slice-epoch kernel, launch it on the current
     stream and return (t, logL, nlike), each (B, R).  The model must have a
     device form (``calc.device_spec``) whose functor is in
@@ -268,7 +269,8 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     lowered from the calc is instantiated in it (float64 for the fused
     route's double kernel), and a functor of :data:`FUNCTORS` is float32,
     so a float64 calc without one raises: a float64 run never reaches a
-    float32 kernel."""
+    float32 kernel.  ``lane0`` is the launch's first lane in the whole batch
+    (a shard's first logical lane; ``pallas_slice.lane_hash``)."""
     B, R, D = nhats.shape
     bucket(D)  # raises above the wide bucket
     dtype = calc_dtype(calc)
@@ -309,7 +311,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
             x0t.data_ptr(), bound_f.data_ptr(), valid_f.data_ptr(),
             nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
             l_out.data_ptr(), n_out.data_ptr(), B, D, R,
-            int(k0), int(k1), cfg.max_step, cfg.max_shrink,
+            int(k0), int(k1), int(lane0), cfg.max_step, cfg.max_shrink,
             cfg.step_cap if cap is None else int(cap), logzero, stream,
             *(a.data_ptr() for a in extra), *(int(i) for i in ints),
         )
@@ -318,26 +320,28 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
 
 
 def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                group=None):
+                group=None, lane0=0):
     """Run the slice repeats of every lane: (t, logL) float32 and nlike
     int32, each (B, R).  ``x0 (B,D)``, ``bound (B,)``, ``valid (B,)`` bool,
     ``nhats (B,R,D)``, ``ws (B,R)``.  CPU tensors: the plain version; CUDA
     tensors: the kernel, which needs ``calc.device_spec``, with ``group``
     lanes per chain (one of the bucket's :data:`BUCKET_GROUPS`;
     :func:`choose_group` by default).  Every G gives the same result bit
-    for bit."""
+    for bit.  ``lane0`` is the first lane's index in the whole batch (a
+    shard's first logical lane, ``pallas_slice.lane_hash``); every wrapper
+    of a slice kernel takes it."""
     if group is not None and group not in GROUPS:
         raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_plain(
-            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
     out = launch_slice_kernel(_lib(), "slice_epoch_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, ints=(key[1],))
+                              x0, bound, valid, nhats, ws, ints=(key[1],), lane0=lane0)
     LAUNCHES["slice_epoch"] += 1
     GROUP_LAUNCHES[key] += 1
     return out
@@ -383,7 +387,7 @@ def lane_efficiency(lane_steps: torch.Tensor, warp_max: torch.Tensor) -> float:
 
 
 def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                      group=None):
+                      group=None, lane0=0):
     """Run the slice repeats of every lane with the model's likelihood
     lowered into B1 (``ops/fused_like.py``): (t, logL) of the lowering's
     dtype (float32; float64 at ``precision='highest'``) and nlike int32,
@@ -400,7 +404,8 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     if isinstance(low, Refused):
         raise ValueError(f"the fused route cannot run this model: {low.reason}")
     if x0.device.type == "cpu":
-        return slice_records_plain(low.plain_logL, cfg, key_words, x0, bound, valid, nhats, ws)
+        return slice_records_plain(low.plain_logL, cfg, key_words, x0, bound, valid, nhats, ws,
+                                   lane0=lane0)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
@@ -408,7 +413,7 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     G = key[1]
     functor = (G, low.device_consts(x0.device), *low.prior)
     out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, functor=functor)
+                              x0, bound, valid, nhats, ws, functor=functor, lane0=lane0)
     LAUNCHES["slice_epoch_fused" if low.dtype == torch.float32 else "slice_epoch_fused_f64"] += 1
     GROUP_LAUNCHES[key] += 1
     return out
@@ -545,14 +550,14 @@ class StepState:
     launch sets it up: a valid lane in ``PH_INIT_R`` of repeat 0, an invalid
     one done; every record t = 0, logL = logzero, nlike = 0."""
 
-    def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+    def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0):
         B, R, _ = nhats.shape
         dev = x0.device
         real = x0.dtype if x0.dtype == torch.float64 else torch.float32
         self.cfg, self.bound, self.nhats, self.ws = cfg, bound, nhats, ws
         self.logzero = torch.tensor(cfg.logzero, dtype=real).item()
         self.lanes = torch.arange(B, device=dev)
-        self.h_lane = lane_hash(key_words, B, dev)
+        self.h_lane = lane_hash(key_words, B, dev, lane0)
         self.m = LaneMachine(B, dev, self.logzero, real)
         self.m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
         self.rep = torch.where(valid, 0, R).to(torch.int64)
@@ -603,13 +608,13 @@ def slice_step_plain(st: StepState, logL=None, rep_limit=None) -> bool:
 
 
 def slice_records_rounds_plain(logL_fn, cfg: EpochConfig, key_words, x0, bound, valid,
-                               nhats, ws, rounds: int = ROUNDS):
+                               nhats, ws, rounds: int = ROUNDS, lane0: int = 0):
     """The traced route in torch, structured as the kernel route runs it: the
     first launch, then replays of ``rounds`` rounds (``logL_fn(probe)`` and
     one :func:`slice_step_plain`) until the flag of a replay's last round
     reads no lane running.  Returns (t, logL, nlike), each (B, R), bitwise
     ``slice_kernel.slice_records_plain`` for any ``rounds``."""
-    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0)
     running = slice_step_plain(st)
     while running:
         for _ in range(rounds):
@@ -641,7 +646,8 @@ def graded_schedule(calc, grades):
 
 
 def slice_records_graded_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats,
-                               ws, grades, rounds: int = 1, with_aux: bool = False):
+                               ws, grades, rounds: int = 1, with_aux: bool = False,
+                               lane0: int = 0):
     """The graded route in torch (the plain version of
     :meth:`TracedEpoch.graded`): the traced route's launches with the
     repeat barrier raised one repeat at a time (:func:`graded_schedule`).
@@ -656,7 +662,7 @@ def slice_records_graded_plain(calc, cfg: EpochConfig, key_words, x0, bound, val
     ``slice_kernel.slice_records_plain``, for any ``rounds``; with
     ``with_aux``, also the intermediate each repeat ran on (None for a
     slow one), for :func:`assemble_epoch`."""
-    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0)
     aux, aux_by_rep = None, []
     for r, fast, refresh in graded_schedule(calc, grades):
         if refresh:  # before the repeat opens: the chains' slow parameters
@@ -673,9 +679,9 @@ def slice_records_graded_plain(calc, cfg: EpochConfig, key_words, x0, bound, val
 
 
 #: slice_step_launch's arguments: first, 16 device pointers, B, D, R, k0,
-#: k1, max_step, max_shrink, cap, logzero, stream
+#: k1, lane0, max_step, max_shrink, cap, logzero, stream
 _STEP_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2
+    [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 3
     + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
 #: slice_step_launch_f64's: logzero a double
@@ -732,7 +738,7 @@ class TracedEpoch:
         self.counter, self.graded_counter = "slice_step" + suffix, "slice_step_graded" + suffix
         self.graph = self.fast_graph = self.aux = None
 
-    def _launch(self, first: bool, key_words=(0, 0)) -> None:
+    def _launch(self, first: bool, key_words=(0, 0), lane0: int = 0) -> None:
         B, R, D = self.shape
         cfg = self.cfg
         bufs = (self.x0t, self.valid, self.bound, self.nhat, self.w, self.logL, self.ist,
@@ -740,7 +746,7 @@ class TracedEpoch:
                 self.active, self.rep_limit)
         status = self.fn(
             int(first), *(b.data_ptr() for b in bufs), B, D, R, int(key_words[0]),
-            int(key_words[1]), cfg.max_step, cfg.max_shrink, cfg.step_cap, self.logzero,
+            int(key_words[1]), int(lane0), cfg.max_step, cfg.max_shrink, cfg.step_cap, self.logzero,
             torch.cuda.current_stream(self.device).cuda_stream,
         )
         nvcc.check(status, "slice_step_launch")
@@ -782,7 +788,8 @@ class TracedEpoch:
             gc.enable()
         return graph
 
-    def _start(self, key_words, x0, bound, valid, nhats, ws, rep_limit: int, counter: str):
+    def _start(self, key_words, x0, bound, valid, nhats, ws, rep_limit: int, counter: str,
+               lane0: int = 0):
         self.x0t.copy_(x0.t())
         self.valid.copy_(valid)
         self.bound.copy_(bound)
@@ -790,7 +797,7 @@ class TracedEpoch:
         self.w.copy_(ws.t())
         self.rep_limit.fill_(rep_limit)
         self.active.zero_()
-        self._launch(True, key_words)
+        self._launch(True, key_words, lane0)
         LAUNCHES[counter] += 1
 
     def _replay(self, graph, counter: str, on_replay) -> None:
@@ -803,8 +810,8 @@ class TracedEpoch:
         return self.t_out.t().contiguous(), self.l_out.t().contiguous(), \
             self.n_out.t().contiguous()
 
-    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
-        self._start(key_words, x0, bound, valid, nhats, ws, self.shape[1], self.counter)
+    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws, lane0=0):
+        self._start(key_words, x0, bound, valid, nhats, ws, self.shape[1], self.counter, lane0)
         if self.graph is None:
             self.graph = self._capture(lambda: calc(self.probe)[2])
 
@@ -815,7 +822,7 @@ class TracedEpoch:
         self._replay(self.graph, self.counter, count)
         return self._outputs()
 
-    def graded(self, calc, key_words, x0, bound, valid, nhats, ws, grades):
+    def graded(self, calc, key_words, x0, bound, valid, nhats, ws, grades, lane0=0):
         """The graded route: :func:`slice_records_graded_plain` on the card,
         with its outputs and the intermediate of each repeat.  Repeat r
         opens with ``rep_limit`` r + 1 (the epoch's first launch for r = 0,
@@ -836,7 +843,8 @@ class TracedEpoch:
                         dst.copy_(src)
                 GRADED["aux_rows"] += B
             if r == 0:
-                self._start(key_words, x0, bound, valid, nhats, ws, 1, self.graded_counter)
+                self._start(key_words, x0, bound, valid, nhats, ws, 1, self.graded_counter,
+                            lane0)
             else:
                 self.rep_limit.fill_(r + 1)
                 self.active.zero_()
@@ -898,7 +906,7 @@ def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: i
 
 
 def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                       rounds: int = ROUNDS):
+                       rounds: int = ROUNDS, lane0: int = 0):
     """Run the slice repeats of every lane for a model without a device
     functor: (t, logL) of the calc's dtype (float32; float64 at
     precision='highest') and nlike int32, each (B, R), with the inputs of
@@ -910,14 +918,14 @@ def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
     _check_traced_inputs("slice_epoch_traced", calc, x0, bound, valid, nhats, ws, rounds)
     if x0.device.type == "cpu":
         return slice_records_rounds_plain(lambda p: calc(p)[2], cfg, key_words, x0, bound,
-                                          valid, nhats, ws, rounds)
+                                          valid, nhats, ws, rounds, lane0)
     B, R, D = nhats.shape
     return _runner(calc, cfg, B, R, D, rounds, x0.device)(calc, key_words, x0, bound, valid,
-                                                          nhats, ws)
+                                                          nhats, ws, lane0)
 
 
 def slice_epoch_graded(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, speeds,
-                       rounds=None, with_aux: bool = False):
+                       rounds=None, with_aux: bool = False, lane0: int = 0):
     """The ``"scan"`` engine's epoch: the slice repeats of every lane run
     one repeat at a time in lockstep across the batch, each repeat of one
     grade (``speeds``, the directions' (B, R) slot grades, shared by the
@@ -941,9 +949,9 @@ def slice_epoch_graded(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
         raise ValueError(f"slice_epoch_graded: {len(grades)} repeat grades for R = {R}")
     if cpu:
         return slice_records_graded_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws,
-                                          grades, rounds, with_aux)
+                                          grades, rounds, with_aux, lane0)
     out = _runner(calc, cfg, B, R, D, rounds, x0.device).graded(
-        calc, key_words, x0, bound, valid, nhats, ws, grades)
+        calc, key_words, x0, bound, valid, nhats, ws, grades, lane0)
     return out if with_aux else out[:3]
 
 
@@ -1041,7 +1049,8 @@ def _host_rounds(keeper: ProbeKeeper, launch, read) -> None:
         launch(logL)
 
 
-def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
+                             lane0=0):
     """The host route in torch (the plain version of :class:`HostEpoch`):
     :func:`slice_step_plain` round by round, the user's likelihood called
     through :class:`ProbeKeeper` on the pending lanes' probes only.  Returns
@@ -1049,7 +1058,7 @@ def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid
     on the same callback calc (the kernel consumes a logL only where a probe
     is pending), and the babies (cube, theta, phi) of
     :meth:`ProbeKeeper.babies`."""
-    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws)
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0)
     keeper = ProbeKeeper(calc, *nhats.shape)
 
     def launch(logL):
@@ -1086,7 +1095,7 @@ class HostEpoch(TracedEpoch):
         self.done = torch.cuda.Event()
         self.counter = "slice_step_host" + ("_f64" if dtype == torch.float64 else "")
 
-    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws):
+    def __call__(self, calc, key_words, x0, bound, valid, nhats, ws, lane0=0):
         B, R, D = self.shape
         keeper = ProbeKeeper(calc, B, R, D)
         stream = torch.cuda.current_stream(self.device)
@@ -1094,7 +1103,7 @@ class HostEpoch(TracedEpoch):
         def launch(logL):
             t0 = time.perf_counter()
             if logL is None:
-                self._start(key_words, x0, bound, valid, nhats, ws, R, self.counter)
+                self._start(key_words, x0, bound, valid, nhats, ws, R, self.counter, lane0)
             else:
                 self.logL_h.numpy()[:] = logL
                 self.logL.copy_(self.logL_h, non_blocking=True)
@@ -1119,7 +1128,7 @@ class HostEpoch(TracedEpoch):
         return (*self._outputs(), keeper.babies(x0))
 
 
-def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws):
+def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0):
     """The ``"scan"`` engine's epoch for a host-callback likelihood (the
     host route, ``"slice_step_host"``): (t, logL) of the calc's dtype and
     nlike int32, each (B, R), with the inputs of :func:`slice_epoch`, and
@@ -1132,10 +1141,11 @@ def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats,
     _check_traced_inputs("slice_epoch_host", calc, x0, bound, valid, nhats, ws, 1,
                          host=True)
     if x0.device.type == "cpu":
-        return slice_records_host_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws)
+        return slice_records_host_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws,
+                                        lane0)
     B, R, D = nhats.shape
     runners = calc.__dict__.setdefault("host_epochs", {})
     key = (tuple(cfg), cfg.step_cap, B, R, D, str(x0.device))
     if key not in runners:
         runners[key] = HostEpoch(calc, cfg, B, R, D, x0.device)
-    return runners[key](calc, key_words, x0, bound, valid, nhats, ws)
+    return runners[key](calc, key_words, x0, bound, valid, nhats, ws, lane0)

@@ -144,6 +144,7 @@ def slice_records_packet_plain(
     valid: torch.Tensor,   # (B,) bool
     nhats: torch.Tensor,   # (B, R, D) float32
     ws: torch.Tensor,      # (B, R) float32
+    lane0: int = 0,
 ):
     """The packet machine of ``csrc/slice_epoch_v5.cu`` in plain torch.
 
@@ -157,7 +158,7 @@ def slice_records_packet_plain(
     logzero = torch.tensor(cfg.logzero, dtype=f32).item()
     k0, k1 = key_words
     lanes = torch.arange(B, device=dev)
-    h_lane = _mix(_mix(torch.full((B,), k0, dtype=torch.int64, device=dev), k1), lanes)
+    h_lane = _mix(_mix(torch.full((B,), k0, dtype=torch.int64, device=dev), k1), lanes + lane0)
 
     def i64(v):
         return torch.full((B,), v, dtype=torch.int64, device=dev)
@@ -321,7 +322,7 @@ def slice_records_packet_plain(
 
 
 def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                   group=None):
+                   group=None, lane0=0):
     """Run the slice repeats of every lane in packets: (t, logL) float32
     and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
@@ -329,20 +330,21 @@ def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, w
     lanes per chain (one of :data:`PACKET_GROUPS`; :func:`packet_group_for`
     by default).  Every G gives the same result bit for bit.  The packet
     machine keeps a chain's coordinates per thread, so it stops at D =
-    ``SLICE_MAXD`` (32), on either device; above, it raises."""
+    ``SLICE_MAXD`` (32), on either device; above, it raises.  ``lane0``:
+    ``pallas_slice.lane_hash``."""
     if group is not None and group not in PACKET_GROUPS:
         raise ValueError(f"group {group} is not one of {PACKET_GROUPS}")
     check_dims(nhats.shape[2])
     if x0.device.type == "cpu":
         return slice_records_packet_plain(
-            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
     G = packet_group_for(calc, B, D, x0.device) if group is None else group
     out = launch_slice_kernel(_lib(), "slice_epoch_v5_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, ints=(G,))
+                              x0, bound, valid, nhats, ws, ints=(G,), lane0=lane0)
     LAUNCHES["slice_epoch_v5"] += 1
     GROUP_LAUNCHES[G] += 1
     return out

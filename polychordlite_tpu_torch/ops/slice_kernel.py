@@ -135,6 +135,7 @@ def slice_records_plain(
     nhats: torch.Tensor,   # (B, R, D)
     ws: torch.Tensor,      # (B, R)
     count_steps: bool = False,
+    lane0: int = 0,
 ):
     """The plain torch engine: every lane runs its R repeats freely.
 
@@ -143,14 +144,17 @@ def slice_records_plain(
     ``logL_fn(probe (B, D)) -> logL (B,)`` of that dtype.  Returns (t (B,R),
     logL (B,R)) of that dtype and nlike (B,R) int32 per (lane, repeat);
     repeats never reached keep t = 0, logL = logzero, nlike = 0.  With
-    ``count_steps``, also the micro-steps each lane executed, (B,) int32."""
+    ``count_steps``, also the micro-steps each lane executed, (B,) int32.
+    ``lane0`` is the first lane's index in the whole batch: a shard of
+    lanes lane0..lane0+B-1 draws the uniforms of those lanes of the
+    one-device batch (``pallas_slice.lane_hash``)."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
     real = x0.dtype if x0.dtype == torch.float64 else torch.float32
     logzero = torch.tensor(cfg.logzero, dtype=real).item()
     lanes = torch.arange(B, device=dev)
-    h_lane = lane_hash(key_words, B, dev)
+    h_lane = lane_hash(key_words, B, dev, lane0)
     m = LaneMachine(B, dev, logzero, real)
     m.phase = torch.where(valid, PH_INIT_R, PH_DONE).to(torch.int64)
     rep = torch.where(valid, 0, R).to(torch.int64)
@@ -271,53 +275,63 @@ def _route(engine: str, calc) -> Tuple[str, str]:
 
 def build_epoch_fn(calc, cfg: EpochConfig):
     """Build ``epoch(key_words, seed_cube, bound, cholesky, lane_valid,
-    generator=None, directions=None)`` for ``cfg.engine``.
+    generator=None, directions=None, draws=None, lane0=0)`` for
+    ``cfg.engine``.
 
     ``generator`` is the device ``torch.Generator`` the directions are drawn
-    from; ``directions=(nhats, w, speeds)`` replaces the draw (test seam)."""
+    from; ``draws=(gauss, perm)`` gives its draws instead (a shard's columns
+    of the one-device draw, ``ops/directions.py::shard_draws``);
+    ``directions=(nhats, w, speeds)`` replaces the whole direction step
+    (test seam).  ``lane0`` is the batch's first lane in the whole chain
+    batch (a shard's; ``pallas_slice.lane_hash``)."""
     from .directions import make_directions
     from .pallas_slice_v4 import assemble_epoch
 
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; have {ENGINES}")
     if cfg.engine == "torch":
-        def records(*args, speeds):
-            return slice_records_plain(lambda p: calc(p)[2], cfg, *args)
+        def records(*args, speeds, lane0):
+            return slice_records_plain(lambda p: calc(p)[2], cfg, *args, lane0=lane0)
     elif cfg.engine == "scan" and calc.uses_callback:
         from .pallas_slice_v4 import slice_epoch_host
 
-        def records(*args, speeds):
+        def records(*args, speeds, lane0):
             # the babies are the accepted probes the host kept
-            t, logL, nlike, (cube, theta, phi) = slice_epoch_host(calc, cfg, *args)
+            t, logL, nlike, (cube, theta, phi) = slice_epoch_host(calc, cfg, *args,
+                                                                  lane0=lane0)
             return t, logL, nlike, cube, None, (theta, phi)
     elif cfg.engine == "scan":
         from .pallas_slice_v4 import slice_epoch_graded
 
-        def records(*args, speeds):
+        def records(*args, speeds, lane0):
             # no cube (the babies are rebuilt), and the intermediate of each
             # repeat, from which assemble_epoch takes a fast repeat's babies
-            t, logL, nlike, aux = slice_epoch_graded(calc, cfg, *args, speeds, with_aux=True)
+            t, logL, nlike, aux = slice_epoch_graded(calc, cfg, *args, speeds, with_aux=True,
+                                                     lane0=lane0)
             return t, logL, nlike, None, aux
     else:
         kernel = kernel_wrapper(cfg.engine)
 
-        def records(*args, speeds):
-            return kernel(calc, cfg, *args)
+        def records(*args, speeds, lane0):
+            return kernel(calc, cfg, *args, lane0=lane0)
 
     dtype = calc_dtype(calc)  # float64 at precision='highest'
 
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,
-              generator=None, directions=None):
+              generator=None, directions=None, draws=None, lane0=0):
         if directions is None:
             # the plain engine asks for the plain Gram-Schmidt by name: its
             # runs reach no kernel, at any dimension
+            gauss, perm = (None, None) if draws is None else draws
             directions = make_directions(
                 cholesky.to(dtype), grade_dims=cfg.grade_dims, num_repeats=cfg.num_repeats,
-                n_dims=cfg.n_dims, generator=generator, use_kernel=cfg.engine != "torch",
+                n_dims=cfg.n_dims, generator=generator, gauss=gauss, perm=perm,
+                use_kernel=cfg.engine != "torch",
             )
         nhats, ws, speeds = directions
         seed_f = seed_cube.to(dtype)
-        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws, speeds=speeds)
+        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws, speeds=speeds,
+                      lane0=lane0)
         return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out)
 
     return epoch

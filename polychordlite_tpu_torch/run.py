@@ -28,7 +28,12 @@ Differences from the reference (documented deviations):
   A host-callback model runs on ``"scan"`` on any device (on the card the
   host route: the v4 kernel's traced route driven round by round, the
   model called on the host between two launches), and every kernel engine
-  raises for it, naming ``"scan"``.
+  raises for it, naming ``"scan"``;
+* under ``torchrun --nproc_per_node N`` (or after
+  ``parallel.distributed.initialise_distributed``) the chain batch is split
+  over the N processes, each on its own card (``LOCAL_RANK``; ranks share
+  a card when there are fewer), bitwise the one-process run at the same
+  batch; ``mesh_shape`` splits it over this many local cards.
 """
 
 from __future__ import annotations
@@ -42,7 +47,19 @@ from .core.nested_sampling import (
     nested_sampling,
 )
 from .output import PolyChordOutput
+from .parallel.distributed import is_root
 from .settings import PolyChordSettings
+
+
+def _in_memory(result):
+    """The administrator's result, the same on every process: what a
+    process other than 0 returns (it owns no file products and need not
+    share a filesystem with process 0), and any process when there is no
+    ``.stats`` to parse."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{k: result[k] for k in ("logZ", "logZerr", "ndead", "nlike",
+                                                     "metrics")})
 
 
 def run_polychord(
@@ -55,11 +72,14 @@ def run_polychord(
     device=None,
 ) -> PolyChordOutput:
     """Legacy interface (pypolychord/polychord.py:16-215): explicit settings
-    object in, :class:`PolyChordOutput` out."""
+    object in, :class:`PolyChordOutput` out (on a process other than 0 of a
+    process group, the in-memory result)."""
     settings.nDims = nDims
     settings.nDerived = nDerived
     Path(settings.cluster_dir_path).mkdir(parents=True, exist_ok=True)
-    nested_sampling(loglikelihood, prior, dumper, settings, device=device)
+    result = nested_sampling(loglikelihood, prior, dumper, settings, device=device)
+    if not is_root():
+        return _in_memory(result)
     return PolyChordOutput(settings.base_dir, settings.file_root)
 
 
@@ -111,6 +131,7 @@ def run(loglikelihood, nDims: int, device=None, **kwargs):
         "engine": "auto",
         "chain_epochs": -1,
         "precision": "single",
+        "mesh_shape": None,
     }
     default_kwargs["grade_frac"] = [1.0] * len(
         kwargs.get("grade_dims", default_kwargs["grade_dims"])
@@ -138,27 +159,12 @@ def run(loglikelihood, nDims: int, device=None, **kwargs):
     for k, v in kw.items():
         setattr(settings, k, v)
 
-    if paramnames is not None:
-        PolyChordOutput.make_paramnames_file(
-            paramnames,
-            str(Path(kw["base_dir"]) / (kw["file_root"] + ".paramnames")),
-        )
-
     Path(settings.cluster_dir_path).mkdir(parents=True, exist_ok=True)
-    result = nested_sampling(loglikelihood, prior, dumper, settings, device=device)
+    result = nested_sampling(loglikelihood, prior, dumper, settings, device=device,
+                             paramnames=paramnames)
 
-    if not settings.write_stats:
-        # with write_stats off there is no .stats to parse: return the
-        # in-memory administrator result
-        from types import SimpleNamespace
-
-        return SimpleNamespace(
-            logZ=result["logZ"],
-            logZerr=result["logZerr"],
-            ndead=result["ndead"],
-            nlike=result["nlike"],
-            metrics=result["metrics"],
-        )
+    if not is_root() or not settings.write_stats:
+        return _in_memory(result)
 
     try:
         import anesthetic

@@ -83,8 +83,9 @@ class PolyChordSettings:
     #: synchronous, single device, torch likelihood, one cluster, no
     #: nlives schedule); 0/1 -> off; >1 -> force K.
     chain_epochs: int = -1
-    #: number of local devices to shard the chain batch over; the port runs
-    #: on one device and ignores it.
+    #: number of local devices to shard the chain batch over (None: every
+    #: card of a process alone; parallel/mesh.py).  A run is bitwise the
+    #: same over any number of shards.
     mesh_shape: Optional[int] = None
     #: slice engine: "auto" (default — "cuda" on a CUDA device, the plain
     #: torch engine on the CPU), "cuda" (the v4 kernel: its functor for a

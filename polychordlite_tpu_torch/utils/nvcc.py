@@ -76,7 +76,12 @@ def _start(name: str, sources: Sequence[str], header: Optional[str] = None):
     if header is not None:
         gen = GEN_DIR / so.stem
         gen.mkdir(parents=True, exist_ok=True)
-        (gen / GENERATED_HEADER).write_text(header)
+        # written whole under another name and moved in, as the library is:
+        # two processes that lower the same model write the same header, and
+        # neither nvcc may read it half written
+        part = gen / f"{GENERATED_HEADER}.{os.getpid()}.tmp"
+        part.write_text(header)
+        os.replace(part, gen / GENERATED_HEADER)
         include = ["-I", str(gen)]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(

@@ -149,17 +149,18 @@ def test_calculator_paths():
 
 
 def test_unported_modes_raise(tmp_path):
-    """Asynchronous mode is not ported and raises; precision='highest',
-    maximise, an nlives schedule and several speed grades are ported
-    (tests/test_torch_precision.py, tests/test_torch_modes.py,
-    tests/test_torch_graded.py) and pass the check."""
-    with pytest.raises(NotImplementedError):
+    """No run mode is left unported: asynchronous dispatch
+    (tests/test_torch_parallel.py), precision='highest', maximise, an nlives
+    schedule and several speed grades (tests/test_torch_precision.py,
+    tests/test_torch_modes.py, tests/test_torch_graded.py) pass the check;
+    an unknown precision raises before the run starts."""
+    with pytest.raises(ValueError, match="precision must be one of"):
         polychordlite_tpu_torch.run(
             gaussian(D), D, device="cpu",
-            **{**KW, "synchronous": False, "base_dir": str(tmp_path)}
+            **{**KW, "precision": "double", "base_dir": str(tmp_path)}
         )
-    for extra in ({"precision": "highest"}, {"maximise": True}, {"nlives": {-10.0: 50}},
-                  {"grade_dims": [2, 2], "grade_frac": [1.0, 1.0]}):
+    for extra in ({"synchronous": False}, {"precision": "highest"}, {"maximise": True},
+                  {"nlives": {-10.0: 50}}, {"grade_dims": [2, 2], "grade_frac": [1.0, 1.0]}):
         ns._check_supported(PolyChordSettings(D, 2, **extra).finalise())
 
 
