@@ -34,6 +34,15 @@ fused route with a per-point torch Gaussian, B4 and B5 at D = 40, 64 and
 128, B = 512, R = 2 D, at each G the bucket has, bitwise their plain
 versions and G = 32; the fused route also at the 64-D run's B = 256; ms,
 registers, bounds, and the 32 bucket's B1 at the bench beside them), holds
+the stream bucket above D = 128 (``slice_epoch_d512``: B1's functor on the
+zoo Gaussian and random_gaussian, the fused route, the traced route, B4 and
+B5 at D = 160, 256 and 512, B = 512, bitwise their plain versions at R = 4
+and timed at R = 2 D; B1 also as a shard at lane0 = 256 and at the
+bucket's bound, D = 19,370; the fused and traced routes also in float64 at
+160), B2's long kernel past dim 128 (``gram_schmidt_d512``: (2, dim, dim,
+512) at dims 160 and 256 bitwise, 512 timed, 160 in float64, beside
+``torch.linalg.qr``) and the graded and host routes at D = 160
+(``stream_routes_d160``), holds
 the double kernels of ``precision='highest'`` (``f64_kernels``: B1's fused
 route and the traced route at gaussian.ini's shape and the bench, the
 traced route also at the 40-D run's (B 128, R 80, D 40), B2 narrow at the
@@ -154,6 +163,10 @@ then drives the port's paths and checks what comes out and which kernels ran
   128) at nlive 250, the likelihood written per point in torch: the fused
   route in the wide bucket (B1's launches by bucket and G in the metrics)
   and B2's wide kernel, within 3 sigma of 0;
+* ``run_gaussian_d160``: a per-point torch Gaussian at D = 160 (sigma 0.2
+  at 0.5, uniform on [0, 1]^160), nlive 200, num_repeats 5 D, engine
+  "auto": the fused route in the stream bucket and B2's long kernel, within
+  3 sigma of 160 log erf(2.5 / sqrt 2);
 * ``run_highest``: tests/test_precision.py's big likelihood (1e7 plus a
   normalised Gaussian, sigma 0.1, UniformPrior(-1, 1)) at gaussian.ini's
   width (D = 20, nlive 500, num_repeats 40) through
@@ -194,12 +207,14 @@ each kernel first held against its plain version on the card:
   its time per launch from a captured CUDA graph of 20 launches back to
   back, and its study (one repeat, then 100 launches back to back).
 
-The runs through the CLI, the C++ example and the 64-D run go in
-processes of their own, started after ``run_async`` one after another (the
-64-D run beside them) and run behind the in-process runs; each phase waits
-for its own process and checks what it wrote.  Their dead/s are taken
-while the in-process runs share the card and the host; every kernel timing
-comes before they start or after the last has ended.
+The runs through the CLI, the C++ example, the 64-D and the 160-D runs go
+in processes of their own, the 160-D run started before the main path's
+runs (section 7), the others after ``run_async``, one after another (the
+64-D run beside them), and run behind the in-process runs; each phase
+waits for its own process and checks what it wrote.  Their dead/s, and
+the in-process runs' from section 7 on, are taken while they share the
+card and the host; every kernel timing comes before they start or after
+the last has ended.
 
 Each phase prints one JSON line, then one line gives every phase's
 seconds; the line before the last lists the
@@ -252,6 +267,28 @@ WIDE_DIMS = (40, 64, 128)
 # run() gives the kernels there: B = 256 lanes, all valid; B2 two bases
 D64 = dict(nDims=64, nlive=250, num_repeats=128)
 D64_RUN = dict(B=256, R=128, D=64, B_valid=256)
+# the stream bucket's checked dimensions (D > 128: B = 512, bitwise at R =
+# 4, each kernel also timed at R = 2 D; the double routes at D = 160), and
+# the 160-D Gaussian run: a per-point torch Gaussian of sigma 0.2 at 0.5 on
+# [0, 1]^160 (logZ = 160 log erf(2.5 / sqrt 2) = -1.9995), nlive 200,
+# num_repeats 5 D, the default of the JAX package's run()
+# (polychordlite_tpu/settings.py:114): at 2 D the sampler itself lands 7-10
+# sigma high at this D, the JAX package on the CPU as the port on the card
+# and on the CPU (PERF.md, section 7); what run() gives its kernels: B =
+# 256 lanes, 200 valid, B2 five bases of 160
+STREAM_DIMS = (160, 256, 512)
+STREAM_B = 512
+D160 = dict(nDims=160, nlive=200, num_repeats=800, sigma=0.2)
+D160_RUN = dict(B=256, R=800, D=160, B_valid=200)
+D160_LOGZ = 160 * math.log(math.erf(2.5 / math.sqrt(2.0)))
+# B2 above dim 128: (2, dim, dim, 512) at dims 160 and 256 in float32 and 160
+# in float64, and the 160-D run's (5, 160, 160, 256), bitwise its plain
+# version; at dim 512 only the time, at the chains GS_D512_B (the columns
+# past 112 read back from device memory): (tag, NB, dim, B, dtype)
+GS_D512_B = 512
+GS_LONG = (("d160_float32", 2, 160, 512, "float32"), ("d256_float32", 2, 256, 512, "float32"),
+           ("d160_float64", 2, 160, 512, "float64"), ("d160_run", 5, 160, 256, "float32"),
+           ("d512_float32", 2, 512, GS_D512_B, "float32"))
 # the 40-D run at precision='highest' (traced route and B2's wide kernel in
 # double; nlive 100, num_repeats 2 D), and its kernels' geometry: 104 valid
 # lanes of 128, B2 two bases
@@ -615,6 +652,42 @@ def d64_run(base: str) -> dict:
     return {"wall_s": time.perf_counter() - t0}
 
 
+def d160_gaussian(theta):
+    """The 160-D run's likelihood per point in torch: sigma 0.2 at 0.5,
+    normalised over R^D."""
+    import torch
+
+    D, sigma = theta.shape[-1], D160["sigma"]
+    return (-0.5 * torch.sum(((theta - 0.5) / sigma) ** 2)
+            - D * (math.log(sigma) + 0.5 * math.log(2 * math.pi)))
+
+
+def d160_run(base: str, nlive: int = D160["nlive"], num_repeats: int = D160["num_repeats"],
+             seed: int = SEED, device: str = "cuda") -> dict:
+    """run_gaussian_d160's run() into ``base``, in this process: D160 with
+    engine "auto" (the default), no clustering, warnings as errors (a chain
+    replay divergence would warn); the wall seconds inside run(), logZ, its
+    error and its pull from D160_LOGZ.  The other arguments make it the
+    study of how the evidence moves with num_repeats and nlive, on the card
+    or on the CPU's plain engine, for example
+
+        python -c "import chip_smoke as c; print(c.d160_run('d160_out', 200, 320, 7, 'cpu'))"
+    """
+    import polychordlite_tpu_torch as pt
+    from polychordlite_tpu_torch.output import PolyChordOutput
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pt.run(d160_gaussian, D160["nDims"], nlive=nlive, num_repeats=num_repeats,
+               do_clustering=False, read_resume=False, base_dir=base, seed=seed, feedback=-1,
+               device=device)
+    wall, out = time.perf_counter() - t0, PolyChordOutput(base, "test")
+    return {"wall_s": wall, "nlive": nlive, "num_repeats": num_repeats,
+            "seed": seed, "device": device, "ndead": out.ndead, "logZ": out.logZ,
+            "logZerr": out.logZerr, "pull": (out.logZ - D160_LOGZ) / out.logZerr}
+
+
 def lse(values) -> float:
     m = max(values)
     return m + math.log(sum(math.exp(v - m) for v in values))
@@ -649,6 +722,7 @@ def main() -> None:
             gaussian_shells,
             get_likelihood,
             himmelblau,
+            random_gaussian,
         )
         from polychordlite_tpu_torch.ops import (
             fused_like,
@@ -715,9 +789,10 @@ def main() -> None:
                 f.write(f"==== {name}\n{log}\n")
         log = nvcc.build_log.get
         # the Gaussian functor's kernels of B1, B3, B4, B5 and E2 by G in the
-        # 32 bucket, and of B1, B4 and B5 by G in the 128 bucket (keys
-        # "bucket,G"; the others are in ptxas.txt): registers, stack, spills
-        like = r"12GaussianLikeILi(32|128)EE"
+        # 32 bucket, and of B1, B4 and B5 by G in the 128 and the stream
+        # buckets (keys "bucket,G", the stream bucket's "0,32"; the others are
+        # in ptxas.txt): registers, stack, spills
+        like = r"12GaussianLikeILi(32|128|0)EE"
         gaussian_kernels = {
             "B1": ptxas_kernels(log("slice_epoch", ""),
                                 rf"slice_epoch_kernelI8V4Policy{like}Li(\d+)ELb([01])E"),
@@ -732,7 +807,8 @@ def main() -> None:
             "E2": ptxas_kernels(log("slice_epoch_v3_instr", ""),
                                 rf"slice_epoch_v3_instr_kernelI{like}Li(\d+)ELb([01])E"),
             "B2": ptxas_kernels(log("gram_schmidt", ""),
-                                r"(gram_schmidt_wide_kernel|gram_schmidt_kernelILi(?:20|32)E)"),
+                                r"(gram_schmidt_wide_kernel|gram_schmidt_long_kernel|"
+                                r"gram_schmidt_kernelILi(?:20|32)E)"),
         }
         results["ptxas_gaussian"] = gaussian_kernels
         return {"seconds": round(time.perf_counter() - t0, 3),
@@ -757,7 +833,8 @@ def main() -> None:
             # the narrow shapes time the plain version over 3 calls; the wide
             # ones' takes seconds, so it runs once
             if wide:
-                q_plain, plain_ms = cuda_once(lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
+                q_plain, plain_ms = cuda_once(
+                    lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
             else:
                 q_plain = pallas_dirs.gram_schmidt_plain(g)
                 plain_ms = cuda_ms(lambda: pallas_dirs.gram_schmidt_plain(g), 3)  # noqa: B023
@@ -794,6 +871,62 @@ def main() -> None:
                                    "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         results["gram_schmidt_wide"] = out["d64"]
         results["gram_schmidt_d64_run"] = out["d64_run"]
+        return out
+
+    # ---- 2b. B2 above dim 128 (the long kernel: ceil(dim / 32) rows a lane,
+    # the finished columns in shared memory, past dim 240 in float32 partly
+    # in the scratch buffer): (2, dim, dim, 512) at dims 160 and 256 in
+    # float32 and 160 in float64, and the 160-D run's bases (5, 160, 160,
+    # 256), bitwise its plain version; at dim 512 (GS_D512_B chains) only
+    # timed, once; each beside torch.linalg.qr (GS_LONG)
+    @phase("gram_schmidt_d512")
+    def _():
+        out = {}
+        counts0 = dict(pallas_dirs.LAUNCHES)
+        for tag, NB, dim, B, dt_name in GS_LONG:
+            dt = getattr(torch, dt_name)
+            shape = (NB, dim, dim, B)
+            g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(dim), device=dev,
+                            dtype=dt)
+            name = "gram_schmidt_long" + ("_f64" if dt == torch.float64 else "")
+            before = pallas_dirs.LAUNCHES[name]
+            q, ms = cuda_once(lambda: pallas_dirs.gram_schmidt_lanes(g))  # noqa: B023
+            if pallas_dirs.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{tag}: {name} was not the kernel launched")
+            eye = torch.eye(dim, device=dev, dtype=dt)[None, :, :, None]
+            orth = (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max().item()
+            # CGS2's loss of orthogonality grows with the dim: float32 at 512
+            # is held to 1e-4
+            tol = 1e-12 if dt == torch.float64 else (1e-5 if dim <= 256 else 1e-4)
+            if not orth <= tol:
+                raise AssertionError(f"{tag}: max|QtQ - I| {orth:.3g} > {tol}")
+            itemsize = g.element_size()
+            rec = {"shape": list(shape), "dtype": dt_name, "kernel": name, "orth_err": orth,
+                   "scratch_values": pallas_dirs._lib().gram_schmidt_scratch_values(
+                       NB, dim, B, itemsize)}
+            if dim <= 256:
+                q_plain, plain_ms = cuda_once(
+                    lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
+                mism = int((q != q_plain).sum())
+                if mism:
+                    raise AssertionError(f"{tag}: the kernel differs from the plain version "
+                                         f"in {mism} entries")
+                rec.update(mismatches=mism, max_abs_err=(q - q_plain).abs().max().item(),
+                           plain_ms=plain_ms,
+                           ms=cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 3))  # noqa: B023
+                del q_plain
+            else:  # one call, the one above: its plain version would take minutes
+                rec.update(ms=ms, plain_ms=None, max_abs_err=None)
+            del q
+            rec["library_ms"] = qr_ms(g)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2 * itemsize * NB * dim * dim * B, gram_schmidt_flops(NB, dim, B),
+                F64_FLOPS_PER_S if dt == torch.float64 else F32_FLOPS_PER_S)
+            out[tag] = rec
+            del g
+        out["launches"] = {k: v - counts0[k] for k, v in pallas_dirs.LAUNCHES.items()
+                           if v > counts0[k]}
+        results["gram_schmidt_long"] = out
         return out
 
     def ball_inputs(B, D, like, gen):
@@ -1610,6 +1743,229 @@ def main() -> None:
         results["f64_kernels"] = out
         return out
 
+    # ---- 6e'. the stream bucket (D > 128): B1's functor kernel (the zoo
+    # Gaussian and random_gaussian), the fused route (float32, and float64
+    # at D = 160), the traced route (float32 and float64 at D = 160), B4 and
+    # B5, at B = 512 chains: bitwise their plain versions at R = 4 (B1 also
+    # as a shard at lane0 = 256), each kernel alone timed at R = 2 D with
+    # CUDA events (random_gaussian there at D = 160 only: its D^2 combine on
+    # every lane takes seconds an epoch at 512), the plain versions at R = 4
+    def fast_random_gaussian(like, logzero):
+        """The logL of random_gaussian's calc under the identity prior (its
+        torch form a D x D double loop of scalar operations, D^2 launches a
+        call) vectorised over the rows in the same order: row_i accumulates
+        d_j M_ij over j, then q over i; the same rounded operations, and the
+        calc's logzero outside [0, 1]^D or at a NaN, so the same logL bit for
+        bit (checked against the calc)."""
+        form = like.device_form
+        M = torch.tensor(np.asarray(form["invcov"], np.float32), device=dev)
+        M = M.reshape(int(math.isqrt(M.numel())), -1)
+        mu, norm = float(form["mu"]), float(form["norm"])
+
+        def fast(cube):
+            d = cube - mu
+            row = torch.zeros_like(d)
+            for j in range(d.shape[1]):
+                row = row + d[:, j:j + 1] * M[:, j]
+            quad = torch.zeros_like(d[:, 0])
+            for i in range(d.shape[1]):
+                quad = quad + d[:, i] * row[:, i]
+            logL = norm - 0.5 * quad
+            zero = torch.full_like(logL, logzero)
+            inside = ((cube >= 0.0) & (cube <= 1.0)).all(dim=1)
+            return torch.where(inside & ~torch.isnan(logL), logL, zero)
+        return fast
+
+    def stream_inputs(logL, B, R, D, seed, dtype=torch.float32, width=0.2):
+        """Seeds at 0.5 +- 0.05, each lane's contour 2 below its seed's logL,
+        the first B / 8 lanes invalid, unit directions (B2 is held apart) and
+        widths ``width``."""
+        gen = torch.Generator(dev).manual_seed(seed)
+        x0 = (0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev, dtype=dtype)).clamp(0, 1)
+        nh = torch.randn((B, R, D), generator=gen, device=dev, dtype=dtype)
+        return (x0, logL(x0) - 2.0, torch.arange(B, device=dev) >= B // 8,
+                nh / nh.norm(dim=2, keepdim=True),
+                torch.full((B, R), width, device=dev, dtype=dtype))
+
+    @phase("slice_epoch_d512")
+    def _():
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        B = STREAM_B
+        stream = pallas_slice_v4.STREAM
+        counts0 = {"B1": pallas_slice_v4.LAUNCHES["slice_epoch"],
+                   "B4": pallas_slice_v3.GROUP_LAUNCHES[stream, 32],
+                   "B5": pallas_slice.GROUP_LAUNCHES[stream, 32],
+                   **{k: pallas_slice_v4.LAUNCHES[k] for k in (
+                       "slice_epoch_fused", "slice_epoch_fused_f64", "slice_step",
+                       "slice_step_f64")}}
+        fused = {}
+        for D in STREAM_DIMS:
+            for dt in (torch.float32, torch.float64) if D == STREAM_DIMS[0] else (torch.float32,):
+                calc = dtype_calc(per_point_gaussian, D, dt)
+                low = fused_like.lowering(calc)
+                if not isinstance(low, fused_like.Lowered):
+                    raise AssertionError(f"the {D}-D per-point Gaussian was not lowered: "
+                                         f"{low.reason}")
+                if "#define FUSED_MAXD SLICE_MAXD_STREAM" not in low.source(32):
+                    raise AssertionError(f"the {D}-D lowering does not name the stream bucket")
+                fused[D, dt] = (calc, low)
+        # ... and the 160-D run's model (run_gaussian_d160), held at its geometry
+        run_calc = dtype_calc(d160_gaussian, D160["nDims"], torch.float32)
+        run_low = fused_like.lowering(run_calc)
+        if not isinstance(run_low, fused_like.Lowered):
+            raise AssertionError(f"the 160-D run's model was not lowered: {run_low.reason}")
+        t0 = time.perf_counter()  # every fused library of the phase, one nvcc each
+        names = {low.library_name(32): low.source(32)
+                 for _, low in list(fused.values()) + [(run_calc, run_low)]}
+        nvcc.build_all({n: [fused_like.SOURCE] for n in names}, headers=names)
+        fused_build = {"seconds": time.perf_counter() - t0,
+                       "ptxas": {n: ptxas_summary(nvcc.build_log[n]) for n in names
+                                 if n in nvcc.build_log}}
+        with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+            for n in names:
+                if n in nvcc.build_log:
+                    f.write(f"==== {n}\n{nvcc.build_log[n]}\n")
+        ptx = results.get("ptxas_gaussian", {})
+        f32, f64 = torch.float32, torch.float64
+        for D in STREAM_DIMS:
+            zoo = make_batched_calculator(identity_prior, gaussian(D), D, 2, device=dev)
+            rg_like = random_gaussian(D)
+            rg = make_batched_calculator(identity_prior, rg_like, D, 0, device=dev)
+            rg_fast = fast_random_gaussian(rg_like, rg.logzero)
+            probe = 0.5 + 0.1 * torch.randn((256, D), generator=torch.Generator(dev)
+                                            .manual_seed(D), device=dev)
+            probe[:128] = probe[:128].clamp(0, 1)  # the others partly outside the cube
+            if not torch.equal(rg(probe)[2], rg_fast(probe)):
+                raise AssertionError(f"d{D}: the vectorised random_gaussian differs from its "
+                                     "torch form")
+            models = {"B1": zoo, "B1_random_gaussian": rg, "B4": zoo, "B5": zoo,
+                      "fused": fused[D, f32][0],
+                      "traced": dtype_calc(vector_norm_gaussian, D, f32)}
+            plains = {"B1_random_gaussian": rg_fast,
+                      "fused": fused[D, f32][1].plain_logL}
+            if D == STREAM_DIMS[0]:
+                models["fused_f64"] = fused[D, f64][0]
+                models["traced_f64"] = dtype_calc(vector_norm_gaussian, D, f64)
+                plains["fused_f64"] = fused[D, f64][1].plain_logL
+            rec = {"B": B, "D": D, "R_checked": 4, "R_timed": 2 * D}
+            pairs = []
+            for name, calc in models.items():
+                dt = calc.dtype
+                logL = plains.get(name, lambda p, c=calc: c(p)[2])
+                kernel = {
+                    "B1": lambda c, a: pallas_slice_v4.slice_epoch(zoo, c, kw, *a),  # noqa: B023
+                    "B1_random_gaussian": lambda c, a: pallas_slice_v4.slice_epoch(  # noqa: B023
+                        rg, c, kw, *a),  # noqa: B023
+                    "B4": lambda c, a: pallas_slice_v3.slice_epoch_v3(zoo, c, kw, *a),  # noqa: B023
+                    "B5": lambda c, a: pallas_slice.slice_epoch_v2(zoo, c, kw, *a),  # noqa: B023
+                }.get(name)
+                if kernel is None and name.startswith("fused"):
+                    kernel = lambda c, a, m=calc: pallas_slice_v4.slice_epoch_fused(  # noqa: E731
+                        m, c, kw, *a)
+                elif kernel is None:
+                    kernel = lambda c, a, m=calc: pallas_slice_v4.slice_epoch_traced(  # noqa: E731
+                        m, c, kw, *a)
+                plain = {"B4": lambda c, a, f=logL: pallas_slice_v3.slice_records_window_plain(
+                             f, c, kw, *a),
+                         "B5": lambda c, a, f=logL: pallas_slice.slice_records_lockstep_plain(
+                             f, c, kw, *a)}.get(
+                    name, lambda c, a, f=logL: slice_records_plain(f, c, kw, *a))
+                cfg4 = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(4,))
+                a4 = stream_inputs(logL, B, 4, D, SEED + D, dt)
+                want, plain_ms = cuda_once(lambda: plain(cfg4, a4))  # noqa: B023
+                got = kernel(cfg4, a4)
+                keys = ("t", "logL", "nlike", "cube")
+                pairs += [(f"{name}_{k}_vs_plain", x, y) for k, x, y in zip(keys, got, want)]
+                if name == "B1":  # the second half of the batch as a shard
+                    half = B // 2
+                    shard = pallas_slice_v4.slice_epoch(zoo, cfg4, kw, *(x[half:] for x in a4),
+                                                        lane0=half)
+                    pairs += [(f"B1_{k}_lane0_{half}_vs_whole", x, y[half:])
+                              for k, x, y in zip(keys, shard, got)]
+                r = {"ms_r4": cuda_ms(lambda: kernel(cfg4, a4), 3),  # noqa: B023
+                     "plain_ms": plain_ms, "dtype": str(dt).replace("torch.", ""),
+                     "evals_r4": int(want[2].sum()),
+                     "max_abs_err": max((x.double() - y.double()).abs().max().item()
+                                        for x, y in zip(got[:2], want[:2]))}
+                if name != "B1_random_gaussian" or D == STREAM_DIMS[0]:
+                    R = 2 * D
+                    cfgT = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,),
+                                       num_repeats=(R,))
+                    aT = stream_inputs(logL, B, R, D, SEED + D + 1, dt)
+                    evals = int(kernel(cfgT, aT)[2].to(torch.int64).sum())
+                    r["ms"] = cuda_ms(lambda: kernel(cfgT, aT), 2)  # noqa: B023
+                    del aT
+                else:
+                    R, evals = 4, r["evals_r4"]
+                    r["ms"] = r["ms_r4"]
+                per_probe = (2 * D * D + 8 * D + 7 if name == "B1_random_gaussian" else
+                             fused[D, dt][1].flops_per_probe() if name.startswith("fused")
+                             else gaussian_probe_flops(D))
+                real = 8 if dt == f64 else 4
+                r.update(R=R, evals=evals, bound=bound(
+                    slice_epoch_bytes(B, R, D, cube=name == "B5") * real // 4, evals * per_probe,
+                    F64_FLOPS_PER_S if dt == f64 else F32_FLOPS_PER_S))
+                if name in ("B1", "B4", "B5"):
+                    r["ptxas"] = ptx.get(name, {}).get("0,32" + (",0" if name == "B1" else ""))
+                elif name.startswith("fused"):
+                    r["ptxas"] = fused_build["ptxas"].get(fused[D, dt][1].library_name(32))
+                rec[name] = r
+            rec["mismatches"] = decisions(f"d{D}: a stream-bucket kernel differs", pairs)
+            out[f"d{D}"] = rec
+        # the fused route at the 160-D run's geometry (run_gaussian_d160: B =
+        # 256, 200 valid, R = 800) on the run's model, as run() feeds it
+        # mid-run (live_set_inputs, B2's long kernel drawing the directions),
+        # bitwise its plain version
+        B, R, D = D160_RUN["B"], D160_RUN["R"], D160_RUN["D"]
+        gen = torch.Generator(dev).manual_seed(SEED)
+        x0, bnd, valid, chol = live_set_inputs(B, D, run_calc, gen, nlive=D160["nlive"],
+                                               B_valid=D160_RUN["B_valid"])
+        cfg = EpochConfig(n_dims=D, n_phi=run_calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+        nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
+                                   generator=gen)
+        args = (x0, bnd, valid, nh, w)
+        res, plain_ms = cuda_once(lambda: slice_records_plain(
+            run_low.plain_logL, cfg, kw, *args, count_steps=True))
+        want, steps = res[:3], res[3]
+        got = pallas_slice_v4.slice_epoch_fused(run_calc, cfg, kw, *args)
+        out["d160_run_fused"] = {
+            "B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
+            "mismatches": decisions("d160_run: the fused kernel differs", [
+                (f"fused_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got,
+                                                                  want)]),
+            "max_abs_err": max((a.double() - b.double()).abs().max().item()
+                               for a, b in zip(got[:2], want[:2])),
+            "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(run_calc, cfg, kw, *args), 3),
+            "plain_ms": plain_ms, "evals": int(want[2].sum()), "lane_steps_max": int(steps.max()),
+            "bound": bound(slice_epoch_bytes(B, R, D),
+                           int(steps.to(torch.int64).sum()) * run_low.flops_per_probe()),
+            "ptxas": fused_build["ptxas"].get(run_low.library_name(32)),
+        }
+        del args, nh, w, want, got, res
+        # at the bucket's bound (float32, one term): 232,440 of a block's
+        # 232,448 bytes, past the 48 KB a launch gets without the attribute
+        D = pallas_slice_v4.stream_max_d(1, torch.float32)
+        zoo = make_batched_calculator(identity_prior, gaussian(D, sigma=0.2), D, 2, device=dev)
+        cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(2,))
+        a = stream_inputs(lambda p: zoo(p)[2], 64, 2, D, SEED, width=0.02)
+        got = pallas_slice_v4.slice_epoch(zoo, cfg, kw, *a)
+        want = slice_records_plain(lambda p: zoo(p)[2], cfg, kw, *a)
+        out[f"d{D}_bound"] = {
+            "B": 64, "R": 2, "smem_bytes": 3 * D * 4, "evals": int(want[2].sum()),
+            "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch(zoo, cfg, kw, *a), 3),
+            "mismatches": decisions(f"d{D}: B1 at the bucket's bound differs", [
+                (f"B1_{k}_vs_plain", x, y) for k, x, y in zip(("t", "logL", "nlike"), got, want)])}
+        out["fused_build"] = fused_build
+        out["launches"] = {
+            "B1": pallas_slice_v4.LAUNCHES["slice_epoch"] - counts0["B1"],
+            "B4": pallas_slice_v3.GROUP_LAUNCHES[stream, 32] - counts0["B4"],
+            "B5": pallas_slice.GROUP_LAUNCHES[stream, 32] - counts0["B5"],
+            **{k: pallas_slice_v4.LAUNCHES[k] - counts0[k] for k in (
+                "slice_epoch_fused", "slice_epoch_fused_f64", "slice_step", "slice_step_f64")}}
+        results["slice_epoch_d512"] = out
+        return out
+
     # ---- 6f. the graded route (engine "scan"): slice_step.cu's repeat
     # barrier, the slow part of a GradedLikelihood cached across fast-grade
     # repeats
@@ -1958,6 +2314,84 @@ def main() -> None:
             "record_user_calls": timed["record_user_calls"]}
         return out
 
+    # ---- 6f'. the graded and the host routes at D = 160 (B2's long kernel
+    # draws their directions): one epoch each at the 160-D run's chains,
+    # bitwise its plain version and the plain engine
+    @phase("stream_routes_d160")
+    def _():
+        from polychordlite_tpu_torch import GradedLikelihood
+
+        D, B, B_valid = D160_RUN["D"], D160_RUN["B"], D160_RUN["B_valid"]
+        kw = (0x0BADCAFE, 0x5EED)
+        out = {}
+        grades, reps = (16, D - 16), (16, 2 * (D - 16))  # repeats 2 D in all, as the run's
+        n_slow = grades[0]
+
+        def slow(th_s):
+            return (((th_s - 0.5) / 0.2) ** 2).sum(-1)
+
+        def fast(aux, th):
+            return -0.5 * (aux + (((th[:, n_slow:] - 0.5) / 0.2) ** 2).sum(-1))
+
+        calc = make_batched_calculator(identity_prior, GradedLikelihood(slow, fast, n_slow), D, 0,
+                                       device=dev)
+        mono = make_batched_calculator(identity_prior, lambda th: fast(slow(th[:, :n_slow]), th),
+                                       D, 0, device=dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        x0 = (0.5 + 0.03 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+        valid = torch.arange(B, device=dev) < B_valid
+        before = dict(pallas_dirs.LAUNCHES)
+        nh, w, sp = make_directions((0.05 * torch.eye(D, device=dev)).expand(B, D, D),
+                                    grade_dims=grades, num_repeats=reps, n_dims=D,
+                                    generator=gen)
+        dirs = {k: v - before[k] for k, v in pallas_dirs.LAUNCHES.items() if v > before[k]}
+        if not dirs.get("gram_schmidt_long"):
+            raise AssertionError(f"the 144-D grade's directions did not take B2's long kernel: "
+                                 f"{dirs}")
+        cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=grades, num_repeats=reps)
+        args = (x0, mono(x0)[2] - 3.0, valid, nh, w)
+        want, plain_ms = cuda_once(lambda: slice_records_plain(lambda p: mono(p)[2], cfg, kw,
+                                                               *args))
+        plain = pallas_slice_v4.slice_records_graded_plain(
+            calc, cfg, kw, *args, pallas_slice_v4.repeat_grades(sp), pallas_slice_v4.GRADED_ROUNDS)
+        before = pallas_slice_v4.LAUNCHES["slice_step_graded"]
+        got, ms = cuda_once(lambda: pallas_slice_v4.slice_epoch_graded(calc, cfg, kw, *args, sp))
+        out["graded"] = {
+            "B": B, "valid_lanes": B_valid, "D": D, "grade_dims": list(grades),
+            "num_repeats": list(reps), "directions": dirs, "ms": ms, "plain_ms": plain_ms,
+            "launches": pallas_slice_v4.LAUNCHES["slice_step_graded"] - before,
+            "mismatches": decisions("d160: the graded route differs", [
+                (f"{k}_{n}", a, ref) for k, a, b, c in zip(("t", "logL", "nlike"), got, plain,
+                                                            want)
+                for n, ref in (("vs_plain_version", b), ("vs_plain_engine", c))])}
+        # the host route: numpy_gaussian at D = 160, one point a call
+        host = make_batched_calculator(identity_prior, numpy_gaussian(D), D, 0, device=dev)
+        R = 8
+        gen = torch.Generator(dev).manual_seed(SEED + 1)
+        x0 = (0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+        before = dict(pallas_dirs.LAUNCHES)
+        nh, w, _ = make_directions((0.06 * torch.eye(D, device=dev)).expand(B, D, D),
+                                   grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+        dirs = {k: v - before[k] for k, v in pallas_dirs.LAUNCHES.items() if v > before[k]}
+        cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+        args = (x0, host(x0)[2] - 3.0, valid, nh, w)
+        want, plain_ms = cuda_once(lambda: slice_records_plain(lambda p: host(p)[2], cfg, kw,
+                                                               *args))
+        *plain, _ = pallas_slice_v4.slice_records_host_plain(host, cfg, kw, *args)
+        before = pallas_slice_v4.LAUNCHES["slice_step_host"]
+        res, ms = cuda_once(lambda: pallas_slice_v4.slice_epoch_host(host, cfg, kw, *args))
+        got = res[:3]
+        out["host"] = {
+            "B": B, "valid_lanes": B_valid, "D": D, "R": R, "directions": dirs, "ms": ms,
+            "plain_ms": plain_ms,
+            "launches": pallas_slice_v4.LAUNCHES["slice_step_host"] - before,
+            "mismatches": decisions("d160: the host route differs", [
+                (f"{k}_{n}", a, ref) for k, a, b, c in zip(("t", "logL", "nlike"), got, plain,
+                                                            want)
+                for n, ref in (("vs_plain_version", b), ("vs_plain_engine", c))])}
+        results["stream_routes_d160"] = out
+        return out
+
     # ---- 6g. the data-driven models on the traced route, at the batches
     # their inis' runs give it
     def data_calc(name, D):
@@ -2174,6 +2608,41 @@ def main() -> None:
         results["sharded_epoch"] = out
         return out
 
+    # ---- 7-. the 160-D run (run_gaussian_d160, the longest of the runs in
+    # processes of their own) starts here, in a thread of this script, behind
+    # the runs of section 7 and after the last kernel timing before them; its
+    # phase waits for it.  A function of this module in a process of its own
+    # (its arguments and its result in JSON): the 160-D and the 64-D runs
+    # and the two processes' runs
+    tmpdirs = []
+    worker = os.path.join(tempfile.mkdtemp(prefix="worker_"), "worker.py")
+    tmpdirs.append(os.path.dirname(worker))
+    with open(worker, "w") as f:
+        f.write(r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = getattr(chip_smoke, sys.argv[2])(*(json.loads(a) for a in sys.argv[3:]))
+print("RESULT " + json.dumps(out), flush=True)
+''')
+
+    def cli(args, cwd=HERE, env=None, timeout=600):
+        """A process of its own, waited for: (CompletedProcess, wall s)."""
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+        return proc, time.perf_counter() - t0
+
+    def d160_job():
+        """d160_run in a process of its own: (base, CompletedProcess, wall s)."""
+        base = tempfile.mkdtemp(prefix="gaussian_d160_")
+        tmpdirs.append(base)
+        return (base, *cli([sys.executable, worker, HERE, "d160_run", json.dumps(base)],
+                           timeout=1000))
+
+    d160_jobs = ThreadPoolExecutor(max_workers=1)
+    jobs = {"d160": d160_jobs.submit(d160_job)}
+
     # ---- 7. the main path: run() on ini/gaussian.ini ----------------------
     counters = (pallas_dirs.LAUNCHES, pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES,
                 pallas_slice_v3.LAUNCHES, pallas_slice.LAUNCHES, v3_instr.LAUNCHES,
@@ -2257,20 +2726,6 @@ def main() -> None:
 
     # ---- 7a. the chain batch over two processes on this card, and
     # dispatch-ahead mode (synchronous=False)
-    # a function of this module in a process of its own (its arguments and
-    # its result in JSON): the two processes' runs and the 64-D run
-    tmpdirs = []
-    worker = os.path.join(tempfile.mkdtemp(prefix="worker_"), "worker.py")
-    tmpdirs.append(os.path.dirname(worker))
-    with open(worker, "w") as f:
-        f.write(r'''
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import chip_smoke
-out = getattr(chip_smoke, sys.argv[2])(*(json.loads(a) for a in sys.argv[3:]))
-print("RESULT " + json.dumps(out), flush=True)
-''')
-
     @phase("run_two_process")
     def _():
         """gaussian.ini's settings at batch_size 512 through run() in two
@@ -2429,7 +2884,7 @@ print("RESULT " + json.dumps(out), flush=True)
                 "run_group": pallas_slice_v4.choose_group(B_phys, n_dims, n_sm)}
 
     def route_run(name, like, n_dims, route="slice_epoch_fused", dirs="gram_schmidt",
-                  kernels=None, **kw):
+                  kernels=None, engine_used="cuda", **kw):
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
         path must take ``route`` (the fused route, or the traced route) and
@@ -2437,7 +2892,8 @@ print("RESULT " + json.dumps(out), flush=True)
         and the route's kernel only (``kernels``, the counters' names, where
         they are not ``dirs`` and ``route``: the double instantiations at
         precision='highest'), with chained epochs kept (a replay divergence
-        would warn, and warnings are errors)."""
+        would warn, and warnings are errors); ``engine_used`` is the engine
+        the metrics must name (a forced one, passed as ``engine=``)."""
         with tempfile.TemporaryDirectory() as base:
             reset_launches()
             t0 = time.perf_counter()
@@ -2451,7 +2907,7 @@ print("RESULT " + json.dumps(out), flush=True)
             stats = PolyChordOutput(base, "test")
             last = read_metrics(base, "test")[-1]
             chains = np.loadtxt(os.path.join(base, "test.txt"), ndmin=2)
-        if (last.get("engine"), last.get("route")) != ("cuda", route):
+        if (last.get("engine"), last.get("route")) != (engine_used, route):
             raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
                                  f"{last.get('route')!r} ({last.get('route_reason')}), "
                                  f"not {route}")
@@ -2467,7 +2923,7 @@ print("RESULT " + json.dumps(out), flush=True)
         pull = (stats.logZ - truth) / stats.logZerr
         if not (math.isfinite(stats.logZ) and abs(pull) < 3.0):
             raise AssertionError(f"logZ {stats.logZ} +/- {stats.logZerr} is {pull:.2f} sigma "
-                                 f"from {truth}")
+                                 f"from {truth} ({stats.ndead} dead in {wall:.1f} s)")
         return {"engine_used": last["engine"], "route": last["route"],
                 "route_reason": last.get("route_reason"),
                 "fused_build_seconds": last.get("fused_build_seconds"), "form": last["form"],
@@ -2481,17 +2937,11 @@ print("RESULT " + json.dumps(out), flush=True)
 
     # ---- 7b'. the runs in processes of their own start here, in two threads
     # of this script, and go on behind the in-process runs below: the CLI
-    # runs and the C++ example one after another, the 64-D run beside them;
-    # each phase waits for its own.  They share the card and the host with
+    # runs and the C++ example one after another, the 64-D run beside them
+    # (the 160-D run started before section 7); each phase waits for its
+    # own.  They share the card and the host with
     # the in-process runs (their dead/s are taken under that load); every
     # kernel timing comes before them or after the last
-    def cli(args, cwd=HERE, env=None, timeout=600):
-        """A process of its own, waited for: (CompletedProcess, wall s)."""
-        t0 = time.perf_counter()
-        proc = subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True,
-                              timeout=timeout)
-        return proc, time.perf_counter() - t0
-
     def ini_job(prefix, make_ini, timeout=600):
         """``python -m polychordlite_tpu_torch`` on the ini ``make_ini(base)``
         writes into a new directory: (base, ini, CompletedProcess, wall s)."""
@@ -2554,7 +3004,7 @@ print("RESULT " + json.dumps(out), flush=True)
         return out
 
     cli_jobs, side_jobs = ThreadPoolExecutor(max_workers=1), ThreadPoolExecutor(max_workers=1)
-    jobs = {"d64": side_jobs.submit(d64_job)}
+    jobs["d64"] = side_jobs.submit(d64_job)
     for name, job in (
             ("shells", lambda: ini_job("shells_cli_", lambda b: ini_copy(b, "gaussian_shells"))),
             ("eggbox", lambda: ini_job("eggbox_cli_", lambda b: ini_copy(b, "eggbox"))),
@@ -2634,6 +3084,50 @@ print("RESULT " + json.dumps(out), flush=True)
             raise AssertionError(f"route_reason {last.get('route_reason')!r} does not name "
                                  "the refused op")
         return route_record(last, stats, wall, ran, 0.0)
+
+    @phase("run_stream_routes_d160")
+    def _():
+        """Above D = 128, the stream bucket's other routes through run() at D
+        = 160, every count at 0 before each run: B1's functor kernel on the
+        zoo Gaussian (engine "auto"), the traced route on a model the
+        lowering refuses, the fused route and B2's long kernel in double
+        (precision='highest'), and B4 and B5 (the forced "cuda3" and
+        "cuda2"); nlive 200, num_repeats 2 D, stopped at max_ndead 400 (no
+        evidence to gate): finite logZ, the path's kernels only, B1's, B4's
+        and B5's launches in the stream bucket."""
+        D = D160["nDims"]
+        stream = f"{pallas_slice_v4.STREAM}/32"
+        zoo = gaussian(D, sigma=D160["sigma"])
+        kw = dict(nlive=D160["nlive"], num_repeats=2 * D, max_ndead=400, do_clustering=False)
+        out = {}
+        for name, like, n_derived, route, dirs, kernels, extra in (
+            ("functor", zoo, 2, "slice_epoch", "gram_schmidt_long", None, {}),
+            ("traced", vector_norm_gaussian, 0, "slice_step", "gram_schmidt_long", None, {}),
+            ("fused_f64", per_point_gaussian, 0, "slice_epoch_fused", None,
+             ("gram_schmidt_long_f64", "slice_epoch_fused_f64"), {"precision": "highest"}),
+            ("cuda3", zoo, 2, "slice_epoch_v3", "gram_schmidt_long", None, {"engine": "cuda3"}),
+            ("cuda2", zoo, 2, "slice_epoch_v2", "gram_schmidt_long", None, {"engine": "cuda2"}),
+        ):
+            last, stats, wall, ran, _ = route_run(
+                f"{name} d{D}", like, D, route=route, dirs=dirs, kernels=kernels,
+                engine_used=extra.get("engine", "cuda"), nDerived=n_derived, **kw, **extra)
+            if not (math.isfinite(stats.logZ) and stats.ndead >= kw["max_ndead"]):
+                raise AssertionError(f"{name} d{D}: logZ {stats.logZ}, {stats.ndead} dead")
+            groups = {"cuda3": pallas_slice_v3.GROUP_LAUNCHES,
+                      "cuda2": pallas_slice.GROUP_LAUNCHES}.get(name)
+            groups = ({"/".join(map(str, k)): v for k, v in groups.items() if v}
+                      if groups is not None else last.get("group_launches") or {})
+            if name != "traced" and (not groups or set(groups) != {stream}):
+                raise AssertionError(f"{name} d{D}: launches by bucket/G {groups}, not in the "
+                                     "stream bucket only")
+            out[name] = {"engine_used": last["engine"], "route": last["route"],
+                         "dtype": last.get("dtype"), "ndead": stats.ndead, "logZ": stats.logZ,
+                         "logZerr": stats.logZerr, "wall_s": wall,
+                         "dead_per_s": stats.ndead / wall, "launches": {
+                             k: v for k, v in ran.items() if v},
+                         "group_launches": groups, "device_frac": last.get("device_frac")}
+        results["run_stream_routes_d160"] = out
+        return out
 
     # ---- 7c. the run modes: precision='highest' (the fused route and the
     # traced route in double), maximise and an nlives schedule
@@ -3201,6 +3695,43 @@ print("RESULT " + json.dumps(out), flush=True)
         results["run_gaussian_d64"] = rec
         return rec
 
+    @phase("run_gaussian_d160")
+    def _():
+        """A per-point torch Gaussian at D = 160 (sigma 0.2 at 0.5, uniform
+        prior on [0, 1]^160), nlive 200, num_repeats 800, engine "auto", run
+        in a process of its own (d160_run, started before section 7): the
+        fused route in the stream bucket and B2's long kernel, with chained
+        epochs; logZ = 160 log erf(2.5 / sqrt 2), gated at 3 sigma."""
+        D = D160["nDims"]
+        base, proc, _ = job_result("d160")
+        wall = json.loads([ln for ln in proc.stdout.splitlines()
+                           if ln.startswith("RESULT ")][-1][len("RESULT "):])["wall_s"]
+        stats = PolyChordOutput(base, "test")
+        last = read_metrics(base, "test")[-1]
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch_fused"):
+            raise AssertionError(f"engine {last.get('engine')!r}, route {last.get('route')!r} "
+                                 f"({last.get('route_reason')}), not slice_epoch_fused")
+        if last.get("chained_epochs") is not True:
+            raise AssertionError("chained epochs were switched off during the run")
+        if not only(ran, ("gram_schmidt_long", "slice_epoch_fused")):
+            raise AssertionError(f"the path did not run B2 long and the fused route (only): {ran}")
+        add_launches(ran)
+        groups = last.get("group_launches") or {}
+        if last["form"] != "per_point" or not groups or any(
+                not k.startswith(f"{pallas_slice_v4.STREAM}/") for k in groups):
+            raise AssertionError(f"form {last['form']!r}, B1's launches by bucket/G {groups}: "
+                                 "not the per-point model in the stream bucket")
+        B_phys = -(-(-(-D160["nlive"] // 8) * 8) // GRANULE) * GRANULE
+        if B_phys != D160_RUN["B"]:
+            raise AssertionError(f"the run's batch is {B_phys} lanes, not the {D160_RUN['B']} "
+                                 "the kernels were held at")
+        rec = {**route_record(last, stats, wall, ran, D160_LOGZ), "group_launches": groups,
+               "B": B_phys, "nlive": D160["nlive"], "num_repeats": D160["num_repeats"],
+               "epoch_record_mb": B_phys * D160["num_repeats"] * (2 * D + 1) * 4 / 1e6}
+        results["run_gaussian_d160"] = rec
+        return rec
+
     @phase("capi_cc")
     def _():
         """examples/cc/gaussian_cc.cpp, unchanged, through the port's C++
@@ -3552,6 +4083,7 @@ print("RESULT " + json.dumps(out), flush=True)
 
     cli_jobs.shutdown()
     side_jobs.shutdown()
+    d160_jobs.shutdown()
     for d in tmpdirs:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -3738,6 +4270,72 @@ print("RESULT " + json.dumps(out), flush=True)
             "f32_twin_ms": rec["f32_twin_ms"],
             **extra,
         })
+    # the stream bucket (D > 128): each new instantiation at D = 160 (B = 512,
+    # R = 2 D; its plain version at R = 4), with its numbers at 256 and 512
+    # by D; launches on the paths above 128: run_gaussian_d160 (the fused
+    # route, B2's long kernel) and run_stream_routes_d160 (B1's functor
+    # kernel, the traced route, the fused route and B2 long in double, B4 and
+    # B5 forced), the kernel-alone phases' own under "phase_launches"; the
+    # fused route and B2 also at the 160-D run's geometry ("d160_run")
+    st, gl = results["slice_epoch_d512"], results["gram_schmidt_long"]
+    d0 = STREAM_DIMS[0]
+    d160_ran = results["run_gaussian_d160"]["launches"]
+    sr = {k: v["launches"] for k, v in results["run_stream_routes_d160"].items()}
+
+    def stream_row(k, D):
+        r = st[f"d{D}"][k]
+        return {"R": r["R"], "ms": r["ms"], "ms_r4": r["ms_r4"], "plain_ms_r4": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "max_abs_err": r["max_abs_err"], "ptxas": r.get("ptxas")}
+
+    fr = st["d160_run_fused"]
+    for name, source, k, n, n_phase, extra in (
+        ("slice_epoch_stream", "slice_epoch.cu", "B1", sr["functor"].get("slice_epoch", 0),
+         st["launches"]["B1"],
+         {"random_gaussian": {f"d{D}": stream_row("B1_random_gaussian", D)
+                              for D in STREAM_DIMS}}),
+        ("slice_epoch_fused_stream", "slice_epoch_fused.cu", "fused",
+         d160_ran.get("slice_epoch_fused", 0), st["launches"]["slice_epoch_fused"],
+         {"d160_run": {**{f: fr[f] for f in ("B", "R", "D", "valid_lanes", "mismatches",
+                                             "max_abs_err", "ms", "plain_ms", "evals")},
+                       "bound_ms": fr["bound"][0], "bound_by": fr["bound"][1]}}),
+        ("slice_epoch_fused_f64_stream", "slice_epoch_fused.cu", "fused_f64",
+         sr["fused_f64"].get("slice_epoch_fused_f64", 0),
+         st["launches"]["slice_epoch_fused_f64"], {}),
+        ("slice_step_stream", "slice_step.cu", "traced", sr["traced"].get("slice_step", 0),
+         st["launches"]["slice_step"],
+         {"f64": stream_row("traced_f64", d0),
+          "f64_phase_launches": st["launches"]["slice_step_f64"]}),
+        ("slice_epoch_v3_stream", "slice_epoch_v3.cu", "B4", sr["cuda3"].get("slice_epoch_v3", 0),
+         st["launches"]["B4"], {}),
+        ("slice_epoch_v2_stream", "slice_epoch_v2.cu", "B5", sr["cuda2"].get("slice_epoch_v2", 0),
+         st["launches"]["B5"], {}),
+    ):
+        r = st[f"d{d0}"][k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": "polychordlite_tpu/ops/pallas_slice_v4.py:508" if k not in ("B4", "B5")
+            else {"B4": "polychordlite_tpu/ops/pallas_slice_v3.py:345",
+                  "B5": "polychordlite_tpu/ops/pallas_slice.py:372"}[k],
+            "dtype": r["dtype"], "launches": n, "phase_launches": n_phase,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "geometry": {"B": STREAM_B, "D": d0, "R": r["R"]},
+            "plain_at_R": 4, "ms_r4": r["ms_r4"], **extra,
+            "by_dim": {f"d{D}": stream_row(k, D) for D in STREAM_DIMS if k in st[f"d{D}"]}})
+    for name, key, n in (("gram_schmidt_long", "d160_float32", launches["gram_schmidt_long"]),
+                         ("gram_schmidt_long_f64", "d160_float64",
+                          sr["fused_f64"].get("gram_schmidt_long_f64", 0))):
+        r = gl[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "gram_schmidt.cu",
+            "replaces": "polychordlite_tpu/ops/pallas_dirs.py:71", "dtype": r["dtype"],
+            "launches": n, "phase_launches": gl["launches"].get(name, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "by_shape": {t: {f: v for f, v in rec.items() if f != "launches"}
+                         for t, rec in gl.items() if t != "launches" and rec["kernel"] == name}})
     missing = [k["name"] for k in kernels if not k["launches"]]
     for name in ("gram_schmidt_wide", "gram_schmidt_wide_f64"):
         if not launches[name]:

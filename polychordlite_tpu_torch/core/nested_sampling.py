@@ -69,12 +69,13 @@ from ..ops import pallas_slice_v4
 from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
-from ..ops.pallas_slice_v4 import SLICE_MAXD_WIDE, check_functor_dims
+from ..ops import pallas_dirs
+from ..ops.pallas_slice_v4 import check_functor_dims
 from ..ops.pallas_slice_v5 import check_dims as check_v5_dims
 from ..ops.precision import F32_SAFE_LOGL, PRECISIONS, calc_dtype, real_dtype_scope
 from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
 from ..parallel import distributed
-from ..parallel.mesh import make_epoch_runner
+from ..parallel.mesh import make_epoch_runner, run_devices
 from ..priors import identity_prior
 from ..settings import PolyChordSettings
 from ..utils import feedback as fb
@@ -131,6 +132,27 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def check_chain_request(s: PolyChordSettings, device: torch.device) -> None:
+    """Raise if ``chain_epochs > 1`` asks for chained epochs where a run
+    never chains: over several shards (local devices, ``mesh_shape``) or
+    processes, or with ``synchronous=False`` (a chain is one synchronous
+    dispatch on one shard).  Left at -1 (auto) or 0 it dispatches per
+    epoch there."""
+    if int(getattr(s, "chain_epochs", -1)) <= 1:
+        return
+    n_shards = len(run_devices(device, s.mesh_shape)) * distributed.process_count()
+    why = []
+    if n_shards > 1:
+        why.append(f"this run splits its batch over {n_shards} shards "
+                   f"({distributed.process_count()} process(es))")
+    if not s.synchronous:
+        why.append("synchronous=False dispatches ahead, one epoch at a time")
+    if why:
+        raise ValueError(
+            f"chain_epochs={int(s.chain_epochs)} asks for chained epochs, and a chain runs "
+            f"synchronously on one shard: {'; '.join(why)}; leave chain_epochs at -1 or 0")
+
+
 def resolve_engine(engine: str, device: torch.device, calc) -> str:
     """Resolve ``engine="auto"``: ``"cuda"`` on a CUDA device, the plain
     torch engine on the CPU; for a :class:`GradedLikelihood` calc
@@ -145,20 +167,29 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     package warns and runs scan instead; the port forces engines by name
     only, ROADMAP C5); ``"torch"`` runs either on the plain engine.
     ``"scan"`` runs any model (the traced route's kernel with a repeat
-    barrier on the card for a torch model, the host route for a callback,
-    no bound on D).  ``"cuda"`` runs any torch model, batched or per point
-    (B1's functor kernel for a model with a device form, B1 with the
-    likelihood lowered into it or the traced route ``csrc/slice_step.cu``
-    for the others: ``ops/slice_kernel.py::cuda_route``); the other kernel
-    engines of :data:`KERNEL_ENGINES` are forced by name and need a device
-    form.  ``engine="torch"`` is the
-    plain engine on any device, at any dimension; the kernel engines stop at
-    D = 128 (``"cuda5"`` and random_gaussian's functor at 32), and above
-    they raise here, once.  At ``precision='highest'`` (a float64 calc)
-    ``"cuda"`` takes the fused or the traced route in double, and the
-    forced ``"cuda5"``, ``"cuda3"`` and ``"cuda2"``, whose kernels are
-    float32, raise (as the JAX package sends float64 away from its float32
-    kernels, ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
+    barrier on the card for a torch model, the host route for a callback;
+    on the card D is bounded only by B2's, ``pallas_dirs.MAXD`` = 29,056 in
+    shared memory, and before that by the card's free memory for B2's
+    scratch buffer past dim 240, which B2's wrapper checks: 21 GB at D =
+    2,048 for 5 bases of 256 chains).
+    ``"cuda"`` runs any torch model, batched or per point (B1's functor
+    kernel for a model with a device form, B1 with the likelihood lowered
+    into it or the traced route ``csrc/slice_step.cu`` for the others:
+    ``ops/slice_kernel.py::cuda_route``); the other kernel engines of
+    :data:`KERNEL_ENGINES` are forced by name and need a device form.
+    ``engine="torch"`` is the plain engine on any device, at any dimension;
+    B1's functor kernel and the forced ``"cuda3"`` and ``"cuda2"`` take D up
+    to the stream bucket's shared-memory bound for the functor's terms in
+    float32 (``pallas_slice_v4.stream_max_d``: 19,370 at one term, 14,528
+    at two), the fused route up to the same bound for the lowering's terms
+    and dtype (past it the model takes the traced route), the traced route
+    up to B2's bound, and ``"cuda5"`` stops at D = 32; above its bound an
+    engine raises here, once, naming the bound and ``engine='torch'``.  At
+    ``precision='highest'`` (a float64 calc) ``"cuda"`` takes the fused or
+    the traced route in double, and the forced ``"cuda5"``, ``"cuda3"`` and
+    ``"cuda2"``, whose kernels are float32, raise (as the JAX package sends
+    float64 away from its float32 kernels,
+    ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
     graded = bool(getattr(calc, "graded", False))
     callback = bool(calc.uses_callback)
     if engine == "auto":
@@ -179,25 +210,28 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
             "card; a host-callback likelihood (one that is not a torch function of a "
             "tensor) runs on engine='scan' (on the card the host route, which calls it "
             "between the kernel's launches) or on engine='torch' (the plain engine)")
+    D = calc.n_dims
+    if device.type == "cuda" and engine in ("scan",) + KERNEL_ENGINES and D > pallas_dirs.MAXD:
+        raise ValueError(
+            f"D = {D} exceeds the Gram-Schmidt kernels' bound D <= {pallas_dirs.MAXD} (B2's "
+            "working column fills a block's shared memory in float64); pass engine='torch' "
+            "to run it on the plain engine")
     if engine == "scan":
         return engine
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
             raise ValueError(f"engine={engine!r} needs device='cuda'")
-        if engine != "cuda" and calc_dtype(calc) == torch.float64:
+        f64 = calc_dtype(calc) == torch.float64
+        if engine != "cuda" and f64:
             raise ValueError(
                 f"engine={engine!r} runs a float32 kernel, and precision='highest' runs in "
                 "float64; use engine='cuda' (B1's fused or traced route in double) or "
                 "engine='torch'")
-        D = calc.n_dims
-        if D > SLICE_MAXD_WIDE:
-            raise ValueError(
-                f"the CUDA kernels stop at D = {SLICE_MAXD_WIDE}, and this model has D = {D}; "
-                "pass engine='torch' to run it on the plain engine")
         if engine == "cuda5":
             check_v5_dims(D)
         spec = getattr(calc, "device_spec", None)
-        if spec is not None:  # the functor route and the forced engines take it
+        if spec is not None and not (engine == "cuda" and f64):
+            # the functor route and the forced engines take the functor
             check_functor_dims(spec["likelihood"]["name"], D)
         if engine == "cuda":
             return engine
@@ -390,6 +424,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             f"grade_dims[0] == n_slow, got grade_dims={list(s.grade_dims)}"
         )
     engine = resolve_engine(s.engine, device, calc)
+    check_chain_request(s, device)
     if calc.graded and int(getattr(s, "chain_epochs", -1)) > 1:
         # the JAX package lets a forced chain through here and fails later
         # (ROADMAP C1)

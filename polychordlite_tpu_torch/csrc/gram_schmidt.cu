@@ -50,6 +50,26 @@
 // products per basis — with five shuffle steps in each, hidden only by the
 // other bases on the SM.
 
+// Above dim 128 the warp-per-basis design goes on with run-time rows
+// (gram_schmidt_long_kernel): lane l holds rows i = l + 32 m, ceil(dim / 32)
+// of them, in the same order — each lane sums its rows in index order, then
+// the butterfly — so the plain version is the same function with its row
+// cap lifted.  Neither the working column nor the finished ones fit
+// registers at any dim, so the working column lives in the block's dynamic
+// shared memory (dim values) and so do the finished columns k < k_smem,
+// as many as the rest of the 227 KB holds ([k][i]): all of them up to dim
+// 240 in float32 and 169 in float64 (gs_columns_in_smem).  The columns past
+// k_smem go to a scratch buffer in device memory that the wrapper
+// allocates, [basis][k - k_smem][i], so that a warp's 32 rows of a column
+// are 32 contiguous values.  Each lane reads only the rows it wrote, in
+// shared and in device memory alike, so no barrier is needed.  What bounds
+// it: the same chain of ~dim^2 dependent dot products per basis, now of
+// ceil(dim / 32) shared-memory loads a lane each; past k_smem, the values
+// each basis reads back from device memory, about (dim - k_smem)^2 dim of
+// them (327 MB a basis at dim 512 in float32), which L2 holds for only a
+// few bases at a time.  The working column bounds
+// dim: dim sizeof(T) <= 227 KB, dim <= 29,056 (GS_MAXD_LONG) in either type.
+
 // Double: a run at precision='highest' draws its directions in
 // float64, so both kernels are templates on the scalar type T, the float
 // instantiations the code above.  In double, a block of the
@@ -71,6 +91,9 @@
 #define GS_ROWS (GS_MAXD_WIDE / 32)  // rows per lane in the wide kernel
 // the shared memory a block may have (bytes)
 #define GS_SMEM_MAX 232448
+// the largest dim of the long kernel: its working column fills a block's
+// shared memory in float64
+#define GS_MAXD_LONG (GS_SMEM_MAX / 8)
 
 // The chains of a block of the thread-per-basis kernel: 32, or 16 where a
 // block of 32 would need more shared memory than a block may have (double
@@ -190,6 +213,77 @@ __global__ void gram_schmidt_wide_kernel(const T* __restrict__ g, T* __restrict_
     }
 }
 
+// dim > GS_MAXD_WIDE: basis (blockIdx.y, chain blockIdx.x) on the block's
+// one warp, the working column and the finished columns k < k_smem in shared
+// memory, the others in `scratch` (see the top of the file).
+template <class T>
+__global__ void gram_schmidt_long_kernel(const T* __restrict__ g, T* __restrict__ q,
+                                         T* __restrict__ scratch, int dim, int B, int k_smem) {
+    extern __shared__ __align__(16) unsigned char gs_smem[];
+    T* v = reinterpret_cast<T*>(gs_smem);  // the working column: row i at v[i]
+    T* qw = v + dim;                       // [k][i]: finished column k < k_smem, row i
+    const int lane = threadIdx.x;          // blockDim.x == 32
+    const int b = blockIdx.x;
+    const size_t sj = (size_t)B;        // stride of the column index
+    const size_t si = (size_t)dim * B;  // stride of the row index
+    const size_t base = (size_t)blockIdx.y * dim * dim * B + b;
+    const T* gb = g + base;
+    T* qb = q + base;
+    // [k - k_smem][i]: this basis's finished columns past k_smem
+    T* qg = scratch + ((size_t)blockIdx.y * B + b) * (size_t)(dim - k_smem) * dim;
+
+    for (int j = 0; j < dim; ++j) {
+        for (int i = lane; i < dim; i += 32) v[i] = gb[i * si + j * sj];
+        for (int sweep = 0; sweep < 2; ++sweep) {
+            for (int k = 0; k < j; ++k) {
+                const T* qk = k < k_smem ? qw + (size_t)k * dim : qg + (size_t)(k - k_smem) * dim;
+                T c = T(0);
+                for (int i = lane; i < dim; i += 32) c = rn_add(c, rn_mul(qk[i], v[i]));
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                    c = rn_add(c, __shfl_xor_sync(0xffffffffu, c, off));
+                for (int i = lane; i < dim; i += 32) v[i] = rn_sub(v[i], rn_mul(c, qk[i]));
+            }
+        }
+        T nrm = T(0);
+        for (int i = lane; i < dim; i += 32) nrm = rn_add(nrm, rn_mul(v[i], v[i]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            nrm = rn_add(nrm, __shfl_xor_sync(0xffffffffu, nrm, off));
+        const T den = gs_den(nrm);
+        T* qj = j < k_smem ? qw + (size_t)j * dim : qg + (size_t)(j - k_smem) * dim;
+        for (int i = lane; i < dim; i += 32) {
+            const T x = rn_div(v[i], den);
+            qj[i] = x;
+            qb[i * si + j * sj] = x;
+        }
+    }
+}
+
+// The finished columns the long kernel keeps in shared memory at `dim`:
+// as many as fit beside the working column, at most dim.
+static long long gs_columns_in_smem(int dim, int bytes) {
+    const long long k = ((long long)GS_SMEM_MAX / bytes - dim) / dim;
+    return k < dim ? k : dim;
+}
+
+template <class T>
+static int gram_schmidt_long(const T* g, T* q, T* scratch, int n_bases, int dim, int B,
+                             cudaStream_t stream) {
+    const int k_smem = (int)gs_columns_in_smem(dim, (int)sizeof(T));
+    if (k_smem < dim && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int smem = (int)sizeof(T) * dim * (1 + k_smem);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_long_kernel<T>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    gram_schmidt_long_kernel<T><<<dim3(B, n_bases), 32, smem, stream>>>(g, q, scratch, dim, B,
+                                                                         k_smem);
+    return (int)cudaGetLastError();
+}
+
 template <class T>
 static int gram_schmidt_wide(const T* g, T* q, int n_bases, int dim, int B,
                              cudaStream_t stream) {
@@ -212,11 +306,16 @@ static GramSchmidtKernel<T> kernel_for(int dim, std::integer_sequence<int, Ds...
     return kernels[dim - 1];
 }
 
-// The launch of either kernel in the scalar type T; see the entries below.
+// The launch of the kernel of `dim` in the scalar type T; see the entries
+// below.
 template <class T>
-static int gram_schmidt(const void* g, void* q, int n_bases, int dim, int B, void* stream) {
-    if (dim < 1 || dim > GS_MAXD_WIDE || n_bases < 1 || n_bases > 65535 || B < 1)
+static int gram_schmidt(const void* g, void* q, void* scratch, int n_bases, int dim, int B,
+                        void* stream) {
+    if (dim < 1 || dim > GS_MAXD_LONG || n_bases < 1 || n_bases > 65535 || B < 1)
         return (int)cudaErrorInvalidValue;
+    if (dim > GS_MAXD_WIDE)
+        return gram_schmidt_long((const T*)g, (T*)q, (T*)scratch, n_bases, dim, B,
+                                 (cudaStream_t)stream);
     if (dim > GS_MAXD)
         return gram_schmidt_wide((const T*)g, (T*)q, n_bases, dim, B, (cudaStream_t)stream);
     const GramSchmidtKernel<T> kernel =
@@ -235,19 +334,29 @@ static int gram_schmidt(const void* g, void* q, int n_bases, int dim, int B, voi
     return (int)cudaGetLastError();
 }
 
-// The largest dim of the two kernels.
-extern "C" int gram_schmidt_max_dim() { return GS_MAXD_WIDE; }
+// The largest dim of the three kernels.
+extern "C" int gram_schmidt_max_dim() { return GS_MAXD_LONG; }
+
+// The values of the scratch buffer a launch at (n_bases, dim, B) in a type
+// of `bytes` bytes needs: the long kernel's finished columns past those
+// its shared memory holds (0 where it holds them all, and at dim <= 128).
+extern "C" long long gram_schmidt_scratch_values(int n_bases, int dim, int B, int bytes) {
+    if (dim <= GS_MAXD_WIDE) return 0;
+    return (long long)n_bases * B * (dim - gs_columns_in_smem(dim, bytes)) * dim;
+}
 
 // g, q: (n_bases, dim, dim, B) float32, contiguous, on the device: the
-// thread-per-basis kernel for dim <= GS_MAXD, the wide kernel above.
+// thread-per-basis kernel for dim <= GS_MAXD, the wide kernel up to
+// GS_MAXD_WIDE, the long kernel above; scratch: a device array of
+// gram_schmidt_scratch_values(n_bases, dim, B, 4) float32 (null when 0).
 // Returns cudaGetLastError() after the launch.
-extern "C" int gram_schmidt_f32(const void* g, void* q, int n_bases, int dim, int B,
-                                void* stream) {
-    return gram_schmidt<float>(g, q, n_bases, dim, B, stream);
+extern "C" int gram_schmidt_f32(const void* g, void* q, void* scratch, int n_bases, int dim,
+                                int B, void* stream) {
+    return gram_schmidt<float>(g, q, scratch, n_bases, dim, B, stream);
 }
 
 // The same in float64.
-extern "C" int gram_schmidt_f64(const void* g, void* q, int n_bases, int dim, int B,
-                                void* stream) {
-    return gram_schmidt<double>(g, q, n_bases, dim, B, stream);
+extern "C" int gram_schmidt_f64(const void* g, void* q, void* scratch, int n_bases, int dim,
+                                int B, void* stream) {
+    return gram_schmidt<double>(g, q, scratch, n_bases, dim, B, stream);
 }

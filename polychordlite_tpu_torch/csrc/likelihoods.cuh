@@ -30,15 +30,19 @@
 //
 // Each functor is a template on its dimension bucket M (slice_common.cuh):
 // SLICE_MAXD = 32 or SLICE_MAXD_WIDE = 128, the bound on D that sizes its
-// prior and its loops.  combine reads T[j][d] through whatever the caller
-// hands it: an array in registers in the 32 bucket, the terms staged in
-// shared memory in the 128 bucket (slice_epoch.cuh).
+// prior and its loops, or SLICE_MAXD_STREAM, the stream bucket above 128,
+// whose prior comes by pointer from a device buffer (prior_t) and whose
+// loops run to the run-time D.  combine reads T[j][d] through whatever the
+// caller hands it: an array in registers in the 32 bucket, the terms staged
+// in shared memory in the 128 and the stream buckets (slice_epoch.cuh).
 //
 // The functors here are float32.  A functor's scalar type is the type of
 // its logzero (real_of): the fused route's generated functor is double in a
 // run at precision='highest', and the generic pieces below (the prior, the
 // probe, like_eval) follow it.
 #pragma once
+
+#include <type_traits>
 
 #include "slice_common.cuh"
 
@@ -56,6 +60,20 @@ struct AffinePriorT {
 };
 using AffinePrior = AffinePriorT<SLICE_MAXD>;
 
+// The stream bucket's prior: a[D] and s[D] in device memory (read through
+// the cache), since D values of each would not fit the kernel's parameters.
+template <class T = float>
+struct DevicePriorT {
+    const T* __restrict__ a;
+    const T* __restrict__ s;
+};
+
+// The prior of a functor of the bucket MAXD: by value up to SLICE_MAXD_WIDE,
+// by pointer in the stream bucket.
+template <int MAXD, class T = float>
+using prior_t = typename std::conditional<MAXD == SLICE_MAXD_STREAM, DevicePriorT<T>,
+                                          AffinePriorT<MAXD, T>>::type;
+
 // The prior from host arrays a[D] and s[D]; entries past D are zero.
 template <int MAXD = SLICE_MAXD, class T = float>
 inline AffinePriorT<MAXD, T> affine_prior(const T* prior_a, const T* prior_s, int D) {
@@ -67,12 +85,16 @@ inline AffinePriorT<MAXD, T> affine_prior(const T* prior_a, const T* prior_s, in
     return prior;
 }
 
-// random_gaussian's inverse covariance, row-major D x D: 4 KB at D = 32,
-// too large for the functor (kernel parameters), so it is copied into
-// constant memory on the launch's stream before the kernel.  Sized for the
-// SLICE_MAXD bucket only (at 128 it would fill the 64 KB constant bank), so
-// random_gaussian's functor stops at D = 32.
-__constant__ float c_like_matrix[SLICE_MAXD * SLICE_MAXD];
+// The prior of the bucket MAXD from the host arrays a[D], s[D] (up to
+// SLICE_MAXD_WIDE) or from the device array dev = [a (D), s (D)] (the
+// stream bucket).
+template <int MAXD, class T = float>
+inline prior_t<MAXD, T> make_prior(const T* prior_a, const T* prior_s, const T* dev, int D) {
+    if constexpr (MAXD == SLICE_MAXD_STREAM)
+        return DevicePriorT<T>{dev, dev + D};
+    else
+        return affine_prior<MAXD, T>(prior_a, prior_s, D);
+}
 
 // theta of one coordinate of the probe x0 + t n̂ under the prior a + s cube;
 // clears `inside` if the cube coordinate leaves [0, 1].
@@ -144,7 +166,7 @@ __device__ __noinline__ float like_cosf(float x) { return cosf(x); }
 template <int M>
 struct GaussianLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float mu, sigma, norm, logzero;
     static constexpr int NT = 1;
 
@@ -167,7 +189,7 @@ struct GaussianLike {
 template <int M>
 struct GaussianShellsLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float centre, radius, two_s2, neg_a, log_two, logzero;
     static constexpr int NT = 1;
 
@@ -198,7 +220,7 @@ struct GaussianShellsLike {
 template <int M>
 struct HalfGaussianLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float mu, sigma, norm, logzero;
     static constexpr int NT = 1;
 
@@ -218,7 +240,7 @@ struct HalfGaussianLike {
 template <int M>
 struct PyramidalLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float mu, sigma, norm, factor, logzero;
     static constexpr int NT = 1;
 
@@ -238,7 +260,7 @@ struct PyramidalLike {
 template <int M>
 struct RastriginLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float log_norm, A, two_pi, logzero;
     static constexpr int NT = 1;
 
@@ -260,7 +282,7 @@ struct RastriginLike {
 template <int M>
 struct TwinGaussianLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float off, sigma, norm, log_two, logzero;
     static constexpr int NT = 2;
 
@@ -288,7 +310,7 @@ struct TwinGaussianLike {
 template <int M>
 struct HimmelblauLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float norm, logzero;
     static constexpr int NT = 1;
 
@@ -308,7 +330,7 @@ struct HimmelblauLike {
 template <int M>
 struct RosenbrockLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float a, b, norm, logzero;
     static constexpr int NT = 1;
 
@@ -335,7 +357,7 @@ struct RosenbrockLike {
 template <int M>
 struct EggboxLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float logzero;
     static constexpr int NT = 1;
 
@@ -357,7 +379,7 @@ struct EggboxLike {
 template <int M>
 struct GaussianShellLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float radius, two_s2, neg_a, logzero;
     static constexpr int NT = 1;
 
@@ -375,32 +397,43 @@ struct GaussianShellLike {
 
 // models/examples.py::random_gaussian: norm - q / 2 with the quadratic form
 // q = sum_i d_i (sum_j M_ij d_j), d = theta - mu, both sums in index order
-// from 0, M = c_like_matrix.  The d_j are indexed at run time, so they go
-// to local memory (this functor only).
+// from 0.  M, row-major D x D (4 MB at D = 1,024), lives in a device buffer
+// and is read through L1 and L2 (every lane of the group reads the same
+// entry).  In the 32 bucket the d_j are indexed at run time, so they go to
+// local memory; above, they are read where they are staged, in shared
+// memory.
 template <int M>
 struct RandomGaussianLike {
     static constexpr int MAXD = M;
-    AffinePriorT<M> prior;
+    prior_t<M> prior;
     float mu, norm, logzero;
+    const float* __restrict__ m;  // the matrix (device)
     static constexpr int NT = 1;
 
     __device__ __forceinline__ void term(float th, int, float* out) const {
         out[0] = __fsub_rn(th, mu);
     }
-    template <class TT>
-    __device__ __forceinline__ float combine(const TT& T, int D) const {
-        float dv[MAXD];
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d)
-            if (d < D) dv[d] = T[0][d];
+    template <class V>
+    __device__ __forceinline__ float quadratic(const V& dv, int D) const {
         float q = 0.0f;
         for (int i = 0; i < D; ++i) {
             float row = 0.0f;
-            for (int j = 0; j < D; ++j)
-                row = __fadd_rn(row, __fmul_rn(c_like_matrix[i * D + j], dv[j]));
+            for (int j = 0; j < D; ++j) row = __fadd_rn(row, __fmul_rn(m[i * D + j], dv[j]));
             q = __fadd_rn(q, __fmul_rn(dv[i], row));
         }
         return __fsub_rn(norm, __fmul_rn(0.5f, q));
+    }
+    template <class TT>
+    __device__ __forceinline__ float combine(const TT& T, int D) const {
+        if constexpr (MAXD == SLICE_MAXD) {
+            float dv[MAXD];
+#pragma unroll
+            for (int d = 0; d < MAXD; ++d)
+                if (d < D) dv[d] = T[0][d];
+            return quadratic(dv, D);
+        } else {
+            return quadratic(T[0], D);
+        }
     }
 };
 
@@ -419,17 +452,17 @@ enum {
     LIKE_RANDOM_GAUSSIAN = 10,
 };
 
-// Build the functor `id` of the MAXD bucket (SLICE_MAXD or SLICE_MAXD_WIDE)
-// from host arrays — its constants c[], the prior's a[D] and s[D] — and
-// call launch(functor).  random_gaussian's c[] ends
-// with its D x D matrix, which goes to c_like_matrix on `stream` first.
-// Returns 0, a CUDA error of that copy, or cudaErrorInvalidValue for an
-// unknown id (and for random_gaussian above the SLICE_MAXD bucket).
+// Build the functor `id` of the MAXD bucket (SLICE_MAXD, SLICE_MAXD_WIDE or
+// SLICE_MAXD_STREAM) from host arrays — its constants c[], the prior's a[D]
+// and s[D] — and the device array dev = [a (D), s (D), random_gaussian's
+// D x D matrix], and call launch(functor).  The stream bucket takes its
+// prior from dev; random_gaussian takes its matrix from there in every
+// bucket (a host array c[] may end with it too; the functor does not read
+// it there).  Returns 0, or cudaErrorInvalidValue for an unknown id.
 template <int MAXD = SLICE_MAXD, class Launch>
-int with_likelihood(int id, const float* c, const float* prior_a,
-                    const float* prior_s, int D, float logzero, cudaStream_t stream,
-                    Launch&& launch) {
-    const AffinePriorT<MAXD> prior = affine_prior<MAXD>(prior_a, prior_s, D);
+int with_likelihood(int id, const float* c, const float* prior_a, const float* prior_s,
+                    const float* dev, int D, float logzero, Launch&& launch) {
+    const prior_t<MAXD> prior = make_prior<MAXD>(prior_a, prior_s, dev, D);
     switch (id) {
         case LIKE_GAUSSIAN:
             launch(GaussianLike<MAXD>{prior, c[0], c[1], c[2], logzero});
@@ -462,15 +495,8 @@ int with_likelihood(int id, const float* c, const float* prior_a,
             launch(GaussianShellLike<MAXD>{prior, c[0], c[1], c[2], logzero});
             return 0;
         case LIKE_RANDOM_GAUSSIAN:
-            if constexpr (MAXD == SLICE_MAXD) {  // c_like_matrix holds D <= SLICE_MAXD
-                const cudaError_t e = cudaMemcpyToSymbolAsync(
-                    c_like_matrix, c + 2, sizeof(float) * D * D, 0, cudaMemcpyHostToDevice,
-                    stream);
-                if (e != cudaSuccess) return (int)e;
-                launch(RandomGaussianLike<MAXD>{prior, c[0], c[1], logzero});
-                return 0;
-            }
-            return (int)cudaErrorInvalidValue;
+            launch(RandomGaussianLike<MAXD>{prior, c[0], c[1], logzero, dev + 2 * D});
+            return 0;
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -20,13 +20,20 @@ struct same_type {
 template <class T>
 using exactly = typename same_type<T>::type;
 
-// The two dimension buckets of the slice-epoch template (slice_epoch.cuh):
+// The three dimension buckets of the slice-epoch template (slice_epoch.cuh):
 // D <= SLICE_MAXD, every kernel and G; SLICE_MAXD < D <= SLICE_MAXD_WIDE,
 // B1, B4 and B5 at G = SLICE_MAXD_WIDE / SLICE_LANE_CAP = 32 lanes per
-// chain, so that no lane owns more than SLICE_LANE_CAP coordinates.
+// chain, so that no lane owns more than SLICE_LANE_CAP coordinates; and
+// above, the stream bucket (a functor's MAXD = SLICE_MAXD_STREAM: no
+// compile-time bound), B1, B4 and B5 at G = 32 with the chain's x0, n̂ and
+// staged terms in the block's dynamic shared memory, (2 + NT) D values of
+// the run's type, so D is bounded at run time by the SLICE_SMEM_MAX bytes a
+// block may have (ops/pallas_slice_v4.py::stream_max_d).
 #define SLICE_MAXD 32
 #define SLICE_MAXD_WIDE 128
 #define SLICE_LANE_CAP 4
+#define SLICE_MAXD_STREAM 0
+#define SLICE_SMEM_MAX 232448
 
 enum { PH_INIT_R = 0, PH_INIT_L, PH_STEP_R, PH_STEP_L, PH_SHRINK, PH_DONE };
 

@@ -58,7 +58,7 @@
 // chip_smoke.py's measure_first and lane_efficiency phases, both trees
 // twice in one run on an H100 80GB HBM3 at 700 W (PERF.md, section 6).
 //
-// Two dimension buckets (slice_common.cuh).  The functor's MAXD sizes every
+// Three dimension buckets (slice_common.cuh).  The functor's MAXD sizes every
 // per-lane array, K = MAXD / G slots a lane.  In the SLICE_MAXD = 32 bucket
 // every G is instantiated and the code is the design above.  Above D = 32
 // the SLICE_MAXD_WIDE = 128 bucket holds a chain on G = 32 lanes only
@@ -73,6 +73,23 @@
 // version and G = 32.  What bounds a wide micro-step is that combine: a
 // chain of D dependent adds (the index order the torch calc fixes), with
 // one warp a chain and 512 chains on 132 SMs.
+//
+// Above D = 128 the stream bucket (MAXD = SLICE_MAXD_STREAM, no compile-time
+// bound) holds a chain on G = 32 lanes as the wide bucket does, but nothing
+// of the chain sits in registers: its x0, its n̂ and its staged terms are
+// rows of the block's dynamic shared memory, (2 + NT) D values of the run's
+// type (one chain, one warp, a block), lane g owning the coordinates d = g
+// (mod 32), which it alone reads and writes in x0 and n̂ (so no barrier
+// guards them; the terms are fenced by __syncwarp as in the wide bucket).
+// Every per-coordinate loop (the load, the advance, the cube row, the term
+// stage) runs to the run-time D, and the prior's a and s come by pointer
+// (DevicePriorT, likelihoods.cuh).  The combine and the order of every
+// operation are the wide bucket's, so the plain version is the same.  D is
+// bounded by the 227 KB a block may have: (2 + NT) D sizeof(T) <=
+// SLICE_SMEM_MAX, D <= 14,528 in float32 at NT = 2
+// (ops/pallas_slice_v4.py::stream_max_d); a request above 48 KB sets the
+// kernel's dynamic shared-memory attribute first.  What bounds a micro-step is again the combine's D dependent adds,
+// now read from shared memory one per add.
 //
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
 // TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
@@ -128,7 +145,9 @@ struct V3Policy {  // B4 (slice_epoch_v3.cu)
 template <class Policy, int G, int MAXD = SLICE_MAXD, class T>
 __device__ __forceinline__ void repeat_end(const EpochArgsT<T>& a, int r, int b, const T* x0,
                                            int g) {
-    if constexpr (Policy::CUBE) {
+    if constexpr (Policy::CUBE && MAXD == SLICE_MAXD_STREAM) {
+        for (int d = g; d < a.D; d += G) a.cube_out[((size_t)r * a.D + d) * a.B + b] = x0[d];
+    } else if constexpr (Policy::CUBE) {
 #pragma unroll
         for (int k = 0; k < MAXD / G; ++k) {
             const int d = g + k * G;
@@ -142,7 +161,7 @@ __device__ __forceinline__ void repeat_end(const EpochArgsT<T>& a, int r, int b,
 // group's lanes in the warp.  like_eval on it is the two-stage form; every
 // lane of the warp calls it together (group_epoch), so its warp operations
 // take the full mask.
-template <int G, class Like>
+template <int G, class Like, bool STREAM = Like::MAXD == SLICE_MAXD_STREAM>
 struct GroupLane {
     using Real = real_of<Like>;
     static constexpr int K = Like::MAXD / G;
@@ -153,11 +172,34 @@ struct GroupLane {
     Real logzero;
 };
 
+// ... in the stream bucket: the prior stays the functor's (by pointer), and
+// the chain's rows of shared memory, x0 (D), n̂ (D) and the terms (NT x D),
+// take the place of registers.
+template <int G, class Like>
+struct GroupLane<G, Like, true> {
+    using Real = real_of<Like>;
+    const Like& like;
+    int g;
+    unsigned mask;
+    Real logzero;
+    Real* x0;
+    Real* n;
+    Real* terms;
+};
+
 // The terms of the 128 bucket's chain, staged in shared memory: T[j][d].
 template <int MAXD, class Real = float>
 struct StagedTerms {
     const Real* p;
     __device__ __forceinline__ const Real* operator[](int j) const { return p + j * MAXD; }
+};
+
+// ... of the stream bucket's chain, rows of `stride` = D values.
+template <class Real>
+struct StreamTerms {
+    const Real* p;
+    int stride;
+    __device__ __forceinline__ const Real* operator[](int j) const { return p + j * stride; }
 };
 
 template <int G, class Like>
@@ -166,7 +208,26 @@ __device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
                                                    const real_of<Like>* n, real_of<Like> t,
                                                    int D) {
     using Real = real_of<Like>;
-    constexpr int K = GroupLane<G, Like>::K, NT = Like::NT, MAXD = Like::MAXD;
+    constexpr int NT = Like::NT, MAXD = Like::MAXD;
+    if constexpr (MAXD == SLICE_MAXD_STREAM) {
+        // the stream bucket: each lane stores the terms of the coordinates it
+        // owns straight into the chain's row, as it makes them, and every
+        // lane combines from there, as in the 128 bucket
+        bool inside = true;
+        __syncwarp();  // the previous micro-step's combine has read the row
+        for (int d = L.g; d < D; d += G) {
+            Real o[NT] = {};
+            L.like.term(
+                probe_theta(x0[d], n[d], t, L.like.prior.a[d], L.like.prior.s[d], inside), d, o);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) L.terms[j * D + d] = o[j];
+        }
+        inside = (__ballot_sync(0xffffffffu, inside) & L.mask) == L.mask;
+        __syncwarp();
+        return like_result(L.like.combine(StreamTerms<Real>{L.terms, D}, D), inside,
+                           L.logzero);
+    } else {
+    constexpr int K = GroupLane<G, Like>::K;
     bool inside = true;
     Real own[NT][K];
 #pragma unroll
@@ -213,6 +274,7 @@ __device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
         __syncwarp();
         return like_result(L.like.combine(StagedTerms<MAXD, Real>{row}, D), inside,
                            L.logzero);
+    }
     }
 }
 
@@ -286,17 +348,20 @@ __device__ __forceinline__ long long chain_epoch(const Like& like,
 // unaccepted records t = 0, logL = logzero and its count, and the chain
 // stops (STOP) or keeps x0 for its next repeat.  Lane 0 writes the
 // records; each lane writes the cube coordinates it owns.
+// x0 and n̂ are the lane's K slots in registers (the 32 and 128 buckets) or
+// the chain's rows of shared memory (the stream bucket): group_epoch below.
 template <class Policy, int G, class Like>
-__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L,
-                                            const EpochArgsT<real_of<Like>>& a, int b,
-                                            bool in_range) {
+__device__ __forceinline__ void group_epoch_on(const GroupLane<G, Like>& L,
+                                               const EpochArgsT<real_of<Like>>& a, int b,
+                                               bool in_range, real_of<Like>* x0,
+                                               real_of<Like>* n) {
     using Real = real_of<Like>;
-    constexpr int MAXD = Like::MAXD, K = MAXD / G;
+    constexpr int MAXD = Like::MAXD;
     const int B = a.B, D = a.D, R = a.R, g = L.g;
     bool done = !(in_range && a.valid[b] > 0.5f);
     int r = 0;
     long long steps = 0;
-    Real x0[K] = {}, n[K] = {}, wr = Real(0), bnd = Real(0);
+    Real wr = Real(0), bnd = Real(0);
     uint32_t h_lane = 0;
     SliceStateT<Real> s;
     s.start();
@@ -355,16 +420,35 @@ __device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L,
     }
 }
 
+template <class Policy, int G, class Like>
+__device__ __forceinline__ void group_epoch(const GroupLane<G, Like>& L,
+                                            const EpochArgsT<real_of<Like>>& a, int b,
+                                            bool in_range) {
+    if constexpr (Like::MAXD == SLICE_MAXD_STREAM) {
+        group_epoch_on<Policy>(L, a, b, in_range, L.x0, L.n);
+    } else {
+        real_of<Like> x0[Like::MAXD / G] = {}, n[Like::MAXD / G] = {};
+        group_epoch_on<Policy>(L, a, b, in_range, x0, n);
+    }
+}
+
 template <class Policy, class Like, int G, bool COUNTED>
 __global__ void slice_epoch_kernel(Like like, EpochArgsT<real_of<Like>> a) {
     static_assert(G == 1 || !COUNTED, "the counted form runs one lane per chain");
-    static_assert(Like::MAXD == SLICE_MAXD || G * SLICE_LANE_CAP >= Like::MAXD,
+    static_assert(Like::MAXD == SLICE_MAXD || G * SLICE_LANE_CAP >= SLICE_MAXD_WIDE,
                   "at most SLICE_LANE_CAP coordinates per lane above SLICE_MAXD");
     const int lane_id = blockIdx.x * blockDim.x + threadIdx.x;
     const int b = lane_id / G;  // the chain
     long long steps = 0;        // micro-steps of this chain in the epoch
     if constexpr (G == 1) {
         if (b < a.B) steps = chain_epoch<Policy>(like, a, b);
+    } else if constexpr (Like::MAXD == SLICE_MAXD_STREAM) {  // one chain a block
+        extern __shared__ __align__(16) unsigned char slice_smem[];
+        using Real = real_of<Like>;
+        Real* rows = reinterpret_cast<Real*>(slice_smem);  // x0, n̂, the terms
+        const GroupLane<G, Like> L{like, lane_id % G, group_mask<G>(threadIdx.x),
+                                   like.logzero, rows, rows + a.D, rows + 2 * a.D};
+        group_epoch<Policy>(L, a, b, b < a.B);
     } else {  // every lane of the warp runs group_epoch (no early return)
         GroupLane<G, Like> L{like, {}, {}, lane_id % G, group_mask<G>(threadIdx.x), like.logzero};
         group_prior(L);
@@ -379,17 +463,30 @@ __global__ void slice_epoch_kernel(Like like, EpochArgsT<real_of<Like>> a) {
 }
 
 // Launch slice_epoch_kernel<Policy, Like, G, COUNTED> on `stream`: one warp
-// per block, 32 / G chains each.
+// per block, 32 / G chains each.  In the stream bucket the block's (2 + NT)
+// D values of dynamic shared memory, with the kernel's attribute raised past
+// 48 KB first; a request above SLICE_SMEM_MAX fails there and at the launch,
+// which cudaGetLastError() then reports.
 template <class Policy, class Like, int G, bool COUNTED = false>
 void launch_epoch(const Like& like, const EpochArgsT<real_of<Like>>& a, cudaStream_t stream) {
     const int threads = 32;
     const int blocks = (int)(((long long)a.B * G + threads - 1) / threads);
-    slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
+    if constexpr (Like::MAXD == SLICE_MAXD_STREAM) {
+        const long long bytes = (2LL + Like::NT) * a.D * (long long)sizeof(real_of<Like>);
+        const int smem = (int)(bytes <= SLICE_SMEM_MAX ? bytes : SLICE_SMEM_MAX + 1);
+        if (smem > 48 * 1024)
+            cudaFuncSetAttribute((const void*)slice_epoch_kernel<Policy, Like, G, COUNTED>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, smem, stream>>>(like, a);
+    } else {
+        slice_epoch_kernel<Policy, Like, G, COUNTED><<<blocks, threads, 0, stream>>>(like, a);
+    }
 }
 
 // Launch at `group` lanes per chain: one of 1, 2, 4, ..., 32 in the
 // SLICE_MAXD bucket, 32 in the SLICE_MAXD_WIDE bucket (the only
-// instantiation there, SLICE_LANE_CAP coordinates per lane at most).
+// instantiation there, SLICE_LANE_CAP coordinates per lane at most) and in
+// the stream bucket.
 template <class Policy, class Like>
 void launch_epoch_group(int group, const Like& like, const EpochArgsT<real_of<Like>>& a,
                         cudaStream_t st) {
@@ -403,30 +500,36 @@ void launch_epoch_group(int group, const Like& like, const EpochArgsT<real_of<Li
             default: launch_epoch<Policy, Like, 32>(like, a, st); break;
         }
     } else {
-        static_assert(Like::MAXD == SLICE_MAXD_WIDE && SLICE_MAXD_WIDE / SLICE_LANE_CAP == 32,
-                      "the wide bucket's only instantiation is G = 32");
+        static_assert((Like::MAXD == SLICE_MAXD_WIDE && SLICE_MAXD_WIDE / SLICE_LANE_CAP == 32) ||
+                          Like::MAXD == SLICE_MAXD_STREAM,
+                      "the wide and stream buckets' only instantiation is G = 32");
         launch_epoch<Policy, Like, 32>(like, a, st);
     }
 }
 
 // Whether a launch of `group` lanes per chain can take these arguments: D
-// up to `maxd` (SLICE_MAXD_WIDE for the entries with both buckets), and
-// above SLICE_MAXD only at the wide bucket's G.
+// up to `maxd` (SLICE_MAXD_STREAM, no compile-time bound, for the entries
+// with every bucket), and above SLICE_MAXD only at the wide and stream
+// buckets' G.
 template <class T>
 inline bool epoch_args_ok(const EpochArgsT<T>& a, int group, int maxd = SLICE_MAXD) {
-    return a.D >= 1 && a.D <= maxd && a.R >= 1 && a.B >= 1 && group >= 1 &&
-           group <= 32 && !(group & (group - 1)) &&
+    return a.D >= 1 && (maxd == SLICE_MAXD_STREAM || a.D <= maxd) && a.R >= 1 && a.B >= 1 &&
+           group >= 1 && group <= 32 && !(group & (group - 1)) &&
            (a.D <= SLICE_MAXD || group * SLICE_LANE_CAP >= SLICE_MAXD_WIDE);
 }
 
 // with_likelihood (likelihoods.cuh) in the bucket of a.D: launch(functor)
-// with the functor of the SLICE_MAXD bucket for D <= SLICE_MAXD, else of the
-// SLICE_MAXD_WIDE bucket.
+// with the functor of the SLICE_MAXD bucket for D <= SLICE_MAXD, of the
+// SLICE_MAXD_WIDE bucket up to SLICE_MAXD_WIDE, else of the stream bucket.
 template <class Launch>
 int with_bucket_likelihood(int id, const float* c, const float* prior_a, const float* prior_s,
-                           const EpochArgs& a, float logzero, cudaStream_t st,
+                           const float* dev, const EpochArgs& a, float logzero,
                            Launch&& launch) {
     if (a.D <= SLICE_MAXD)
-        return with_likelihood<SLICE_MAXD>(id, c, prior_a, prior_s, a.D, logzero, st, launch);
-    return with_likelihood<SLICE_MAXD_WIDE>(id, c, prior_a, prior_s, a.D, logzero, st, launch);
+        return with_likelihood<SLICE_MAXD>(id, c, prior_a, prior_s, dev, a.D, logzero, launch);
+    if (a.D <= SLICE_MAXD_WIDE)
+        return with_likelihood<SLICE_MAXD_WIDE>(id, c, prior_a, prior_s, dev, a.D, logzero,
+                                                launch);
+    return with_likelihood<SLICE_MAXD_STREAM>(id, c, prior_a, prior_s, dev, a.D, logzero,
+                                              launch);
 }

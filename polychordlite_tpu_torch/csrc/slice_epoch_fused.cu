@@ -8,14 +8,17 @@
 // the trace to B1's two-stage functor interface (likelihoods.cuh) and writes
 // it, with the group size G and the dimension D, into the generated header
 // fused_like.cuh, found through -I at build time (utils/nvcc.py), in the
-// dimension bucket of D (FUSED_MAXD: 32, or 128 at G = 32).  This entry
+// dimension bucket of D (FUSED_MAXD: 32, 128 at G = 32, or SLICE_MAXD_STREAM
+// at G = 32 above 128, to the shared-memory bound).  This entry
 // instantiates slice_epoch.cuh's kernel for that functor at that one G only,
 // so that one build takes seconds; each model graph and G is a library of its
 // own, named by a hash of the header.  The model's constants (captured
 // tensors and numbers, a lowered prior's parameters) are not in the source:
 // they come in one float32 device buffer, `consts`, so a family of models
 // with one graph shares one library.  A prior with an affine form stays B1's
-// AffinePrior (prior_a, prior_s, host arrays).
+// AffinePrior (prior_a, prior_s, host arrays); in the stream bucket it is the
+// device array `dev` = [a (D), s (D)] (DevicePriorT).  The float64 kernel is
+// instantiated in every bucket as the float32 one is.
 //
 // What bounds it is B1's micro-step (slice_epoch.cuh), with the lowered
 // body in place of the hand-written one: its per-coordinate chain runs on
@@ -43,7 +46,7 @@ using fused_real = real_of<FusedLike>;
 // cudaGetLastError() after the launch.
 extern "C" int slice_epoch_fused_launch(
     int group, const fused_real* consts, const fused_real* prior_a, const fused_real* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const fused_real* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, fused_real logzero, void* stream) {
@@ -52,7 +55,7 @@ extern "C" int slice_epoch_fused_launch(
                                         D, R, k0, k1, max_step, max_shrink, cap), lane0);
     if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD))
         return (int)cudaErrorInvalidValue;
-    const FusedLike like{affine_prior<FusedLike::MAXD>(prior_a, prior_s, D), consts, logzero};
+    const FusedLike like{make_prior<FusedLike::MAXD>(prior_a, prior_s, dev, D), consts, logzero};
     launch_epoch<V4Policy, FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

@@ -103,14 +103,14 @@ __global__ void slice_epoch_v2_counted_kernel(Like like, EpochArgs a, int* __res
 
 template <bool COUNTED>
 static int launch(int group, int functor, const float* consts, const float* prior_a,
-                  const float* prior_s, const EpochArgs& a, float logzero, void* stream,
-                  int* iters) {
-    if (!epoch_args_ok(a, group, COUNTED ? SLICE_MAXD : SLICE_MAXD_WIDE) ||
+                  const float* prior_s, const float* dev, const EpochArgs& a, float logzero,
+                  void* stream, int* iters) {
+    if (!epoch_args_ok(a, group, COUNTED ? SLICE_MAXD : SLICE_MAXD_STREAM) ||
         (COUNTED && group != 1))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int bad = with_bucket_likelihood(
-        functor, consts, prior_a, prior_s, a, logzero, st, [&](auto like) {
+        functor, consts, prior_a, prior_s, dev, a, logzero, [&](auto like) {
             using L = decltype(like);
             if constexpr (!COUNTED) {
                 launch_epoch_group<V2Policy>(group, like, a, st);
@@ -127,15 +127,15 @@ static int launch(int group, int functor, const float* consts, const float* prio
 // The interface of slice_epoch_launch (slice_epoch.cu), with `cap` the
 // micro-steps one repeat may take, cube_out an (R, D, B) float32 device
 // array and `group` G, the lanes per chain (1, 2, 4, 8, 16 or 32; 32 for
-// D > 32, the SLICE_MAXD_WIDE bucket).  Returns cudaGetLastError() after
-// the launch.
+// D > 32, the SLICE_MAXD_WIDE and stream buckets), and `dev` the device
+// array of slice_epoch_launch.  Returns cudaGetLastError() after the launch.
 extern "C" int slice_epoch_v2_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, void* cube_out, int group) {
-    return launch<false>(group, functor, consts, prior_a, prior_s,
+    return launch<false>(group, functor, consts, prior_a, prior_s, dev,
                          at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
                                              nlike_out, B, D, R, k0, k1, max_step, max_shrink,
                                              cap, nullptr, nullptr, cube_out), lane0),
@@ -148,12 +148,12 @@ extern "C" int slice_epoch_v2_launch(
 // 4 * ceil(max over the lanes / 4) (0 when no lane is valid).
 extern "C" int slice_epoch_v2_counted_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, void* cube_out, void* steps_out,
     void* iters) {
-    return launch<true>(1, functor, consts, prior_a, prior_s,
+    return launch<true>(1, functor, consts, prior_a, prior_s, dev,
                         at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink, cap,
                                             steps_out, nullptr, cube_out), lane0),

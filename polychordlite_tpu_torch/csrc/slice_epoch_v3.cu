@@ -48,21 +48,22 @@
 
 // The interface of slice_epoch_launch (slice_epoch.cu), with `cap` the
 // micro-steps one repeat may take and `group` G, the lanes per chain (1, 2,
-// 4, 8, 16 or 32; 32 for D > 32, the SLICE_MAXD_WIDE bucket).  Returns
+// 4, 8, 16 or 32; 32 for D > 32, the SLICE_MAXD_WIDE and stream buckets),
+// and `dev` the device array of slice_epoch_launch.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int slice_epoch_v3_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, int group) {
     const EpochArgs a = at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink,
                                             cap), lane0);
-    if (!epoch_args_ok(a, group, SLICE_MAXD_WIDE)) return (int)cudaErrorInvalidValue;
+    if (!epoch_args_ok(a, group, SLICE_MAXD_STREAM)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     const int bad = with_bucket_likelihood(
-        functor, consts, prior_a, prior_s, a, logzero, st,
+        functor, consts, prior_a, prior_s, dev, a, logzero,
         [&](auto like) { launch_epoch_group<V3Policy>(group, like, a, st); });
     if (bad) return bad;
     return (int)cudaGetLastError();

@@ -273,16 +273,15 @@ static cudaError_t resident_blocks(Kernel kernel, int& per_sm, int& sms) {
 
 template <bool CHEAP>
 static int launch(int group, int functor, const float* consts, const float* prior_a,
-                  const float* prior_s, const EpochArgs& e, long long cap_body, float logzero,
-                  void* stream, void* iters, void* overflow) {
+                  const float* prior_s, const float* dev, const EpochArgs& e, long long cap_body,
+                  float logzero, void* stream, void* iters, void* overflow) {
     if (!epoch_args_ok(e, group) || cap_body < 1 || cap_body > (1 << 30) || (CHEAP && group != 1))
         return (int)cudaErrorInvalidValue;
     InstrArgs ia{e, (int)cap_body, (int*)iters, (int*)overflow};
     const int blocks = (int)(((long long)e.B * group + 31) / 32);  // one warp per block
     int status = 0;
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, e.D, logzero, (cudaStream_t)stream,
-        [&](auto like) {
+        functor, consts, prior_a, prior_s, dev, e.D, logzero, [&](auto like) {
             with_instr_kernel<decltype(like), CHEAP>(group, [&](auto kernel) {
                 int per_sm = 0, sms = 0;
                 const cudaError_t q = resident_blocks(kernel, per_sm, sms);
@@ -311,12 +310,12 @@ static int launch(int group, int functor, const float* consts, const float* prio
 // at once.
 extern "C" int slice_epoch_v3_instr_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, void* iters, void* overflow,
         int group) {
-    return launch<false>(group, functor, consts, prior_a, prior_s,
+    return launch<false>(group, functor, consts, prior_a, prior_s, dev,
                          at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
                                              nlike_out, B, D, R, k0, k1, max_step, max_shrink,
                                              0), lane0),
@@ -328,12 +327,12 @@ extern "C" int slice_epoch_v3_instr_launch(
 // must be 1.
 extern "C" int slice_epoch_v3_cheap_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, void* iters, void* overflow,
         int group) {
-    return launch<true>(group, functor, consts, prior_a, prior_s,
+    return launch<true>(group, functor, consts, prior_a, prior_s, dev,
                         at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out,
                                             nlike_out, B, D, R, k0, k1, max_step, max_shrink,
                                             0), lane0),
@@ -353,7 +352,7 @@ extern "C" int slice_epoch_v3_instr_resident_blocks(int functor, const float* co
     int per_sm = 0, sms = 0;
     cudaError_t e = cudaSuccess;
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream, [&](auto like) {
+        functor, consts, prior_a, prior_s, nullptr, D, logzero, [&](auto like) {
             with_instr_kernel<decltype(like), false>(
                 group, [&](auto kernel) { e = resident_blocks(kernel, per_sm, sms); });
         });

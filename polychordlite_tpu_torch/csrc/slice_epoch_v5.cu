@@ -165,7 +165,7 @@ void with_packet_kernel(int group, F&& f) {
 // each.  Returns cudaGetLastError() after the launch.
 extern "C" int slice_epoch_v5_launch(
     int functor, const float* consts, const float* prior_a, const float* prior_s,
-    const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
     const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
     int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
     int max_shrink, long long cap, float logzero, void* stream, int group) {
@@ -176,7 +176,7 @@ extern "C" int slice_epoch_v5_launch(
     const cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (int)(((long long)B * group + 31) / 32);
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, st, [&](auto like) {
+        functor, consts, prior_a, prior_s, dev, D, logzero, [&](auto like) {
             with_packet_kernel<decltype(like)>(
                 group, [&](auto kernel) { kernel<<<blocks, 32, 0, st>>>(like, a); });
         });
@@ -185,7 +185,8 @@ extern "C" int slice_epoch_v5_launch(
 }
 
 // The warps of the `group` kernel of `functor` (built from its arguments as
-// slice_epoch_v5_launch builds it) that one SM of the current device keeps
+// slice_epoch_v5_launch builds it, with no device array: the query reads
+// none) that one SM of the current device keeps
 // resident at one warp a block: its registers decide.  Returns that count,
 // or minus a CUDA error.  ops/pallas_slice_v5.py::choose_packet_group reads
 // it.
@@ -198,7 +199,7 @@ extern "C" int slice_epoch_v5_resident_warps(int functor, const float* consts,
     int warps = 0;
     cudaError_t e = cudaSuccess;
     const int bad = with_likelihood(
-        functor, consts, prior_a, prior_s, D, logzero, (cudaStream_t)stream, [&](auto like) {
+        functor, consts, prior_a, prior_s, nullptr, D, logzero, [&](auto like) {
             with_packet_kernel<decltype(like)>(group, [&](auto kernel) {
                 e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&warps, kernel, 32, 0);
             });

@@ -177,24 +177,35 @@ __device__ __forceinline__ SliceRepeatT<T> slice_repeat(const Like& like, const 
 }
 
 // x0 <- x0 + t n̂, the accepted probe, with the functors' intrinsics.  A
-// lane of a group of G holds coordinates d = g + k G at index k, k < MAXD / G.
+// lane of a group of G holds coordinates d = g + k G at index k, k < MAXD / G;
+// in the stream bucket (MAXD = SLICE_MAXD_STREAM) x0 and n̂ are the chain's
+// rows of shared memory, indexed by d, and the lane walks its d to D.
 template <int G = 1, int MAXD = SLICE_MAXD, class T>
 __device__ __forceinline__ void slice_advance(T* x0, const T* n, exactly<T> t, int D,
                                               int g = 0) {
+    if constexpr (MAXD == SLICE_MAXD_STREAM) {
+        for (int d = g; d < D; d += G) x0[d] = rn_add(x0[d], rn_mul(t, n[d]));
+    } else {
 #pragma unroll
-    for (int k = 0; k < MAXD / G; ++k)
-        if (g + k * G < D) x0[k] = rn_add(x0[k], rn_mul(t, n[k]));
+        for (int k = 0; k < MAXD / G; ++k)
+            if (g + k * G < D) x0[k] = rn_add(x0[k], rn_mul(t, n[k]));
+    }
 }
 
 // Load lane b's seed (D, B) or direction of repeat r (R, D, B), chain axis
-// minor: coordinates d = g + k G to index k.
+// minor: coordinates d = g + k G to index k (to index d in the stream
+// bucket).
 template <int G = 1, int MAXD = SLICE_MAXD, class T>
 __device__ __forceinline__ void slice_load(T* v, const T* __restrict__ src,
                                            size_t offset, int D, int B, int b, int g = 0) {
+    if constexpr (MAXD == SLICE_MAXD_STREAM) {
+        for (int d = g; d < D; d += G) v[d] = src[offset + (size_t)d * B + b];
+    } else {
 #pragma unroll
-    for (int k = 0; k < MAXD / G; ++k) {
-        const int d = g + k * G;
-        if (d < D) v[k] = src[offset + (size_t)d * B + b];
+        for (int k = 0; k < MAXD / G; ++k) {
+            const int d = g + k * G;
+            if (d < D) v[k] = src[offset + (size_t)d * B + b];
+        }
     }
 }
 

@@ -217,14 +217,16 @@ def himmelblau(n_dims: int = 2):
 
 
 def _rosenbrock_det(n: int, b: float = 100.0) -> float:
-    """Tridiagonal determinant recurrence from rosenbrock.f90:76-96."""
+    """Tridiagonal determinant recurrence from rosenbrock.f90:76-96, run
+    forward once (the JAX package's recursive form takes exponential time:
+    minutes at n = 40, never at 160) with the same operations, so the same
+    values; past n ~ 106 it overflows to nan, and so does the model's norm."""
+    r = [0.0, 1.0]  # recur(0), recur(1)
+    for _ in range(2, n):
+        r.append((-2.0 - 10.0 * b) * r[-1] - 16.0 * b * b * r[-2])
 
     def recur(k: int) -> float:
-        if k <= 0:
-            return 0.0
-        if k == 1:
-            return 1.0
-        return (-2.0 - 10.0 * b) * recur(k - 1) - 16.0 * b * b * recur(k - 2)
+        return 0.0 if k <= 0 else r[k]
 
     return abs(-2.0 * b * recur(n - 1) - 16.0 * b * b * recur(n - 2))
 

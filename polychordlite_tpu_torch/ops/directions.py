@@ -110,7 +110,7 @@ def make_directions(
     ``(n_bases, sub, sub, B)``) and ``perm`` (R,) replace the draws from
     ``generator`` when given.  ``use_kernel`` (``directions.py:127-134``)
     orthonormalises through :func:`gram_schmidt_lanes`, the kernel on a
-    CUDA tensor (up to dim 128; above, it raises); ``False`` asks for
+    CUDA tensor (up to ``pallas_dirs.MAXD``; above, it raises); ``False`` asks for
     :func:`gram_schmidt_plain` on any device, as the plain engine does.
     Everything is computed in the dtype of ``cholesky``: float32, or float64
     for a run at ``precision='highest'`` (the Gaussians drawn in float64, B2

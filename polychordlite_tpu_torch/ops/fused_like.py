@@ -25,8 +25,8 @@ the JAX package does).  A prior with an ``affine`` descriptor stays B1's
 and NaN -> logzero stay the kernel's (``like_result``).
 
 **Op table.**  Over static shapes, a value that is not a constant holding at
-most :data:`SLICE_MAXD_WIDE` elements and a constant at most
-``SLICE_MAXD_WIDE**2`` (the (D, D) matrix): elementwise arithmetic and
+most :data:`MAX_ELEMENTS` elements (the largest D of any bucket) and a
+constant at most ``MAX_ELEMENTS**2`` (the (D, D) matrix): elementwise arithmetic and
 comparisons, ``neg``, ``abs``, ``pow``; ``exp``, ``log``, ``log1p``, ``expm1``,
 ``sqrt``, ``rsqrt``, ``sin``, ``cos``, ``tanh``, ``erfinv``, ``ndtri``;
 ``where``, ``clamp``, ``maximum``, ``minimum``; ``sum``, ``mean``,
@@ -36,9 +36,13 @@ comparisons, ``neg``, ``abs``, ``pow``; ``exp``, ``log``, ``log1p``, ``expm1``,
 once, here (a matrix inverted inside the likelihood becomes a constant).
 Anything else refuses lowering with the op's name as the reason (:class:`Refused`),
 as do data-dependent control flow, a larger shape, a dtype other than the
-lowering's (float32, or float64 below) or bool, and D > :data:`SLICE_MAXD_WIDE`.  The header names the
-kernel template's dimension bucket of D (``FUSED_MAXD``: 32, or 128 where
-the combine reads the terms staged in shared memory,
+lowering's (float32, or float64 below) or bool, and a D past the stream
+bucket's bound for the lowering's terms and dtype
+(``pallas_slice_v4.stream_max_d``: the chain's (2 + NT) D values must fit a
+block's shared memory).  The header names the kernel template's dimension
+bucket of D (``FUSED_MAXD``: 32; 128, where the combine reads the terms
+staged in shared memory; or ``SLICE_MAXD_STREAM`` above 128, where the
+chain's x0 and n̂ live there too and the prior comes by pointer,
 ``csrc/slice_epoch.cuh``).
 
 **IR.**  Two statement lists over references (below).  ``term`` is the
@@ -82,13 +86,13 @@ import torch
 
 from ..utils import nvcc
 from .evaluate import probe_cubes, same_values
+from .pallas_slice_v4 import SLICE_MAXD, SLICE_MAXD_WIDE, stream_max_d
 from .precision import calc_dtype
 
-#: the kernel template's dimension buckets (SLICE_MAXD and SLICE_MAXD_WIDE of
-#: ``csrc/slice_common.cuh``)
-SLICE_MAXD, SLICE_MAXD_WIDE = 32, 128
-#: the most elements of a value that is not a constant, and of a constant
-MAX_ELEMENTS, MAX_CONST_ELEMENTS = SLICE_MAXD_WIDE, SLICE_MAXD_WIDE * SLICE_MAXD_WIDE
+#: the most elements of a value that is not a constant — the largest D of any
+#: bucket, the stream bucket's in float32 at one term — and of a constant
+MAX_ELEMENTS = stream_max_d(1, torch.float32)
+MAX_CONST_ELEMENTS = MAX_ELEMENTS * MAX_ELEMENTS
 SOURCE = "slice_epoch_fused.cu"
 #: the float64 lowering's tolerance against the calc (rtol, atol)
 F64_TOL = (1e-12, 1e-12)
@@ -294,12 +298,24 @@ class Lowered:
     def device_consts(self, device) -> torch.Tensor:
         """The constant buffer on ``device``, made once: the slots, then the
         prior's a and s (which the plain version reads; the kernel takes the
-        prior as its AffinePrior)."""
+        prior as its AffinePrior up to D = 128, and reads it there, through
+        :meth:`device_prior`, in the stream bucket)."""
         key = str(device)
         if key not in self._device_consts:
             self._device_consts[key] = torch.tensor(
                 np.concatenate([self.consts, *self.prior]), dtype=self.dtype, device=device)
         return self._device_consts[key]
+
+    def device_prior(self, device) -> torch.Tensor:
+        """[a (D), s (D)]: the tail of :meth:`device_consts`, a view."""
+        return self.device_consts(device)[len(self.consts):]
+
+    @property
+    def bucket_macro(self) -> str:
+        """The header's FUSED_MAXD: the kernel template's bucket of D."""
+        if self.n_dims <= SLICE_MAXD:
+            return str(SLICE_MAXD)
+        return str(SLICE_MAXD_WIDE) if self.n_dims <= SLICE_MAXD_WIDE else "SLICE_MAXD_STREAM"
 
     # ---- the plain version
     def plain_logL(self, cube: torch.Tensor) -> torch.Tensor:
@@ -380,11 +396,16 @@ class Lowered:
         term = body(self.term, "p") + [f"        out[{j}] = {ref_c(r)};"
                                        for j, r in enumerate(self.exports)]
         combine = body(self.combine, "s") + [f"        return {ref_c(self.out)};"]
+        if self.n_dims > SLICE_MAXD_WIDE:  # the stream bucket: by pointer
+            prior = f"    DevicePriorT<{real}> prior;"
+        elif dt == torch.float32:
+            prior = "    AffinePriorT<MAXD> prior;"
+        else:
+            prior = f"    AffinePriorT<MAXD, {real}> prior;"
         return "\n".join([
             "struct FusedLike {",
             "    static constexpr int MAXD = FUSED_MAXD;",
-            "    AffinePriorT<MAXD> prior;" if dt == torch.float32
-            else f"    AffinePriorT<MAXD, {real}> prior;",
+            prior,
             f"    const {real}* __restrict__ c;  // the model's constants (device)",
             f"    {real} logzero;",
             f"    static constexpr int NT = {self.n_terms};",
@@ -407,7 +428,7 @@ class Lowered:
             "// torch trace; built by slice_epoch_fused.cu.  Do not edit.",
             "#pragma once",
             f"#define FUSED_D {self.n_dims}",
-            f"#define FUSED_MAXD {SLICE_MAXD if self.n_dims <= SLICE_MAXD else SLICE_MAXD_WIDE}",
+            f"#define FUSED_MAXD {self.bucket_macro}",
             f"#define FUSED_G {group}",
             f"#define FUSED_NC {len(self.consts)}",
             "",
@@ -948,6 +969,12 @@ def trace(calc, affine: bool):
     return gm
 
 
+def _too_wide(D: int, n_terms: int, dtype, limit: int) -> str:
+    return (f"D = {D} exceeds the stream bucket's bound D <= {limit} for {n_terms} "
+            f"per-coordinate term(s) in {str(dtype).replace('torch.', '')} (a block's shared "
+            "memory holds (2 + terms) D values of the chain)")
+
+
 def lower(calc) -> Lowered:
     """Lower ``calc`` (``ops/evaluate.make_batched_calculator``) for B1 in
     the calc's dtype, and hold the plain version against the calc's own logL
@@ -961,14 +988,16 @@ def lower(calc) -> Lowered:
     if dt not in DTYPES:
         raise Refused(f"dtype {dt}")
     D = calc.n_dims
-    if D > SLICE_MAXD_WIDE:
-        raise Refused(f"D = {D} exceeds SLICE_MAXD_WIDE = {SLICE_MAXD_WIDE}")
+    if D > stream_max_d(1, dt):  # past every lowering's bound: not traced
+        raise Refused(_too_wide(D, 1, dt, stream_max_d(1, dt)))
     prior_fn = calc.model[0]
     # the affine descriptors hold float32 values: a float64 lowering traces
     # the prior into the body
     affine = getattr(prior_fn, "affine", None) if dt == torch.float32 else None
     low = _Lowering(trace(calc, affine is not None), D, calc.device, dt)
     term, exports, comb, out, consts = _prune(low, low.run())
+    if D > SLICE_MAXD_WIDE and D > stream_max_d(len(exports), dt):
+        raise Refused(_too_wide(D, len(exports), dt, stream_max_d(len(exports), dt)))
     np_dt = np.float32 if dt == torch.float32 else np.float64
     if affine is not None:
         prior = tuple(np.broadcast_to(np.asarray(v, np.float32), (D,)).copy() for v in affine)

@@ -7,12 +7,18 @@ chain axis minor — and returns their CGS2-orthonormalised columns in the
 same layout.  On a CUDA tensor it launches the hand-written kernels of
 ``csrc/gram_schmidt.cu`` (see the source): up to dim :data:`NARROW_MAXD`,
 one thread per basis with the finished columns in shared memory; up to
-:data:`MAXD`, one warp per basis with the dot products reduced across its
-lanes.  On a CPU tensor it runs :func:`gram_schmidt_plain`, the same sweeps
-in plain torch with each kernel's order of summation.  Float32, as in the
-reference, and float64 for a run at ``precision='highest'`` (both kernels
-instantiated in double, entry ``gram_schmidt_f64``; their launches counted
-apart, under the names with ``_f64``).
+:data:`WIDE_MAXD`, one warp per basis with the dot products reduced across
+its lanes; above, up to :data:`MAXD`, the same warp per basis with
+ceil(dim / 32) rows a lane, the working column and as many finished columns
+as fit in shared memory and the others in a scratch buffer in device memory
+that this wrapper allocates (all of them in shared memory up to dim 240 in
+float32 and 169 in float64; past that the card's free memory bounds dim
+before :data:`MAXD` does, and the time grows as dim cubed).  On a CPU tensor it runs
+:func:`gram_schmidt_plain`, the same sweeps in plain torch with each
+kernel's order of summation.  Float32, as in the reference, and float64 for
+a run at ``precision='highest'`` (every kernel instantiated in double, entry
+``gram_schmidt_f64``; their launches counted apart, under the names with
+``_f64``).
 """
 
 from __future__ import annotations
@@ -24,17 +30,24 @@ import torch
 from ..utils import nvcc
 
 #: kernel launches since the last reset (compare-with-plain launches
-#: included): the thread-per-basis kernel, and the warp-per-basis kernel
-#: above dim 32, in float32 and in float64
-LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0, "gram_schmidt_f64": 0,
-            "gram_schmidt_wide_f64": 0}
+#: included): the thread-per-basis kernel, the warp-per-basis kernel above
+#: dim 32 and its run-time-rows form above dim 128, in float32 and in float64
+LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0, "gram_schmidt_long": 0,
+            "gram_schmidt_f64": 0, "gram_schmidt_wide_f64": 0, "gram_schmidt_long_f64": 0}
 #: the entry of each dtype
 _ENTRIES = {torch.float32: "gram_schmidt_f32", torch.float64: "gram_schmidt_f64"}
-#: the largest dim of the thread-per-basis kernel, and of both
-#: (GS_MAXD and GS_MAXD_WIDE of ``csrc/gram_schmidt.cu``)
-NARROW_MAXD, MAXD = 32, 128
-#: the lanes of a warp, and the rows each lane holds in the wide kernel
-_LANES, _ROWS = 32, MAXD // 32
+#: the largest dim of the thread-per-basis kernel, of the wide kernel's
+#: four rows a lane, and of all (GS_MAXD, GS_MAXD_WIDE and GS_MAXD_LONG of
+#: ``csrc/gram_schmidt.cu``, whose ``gram_schmidt_max_dim()`` the library
+#: is checked against when it loads: the long kernel's working column fills
+#: a block's ``nvcc.SMEM_MAX`` bytes of shared memory in float64).  Past dim
+#: 240 in float32 and 169 in float64 the scratch buffer, NB B (dim - k) dim
+#: values for the k columns shared memory keeps, bounds dim first: 21 GB at
+#: dim 2,048 for 5 bases of 256 chains in float32; the wrapper raises before
+#: it allocates more than the card has free
+NARROW_MAXD, WIDE_MAXD, MAXD = 32, 128, nvcc.SMEM_MAX // 8
+#: the lanes of a warp
+_LANES = 32
 
 
 def gram_schmidt_plain(gauss_t: torch.Tensor) -> torch.Tensor:
@@ -89,13 +102,14 @@ def _warp_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
     """:func:`gram_schmidt_plain` above dim 32, in the order of
-    ``csrc/gram_schmidt.cu::gram_schmidt_wide_kernel``: the column padded
-    with zeros to 4 * 32 rows and every dot product by :func:`_warp_dot`.
-    Above dim 128, where no kernel exists, the same order with as many rows
-    a lane as the dim needs (a zero row adds +0 to a partial sum that is
-    never -0, so it changes no sum: the plain engine has no bound on D)."""
+    ``csrc/gram_schmidt.cu``'s warp-per-basis kernels: the column padded
+    with zeros to ceil(dim / 32) * 32 rows and every dot product by
+    :func:`_warp_dot` (the wide kernel pads to 4 * 32 rows up to dim 128,
+    the long kernel skips the rows past dim: a zero row adds +0 to a partial
+    sum that is never -0, so it changes no sum, and any dim gives the
+    kernels' bits)."""
     NB, dim, _, B = gauss_t.shape
-    pad = max(_ROWS, -(-dim // _LANES)) * _LANES
+    pad = -(-dim // _LANES) * _LANES
     g = torch.zeros((NB, pad, dim, B), dtype=gauss_t.dtype, device=gauss_t.device)
     g[:, :dim] = gauss_t
     q = torch.zeros_like(g)
@@ -115,13 +129,23 @@ def _lib():
     if not getattr(lib, "_typed", False):
         for entry in _ENTRIES.values():
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.gram_schmidt_max_dim.argtypes = []
         lib.gram_schmidt_max_dim.restype = ctypes.c_int
+        lib.gram_schmidt_scratch_values.argtypes = [ctypes.c_int] * 4
+        lib.gram_schmidt_scratch_values.restype = ctypes.c_longlong
+        if lib.gram_schmidt_max_dim() != MAXD:
+            raise RuntimeError(f"gram_schmidt.cu's largest dim {lib.gram_schmidt_max_dim()} is "
+                               f"not pallas_dirs.MAXD = {MAXD}")
         lib._typed = True
     return lib
+
+
+def _kernel_name(dim: int) -> str:
+    if dim <= NARROW_MAXD:
+        return "gram_schmidt"
+    return "gram_schmidt_wide" if dim <= WIDE_MAXD else "gram_schmidt_long"
 
 
 def gram_schmidt_lanes(gauss_t: torch.Tensor) -> torch.Tensor:
@@ -143,11 +167,22 @@ def gram_schmidt_lanes(gauss_t: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     g = gauss_t.contiguous()
     q = torch.empty_like(g)
+    n_scratch = lib.gram_schmidt_scratch_values(NB, dim, B, g.element_size())
+    if n_scratch:
+        need, (free, _) = n_scratch * g.element_size(), torch.cuda.mem_get_info(g.device)
+        if need > free:
+            raise ValueError(
+                f"B2's long kernel at dim {dim} keeps the columns past shared memory's in a "
+                f"scratch buffer of {n_scratch} values ({need / 2**30:.1f} GiB for {NB} x {B} "
+                f"bases), more than the card's {free / 2**30:.1f} GiB free; run fewer chains "
+                "(nlive) or engine='torch'")
+    scratch = torch.empty(max(n_scratch, 1), dtype=g.dtype, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     entry = _ENTRIES[g.dtype]
     with torch.cuda.device(g.device):
-        status = getattr(lib, entry)(g.data_ptr(), q.data_ptr(), NB, dim, B, stream)
+        status = getattr(lib, entry)(g.data_ptr(), q.data_ptr(), scratch.data_ptr(), NB, dim, B,
+                                     stream)
     nvcc.check(status, entry)
-    name = "gram_schmidt" if dim <= NARROW_MAXD else "gram_schmidt_wide"
+    name = _kernel_name(dim)
     LAUNCHES[name if g.dtype == torch.float32 else name + "_f64"] += 1
     return q

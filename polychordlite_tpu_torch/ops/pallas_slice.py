@@ -323,8 +323,8 @@ def slice_records_lockstep_plain(
 LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0}
 #: slice_epoch_v2's launches by (bucket, G) since the last reset (the keys of
 #: ``pallas_slice_v4.GROUP_LAUNCHES``), apart from B1's
-GROUP_LAUNCHES = {(b, g): 0 for b, gs in ((32, (1, 2, 4, 8, 16, 32)), (128, (32,)))
-                  for g in gs}
+GROUP_LAUNCHES = {(b, g): 0 for b, gs in ((32, (1, 2, 4, 8, 16, 32)), (128, (32,)),
+                                           ("stream", (32,))) for g in gs}
 
 
 def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None, lane0=0):

@@ -94,14 +94,19 @@ from .pallas_slice import PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
 from .precision import calc_dtype
 from .slice_kernel import EpochConfig, slice_records_plain
 
-#: the kernel template's two dimension buckets and the most coordinates a
-#: lane owns in the wide one (SLICE_MAXD, SLICE_MAXD_WIDE and SLICE_LANE_CAP
-#: of ``csrc/slice_common.cuh``): D <= 32 at every G of :data:`GROUPS`;
+#: the kernel template's dimension buckets and the most coordinates a lane
+#: owns in the wide one (SLICE_MAXD, SLICE_MAXD_WIDE and SLICE_LANE_CAP of
+#: ``csrc/slice_common.cuh``): D <= 32 at every G of :data:`GROUPS`;
 #: 32 < D <= 128 at G = 128 / 4 = 32 only (B1, B4, B5 and the fused route;
 #: B3 and the studies stop at 32).  G = 16, at 8 coordinates a lane, took
 #: 1.36-1.38x G = 32's time at D = 40, 64 and 128 (B = 512; PERF.md, section
 #: 6), so the wide bucket does not build it.
 SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
+#: the stream bucket above D = 128 (SLICE_MAXD_STREAM): G = 32, the chain's
+#: x0, n̂ and staged terms in the block's shared memory, (2 + NT) D values of
+#: the run's type, so D is bounded by the ``nvcc.SMEM_MAX`` bytes a block may
+#: have (:func:`stream_max_d`)
+STREAM = "stream"
 
 #: kernel launches since the last reset (compare-with-plain launches included);
 #: the double instantiations of the fused and traced routes under ``_f64``
@@ -138,7 +143,8 @@ WARP = 32  # lanes of a warp: the kernels run one warp per block
 GROUPS = (1, 2, 4, 8, 16, 32)
 #: the G instantiated in each bucket
 BUCKET_GROUPS = {SLICE_MAXD: GROUPS,
-                 SLICE_MAXD_WIDE: tuple(g for g in GROUPS if g * LANE_CAP >= SLICE_MAXD_WIDE)}
+                 SLICE_MAXD_WIDE: tuple(g for g in GROUPS if g * LANE_CAP >= SLICE_MAXD_WIDE),
+                 STREAM: (WARP,)}
 #: slice_epoch's and slice_epoch_fused's launches by (bucket, G) since the
 #: last reset
 GROUP_LAUNCHES = {(b, g): 0 for b, gs in BUCKET_GROUPS.items() for g in gs}
@@ -159,12 +165,15 @@ FUNCTORS = {
     "rosenbrock": (7, ("a", "b", "norm")),
     "eggbox": (8, ()),
     "gaussian_shell": (9, ("radius", "two_s2", "neg_a")),
-    # the D x D matrix last: the entry copies it to constant memory
+    # the D x D matrix last; the kernel reads it from the device array of
+    # functor_device_data
     "random_gaussian": (10, ("mu", "norm", "invcov")),
 }
+#: the per-coordinate terms (the functor's NT) where a functor has more than one
+FUNCTOR_TERMS = {"twin_gaussian": 2}
 
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 11
+    [ctypes.c_int] + [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
 )
@@ -174,16 +183,33 @@ def _lib():
     return nvcc.load("slice_epoch", ["slice_epoch.cu"])
 
 
-def bucket(D: int) -> int:
-    """The dimension bucket of the kernel template that takes D: raises
-    above :data:`SLICE_MAXD_WIDE`, naming the plain engine, which has no
-    bound."""
+def stream_max_d(n_terms: int = 1, dtype=torch.float32) -> int:
+    """The largest D of the stream bucket for a likelihood of ``n_terms``
+    per-coordinate terms in ``dtype``: (2 + n_terms) D values in the
+    ``nvcc.SMEM_MAX`` bytes of a block (``SLICE_SMEM_MAX``, the request of
+    ``csrc/slice_epoch.cuh::launch_epoch``; 19,370 in float32 at one term,
+    14,528 at two, 7,264 in float64 at two)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return nvcc.SMEM_MAX // ((2 + n_terms) * itemsize)
+
+
+def bucket(D: int, n_terms: int = 1, dtype=torch.float32):
+    """The dimension bucket of the kernel template that takes D: 32, 128 or
+    :data:`STREAM`; raises above the stream bucket's bound for a likelihood
+    of ``n_terms`` terms in ``dtype`` (:func:`stream_max_d`), naming the
+    bound and the plain engine, which has none."""
     if D <= SLICE_MAXD:
         return SLICE_MAXD
     if D <= SLICE_MAXD_WIDE:
         return SLICE_MAXD_WIDE
-    raise ValueError(f"D={D} exceeds the CUDA slice kernels' maximum {SLICE_MAXD_WIDE}; "
-                     "engine='torch' runs any D")
+    limit = stream_max_d(n_terms, dtype)
+    if D <= limit:
+        return STREAM
+    raise ValueError(
+        f"D = {D} exceeds the CUDA slice kernels' bound D <= {limit} for a likelihood of "
+        f"{n_terms} per-coordinate term(s) in {str(dtype).replace('torch.', '')}: a block's "
+        f"{nvcc.SMEM_MAX} bytes of shared memory hold (2 + {n_terms}) D of its values; "
+        "engine='torch' runs any D")
 
 
 def choose_group(B: int, D: int, n_sm: int) -> int:
@@ -194,7 +220,8 @@ def choose_group(B: int, D: int, n_sm: int) -> int:
     dependent chain behind more warps, but spend G times the issue slots on
     each chain's state machine and sums.  Above D = 32 (the wide bucket) G
     is the bucket's one, 128 / :data:`LANE_CAP` = 32: no lane owns more
-    than LANE_CAP coordinates, so G >= D / LANE_CAP and never G = 1."""
+    than LANE_CAP coordinates, so G >= D / LANE_CAP and never G = 1; above
+    128 (the stream bucket) G is 32 as well."""
     g_max = 1 << (min(D, WARP).bit_length() - 1)
     g = BUCKET_GROUPS[bucket(D)][0]
     while g < g_max and B * g < TARGET_WARPS_PER_SM * n_sm * WARP:
@@ -220,13 +247,16 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def functor_terms(name: str) -> int:
+    """NT, the per-coordinate terms of the device functor ``name``."""
+    return FUNCTOR_TERMS.get(name, 1)
+
+
 def check_functor_dims(name: str, D: int) -> None:
-    """Raise if the device functor ``name`` cannot take D: random_gaussian's
-    matrix lives in a constant bank sized for :data:`SLICE_MAXD`."""
-    if name == "random_gaussian" and D > SLICE_MAXD:
-        raise ValueError(
-            f"random_gaussian's functor stops at D = {SLICE_MAXD} (its matrix lives in a "
-            f"constant bank sized for it), not D = {D}; use engine='torch' for this model")
+    """Raise if the device functor ``name`` (float32) cannot take D: above the
+    stream bucket's bound for its terms (:func:`bucket`), naming the bound and
+    engine='torch'."""
+    bucket(D, functor_terms(name), torch.float32)
 
 
 def functor_args(calc, D: int):
@@ -254,15 +284,31 @@ def functor_args(calc, D: int):
     return fid, consts, prior_a, prior_s
 
 
+def functor_device_data(calc, D: int, device) -> torch.Tensor:
+    """The device array every kernel entry takes beside :func:`functor_args`'
+    host arrays: [a (D), s (D)], the prior the stream bucket reads, then
+    random_gaussian's D x D matrix, which its functor reads in every bucket.
+    float32 on ``device``, made once per calc and device."""
+    memo = calc.__dict__.setdefault("functor_device_data", {})
+    key = (str(device), D)
+    if key not in memo:
+        fid, consts, prior_a, prior_s = functor_args(calc, D)
+        extra = consts[2:] if fid == FUNCTORS["random_gaussian"][0] else consts[:0]
+        memo[key] = torch.as_tensor(np.concatenate([prior_a, prior_s, extra]),
+                                    dtype=torch.float32).to(device)
+    return memo[key]
+
+
 def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
                         x0, bound, valid, nhats, ws, cap=None, extra=(), ints=(), functor=None,
                         lane0=0):
     """Check the inputs of a slice-epoch kernel, launch it on the current
     stream and return (t, logL, nlike), each (B, R).  The model must have a
     device form (``calc.device_spec``) whose functor is in
-    :data:`FUNCTORS`, unless ``functor`` gives the entry's first four
+    :data:`FUNCTORS`, unless ``functor`` gives the entry's first five
     arguments itself (an int, the constants as a host array or a device
-    tensor, the prior's a and s).  ``cap`` is the kernel's micro-step budget
+    tensor, the prior's a and s as host arrays, and the device array of
+    :func:`functor_device_data`'s layout).  ``cap`` is the kernel's micro-step budget
     (``cfg.step_cap`` by default); ``extra`` are further output tensors on
     the device and ``ints`` further int arguments, passed after the stream
     in that order.  The kernel computes in the calc's dtype: a ``functor``
@@ -272,12 +318,14 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     float32 kernel.  ``lane0`` is the launch's first lane in the whole batch
     (a shard's first logical lane; ``pallas_slice.lane_hash``)."""
     B, R, D = nhats.shape
-    bucket(D)  # raises above the wide bucket
     dtype = calc_dtype(calc)
+    bucket(D, dtype=dtype)  # raises above the stream bucket
     if functor is None and dtype != torch.float32:
         raise TypeError(f"{entry} is a float32 kernel and this model computes in "
                         f"{dtype}; at precision='highest' use engine='cuda' or 'torch'")
-    fid, consts, prior_a, prior_s = functor_args(calc, D) if functor is None else functor
+    if functor is None:
+        functor = (*functor_args(calc, D), functor_device_data(calc, D, x0.device))
+    fid, consts, prior_a, prior_s, dev_data = functor
     if x0.shape != (B, D) or bound.shape != (B,) or valid.shape != (B,) or ws.shape != (B, R):
         raise ValueError(f"{entry}: inconsistent shapes")
     dev = x0.device
@@ -307,7 +355,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
     with torch.cuda.device(dev):
         status = fn(
             fid, consts.data_ptr() if isinstance(consts, torch.Tensor) else consts.ctypes.data,
-            prior_a.ctypes.data, prior_s.ctypes.data,
+            prior_a.ctypes.data, prior_s.ctypes.data, dev_data.data_ptr(),
             x0t.data_ptr(), bound_f.data_ptr(), valid_f.data_ptr(),
             nhat_t.data_ptr(), w_t.data_ptr(), t_out.data_ptr(),
             l_out.data_ptr(), n_out.data_ptr(), B, D, R,
@@ -411,7 +459,7 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
     G = key[1]
-    functor = (G, low.device_consts(x0.device), *low.prior)
+    functor = (G, low.device_consts(x0.device), *low.prior, low.device_prior(x0.device))
     out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
                               x0, bound, valid, nhats, ws, functor=functor, lane0=lane0)
     LAUNCHES["slice_epoch_fused" if low.dtype == torch.float32 else "slice_epoch_fused_f64"] += 1

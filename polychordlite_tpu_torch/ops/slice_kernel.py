@@ -195,7 +195,8 @@ def cuda_route(calc) -> Tuple[str, str]:
 
     1. ``"slice_epoch"``, B1's functor kernel, for a model with a device
        form (``calc.device_spec``); a functor that cannot take the model's D
-       raises here, before the run (random_gaussian above 32);
+       raises here, before the run (above the stream bucket's bound for its
+       terms, ``pallas_slice_v4.bucket``);
     2. ``"slice_epoch_fused"``, B1 with the likelihood lowered into it,
        for a model ``ops/fused_like.py`` lowers (once per calc, kept on it);
     3. ``"slice_step"``, the traced route, for any other model; the reason

@@ -73,6 +73,13 @@ def local_devices(device: torch.device) -> List[torch.device]:
     return [device]
 
 
+def run_devices(device: torch.device, n_devices: Optional[int] = None) -> List[torch.device]:
+    """This process's shards: :func:`local_devices`, cut to the first
+    ``n_devices`` (the settings' ``mesh_shape``) when it is given."""
+    devices = local_devices(device)
+    return devices if n_devices is None else devices[: max(1, int(n_devices))]
+
+
 def shard_layout(batch_size: int, n_shards: int) -> Tuple[int, int, int]:
     """(B, rows, rows_phys): the logical width, rounded to 8 lanes a shard
     (``polychordlite_tpu/parallel/mesh.py:71``), the logical lanes of one
@@ -99,10 +106,7 @@ def make_epoch_runner(
     ``devices`` are this process's shards (default :func:`local_devices`,
     cut to the first ``n_devices``, the settings' ``mesh_shape``).
     ``run.n_shards`` is the count of shards over all processes."""
-    if devices is None:
-        devices = local_devices(device)
-        if n_devices is not None:
-            devices = devices[: max(1, int(n_devices))]
+    devices = run_devices(device, n_devices) if devices is None else devices
     devices = [torch.device(d) for d in devices]
     n_proc = distributed.process_count()
     rank = distributed.process_index()

@@ -31,6 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 GEN_DIR = BUILD_DIR / "gen"
 #: the file name a generated header is included by
 GENERATED_HEADER = "fused_like.cuh"
+#: the shared memory one block may have on sm_90 (227 KB): the bound of the
+#: stream bucket and of B2's long kernel (SLICE_SMEM_MAX of
+#: ``csrc/slice_common.cuh`` and GS_SMEM_MAX of ``csrc/gram_schmidt.cu``)
+SMEM_MAX = 232448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

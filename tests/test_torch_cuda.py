@@ -709,7 +709,7 @@ def test_prototype_wrappers_raise_on_other_devices(dev):
 
 # ---- B1's route for a likelihood evaluated in torch (csrc/slice_step.cu)
 def _unit_directions(gen, dev, B, R, D):
-    """Unit directions without B2, whose kernel stops at dim 32."""
+    """Unit directions without B2."""
     nh = torch.randn((B, R, D), generator=gen, device=dev)
     return nh / nh.norm(dim=2, keepdim=True), torch.full((B, R), 0.3, device=dev)
 
@@ -1049,23 +1049,19 @@ def test_wide_fused_kernel_every_group_equals_plain(dev, D):
 @pytest.mark.parametrize("name", sorted(LIKELIHOODS))
 def test_every_functor_in_the_wide_bucket(dev, name):
     """Each likelihood's functor at D = 40 against its torch calc through B1,
-    B4 and B5 at each of the 128 bucket's G; random_gaussian's, whose matrix
-    lives in a constant bank sized for D <= 32, refuses, naming the bound."""
+    B4 and B5 at each of the 128 bucket's G (random_gaussian's matrix read
+    from its device array, as in every bucket)."""
     D = 40
     calc = make_batched_calculator(UniformPrior(0.0, 1.0), LIKELIHOODS[name](D), D, 0,
                                    device=dev)
     cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(2,))
-    if name == "random_gaussian":
-        with pytest.raises(ValueError, match="D = 32"):
-            pallas_slice_v4.validate_functor(calc, cfg, dev)
-        return
     for G in WIDE_GROUPS:
         for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice_v3.slice_epoch_v3,
                         pallas_slice.slice_epoch_v2):
             pallas_slice_v4.validate_functor(calc, cfg, dev, functools.partial(wrapper, group=G))
 
 
-def test_plain_engine_runs_above_the_kernels_bounds_on_the_card(dev):
+def test_plain_engine_launches_no_kernel_on_the_card(dev):
     """engine="torch" on the card at D = 40: its directions come from the
     plain Gram-Schmidt by name, so the run launches no kernel at all, and it
     finishes."""
@@ -1651,3 +1647,217 @@ void run_gaussian(const char *base) {
     assert last["kernel_launches"]["slice_step_host"] > 0
     out = pt.PolyChordOutput(str(chains), "capi")
     assert abs(out.logZ) < 3 * out.logZerr + 0.2
+
+
+# ---- the stream bucket: D > 128 (csrc/slice_epoch.cuh; B2's long kernel in
+# csrc/gram_schmidt.cu)
+STREAM_D = [129, 160, 256]
+STREAM = pallas_slice_v4.STREAM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [129, 160, 256, 300])
+def test_gram_schmidt_long_kernel_equals_plain(dev, dim, dtype):
+    """B2 above dim 128 (ceil(dim / 32) rows a lane) bitwise its plain
+    version, the finished columns in shared memory up to dim 240 in float32
+    and 169 in float64 and past that partly in the scratch buffer (256 and
+    300 in both types); one launch counted as the long kernel's; columns
+    orthonormal."""
+    g = torch.randn((2, dim, dim, 37), generator=torch.Generator(dev).manual_seed(dim),
+                    device=dev, dtype=dtype)
+    name = "gram_schmidt_long" + ("_f64" if dtype == torch.float64 else "")
+    before = dict(pallas_dirs.LAUNCHES)
+    q = pallas_dirs.gram_schmidt_lanes(g)
+    assert pallas_dirs.LAUNCHES == {**before, name: before[name] + 1}
+    assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+    eye = torch.eye(dim, device=dev, dtype=dtype)[None, :, :, None]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max() < tol
+    in_smem = {torch.float32: 240, torch.float64: 169}[dtype]
+    n_scratch = pallas_dirs._lib().gram_schmidt_scratch_values(2, dim, 37, g.element_size())
+    assert (n_scratch > 0) == (dim > in_smem)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("D", STREAM_D)
+def test_stream_slice_kernel_equals_plain(dev, D, capped):
+    """B1 in the stream bucket (x0, n-hat and the terms in shared memory)
+    bitwise its plain version at B = 300 chains with invalid lanes and a
+    budget that stops lanes mid-epoch; one launch counted at ("stream",
+    32); the second half of the batch as a shard at lane0 = 150 is the
+    whole launch's second half."""
+    R, B = 4, 300
+    calc, args = _group_args(dev, D, R, B)
+    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
+                                                     num_repeats=(R,))
+    before = pallas_slice_v4.GROUP_LAUNCHES[STREAM, 32]
+    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    assert pallas_slice_v4.GROUP_LAUNCHES[STREAM, 32] == before + 1
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    shard = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *(a[150:] for a in args), lane0=150)
+    for a, b in zip(shard, got):
+        assert torch.equal(a, b[150:])
+    valid = args[2]
+    assert (got[2][~valid] == 0).all() and (got[2][valid].sum(1) > 0).all()
+    assert bool((got[1][valid] == np.float32(cfg.logzero)).any()) == capped
+
+
+@pytest.mark.parametrize("D", STREAM_D)
+def test_stream_v2_v3_kernels_equal_plain(dev, D):
+    """B5 (v2's policy, the cube D wide) and B4 (v3's) in the stream bucket,
+    bitwise their plain versions, B4 also B1; counted at ("stream", 32)."""
+    R, B = 4, 300
+    calc, args = _group_args(dev, D, R, B)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    before = (pallas_slice.GROUP_LAUNCHES[STREAM, 32], pallas_slice_v3.GROUP_LAUNCHES[STREAM, 32])
+    v2 = pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args)
+    v3 = pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args)
+    assert (pallas_slice.GROUP_LAUNCHES[STREAM, 32],
+            pallas_slice_v3.GROUP_LAUNCHES[STREAM, 32]) == (before[0] + 1, before[1] + 1)
+    v2_want = pallas_slice.slice_records_lockstep_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    assert v2[3].shape == (B, R, D)
+    for k in range(4):
+        assert torch.equal(v2[k], v2_want[k]), k
+    v3_want = pallas_slice_v3.slice_records_window_plain(lambda p: calc(p)[2], cfg, (5, 6),
+                                                          *args)
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    for k in range(3):
+        assert torch.equal(v3[k], v3_want[k]) and torch.equal(v3[k], b1[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", STREAM_D)
+def test_stream_fused_kernel_equals_plain(dev, D, dtype):
+    """A per-point torch Gaussian lowered into the stream bucket (the prior
+    by pointer from the constant buffer), in float32 and float64, bitwise
+    its plain version with invalid lanes; validate_fused at G = 32."""
+    from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+
+    with real_dtype_scope(dtype):
+        calc = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0, device=dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered) and low.dtype == dtype, low
+    assert "#define FUSED_MAXD SLICE_MAXD_STREAM" in low.source(32)
+    B, R = 300, 4
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev, dtype=dtype)).clamp(0, 1)
+    valid = torch.arange(B, device=dev) >= 64
+    nh = torch.randn((B, R, D), generator=gen, device=dev, dtype=dtype)
+    nh = nh / nh.norm(dim=2, keepdim=True)
+    w = torch.full((B, R), 0.2, device=dev, dtype=dtype)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    args = (x0, low.plain_logL(x0) - 2.0, valid, nh, w)
+    want = slice_records_plain(low.plain_logL, cfg, (9, 10), *args)
+    counter = "slice_epoch_fused" + ("_f64" if dtype == torch.float64 else "")
+    before = (pallas_slice_v4.GROUP_LAUNCHES[STREAM, 32], pallas_slice_v4.LAUNCHES[counter])
+    got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args)
+    assert (pallas_slice_v4.GROUP_LAUNCHES[STREAM, 32],
+            pallas_slice_v4.LAUNCHES[counter]) == (before[0] + 1, before[1] + 1)
+    for k, a, b in zip(("t", "logL", "nlike"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (k, int((a != b).sum()))
+    assert (want[2][:64] == 0).all() and (want[2][64:].sum(1) > 0).all()
+    pallas_slice_v4.validate_fused(calc, cfg, dev, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", STREAM_D)
+def test_stream_traced_route_equals_plain(dev, D, dtype):
+    """The traced route (no compile-time D) above 128 on a model the
+    lowering refuses (vector_norm), bitwise the plain engine in float32 and
+    float64."""
+    from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+
+    with real_dtype_scope(dtype):
+        calc = make_batched_calculator(identity_prior, _vn_gaussian, D, 0, device=dev)
+    assert isinstance(fused_like.lowering(calc), fused_like.Refused)
+    B, R = 300, 4
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = (0.5 + 0.03 * torch.randn((B, D), generator=gen, device=dev, dtype=dtype)).clamp(0, 1)
+    nh = torch.randn((B, R, D), generator=gen, device=dev, dtype=dtype)
+    args = (x0, calc(x0)[2] - 2.0, torch.arange(B, device=dev) >= 64,
+            nh / nh.norm(dim=2, keepdim=True), torch.full((B, R), 0.05, device=dev, dtype=dtype))
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (3, 4), *args)
+    counter = "slice_step" + ("_f64" if dtype == torch.float64 else "")
+    before = pallas_slice_v4.LAUNCHES[counter]
+    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (3, 4), *args)
+    assert pallas_slice_v4.LAUNCHES[counter] > before
+    for k, a, b in zip(("t", "logL", "nlike"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (k, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("name", sorted(LIKELIHOODS))
+def test_every_functor_in_the_stream_bucket(dev, name):
+    """Each likelihood's functor at D = 160 against its torch calc through
+    B1, B4 and B5 (random_gaussian's matrix from its device array), and
+    random_gaussian also at D = 64 in the wide bucket."""
+    for D in ((64, 160) if name == "random_gaussian" else (160,)):
+        calc = make_batched_calculator(UniformPrior(0.0, 1.0), LIKELIHOODS[name](D), D, 0,
+                                       device=dev)
+        cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(2,))
+        for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice_v3.slice_epoch_v3,
+                        pallas_slice.slice_epoch_v2):
+            pallas_slice_v4.validate_functor(calc, cfg, dev, wrapper)
+
+
+def test_graded_and_host_routes_at_d160(dev):
+    """One epoch of the graded route (grade_dims (16, 144), B2's long kernel
+    for the 144-D grade) and of the host route (a numpy Gaussian) at D =
+    160, each bitwise its plain version and the plain engine."""
+    D, B = 160, 256
+    like, mono_like = _graded_like(n_slow=16)
+    calc = make_batched_calculator(identity_prior, like, D, 0, device=dev)
+    mono = make_batched_calculator(identity_prior, mono_like, D, 0, device=dev)
+    gen = torch.Generator(dev).manual_seed(160)
+    x0 = (0.5 + 0.03 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    bound = mono(x0)[2] - 3.0
+    valid = torch.arange(B, device=dev) >= 32
+    grades, reps = (16, 144), (2, 4)
+    before = pallas_dirs.LAUNCHES["gram_schmidt_long"]
+    nh, w, sp = make_directions((0.05 * torch.eye(D, device=dev)).expand(B, D, D),
+                                grade_dims=grades, num_repeats=reps, n_dims=D, generator=gen)
+    assert pallas_dirs.LAUNCHES["gram_schmidt_long"] > before
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=grades, num_repeats=reps)
+    args = (x0, bound, valid, nh, w)
+    want = slice_records_plain(lambda p: mono(p)[2], cfg, (3, 4), *args)
+    plain = pallas_slice_v4.slice_records_graded_plain(
+        calc, cfg, (3, 4), *args, pallas_slice_v4.repeat_grades(sp), 8)
+    got = pallas_slice_v4.slice_epoch_graded(calc, cfg, (3, 4), *args, sp)
+    for k, a, b, c in zip(("t", "logL", "nlike"), got, plain, want):
+        assert torch.equal(a, b) and torch.equal(a, c), k
+    host = make_batched_calculator(identity_prior, _numpy_gaussian(D), D, 0, device=dev)
+    R = 4
+    x0, bound, valid, nh, w, _ = _host_inputs(dev, host, D, B, R, torch.float32, 200)
+    cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
+    want = slice_records_plain(lambda p: host(p)[2], cfg, (11, 12), x0, bound, valid, nh, w)
+    *plain, _ = pallas_slice_v4.slice_records_host_plain(host, cfg, (11, 12), x0, bound, valid,
+                                                        nh, w)
+    *got, _ = pallas_slice_v4.slice_epoch_host(host, cfg, (11, 12), x0, bound, valid, nh, w)
+    for a, b, c in zip(got, want, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("D", [4200, 19370])
+def test_stream_slice_kernel_past_48_kb_of_shared_memory(dev, D):
+    """B1 in the stream bucket where a block's (2 + NT) D floats pass the
+    48 KB a launch gets without the kernel's attribute (D = 4,200: 50,400
+    bytes) and at the bucket's bound (D = 19,370: 232,440 of the 232,448
+    bytes), bitwise its plain version on unit directions; one more
+    coordinate raises before any launch, naming the bound."""
+    B, R = 64, 2
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), gaussian(D, sigma=0.2), D, 2,
+                                   device=dev)
+    gen = torch.Generator(dev).manual_seed(D)
+    x0 = (0.5 + 0.01 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    nh, w = _unit_directions(gen, dev, B, R, D)
+    args = (x0, calc(x0)[2] - 2.0, torch.arange(B, device=dev) >= 8, nh, w * 0.1)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+    got = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[2][8:].sum(1) > 0).all()
+    with pytest.raises(ValueError, match="D <= 19370 .*engine='torch'"):
+        pallas_slice_v4.bucket(19371)

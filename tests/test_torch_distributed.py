@@ -112,9 +112,11 @@ try:
         out = pt.run(lik, 2, read_resume=True, write_resume=True, **kw)
     elif mode == "callback":
         out = pt.run(lik_numpy, 2, read_resume=False, **kw)
+    elif mode == "chain":
+        out = pt.run(lik, 2, read_resume=False, **{**kw, "chain_epochs": 4})
     else:
         out = pt.run(lik, 2, read_resume=False, **kw)
-except RuntimeError as e:
+except (RuntimeError, ValueError) as e:
     print("RAISED " + json.dumps(str(e)), flush=True)
     sys.exit(0)
 out = kept["out"]
@@ -273,6 +275,25 @@ def test_resume_file_on_one_rank_raises_on_both(tmp_path):
         assert line, so[-2000:]
         msgs.append(json.loads(line[0][len("RAISED "):]))
     assert msgs[0] == msgs[1] and "visible on some processes but not all" in msgs[0]
+
+
+def test_forced_chain_on_two_processes_raises_on_both(tmp_path):
+    """chain_epochs = 4 over two processes (two shards) raises the same
+    ValueError on both ranks before either samples, naming the shards (a
+    chain runs on one shard; it used to be dropped without a word)."""
+    script = tmp_path / "run_worker.py"
+    script.write_text(RUN_WORKER % {"repo": REPO})
+    port = _free_port()
+    outs = _communicate([_spawn([sys.executable, str(script), str(tmp_path / f"p{i}"), "chain"],
+                                _torchrun_env(i, port)) for i in range(2)])
+    msgs = []
+    for rc, so, se in outs:
+        assert rc == 0, se[-2000:]
+        line = [ln for ln in so.splitlines() if ln.startswith("RAISED ")]
+        assert line, so[-2000:]
+        msgs.append(json.loads(line[0][len("RAISED "):]))
+    assert msgs[0] == msgs[1] and "chain_epochs=4" in msgs[0]
+    assert "2 shards (2 process(es))" in msgs[0]
 
 
 def test_ini_cli_on_two_processes(tmp_path):

@@ -187,7 +187,8 @@ def _branch(theta):
 REFUSALS = {  # likelihood, D, the reason's words
     "data_dependent_branch": (_branch, 3, "data-dependent"),
     "op_outside_the_table": (lambda th: torch.lgamma(th + 1.0).sum(-1), 3, "aten.lgamma"),
-    "d129": (lambda th: -(th ** 2).sum(-1), 129, "D = 129"),
+    # past the stream bucket's bound (float32, one term): refused before the trace
+    "d19371": (lambda th: -(th ** 2).sum(-1), 19371, "D = 19371"),
 }
 
 

@@ -1,9 +1,10 @@
 """The port above D = 32, held against the JAX package on the CPU.
 
 The kernel template's wide bucket (32 < D <= 128: B1, B4, B5 and the fused
-route at G = 16 or 32), B2's warp-per-basis order above dim 32, the plain
-engine's directions (which never reach B2), and the refusals above the
-bounds.  The same numpy-seeded inputs go through the JAX function (a Pallas
+route at G = 32) and its stream bucket above (the same at G = 32, to the
+shared-memory bound), B2's warp-per-basis order above dim 32 and 128, the
+plain engine's directions (which never reach B2), a 160-D run, and the
+refusals above the bounds.  The same numpy-seeded inputs go through the JAX function (a Pallas
 kernel in interpret mode) and its torch counterpart; on the CPU the port's
 kernel wrappers run their plain versions.  The kernels themselves are held
 to those plain versions on the card by ``tests/test_torch_cuda.py`` and
@@ -29,7 +30,9 @@ from polychordlite_tpu.ops.slice_kernel import EpochConfig as JaxEpochConfig
 from polychordlite_tpu.ops.slice_kernel import _lane_keys
 from polychordlite_tpu_torch.core import nested_sampling as ns
 from polychordlite_tpu_torch.models.examples import gaussian as pt_gaussian
-from polychordlite_tpu_torch.models.examples import random_gaussian
+from polychordlite_tpu_torch.models.examples import random_gaussian, twin_gaussian
+from polychordlite_tpu_torch.ops.precision import real_dtype_scope
+from polychordlite_tpu_torch.output import PolyChordOutput
 from polychordlite_tpu_torch.ops import directions, fused_like, pallas_dirs
 from polychordlite_tpu_torch.ops import pallas_slice as pps
 from polychordlite_tpu_torch.ops import pallas_slice_v3, pallas_slice_v4, pallas_slice_v5, slice_kernel
@@ -59,17 +62,18 @@ def _wide_inputs(B, D, seed=0):
     return key, seeds, bound, chol, valid
 
 
-@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("D", [40, 64, 160])
 def test_plain_engine_decision_exact_with_v4_above_32(monkeypatch, D):
-    """The plain engine (B1's plain version in both buckets) against the JAX
-    v4 kernel in interpret mode at D = 40 and 64, B = 1024, R = 4, under the
-    contract of ``test_plain_engine_decision_exact_with_v4``: identical
-    nlike, |dt| <= 1e-6, and fewer than B / 1000 lanes that differ, each
-    only where its first divergent probe sat on the contour.  logL agrees to
-    1e-4, not the D = 4 test's 1e-5: the port sums the D chi-square terms in
-    index order and jnp.sum in another, and at these magnitudes (|norm| 27.6
-    at D = 40, 44.1 at D = 64) the two differ by up to ~8 float32 ulp
-    (2.3e-5 at D = 64)."""
+    """The plain engine (B1's plain version in every bucket) against the JAX
+    v4 kernel in interpret mode at D = 40, 64 (the wide bucket) and 160 (the
+    stream bucket), B = 1024, R = 4, under the contract of
+    ``test_plain_engine_decision_exact_with_v4``: identical nlike, |dt| <=
+    1e-6, and fewer than B / 1000 lanes that differ, each only where its
+    first divergent probe sat on the contour.  logL agrees to 1e-4, not the
+    D = 4 test's 1e-5: the port sums the D chi-square terms in index order
+    and jnp.sum in another, and at these magnitudes (|norm| 27.6 at D = 40,
+    44.1 at D = 64, 110.4 at D = 160) the two differ by a few float32 ulp
+    (2.3e-5 at D = 64; an ulp is 7.6e-6 at 110)."""
     B, R = 1024, 4
     key, seeds, bound, chol, valid = _wide_inputs(B, D, seed=D)
     jcfg = JaxEpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
@@ -116,12 +120,14 @@ def test_wide_plain_cgs2_matches_pallas_interpret():
     np.testing.assert_allclose(qtq, np.eye(dim)[None, :, :, None] + 0 * qtq, atol=1e-5)
 
 
-@pytest.mark.parametrize("dim,atol", [(64, 2e-5), (128, 5e-5)])
+@pytest.mark.parametrize("dim,atol", [(64, 2e-5), (128, 5e-5), (160, 5e-5)])
 def test_wide_plain_cgs2_matches_xla_gram_schmidt(dim, atol):
-    """At dims 64 and 128 the plain version against the JAX package's XLA
+    """At dims 64, 128 and 160 (past the wide kernel, the long kernel's
+    order) the plain version against the JAX package's XLA
     ``_gram_schmidt`` (CGS2 blocked over columns, another order of
-    summation): within ``atol`` (2e-5 at 64, 5e-5 at 128: float32 sums of
-    dim products in two orders), and QtQ = I to 1e-5."""
+    summation): within ``atol`` (2e-5 at 64, 5e-5 at 128 and 160: float32
+    sums of dim products in two orders, the error growing with the dim
+    and the column index), and QtQ = I to 1e-5."""
     B = 16
     g = np.random.default_rng(dim).standard_normal((1, dim, dim, B)).astype(np.float32)
     want = np.asarray(jax_xla_gram_schmidt(jnp.asarray(g.transpose(0, 3, 1, 2))))
@@ -151,10 +157,10 @@ def test_wide_plain_order_is_the_warp_butterfly():
 
 
 def test_plain_gram_schmidt_has_no_bound_on_dim():
-    """Above dim 128 (no kernel) the plain version keeps the wide order with
-    more rows a lane: zero rows change no sum, so padding the same columns
-    to 4 or 5 rows a lane gives the same dot products bit for bit, and at
-    dim 140 the columns are orthonormal."""
+    """Above dim 128 (B2's long kernel) the plain version keeps the wide
+    order with more rows a lane: zero rows change no sum, so padding the
+    same columns to 4 or 5 rows a lane gives the same dot products bit for
+    bit, and at dim 140 the columns are orthonormal."""
     rng = np.random.default_rng(8)
     a, b = (torch.as_tensor(rng.standard_normal((2, 100, 3)).astype(np.float32))
             for _ in range(2))
@@ -248,10 +254,30 @@ def test_choose_group_in_the_wide_bucket(D, B):
     assert pallas_slice_v4.bucket(D) == 128
 
 
+@pytest.mark.parametrize("D", [129, 160, 512, 19370])
+@pytest.mark.parametrize("B", [128, 512, 8192])
+def test_choose_group_in_the_stream_bucket(D, B):
+    """Above D = 128 the stream bucket's one instantiation, G = 32, at every
+    B."""
+    assert pallas_slice_v4.bucket(D) == pallas_slice_v4.STREAM
+    assert pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.STREAM] == (32,)
+    assert pallas_slice_v4.choose_group(B, D, H100_SMS) == 32
+
+
 def test_bucket_bounds():
+    """32, 128 and the stream bucket to the shared-memory bound: (2 + NT) D
+    values of the type in 232,448 bytes (D <= 19,370 in float32 at one term,
+    14,528 at two, 7,264 in float64 at two); above, a raise naming the bound
+    and engine='torch'."""
     assert pallas_slice_v4.bucket(32) == 32 and pallas_slice_v4.bucket(33) == 128
-    with pytest.raises(ValueError, match="engine='torch'"):
-        pallas_slice_v4.bucket(129)
+    assert pallas_slice_v4.bucket(128) == 128 and pallas_slice_v4.bucket(129) == "stream"
+    limits = {(1, torch.float32): 19370, (2, torch.float32): 14528,
+              (1, torch.float64): 9685, (2, torch.float64): 7264}
+    for (nt, dt), limit in limits.items():
+        assert pallas_slice_v4.stream_max_d(nt, dt) == limit
+        assert pallas_slice_v4.bucket(limit, nt, dt) == "stream"
+        with pytest.raises(ValueError, match=f"D <= {limit} .*engine='torch'"):
+            pallas_slice_v4.bucket(limit + 1, nt, dt)
     # the 32 bucket's rule is unchanged
     assert [pallas_slice_v4.choose_group(512, D, H100_SMS) for D in (2, 4, 20, 32)] == [
         2, 4, 16, 32]
@@ -264,6 +290,49 @@ class _OnCard:
     def __init__(self, *shape):
         self.shape = shape
         self.device = torch.device("cuda", 0)
+
+
+def test_stream_launches_count_by_bucket_and_group(monkeypatch):
+    """On the card, B1 at D = 160 launches at the stream bucket's G = 32 and
+    counts by ("stream", 32), its functor's device array of prior and
+    matrix made once; G = 16 raises.  The launch is recorded instead of
+    made."""
+    launched = []
+
+    def record(lib, entry, *a, ints=(), **k):
+        launched.append((entry, ints))
+        return None, None, None
+
+    monkeypatch.setattr(pallas_slice_v4, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(pallas_slice_v4, "launch_slice_kernel", record)
+    monkeypatch.setattr(pallas_slice_v4, "_lib", lambda: None)
+    counts = pallas_slice_v4.GROUP_LAUNCHES
+    saved = dict(counts)
+    try:
+        D = 160
+        run = (_OnCard(512, D), _OnCard(512), _OnCard(512), _OnCard(512, 4, D), _OnCard(512, 4))
+        pallas_slice_v4.slice_epoch(None, None, (0, 0), *run)
+        with pytest.raises(ValueError, match="not one of"):
+            pallas_slice_v4.slice_epoch(None, None, (0, 0), *run, group=16)
+        assert launched == [("slice_epoch_launch", (32,))]
+        assert counts["stream", 32] == saved["stream", 32] + 1
+    finally:
+        counts.update(saved)
+
+
+def test_functor_device_data_is_prior_then_matrix():
+    """The device array of every kernel entry: the prior's a and s, then
+    random_gaussian's D x D matrix (read from there in every bucket), made
+    once per calc and device."""
+    for D in (20, 160):
+        calc = make_batched_calculator(UniformPrior(0.0, 1.0), random_gaussian(D), D, 0)
+        _, consts, a, s = pallas_slice_v4.functor_args(calc, D)
+        data = pallas_slice_v4.functor_device_data(calc, D, torch.device("cpu"))
+        np.testing.assert_array_equal(data.numpy(), np.concatenate([a, s, consts[2:]]))
+        assert data.numel() == 2 * D + D * D
+        assert pallas_slice_v4.functor_device_data(calc, D, torch.device("cpu")) is data
+    calc = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(160), 160, 2)
+    assert pallas_slice_v4.functor_device_data(calc, 160, torch.device("cpu")).numel() == 320
 
 
 def test_wide_launches_count_by_bucket_and_group(monkeypatch):
@@ -322,6 +391,30 @@ def _per_point_gaussian(theta):
             - D * (math.log(0.1) + 0.5 * math.log(2 * math.pi)))
 
 
+def test_fused_lowers_a_per_point_gaussian_in_the_stream_bucket():
+    """At D = 160 the per-point torch Gaussian lowers into the stream
+    bucket's header (FUSED_MAXD SLICE_MAXD_STREAM, the prior by pointer from
+    the constant buffer's tail), its plain logL within rtol 1e-5 / atol 1e-6
+    of the calc's, in float32 and in float64 (rtol = atol = 1e-12)."""
+    D = 160
+    for dt, tol in ((torch.float32, (1e-5, 1e-6)), (torch.float64, fused_like.F64_TOL)):
+        with real_dtype_scope(dt):
+            calc = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0)
+        low = fused_like.lowering(calc)
+        assert isinstance(low, fused_like.Lowered) and low.dtype == dt, low
+        cube = torch.as_tensor(np.random.default_rng(D).uniform(0.3, 0.7, (256, D)), dtype=dt)
+        torch.testing.assert_close(low.plain_logL(cube), calc(cube)[2], rtol=tol[0],
+                                   atol=tol[1])
+        src = low.source(32)
+        real = "float" if dt == torch.float32 else "double"
+        assert "#define FUSED_MAXD SLICE_MAXD_STREAM" in src and f"#define FUSED_D {D}" in src
+        assert f"DevicePriorT<{real}> prior;" in src and "AffinePriorT" not in src
+        assert f"T[0][{D - 1}]" in src
+        prior = low.device_prior(torch.device("cpu"))
+        assert prior.numel() == 2 * D and torch.equal(
+            prior, low.device_consts(torch.device("cpu"))[-2 * D:])
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_fused_lowers_a_per_point_gaussian_in_the_wide_bucket(D):
     """The per-point torch Gaussian lowers at D = 64 and 128 into the wide
@@ -340,29 +433,70 @@ def test_fused_lowers_a_per_point_gaussian_in_the_wide_bucket(D):
     assert f"T[0][{D - 1}]" in src
 
 
-def test_fused_refuses_above_128_with_its_reason():
-    calc = make_batched_calculator(identity_prior, lambda th: -(th ** 2).sum(-1), 129, 0)
-    low = fused_like.lowering(calc)
-    assert isinstance(low, fused_like.Refused) and "D = 129" in low.reason
-    assert "SLICE_MAXD_WIDE = 128" in low.reason
+def test_fused_refuses_above_the_stream_bound_with_its_reason():
+    """Past the stream bucket's bound for one term (19,370 in float32, 9,685
+    in float64) the lowering refuses before it traces, naming D and the
+    bound, and the model takes the traced route, which has none."""
+    for dt, limit in ((torch.float32, 19370), (torch.float64, 9685)):
+        with real_dtype_scope(dt):
+            calc = make_batched_calculator(identity_prior, lambda th: -(th ** 2).sum(-1),
+                                           limit + 1, 0)
+        low = fused_like.lowering(calc)
+        assert isinstance(low, fused_like.Refused), low
+        assert f"D = {limit + 1}" in low.reason and f"D <= {limit}" in low.reason
+        route, reason = slice_kernel.cuda_route(calc)
+        assert route == "slice_step" and f"D <= {limit}" in reason
 
 
-def test_resolve_engine_refuses_above_128_naming_the_plain_engine(monkeypatch):
-    """Above D = 128 every kernel engine raises once, in resolve_engine,
-    naming engine='torch'; cuda5 (B3) raises above 32; the plain engine
-    takes any D."""
+def test_resolve_engine_refuses_above_the_stream_bound_naming_the_plain_engine(monkeypatch):
+    """Above the stream bucket's bound for a functor (the zoo Gaussian, one
+    term: D <= 19,370) every kernel engine raises once, in resolve_engine,
+    naming the bound and engine='torch'; cuda5 (B3) raises above 32; the
+    plain engine takes any D."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
-    big = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(129), 129, 0)
+    big = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(19371), 19371, 0)
     for engine in ("auto",) + ns.KERNEL_ENGINES:
-        with pytest.raises(ValueError, match="engine='torch'"):
+        with pytest.raises(ValueError, match="D = 32" if engine == "cuda5"
+                           else "D <= 19370 .*engine='torch'"):
             ns.resolve_engine(engine, cuda, big)
     assert ns.resolve_engine("torch", cuda, big) == "torch"
+    # two terms a coordinate: the bound is 14,528
+    twin = make_batched_calculator(UniformPrior(0.0, 1.0), twin_gaussian(14529), 14529, 0)
+    with pytest.raises(ValueError, match="D <= 14528 .*engine='torch'"):
+        ns.resolve_engine("cuda", cuda, twin)
     d40 = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(40), 40, 0)
     for engine in ("cuda", "cuda3", "cuda2"):
         assert ns.resolve_engine(engine, cuda, d40) == engine
     with pytest.raises(ValueError, match="D = 32"):
         ns.resolve_engine("cuda5", cuda, d40)
+
+
+def test_engines_resolve_at_d160(monkeypatch):
+    """At D = 160 "auto" resolves to "cuda" (the functor kernel in the stream
+    bucket for the zoo Gaussian, the fused route for a per-point torch
+    model), "cuda3" and "cuda2" resolve, graded and host-callback models
+    resolve to "scan"; "cuda5" still raises at D = 33."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cuda = ns.resolve_device("cuda")
+    D = 160
+    zoo = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(D), D, 2)
+    for engine in ("auto", "cuda", "cuda3", "cuda2"):
+        assert ns.resolve_engine(engine, cuda, zoo) == ("cuda" if engine == "auto" else engine)
+    assert slice_kernel.cuda_route(zoo)[0] == "slice_epoch"
+    per_point = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0)
+    assert ns.resolve_engine("auto", cuda, per_point) == "cuda"
+    assert slice_kernel.cuda_route(per_point)[0] == "slice_epoch_fused"
+    host = make_batched_calculator(
+        identity_prior, lambda th: float(-np.sum((np.asarray(th) - 0.5) ** 2)), D, 0)
+    assert host.uses_callback and ns.resolve_engine("auto", cuda, host) == "scan"
+    graded = make_batched_calculator(identity_prior, polychordlite_tpu_torch.GradedLikelihood(
+        lambda th: torch.sum((th[..., :16] - 0.5) ** 2, dim=-1),
+        lambda aux, th: -(aux + torch.sum((th[..., 16:] - 0.5) ** 2, dim=-1)), 16), D, 0)
+    assert graded.graded and ns.resolve_engine("auto", cuda, graded) == "scan"
+    d33 = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(33), 33, 0)
+    with pytest.raises(ValueError, match="D = 32"):
+        ns.resolve_engine("cuda5", cuda, d33)
 
 
 def test_packet_kernel_refuses_above_32_naming_its_bound():
@@ -378,19 +512,50 @@ def test_packet_kernel_refuses_above_32_naming_its_bound():
             torch.ones((B, 1)))
 
 
-def test_random_gaussian_functor_refuses_above_32():
-    """random_gaussian's matrix lives in a constant bank sized for D <= 32:
-    its functor refuses above, naming the bound and the plain engine, where
-    the route is chosen (cuda_route, resolve_engine) as well as at launch."""
-    D = 40
-    calc = make_batched_calculator(identity_prior, random_gaussian(D), D, 0)
-    with pytest.raises(ValueError, match="D = 32.*engine='torch'"):
-        pallas_slice_v4.functor_args(calc, D)
-    # the default engine's route and the forced engines refuse once, up front
-    with pytest.raises(ValueError, match="D = 32.*engine='torch'"):
-        slice_kernel.cuda_route(calc)
-    for engine in ("auto", "cuda", "cuda3", "cuda2"):
-        with pytest.raises(ValueError, match="D = 32.*engine='torch'"):
-            ns.resolve_engine(engine, torch.device("cuda"), calc)
-    assert pallas_slice_v4.functor_args(
-        make_batched_calculator(identity_prior, pt_gaussian(D), D, 2), D)[0] == 0
+def test_random_gaussian_functor_refuses_above_the_stream_bound():
+    """random_gaussian's matrix lives in a device buffer: its functor takes
+    D = 40 and 160 (the wide and the stream buckets) on every route and
+    forced engine, and refuses only above the stream bucket's bound for one
+    term, naming it and the plain engine, where the route is chosen
+    (cuda_route, resolve_engine) as well as at launch."""
+    for D in (40, 160):
+        calc = make_batched_calculator(identity_prior, random_gaussian(D), D, 0)
+        fid, consts, _, _ = pallas_slice_v4.functor_args(calc, D)
+        assert fid == 10 and consts.size == 2 + D * D
+        assert slice_kernel.cuda_route(calc)[0] == "slice_epoch"
+        for engine in ("auto", "cuda", "cuda3", "cuda2"):
+            assert ns.resolve_engine(engine, torch.device("cuda"), calc) in (engine, "cuda")
+    # (a 19,371-D matrix would take 1.5 GB: the check itself)
+    with pytest.raises(ValueError, match="D <= 19370 .*engine='torch'"):
+        pallas_slice_v4.check_functor_dims("random_gaussian", 19371)
+    pallas_slice_v4.check_functor_dims("random_gaussian", 19370)
+    with pytest.raises(ValueError, match="D <= 14528 .*engine='torch'"):
+        pallas_slice_v4.check_functor_dims("twin_gaussian", 14529)
+
+
+def test_plain_run_at_d160_writes_its_files(tmp_path):
+    """run(device="cpu") at D = 160 on the plain engine: the administrator,
+    the clustering and the output files take D > 128.  nlive 170, a short run
+    to max_ndead 340; the .txt rows hold weight, -2 logL, the 160 physical
+    parameters and the 2 derived ones, the .stats file parses, and the
+    .paramnames file names all 162."""
+    D = 160
+    out = polychordlite_tpu_torch.run(
+        pt_gaussian(D, sigma=SIGMA), D, nDerived=2, nlive=170, num_repeats=2,
+        do_clustering=True, read_resume=False, base_dir=str(tmp_path), seed=16, feedback=-1,
+        device="cpu", max_ndead=340,
+        paramnames=[(f"p{i}", f"\\theta_{{{i}}}") for i in range(D)] + [("r", "r"), ("r2", "r^2")])
+    assert out.ndead >= 340 and math.isfinite(out.logZ) and math.isfinite(out.logZerr)
+    samples = np.loadtxt(tmp_path / "test.txt")
+    assert samples.ndim == 2 and samples.shape[1] == 2 + D + 2
+    assert np.isfinite(samples).all() and (samples[:, 0] >= 0).all()
+    assert ((samples[:, 2:2 + D] >= 0) & (samples[:, 2:2 + D] <= 1)).all()
+    dead = np.loadtxt(tmp_path / "test_dead-birth.txt")
+    assert dead.shape[1] == D + 2 + 2 and dead.shape[0] >= 340
+    parsed = PolyChordOutput(str(tmp_path), "test")
+    assert parsed.ndead == out.ndead and math.isclose(parsed.logZ, out.logZ, abs_tol=1e-5)
+    names = (tmp_path / "test.paramnames").read_text().splitlines()
+    assert len(names) == D + 2
+    with open(tmp_path / "test.metrics.jsonl") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    assert last["engine"] == "torch" and not any(last["kernel_launches"].values())

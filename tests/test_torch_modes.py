@@ -250,7 +250,7 @@ def test_run_continues_from_a_text_resume(tmp_path):
     assert out.ndead >= 150 and np.isfinite(out.logZ)
 
 
-def test_synchronous_false_still_raises(tmp_path):
+def test_synchronous_false_runs_and_warns_of_its_bias(tmp_path):
     """The mode that raised until it was ported, asynchronous dispatch: it
     now runs, and warns of its bias (tests/test_torch_parallel.py holds it
     to the JAX package's tests), with the other modes of the check."""

@@ -286,6 +286,29 @@ def test_run_over_local_shards_is_the_one_shard_run(tmp_path, monkeypatch, n):
     assert f'"shards": {n}' in rec and '"chained_epochs": false' in rec
 
 
+def test_forced_chain_over_local_shards_raises(tmp_path, monkeypatch):
+    """chain_epochs = 4 over two local shards (the CPU listed twice,
+    mesh_shape = 2) raises a ValueError before the run that names the shards
+    (a chain runs on one shard; it used to be dropped without a word); left
+    at auto the same run dispatches per epoch."""
+    monkeypatch.setattr(mesh, "local_devices", lambda device: [device] * 2)
+    with pytest.raises(ValueError, match=r"chain_epochs=4 .*over 2 shards"):
+        pt.run(_lik, 2, base_dir=str(tmp_path / "forced"), mesh_shape=2, chain_epochs=4,
+               **QUICK)
+    assert not (tmp_path / "forced" / "test.txt").exists()
+    out = pt.run(_lik, 2, base_dir=str(tmp_path / "auto"), mesh_shape=2,
+                 **{**QUICK, "max_ndead": 100})
+    rec = (tmp_path / "auto" / "test.metrics.jsonl").read_text().splitlines()[-1]
+    assert out.ndead >= 100 and '"chained_epochs": false' in rec
+
+
+def test_forced_chain_with_synchronous_false_raises(tmp_path):
+    """chain_epochs = 4 with synchronous=False (dispatch-ahead, one epoch at
+    a time) raises a ValueError before the run that names the mode."""
+    with pytest.raises(ValueError, match=r"chain_epochs=4 .*synchronous=False"):
+        pt.run(_lik, 2, base_dir=str(tmp_path), chain_epochs=4, synchronous=False, **QUICK)
+
+
 # ------------------------------------------------- dispatch-ahead (async)
 NDIMS = 2
 SIGMA = 0.1

@@ -148,7 +148,7 @@ def test_calculator_paths():
     assert ll[0] == 0.0 and ll[1] == torch.tensor(-1e30)
 
 
-def test_unported_modes_raise(tmp_path):
+def test_every_mode_passes_the_check_and_an_unknown_precision_raises(tmp_path):
     """No run mode is left unported: asynchronous dispatch
     (tests/test_torch_parallel.py), precision='highest', maximise, an nlives
     schedule and several speed grades (tests/test_torch_precision.py,

@@ -105,6 +105,19 @@ def test_rastrigin_maximum_at_origin():
     assert v0 > v1
 
 
+def test_rosenbrock_norm_is_the_jax_recurrence_run_forward():
+    """The norm's determinant is the JAX package's recurrence run forward
+    once: the same values wherever the JAX package's recursive form ends
+    (exact equality), and a 160-D model built at once (the recursive form
+    never ends there), whose norm is nan past the float range as JAX's
+    would be."""
+    for n in range(1, 23):
+        assert pex._rosenbrock_det(n) == jex._rosenbrock_det(n), n
+    like = pex.rosenbrock(160)
+    assert math.isnan(pex._rosenbrock_det(160))
+    assert torch.isnan(like(torch.full((2, 160), 0.5))).all()
+
+
 @pytest.mark.parametrize("name", ZOO)
 def test_analytic_ini_has_a_device_form(name):
     """Every analytic ini resolves to its likelihood, with a functor and an
