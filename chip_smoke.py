@@ -207,8 +207,23 @@ each kernel first held against its plain version on the card:
   its time per launch from a captured CUDA graph of 20 launches back to
   back, and its study (one repeat, then 100 launches back to back).
 
-The runs through the CLI, the C++ example, the 64-D and the 160-D runs go
-in processes of their own, the 160-D run started before the main path's
+The ring engine (``engine="ring"``): ``ring_epoch`` holds B1's ring
+instantiations (``RingPolicy``: the functor kernel on the zoo Gaussian,
+the fused route on gaussian.ini's likelihood in torch) and the traced
+route under the ring's budget (the vector_norm Gaussian) bitwise their
+plain versions, overflow flags included, at gaussian.ini's shape and the
+bench (ring_factor 12, timed beside the same route at its own budget) and
+at gaussian.ini's shape at ring_factor 2, where lanes overflow and the
+runner's re-run is the ``"cuda"`` epoch bit for bit; ``run_ring`` runs
+gaussian.ini through ``run(engine="ring")`` on the functor kernel (cut
+at 12,000 dead points), and
+its torch and vector_norm forms (nlive 100) on the fused and traced
+routes, each gated at 3 sigma, with its re-runs, dead/s and device_frac;
+``run_quickstart_example`` runs the port's ``examples/quickstart.py`` in a
+process of its own.
+
+The runs through the CLI, the C++ example, the 64-D and the 160-D runs and
+the quickstart example go in processes of their own, the 160-D run started before the main path's
 runs (section 7), the others after ``run_async``, one after another (the
 64-D run beside them), and run behind the in-process runs; each phase
 waits for its own process and checks what it wrote.  Their dead/s, and
@@ -334,6 +349,7 @@ SHELLS_LOGZ = -math.log(60.0)  # normalised shells over the [-6,6] x [-2.5,2.5] 
 LIBRARIES = {
     "gram_schmidt": ["gram_schmidt.cu"],
     "slice_epoch": ["slice_epoch.cu"],
+    "slice_epoch_ring": ["slice_epoch.cu"],  # with SLICE_EPOCH_RING (nvcc.DEFINES)
     "slice_epoch_v5": ["slice_epoch_v5.cu"],
     "slice_epoch_v3": ["slice_epoch_v3.cu"],
     "slice_epoch_v2": ["slice_epoch_v2.cu"],
@@ -342,6 +358,13 @@ LIBRARIES = {
     "prototypes": ["prototypes.cu"],
     "slice_step": ["slice_step.cu"],
 }
+#: the ring engine's B1 library, built behind the first phases
+RING_LIBRARY = "slice_epoch_ring"
+#: run_ring's gaussian.ini cut: 12,000 of the ~23,700 dead points of the
+#: whole run, past the posterior's bulk (log X ~ -17.7 at ndead ~8,850), so
+#: the estimate (live points included) holds logZ = 0 within its error; it
+#: halves the phase (per-epoch dispatch, no chains)
+RING_MAX_NDEAD = 12000
 #: the analytic inis' evidence oracles: (logZ, its sigma or None for an exact
 #: value, where it comes from).  The JAX values are the JAX package's CPU runs
 #: at the same settings and seed, from ``scripts/zoo_reference_logz.py``
@@ -778,11 +801,18 @@ def main() -> None:
             return fn
         return wrap
 
-    # ---- 1. build: one nvcc per library, all started together ------------
+    # ---- 1. build: one nvcc per library, all started together; the ring
+    # engine's B1 library (RING_LIBRARY) after them, in a thread of this
+    # script, behind the phases up to ring_epoch, which waits for it
+    ring_lib = ThreadPoolExecutor(max_workers=1)
+    ring_build = {}
+
     @phase("build")
     def _():
         t0 = time.perf_counter()
-        nvcc.build_all(LIBRARIES)
+        nvcc.build_all({k: v for k, v in LIBRARIES.items() if k != RING_LIBRARY})
+        ring_build["job"] = ring_lib.submit(
+            nvcc.build_all, {RING_LIBRARY: LIBRARIES[RING_LIBRARY]})
         ptxas = {name: ptxas_summary(log) for name, log in nvcc.build_log.items()}
         with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
             for name, log in nvcc.build_log.items():
@@ -1741,6 +1771,110 @@ def main() -> None:
                                F64_FLOPS_PER_S)},
         }
         results["f64_kernels"] = out
+        return out
+
+    # ---- 6f. the ring engine (engine="ring"): B1 under RingPolicy (the
+    # functor kernel on the zoo Gaussian, the fused route on gaussian.ini's
+    # likelihood in torch) and the traced route under the ring's budget (the
+    # vector_norm Gaussian), each bitwise its plain version with the
+    # overflow flags, at gaussian.ini's shape and the bench at ring_factor
+    # 12, and at gaussian.ini's shape at ring_factor 2, where lanes
+    # overflow; there the ring's epoch re-run (build_epoch_fn's rerun, on
+    # the same directions) is the "cuda" epoch bit for bit, each route
+    def ring_bytes(B, R, D):
+        """slice_epoch_bytes and the (B,) int32 flags written."""
+        return slice_epoch_bytes(B, R, D) + 4 * B
+
+    @phase("ring_epoch")
+    def _():
+        from polychordlite_tpu_torch.ops.slice_kernel import build_epoch_fn, epoch_overflowed
+
+        t0 = time.perf_counter()
+        ring_build["job"].result()  # raises if the library did not build
+        log = nvcc.build_log.get(RING_LIBRARY, "")
+        with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+            f.write(f"==== {RING_LIBRARY}\n{log}\n")
+        kw = (0x0BADCAFE, 0x600DF00D)
+        out = {"library": {
+            "wait_s": time.perf_counter() - t0,
+            "build_s": nvcc.build_seconds[RING_LIBRARY], "ptxas": ptxas_summary(log),
+            "gaussian_kernels_by_group": ptxas_kernels(
+                log, r"slice_epoch_kernelI10RingPolicy12GaussianLikeILi(32|128|0)EELi(\d+)ELb0E")}}
+        wrappers = {"functor": pallas_slice_v4.slice_epoch,
+                    "fused": pallas_slice_v4.slice_epoch_fused,
+                    "traced": pallas_slice_v4.slice_epoch_traced}
+        for tag, geo, factors in (("gaussian_ini", RUN, (12, 2)), ("bench", BENCH, (12,))):
+            B, R, D = geo["B"], geo["R"], geo["D"]
+            zoo, cfg, args = geometry(tag, geo)
+            tcalc = make_batched_calculator(identity_prior, torch_gaussian(D), D, 2, device=dev)
+            vcalc = make_batched_calculator(identity_prior, vector_norm_gaussian, D, 0,
+                                            device=dev)
+            low = fused_like.lowering(tcalc)
+            G = pallas_slice_v4.choose_group(B, D, n_sm)
+            t0 = time.perf_counter()
+            low.build([G], ring=True)
+            build_s = time.perf_counter() - t0
+            models = {"functor": (zoo, lambda p: zoo(p)[2], gaussian_probe_flops(D)),
+                      "fused": (tcalc, low.plain_logL, low.flops_per_probe()),
+                      "traced": (vcalc, lambda p: vcalc(p)[2], None)}
+            for rf in factors:
+                c = cfg._replace(ring_factor=rf)
+                cap = c.ring_budget
+                for route, (calc, plain_fn, flops) in models.items():
+                    wrap = wrappers[route]
+                    res, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                        plain_fn, c, kw, *args, count_steps=True, ring_cap=cap))  # noqa: B023
+                    want, steps = res[:3] + res[4:], res[3]
+                    groups = GROUPS if (route == "functor" and tag == "gaussian_ini") else (G,)
+                    pairs = []
+                    for g in groups:
+                        extra = {} if route == "traced" else {"group": g}
+                        got = wrap(calc, c, kw, *args, ring_cap=cap, **extra)
+                        pairs += [(f"{k}_G{g}_vs_plain", a, b) for k, a, b in zip(
+                            ("t", "logL", "nlike", "overflow"), got, want)]
+                    mism = decisions(f"{tag} ring_factor {rf}: the ring's {route} differs "
+                                     "from its plain version", pairs)
+                    rec = {"B": B, "R": R, "D": D, "ring_factor": rf, "budget": cap,
+                           "group": G, "valid_lanes": int(args[2].sum()),
+                           "lanes_overflowed": int(want[3].sum()),
+                           "slowest_lane_steps": int(steps.max()), "mismatches": mism,
+                           "plain_ms": plain_ms}
+                    if rf == 12:  # timed, beside the same route at its own budget
+                        before = dict(pallas_slice_v4.LAUNCHES)
+                        rec["ms"] = cuda_ms(lambda: wrap(calc, c, kw, *args,  # noqa: B023
+                                                         ring_cap=cap), 3)  # noqa: B023
+                        rec["launches_per_epoch"] = {
+                            k: (v - before[k]) // 4 for k, v in pallas_slice_v4.LAUNCHES.items()
+                            if v > before[k]}
+                        rec["route_ms"] = cuda_ms(lambda: wrap(calc, c, kw, *args), 3)  # noqa: B023
+                        n_launch = sum(rec["launches_per_epoch"].values())
+                        rec["bound"] = (bound(slice_step_bytes(B, D, n_launch, R) + 4 * B, 0)
+                                        if flops is None else
+                                        bound(ring_bytes(B, R, D),
+                                              int(steps.to(torch.int64).sum()) * flops))
+                    else:  # the re-run of the starved epoch is the "cuda" epoch
+                        if not want[3].any():
+                            raise AssertionError(f"{route}: no lane overflowed at ring_factor "
+                                                 f"{rf}")
+                        chol = (0.1 * torch.eye(D, device=dev)).expand(B, D, D)
+                        dirs = (args[3], args[4], torch.zeros((B, R), dtype=torch.int64,
+                                                              device=dev))
+                        ep_in = (kw, args[0], args[1], chol, args[2])
+                        cm = c._replace(n_phi=calc.n_phi)
+                        ring_ep = build_epoch_fn(calc, cm._replace(engine="ring"))
+                        cuda_ep = build_epoch_fn(calc, cm._replace(engine="cuda"))
+                        flagged = ring_ep(*ep_in, directions=dirs)
+                        again = ring_ep(*ep_in, directions=dirs, rerun=True)
+                        ref = cuda_ep(*ep_in, directions=dirs)
+                        if not epoch_overflowed(flagged) or epoch_overflowed(again):
+                            raise AssertionError(f"{route}: the packed flags are wrong")
+                        rec["rerun_vs_cuda_mismatches"] = int((again != ref).sum())
+                        if rec["rerun_vs_cuda_mismatches"]:
+                            raise AssertionError(f"{route}: the re-run differs from the "
+                                                 "cuda epoch")
+                    out[f"{tag}/rf{rf}/{route}"] = rec
+            out[f"{tag}/fused_ring_build_s"] = build_s
+        results["ring_epoch"] = out
         return out
 
     # ---- 6e'. the stream bucket (D > 128): B1's functor kernel (the zoo
@@ -2935,6 +3069,77 @@ print("RESULT " + json.dumps(out), flush=True)
                 "host_totals_s": last.get("host_totals"),
                 "epoch_timers_s": last.get("epoch_timers")}
 
+    # ---- 7a'. the ring engine through run(): gaussian.ini on B1's functor
+    # kernel under RingPolicy (cut at RING_MAX_NDEAD dead points), its torch
+    # form on the fused route's ring library and the vector_norm Gaussian on
+    # the traced route under the ring's budget (nlive 100, to the end), each
+    # gated at 3 sigma of logZ = 0; an overflowed epoch is re-run on the
+    # same route at its own budget
+    @phase("run_ring")
+    def _():
+        out = {}
+        D = INI["nDims"]
+        # the fused route's libraries at the run's G, its own and the ring's,
+        # before the clock
+        G = pallas_slice_v4.choose_group(-(-100 // GRANULE) * GRANULE, D, n_sm)
+        t_build = time.perf_counter()
+        low = fused_like.lowering(dtype_calc(torch_gaussian(D), D, torch.float32, n_derived=2))
+        low.build([G])
+        low.build([G], ring=True)
+        build_s = time.perf_counter() - t_build
+        for name, like, n_derived, nlive, max_ndead, route, ring_kernel in (
+                ("functor", gaussian(D), INI["nDerived"], INI["nlive"], RING_MAX_NDEAD,
+                 "slice_epoch", "slice_epoch_ring"),
+                ("fused", torch_gaussian(D), 2, 100, -1, "slice_epoch_fused",
+                 "slice_epoch_fused_ring"),
+                ("traced", vector_norm_gaussian, 0, 100, -1, "slice_step", "slice_step_ring")):
+            with tempfile.TemporaryDirectory() as base:
+                reset_launches()
+                t0 = time.perf_counter()
+                pt.run(like, D, nDerived=n_derived, nlive=nlive, num_repeats=INI["num_repeats"],
+                       do_clustering=False, precision_criterion=0.001, max_ndead=max_ndead,
+                       read_resume=False, base_dir=base, seed=SEED, feedback=-1,
+                       device="cuda", engine="ring")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ran = read_launches()
+                stats = PolyChordOutput(base, "test")
+                last = read_metrics(base, "test")[-1]
+            if (last.get("engine"), last.get("route")) != ("ring", route):
+                raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
+                                     f"{last.get('route')!r}, not ring on {route}")
+            if last.get("chained_epochs") is not False:
+                raise AssertionError(f"{name}: the ring run chained its epochs")
+            reruns = last["ring_reruns"]
+            # the ring's kernel and B2, and the route's own kernel where an
+            # epoch was re-run (the functor and fused routes' also in their
+            # checks before the run)
+            kernels = {"gram_schmidt", ring_kernel}
+            if reruns or name != "traced":
+                kernels.add(route)
+            if not only(ran, kernels):
+                raise AssertionError(f"{name}: the path did not run {sorted(kernels)} (only): "
+                                     f"{ran}")
+            if not ran[ring_kernel] >= last["epochs"] - reruns:
+                raise AssertionError(f"{name}: {ran[ring_kernel]} ring launches for "
+                                     f"{last['epochs']} epochs")
+            add_launches(ran)
+            pull = stats.logZ / stats.logZerr
+            if not (math.isfinite(stats.logZ) and abs(pull) < 3.0):
+                raise AssertionError(f"{name}: logZ {stats.logZ} +/- {stats.logZerr} is "
+                                     f"{pull:.2f} sigma from 0")
+            out[name] = {"route": last["route"], "route_reason": last.get("route_reason"),
+                         "nlive": nlive, "ndead": stats.ndead, "logZ": stats.logZ,
+                         "logZerr": stats.logZerr, "pull_sigma": pull,
+                         "epochs": last["epochs"], "ring_reruns": reruns, "wall_s": wall,
+                         "dead_per_s": stats.ndead / wall,
+                         "device_frac": last.get("device_frac"),
+                         "launches": {k: v for k, v in ran.items() if v},
+                         "epoch_timers_s": last.get("epoch_timers")}
+        out["fused_build_s"] = build_s
+        results["run_ring"] = out
+        return out
+
     # ---- 7b'. the runs in processes of their own start here, in two threads
     # of this script, and go on behind the in-process runs below: the CLI
     # runs and the C++ example one after another, the 64-D run beside them
@@ -2994,6 +3199,15 @@ print("RESULT " + json.dumps(out), flush=True)
         return (base, *cli([sys.executable, worker, HERE, "d64_run", json.dumps(base)],
                            timeout=900))
 
+    def quickstart_example_job():
+        """The port's examples/quickstart.py, as a user runs it, in a new
+        directory: (base, CompletedProcess, wall s)."""
+        base = tempfile.mkdtemp(prefix="quickstart_example_")
+        tmpdirs.append(base)
+        env = {**os.environ, "PYTHONPATH": HERE}
+        return (base, *cli([sys.executable, "-m", "polychordlite_tpu_torch.examples.quickstart",
+                            "--seed", str(SEED), "--no-plot"], cwd=base, env=env, timeout=600))
+
     def job_result(name):
         """A job's result; a process that failed raises."""
         out = jobs[name].result()
@@ -3005,6 +3219,7 @@ print("RESULT " + json.dumps(out), flush=True)
 
     cli_jobs, side_jobs = ThreadPoolExecutor(max_workers=1), ThreadPoolExecutor(max_workers=1)
     jobs["d64"] = side_jobs.submit(d64_job)
+    jobs["quickstart_example"] = side_jobs.submit(quickstart_example_job)
     for name, job in (
             ("shells", lambda: ini_job("shells_cli_", lambda b: ini_copy(b, "gaussian_shells"))),
             ("eggbox", lambda: ini_job("eggbox_cli_", lambda b: ini_copy(b, "eggbox"))),
@@ -3695,6 +3910,27 @@ print("RESULT " + json.dumps(out), flush=True)
         results["run_gaussian_d64"] = rec
         return rec
 
+    @phase("run_quickstart_example")
+    def _():
+        """The port's examples/quickstart.py in a process of its own (started
+        behind the 64-D run): the per-point torch quickstart on the fused
+        route and B2, logZ = -4 log 2, gated at 3 sigma."""
+        base, proc, wall = job_result("quickstart_example")
+        chains = os.path.join(base, "chains")
+        stats = PolyChordOutput(chains, "gaussian")
+        last = read_metrics(chains, "gaussian")[-1]
+        ran = {k: v for k, v in last["kernel_launches"].items() if v}
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch_fused"):
+            raise AssertionError(f"engine {last.get('engine')!r}, route {last.get('route')!r} "
+                                 f"({last.get('route_reason')}), not slice_epoch_fused")
+        if not only(ran, ("gram_schmidt", "slice_epoch_fused")):
+            raise AssertionError(f"the example did not run B2 and the fused route (only): {ran}")
+        add_launches(ran)
+        if "analytic logZ" not in proc.stdout:
+            raise AssertionError(f"the example printed no result: {proc.stdout[-2000:]}")
+        return {**route_record(last, stats, wall, ran, -4 * math.log(2.0)),
+                "process_wall_s": wall}
+
     @phase("run_gaussian_d160")
     def _():
         """A per-point torch Gaussian at D = 160 (sigma 0.2 at 0.5, uniform
@@ -4082,6 +4318,7 @@ print("RESULT " + json.dumps(out), flush=True)
         return {"checks": out, "study": rec, "study_launches": study}
 
     cli_jobs.shutdown()
+    ring_lib.shutdown()
     side_jobs.shutdown()
     d160_jobs.shutdown()
     for d in tmpdirs:
@@ -4269,6 +4506,31 @@ print("RESULT " + json.dumps(out), flush=True)
             "bound_by": rec["bound"][1], "library_ms": rec.get("library_ms"),
             "f32_twin_ms": rec["f32_twin_ms"],
             **extra,
+        })
+    # the ring engine's instantiations (RingPolicy: B1's functor kernel and
+    # the fused route; the traced route under the ring's budget) at the
+    # bench, ring_factor 12 (ring_epoch), with gaussian.ini's shape beside;
+    # launches on run_ring's three runs
+    ring, ring_runs = results["ring_epoch"], results["run_ring"]
+    for name, source, route in (("slice_epoch_ring", "slice_epoch.cu", "functor"),
+                                ("slice_epoch_fused_ring", "slice_epoch_fused.cu", "fused"),
+                                ("slice_step_ring", "slice_step.cu", "traced")):
+        r = ring[f"bench/rf12/{route}"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": "polychordlite_tpu/ops/pallas_slice_v4.py:508", "dtype": "float32",
+            "engine": "ring", "launches": launches[name], "max_abs_err": 0.0, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "route_ms_own_budget": r["route_ms"],
+            **{k: r[k] for k in ("B", "R", "D", "budget", "lanes_overflowed",
+                                 "slowest_lane_steps")},
+            "gaussian_ini": {k: ring[f"gaussian_ini/rf12/{route}"][k]
+                             for k in ("ms", "route_ms", "plain_ms", "lanes_overflowed",
+                                       "slowest_lane_steps")},
+            "starved_rf2": {k: ring[f"gaussian_ini/rf2/{route}"][k]
+                            for k in ("lanes_overflowed", "rerun_vs_cuda_mismatches")},
+            "run_ring": {k: ring_runs[route][k] for k in ("epochs", "ring_reruns", "dead_per_s",
+                                                           "device_frac", "wall_s", "pull_sigma")},
         })
     # the stream bucket (D > 128): each new instantiation at D = 160 (B = 512,
     # R = 2 D; its plain version at R = 4), with its numbers at 256 and 512

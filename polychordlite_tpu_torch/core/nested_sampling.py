@@ -51,7 +51,9 @@ repeats (``ops/slice_kernel.py``), with no chained dispatch.  A
 host-callback likelihood (Python, numpy or C) runs on ``"scan"`` too, on
 the card the host route; it dispatches one epoch at a time unless
 ``chain_epochs`` > 1 forces a chain, which runs the route K times in one
-dispatch.  Chained epochs run in synchronous mode on one shard only.
+dispatch.  Chained epochs run in synchronous mode on one shard only, and
+never on the ring engine (``engine="ring"``: B1's route under the ring's
+budget, an overflowed epoch re-run by the runner, ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -132,16 +134,21 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def check_chain_request(s: PolyChordSettings, device: torch.device) -> None:
+def check_chain_request(s: PolyChordSettings, device: torch.device, engine=None) -> None:
     """Raise if ``chain_epochs > 1`` asks for chained epochs where a run
     never chains: over several shards (local devices, ``mesh_shape``) or
-    processes, or with ``synchronous=False`` (a chain is one synchronous
-    dispatch on one shard).  Left at -1 (auto) or 0 it dispatches per
-    epoch there."""
+    processes, with ``synchronous=False`` (a chain is one synchronous
+    dispatch on one shard), or on the ring ``engine`` (a chain has no
+    re-run for an overflowed epoch).  Left at -1 (auto) or 0 it dispatches
+    per epoch there."""
     if int(getattr(s, "chain_epochs", -1)) <= 1:
         return
     n_shards = len(run_devices(device, s.mesh_shape)) * distributed.process_count()
     why = []
+    if engine == "ring":
+        why.append("engine='ring' re-runs an epoch that overflows its budget, and a chain "
+                   "of epochs on the device has no such re-run (the JAX package's chained "
+                   "epochs refuse the ring engine too)")
     if n_shards > 1:
         why.append(f"this run splits its batch over {n_shards} shards "
                    f"({distributed.process_count()} process(es))")
@@ -189,7 +196,14 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     the traced route in double, and the forced ``"cuda5"``, ``"cuda3"`` and
     ``"cuda2"``, whose kernels are float32, raise (as the JAX package sends
     float64 away from its float32 kernels,
-    ``polychordlite_tpu/core/nested_sampling.py:304-306``)."""
+    ``polychordlite_tpu/core/nested_sampling.py:304-306``).
+    ``"ring"`` (the JAX package's ring engine, ``ops/slice_kernel.py``)
+    runs on any device: on the card ``"cuda"``'s route under the ring's
+    budget, with ``"cuda"``'s bounds on D and its double routes at
+    ``'highest'``, and the host route for a host-callback calc; on the CPU
+    the plain engine under the same budget.  A graded calc on ``"ring"``
+    raises, naming ``"scan"`` (the JAX package warns and runs its scan
+    engine: ROADMAP C26)."""
     graded = bool(getattr(calc, "graded", False))
     callback = bool(calc.uses_callback)
     if engine == "auto":
@@ -199,7 +213,7 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
             return "torch"
         else:
             engine = "cuda"
-    if graded and engine in KERNEL_ENGINES:
+    if graded and engine in KERNEL_ENGINES + ("ring",):
         raise ValueError(
             f"engine={engine!r} evaluates the whole likelihood at every probe; a "
             "GradedLikelihood runs on engine='scan', which keeps its slow part across "
@@ -211,12 +225,19 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
             "tensor) runs on engine='scan' (on the card the host route, which calls it "
             "between the kernel's launches) or on engine='torch' (the plain engine)")
     D = calc.n_dims
-    if device.type == "cuda" and engine in ("scan",) + KERNEL_ENGINES and D > pallas_dirs.MAXD:
+    if device.type == "cuda" and engine in ("scan", "ring") + KERNEL_ENGINES and \
+            D > pallas_dirs.MAXD:
         raise ValueError(
             f"D = {D} exceeds the Gram-Schmidt kernels' bound D <= {pallas_dirs.MAXD} (B2's "
             "working column fills a block's shared memory in float64); pass engine='torch' "
             "to run it on the plain engine")
     if engine == "scan":
+        return engine
+    if engine == "ring":
+        spec = getattr(calc, "device_spec", None)
+        if (device.type == "cuda" and not callback and spec is not None
+                and calc_dtype(calc) != torch.float64):  # "cuda"'s functor route
+            check_functor_dims(spec["likelihood"]["name"], D)
         return engine
     if engine in KERNEL_ENGINES:
         if device.type != "cuda":
@@ -245,7 +266,8 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     if engine == "torch":
         return "torch"
     raise ValueError(
-        f"unknown engine {engine!r}: use 'auto', 'torch', 'scan' or one of {KERNEL_ENGINES}"
+        f"unknown engine {engine!r}: use 'auto', 'torch', 'scan', 'ring' or one of "
+        f"{KERNEL_ENGINES}"
     )
 
 
@@ -424,7 +446,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             f"grade_dims[0] == n_slow, got grade_dims={list(s.grade_dims)}"
         )
     engine = resolve_engine(s.engine, device, calc)
-    check_chain_request(s, device)
+    check_chain_request(s, device, engine)
     if calc.graded and int(getattr(s, "chain_epochs", -1)) > 1:
         # the JAX package lets a forced chain through here and fails later
         # (ROADMAP C1)
@@ -435,7 +457,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         )
     # the kernel the engine runs for this model, chosen once (a torch
     # likelihood is lowered into B1 here, or refused with its reason)
-    route, reason = epoch_route(engine, calc), route_reason(engine, calc)
+    route, reason = epoch_route(engine, calc, device), route_reason(engine, calc, device)
 
     # --- resume or generate ------------------------------------------------
     root = distributed.is_root()
@@ -583,13 +605,14 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
         # e-folds (actively fragmenting runs would otherwise thrash chains)
         nursery_queue = deque()
         turbo_K = int(getattr(s, "chain_epochs", -1))
-        # auto: host-callback and graded likelihoods dispatch per epoch; a
+        # auto: host-callback and graded likelihoods, and the ring engine
+        # (whose overflowed epochs the runner re-runs), dispatch per epoch; a
         # forced chain of a callback runs its route K times in one dispatch.
         # A chain is synchronous, on one shard
         one_shard = run_epoch.n_shards == 1
         if turbo_K < 0:
             turbo_K = 8 if (s.synchronous and one_shard and not calc.uses_callback
-                            and not calc.graded) else 0
+                            and not calc.graded and engine != "ring") else 0
         turbo = {"enabled": turbo_K > 1, "K": turbo_K, "verify": None,
                  "cooldown": 0, "voided": 0, "chains": 0}
 
@@ -868,6 +891,8 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             nlike=int(rti.nlike.sum()),
             engine=run_epoch.engine_used(),
             extra={
+                # the ring engine's re-runs of an overflowed epoch
+                "ring_reruns": run_epoch.ring_reruns(),
                 "epoch_timers": epoch_timers, "chained_epochs": turbo["enabled"],
                 # the chain batch's shards over all processes, the processes,
                 # and the dispatch mode
@@ -923,6 +948,7 @@ def _run(loglikelihood, prior, dumper, s: PolyChordSettings, device: torch.devic
             "metrics": {
                 **metrics.summary(ndead=rti.ndead, nlike=int(rti.nlike.sum())),
                 "engine_used": run_epoch.engine_used(),
+                "ring_reruns": run_epoch.ring_reruns(),
                 "chained_epochs": turbo["enabled"],
                 "epoch_timers": epoch_timers,
                 # this process's calls of a host-callback likelihood

@@ -2,10 +2,15 @@
 // at any G (slice_epoch_launch; D <= 32 in the SLICE_MAXD bucket, up to 128
 // in the SLICE_MAXD_WIDE bucket at G = 32, above in the stream bucket at G =
 // 32, to the shared-memory bound) and its counted G = 1 form
-// (slice_epoch_counted_launch, D <= 32).  The kernel, its design and what
-// bounds it are in slice_epoch.cuh.
+// (slice_epoch_counted_launch, D <= 32).  Built with SLICE_EPOCH_RING
+// (the library slice_epoch_ring, utils/nvcc.py::DEFINES) the file holds
+// instead the ring engine's entry, slice_epoch_ring_launch: the same kernel
+// under RingPolicy, at any G and in every bucket.  The kernel, its design
+// and what bounds it are in slice_epoch.cuh.
 
 #include "slice_epoch.cuh"
+
+#ifndef SLICE_EPOCH_RING
 
 template <bool COUNTED>
 static int launch(int group, int functor, const float* consts, const float* prior_a,
@@ -66,3 +71,31 @@ extern "C" int slice_epoch_counted_launch(
                                             lane_steps, warp_max), lane0),
                         logzero, stream);
 }
+
+#else  // SLICE_EPOCH_RING
+
+// The ring engine's epoch: slice_epoch_launch's arguments, with `cap` the
+// ring's budget (R x ring_factor micro-steps over the epoch), then
+// `overflow` (B,) int32, zeroed by the caller, where a chain that the
+// budget stopped before its last repeat was accepted writes 1, and `group`.
+extern "C" int slice_epoch_ring_launch(
+    int functor, const float* consts, const float* prior_a, const float* prior_s,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* overflow, int group) {
+    const EpochArgs a = with_overflow(
+        at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D, R,
+                            k0, k1, max_step, max_shrink, cap), lane0),
+        overflow);
+    if (!epoch_args_ok(a, group, SLICE_MAXD_STREAM) || overflow == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int bad = with_bucket_likelihood(
+        functor, consts, prior_a, prior_s, dev, a, logzero, [&](auto like) {
+            launch_epoch_group<RingPolicy>(group, like, a, (cudaStream_t)stream);
+        });
+    if (bad) return bad;
+    return (int)cudaGetLastError();
+}
+
+#endif  // SLICE_EPOCH_RING

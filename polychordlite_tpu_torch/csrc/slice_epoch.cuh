@@ -4,7 +4,10 @@
 // slice_epoch_fused.cu (a likelihood lowered from torch by
 // ops/fused_like.py, the one G the launch picks), slice_epoch_v2.cu (B5:
 // the same loop under v2's budget, writing the cube — V2Policy below) and
-// slice_epoch_v3.cu (B4: the same loop under v3's budget — V3Policy);
+// slice_epoch_v3.cu (B4: the same loop under v3's budget — V3Policy), and
+// the ring engine's instantiations of B1 and the fused route (RingPolicy:
+// the ring's budget and an overflow flag, slice_epoch.cu built with
+// SLICE_EPOCH_RING and slice_epoch_fused.cu with FUSED_RING);
 // slice_epoch_v5.cu (B3) evaluates each packet slot with GroupLane's
 // like_eval, and slice_epoch_v3_instr.cu (E2) runs v3's grid steps on it.
 //
@@ -130,15 +133,30 @@
 //               v3); otherwise the chain keeps x0 and goes on to its next
 //               repeat (v2);
 //   CUBE        every repeat writes cube row r = x0 after the advance (v2).
+//   FLAG        a chain that the budget stops before its last repeat is
+//               accepted sets its overflow flag (the ring engine).
 // Either way such a repeat records t = 0, logL = logzero and its count.
 struct V4Policy {  // B1 (slice_epoch.cu, slice_epoch_fused.cu)
-    static constexpr bool PER_REPEAT = false, STOP = true, CUBE = false;
+    static constexpr bool PER_REPEAT = false, STOP = true, CUBE = false, FLAG = false;
 };
 struct V2Policy {  // B5 (slice_epoch_v2.cu)
-    static constexpr bool PER_REPEAT = true, STOP = false, CUBE = true;
+    static constexpr bool PER_REPEAT = true, STOP = false, CUBE = true, FLAG = false;
 };
 struct V3Policy {  // B4 (slice_epoch_v3.cu)
-    static constexpr bool PER_REPEAT = true, STOP = true, CUBE = false;
+    static constexpr bool PER_REPEAT = true, STOP = true, CUBE = false, FLAG = false;
+};
+// B1 under the ring engine (engine="ring"; the JAX package's
+// build_epoch_fn_ring, polychordlite_tpu/ops/slice_kernel.py:430-660): V4's
+// epoch-wide budget and stop, with the ring's R x ring_factor micro-steps
+// as `cap`, and the per-lane overflow flag.  The JAX ring runs every lane
+// one micro-step per iteration of one loop capped at R x ring_factor
+// iterations and flags the epoch when a valid lane is not done after it;
+// a chain here takes the same micro-steps, so it overflows exactly when it
+// needs more than the budget.  Built apart (slice_epoch.cu with
+// SLICE_EPOCH_RING, slice_epoch_fused.cu with FUSED_RING), so that the
+// other policies' libraries are what they were.
+struct RingPolicy {
+    static constexpr bool PER_REPEAT = false, STOP = true, CUBE = false, FLAG = true;
 };
 
 // B5's cube row r of chain b: each lane writes the coordinates it owns.
@@ -326,6 +344,7 @@ __device__ __forceinline__ long long chain_epoch(const Like& like,
             if (rep.accepted) slice_advance(x0, n, rep.t, D);
             repeat_end<Policy, 1>(a, r, b, x0, 0);
             if (Policy::STOP && !rep.accepted) {  // the budget: the chain stops here
+                if constexpr (Policy::FLAG) a.overflow[b] = 1;
                 ++r;
                 break;
             }
@@ -377,6 +396,9 @@ __device__ __forceinline__ void group_epoch_on(const GroupLane<G, Like>& L,
         bool over = false;  // the budget ended this repeat, and the chain goes on
         if (!done && steps >= a.cap) {  // the budget ends the repeat unaccepted
             if (g == 0) write_repeat(a, r, b, Real(0), L.logzero, s.cnt);
+            if constexpr (Policy::FLAG) {
+                if (g == 0) a.overflow[b] = 1;
+            }
             if (Policy::STOP) {
                 repeat_end<Policy, G, MAXD>(a, r++, b, x0, g);
                 done = true;

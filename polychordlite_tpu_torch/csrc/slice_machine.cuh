@@ -234,6 +234,9 @@ struct EpochArgsT {
     // the launch's first lane in the whole batch: a shard's lanes hash as the
     // same lanes of the one-device launch (0 there)
     uint32_t lane0 = 0;
+    // the ring engine's per-lane overflow flags (B,), zeroed by the caller
+    // (RingPolicy, slice_epoch.cuh), else null
+    int* overflow = nullptr;
 };
 using EpochArgs = EpochArgsT<float>;
 
@@ -254,6 +257,13 @@ inline EpochArgsT<T> epoch_args(const void* x0t, const void* bound, const void* 
 template <class T>
 inline EpochArgsT<T> at_lane0(EpochArgsT<T> a, unsigned int lane0) {
     a.lane0 = lane0;
+    return a;
+}
+
+// The same arguments with the ring engine's overflow flags (B,) int32.
+template <class T>
+inline EpochArgsT<T> with_overflow(EpochArgsT<T> a, void* overflow) {
+    a.overflow = (int*)overflow;
     return a;
 }
 

@@ -47,7 +47,12 @@ def build_chained_fn(run_packed, cfg: EpochConfig, B_log: int, B_phys: int,
 
     ``run_packed(key, packed_in)`` is the runner's epoch on a packed input
     batch of ``B_phys`` lanes ([cube, bound, cholesky, valid] per lane); it
-    returns the epoch records of the ``B_log`` logical lanes."""
+    returns the epoch records of the ``B_log`` logical lanes.  The ring
+    engine raises: its runner re-runs an overflowed epoch, and a chain has
+    no such re-run (``polychordlite_tpu/ops/chained_epoch.py:84-86``)."""
+    if cfg.engine == "ring":
+        raise ValueError("chained epochs do not support the ring engine: an epoch that "
+                         "overflows its budget is re-run by the runner, one epoch a dispatch")
     D = cfg.n_dims
     R = cfg.total_repeats
     rec_w = R * (2 * D + cfg.n_phi + 1)  # baby records: cube, theta, phi, logL

@@ -279,8 +279,9 @@ class Lowered:
     #: the dtype of the plain version and the kernel: float32, or float64 for
     #: a calc made at precision='highest'
     dtype: torch.dtype = torch.float32
-    #: seconds each group size's library took to build (or load) in this process
-    build_seconds: Dict[int, float] = field(default_factory=dict)
+    #: seconds each group size's library took to build (or load) in this
+    #: process, by G (the ring engine's by "G/ring")
+    build_seconds: Dict[object, float] = field(default_factory=dict)
     _device_consts: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
 
     @property
@@ -421,8 +422,10 @@ class Lowered:
             "};",
         ])
 
-    def source(self, group: int) -> str:
-        """The generated header ``fused_like.cuh`` for ``group`` lanes per chain."""
+    def source(self, group: int, ring: bool = False) -> str:
+        """The generated header ``fused_like.cuh`` for ``group`` lanes per
+        chain; with ``ring``, of the ring engine's library (``FUSED_RING``:
+        its entry is ``slice_epoch_fused_ring_launch``)."""
         return "\n".join([
             "// Generated by polychordlite_tpu_torch/ops/fused_like.py from a model's",
             "// torch trace; built by slice_epoch_fused.cu.  Do not edit.",
@@ -431,35 +434,40 @@ class Lowered:
             f"#define FUSED_MAXD {self.bucket_macro}",
             f"#define FUSED_G {group}",
             f"#define FUSED_NC {len(self.consts)}",
+            *(["#define FUSED_RING 1"] if ring else []),
             "",
             self.emit_functor(),
             "",
         ])
 
-    def key(self, group: int) -> str:
-        """A hash of :meth:`source`: the graph and G, not the constants."""
-        return hashlib.sha256(self.source(group).encode()).hexdigest()[:16]
+    def key(self, group: int, ring: bool = False) -> str:
+        """A hash of :meth:`source`: the graph, G and the ring, not the constants."""
+        return hashlib.sha256(self.source(group, ring).encode()).hexdigest()[:16]
 
-    def library_name(self, group: int) -> str:
-        return f"slice_epoch_fused_{self.key(group)}"
+    def library_name(self, group: int, ring: bool = False) -> str:
+        return f"slice_epoch_fused_{'ring_' if ring else ''}{self.key(group, ring)}"
 
-    def build(self, groups) -> None:
-        """Build (or load) the libraries of ``groups``, one nvcc each, all
-        started together; their seconds go to :attr:`build_seconds` (0 for
-        a library this process had loaded already)."""
-        names = {G: self.library_name(G) for G in groups}
+    def build(self, groups, ring: bool = False) -> None:
+        """Build (or load) the libraries of ``groups`` (the ring engine's
+        with ``ring``), one nvcc each, all started together; their seconds
+        go to :attr:`build_seconds` by G, or by ``"G/ring"`` (0 for a
+        library this process had loaded already)."""
+        names = {G: self.library_name(G, ring) for G in groups}
         loaded = {G for G, n in names.items() if nvcc.is_loaded(n)}
         nvcc.build_all({n: [SOURCE] for n in names.values()},
-                       headers={names[G]: self.source(G) for G in names})
+                       headers={names[G]: self.source(G, ring) for G in names})
         for G, n in names.items():
-            self.build_seconds.setdefault(G, 0.0 if G in loaded else nvcc.build_seconds[n])
+            self.build_seconds.setdefault(f"{G}/ring" if ring else G,
+                                          0.0 if G in loaded else nvcc.build_seconds[n])
 
-    def library(self, group: int):
-        """The library of ``group`` lanes per chain, built at first use."""
-        name = self.library_name(group)
+    def library(self, group: int, ring: bool = False):
+        """The library of ``group`` lanes per chain (the ring engine's with
+        ``ring``), built at first use."""
+        name = self.library_name(group, ring)
         t0 = time.perf_counter()
-        lib = nvcc.load(name, [SOURCE], header=self.source(group))
-        self.build_seconds.setdefault(group, time.perf_counter() - t0)
+        lib = nvcc.load(name, [SOURCE], header=self.source(group, ring))
+        self.build_seconds.setdefault(f"{group}/ring" if ring else group,
+                                      time.perf_counter() - t0)
         return lib
 
 

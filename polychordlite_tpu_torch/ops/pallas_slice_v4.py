@@ -109,10 +109,16 @@ SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
 STREAM = "stream"
 
 #: kernel launches since the last reset (compare-with-plain launches included);
-#: the double instantiations of the fused and traced routes under ``_f64``
+#: the double instantiations of the fused and traced routes under ``_f64``;
+#: the ring engine's (``ring_cap``: B1's and the fused route's ``RingPolicy``
+#: instantiations, the traced and host routes under the ring's budget)
+#: under ``_ring``
 LAUNCHES = {"slice_epoch": 0, "slice_epoch_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
             "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
-            "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0}
+            "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0,
+            "slice_epoch_ring": 0, "slice_epoch_fused_ring": 0, "slice_epoch_fused_ring_f64": 0,
+            "slice_step_ring": 0, "slice_step_ring_f64": 0, "slice_step_host_ring": 0,
+            "slice_step_host_ring_f64": 0}
 #: the traced route's CUDA-graph replays and the rounds they ran, since the
 #: last reset
 TRACED = {"replays": 0, "rounds": 0}
@@ -181,6 +187,12 @@ _ARGTYPES = (
 
 def _lib():
     return nvcc.load("slice_epoch", ["slice_epoch.cu"])
+
+
+def _ring_lib():
+    """B1 under ``RingPolicy``: ``csrc/slice_epoch.cu`` built with
+    ``SLICE_EPOCH_RING`` (``nvcc.DEFINES``)."""
+    return nvcc.load("slice_epoch_ring", ["slice_epoch.cu"])
 
 
 def stream_max_d(n_terms: int = 1, dtype=torch.float32) -> int:
@@ -368,7 +380,7 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
 
 
 def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                group=None, lane0=0):
+                group=None, lane0=0, ring_cap=None):
     """Run the slice repeats of every lane: (t, logL) float32 and nlike
     int32, each (B, R).  ``x0 (B,D)``, ``bound (B,)``, ``valid (B,)`` bool,
     ``nhats (B,R,D)``, ``ws (B,R)``.  CPU tensors: the plain version; CUDA
@@ -377,17 +389,30 @@ def slice_epoch(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
     :func:`choose_group` by default).  Every G gives the same result bit
     for bit.  ``lane0`` is the first lane's index in the whole batch (a
     shard's first logical lane, ``pallas_slice.lane_hash``); every wrapper
-    of a slice kernel takes it."""
+    of a slice kernel takes it.  ``ring_cap`` runs the ring engine's
+    instantiation (``RingPolicy``, library ``slice_epoch_ring``) under that
+    budget, and the overflow flags (B,) bool come last: the plain version's
+    with ``ring_cap`` (``slice_records_plain``); B1's route's wrappers all
+    take it."""
     if group is not None and group not in GROUPS:
         raise ValueError(f"group {group} is not one of {GROUPS}")
     if x0.device.type == "cpu":
         return slice_records_plain(
-            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
+            lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0,
+            ring_cap=ring_cap,
         )
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
+    if ring_cap is not None:
+        flag = torch.zeros(B, dtype=torch.int32, device=x0.device)
+        out = launch_slice_kernel(_ring_lib(), "slice_epoch_ring_launch", calc, cfg, key_words,
+                                  x0, bound, valid, nhats, ws, cap=ring_cap, extra=(flag,),
+                                  ints=(key[1],), lane0=lane0)
+        LAUNCHES["slice_epoch_ring"] += 1
+        GROUP_LAUNCHES[key] += 1
+        return (*out, flag != 0)
     out = launch_slice_kernel(_lib(), "slice_epoch_launch", calc, cfg, key_words,
                               x0, bound, valid, nhats, ws, ints=(key[1],), lane0=lane0)
     LAUNCHES["slice_epoch"] += 1
@@ -435,7 +460,7 @@ def lane_efficiency(lane_steps: torch.Tensor, warp_max: torch.Tensor) -> float:
 
 
 def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                      group=None, lane0=0):
+                      group=None, lane0=0, ring_cap=None):
     """Run the slice repeats of every lane with the model's likelihood
     lowered into B1 (``ops/fused_like.py``): (t, logL) of the lowering's
     dtype (float32; float64 at ``precision='highest'``) and nlike int32,
@@ -443,7 +468,9 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     plain version, ``slice_records_plain`` on ``Lowered.plain_logL``; CUDA
     tensors: ``csrc/slice_epoch_fused.cu`` in that dtype with ``group``
     lanes per chain (:func:`launch_group`), its library built at first use.
-    A model the lowering refused raises, naming the reason."""
+    A model the lowering refused raises, naming the reason.  ``ring_cap``
+    as :func:`slice_epoch`'s: the ring library of the model and G
+    (``FUSED_RING``), the overflow flags last."""
     from .fused_like import Refused, lowering
 
     if group is not None and group not in GROUPS:
@@ -453,29 +480,46 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
         raise ValueError(f"the fused route cannot run this model: {low.reason}")
     if x0.device.type == "cpu":
         return slice_records_plain(low.plain_logL, cfg, key_words, x0, bound, valid, nhats, ws,
-                                   lane0=lane0)
+                                   lane0=lane0, ring_cap=ring_cap)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
     G = key[1]
     functor = (G, low.device_consts(x0.device), *low.prior, low.device_prior(x0.device))
-    out = launch_slice_kernel(low.library(G), "slice_epoch_fused_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, functor=functor, lane0=lane0)
-    LAUNCHES["slice_epoch_fused" if low.dtype == torch.float32 else "slice_epoch_fused_f64"] += 1
+    ring = ring_cap is not None
+    flag = torch.zeros(B, dtype=torch.int32, device=x0.device) if ring else None
+    out = launch_slice_kernel(
+        low.library(G, ring=ring), "slice_epoch_fused_ring_launch" if ring
+        else "slice_epoch_fused_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
+        cap=ring_cap, extra=(flag,) if ring else (), functor=functor, lane0=lane0)
+    LAUNCHES["slice_epoch_fused" + ("_ring" if ring else "")
+             + ("" if low.dtype == torch.float32 else "_f64")] += 1
     GROUP_LAUNCHES[key] += 1
-    return out
+    return (*out, flag != 0) if ring else out
 
 
-def validate_fused(calc, cfg: EpochConfig, device, group: int) -> None:
-    """Check the fused kernel at ``group`` lanes per chain against its plain
-    version, ``Lowered.plain_logL``, bitwise, on :func:`validate_functor`'s
-    probe epoch; raise on any difference.  (:func:`fused_like.lower`
-    already held the plain version to the calc.)"""
+def validate_fused(calc, cfg: EpochConfig, device, group: int, ring: bool = False) -> None:
+    """Check the fused kernel at ``group`` lanes per chain (its ring
+    engine's library with ``ring``) against its plain version,
+    ``Lowered.plain_logL``, bitwise, on :func:`validate_functor`'s probe
+    epoch; raise on any difference.  (:func:`fused_like.lower` already held
+    the plain version to the calc.)"""
     from .fused_like import lowering
 
-    validate_functor(calc, cfg, device,
-                     lambda *a: slice_epoch_fused(*a, group=group), want=lowering(calc).plain_logL)
+    validate_functor(calc, cfg, device, ring_records(slice_epoch_fused, group, ring),
+                     want=lowering(calc).plain_logL)
+
+
+def ring_records(wrapper, group: int, ring: bool):
+    """:func:`validate_functor`'s ``records`` for a wrapper of B1's route
+    at ``group`` lanes per chain: with ``ring``, its ring instantiation,
+    under the probe epoch's own budget ``step_cap`` (the probe epoch steps
+    out to ``max_step`` on both sides, past any ring's budget)."""
+    def records(calc, one, *args):
+        return wrapper(calc, one, *args, group=group,
+                       **({"ring_cap": one.step_cap} if ring else {}))
+    return records
 
 
 def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) -> None:
@@ -520,14 +564,15 @@ def validate_functor(calc, cfg: EpochConfig, device, records=None, want=None) ->
 
 
 def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, logL, nlike_rep,
-                   cube=None, aux=None, theta_phi=None):
+                   cube=None, aux=None, theta_phi=None, overflow=None):
     """Packed epoch record from the per-(lane, repeat) kernel outputs.  The
     baby positions are ``cube (B, R, D)`` where the engine wrote them (v2,
     the host route's kept probes), else rebuilt as ``seed + cumsum(t n̂)``.
     Their theta and phi are ``theta_phi`` where the engine kept them (the
     host route), else come from one batched evaluation of the calc, or,
     given the graded route's ``aux`` (its slow intermediate by repeat),
-    from :func:`graded_babies`."""
+    from :func:`graded_babies`.  The last column is ``overflow``, the ring
+    engine's flag of each lane, and 0 for every other engine."""
     B, R, D = nhats.shape
     n_grades = len(cfg.grade_dims)
     if cube is None:
@@ -546,11 +591,10 @@ def assemble_epoch(calc, cfg: EpochConfig, seed, valid, nhats, speeds, t_acc, lo
     )
     onehot = torch.nn.functional.one_hot(speeds.long(), n_grades)  # (B, R, G)
     nlike_g = (onehot * nlike_rep[:, :, None].to(torch.int64)).sum(dim=1)
-    return torch.cat([
-        babies,
-        nlike_g.to(babies.dtype),
-        torch.zeros((B, 1), dtype=babies.dtype, device=seed.device),  # overflow flag (never set)
-    ], dim=1)
+    # the lanes' overflow flags: the ring engine's (B,) bool, else 0
+    flag = (torch.zeros(B, dtype=babies.dtype, device=seed.device) if overflow is None
+            else overflow.to(babies.dtype))
+    return torch.cat([babies, nlike_g.to(babies.dtype), flag[:, None]], dim=1)
 
 
 def graded_babies(calc, cube, aux_by_rep):
@@ -596,13 +640,17 @@ class StepState:
     version of ``csrc/slice_step.cu``'s device state, in ``x0``'s dtype
     (float32, or float64 at precision='highest').  Set up as the first
     launch sets it up: a valid lane in ``PH_INIT_R`` of repeat 0, an invalid
-    one done; every record t = 0, logL = logzero, nlike = 0."""
+    one done; every record t = 0, logL = logzero, nlike = 0.  A lane stops
+    after ``cap`` micro-steps over the epoch (``cfg.step_cap`` by default;
+    the ring's budget for its plain version)."""
 
-    def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0):
+    def __init__(self, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0,
+                 cap=None):
         B, R, _ = nhats.shape
         dev = x0.device
         real = x0.dtype if x0.dtype == torch.float64 else torch.float32
         self.cfg, self.bound, self.nhats, self.ws = cfg, bound, nhats, ws
+        self.cap = cfg.step_cap if cap is None else int(cap)
         self.logzero = torch.tensor(cfg.logzero, dtype=real).item()
         self.lanes = torch.arange(B, device=dev)
         self.h_lane = lane_hash(key_words, B, dev, lane0)
@@ -636,7 +684,7 @@ def slice_step_plain(st: StepState, logL=None, rep_limit=None) -> bool:
         active = (m.phase != PH_DONE) & st.pending
         acc, forced = m.decide(cfg, active, st.t, logL, st.bound)
         st.steps = st.steps + active.to(torch.int64)
-        capped = active & ~acc & (st.steps >= cfg.step_cap)
+        capped = active & ~acc & (st.steps >= st.cap)
         rec = acc | capped
         rows, cols = st.lanes[rec], st.rep[rec]
         st.t_out[rows, cols] = torch.where(acc, st.t, 0.0)[rec]
@@ -645,7 +693,7 @@ def slice_step_plain(st: StepState, logL=None, rep_limit=None) -> bool:
         st.x = torch.where(acc[:, None], st.probe, st.x)
         st.rep = torch.where(acc, st.rep + 1, st.rep)
         m.phase = torch.where(acc, torch.where(st.rep >= R, PH_DONE, PH_INIT_R), m.phase)
-        m.phase = torch.where(capped | (acc & (st.steps >= cfg.step_cap)), PH_DONE, m.phase)
+        m.phase = torch.where(capped | (acc & (st.steps >= st.cap)), PH_DONE, m.phase)
         m.restart(acc)
     active = (m.phase != PH_DONE) & (st.rep < (R if rep_limit is None else rep_limit))
     r_idx = st.rep.clamp(max=R - 1)
@@ -656,18 +704,29 @@ def slice_step_plain(st: StepState, logL=None, rep_limit=None) -> bool:
 
 
 def slice_records_rounds_plain(logL_fn, cfg: EpochConfig, key_words, x0, bound, valid,
-                               nhats, ws, rounds: int = ROUNDS, lane0: int = 0):
+                               nhats, ws, rounds: int = ROUNDS, lane0: int = 0, ring_cap=None):
     """The traced route in torch, structured as the kernel route runs it: the
     first launch, then replays of ``rounds`` rounds (``logL_fn(probe)`` and
     one :func:`slice_step_plain`) until the flag of a replay's last round
     reads no lane running.  Returns (t, logL, nlike), each (B, R), bitwise
-    ``slice_kernel.slice_records_plain`` for any ``rounds``."""
-    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0)
+    ``slice_kernel.slice_records_plain`` for any ``rounds``; with
+    ``ring_cap``, under that budget and with the overflow flags last, read
+    from the lanes' repeat counters (:func:`ring_overflow`)."""
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0, ring_cap)
     running = slice_step_plain(st)
     while running:
         for _ in range(rounds):
             running = slice_step_plain(st, logL_fn(st.probe))
-    return st.t_out, st.l_out, st.n_out
+    out = (st.t_out, st.l_out, st.n_out)
+    return out if ring_cap is None else (*out, ring_overflow(st.rep, nhats.shape[1]))
+
+
+def ring_overflow(rep, R: int) -> torch.Tensor:
+    """The ring engine's overflow flags (B,) bool of the traced and host
+    routes, from the lanes' repeat counters after the epoch's last round
+    (``csrc/slice_step.cu``'s row ``S_REP``): a valid lane that the budget
+    stopped has not reached R (an invalid lane starts at R)."""
+    return rep < R
 
 
 def repeat_grades(speeds) -> list:
@@ -759,9 +818,14 @@ class TracedEpoch:
     and holds no reference to it: no cycle that only the garbage collector
     could free, at a moment that might fall inside another capture."""
 
-    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device):
+    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device,
+                 cap=None):
         dtype = calc_dtype(calc)
         self.cfg, self.rounds, self.device = cfg, rounds, device
+        # the micro-step budget: cfg.step_cap, or the ring's (its launches
+        # count under "_ring")
+        self.cap = cfg.step_cap if cap is None else int(cap)
+        ring = "" if cap is None else "_ring"
         self.shape = (B, R, D)
         real = dict(dtype=dtype, device=device)
         i32 = dict(dtype=torch.int32, device=device)
@@ -783,7 +847,8 @@ class TracedEpoch:
         self.fn.restype = ctypes.c_int
         self.logzero = float(cfg.logzero) if f64 else _f32(cfg.logzero)
         suffix = "_f64" if f64 else ""
-        self.counter, self.graded_counter = "slice_step" + suffix, "slice_step_graded" + suffix
+        self.counter = "slice_step" + ring + suffix
+        self.graded_counter = "slice_step_graded" + suffix
         self.graph = self.fast_graph = self.aux = None
 
     def _launch(self, first: bool, key_words=(0, 0), lane0: int = 0) -> None:
@@ -794,7 +859,7 @@ class TracedEpoch:
                 self.active, self.rep_limit)
         status = self.fn(
             int(first), *(b.data_ptr() for b in bufs), B, D, R, int(key_words[0]),
-            int(key_words[1]), int(lane0), cfg.max_step, cfg.max_shrink, cfg.step_cap, self.logzero,
+            int(key_words[1]), int(lane0), cfg.max_step, cfg.max_shrink, self.cap, self.logzero,
             torch.cuda.current_stream(self.device).cuda_stream,
         )
         nvcc.check(status, "slice_step_launch")
@@ -858,6 +923,11 @@ class TracedEpoch:
         return self.t_out.t().contiguous(), self.l_out.t().contiguous(), \
             self.n_out.t().contiguous()
 
+    def overflow(self) -> torch.Tensor:
+        """The ring's overflow flags (B,) bool after the epoch's last round
+        (:func:`ring_overflow`), a tensor of their own."""
+        return ring_overflow(self.ist[_S_REP], self.shape[1])
+
     def __call__(self, calc, key_words, x0, bound, valid, nhats, ws, lane0=0):
         self._start(key_words, x0, bound, valid, nhats, ws, self.shape[1], self.counter, lane0)
         if self.graph is None:
@@ -915,13 +985,16 @@ class TracedEpoch:
         return (*self._outputs(), aux_by_rep)
 
 
-def _runner(calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device) -> TracedEpoch:
-    """The calc's :class:`TracedEpoch` for this configuration, shape and
-    ``rounds`` (made on first use)."""
+def _runner(calc, cfg: EpochConfig, B: int, R: int, D: int, rounds: int, device,
+            cap=None) -> TracedEpoch:
+    """The calc's :class:`TracedEpoch` for this configuration, shape,
+    ``rounds`` and budget (``cap``: None for ``cfg.step_cap``, or the
+    ring's), made on first use."""
     runners = calc.__dict__.setdefault("traced_epochs", {})
-    key = (tuple(cfg), cfg.step_cap, B, R, D, rounds, str(device))
+    key = (tuple(cfg), cfg.step_cap if cap is None else int(cap), cap is not None, B, R, D,
+           rounds, str(device))
     if key not in runners:
-        runners[key] = TracedEpoch(calc, cfg, B, R, D, rounds, device)
+        runners[key] = TracedEpoch(calc, cfg, B, R, D, rounds, device, cap)
     return runners[key]
 
 
@@ -954,7 +1027,7 @@ def _check_traced_inputs(name: str, calc, x0, bound, valid, nhats, ws, rounds: i
 
 
 def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                       rounds: int = ROUNDS, lane0: int = 0):
+                       rounds: int = ROUNDS, lane0: int = 0, ring_cap=None):
     """Run the slice repeats of every lane for a model without a device
     functor: (t, logL) of the calc's dtype (float32; float64 at
     precision='highest') and nlike int32, each (B, R), with the inputs of
@@ -962,14 +1035,17 @@ def slice_epoch_traced(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhat
     :func:`slice_records_rounds_plain`; CUDA tensors: ``csrc/slice_step.cu``
     in that dtype through a :class:`TracedEpoch` kept on the calc, one per
     configuration, shape and ``rounds``.  A host-callback calc
-    raises on the card."""
+    raises on the card.  ``ring_cap`` runs the same kernel under the ring's
+    budget (its ``cap``; a graph of its own, counted under
+    ``slice_step_ring``), the overflow flags last."""
     _check_traced_inputs("slice_epoch_traced", calc, x0, bound, valid, nhats, ws, rounds)
     if x0.device.type == "cpu":
         return slice_records_rounds_plain(lambda p: calc(p)[2], cfg, key_words, x0, bound,
-                                          valid, nhats, ws, rounds, lane0)
+                                          valid, nhats, ws, rounds, lane0, ring_cap)
     B, R, D = nhats.shape
-    return _runner(calc, cfg, B, R, D, rounds, x0.device)(calc, key_words, x0, bound, valid,
-                                                          nhats, ws, lane0)
+    runner = _runner(calc, cfg, B, R, D, rounds, x0.device, ring_cap)
+    out = runner(calc, key_words, x0, bound, valid, nhats, ws, lane0)
+    return out if ring_cap is None else (*out, runner.overflow())
 
 
 def slice_epoch_graded(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, speeds,
@@ -1098,15 +1174,16 @@ def _host_rounds(keeper: ProbeKeeper, launch, read) -> None:
 
 
 def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws,
-                             lane0=0):
+                             lane0=0, ring_cap=None):
     """The host route in torch (the plain version of :class:`HostEpoch`):
     :func:`slice_step_plain` round by round, the user's likelihood called
     through :class:`ProbeKeeper` on the pending lanes' probes only.  Returns
     (t, logL, nlike), each (B, R), bitwise ``slice_kernel.slice_records_plain``
     on the same callback calc (the kernel consumes a logL only where a probe
     is pending), and the babies (cube, theta, phi) of
-    :meth:`ProbeKeeper.babies`."""
-    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0)
+    :meth:`ProbeKeeper.babies`; with ``ring_cap``, under that budget, and
+    the overflow flags last (:func:`ring_overflow`)."""
+    st = StepState(cfg, key_words, x0, bound, valid, nhats, ws, lane0, ring_cap)
     keeper = ProbeKeeper(calc, *nhats.shape)
 
     def launch(logL):
@@ -1116,7 +1193,8 @@ def slice_records_host_plain(calc, cfg: EpochConfig, key_words, x0, bound, valid
         return st.probe.cpu().numpy(), st.pending.cpu().numpy(), st.rep.cpu().numpy()
 
     _host_rounds(keeper, launch, read)
-    return st.t_out, st.l_out, st.n_out, keeper.babies(x0)
+    out = (st.t_out, st.l_out, st.n_out, keeper.babies(x0))
+    return out if ring_cap is None else (*out, ring_overflow(st.rep, nhats.shape[1]))
 
 
 class HostEpoch(TracedEpoch):
@@ -1134,14 +1212,15 @@ class HostEpoch(TracedEpoch):
     ``slice_step_host`` (``_f64``), the rounds and the host time of their
     parts in :data:`HOST`."""
 
-    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, device):
-        super().__init__(calc, cfg, B, R, D, 1, device)
+    def __init__(self, calc, cfg: EpochConfig, B: int, R: int, D: int, device, cap=None):
+        super().__init__(calc, cfg, B, R, D, 1, device, cap)
         dtype = calc_dtype(calc)
         self.probe_h = torch.empty((B, D), dtype=dtype, pin_memory=True)
         self.rows_h = torch.empty((3, B), dtype=torch.int32, pin_memory=True)
         self.logL_h = torch.empty(B, dtype=dtype, pin_memory=True)
         self.done = torch.cuda.Event()
-        self.counter = "slice_step_host" + ("_f64" if dtype == torch.float64 else "")
+        self.counter = "slice_step_host" + ("" if cap is None else "_ring") + (
+            "_f64" if dtype == torch.float64 else "")
 
     def __call__(self, calc, key_words, x0, bound, valid, nhats, ws, lane0=0):
         B, R, D = self.shape
@@ -1176,7 +1255,8 @@ class HostEpoch(TracedEpoch):
         return (*self._outputs(), keeper.babies(x0))
 
 
-def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0):
+def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, ws, lane0=0,
+                     ring_cap=None):
     """The ``"scan"`` engine's epoch for a host-callback likelihood (the
     host route, ``"slice_step_host"``): (t, logL) of the calc's dtype and
     nlike int32, each (B, R), with the inputs of :func:`slice_epoch`, and
@@ -1185,15 +1265,19 @@ def slice_epoch_host(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats,
     the plain version, :func:`slice_records_host_plain`; CUDA tensors:
     ``csrc/slice_step.cu`` through a :class:`HostEpoch` kept on the calc.
     A calc without a host evaluator (a torch model) raises: it takes the
-    traced route."""
+    traced route.  ``ring_cap`` runs it under the ring's budget (counted
+    under ``slice_step_host_ring``), the overflow flags last."""
     _check_traced_inputs("slice_epoch_host", calc, x0, bound, valid, nhats, ws, 1,
                          host=True)
     if x0.device.type == "cpu":
         return slice_records_host_plain(calc, cfg, key_words, x0, bound, valid, nhats, ws,
-                                        lane0)
+                                        lane0, ring_cap)
     B, R, D = nhats.shape
     runners = calc.__dict__.setdefault("host_epochs", {})
-    key = (tuple(cfg), cfg.step_cap, B, R, D, str(x0.device))
+    key = (tuple(cfg), cfg.step_cap if ring_cap is None else int(ring_cap), ring_cap is not None,
+           B, R, D, str(x0.device))
     if key not in runners:
-        runners[key] = HostEpoch(calc, cfg, B, R, D, x0.device)
-    return runners[key](calc, key_words, x0, bound, valid, nhats, ws, lane0)
+        runners[key] = HostEpoch(calc, cfg, B, R, D, x0.device, ring_cap)
+    runner = runners[key]
+    out = runner(calc, key_words, x0, bound, valid, nhats, ws, lane0)
+    return out if ring_cap is None else (*out, runner.overflow())

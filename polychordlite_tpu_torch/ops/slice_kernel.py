@@ -53,6 +53,22 @@ slice repeats on each of B chains and returns the packed
   ``engine="auto"``'s choice for such a model on every device, as the JAX
   package sends it to its scan engine
   (``polychordlite_tpu/core/nested_sampling.py:104-106``).
+* ``"ring"`` — the JAX package's ring engine (``build_epoch_fn_ring``,
+  ``slice_kernel.py:430-660``): each lane runs its R repeats freely under a
+  budget of R ``ring_factor`` micro-steps over the epoch
+  (:attr:`EpochConfig.ring_budget`) and raises its overflow flag when the
+  budget stops it before its last repeat is accepted; the runner re-runs
+  such an epoch with no slot budget (``parallel/mesh.py``).  The JAX ring
+  buffer and its sort exist only because a per-lane scatter is costly on
+  the TPU; what the engine means is the budget and the flag.  On the card
+  it runs B1's route for the model as ``"cuda"`` picks it
+  (:func:`cuda_route`) under ``RingPolicy`` (the functor and fused
+  kernels' ring instantiations; the traced route with the ring's budget
+  as its ``cap``), or the host route for a host-callback model; on the CPU
+  the plain engine under the same budget.  The re-run is the same route at
+  its own budget ``step_cap``, so a ring epoch is, once re-run where it
+  overflowed, bitwise the ``"cuda"`` epoch on the card and the ``"torch"``
+  one on the CPU.
 
 At ``precision='highest'`` (``calc.dtype`` float64) ``"cuda"`` takes the
 fused route or the traced route, each in double, never the functor kernel:
@@ -97,8 +113,9 @@ from .precision import calc_dtype
 #: and "cuda2" (B5, v2) — the JAX package's "pallas", "pallas5", "pallas3"
 #: and "pallas2"
 KERNEL_ENGINES = ("cuda", "cuda5", "cuda3", "cuda2")
-#: and the lockstep engine of a graded model (the JAX package's "scan")
-ENGINES = ("torch", "scan") + KERNEL_ENGINES
+#: and the lockstep engine of a graded model (the JAX package's "scan"), and
+#: the JAX package's ring engine, B1 under the ring's budget
+ENGINES = ("torch", "scan", "ring") + KERNEL_ENGINES
 
 
 class EpochConfig(NamedTuple):
@@ -111,11 +128,20 @@ class EpochConfig(NamedTuple):
     logzero: float = LOG_ZERO
     max_step: int = 200   # stepping-out cap (reference warns past 100 and has no cap)
     max_shrink: int = 100  # shrinkage cap (chordal_sampling.f90:240-271)
-    engine: str = "torch"  # "torch" (plain), "scan" (graded) or "cuda", "cuda5", "cuda3", "cuda2"
+    engine: str = "torch"  # "torch" (plain), "scan" (graded), "ring" or "cuda", "cuda5", "cuda3", "cuda2"
+    ring_factor: int = 12  # the ring engine's micro-steps per repeat before overflow
 
     @property
     def total_repeats(self) -> int:
         return int(sum(self.num_repeats))
+
+    @property
+    def ring_budget(self) -> int:
+        """The ring engine's budget: R ``ring_factor`` micro-steps a lane
+        over the epoch, the JAX ring's ``max_total`` (``slice_kernel.py:443``:
+        its loop's iterations, in each of which every running lane takes one
+        micro-step)."""
+        return self.total_repeats * self.ring_factor
 
     @property
     def step_cap(self) -> int:
@@ -136,6 +162,7 @@ def slice_records_plain(
     ws: torch.Tensor,      # (B, R)
     count_steps: bool = False,
     lane0: int = 0,
+    ring_cap=None,
 ):
     """The plain torch engine: every lane runs its R repeats freely.
 
@@ -147,7 +174,15 @@ def slice_records_plain(
     ``count_steps``, also the micro-steps each lane executed, (B,) int32.
     ``lane0`` is the first lane's index in the whole batch: a shard of
     lanes lane0..lane0+B-1 draws the uniforms of those lanes of the
-    one-device batch (``pallas_slice.lane_hash``)."""
+    one-device batch (``pallas_slice.lane_hash``).
+
+    A lane stops after :attr:`EpochConfig.step_cap` micro-steps over the
+    epoch.  With ``ring_cap`` (the ring engine's plain version) it stops
+    after ``ring_cap`` instead, and the outputs end with the lanes'
+    overflow flags (B,) bool: set where the budget stopped a valid lane
+    before its last repeat was accepted (the JAX ring's ``phase != DONE``
+    after its loop), also when the budget's last micro-step accepted a
+    repeat other than the last."""
     B, D = x0.shape
     R = nhats.shape[1]
     dev = x0.device
@@ -163,7 +198,7 @@ def slice_records_plain(
     t_out = torch.zeros((B, R), dtype=real, device=dev)
     l_out = torch.full((B, R), logzero, dtype=real, device=dev)
     n_out = torch.zeros((B, R), dtype=torch.int32, device=dev)
-    cap = cfg.step_cap
+    cap = cfg.step_cap if ring_cap is None else int(ring_cap)
 
     while bool((m.phase != PH_DONE).any()):
         active = m.phase != PH_DONE
@@ -183,9 +218,8 @@ def slice_records_plain(
         m.phase = torch.where(acc, torch.where(rep >= R, PH_DONE, PH_INIT_R), m.phase)
         m.phase = torch.where(capped | (acc & (steps >= cap)), PH_DONE, m.phase)
         m.restart(acc)
-    if count_steps:
-        return t_out, l_out, n_out, steps.to(torch.int32)
-    return t_out, l_out, n_out
+    out = (t_out, l_out, n_out) + ((steps.to(torch.int32),) if count_steps else ())
+    return out + ((rep < R,) if ring_cap is not None else ())
 
 
 def cuda_route(calc) -> Tuple[str, str]:
@@ -228,7 +262,9 @@ def kernel_wrapper(engine: str):
     """The wrapper of an engine's CUDA kernel: (calc, cfg, key_words, x0,
     bound, valid, nhats, ws, group=None) -> (t, logL, nlike[, cube]).  On
     CPU tensors each wrapper runs its own plain version.  ``"cuda"`` takes
-    :func:`cuda_route`'s route; the other engines need a functor."""
+    :func:`cuda_route`'s route, and ``ring_cap=`` runs that route under the
+    ring engine's budget, its overflow flags (B,) bool last; the other
+    engines need a functor."""
     from .pallas_slice_v3 import slice_epoch_v3
     from .pallas_slice_v4 import slice_epoch, slice_epoch_fused, slice_epoch_traced
     from .pallas_slice_v5 import slice_epoch_v5
@@ -243,21 +279,32 @@ def kernel_wrapper(engine: str):
             "cuda2": slice_epoch_v2}[engine]
 
 
-def epoch_route(engine: str, calc) -> str:
+def epoch_route(engine: str, calc, device=None) -> str:
     """The kernel that ``engine`` runs for ``calc`` (the run metrics'
     ``route``): ``"plain"`` for the torch engine, ``"slice_step_graded"``
     for ``"scan"`` (``"slice_step_host"`` for a host-callback calc),
-    :func:`cuda_route`'s for ``"cuda"``, else the forced engine's kernel."""
-    return _route(engine, calc)[0]
+    :func:`cuda_route`'s for ``"cuda"``, for ``"ring"`` the same on a CUDA
+    ``device`` (``"slice_step_host"`` for a host-callback calc) and
+    ``"plain"`` on the CPU, else the forced engine's kernel."""
+    return _route(engine, calc, device)[0]
 
 
-def route_reason(engine: str, calc) -> str:
+def route_reason(engine: str, calc, device=None) -> str:
     """Why :func:`epoch_route` chose its kernel (the run metrics'
     ``route_reason``): for the traced route, what refused lowering."""
-    return _route(engine, calc)[1]
+    return _route(engine, calc, device)[1]
 
 
-def _route(engine: str, calc) -> Tuple[str, str]:
+def _route(engine: str, calc, device=None) -> Tuple[str, str]:
+    if engine == "ring":
+        budget = "engine='ring': B1 under the ring's budget, an overflowed epoch re-run; "
+        if device is None or torch.device(device).type != "cuda":
+            return "plain", "engine='ring' on the CPU: the plain engine under the ring's budget"
+        if getattr(calc, "uses_callback", False):
+            route, why = _route("scan", calc)
+        else:
+            route, why = cuda_route(calc)
+        return route, budget + why
     if engine == "torch":
         return "plain", "engine='torch'"
     if engine == "scan" and getattr(calc, "uses_callback", False):
@@ -276,15 +323,22 @@ def _route(engine: str, calc) -> Tuple[str, str]:
 
 def build_epoch_fn(calc, cfg: EpochConfig):
     """Build ``epoch(key_words, seed_cube, bound, cholesky, lane_valid,
-    generator=None, directions=None, draws=None, lane0=0)`` for
-    ``cfg.engine``.
+    generator=None, directions=None, draws=None, lane0=0, rerun=False)``
+    for ``cfg.engine``.
 
     ``generator`` is the device ``torch.Generator`` the directions are drawn
     from; ``draws=(gauss, perm)`` gives its draws instead (a shard's columns
     of the one-device draw, ``ops/directions.py::shard_draws``);
     ``directions=(nhats, w, speeds)`` replaces the whole direction step
     (test seam).  ``lane0`` is the batch's first lane in the whole chain
-    batch (a shard's; ``pallas_slice.lane_hash``)."""
+    batch (a shard's; ``pallas_slice.lane_hash``).
+
+    The packed record's last column is the ring engine's overflow flag of
+    each lane (:func:`epoch_overflowed`): set where the ring's budget
+    stopped a valid lane before its last repeat was accepted, 0 on every
+    other engine.  ``rerun`` runs the ring's epoch again on the same route
+    at the route's own budget ``step_cap``, with no flag (the runner's
+    re-run of an overflowed epoch, on the same draws)."""
     from .directions import make_directions
     from .pallas_slice_v4 import assemble_epoch
 
@@ -310,6 +364,25 @@ def build_epoch_fn(calc, cfg: EpochConfig):
             t, logL, nlike, aux = slice_epoch_graded(calc, cfg, *args, speeds, with_aux=True,
                                                      lane0=lane0)
             return t, logL, nlike, None, aux
+    elif cfg.engine == "ring":
+        from .pallas_slice_v4 import slice_epoch_host
+
+        cuda = kernel_wrapper("cuda")
+
+        def records(key_words, x0, *args, speeds, lane0, rerun):
+            # the ring's budget, or the route's own for the re-run; the
+            # overflow flags go last
+            cap = None if rerun else cfg.ring_budget
+            if x0.device.type == "cpu":  # the plain engine
+                out = slice_records_plain(lambda p: calc(p)[2], cfg, key_words, x0, *args,
+                                          lane0=lane0, ring_cap=cap)
+            elif calc.uses_callback:  # the host route, its babies the kept probes
+                t, logL, nlike, (cube, theta, phi), *flag = slice_epoch_host(
+                    calc, cfg, key_words, x0, *args, lane0=lane0, ring_cap=cap)
+                out = (t, logL, nlike, cube, None, (theta, phi), *flag)
+            else:  # B1's route for the model
+                out = cuda(calc, cfg, key_words, x0, *args, lane0=lane0, ring_cap=cap)
+            return out
     else:
         kernel = kernel_wrapper(cfg.engine)
 
@@ -318,8 +391,10 @@ def build_epoch_fn(calc, cfg: EpochConfig):
 
     dtype = calc_dtype(calc)  # float64 at precision='highest'
 
+    ring = cfg.engine == "ring"
+
     def epoch(key_words, seed_cube, bound, cholesky, lane_valid,
-              generator=None, directions=None, draws=None, lane0=0):
+              generator=None, directions=None, draws=None, lane0=0, rerun=False):
         if directions is None:
             # the plain engine asks for the plain Gram-Schmidt by name: its
             # runs reach no kernel, at any dimension
@@ -331,9 +406,16 @@ def build_epoch_fn(calc, cfg: EpochConfig):
             )
         nhats, ws, speeds = directions
         seed_f = seed_cube.to(dtype)
-        out = records(key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws, speeds=speeds,
-                      lane0=lane0)
-        return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out)
+        args = (key_words, seed_f, bound.to(dtype), lane_valid, nhats, ws)
+        overflow = None
+        if ring:
+            out = records(*args, speeds=speeds, lane0=lane0, rerun=rerun)
+            if not rerun:
+                *out, overflow = out
+        else:
+            out = records(*args, speeds=speeds, lane0=lane0)
+        return assemble_epoch(calc, cfg, seed_f, lane_valid, nhats, speeds, *out,
+                              overflow=overflow)
 
     return epoch
 
@@ -356,3 +438,10 @@ def unpack_epoch(packed, cfg: EpochConfig):
     logL = per_baby[:, :, -1]
     nlike = packed[:, R * stride : R * stride + n_grades].astype(np.int64)
     return cube, theta, phi, logL, nlike
+
+
+def epoch_overflowed(packed) -> bool:
+    """Whether a ring-engine epoch's packed record (a tensor or an array)
+    has a lane whose overflow flag, its last column, is set: the runner then
+    re-runs the epoch (``polychordlite_tpu/ops/slice_kernel.py:680-686``)."""
+    return bool(packed[:, -1].any())

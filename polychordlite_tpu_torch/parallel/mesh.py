@@ -30,6 +30,21 @@ model's, and a host callback's host route) included.  A host-callback
 model shards like any other: each process calls the user's function on
 its own shards' lanes only (the JAX package keeps it on one device, since
 ``pure_callback`` cannot run under ``shard_map``; nothing here needs that).
+
+The ring engine (``engine="ring"``) runs each epoch under its budget and
+flags the lanes it stopped (the record's last column).  When the gathered
+record of every shard of every process holds a flag, each shard re-runs
+its own rows on the same route at the route's own budget, from the inputs
+and the directions' draws its dispatch kept (never from the generator,
+which a dispatch-ahead run has moved on), and the gather runs again: the
+JAX runner's re-run of an overflowed ring epoch
+(``polychordlite_tpu/parallel/mesh.py:296-305``), counted by
+``run.ring_reruns()``, not a demotion.  The JAX runner re-runs on its scan
+engine; here the re-run is B1's route for a torch model and the host route
+for a host callback on the card (B1 takes 0.81 ms an epoch at the bench
+against ~169 ms for the lockstep graded route, PERF.md section 6), the
+plain engine on the CPU: each is bitwise the port's ``"scan"`` on that
+model.
 """
 
 from __future__ import annotations
@@ -43,7 +58,8 @@ import torch
 from ..ops.directions import draw_directions, shard_draws
 from ..ops.pallas_slice import key_words
 from ..ops.precision import calc_dtype
-from ..ops.slice_kernel import EpochConfig, build_epoch_fn, epoch_route, unpack_epoch
+from ..ops.slice_kernel import (EpochConfig, build_epoch_fn, epoch_overflowed, epoch_route,
+                                unpack_epoch)
 from . import distributed
 
 GRANULE = 128
@@ -105,7 +121,8 @@ def make_epoch_runner(
 
     ``devices`` are this process's shards (default :func:`local_devices`,
     cut to the first ``n_devices``, the settings' ``mesh_shape``).
-    ``run.n_shards`` is the count of shards over all processes."""
+    ``run.n_shards`` is the count of shards over all processes;
+    ``run.ring_reruns()`` the epochs the ring engine re-ran."""
     devices = run_devices(device, n_devices) if devices is None else devices
     devices = [torch.device(d) for d in devices]
     n_proc = distributed.process_count()
@@ -127,25 +144,35 @@ def make_epoch_runner(
     epoch_fn = build_epoch_fn(calc, cfg)
     real = calc_dtype(calc)
     np_real = np.float32 if real == torch.float32 else np.float64
-    route = epoch_route(cfg.engine, calc) if cfg.engine != "torch" else "plain"
+    ring = cfg.engine == "ring"
+    route = epoch_route(cfg.engine, calc, devices[0]) if cfg.engine != "torch" else "plain"
     # the functor (or the lowered one), in its kernel, at the (bucket, G) that
-    # a shard takes, on each device once; the traced and graded routes
-    # evaluate the calc itself, in torch, and the host route on the host
-    from ..ops.pallas_slice_v4 import validate_functor, validate_fused
+    # a shard takes, on each device once (the ring's instantiation and the
+    # one its re-run takes); the traced and graded routes evaluate the calc
+    # itself, in torch, and the host route on the host
+    from ..ops.pallas_slice_v4 import ring_records, slice_epoch, validate_functor, validate_fused
     from ..ops.slice_kernel import kernel_wrapper
 
     for dev in dict.fromkeys(devices):
         group = run_group(cfg.engine, calc, rows_phys, D, dev)
-        if route not in ("plain", "slice_epoch_fused", "slice_step", "slice_step_graded",
-                         "slice_step_host"):
+        if ring and route == "slice_epoch":
+            for r in (False, True):
+                validate_functor(calc, cfg, dev, ring_records(slice_epoch, group, r))
+        elif route not in ("plain", "slice_epoch_fused", "slice_step", "slice_step_graded",
+                           "slice_step_host"):
             wrapper = kernel_wrapper(cfg.engine)
             validate_functor(calc, cfg, dev, lambda *a: wrapper(*a, group=group))  # noqa: B023
-        elif cfg.engine == "cuda" and dev.type == "cuda" and route == "slice_epoch_fused":
-            validate_fused(calc, cfg, dev, group)
+        elif cfg.engine in ("cuda", "ring") and dev.type == "cuda" and route == "slice_epoch_fused":
+            for r in (False, True) if ring else (False,):
+                validate_fused(calc, cfg, dev, group, ring=r)
 
     # cumulative epoch-phase timers (host clock, seconds); "gather" is the
-    # wait for the other processes' shards, host time, not the device's
-    timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "gather": 0.0, "unpack": 0.0}
+    # wait for the other processes' shards, host time, not the device's;
+    # the ring engine's "rerun", its re-runs of overflowed epochs, enqueue
+    # to fetch
+    timers = {"pack": 0.0, "enqueue": 0.0, "fetch": 0.0, "gather": 0.0, "unpack": 0.0,
+              **({"rerun": 0.0} if ring else {})}
+    counts = {"ring_reruns": 0}
 
     def pack_inputs(seed_cube, bound, chol):
         """The logical lanes' inputs: per lane [cube(D), bound,
@@ -164,20 +191,24 @@ def make_epoch_runner(
         pad[:, -1] = 0.0
         return np.concatenate([flat, pad], axis=0)
 
-    def run_packed(key, packed_in, n_log=B, draws=None, lane0=0):
+    def run_packed(key, packed_in, n_log=B, draws=None, lane0=0, rerun=False):
         """The epoch of one shard's packed batch: the records of its first
-        ``n_log`` (logical) lanes, on the batch's device."""
+        ``n_log`` (logical) lanes, on the batch's device (``rerun``: the
+        ring's re-run)."""
         seed_cube = packed_in[:, :D]
         bound = packed_in[:, D]
         chol = packed_in[:, D + 1 : D + 1 + D * D].reshape(-1, D, D)
         valid = packed_in[:, -1] > 0.5
         out = epoch_fn(key_words(key), seed_cube, bound, chol, valid,
-                       generator=generator, draws=draws, lane0=lane0)
+                       generator=generator, draws=draws, lane0=lane0, rerun=rerun)
         return out[:n_log]
 
     def dispatch(key, seed_cube, bound, chol):
         """Upload one epoch's inputs and enqueue it on this process's
-        shards, one after the other; returns their outputs."""
+        shards, one after the other; returns the handle :func:`collect`
+        takes: the shards' outputs and, for the ring engine, the key and
+        each shard's arguments (its packed inputs, its draws, its lanes) for
+        a re-run."""
         t0 = time.perf_counter()
         packed_in = pack_inputs(
             np.asarray(seed_cube), np.asarray(bound), np.asarray(chol)
@@ -185,22 +216,26 @@ def make_epoch_runner(
         timers["pack"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         if n_shards == 1:
-            outs = [run_packed(key, torch.as_tensor(pad_shard(packed_in, B_phys),
-                                                    device=devices[0]))]
+            # the ring draws its directions here, as the epoch would (the
+            # same generator calls in the same order), and keeps the draws
+            draws = (draw_directions(B_phys, cfg.grade_dims, cfg.num_repeats, D, generator,
+                                     devices[0], real) if ring else None)
+            shards = [(torch.as_tensor(pad_shard(packed_in, B_phys), device=devices[0]), B,
+                       draws, 0)]
         else:
             # the whole batch's draws, from the one generator state every
             # shard of every process shares
             draws = draw_directions(B_phys, cfg.grade_dims, cfg.num_repeats, D, generator,
                                     device, real)
-            outs = []
+            shards = []
             for i, dev in enumerate(devices):
                 lo = (first + i) * rows
                 shard = torch.as_tensor(pad_shard(packed_in[lo:lo + rows], rows_phys),
                                         device=dev)
-                outs.append(run_packed(key, shard, rows,
-                                       shard_draws(draws, lo, rows, rows_phys, dev), lo))
+                shards.append((shard, rows, shard_draws(draws, lo, rows, rows_phys, dev), lo))
+        outs = [run_packed(key, *sh) for sh in shards]
         timers["enqueue"] += time.perf_counter() - t0
-        return outs
+        return (outs, (key, shards) if ring else None)
 
     def unpack(packed_out):
         t0 = time.perf_counter()
@@ -208,9 +243,8 @@ def make_epoch_runner(
         timers["unpack"] += time.perf_counter() - t0
         return res
 
-    def collect(outs):
-        """Wait for a dispatched epoch, gather its shards in lane order
-        (those of every process) and unpack its nursery."""
+    def fetch(outs):
+        """The shards' records in lane order, those of every process."""
         t0 = time.perf_counter()
         packed_out = np.concatenate([o.cpu().numpy() for o in outs])
         timers["fetch"] += time.perf_counter() - t0
@@ -218,6 +252,21 @@ def make_epoch_runner(
             t0 = time.perf_counter()
             packed_out = distributed.all_gather_rows(packed_out)
             timers["gather"] += time.perf_counter() - t0
+        return packed_out
+
+    def collect(handle):
+        """Wait for a dispatched epoch, gather its shards in lane order
+        (those of every process) and unpack its nursery.  A ring epoch with
+        a lane flagged anywhere is re-run on every shard and gathered
+        again."""
+        outs, kept = handle
+        packed_out = fetch(outs)
+        if kept is not None and epoch_overflowed(packed_out):
+            counts["ring_reruns"] += 1
+            t0 = time.perf_counter()
+            key, shards = kept
+            packed_out = fetch([run_packed(key, *sh, rerun=True) for sh in shards])
+            timers["rerun"] += time.perf_counter() - t0
         return unpack(packed_out)
 
     def run(key, seed_cube, bound, chol):
@@ -272,6 +321,7 @@ def make_epoch_runner(
     run.dispatch_chain = dispatch_chain
     run.collect_chain = collect_chain
     run.engine_used = lambda: cfg.engine  # the engine that ran: no fallback
+    run.ring_reruns = lambda: counts["ring_reruns"]
     run.timers = timers
     run.n_shards, run.n_processes = n_shards, n_proc
     return run, B

@@ -29,6 +29,13 @@ Differences from the reference (documented deviations):
   host route: the v4 kernel's traced route driven round by round, the
   model called on the host between two launches), and every kernel engine
   raises for it, naming ``"scan"``;
+* ``engine="ring"`` (the JAX package's ring engine) runs ``"cuda"``'s route
+  under a budget of R x 12 micro-steps a lane over the epoch (the host
+  route for a host-callback model), and the runner re-runs an epoch that
+  overflows it at the route's own budget (``ring_reruns`` in the final
+  metrics): a run is bitwise ``engine="cuda"`` with ``chain_epochs=0`` on
+  the card, and ``"torch"`` on the CPU.  It never chains epochs, and a
+  ``GradedLikelihood`` raises for it, naming ``"scan"``;
 * under ``torchrun --nproc_per_node N`` (or after
   ``parallel.distributed.initialise_distributed``) the chain batch is split
   over the N processes, each on its own card (``LOCAL_RANK``; ranks share

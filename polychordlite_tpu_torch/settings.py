@@ -92,7 +92,11 @@ class PolyChordSettings:
     #: model with a device form, its traced route for any other torch
     #: model), "cuda5" (the speculative-packet
     #: kernel, the JAX package's forced "pallas5"; decision-exact with
-    #: "cuda") or "torch" (the plain engine, any device).
+    #: "cuda"), "cuda3", "cuda2", "scan" (graded and host-callback models),
+    #: "ring" (the JAX package's ring engine: "cuda"'s route under a budget
+    #: of R x 12 micro-steps a lane, an epoch that overflows it re-run by
+    #: the runner — bitwise "cuda" with chain_epochs=0 on the card, "torch"
+    #: on the CPU; never chained) or "torch" (the plain engine, any device).
     engine: str = "auto"
     #: "single" (float32) or "highest" (float64 — reference precision,
     #: utils.F90:6; needed when |logL| exceeds ~1e6, see ops/precision.py:

@@ -8,6 +8,10 @@ and the flags, so a changed source is rebuilt and an unchanged one is
 reused.  :func:`build_all` starts one ``nvcc`` per library at once.  A
 build failure raises: nothing falls back to another engine.
 
+A library may also be one of :data:`DEFINES`, its sources compiled with a
+macro defined (a second library from one source); the macro is hashed into
+its name with the sources.
+
 A library may also take one generated header (the fused route's
 likelihood functor, ``ops/fused_like.py``): its text is written to
 ``build/torch_kernels/gen/<library>/`` as :data:`GENERATED_HEADER`, that
@@ -24,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -39,6 +43,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: the macros a library is built with, by name: the ring engine's B1
+#: (``csrc/slice_epoch.cu`` under ``RingPolicy``), which the library
+#: ``slice_epoch`` does not build, so that its kernels stay what they were
+DEFINES: Dict[str, Tuple[str, ...]] = {"slice_epoch_ring": ("SLICE_EPOCH_RING",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: seconds spent compiling each library in this process (0.0 when reused)
@@ -60,7 +69,7 @@ def _nvcc() -> str:
 def library_path(name: str, sources: Sequence[str], header: Optional[str] = None) -> Path:
     """Where ``lib<name>`` built from ``csrc/<sources>`` (and the generated
     ``header`` text, if any) lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + _macros(name)).encode())
     for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
@@ -68,6 +77,11 @@ def library_path(name: str, sources: Sequence[str], header: Optional[str] = None
         digest.update(GENERATED_HEADER.encode())
         digest.update(header.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _macros(name: str) -> Tuple[str, ...]:
+    """nvcc's ``-D`` flags for library ``name`` (:data:`DEFINES`)."""
+    return tuple(f"-D{m}" for m in DEFINES.get(name, ()))
 
 
 def _start(name: str, sources: Sequence[str], header: Optional[str] = None):
@@ -89,7 +103,8 @@ def _start(name: str, sources: Sequence[str], header: Optional[str] = None):
         include = ["-I", str(gen)]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp), *(str(CSRC / s) for s in sources)],
+        [_nvcc(), *NVCC_FLAGS, *_macros(name), *include, "-o", str(tmp),
+         *(str(CSRC / s) for s in sources)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     proc.tmp = tmp

@@ -473,7 +473,10 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
         "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
         "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
-        "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0}
+        "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0,
+        "slice_epoch_ring": 0, "slice_epoch_fused_ring": 0, "slice_epoch_fused_ring_f64": 0,
+        "slice_step_ring": 0, "slice_step_ring_f64": 0, "slice_step_host_ring": 0,
+        "slice_step_host_ring_f64": 0}
     plain4 = slice_records_plain(fn, cfg, kw, *args, count_steps=True)
     plain3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, kw, *args)
     plain2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, kw, *args)
@@ -1861,3 +1864,219 @@ def test_stream_slice_kernel_past_48_kb_of_shared_memory(dev, D):
     assert (want[2][8:].sum(1) > 0).all()
     with pytest.raises(ValueError, match="D <= 19370 .*engine='torch'"):
         pallas_slice_v4.bucket(19371)
+
+
+# ---- the ring engine (engine="ring"): B1 under RingPolicy, the traced route
+# under the ring's budget, the runner's re-run, the policies' registers
+def _ring_case(route, D, dev, dtype):
+    """(calc, plain logL, wrapper) of one of B1's routes for the ring: the
+    zoo Gaussian on the functor kernel, the per-point Gaussian lowered into
+    the fused route, the vector_norm Gaussian on the traced route."""
+    make = (lambda p, l, d, n: _f64_calc(p, l, d, n, dev)) if dtype == torch.float64 else (
+        lambda p, l, d, n: make_batched_calculator(p, l, d, n, device=dev))
+    if route == "functor":
+        calc = make(identity_prior, gaussian(D, sigma=0.1), D, 2)
+        return calc, lambda p: calc(p)[2], pallas_slice_v4.slice_epoch
+    if route == "fused":
+        calc = make(identity_prior, _per_point_gaussian, D, 0)
+        low = fused_like.lowering(calc)
+        assert isinstance(low, fused_like.Lowered), low
+        return calc, low.plain_logL, pallas_slice_v4.slice_epoch_fused
+    calc = make(identity_prior, _vn_norm_gaussian, D, 0)
+    return calc, lambda p: calc(p)[2], pallas_slice_v4.slice_epoch_traced
+
+
+def _vn_norm_gaussian(theta):
+    """The normalised Gaussian (sigma 0.1 at 0.5) with torch.linalg.vector_norm,
+    which the lowering refuses."""
+    D = theta.shape[-1]
+    return (-D * (math.log(0.1) + 0.5 * math.log(2 * math.pi))
+            - 0.5 * (torch.linalg.vector_norm(theta - 0.5, dim=-1) / 0.1) ** 2)
+
+
+def _ring_args(dev, B, R, D, dtype):
+    gen = torch.Generator(dev).manual_seed(D + R)
+    x0 = 0.5 + 0.05 * torch.randn((B, D), generator=gen, device=dev, dtype=dtype)
+    r0 = 1.5 * 0.1 * math.sqrt(D)
+    norm = -D * (math.log(0.1) + 0.5 * math.log(2 * math.pi))
+    bound = torch.full((B,), norm - 0.5 * (r0 / 0.1) ** 2, device=dev, dtype=dtype)
+    valid = torch.arange(B, device=dev) >= 16
+    nh, w, _ = make_directions((0.1 * torch.eye(D, device=dev, dtype=dtype)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    return x0, bound, valid, nh, w
+
+
+@pytest.mark.parametrize("ring_factor", [12, 2])
+@pytest.mark.parametrize("route,D,dtype", [
+    ("functor", 20, torch.float32), ("functor", 64, torch.float32),
+    ("functor", 160, torch.float32), ("fused", 20, torch.float32),
+    ("fused", 64, torch.float32), ("fused", 160, torch.float32),
+    ("traced", 20, torch.float32), ("traced", 64, torch.float32),
+    ("traced", 160, torch.float32), ("fused", 20, torch.float64),
+    ("traced", 20, torch.float64)])
+def test_ring_instantiations_equal_plain(dev, route, D, dtype, ring_factor):
+    """Each ring instantiation (the functor and fused kernels under
+    RingPolicy, the traced route under the ring's budget) bitwise its plain
+    version, the overflow flags included, at D = 20, 64 and 160 (the three
+    buckets; every G of the bucket for the functor kernel) and in float64 on
+    the fused and traced routes; at ring_factor 2 lanes overflow (at 12
+    some may, by the data).  Launches count under the "_ring" names."""
+    B, R = 256, (10 if D > 32 else 20)
+    calc, plain, wrap = _ring_case(route, D, dev, dtype)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,),
+                      ring_factor=ring_factor)
+    args = _ring_args(dev, B, R, D, dtype)
+    want = slice_records_plain(plain, cfg, (3, 9), *args, ring_cap=cfg.ring_budget)
+    assert want[-1].any() or ring_factor == 12
+    groups = (pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.bucket(D)]
+              if route == "functor" else (None,))
+    for g in groups:
+        kw = {} if g is None else {"group": g}
+        before = dict(pallas_slice_v4.LAUNCHES)
+        got = wrap(calc, cfg, (3, 9), *args, ring_cap=cfg.ring_budget, **kw)
+        name = {"functor": "slice_epoch_ring", "fused": "slice_epoch_fused_ring",
+                "traced": "slice_step_ring"}[route] + ("_f64" if dtype == torch.float64 else "")
+        assert pallas_slice_v4.LAUNCHES[name] > before[name]
+        assert got[-1].dtype == torch.bool
+        for k, a, b in zip(("t", "logL", "nlike", "overflow"), got, want):
+            assert torch.equal(a, b), (k, g)
+
+
+@pytest.mark.parametrize("route", ["functor", "fused", "traced"])
+def test_ring_rerun_is_the_cuda_epoch(dev, route):
+    """A starved ring epoch (ring_factor 1) flags its record; re-run on the
+    same directions it is the "cuda" epoch bit for bit, whatever the route;
+    at ring_factor 12 the ring's epoch is the "cuda" epoch where no lane
+    overflowed, and its re-run is where one did."""
+    from polychordlite_tpu_torch.ops.slice_kernel import build_epoch_fn, epoch_overflowed
+
+    B, R, D = 256, 20, 20
+    calc, _, _ = _ring_case(route, D, dev, torch.float32)
+    x0, bound, valid, nh, w = _ring_args(dev, B, R, D, torch.float32)
+    dirs = (nh, w, torch.zeros((B, R), dtype=torch.int64, device=dev))
+    ep_in = ((5, 6), x0, bound, (0.1 * torch.eye(D, device=dev)).expand(B, D, D), valid)
+    for rf in (1, 12):
+        cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,),
+                          ring_factor=rf)
+        ring = build_epoch_fn(calc, cfg._replace(engine="ring"))
+        cuda = build_epoch_fn(calc, cfg._replace(engine="cuda"))(*ep_in, directions=dirs)
+        first = ring(*ep_in, directions=dirs)
+        assert epoch_overflowed(first) or rf == 12
+        if epoch_overflowed(first):
+            first = ring(*ep_in, directions=dirs, rerun=True)
+            assert not epoch_overflowed(first)
+        assert torch.equal(first, cuda)
+
+
+@pytest.mark.parametrize("ring_factor", [12, 1])
+def test_ring_run_is_the_cuda_run(dev, ring_factor, tmp_path, monkeypatch):
+    """run(engine="ring") on the card writes the files of run(engine="cuda",
+    chain_epochs=0) at the same seed byte for byte, whatever the overflows
+    (ring_factor 1: every epoch re-run, the configuration's default
+    patched), on the fused route."""
+    from polychordlite_tpu_torch.core import nested_sampling as ns
+
+    if ring_factor != 12:
+        orig = ns.EpochConfig
+        monkeypatch.setattr(ns, "EpochConfig", lambda **kw: orig(**kw, ring_factor=ring_factor))
+    roots = {}
+    for engine in ("ring", "cuda"):
+        base = tmp_path / engine
+        pt.run(_quickstart, 4, nDerived=1, prior=UniformPrior(-1, 1), nlive=100,
+               read_resume=False, base_dir=str(base), seed=7, feedback=0, device="cuda",
+               engine=engine, chain_epochs=0)
+        roots[engine] = base
+    for name in ("test.stats", "test.txt", "test_dead.txt"):
+        assert (roots["ring"] / name).read_bytes() == (roots["cuda"] / name).read_bytes(), name
+    last = json.loads((roots["ring"] / "test.metrics.jsonl").read_text().splitlines()[-1])
+    assert last["route"] == "slice_epoch_fused" and last["engine"] == "ring"
+    assert last["ring_reruns"] == (last["epochs"] if ring_factor == 1 else 0)
+    ran = last["kernel_launches"]
+    assert ran["slice_epoch_fused_ring"] > 0 and ran["slice_epoch_fused"] > 0
+
+
+def test_ring_host_callback_is_the_scan_run(dev, tmp_path):
+    """A host callback on "ring" runs the host route under the ring's
+    budget: the files of its "scan" run (the same route at its own budget)
+    byte for byte, its launches counted under slice_step_host_ring."""
+    roots = {}
+    for engine in ("ring", "scan"):
+        base = tmp_path / engine
+        pt.run(_numpy_gaussian(3), 3, nlive=50, read_resume=False, base_dir=str(base), seed=7,
+               feedback=0, device="cuda", engine=engine, max_ndead=300, chain_epochs=0)
+        roots[engine] = base
+    for name in ("test.stats", "test.txt", "test_dead.txt"):
+        assert (roots["ring"] / name).read_bytes() == (roots["scan"] / name).read_bytes(), name
+    last = json.loads((roots["ring"] / "test.metrics.jsonl").read_text().splitlines()[-1])
+    assert last["route"] == "slice_step_host"
+    assert last["kernel_launches"]["slice_step_host_ring"] > 0
+
+
+#: registers of the Gaussian functor's kernels by policy, bucket and G
+#: (bucket 0: the stream bucket), as ptxas gave them before the ring engine
+#: (the tree before it and after it built side by side on an H100: none of
+#: the 572 kernels of slice_epoch.cu, slice_epoch_v2.cu and slice_epoch_v3.cu
+#: changed): RingPolicy and the overflow field of the kernel's arguments
+#: leave them as they were
+POLICY_REGISTERS = {
+    "V4Policy/0/32": 56, "V4Policy/128/32": 64, "V4Policy/32/32": 75, "V4Policy/32/16": 83,
+    "V4Policy/32/8": 95, "V4Policy/32/4": 120, "V4Policy/32/2": 149, "V4Policy/32/1": 171,
+    "V3Policy/0/32": 56, "V3Policy/128/32": 64, "V3Policy/32/32": 75, "V3Policy/32/16": 83,
+    "V3Policy/32/8": 95, "V3Policy/32/4": 120, "V3Policy/32/2": 149, "V3Policy/32/1": 171,
+    "V2Policy/0/32": 64, "V2Policy/128/32": 64, "V2Policy/32/32": 82, "V2Policy/32/16": 86,
+    "V2Policy/32/8": 101, "V2Policy/32/4": 127, "V2Policy/32/2": 123, "V2Policy/32/1": 177,
+}
+
+
+def test_policy_registers_unchanged(dev):
+    """V4Policy's, V2Policy's and V3Policy's kernels of the Gaussian functor
+    keep their registers (cuobjdump -res-usage of the built libraries)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        pytest.skip("no cuobjdump")
+    got = {}
+    for lib, source in (("slice_epoch", "slice_epoch.cu"), ("slice_epoch_v2", "slice_epoch_v2.cu"),
+                        ("slice_epoch_v3", "slice_epoch_v3.cu")):
+        nvcc.load(lib, [source])
+        usage = subprocess.run([tool, "-res-usage", str(nvcc.library_path(lib, [source]))],
+                               capture_output=True, text=True, timeout=600).stdout
+        for name, reg in re.findall(r"Function (\S+):\s*REG:(\d+)", usage):
+            m = re.search(r"slice_epoch_kernelI\d+(V\dPolicy)12GaussianLikeILi(\d+)EELi(\d+)ELb0E",
+                          name)
+            if m:
+                got[f"{m[1]}/{m[2]}/{m[3]}"] = int(reg)
+    assert got == POLICY_REGISTERS
+
+
+# ---- the port's examples on the card, at reduced sizes
+def test_examples_run_on_the_card(dev, tmp_path, monkeypatch, capsys):
+    """The notebooks (on the card: device=None), quickstart.py,
+    run_example.py and graded_likelihood.py, each reduced, on the card."""
+    from polychordlite_tpu_torch.examples import graded_likelihood, quickstart, run_example
+
+    examples = os.path.join(REPO, "polychordlite_tpu_torch", "examples")
+    for i, name in enumerate(("quickstart.ipynb", "run_polychordlite_tpu.ipynb")):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        with open(os.path.join(examples, name)) as f:
+            nb = json.load(f)
+        src = "\n".join("".join(c["source"]) for c in nb["cells"] if c["cell_type"] == "code")
+        src = (src.replace("nlive=200", "nlive=60").replace("settings.nlive = 200",
+                                                              "settings.nlive = 60")
+               .replace("read_resume=False,", "read_resume=False,\n    max_ndead=400,")
+               .replace("settings.read_resume = False",
+                        "settings.read_resume = False\nsettings.max_ndead = 400"))
+        scope = {}
+        exec(compile(src, name, "exec"), scope)
+        assert (tmp_path / name / "chains" / "gaussian.stats").exists()
+        assert math.isfinite(scope["output"].logZ)
+    monkeypatch.chdir(tmp_path)
+    out = quickstart.main(["--nlive", "60", "--max-ndead", "400", "--no-plot"])
+    assert math.isfinite(out.logZ)
+    assert run_example.main(["gaussian_shells", "--nlive", "100", "--max-ndead", "400"]) == 0
+    res = graded_likelihood.main(["--loops", "20", "--nlive", "30", "--max-ndead", "150"])
+    assert all(math.isfinite(o.logZ) for o, _ in res.values())
+    assert "gaussian_shells: logZ" in capsys.readouterr().out

@@ -31,6 +31,10 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.sim_iter_distribution",
     "polychordlite_tpu_torch.experiments.pallas_epoch_v2",
     "polychordlite_tpu_torch.experiments.pallas_slice_repeat",
+    "polychordlite_tpu_torch.experiments.prof_ring",
+    "polychordlite_tpu_torch.examples.quickstart",
+    "polychordlite_tpu_torch.examples.run_example",
+    "polychordlite_tpu_torch.examples.graded_likelihood",
     "polychordlite_tpu_torch.models.data_driven",
     "polychordlite_tpu_torch.capi",
     "polychordlite_tpu_torch.utils.cabi",
