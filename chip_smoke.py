@@ -222,6 +222,29 @@ routes, each gated at 3 sigma, with its re-runs, dead/s and device_frac;
 ``run_quickstart_example`` runs the port's ``examples/quickstart.py`` in a
 process of its own.
 
+The forced engines above D = 32 and on torch models:
+``slice_epoch_v5_buckets`` holds B3 in the wide bucket (D = 64, B = 512, R
+= 128, slice_epoch_d128's inputs) and the stream bucket (D = 160, checked
+at R = 4 and timed at R = 320) at the buckets' one G bitwise its plain
+version and B1, timed beside B1; ``slice_forced_fused`` holds the forced
+engines' fused routes (B3, B4, B5 with gaussian.ini's likelihood in torch
+lowered into them) at every G at gaussian.ini's shape and the bench
+bitwise their plain versions (``Lowered.plain_logL``), B3 and B4 also B1's
+fused route, timed beside it; ``run_stream_routes_d160`` also runs the zoo
+Gaussian on ``engine="cuda5"`` at D = 160 and 64, each run's files byte
+for byte those of ``engine="cuda"``; ``run_forced_torch`` runs a per-point
+torch Gaussian (D = 20, nlive 100) on ``"cuda"`` and each forced engine,
+whose route must be its fused route: ``"cuda5"`` and ``"cuda3"`` write
+the ``"cuda"`` run's files byte for byte, ``"cuda2"`` lands within 3 sigma.
+
+The plain versions of the heaviest checks (B2's long kernel at dims 160
+and 256, the wide bucket's four kernels, the 160-D run's fused geometry,
+the two phases above) run on the host's CPU in ``PLAIN_WORKERS`` worker
+processes (``plain_job``) while the card runs the phases that follow; the
+phase ``plain_checks``, behind the kernel timings and beside the 160-D
+run, compares them with the kernels' outputs bit for bit (their
+``plain_ms`` is then CPU time, ``plain_device`` "cpu").
+
 The runs through the CLI, the C++ example, the 64-D and the 160-D runs and
 the quickstart example go in processes of their own, the 160-D run started before the main path's
 runs (section 7), the others after ``run_async``, one after another (the
@@ -242,7 +265,9 @@ the package beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -254,7 +279,8 @@ import time
 import traceback
 import types
 import warnings
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "chiprun_out")
@@ -326,6 +352,8 @@ GRADED_RUN = dict(B=256, B_valid=256)
 # capi_cc (examples/cc/gaussian_cc.cpp: 20-D, nlive 200, num_repeats 40)
 # give it; B2 at their bases, (5, 4, 4, 256) and (2, 20, 20, 256)
 QUICK_RUN = dict(B=256, R=20, D=4, B_valid=200)
+# run_forced_torch's batch: nlive 100 in one shard's 128 lanes
+FORCED_RUN_B = 128
 CC_RUN = dict(B=256, R=40, D=20, B_valid=200)
 # the data-driven inis at their own settings, on the traced route:
 # ini/fitting.ini (20-D, nlive 500, num_repeats 40: B = 512, 504 valid; B2
@@ -351,6 +379,7 @@ LIBRARIES = {
     "slice_epoch": ["slice_epoch.cu"],
     "slice_epoch_ring": ["slice_epoch.cu"],  # with SLICE_EPOCH_RING (nvcc.DEFINES)
     "slice_epoch_v5": ["slice_epoch_v5.cu"],
+    "slice_epoch_v5_wide": ["slice_epoch_v5.cu"],  # with SLICE_EPOCH_V5_WIDE (nvcc.DEFINES)
     "slice_epoch_v3": ["slice_epoch_v3.cu"],
     "slice_epoch_v2": ["slice_epoch_v2.cu"],
     "slice_epoch_v3_instr": ["slice_epoch_v3_instr.cu"],
@@ -598,6 +627,19 @@ def ptxas_kernels(log: str, pattern: str):
     return out
 
 
+def written_files(base: str) -> dict:
+    """The bytes of every file a run wrote under ``base`` but its metrics
+    (which hold its times), by path relative to ``base``."""
+    out = {}
+    for dirpath, _, names in os.walk(base):
+        for n in names:
+            if not n.endswith(".metrics.jsonl"):
+                path = os.path.join(dirpath, n)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, base)] = f.read()
+    return out
+
+
 def read_metrics(base: str, root: str):
     with open(os.path.join(base, f"{root}.metrics.jsonl")) as f:
         return [json.loads(ln) for ln in f.read().splitlines()]
@@ -711,6 +753,78 @@ def d160_run(base: str, nlive: int = D160["nlive"], num_repeats: int = D160["num
             "logZerr": out.logZerr, "pull": (out.logZ - D160_LOGZ) / out.logZerr}
 
 
+#: the host processes that run plain versions beside the card's phases
+#: (plain_job): their checks wait in the phase plain_checks, behind the
+#: card's kernel timings
+PLAIN_WORKERS = 3
+
+
+def plain_worker_init() -> None:
+    """A worker of the plain versions: one CPU thread at a lower priority
+    than the script's, the port importable; it never touches the card."""
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(1)
+    sys.path.insert(0, HERE)
+
+
+def plain_job_file(path: str):
+    """plain_job on the job that ``path`` holds (torch.save'd by the script,
+    so that no large input crosses the pool's pipes while the card is
+    timed): its outputs go to ``path`` + ".out"; returns (that path, wall
+    ms)."""
+    import torch
+
+    out, ms = plain_job(torch.load(path, weights_only=False))
+    torch.save(out, path + ".out")
+    os.remove(path)
+    return path + ".out", ms
+
+
+def plain_job(job: dict):
+    """One plain version on the host's CPU, in a worker process: job["plain"]
+    names it ("v4": slice_records_plain, counting steps with
+    job["count_steps"]; "v3", "v2", "v5": B4's, B5's and B3's;
+    "gram_schmidt"; "while_body20": E7's body20 over job["n"] iterations
+    from zeros of job["shape"]), job["like"] the likelihood that scores its probes (a
+    Lowered, whose plain_logL is the fused routes' plain version, or
+    ("zoo", D), the zoo Gaussian's torch calc), and the rest its CPU
+    inputs.  The plain versions are elementwise torch in a fixed order, so
+    the CPU gives the card's bits.  Returns (outputs, wall ms)."""
+    import torch
+
+    from polychordlite_tpu_torch.models import gaussian
+    from polychordlite_tpu_torch.ops import pallas_dirs, pallas_slice, pallas_slice_v3
+    from polychordlite_tpu_torch.ops import pallas_slice_v5
+    from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
+    from polychordlite_tpu_torch.ops.slice_kernel import slice_records_plain
+    from polychordlite_tpu_torch.priors import identity_prior
+
+    t0 = time.perf_counter()
+    if job["plain"] == "while_body20":  # E7's body20 from a tile of zeros
+        from polychordlite_tpu_torch.experiments import prof_pallas_while
+
+        out = prof_pallas_while.while_loop_plain("body20", torch.zeros(job["shape"]), job["n"])
+    elif job["plain"] == "gram_schmidt":
+        out = pallas_dirs.gram_schmidt_plain(job["g"])
+    else:
+        like = job["like"]
+        if isinstance(like, tuple):  # ("zoo", D): the calc of geometry()
+            calc = make_batched_calculator(identity_prior, gaussian(like[1]), like[1], 2,
+                                           device="cpu")
+            fn = lambda p: calc(p)[2]  # noqa: E731
+        else:
+            fn = like.plain_logL
+        plain = {"v4": lambda *a: slice_records_plain(*a, count_steps=job.get("count_steps",
+                                                                               False)),
+                 "v3": pallas_slice_v3.slice_records_window_plain,
+                 "v2": pallas_slice.slice_records_lockstep_plain,
+                 "v5": pallas_slice_v5.slice_records_packet_plain}[job["plain"]]
+        out = plain(fn, job["cfg"], job["kw"], *job["args"])
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def lse(values) -> float:
     m = max(values)
     return m + math.log(sum(math.exp(v - m) for v in values))
@@ -801,6 +915,50 @@ def main() -> None:
             return fn
         return wrap
 
+    # the plain versions of the heaviest checks run on the host's CPU in
+    # PLAIN_WORKERS worker processes beside the card's phases (plain_job):
+    # a phase runs and times its kernels, hands the plain versions their
+    # inputs (plain_later) and leaves its comparison to plain_checks
+    # (check_later), which waits for them behind the kernel timings
+    plain_pool = ProcessPoolExecutor(max_workers=PLAIN_WORKERS,
+                                     mp_context=multiprocessing.get_context("spawn"),
+                                     initializer=plain_worker_init)
+    for _ in range(PLAIN_WORKERS):  # every worker started now, behind the build
+        plain_pool.submit(time.sleep, 0.5)
+    plain_dir = tempfile.mkdtemp(prefix="plain_jobs_")
+    plain_ids, plain_read = itertools.count(), {}
+    deferred = []  # (tag, {key: future}, check(plain outputs by key))
+
+    def plain_later(plain, like, cfg=None, kw=None, args=(), **extra):
+        """Submit a plain version (plain_job) on CPU copies of its inputs,
+        written to a file here (plain_job_file): a Lowered goes without its
+        device buffers."""
+        if isinstance(like, fused_like.Lowered):
+            like = dataclasses.replace(like, build_seconds={}, _device_consts={})
+        cpu = tuple(a.cpu() for a in args)
+        extra = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in extra.items()}
+        path = os.path.join(plain_dir, f"job{next(plain_ids)}.pt")
+        torch.save({"plain": plain, "like": like, "cfg": cfg, "kw": kw, "args": cpu, **extra},
+                   path)
+        return plain_pool.submit(plain_job_file, path)
+
+    def plain_result(future):
+        """(outputs, ms) of a plain_later job, read from its file once."""
+        if future not in plain_read:
+            path, ms = future.result()
+            plain_read[future] = (torch.load(path, weights_only=False), ms)
+            os.remove(path)
+        return plain_read[future]
+
+    def check_later(tag, futures, check):
+        """Compare a phase's kernel outputs with its plain versions in
+        plain_checks: check({key: (outputs on the card, ms)}) raises on a
+        mismatch."""
+        deferred.append((tag, futures, check))
+
+    def on_card(out):
+        return tuple(x.to(dev) for x in out)
+
     # ---- 1. build: one nvcc per library, all started together; the ring
     # engine's B1 library (RING_LIBRARY) after them, in a thread of this
     # script, behind the phases up to ring_epoch, which waits for it
@@ -826,7 +984,7 @@ def main() -> None:
         gaussian_kernels = {
             "B1": ptxas_kernels(log("slice_epoch", ""),
                                 rf"slice_epoch_kernelI8V4Policy{like}Li(\d+)ELb([01])E"),
-            "B3": ptxas_kernels(log("slice_epoch_v5", ""),
+            "B3": ptxas_kernels(log("slice_epoch_v5", "") + log("slice_epoch_v5_wide", ""),
                                 rf"slice_epoch_v5_kernelI{like}Li(\d+)EE"),
             "B4": ptxas_kernels(log("slice_epoch_v3", ""),
                                 rf"slice_epoch_kernelI8V3Policy{like}Li(\d+)ELb0E"),
@@ -845,6 +1003,11 @@ def main() -> None:
                 "per_library": {k: round(v, 3) for k, v in nvcc.build_seconds.items()},
                 "ptxas": ptxas,
                 "gaussian_kernels_by_group": gaussian_kernels}
+
+    # E7's body20 at full length on the host (while_cost holds the kernel to it)
+    e7_plain = plain_later("while_body20", None, shape=(prof_pallas_while.SIZES["S"],
+                                                         prof_pallas_while.LANE),
+                           n=prof_pallas_while.SIZES["n"])
 
     # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise: the
     # thread-per-basis kernel at the bench and gaussian.ini's shapes, the
@@ -1401,7 +1564,39 @@ def main() -> None:
 
         return loglikelihood
 
+    # the forced engines' fused libraries of slice_forced_fused (gaussian.ini's
+    # likelihood in torch: B3's at every G, its launch rule reads their
+    # resident warps, B4's and B5's at the bench's and gaussian.ini's G) and
+    # of run_forced_torch (the per-point Gaussian at that run's batch: B1's,
+    # B3's at every G, B4's and B5's), built one after another in the ring
+    # library's thread behind the phases up to slice_forced_fused, which
+    # waits for them; each lowered here, on the CPU (a library is named by
+    # its graph, not its device)
+    def forced_prebuild(wanted):
+        t0 = time.perf_counter()
+        for low, g, engine in wanted:
+            low.library(g, engine)
+        return {"libraries": len(wanted), "seconds": time.perf_counter() - t0}
+
+    D_INI = INI["nDims"]
+    ini_low = fused_like.lowering(make_batched_calculator(identity_prior, torch_gaussian(D_INI), D_INI,
+                                                          2, device="cpu"))
+    run_low = fused_like.lowering(make_batched_calculator(identity_prior, per_point_gaussian, D_INI,
+                                                          0, device="cpu"))
+    ring_build["forced"] = ring_lib.submit(forced_prebuild, [
+        (ini_low, g, "cuda5") for g in pallas_slice_v5.PACKET_GROUPS] + [
+        (ini_low, pallas_slice_v4.choose_group(geo["B"], D_INI, n_sm), e)
+        for geo in (RUN, BENCH) for e in ("cuda3", "cuda2")] + [
+        (run_low, g, "cuda5") for g in pallas_slice_v5.PACKET_GROUPS] + [
+        (run_low, pallas_slice_v4.choose_group(FORCED_RUN_B, D_INI, n_sm), e)
+        for e in ("cuda", "cuda3", "cuda2")])
+
     # ---- 6c. B1's fused route: the likelihood lowered into the kernel -------
+    # slice_fused's models, inputs and B1 fused outputs by geometry, which
+    # slice_forced_fused holds B3, B4 and B5 to: (calc, Lowered, cfg, args,
+    # B1's fused output, its G, its lane steps)
+    fused_refs = {}
+
     @phase("slice_fused")
     def _():
         out = {}
@@ -1468,6 +1663,7 @@ def main() -> None:
                 calc, cfg, kw, *args), 3)  # noqa: B023
             lane_max = int(steps.max())
             evals = int(want[2].sum())
+            fused_refs[tag] = (calc, low, cfg, args, got, G, int(steps.to(torch.int64).sum()))
             out[tag] = {
                 "B": B, "R": R, "D": D, "group": G, "valid_lanes": int(args[2].sum()),
                 "evals": evals, "lowered": {"terms": low.n_terms, "term_ops": len(low.term),
@@ -1489,6 +1685,10 @@ def main() -> None:
 
     # ---- 6d. the wide bucket (32 < D <= 128): B1 (functor and fused), B4
     # and B5 at every G it has, bitwise their plain versions and G = 32
+    # slice_epoch_d128's plain versions by D (futures), which
+    # slice_epoch_v5_buckets holds B3 to
+    wide_plain = {}
+
     @phase("slice_epoch_d128")
     def _():
         out = {}
@@ -1517,81 +1717,90 @@ def main() -> None:
             geo = dict(B=B, R=R, D=D, B_valid=RUN["B_valid"])
             calc, cfg, args = geometry(f"d{D}", geo)  # the zoo Gaussian, B2's directions
             pp_calc, low = fused[D]
-            res, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
-                lambda p: calc(p)[2], cfg, kw, *args, count_steps=True))  # noqa: B023
-            want, steps = res[:3], res[3]
-            v3_want, v3_plain_ms = cuda_once(
-                lambda: pallas_slice_v3.slice_records_window_plain(  # noqa: B023
-                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
-            v2_want, v2_plain_ms = cuda_once(
-                lambda: pallas_slice.slice_records_lockstep_plain(  # noqa: B023
-                    lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
-            pp_res, pp_plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
-                low.plain_logL, cfg, kw, *args, count_steps=True))  # noqa: B023
-            pp_want, pp_steps = pp_res[:3], pp_res[3]
+            # the plain versions on the host, compared in plain_checks
+            futs = {"B1": plain_later("v4", ("zoo", D), cfg, kw, args, count_steps=True),
+                    "B4": plain_later("v3", ("zoo", D), cfg, kw, args),
+                    "B5": plain_later("v2", ("zoo", D), cfg, kw, args),
+                    "fused": plain_later("v4", low, cfg, kw, args, count_steps=True)}
+            wide_plain[D] = futs
             kernels = {
-                "B1": (lambda G: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=G),  # noqa: B023
-                       want, plain_ms),
-                "B4": (lambda G: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G),  # noqa: B023
-                       v3_want, v3_plain_ms),
-                "B5": (lambda G: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args, group=G),  # noqa: B023
-                       v2_want, v2_plain_ms),
-                "fused": (lambda G: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
-                    pp_calc, cfg, kw, *args, group=G), pp_want, pp_plain_ms),  # noqa: B023
+                "B1": lambda G: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args, group=G),  # noqa: B023
+                "B4": lambda G: pallas_slice_v3.slice_epoch_v3(calc, cfg, kw, *args, group=G),  # noqa: B023
+                "B5": lambda G: pallas_slice.slice_epoch_v2(calc, cfg, kw, *args, group=G),  # noqa: B023
+                "fused": lambda G: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
+                    pp_calc, cfg, kw, *args, group=G),  # noqa: B023
             }
             G_rule = pallas_slice_v4.choose_group(B, D, n_sm)
-            evals = int(want[2].sum())
-            flops = int(steps.to(torch.int64).sum()) * gaussian_probe_flops(D)
-            rec = {"B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "group": G_rule,
-                   "evals": evals, "lane_steps_max": int(steps.max())}
-            pairs = []
-            for name, (fn, ref, p_ms) in kernels.items():
+            rec = {"B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()), "group": G_rule}
+            pairs, outs = [], {}
+            for name, fn in kernels.items():
                 g32 = fn(32)
                 for G in wide:
                     got = fn(G)
-                    pairs += [(f"{name}_{k}_G{G}_vs_plain", a, b)
-                              for k, a, b in zip(("t", "logL", "nlike", "cube"), got, ref)]
+                    outs[name, G] = tuple(x.cpu() for x in got)
                     pairs += [(f"{name}_{k}_G{G}_vs_G32", a, b)
                               for k, a, b in zip(("t", "logL", "nlike", "cube"), got, g32)]
                 ms_by_group = {G: cuda_ms(lambda G=G: fn(G), 5) for G in wide}  # noqa: B023
                 key = "128," + "{G}" + (",0" if name == "B1" else "")
                 rec[name] = {
-                    "ms": ms_by_group[G_rule], "ms_by_group": ms_by_group, "plain_ms": p_ms,
-                    "bound": bound(slice_epoch_bytes(B, R, D, cube=name == "B5"),
-                                   flops if name != "fused" else
-                                   int(pp_steps.to(torch.int64).sum()) * low.flops_per_probe()),
-                    "us_per_micro_step": ms_by_group[G_rule] * 1e3 / int(steps.max()),
+                    "ms": ms_by_group[G_rule], "ms_by_group": ms_by_group,
                     "ptxas_by_group": ({G: ptx.get(name, {}).get(key.format(G=G)) for G in wide}
                                        if name != "fused" else fused_build["ptxas"]),
                 }
-            if D > 32:  # the same decisions as B1's functor: B4 at the rule's G
-                pairs += [(f"B4_{k}_vs_B1", a, b) for k, a, b in zip(
-                    ("t", "logL", "nlike"), kernels["B4"][0](G_rule), want)]
             rec["mismatches"] = decisions(f"d{D}: a wide-bucket kernel differs", pairs)
             rec["b1_bench_32_bucket_ms"] = results.get("slice_epoch", {}).get("ms")
             out[f"d{D}"] = rec
+
+            def check(res, D=D, B=B, R=R, rec=rec, outs=outs, G_rule=G_rule, low=low):
+                (want, steps), (pp_want, pp_steps) = ((r[0][:3], r[0][3]) for r in (
+                    res["B1"], res["fused"]))
+                refs = {"B1": want, "B4": res["B4"][0], "B5": res["B5"][0], "fused": pp_want}
+                pairs = [(f"{name}_{k}_G{G}_vs_plain", a, b)
+                         for (name, G), got in outs.items()
+                         for k, a, b in zip(("t", "logL", "nlike", "cube"), got, refs[name])]
+                if D > 32:  # the same decisions as B1's functor: B4 at the rule's G
+                    pairs += [(f"B4_{k}_vs_B1", a, b) for k, a, b in zip(
+                        ("t", "logL", "nlike"), outs["B4", G_rule], want)]
+                rec["mismatches"].update(decisions(f"d{D}: a wide-bucket kernel differs "
+                                                   "from its plain version", pairs))
+                flops = int(steps.to(torch.int64).sum()) * gaussian_probe_flops(D)
+                rec.update(evals=int(want[2].sum()), lane_steps_max=int(steps.max()))
+                for name in refs:
+                    rec[name].update(
+                        plain_ms=res[name][1], plain_device="cpu",
+                        bound=bound(slice_epoch_bytes(B, R, D, cube=name == "B5"),
+                                    flops if name != "fused" else
+                                    int(pp_steps.to(torch.int64).sum()) * low.flops_per_probe()),
+                        us_per_micro_step=rec[name]["ms"] * 1e3 / int(steps.max()))
+                return {"mismatches": rec["mismatches"], "lane_steps_max": int(steps.max())}
+
+            check_later(f"slice_epoch_d128/d{D}", futs, check)
         # the fused route at the 64-D run's geometry (run_gaussian_d64: B =
         # 256, R = 128), at every G of the bucket, bitwise its plain version
         B, R, D = D64_RUN["B"], D64_RUN["R"], D64_RUN["D"]
         _, cfg, args = geometry("d64_run", D64_RUN)
         pp_calc, low = fused[D]
-        res, plain_ms = cuda_once(lambda: slice_records_plain(
-            low.plain_logL, cfg, kw, *args, count_steps=True))
-        want, steps = res[:3], res[3]
-        pairs = []
-        for G in wide:
-            pairs += [(f"fused_{k}_G{G}_vs_plain", a, b) for k, a, b in zip(
-                ("t", "logL", "nlike"),
-                pallas_slice_v4.slice_epoch_fused(pp_calc, cfg, kw, *args, group=G), want)]
-        out["d64_run_fused"] = {
+        futs = {"fused": plain_later("v4", low, cfg, kw, args, count_steps=True)}
+        outs = {G: tuple(x.cpu() for x in pallas_slice_v4.slice_epoch_fused(
+            pp_calc, cfg, kw, *args, group=G)) for G in wide}
+        run_rec = out["d64_run_fused"] = {
             "B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()),
             "group": pallas_slice_v4.choose_group(B, D, n_sm),
-            "mismatches": decisions("d64_run: the fused kernel differs", pairs),
             "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(pp_calc, cfg, kw, *args), 5),
-            "plain_ms": plain_ms, "lane_steps_max": int(steps.max()),
-            "bound": bound(slice_epoch_bytes(B, R, D),
-                           int(steps.to(torch.int64).sum()) * low.flops_per_probe()),
         }
+
+        def check_run(res, B=B, R=R, D=D, outs=outs, low=low, rec=run_rec):
+            (out4, plain_ms) = res["fused"]
+            want, steps = out4[:3], out4[3]
+            rec.update(mismatches=decisions("d64_run: the fused kernel differs", [
+                (f"fused_{k}_G{G}_vs_plain", a, b) for G, got in outs.items()
+                for k, a, b in zip(("t", "logL", "nlike"), got, want)]),
+                plain_ms=plain_ms, plain_device="cpu", lane_steps_max=int(steps.max()),
+                bound=bound(slice_epoch_bytes(B, R, D),
+                            int(steps.to(torch.int64).sum()) * low.flops_per_probe()))
+            return {"mismatches": rec["mismatches"]}
+
+        check_later("slice_epoch_d128/d64_run_fused", futs, check_run)
         out["fused_build"] = fused_build
         results["slice_epoch_d128"] = {**out["d64"], "d64_run_fused": out["d64_run_fused"]}
         return out
@@ -2059,24 +2268,30 @@ def main() -> None:
         nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
                                    generator=gen)
         args = (x0, bnd, valid, nh, w)
-        res, plain_ms = cuda_once(lambda: slice_records_plain(
-            run_low.plain_logL, cfg, kw, *args, count_steps=True))
-        want, steps = res[:3], res[3]
-        got = pallas_slice_v4.slice_epoch_fused(run_calc, cfg, kw, *args)
-        out["d160_run_fused"] = {
-            "B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
-            "mismatches": decisions("d160_run: the fused kernel differs", [
-                (f"fused_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got,
-                                                                  want)]),
-            "max_abs_err": max((a.double() - b.double()).abs().max().item()
-                               for a, b in zip(got[:2], want[:2])),
+        futs = {"fused": plain_later("v4", run_low, cfg, kw, args, count_steps=True)}
+        got = tuple(x.cpu() for x in pallas_slice_v4.slice_epoch_fused(run_calc, cfg, kw, *args))
+        run_rec = out["d160_run_fused"] = {
+            "B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()), "evals": int(got[2].sum()),
             "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(run_calc, cfg, kw, *args), 3),
-            "plain_ms": plain_ms, "evals": int(want[2].sum()), "lane_steps_max": int(steps.max()),
-            "bound": bound(slice_epoch_bytes(B, R, D),
-                           int(steps.to(torch.int64).sum()) * run_low.flops_per_probe()),
             "ptxas": fused_build["ptxas"].get(run_low.library_name(32)),
         }
-        del args, nh, w, want, got, res
+
+        def check_run(res, B=B, R=R, D=D, got=got, rec=run_rec):
+            out4, plain_ms = res["fused"]
+            want, steps = out4[:3], out4[3]
+            rec.update(
+                mismatches=decisions("d160_run: the fused kernel differs", [
+                    (f"fused_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"),
+                                                                      got, want)]),
+                max_abs_err=max((a.double() - b.double()).abs().max().item()
+                                for a, b in zip(got[:2], want[:2])),
+                plain_ms=plain_ms, plain_device="cpu", lane_steps_max=int(steps.max()),
+                bound=bound(slice_epoch_bytes(B, R, D),
+                            int(steps.to(torch.int64).sum()) * run_low.flops_per_probe()))
+            return {"mismatches": rec["mismatches"]}
+
+        check_later("slice_epoch_d512/d160_run_fused", futs, check_run)
+        del args, nh, w
         # at the bucket's bound (float32, one term): 232,440 of a block's
         # 232,448 bytes, past the 48 KB a launch gets without the attribute
         D = pallas_slice_v4.stream_max_d(1, torch.float32)
@@ -2098,6 +2313,178 @@ def main() -> None:
             **{k: pallas_slice_v4.LAUNCHES[k] - counts0[k] for k in (
                 "slice_epoch_fused", "slice_epoch_fused_f64", "slice_step", "slice_step_f64")}}
         results["slice_epoch_d512"] = out
+        return out
+
+    # ---- 6e'. B3 above D = 32 (a chain on a whole warp, the four slots in
+    # turn) and the forced engines' fused routes (B3, B4, B5 with a torch
+    # likelihood lowered into them)
+    @phase("slice_epoch_v5_buckets")
+    def _():
+        """B3 in the wide bucket at slice_epoch_d128's d64 geometry (B 512, R
+        128, D 64, the zoo Gaussian, B2's directions) and in the stream bucket
+        at D = 160 (B 512; slice_epoch_d512's inputs, checked at R = 4 and
+        timed at R = 320), at the buckets' one G: bitwise its plain version
+        (on the host, plain_checks) and B1 on the same inputs; ms beside B1's,
+        registers, resident warps, bound."""
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        ptx = results.get("ptxas_gaussian", {}).get("B3", {})
+        counts0 = dict(pallas_slice_v5.GROUP_LAUNCHES)
+        D, B, R = 64, 512, 128
+        calc, cfg, args = geometry(f"d{D}", dict(B=B, R=R, D=D, B_valid=RUN["B_valid"]))
+        G = pallas_slice_v5.packet_group_for(calc, B, D, dev)
+        if G != 32:
+            raise AssertionError(f"B3 picks G = {G} at D = {D}, not 32")
+        got = pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args)
+        b1 = pallas_slice_v4.slice_epoch(calc, cfg, kw, *args)
+        wide = out["d64"] = {
+            "B": B, "R": R, "D": D, "group": G, "valid_lanes": int(args[2].sum()),
+            "evals": int(got[2].sum()),
+            "mismatches": decisions("d64: B3 differs from B1", [
+                (f"B3_{k}_vs_B1", a, b) for k, a, b in zip(("t", "logL", "nlike"), got, b1)]),
+            "ms": cuda_ms(lambda: pallas_slice_v5.slice_epoch_v5(calc, cfg, kw, *args), 5),
+            "b1_ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch(calc, cfg, kw, *args), 5),
+            "ptxas": ptx.get("128,32"), "resident_warps": pallas_slice_v5.resident_warps(
+                calc, D, dev, G)}
+        got = tuple(x.cpu() for x in got)
+
+        def check_wide(res, rec=wide, got=got, D=D, B=B, R=R):
+            want, plain_ms = res["v5"]
+            b1_plain, steps = res["B1"][0][:3], res["B1"][0][3]
+            rec["mismatches"].update(decisions("d64: B3 differs from its plain version", [
+                (f"B3_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got, want)]
+                + [(f"plain_{k}_vs_B1_plain", a, b) for k, a, b in zip(
+                    ("t", "logL", "nlike"), want, b1_plain)]))
+            rec.update(plain_ms=plain_ms, plain_device="cpu",
+                       max_abs_err=max((a.double() - b.double()).abs().max().item()
+                                       for a, b in zip(got[:2], want[:2])),
+                       bound=bound(slice_epoch_bytes(B, R, D),
+                                   int(steps.to(torch.int64).sum()) * gaussian_probe_flops(D)))
+            return {"mismatches": rec["mismatches"]}
+
+        check_later("slice_epoch_v5_buckets/d64",
+                    {"v5": plain_later("v5", ("zoo", D), cfg, kw, args), "B1": wide_plain[D]["B1"]},
+                    check_wide)
+        # the stream bucket at D = 160: checked at R = 4, timed at R = 2 D
+        D, B = STREAM_DIMS[0], STREAM_B
+        zoo = make_batched_calculator(identity_prior, gaussian(D), D, 2, device=dev)
+        logL = lambda p: zoo(p)[2]  # noqa: E731
+        cfg4 = EpochConfig(n_dims=D, n_phi=zoo.n_phi, grade_dims=(D,), num_repeats=(4,))
+        a4 = stream_inputs(logL, B, 4, D, SEED + D)
+        got = pallas_slice_v5.slice_epoch_v5(zoo, cfg4, kw, *a4)
+        b1 = pallas_slice_v4.slice_epoch(zoo, cfg4, kw, *a4)
+        R = 2 * D
+        cfgT = EpochConfig(n_dims=D, n_phi=zoo.n_phi, grade_dims=(D,), num_repeats=(R,))
+        aT = stream_inputs(logL, B, R, D, SEED + D + 1)
+        evals = int(pallas_slice_v5.slice_epoch_v5(zoo, cfgT, kw, *aT)[2].to(torch.int64).sum())
+        stream = out[f"d{D}"] = {
+            "B": B, "D": D, "R": R, "R_checked": 4, "group": pallas_slice_v5.packet_group_for(
+                zoo, B, D, dev), "evals": evals,
+            "mismatches": decisions(f"d{D}: B3 differs from B1", [
+                (f"B3_{k}_vs_B1", a, b) for k, a, b in zip(("t", "logL", "nlike"), got, b1)]),
+            "ms_r4": cuda_ms(lambda: pallas_slice_v5.slice_epoch_v5(zoo, cfg4, kw, *a4), 3),
+            "ms": cuda_ms(lambda: pallas_slice_v5.slice_epoch_v5(zoo, cfgT, kw, *aT), 2),
+            "b1_ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch(zoo, cfgT, kw, *aT), 2),
+            "bound": bound(slice_epoch_bytes(B, R, D), evals * gaussian_probe_flops(D)),
+            "ptxas": ptx.get("0,32"), "resident_warps": pallas_slice_v5.resident_warps(
+                zoo, D, dev, 32)}
+        del aT
+        got = tuple(x.cpu() for x in got)
+
+        def check_stream(res, rec=stream, got=got, D=D):
+            want, plain_ms = res["v5"]
+            rec["mismatches"].update(decisions(f"d{D}: B3 differs from its plain version", [
+                (f"B3_{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got,
+                                                                 want)]))
+            rec.update(plain_ms=plain_ms, plain_device="cpu", plain_at_R=4,
+                       max_abs_err=max((a.double() - b.double()).abs().max().item()
+                                       for a, b in zip(got[:2], want[:2])))
+            return {"mismatches": rec["mismatches"]}
+
+        check_later(f"slice_epoch_v5_buckets/d{D}",
+                    {"v5": plain_later("v5", ("zoo", D), cfg4, kw, a4)}, check_stream)
+        out["launches"] = {"/".join(map(str, k)): v - counts0[k]
+                           for k, v in pallas_slice_v5.GROUP_LAUNCHES.items() if v > counts0[k]}
+        results["slice_epoch_v5_buckets"] = out
+        return out
+
+    @phase("slice_forced_fused")
+    def _():
+        """The forced engines' fused routes on gaussian.ini's likelihood in
+        torch (slice_fused's model, lowering and inputs) at gaussian.ini's
+        shape and the bench: B3 (FUSED_V5) at every G of its groups (whose
+        resident warps its launch rule reads), B4 (FUSED_V3) and B5
+        (FUSED_V2) at B1's G, their libraries built behind the earlier
+        phases (forced_prebuild); bitwise their plain versions on
+        Lowered.plain_logL (on the host, plain_checks), B3 and B4 also
+        B1's fused route on the same inputs; each timed at its rule's G
+        beside B1's fused route."""
+        out = {}
+        kw = (0x01234567, 0x89ABCDEF)
+        low = fused_refs["bench"][1]
+        t0 = time.perf_counter()
+        prebuilt = ring_build["forced"].result()  # raises if a library did not build
+        G_rule = {tag: fused_refs[tag][5] for tag in fused_refs}
+        names = {low.library_name(g, e): low.source(g, e) for e, gs in (
+            ("cuda5", pallas_slice_v5.PACKET_GROUPS), ("cuda3", set(G_rule.values())),
+            ("cuda2", set(G_rule.values()))) for g in gs}
+        nvcc.build_all({n: [fused_like.SOURCE] for n in names}, headers=names)
+        out["build"] = {"wait_s": time.perf_counter() - t0, "prebuilt": prebuilt,
+                        "ptxas": {n: ptxas_summary(nvcc.build_log[n]) for n in names
+                                  if n in nvcc.build_log}}
+        with open(os.path.join(OUT, "ptxas.txt"), "a") as f:
+            for n in names:
+                if n in nvcc.build_log:
+                    f.write(f"==== {n}\n{nvcc.build_log[n]}\n")
+        for tag in ("gaussian_ini", "bench"):
+            calc, low, cfg, args, b1_fused, G1, steps_sum = fused_refs[tag]
+            B, R, D = args[0].shape[0], cfg.total_repeats, cfg.n_dims
+            G5 = pallas_slice_v5.packet_group_for(calc, B, D, dev)
+            kernels = {
+                "B3": (lambda g: pallas_slice_v5.slice_epoch_v5(  # noqa: B023
+                    calc, cfg, kw, *args, group=g), pallas_slice_v5.PACKET_GROUPS, G5, "v5"),  # noqa: B023
+                "B4": (lambda g: pallas_slice_v3.slice_epoch_v3(  # noqa: B023
+                    calc, cfg, kw, *args, group=g), (G1,), G1, "v3"),  # noqa: B023
+                "B5": (lambda g: pallas_slice.slice_epoch_v2(  # noqa: B023
+                    calc, cfg, kw, *args, group=g), (G1,), G1, "v2"),  # noqa: B023
+            }
+            futs = {name: plain_later(plain, low, cfg, kw, args)
+                    for name, (_, _, _, plain) in kernels.items()}
+            rec = {"B": B, "R": R, "D": D, "valid_lanes": int(args[2].sum()),
+                   "b1_fused_group": G1}
+            pairs, outs = [], {}
+            for name, (fn, gs, G, _) in kernels.items():
+                for g in gs:
+                    got = fn(g)
+                    outs[name, g] = tuple(x.cpu() for x in got)
+                    if name != "B5":  # B1's decisions, bit for bit
+                        pairs += [(f"{name}_{k}_G{g}_vs_B1_fused", a, b) for k, a, b in zip(
+                            ("t", "logL", "nlike"), got, b1_fused)]
+                ms_by_group = {g: cuda_ms(lambda g=g: fn(g), 5) for g in gs}  # noqa: B023
+                rec[name] = {"group": G, "ms": ms_by_group[G], "ms_by_group": ms_by_group,
+                             "bound": bound(slice_epoch_bytes(B, R, D, cube=name == "B5"),
+                                            steps_sum * low.flops_per_probe())}
+            rec["b1_fused_ms"] = cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
+                calc, cfg, kw, *args, group=G1), 5)  # noqa: B023
+            rec["mismatches"] = decisions(f"{tag}: a forced engine's fused route differs "
+                                          "from B1's", pairs)
+            out[tag] = rec
+
+            def check(res, tag=tag, rec=rec, outs=outs):
+                pairs = [(f"{name}_{k}_G{g}_vs_plain", a, b)
+                         for (name, g), got in outs.items()
+                         for k, a, b in zip(("t", "logL", "nlike", "cube"), got, res[name][0])]
+                rec["mismatches"].update(decisions(
+                    f"{tag}: a forced engine's fused route differs from its plain version", pairs))
+                for name in res:
+                    got, want = outs[name, rec[name]["group"]], res[name][0]
+                    rec[name].update(plain_ms=res[name][1], plain_device="cpu",
+                                     max_abs_err=max((a.double() - b.double()).abs().max().item()
+                                                     for a, b in zip(got[:2], want[:2])))
+                return {"mismatches": rec["mismatches"]}
+
+            check_later(f"slice_forced_fused/{tag}", futs, check)
+        results["slice_forced_fused"] = out
         return out
 
     # ---- 6f. the graded route (engine "scan"): slice_step.cu's repeat
@@ -3018,7 +3405,7 @@ print("RESULT " + json.dumps(out), flush=True)
                 "run_group": pallas_slice_v4.choose_group(B_phys, n_dims, n_sm)}
 
     def route_run(name, like, n_dims, route="slice_epoch_fused", dirs="gram_schmidt",
-                  kernels=None, engine_used="cuda", **kw):
+                  kernels=None, engine_used="cuda", files=None, **kw):
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
         path must take ``route`` (the fused route, or the traced route) and
@@ -3027,7 +3414,9 @@ print("RESULT " + json.dumps(out), flush=True)
         they are not ``dirs`` and ``route``: the double instantiations at
         precision='highest'), with chained epochs kept (a replay divergence
         would warn, and warnings are errors); ``engine_used`` is the engine
-        the metrics must name (a forced one, passed as ``engine=``)."""
+        the metrics must name (a forced one, passed as ``engine=``).  A dict
+        ``files`` takes the bytes of every file the run wrote but its
+        metrics (which hold its times), by name."""
         with tempfile.TemporaryDirectory() as base:
             reset_launches()
             t0 = time.perf_counter()
@@ -3041,6 +3430,8 @@ print("RESULT " + json.dumps(out), flush=True)
             stats = PolyChordOutput(base, "test")
             last = read_metrics(base, "test")[-1]
             chains = np.loadtxt(os.path.join(base, "test.txt"), ndmin=2)
+            if files is not None:
+                files.update(written_files(base))
         if (last.get("engine"), last.get("route")) != (engine_used, route):
             raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
                                  f"{last.get('route')!r} ({last.get('route_reason')}), "
@@ -3306,42 +3697,112 @@ print("RESULT " + json.dumps(out), flush=True)
         = 160, every count at 0 before each run: B1's functor kernel on the
         zoo Gaussian (engine "auto"), the traced route on a model the
         lowering refuses, the fused route and B2's long kernel in double
-        (precision='highest'), and B4 and B5 (the forced "cuda3" and
-        "cuda2"); nlive 200, num_repeats 2 D, stopped at max_ndead 400 (no
-        evidence to gate): finite logZ, the path's kernels only, B1's, B4's
-        and B5's launches in the stream bucket."""
-        D = D160["nDims"]
+        (precision='highest'), and B4, B5 and B3 (the forced "cuda3",
+        "cuda2" and "cuda5"); and at D = 64 the zoo Gaussian on "auto" and on
+        "cuda5" (B3 in the wide bucket); nlive 200, num_repeats 2 D, stopped
+        at max_ndead 400 (no evidence to gate): finite logZ, the path's
+        kernels only, B1's, B3's, B4's and B5's launches in the run's bucket,
+        and each cuda5 run's files byte for byte those of engine "cuda" at the
+        same settings."""
         stream = f"{pallas_slice_v4.STREAM}/32"
-        zoo = gaussian(D, sigma=D160["sigma"])
-        kw = dict(nlive=D160["nlive"], num_repeats=2 * D, max_ndead=400, do_clustering=False)
-        out = {}
-        for name, like, n_derived, route, dirs, kernels, extra in (
-            ("functor", zoo, 2, "slice_epoch", "gram_schmidt_long", None, {}),
-            ("traced", vector_norm_gaussian, 0, "slice_step", "gram_schmidt_long", None, {}),
-            ("fused_f64", per_point_gaussian, 0, "slice_epoch_fused", None,
+        out, files = {}, {}
+        for name, D, like, n_derived, route, dirs, kernels, extra in (
+            ("functor", 160, "zoo", 2, "slice_epoch", "gram_schmidt_long", None, {}),
+            ("traced", 160, vector_norm_gaussian, 0, "slice_step", "gram_schmidt_long", None, {}),
+            ("fused_f64", 160, per_point_gaussian, 0, "slice_epoch_fused", None,
              ("gram_schmidt_long_f64", "slice_epoch_fused_f64"), {"precision": "highest"}),
-            ("cuda3", zoo, 2, "slice_epoch_v3", "gram_schmidt_long", None, {"engine": "cuda3"}),
-            ("cuda2", zoo, 2, "slice_epoch_v2", "gram_schmidt_long", None, {"engine": "cuda2"}),
+            ("cuda3", 160, "zoo", 2, "slice_epoch_v3", "gram_schmidt_long", None,
+             {"engine": "cuda3"}),
+            ("cuda2", 160, "zoo", 2, "slice_epoch_v2", "gram_schmidt_long", None,
+             {"engine": "cuda2"}),
+            ("cuda5", 160, "zoo", 2, "slice_epoch_v5", "gram_schmidt_long", None,
+             {"engine": "cuda5"}),
+            ("functor_d64", 64, "zoo", 2, "slice_epoch", "gram_schmidt_wide", None, {}),
+            ("cuda5_d64", 64, "zoo", 2, "slice_epoch_v5", "gram_schmidt_wide", None,
+             {"engine": "cuda5"}),
         ):
+            if like == "zoo":
+                like = gaussian(D, sigma=D160["sigma"])
+            kw = dict(nlive=D160["nlive"], num_repeats=2 * D, max_ndead=400, do_clustering=False)
+            files[name] = {}
             last, stats, wall, ran, _ = route_run(
                 f"{name} d{D}", like, D, route=route, dirs=dirs, kernels=kernels,
-                engine_used=extra.get("engine", "cuda"), nDerived=n_derived, **kw, **extra)
+                engine_used=extra.get("engine", "cuda"), files=files[name], nDerived=n_derived,
+                **kw, **extra)
             if not (math.isfinite(stats.logZ) and stats.ndead >= kw["max_ndead"]):
                 raise AssertionError(f"{name} d{D}: logZ {stats.logZ}, {stats.ndead} dead")
             groups = {"cuda3": pallas_slice_v3.GROUP_LAUNCHES,
-                      "cuda2": pallas_slice.GROUP_LAUNCHES}.get(name)
+                      "cuda2": pallas_slice.GROUP_LAUNCHES,
+                      "cuda5": pallas_slice_v5.GROUP_LAUNCHES}.get(extra.get("engine"))
             groups = ({"/".join(map(str, k)): v for k, v in groups.items() if v}
                       if groups is not None else last.get("group_launches") or {})
-            if name != "traced" and (not groups or set(groups) != {stream}):
+            bucket = stream if D > 128 else f"{pallas_slice_v4.SLICE_MAXD_WIDE}/32"
+            if name != "traced" and (not groups or set(groups) != {bucket}):
                 raise AssertionError(f"{name} d{D}: launches by bucket/G {groups}, not in the "
-                                     "stream bucket only")
-            out[name] = {"engine_used": last["engine"], "route": last["route"],
+                                     f"{bucket} bucket only")
+            out[name] = {"D": D, "engine_used": last["engine"], "route": last["route"],
                          "dtype": last.get("dtype"), "ndead": stats.ndead, "logZ": stats.logZ,
                          "logZerr": stats.logZerr, "wall_s": wall,
                          "dead_per_s": stats.ndead / wall, "launches": {
                              k: v for k, v in ran.items() if v},
                          "group_launches": groups, "device_frac": last.get("device_frac")}
+        for name, ref in (("cuda5", "functor"), ("cuda5_d64", "functor_d64")):
+            differ = sorted(k for k in set(files[name]) | set(files[ref])
+                            if files[name].get(k) != files[ref].get(k))
+            out[name]["files_equal_cuda"] = not differ
+            if differ:
+                raise AssertionError(f"{name}: the files differ from engine 'cuda''s: {differ}")
         results["run_stream_routes_d160"] = out
+        return out
+
+    @phase("run_forced_torch")
+    def _():
+        """A per-point torch Gaussian (gaussian.ini's likelihood as a user
+        writes it, per_point_gaussian, D = 20, nlive 100 as run_ring's torch
+        runs, num_repeats 40, precision_criterion 0.001) through run() on
+        engine "cuda" (B1's fused route) and on each forced engine with the
+        same settings, every count at 0 before each run: each run takes its
+        engine's fused route (slice_epoch_v5_fused, slice_epoch_v3_fused,
+        slice_epoch_v2_fused) and B2 only, "cuda5" and "cuda3" write the files
+        of the "cuda" run byte for byte, and "cuda2" (its own cube, another
+        chain) lands within 3 sigma of logZ = 0; the libraries are built
+        before the clock."""
+        D, nlive = INI["nDims"], 100
+        calc = dtype_calc(per_point_gaussian, D, torch.float32)
+        low = fused_like.lowering(calc)
+        if not isinstance(low, fused_like.Lowered):
+            raise AssertionError(f"the per-point Gaussian was not lowered: {low.reason}")
+        B_phys = -(-(-(-nlive // 8) * 8) // GRANULE) * GRANULE
+        t0 = time.perf_counter()
+        G = pallas_slice_v4.choose_group(B_phys, D, n_sm)
+        G5 = pallas_slice_v5.packet_group_for(calc, B_phys, D, dev)  # builds B3's libraries
+        for engine in ("cuda", "cuda3", "cuda2"):
+            low.build([G], engine)
+        out = {"build_s": time.perf_counter() - t0, "group": G, "group_v5": G5, "B": B_phys}
+        files = {}
+        for engine, route in (("cuda", "slice_epoch_fused"), ("cuda5", "slice_epoch_v5_fused"),
+                              ("cuda3", "slice_epoch_v3_fused"),
+                              ("cuda2", "slice_epoch_v2_fused")):
+            files[engine] = {}
+            last, stats, wall, ran, _ = route_run(
+                f"{engine} d{D}", per_point_gaussian, D, route=route, engine_used=engine,
+                files=files[engine], nlive=nlive, num_repeats=INI["num_repeats"],
+                do_clustering=False, precision_criterion=0.001,
+                **({"engine": engine} if engine != "cuda" else {}))
+            add_launches(ran)
+            out[engine] = {**route_record(last, stats, wall, ran, 0.0),
+                           "route_reason": last.get("route_reason")}
+        for engine in ("cuda5", "cuda3"):
+            differ = sorted(k for k in set(files[engine]) | set(files["cuda"])
+                            if files[engine].get(k) != files["cuda"].get(k))
+            out[engine]["files_equal_cuda"] = not differ
+            if differ:
+                raise AssertionError(f"{engine}: the files differ from engine 'cuda''s: {differ}")
+        c2 = out["cuda2"]
+        if not abs(c2["logZ"]) < 3 * c2["logZerr"]:
+            raise AssertionError(f"cuda2: logZ {c2['logZ']} +/- {c2['logZerr']}, not within 3 "
+                                 "sigma of 0")
+        results["run_forced_torch"] = out
         return out
 
     # ---- 7c. the run modes: precision='highest' (the fused route and the
@@ -3931,6 +4392,29 @@ print("RESULT " + json.dumps(out), flush=True)
         return {**route_record(last, stats, wall, ran, -4 * math.log(2.0)),
                 "process_wall_s": wall}
 
+    @phase("plain_checks")
+    def _():
+        """The comparisons the phases left here (check_later): their kernels'
+        outputs against the plain versions that the host's CPU workers ran
+        beside the card's phases, bitwise; what each found, and the seconds
+        spent waiting for the workers."""
+        t0 = time.perf_counter()
+        out, errors, waited = {}, {}, 0.0
+        for tag, futs, check in deferred:
+            try:
+                t1 = time.perf_counter()
+                res = {k: plain_result(f) for k, f in futs.items()}
+                waited += time.perf_counter() - t1
+                out[tag] = check(res)
+            except Exception as e:  # every check runs; the phase fails at the end
+                traceback.print_exc()
+                errors[tag] = f"{type(e).__name__}: {e}"
+        out.update(checks=len(deferred), wait_s=waited, seconds=time.perf_counter() - t0,
+                   workers=PLAIN_WORKERS)
+        if errors:
+            raise AssertionError(f"plain checks failed: {errors}")
+        return out
+
     @phase("run_gaussian_d160")
     def _():
         """A per-point torch Gaussian at D = 160 (sigma 0.2 at 0.5, uniform
@@ -4214,18 +4698,19 @@ print("RESULT " + json.dumps(out), flush=True)
         w.LAUNCHES["while_loop"] = 0
         rec = w.main()
         study = w.LAUNCHES["while_loop"]
-        # body20 at full length: the kernel against one timed plain run
+        # body20 at full length: the kernel against one timed plain run (on
+        # the host, since the build phase)
         zeros = torch.zeros((S, w.LANE), device=dev)
-        want, plain_ms = cuda_once(lambda: w.while_loop_plain("body20", zeros, n))
+        want, plain_ms = plain_result(e7_plain)
         decisions("E7 body20 differs at full length", [("body20", w.while_loop("body20", zeros, n),
-                                                         want)])
+                                                         want.to(dev))])
         E = S * w.LANE
         results["while_cost"] = {
             "ms": rec["variants"]["body20"]["ms"], "plain_ms": plain_ms, "max_abs_err": 0.0,
             "launches": study,
             "bound": bound(4 * (E + w.BODY20_D * E + E), n * E * (5 * w.BODY20_D + 3))}
         return {"study": rec, "study_launches": study, "plain_ms_body20": plain_ms,
-                "checked_iterations": {"all": short, "body20": n}}
+                "plain_device": "cpu", "checked_iterations": {"all": short, "body20": n}}
 
     # ---- 13. the prototypes (E4, E5) ---------------------------------------
     def max_err(got, want):
@@ -4319,6 +4804,8 @@ print("RESULT " + json.dumps(out), flush=True)
 
     cli_jobs.shutdown()
     ring_lib.shutdown()
+    plain_pool.shutdown(cancel_futures=True)
+    shutil.rmtree(plain_dir, ignore_errors=True)
     side_jobs.shutdown()
     d160_jobs.shutdown()
     for d in tmpdirs:
@@ -4598,6 +5085,50 @@ print("RESULT " + json.dumps(out), flush=True)
             "library_ms": r["library_ms"], "shape": r["shape"],
             "by_shape": {t: {f: v for f, v in rec.items() if f != "launches"}
                          for t, rec in gl.items() if t != "launches" and rec["kernel"] == name}})
+    # B3 above D = 32 (slice_epoch_v5_buckets: the wide bucket at D = 64, B
+    # = 512, R = 128; the stream bucket at D = 160, timed at R = 320, its
+    # plain version at R = 4), launches on run_stream_routes_d160's cuda5
+    # runs at D = 64 and 160; the forced engines' fused routes at the bench
+    # (slice_forced_fused, gaussian.ini's shape beside), launches on
+    # run_forced_torch's runs
+    vb, ff, rf = (results["slice_epoch_v5_buckets"], results["slice_forced_fused"],
+                  results["run_forced_torch"])
+    v5_replaces = "polychordlite_tpu/ops/pallas_slice_v5.py:606"
+    for name, key, run in (("slice_epoch_v5_wide", "d64", "cuda5_d64"),
+                           ("slice_epoch_v5_stream", f"d{STREAM_DIMS[0]}", "cuda5")):
+        r = vb[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "slice_epoch_v5.cu",
+            "replaces": v5_replaces, "dtype": "float32",
+            "launches": sr[run].get("slice_epoch_v5", 0),
+            "phase_launches": vb["launches"].get(
+                f"{pallas_slice_v4.SLICE_MAXD_WIDE if key == 'd64' else pallas_slice_v4.STREAM}/32", 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_device": r["plain_device"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "b1_ms": r["b1_ms"],
+            "geometry": {k: r[k] for k in ("B", "D", "R")}, "group": r["group"],
+            "plain_at_R": r.get("plain_at_R", r["R"]), "ms_r4": r.get("ms_r4"),
+            "ptxas": r["ptxas"], "resident_warps": r["resident_warps"]})
+    for name, k, replaces, engine in (
+            ("slice_epoch_v5_fused", "B3", v5_replaces, "cuda5"),
+            ("slice_epoch_v3_fused", "B4", "polychordlite_tpu/ops/pallas_slice_v3.py:345", "cuda3"),
+            ("slice_epoch_v2_fused", "B5", "polychordlite_tpu/ops/pallas_slice.py:372", "cuda2")):
+        r = ff["bench"][k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "slice_epoch_fused.cu",
+            "replaces": replaces, "dtype": "float32", "engine": engine,
+            "launches": rf[engine]["launches"].get(name, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_device": r["plain_device"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "group": r["group"],
+            "ms_by_group": r["ms_by_group"], "b1_fused_ms": ff["bench"]["b1_fused_ms"],
+            "geometry": {f: ff["bench"][f] for f in ("B", "R", "D")},
+            "gaussian_ini": {**{f: ff["gaussian_ini"][k][f] for f in (
+                "group", "ms", "plain_ms", "max_abs_err")},
+                "b1_fused_ms": ff["gaussian_ini"]["b1_fused_ms"]},
+            "run_forced_torch": {f: rf[engine][f] for f in (
+                "ndead", "logZ", "logZerr", "pull_sigma", "wall_s", "dead_per_s",
+                "device_frac")}})
     missing = [k["name"] for k in kernels if not k["launches"]]
     for name in ("gram_schmidt_wide", "gram_schmidt_wide_f64"):
         if not launches[name]:

@@ -72,8 +72,7 @@ from ..ops.evaluate import make_batched_calculator
 from ..ops.logspace import logsumexp, logsumexp_small
 from ..ops.pallas_slice import fold_in, seed_key
 from ..ops import pallas_dirs
-from ..ops.pallas_slice_v4 import check_functor_dims
-from ..ops.pallas_slice_v5 import check_dims as check_v5_dims
+from ..ops.pallas_slice_v4 import check_functor_dims, forced_lowering
 from ..ops.precision import F32_SAFE_LOGL, PRECISIONS, calc_dtype, real_dtype_scope
 from ..ops.slice_kernel import KERNEL_ENGINES, EpochConfig, epoch_route, route_reason
 from ..parallel import distributed
@@ -183,15 +182,22 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
     kernel for a model with a device form, B1 with the likelihood lowered
     into it or the traced route ``csrc/slice_step.cu`` for the others:
     ``ops/slice_kernel.py::cuda_route``); the other kernel engines of
-    :data:`KERNEL_ENGINES` are forced by name and need a device form.
+    :data:`KERNEL_ENGINES` are forced by name and take what the JAX
+    package's forced engines take: a model with a device form (their
+    functor kernels), or a torch model whose likelihood
+    ``ops/fused_like.py`` lowers (their fused routes,
+    ``ops/slice_kernel.py::forced_route``); a model the lowering refuses
+    raises here, naming the lowering's reason and ``engine='cuda'``, whose
+    traced route runs it (ROADMAP C27).
     ``engine="torch"`` is the plain engine on any device, at any dimension;
-    B1's functor kernel and the forced ``"cuda3"`` and ``"cuda2"`` take D up
-    to the stream bucket's shared-memory bound for the functor's terms in
-    float32 (``pallas_slice_v4.stream_max_d``: 19,370 at one term, 14,528
-    at two), the fused route up to the same bound for the lowering's terms
-    and dtype (past it the model takes the traced route), the traced route
-    up to B2's bound, and ``"cuda5"`` stops at D = 32; above its bound an
-    engine raises here, once, naming the bound and ``engine='torch'``.  At
+    B1's functor kernel and the forced ``"cuda5"``, ``"cuda3"`` and
+    ``"cuda2"`` take D up to the stream bucket's shared-memory bound for the
+    functor's terms in float32 (``pallas_slice_v4.stream_max_d``: 19,370 at
+    one term, 14,528 at two), the fused routes up to the same bound for the
+    lowering's terms and dtype (past it the lowering refuses: ``"cuda"``
+    takes the traced route, a forced engine raises), the traced route up to
+    B2's bound; above its bound an engine raises here, once, naming the
+    bound and ``engine='torch'``.  At
     ``precision='highest'`` (a float64 calc) ``"cuda"`` takes the fused or
     the traced route in double, and the forced ``"cuda5"``, ``"cuda3"`` and
     ``"cuda2"``, whose kernels are float32, raise (as the JAX package sends
@@ -248,20 +254,15 @@ def resolve_engine(engine: str, device: torch.device, calc) -> str:
                 f"engine={engine!r} runs a float32 kernel, and precision='highest' runs in "
                 "float64; use engine='cuda' (B1's fused or traced route in double) or "
                 "engine='torch'")
-        if engine == "cuda5":
-            check_v5_dims(D)
         spec = getattr(calc, "device_spec", None)
         if spec is not None and not (engine == "cuda" and f64):
             # the functor route and the forced engines take the functor
             check_functor_dims(spec["likelihood"]["name"], D)
-        if engine == "cuda":
+        if engine == "cuda" or spec is not None:
             return engine
-        if getattr(calc, "device_spec", None) is None:
-            raise ValueError(
-                "the CUDA slice kernels need a prior with an affine form and a "
-                "likelihood with a device form (priors.py, models/examples.py); "
-                "pass engine='torch' to run this model on the plain torch engine"
-            )
+        # a forced engine's fused route: the likelihood lowered into its
+        # kernel, or a refusal naming the lowering's reason and engine='cuda'
+        forced_lowering(calc, engine)
         return engine
     if engine == "torch":
         return "torch"

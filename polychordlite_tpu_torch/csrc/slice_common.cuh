@@ -22,10 +22,10 @@ using exactly = typename same_type<T>::type;
 
 // The three dimension buckets of the slice-epoch template (slice_epoch.cuh):
 // D <= SLICE_MAXD, every kernel and G; SLICE_MAXD < D <= SLICE_MAXD_WIDE,
-// B1, B4 and B5 at G = SLICE_MAXD_WIDE / SLICE_LANE_CAP = 32 lanes per
+// B1, B3, B4 and B5 at G = SLICE_MAXD_WIDE / SLICE_LANE_CAP = 32 lanes per
 // chain, so that no lane owns more than SLICE_LANE_CAP coordinates; and
 // above, the stream bucket (a functor's MAXD = SLICE_MAXD_STREAM: no
-// compile-time bound), B1, B4 and B5 at G = 32 with the chain's x0, n̂ and
+// compile-time bound), B1, B3, B4 and B5 at G = 32 with the chain's x0, n̂ and
 // staged terms in the block's dynamic shared memory, (2 + NT) D values of
 // the run's type, so D is bounded at run time by the SLICE_SMEM_MAX bytes a
 // block may have (ops/pallas_slice_v4.py::stream_max_d).

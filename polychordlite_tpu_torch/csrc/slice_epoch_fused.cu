@@ -15,6 +15,16 @@
 // own, named by a hash of the header.  A header that defines FUSED_RING
 // (the ring engine's, ops/fused_like.py) makes a library of its own whose
 // entry is slice_epoch_fused_ring_launch, the same kernel under RingPolicy.
+// The forced engines' libraries are three more, one define each in the
+// header: FUSED_V3 (B4, slice_epoch_fused_v3_launch: the template under
+// V3Policy), FUSED_V2 (B5, slice_epoch_fused_v2_launch: V2Policy, which
+// writes the cube in every bucket) and FUSED_V5 (B3,
+// slice_epoch_fused_v5_launch: packet_epoch.cuh's packet kernel at the
+// library's G, 1, 4, 8, 16 or 32 lanes a chain up to D = 32 — its slots'
+// like_eval at Gs = G / 4 — and 32 above, with
+// slice_epoch_fused_v5_resident_warps for the launch's choice of G), float32
+// only, as their functor kernels are.  Each is a library of its own, so
+// B1's fused and ring libraries keep their sources, names and kernels.
 // The model's constants (captured
 // tensors and numbers, a lowered prior's parameters) are not in the source:
 // they come in one float32 device buffer, `consts`, so a family of models
@@ -40,6 +50,9 @@
 #include "slice_epoch.cuh"
 #include "fused_ops.cuh"
 #include "fused_like.cuh"
+#ifdef FUSED_V5
+#include "packet_epoch.cuh"
+#endif
 
 using fused_real = real_of<FusedLike>;
 
@@ -47,7 +60,7 @@ using fused_real = real_of<FusedLike>;
 // device pointer for the constants, every float array and logzero of type
 // fused_real.  Returns cudaErrorInvalidValue for another G or D, else
 // cudaGetLastError() after the launch.
-#ifndef FUSED_RING
+#if !defined(FUSED_RING) && !defined(FUSED_V5) && !defined(FUSED_V3) && !defined(FUSED_V2)
 extern "C" int slice_epoch_fused_launch(
     int group, const fused_real* consts, const fused_real* prior_a, const fused_real* prior_s,
     const fused_real* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
@@ -64,7 +77,7 @@ extern "C" int slice_epoch_fused_launch(
     return (int)cudaGetLastError();
 }
 
-#else  // FUSED_RING: the ring engine's library of this model and G
+#elif defined(FUSED_RING)  // the ring engine's library of this model and G
 
 // The ring engine's epoch (RingPolicy, slice_epoch.cuh): the arguments of
 // slice_epoch_fused_launch, with `cap` the ring's budget, then `overflow`
@@ -88,4 +101,85 @@ extern "C" int slice_epoch_fused_ring_launch(
     return (int)cudaGetLastError();
 }
 
-#endif  // FUSED_RING
+#else  // FUSED_V5, FUSED_V3 or FUSED_V2: a forced engine's library of this model and G
+
+static_assert(std::is_same<fused_real, float>::value,
+              "the forced engines' kernels are float32, as their functor kernels are");
+
+// The arguments of slice_epoch_fused_launch, float32; B4's `cap` is the
+// micro-steps one repeat may take (v3's budget), B5's the same (v2's),
+// B3's B1's budget in consumed probes.  B5 takes `cube_out` (R, D, B)
+// float32 after the stream.
+static EpochArgs forced_args(const void* x0t, const void* bound, const void* valid,
+                             const void* nhat, const void* w, void* t_out, void* logL_out,
+                             void* nlike_out, int B, int D, int R, unsigned int k0,
+                             unsigned int k1, unsigned int lane0, int max_step, int max_shrink,
+                             long long cap, void* cube_out = nullptr) {
+    return at_lane0(epoch_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B, D, R,
+                               k0, k1, max_step, max_shrink, cap, nullptr, nullptr, cube_out),
+                    lane0);
+}
+
+#if defined(FUSED_V5)
+extern "C" int slice_epoch_fused_v5_launch(
+    int group, const float* consts, const float* prior_a, const float* prior_s,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream) {
+    const EpochArgs a = forced_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                    D, R, k0, k1, lane0, max_step, max_shrink, cap);
+    if (group != FUSED_G || D != FUSED_D || !packet_args_ok(a, group) ||
+        !epoch_args_ok(a, group, FusedLike::MAXD))
+        return (int)cudaErrorInvalidValue;
+    const FusedLike like{make_prior<FusedLike::MAXD>(prior_a, prior_s, dev, D), consts, logzero};
+    launch_packet_kernel<FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}
+
+// The warps of this library's kernel that one SM of the current device
+// keeps resident at one warp a block (slice_epoch_v5_resident_warps'
+// query), or minus a CUDA error.
+extern "C" int slice_epoch_fused_v5_resident_warps() {
+    int warps = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &warps, slice_epoch_v5_kernel<FusedLike, FUSED_G>, 32,
+        packet_smem_bytes<FusedLike>(FUSED_D));
+    return e == cudaSuccess ? warps : -(int)e;
+}
+
+#elif defined(FUSED_V3)
+extern "C" int slice_epoch_fused_v3_launch(
+    int group, const float* consts, const float* prior_a, const float* prior_s,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream) {
+    const EpochArgs a = forced_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                    D, R, k0, k1, lane0, max_step, max_shrink, cap);
+    if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD))
+        return (int)cudaErrorInvalidValue;
+    const FusedLike like{make_prior<FusedLike::MAXD>(prior_a, prior_s, dev, D), consts, logzero};
+    launch_epoch<V3Policy, FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}
+
+#else  // FUSED_V2
+extern "C" int slice_epoch_fused_v2_launch(
+    int group, const float* consts, const float* prior_a, const float* prior_s,
+    const float* dev, const void* x0t, const void* bound, const void* valid, const void* nhat,
+    const void* w, void* t_out, void* logL_out, void* nlike_out, int B, int D,
+    int R, unsigned int k0, unsigned int k1, unsigned int lane0, int max_step,
+    int max_shrink, long long cap, float logzero, void* stream, void* cube_out) {
+    const EpochArgs a = forced_args(x0t, bound, valid, nhat, w, t_out, logL_out, nlike_out, B,
+                                    D, R, k0, k1, lane0, max_step, max_shrink, cap, cube_out);
+    if (group != FUSED_G || D != FUSED_D || !epoch_args_ok(a, group, FusedLike::MAXD) ||
+        cube_out == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const FusedLike like{make_prior<FusedLike::MAXD>(prior_a, prior_s, dev, D), consts, logzero};
+    launch_epoch<V2Policy, FusedLike, FUSED_G>(like, a, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}
+#endif
+
+#endif  // the engine's library

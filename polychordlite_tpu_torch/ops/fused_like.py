@@ -280,7 +280,7 @@ class Lowered:
     #: a calc made at precision='highest'
     dtype: torch.dtype = torch.float32
     #: seconds each group size's library took to build (or load) in this
-    #: process, by G (the ring engine's by "G/ring")
+    #: process, by G (another engine's by "G/<engine>": "G/ring", "G/cuda5")
     build_seconds: Dict[object, float] = field(default_factory=dict)
     _device_consts: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
 
@@ -422,10 +422,14 @@ class Lowered:
             "};",
         ])
 
-    def source(self, group: int, ring: bool = False) -> str:
+    def source(self, group: int, engine: str = "cuda", ring: bool = False) -> str:
         """The generated header ``fused_like.cuh`` for ``group`` lanes per
-        chain; with ``ring``, of the ring engine's library (``FUSED_RING``:
-        its entry is ``slice_epoch_fused_ring_launch``)."""
+        chain and ``engine``'s library (:data:`ENGINE_DEFINES`): ``"cuda"``,
+        B1's; ``"ring"`` (or ``ring=True``), the ring engine's
+        (``FUSED_RING``: its entry is ``slice_epoch_fused_ring_launch``);
+        ``"cuda5"``, ``"cuda3"``, ``"cuda2"``, the forced engines' B3, B4
+        and B5 (``slice_epoch_fused_v5_launch`` and so on)."""
+        define = ENGINE_DEFINES[_engine(engine, ring)]
         return "\n".join([
             "// Generated by polychordlite_tpu_torch/ops/fused_like.py from a model's",
             "// torch trace; built by slice_epoch_fused.cu.  Do not edit.",
@@ -434,41 +438,63 @@ class Lowered:
             f"#define FUSED_MAXD {self.bucket_macro}",
             f"#define FUSED_G {group}",
             f"#define FUSED_NC {len(self.consts)}",
-            *(["#define FUSED_RING 1"] if ring else []),
+            *([f"#define {define} 1"] if define else []),
             "",
             self.emit_functor(),
             "",
         ])
 
-    def key(self, group: int, ring: bool = False) -> str:
-        """A hash of :meth:`source`: the graph, G and the ring, not the constants."""
-        return hashlib.sha256(self.source(group, ring).encode()).hexdigest()[:16]
+    def key(self, group: int, engine: str = "cuda", ring: bool = False) -> str:
+        """A hash of :meth:`source`: the graph, G and the engine, not the constants."""
+        return hashlib.sha256(self.source(group, engine, ring).encode()).hexdigest()[:16]
 
-    def library_name(self, group: int, ring: bool = False) -> str:
-        return f"slice_epoch_fused_{'ring_' if ring else ''}{self.key(group, ring)}"
+    def library_name(self, group: int, engine: str = "cuda", ring: bool = False) -> str:
+        engine = _engine(engine, ring)
+        return f"slice_epoch_fused_{ENGINE_PREFIX[engine]}{self.key(group, engine)}"
 
-    def build(self, groups, ring: bool = False) -> None:
-        """Build (or load) the libraries of ``groups`` (the ring engine's
-        with ``ring``), one nvcc each, all started together; their seconds
-        go to :attr:`build_seconds` by G, or by ``"G/ring"`` (0 for a
-        library this process had loaded already)."""
-        names = {G: self.library_name(G, ring) for G in groups}
+    def build(self, groups, engine: str = "cuda", ring: bool = False) -> None:
+        """Build (or load) ``engine``'s libraries of ``groups``, one nvcc
+        each, all started together; their seconds go to
+        :attr:`build_seconds` by G, or by ``"G/<engine>"`` for another
+        engine than ``"cuda"`` (``"G/ring"``; 0 for a library this process
+        had loaded already)."""
+        engine = _engine(engine, ring)
+        names = {G: self.library_name(G, engine) for G in groups}
         loaded = {G for G, n in names.items() if nvcc.is_loaded(n)}
         nvcc.build_all({n: [SOURCE] for n in names.values()},
-                       headers={names[G]: self.source(G, ring) for G in names})
+                       headers={names[G]: self.source(G, engine) for G in names})
         for G, n in names.items():
-            self.build_seconds.setdefault(f"{G}/ring" if ring else G,
+            self.build_seconds.setdefault(_seconds_key(G, engine),
                                           0.0 if G in loaded else nvcc.build_seconds[n])
 
-    def library(self, group: int, ring: bool = False):
-        """The library of ``group`` lanes per chain (the ring engine's with
-        ``ring``), built at first use."""
-        name = self.library_name(group, ring)
+    def library(self, group: int, engine: str = "cuda", ring: bool = False):
+        """``engine``'s library of ``group`` lanes per chain, built at first use."""
+        engine = _engine(engine, ring)
+        name = self.library_name(group, engine)
         t0 = time.perf_counter()
-        lib = nvcc.load(name, [SOURCE], header=self.source(group, ring))
-        self.build_seconds.setdefault(f"{group}/ring" if ring else group,
-                                      time.perf_counter() - t0)
+        lib = nvcc.load(name, [SOURCE], header=self.source(group, engine))
+        self.build_seconds.setdefault(_seconds_key(group, engine), time.perf_counter() - t0)
         return lib
+
+
+#: the define that picks each engine's entry of ``csrc/slice_epoch_fused.cu``
+#: in the generated header (none for B1's)
+ENGINE_DEFINES = {"cuda": None, "ring": "FUSED_RING", "cuda5": "FUSED_V5",
+                  "cuda3": "FUSED_V3", "cuda2": "FUSED_V2"}
+#: ... and the prefix of its libraries' names
+ENGINE_PREFIX = {"cuda": "", "ring": "ring_", "cuda5": "v5_", "cuda3": "v3_", "cuda2": "v2_"}
+
+
+def _engine(engine: str, ring: bool) -> str:
+    """The engine of a library: ``engine``, or ``"ring"`` for ``ring=True``."""
+    engine = "ring" if ring else engine
+    if engine not in ENGINE_DEFINES:
+        raise ValueError(f"no fused library for engine {engine!r}; have {tuple(ENGINE_DEFINES)}")
+    return engine
+
+
+def _seconds_key(group: int, engine: str):
+    return group if engine == "cuda" else f"{group}/{engine}"
 
 
 # ------------------------------------------------------------------ lowering

@@ -5,7 +5,12 @@ counter hash and per-epoch key words (counterpart of
 :func:`slice_epoch_v2` is the wrapper of the hand-written CUDA kernel
 ``csrc/slice_epoch_v2.cu`` (B5, the JAX package's ``"pallas2"`` engine):
 each chain runs its R repeats freely under v2's per-repeat budget and the
-kernel writes the cube; a chain holds G lanes of a warp, as B1's does.
+kernel writes the cube; a chain holds G lanes of a warp, as B1's does.  A
+model without a device functor whose likelihood ``ops/fused_like.py``
+lowers runs the same template with the lowered functor
+(``csrc/slice_epoch_fused.cu`` built with ``FUSED_V2``, route
+``slice_epoch_v2_fused``; its plain version
+:func:`slice_records_lockstep_plain` on ``Lowered.plain_logL``).
 For CPU tensors it runs
 :func:`slice_records_lockstep_plain`, v2's own structure in torch (every
 repeat a while loop of 4-micro-step bodies over all lanes, the cube
@@ -319,9 +324,10 @@ def slice_records_lockstep_plain(
     return t_out, l_out, n_out, cube
 
 
-#: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0}
-#: slice_epoch_v2's launches by (bucket, G) since the last reset (the keys of
+#: kernel launches since the last reset (compare-with-plain launches
+#: included): the functor kernel, its counted form and the fused route's
+LAUNCHES = {"slice_epoch_v2": 0, "slice_epoch_v2_counted": 0, "slice_epoch_v2_fused": 0}
+#: slice_epoch_v2's launches (functor and fused) by (bucket, G) since the last reset (the keys of
 #: ``pallas_slice_v4.GROUP_LAUNCHES``), apart from B1's
 GROUP_LAUNCHES = {(b, g): 0 for b, gs in ((32, (1, 2, 4, 8, 16, 32)), (128, (32,)),
                                            ("stream", (32,))) for g in gs}
@@ -331,8 +337,10 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     """Run the slice repeats of every lane with v2's budget and cube:
     (t, logL) float32, nlike int32, each (B, R), and cube (B, R, D)
     float32, with the inputs of ``pallas_slice_v4.slice_epoch``.  CPU
-    tensors: the plain version; CUDA tensors: the kernel, which needs
-    ``calc.device_spec``, with ``group`` lanes per chain (one of the
+    tensors: the plain version; CUDA tensors: the kernel, with
+    ``calc.device_spec``'s functor or, for a model without one, the
+    likelihood lowered into it (``ops/fused_like.py``; a model the lowering
+    refuses raises, naming the reason), with ``group`` lanes per chain (one of the
     bucket's ``pallas_slice_v4.BUCKET_GROUPS``; ``pallas_slice_v4.
     choose_group`` by default, as for B1).  Every G gives the same result
     bit for bit.  ``lane0`` is the first lane's index in the whole batch
@@ -346,16 +354,24 @@ def slice_epoch_v2(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     # pallas_slice_v4 imports this module
-    from .pallas_slice_v4 import launch_group, launch_slice_kernel
+    from .pallas_slice_v4 import forced_lowering, fused_functor, launch_group, launch_slice_kernel
 
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
     cube = torch.empty((R, D, B), dtype=torch.float32, device=x0.device)
-    t, logL, nlike = launch_slice_kernel(
-        _lib(), "slice_epoch_v2_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
-        cap=v2_repeat_budget(cfg), extra=(cube,), ints=(key[1],), lane0=lane0,
-    )
-    LAUNCHES["slice_epoch_v2"] += 1
+    if getattr(calc, "device_spec", None) is None:  # the fused route
+        low = forced_lowering(calc, "cuda2")
+        t, logL, nlike = launch_slice_kernel(
+            low.library(key[1], "cuda2"), "slice_epoch_fused_v2_launch", calc, cfg, key_words,
+            x0, bound, valid, nhats, ws, cap=v2_repeat_budget(cfg), extra=(cube,),
+            functor=fused_functor(low, key[1], x0.device), lane0=lane0)
+        LAUNCHES["slice_epoch_v2_fused"] += 1
+    else:
+        t, logL, nlike = launch_slice_kernel(
+            _lib(), "slice_epoch_v2_launch", calc, cfg, key_words, x0, bound, valid, nhats, ws,
+            cap=v2_repeat_budget(cfg), extra=(cube,), ints=(key[1],), lane0=lane0,
+        )
+        LAUNCHES["slice_epoch_v2"] += 1
     GROUP_LAUNCHES[key] += 1
     return t, logL, nlike, cube.permute(2, 0, 1)
 

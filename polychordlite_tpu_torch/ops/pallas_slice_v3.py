@@ -4,7 +4,11 @@
 ``csrc/slice_epoch_v3.cu`` (B4, the JAX package's ``"pallas3"`` engine):
 each chain runs its repeats freely with the state machine it shares with
 B1, each repeat under the budget of one v3 grid step; a chain holds G lanes
-of a warp, on B1's template under v3's budget policy.  For CPU tensors it
+of a warp, on B1's template under v3's budget policy.  A model without a
+device functor whose likelihood ``ops/fused_like.py`` lowers runs the same
+template with the lowered functor (``csrc/slice_epoch_fused.cu`` built with
+``FUSED_V3``, route ``slice_epoch_v3_fused``; its plain version
+:func:`slice_records_window_plain` on ``Lowered.plain_logL``).  For CPU tensors it
 runs :func:`slice_records_window_plain`, v3's own structure in plain torch;
 for CUDA tensors it launches the kernel or raises.
 
@@ -29,12 +33,14 @@ import torch
 
 from ..utils import nvcc
 from .pallas_slice import BODY, PH_DONE, PH_INIT_R, LaneMachine, _mix, lane_hash
-from .pallas_slice_v4 import GROUPS, launch_group, launch_slice_kernel
+from .pallas_slice_v4 import (GROUPS, forced_lowering, fused_functor, launch_group,
+                               launch_slice_kernel)
 from .pallas_slice_v4 import GROUP_LAUNCHES as _B1_GROUP_LAUNCHES
 
-#: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch_v3": 0}
-#: slice_epoch_v3's launches by (bucket, G) since the last reset (the keys of
+#: kernel launches since the last reset (compare-with-plain launches
+#: included): the functor kernel, and the fused route's
+LAUNCHES = {"slice_epoch_v3": 0, "slice_epoch_v3_fused": 0}
+#: slice_epoch_v3's launches (functor and fused) by (bucket, G) since the last reset (the keys of
 #: ``pallas_slice_v4.GROUP_LAUNCHES``), apart from B1's
 GROUP_LAUNCHES = dict.fromkeys(_B1_GROUP_LAUNCHES, 0)
 
@@ -127,7 +133,9 @@ def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
     """Run the slice repeats of every lane under v3's budget: (t, logL)
     float32 and nlike int32, each (B, R), with the inputs of
     ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, which needs ``calc.device_spec``, with ``group``
+    tensors: the kernel, with ``calc.device_spec``'s functor or, for a model
+    without one, the likelihood lowered into it (``ops/fused_like.py``; a
+    model the lowering refuses raises, naming the reason), with ``group``
     lanes per chain (one of the bucket's ``pallas_slice_v4.BUCKET_GROUPS``;
     ``pallas_slice_v4.choose_group`` by default, as for B1).  Every G gives
     the same result bit for bit.  ``lane0``: ``pallas_slice.lane_hash``."""
@@ -141,11 +149,19 @@ def slice_epoch_v3(calc, cfg, key_words, x0, bound, valid, nhats, ws, group=None
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
-    out = launch_slice_kernel(
-        nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"]), "slice_epoch_v3_launch",
-        calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
-        ints=(key[1],), lane0=lane0,
-    )
-    LAUNCHES["slice_epoch_v3"] += 1
+    if getattr(calc, "device_spec", None) is None:  # the fused route
+        low = forced_lowering(calc, "cuda3")
+        out = launch_slice_kernel(
+            low.library(key[1], "cuda3"), "slice_epoch_fused_v3_launch", calc, cfg, key_words,
+            x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
+            functor=fused_functor(low, key[1], x0.device), lane0=lane0)
+        LAUNCHES["slice_epoch_v3_fused"] += 1
+    else:
+        out = launch_slice_kernel(
+            nvcc.load("slice_epoch_v3", ["slice_epoch_v3.cu"]), "slice_epoch_v3_launch",
+            calc, cfg, key_words, x0, bound, valid, nhats, ws, cap=cap_body(cfg) * BODY,
+            ints=(key[1],), lane0=lane0,
+        )
+        LAUNCHES["slice_epoch_v3"] += 1
     GROUP_LAUNCHES[key] += 1
     return out

@@ -97,8 +97,9 @@ from .slice_kernel import EpochConfig, slice_records_plain
 #: the kernel template's dimension buckets and the most coordinates a lane
 #: owns in the wide one (SLICE_MAXD, SLICE_MAXD_WIDE and SLICE_LANE_CAP of
 #: ``csrc/slice_common.cuh``): D <= 32 at every G of :data:`GROUPS`;
-#: 32 < D <= 128 at G = 128 / 4 = 32 only (B1, B4, B5 and the fused route;
-#: B3 and the studies stop at 32).  G = 16, at 8 coordinates a lane, took
+#: 32 < D <= 128 at G = 128 / 4 = 32 only (B1, B4, B5 and the fused routes;
+#: B3 holds a chain on a whole warp there; the studies stop at 32).  G = 16,
+#: at 8 coordinates a lane, took
 #: 1.36-1.38x G = 32's time at D = 40, 64 and 128 (B = 512; PERF.md, section
 #: 6), so the wide bucket does not build it.
 SLICE_MAXD, SLICE_MAXD_WIDE, LANE_CAP = 32, 128, 4
@@ -311,6 +312,34 @@ def functor_device_data(calc, D: int, device) -> torch.Tensor:
     return memo[key]
 
 
+def forced_lowering(calc, engine: str):
+    """The lowering (``ops/fused_like.py``) that a forced engine's fused
+    route runs for ``calc``, a model without a device functor: B3, B4 and
+    B5 take the likelihood lowered into their kernels as B1's fused route
+    does.  Raises for a model the lowering refuses, naming the reason and
+    engine='cuda' (whose traced route runs any torch model), and for a
+    float64 lowering (the forced engines' kernels are float32)."""
+    from .fused_like import Refused, lowering
+
+    low = lowering(calc)
+    if isinstance(low, Refused):
+        raise ValueError(
+            f"engine={engine!r} runs a device functor or the likelihood lowered into its "
+            f"kernel, and the lowering refused this model: {low.reason}; engine='cuda' runs "
+            "it (its traced route), or engine='torch'")
+    if low.dtype != torch.float32:
+        raise TypeError(f"engine={engine!r} runs a float32 kernel and this model computes in "
+                        f"{low.dtype}; use engine='cuda' or 'torch'")
+    return low
+
+
+def fused_functor(low, group: int, device):
+    """The first five arguments of a fused entry for :func:`launch_slice_kernel`:
+    G, the lowering's constants on ``device``, its prior's a and s (host
+    arrays) and its device prior."""
+    return (group, low.device_consts(device), *low.prior, low.device_prior(device))
+
+
 def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
                         x0, bound, valid, nhats, ws, cap=None, extra=(), ints=(), functor=None,
                         lane0=0):
@@ -486,7 +515,7 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     B, R, D = nhats.shape
     key = launch_group(B, D, x0.device, group)
     G = key[1]
-    functor = (G, low.device_consts(x0.device), *low.prior, low.device_prior(x0.device))
+    functor = fused_functor(low, G, x0.device)
     ring = ring_cap is not None
     flag = torch.zeros(B, dtype=torch.int32, device=x0.device) if ring else None
     out = launch_slice_kernel(

@@ -9,8 +9,16 @@ rejected"), evaluates the four, and consumes them in order up to the first
 one that diverts its state machine (``csrc/packet_machine.cuh``).  A chain
 holds G = 4 Gs lanes of a warp, one sub-group of Gs lanes per packet slot
 (G = 1: one thread evaluates the four in turn); :func:`choose_packet_group`
-picks G from the card's SMs and the warps each G's kernel keeps resident.  For CPU tensors it runs :func:`slice_records_packet_plain`, the
-same packet machine in plain torch vectorised over lanes; for CUDA tensors
+picks G from the card's SMs and the warps each G's kernel keeps resident.
+Above D = 32 (the wide bucket to 128, the stream bucket above, to B1's
+shared-memory bound) a chain holds a whole warp, G = 32, which evaluates
+the four slots in turn (``csrc/packet_epoch.cuh``).  A model without a
+device functor whose likelihood ``ops/fused_like.py`` lowers runs the same
+kernel with the lowered functor (``csrc/slice_epoch_fused.cu`` built with
+``FUSED_V5``, route ``slice_epoch_v5_fused``; its plain version
+:func:`slice_records_packet_plain` on ``Lowered.plain_logL``).  For CPU
+tensors it runs :func:`slice_records_packet_plain`, the same packet
+machine in plain torch vectorised over lanes, at any D; for CUDA tensors
 it launches the kernel or raises.
 
 Both are decision-exact with the v4 engines (``ops/pallas_slice_v4.py``,
@@ -42,39 +50,68 @@ from .pallas_slice import (
 from ..utils import nvcc
 from .pallas_slice_v4 import (
     SLICE_MAXD,
+    SLICE_MAXD_WIDE,
+    STREAM,
     TARGET_WARPS_PER_SM,
     WARP,
     _sm_count,
+    bucket,
+    forced_lowering,
     functor_args,
+    functor_terms,
+    fused_functor,
     launch_slice_kernel,
 )
 from .slice_kernel import EpochConfig
 
-#: kernel launches since the last reset (compare-with-plain launches included)
-LAUNCHES = {"slice_epoch_v5": 0}
+#: kernel launches since the last reset (compare-with-plain launches
+#: included): the functor kernel, and the fused route's
+LAUNCHES = {"slice_epoch_v5": 0, "slice_epoch_v5_fused": 0}
 
 P = 4  # probes per packet (the INIT plan [tR, tL, +w, -w] needs 4)
-#: the lanes a chain may be spread over (the kernel's instantiations): one
-#: thread, or P sub-groups of 1, 2, 4 or 8 lanes
+#: the lanes a chain may be spread over in the SLICE_MAXD bucket (the
+#: kernel's instantiations): one thread, or P sub-groups of 1, 2, 4 or 8
+#: lanes
 PACKET_GROUPS = (1, 4, 8, 16, 32)
-#: slice_epoch_v5's launches by G since the last reset
-GROUP_LAUNCHES = {g: 0 for g in PACKET_GROUPS}
+#: the G instantiated in each bucket: above D = 32 a chain holds a warp
+PACKET_BUCKET_GROUPS = {SLICE_MAXD: PACKET_GROUPS, SLICE_MAXD_WIDE: (WARP,), STREAM: (WARP,)}
+#: slice_epoch_v5's launches (the functor kernel and the fused route) by
+#: (bucket, G) since the last reset, keyed as ``pallas_slice_v4.GROUP_LAUNCHES``
+GROUP_LAUNCHES = {(b, g): 0 for b, gs in PACKET_BUCKET_GROUPS.items() for g in gs}
 
 
 def _lib():
+    """B3's library of the SLICE_MAXD bucket (D <= 32, every G)."""
     return nvcc.load("slice_epoch_v5", ["slice_epoch_v5.cu"])
 
 
-def check_dims(D: int) -> None:
-    """Raise above B3's bound on the dimension, SLICE_MAXD = 32 (the packet
-    machine's x0[SLICE_MAXD], n[SLICE_MAXD] per thread)."""
-    if D > SLICE_MAXD:
-        raise ValueError(f"engine='cuda5' (the packet kernel) stops at D = {SLICE_MAXD}, "
-                         f"not D = {D}; engine='cuda' or 'torch' runs it")
+def _wide_lib():
+    """B3's library of the wide and stream buckets (D > 32, G = 32):
+    ``csrc/slice_epoch_v5.cu`` built with ``SLICE_EPOCH_V5_WIDE``
+    (``nvcc.DEFINES``)."""
+    return nvcc.load("slice_epoch_v5_wide", ["slice_epoch_v5.cu"])
+
+
+def _lib_for(D: int):
+    return _lib() if D <= SLICE_MAXD else _wide_lib()
+
+
+def check_dims(D: int, n_terms: int = 1) -> None:
+    """Raise above B3's bound on the dimension on the card: the stream
+    bucket's, as B1's (``pallas_slice_v4.bucket``: a chain's (2 + n_terms)
+    D floats in a block's shared memory), naming it and engine='torch'."""
+    bucket(D, n_terms)
+
+
+def packet_groups(D: int):
+    """The G the kernel is instantiated at for dimension D."""
+    return PACKET_BUCKET_GROUPS[bucket(D)]
 
 
 def choose_packet_group(B: int, D: int, n_sm: int, resident_warps) -> int:
-    """G = P Gs, the lanes of a warp that hold one chain: Gs is the smallest
+    """G = P Gs, the lanes of a warp that hold one chain.  Above D = 32 it
+    is 32, a whole warp (the wide and stream buckets' one instantiation).
+    Up to 32, Gs is the smallest
     power of two whose B P Gs / 32 warps reach ``TARGET_WARPS_PER_SM`` on
     each of the card's ``n_sm`` SMs, with Gs <= min(D, 8) (every lane of a
     sub-group owns a coordinate; four sub-groups fill at most a warp), and
@@ -83,6 +120,8 @@ def choose_packet_group(B: int, D: int, n_sm: int, resident_warps) -> int:
     resident (PERF.md, section 6: at the bench G = 8's 15.5 warps per SM
     overflow the 12 that its registers allow, and ran 1.2x slower than G = 4
     and G = 16)."""
+    if D > SLICE_MAXD:
+        return WARP
     gs_max = 1 << (min(D, WARP // P).bit_length() - 1)
     gs = 1
     while (gs < gs_max and B * P * gs < TARGET_WARPS_PER_SM * n_sm * WARP
@@ -93,10 +132,11 @@ def choose_packet_group(B: int, D: int, n_sm: int, resident_warps) -> int:
 
 def resident_warps(calc, D: int, dev: torch.device, group: int) -> int:
     """The warps of the kernel at ``group`` lanes per chain for
-    ``calc.device_spec``'s functor that one SM of ``dev`` keeps resident
-    (CUDA's occupancy query; the kernel's registers decide)."""
+    ``calc.device_spec``'s functor at dimension D (in its bucket) that one
+    SM of ``dev`` keeps resident (CUDA's occupancy query; the kernel's
+    registers decide, and in the stream bucket its shared memory)."""
     fid, consts, prior_a, prior_s = functor_args(calc, D)
-    fn = _lib().slice_epoch_v5_resident_warps
+    fn = _lib_for(D).slice_epoch_v5_resident_warps
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
@@ -108,11 +148,33 @@ def resident_warps(calc, D: int, dev: torch.device, group: int) -> int:
     return warps
 
 
+def fused_resident_warps(low, dev: torch.device, group: int) -> int:
+    """:func:`resident_warps` of the fused route's kernel of the lowering
+    ``low`` (its library at ``group``, built at first use)."""
+    fn = low.library(group, "cuda5").slice_epoch_fused_v5_resident_warps
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    with torch.cuda.device(dev):
+        warps = fn()
+    if warps < 0:
+        nvcc.check(-warps, "slice_epoch_fused_v5_resident_warps")
+    return warps
+
+
 def packet_group_for(calc, B: int, D: int, dev: torch.device) -> int:
     """The G that :func:`slice_epoch_v5` picks on ``dev`` for B chains of D
-    coordinates of ``calc``'s functor."""
+    coordinates of ``calc``: by the resident warps of its functor's kernel,
+    or, for a model without one, of the fused route's kernel of its
+    lowering (the libraries of every G of the bucket built first, one nvcc
+    each, all started together)."""
+    if D > SLICE_MAXD:
+        return WARP
+    if getattr(calc, "device_spec", None) is not None:
+        return choose_packet_group(B, D, _sm_count(dev),
+                                   lambda G: resident_warps(calc, D, dev, G))
+    low = forced_lowering(calc, "cuda5")
+    low.build(PACKET_GROUPS, "cuda5")
     return choose_packet_group(B, D, _sm_count(dev),
-                               lambda G: resident_warps(calc, D, dev, G))
+                               lambda G: fused_resident_warps(low, dev, G))
 
 
 def _ladder(t, ins, step, max_step):
@@ -325,16 +387,17 @@ def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, w
                    group=None, lane0=0):
     """Run the slice repeats of every lane in packets: (t, logL) float32
     and nlike int32, each (B, R), with the inputs of
-    ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version; CUDA
-    tensors: the kernel, which needs ``calc.device_spec``, with ``group``
-    lanes per chain (one of :data:`PACKET_GROUPS`; :func:`packet_group_for`
-    by default).  Every G gives the same result bit for bit.  The packet
-    machine keeps a chain's coordinates per thread, so it stops at D =
-    ``SLICE_MAXD`` (32), on either device; above, it raises.  ``lane0``:
+    ``pallas_slice_v4.slice_epoch``.  CPU tensors: the plain version, at
+    any D; CUDA tensors: the kernel, with ``calc.device_spec``'s functor or,
+    for a model without one, the likelihood lowered into it
+    (``ops/fused_like.py``; a model the lowering refuses raises, naming the
+    reason and engine='cuda'), with ``group`` lanes per chain (one of the
+    bucket's :data:`PACKET_BUCKET_GROUPS`; :func:`packet_group_for` by
+    default).  Every G gives the same result bit for bit.  On the card D is
+    bounded by the stream bucket's shared memory, as for B1.  ``lane0``:
     ``pallas_slice.lane_hash``."""
     if group is not None and group not in PACKET_GROUPS:
         raise ValueError(f"group {group} is not one of {PACKET_GROUPS}")
-    check_dims(nhats.shape[2])
     if x0.device.type == "cpu":
         return slice_records_packet_plain(
             lambda p: calc(p)[2], cfg, key_words, x0, bound, valid, nhats, ws, lane0=lane0
@@ -342,9 +405,20 @@ def slice_epoch_v5(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats, w
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
+    spec = getattr(calc, "device_spec", None)
+    low = forced_lowering(calc, "cuda5") if spec is None else None
+    check_dims(D, functor_terms(spec["likelihood"]["name"]) if low is None else low.n_terms)
     G = packet_group_for(calc, B, D, x0.device) if group is None else group
-    out = launch_slice_kernel(_lib(), "slice_epoch_v5_launch", calc, cfg, key_words,
-                              x0, bound, valid, nhats, ws, ints=(G,), lane0=lane0)
-    LAUNCHES["slice_epoch_v5"] += 1
-    GROUP_LAUNCHES[G] += 1
+    if G not in packet_groups(D):
+        raise ValueError(f"group {G} is not one of {packet_groups(D)} at D={D}")
+    if low is None:
+        out = launch_slice_kernel(_lib_for(D), "slice_epoch_v5_launch", calc, cfg, key_words,
+                                  x0, bound, valid, nhats, ws, ints=(G,), lane0=lane0)
+        LAUNCHES["slice_epoch_v5"] += 1
+    else:
+        out = launch_slice_kernel(low.library(G, "cuda5"), "slice_epoch_fused_v5_launch", calc,
+                                  cfg, key_words, x0, bound, valid, nhats, ws,
+                                  functor=fused_functor(low, G, x0.device), lane0=lane0)
+        LAUNCHES["slice_epoch_v5_fused"] += 1
+    GROUP_LAUNCHES[bucket(D), G] += 1
     return out

@@ -29,6 +29,18 @@ slice repeats on each of B chains and returns the packed
   cube as v2 does, through ``ops/pallas_slice.py`` (the JAX package's
   forced ``"pallas2"``); the same decisions, a cube that differs from the
   rebuilt one in the last bits, so another chain, held statistically.
+
+  The three forced engines take what the JAX package's forced engines take
+  (``polychordlite_tpu/ops/pallas_slice.py::_validated_tile_logL`` puts any
+  traced likelihood in their kernels): a model with a device functor runs
+  the engine's functor kernel at any D to the stream bucket's bound, and a
+  torch model without one whose likelihood ``ops/fused_like.py`` lowers
+  runs the same kernel with the lowered functor, the engine's fused route
+  (``slice_epoch_v5_fused``, ``slice_epoch_v3_fused``,
+  ``slice_epoch_v2_fused``: ``csrc/slice_epoch_fused.cu`` built with
+  ``FUSED_V5``, ``FUSED_V3`` or ``FUSED_V2``).  A model the lowering
+  refuses raises, naming the reason and ``engine='cuda'``, whose traced
+  route runs it (ROADMAP C27).
 * ``"scan"`` — the repeats of an epoch one at a time, in lockstep across
   the batch (the JAX package's ``build_epoch_fn_scan``,
   ``slice_kernel.py:193-428``), each repeat of one grade: for a
@@ -263,8 +275,10 @@ def kernel_wrapper(engine: str):
     bound, valid, nhats, ws, group=None) -> (t, logL, nlike[, cube]).  On
     CPU tensors each wrapper runs its own plain version.  ``"cuda"`` takes
     :func:`cuda_route`'s route, and ``ring_cap=`` runs that route under the
-    ring engine's budget, its overflow flags (B,) bool last; the other
-    engines need a functor."""
+    ring engine's budget, its overflow flags (B,) bool last; each of the
+    other engines' wrappers runs its functor kernel for a model with a
+    device functor and its fused route for a model the lowering takes
+    (:func:`forced_route`)."""
     from .pallas_slice_v3 import slice_epoch_v3
     from .pallas_slice_v4 import slice_epoch, slice_epoch_fused, slice_epoch_traced
     from .pallas_slice_v5 import slice_epoch_v5
@@ -317,8 +331,33 @@ def _route(engine: str, calc, device=None) -> Tuple[str, str]:
         return "slice_step_graded", why
     if engine == "cuda":
         return cuda_route(calc)
-    kernel = {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}
-    return kernel[engine], f"engine={engine!r} forced"
+    return forced_route(engine, calc)
+
+
+#: the functor kernel of each forced engine (its fused route adds "_fused")
+FORCED_KERNELS = {"cuda5": "slice_epoch_v5", "cuda3": "slice_epoch_v3", "cuda2": "slice_epoch_v2"}
+
+
+def forced_route(engine: str, calc) -> Tuple[str, str]:
+    """(route, reason) of a forced engine (``"cuda5"``, ``"cuda3"``,
+    ``"cuda2"``): its functor kernel for a model with a device form
+    (``calc.device_spec``), else its fused route, with the lowering's
+    summary (``"lowered: ..."``) or, for a model the lowering refuses, the
+    reason it was refused (``core/nested_sampling.py::resolve_engine``
+    raises for such a model before a run)."""
+    kernel = FORCED_KERNELS[engine]
+    forced = f"engine={engine!r} forced"
+    spec = getattr(calc, "device_spec", None)
+    if spec is not None:
+        return kernel, f"{forced}: device functor {spec['likelihood']['name']!r}"
+    from .fused_like import Refused, lowering
+
+    low = lowering(calc)
+    if isinstance(low, Refused):
+        return f"{kernel}_fused", (f"{forced}: the lowering refused this model: {low.reason}; "
+                                   "engine='cuda' runs it")
+    return f"{kernel}_fused", (f"{forced}: lowered: {low.n_terms} per-coordinate term(s), "
+                               f"{len(low.term)} + {len(low.combine)} statements")
 
 
 def build_epoch_fn(calc, cfg: EpochConfig):

@@ -150,6 +150,7 @@ def make_epoch_runner(
     # a shard takes, on each device once (the ring's instantiation and the
     # one its re-run takes); the traced and graded routes evaluate the calc
     # itself, in torch, and the host route on the host
+    from ..ops.fused_like import lowering
     from ..ops.pallas_slice_v4 import ring_records, slice_epoch, validate_functor, validate_fused
     from ..ops.slice_kernel import kernel_wrapper
 
@@ -160,8 +161,12 @@ def make_epoch_runner(
                 validate_functor(calc, cfg, dev, ring_records(slice_epoch, group, r))
         elif route not in ("plain", "slice_epoch_fused", "slice_step", "slice_step_graded",
                            "slice_step_host"):
+            # a functor kernel against the calc, or a forced engine's fused
+            # route against the lowering's plain version
             wrapper = kernel_wrapper(cfg.engine)
-            validate_functor(calc, cfg, dev, lambda *a: wrapper(*a, group=group))  # noqa: B023
+            want = lowering(calc).plain_logL if route.endswith("_fused") else None
+            validate_functor(calc, cfg, dev, lambda *a: wrapper(*a, group=group),  # noqa: B023
+                             want=want)
         elif cfg.engine in ("cuda", "ring") and dev.type == "cuda" and route == "slice_epoch_fused":
             for r in (False, True) if ring else (False,):
                 validate_fused(calc, cfg, dev, group, ring=r)

@@ -46,8 +46,11 @@ NVCC_FLAGS = (
 
 #: the macros a library is built with, by name: the ring engine's B1
 #: (``csrc/slice_epoch.cu`` under ``RingPolicy``), which the library
-#: ``slice_epoch`` does not build, so that its kernels stay what they were
-DEFINES: Dict[str, Tuple[str, ...]] = {"slice_epoch_ring": ("SLICE_EPOCH_RING",)}
+#: ``slice_epoch`` does not build, so that its kernels stay what they were;
+#: and B3's wide and stream buckets (``csrc/slice_epoch_v5.cu``), a library
+#: of their own beside the SLICE_MAXD bucket's ``slice_epoch_v5``
+DEFINES: Dict[str, Tuple[str, ...]] = {"slice_epoch_ring": ("SLICE_EPOCH_RING",),
+                                       "slice_epoch_v5_wide": ("SLICE_EPOCH_V5_WIDE",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: seconds spent compiling each library in this process (0.0 when reused)

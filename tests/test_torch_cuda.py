@@ -205,9 +205,9 @@ def test_packet_kernel_every_group(dev, G, D, capped):
     calc, args = _group_args(dev, D, R, B)
     cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
                                                      num_repeats=(R,))
-    before = pallas_slice_v5.GROUP_LAUNCHES[G]
+    before = pallas_slice_v5.GROUP_LAUNCHES[32, G]
     got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args, group=G)
-    assert pallas_slice_v5.GROUP_LAUNCHES[G] == before + 1
+    assert pallas_slice_v5.GROUP_LAUNCHES[32, G] == before + 1
     want = pallas_slice_v5.slice_records_packet_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
     one = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args, group=1)
     for k in range(3):
@@ -472,6 +472,7 @@ def test_v3_v2_and_counted_kernels(dev, D, R, B, caps):
     assert {k: after[k] - before[k] for k in after} == {
         "slice_epoch_v2": 1, "slice_epoch_v3": 1, "slice_epoch": 0, "slice_epoch_counted": 1,
         "slice_epoch_v2_counted": 0, "slice_step": 0, "slice_epoch_fused": 0,
+        "slice_epoch_v2_fused": 0, "slice_epoch_v3_fused": 0,
         "slice_step_f64": 0, "slice_epoch_fused_f64": 0, "slice_step_graded": 0,
         "slice_step_graded_f64": 0, "slice_step_host": 0, "slice_step_host_f64": 0,
         "slice_epoch_ring": 0, "slice_epoch_fused_ring": 0, "slice_epoch_fused_ring_f64": 0,
@@ -2080,3 +2081,207 @@ def test_examples_run_on_the_card(dev, tmp_path, monkeypatch, capsys):
     res = graded_likelihood.main(["--loops", "20", "--nlive", "30", "--max-ndead", "150"])
     assert all(math.isfinite(o.logZ) for o, _ in res.values())
     assert "gaussian_shells: logZ" in capsys.readouterr().out
+
+
+# ---- the forced engines above D = 32 and on lowered torch models
+PACKET_D = [33, 64, 128, 160, 256]
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("D", PACKET_D)
+def test_packet_kernel_wide_and_stream_buckets(dev, D, capped):
+    """B3 above D = 32, a chain on a whole warp (G = 32, the buckets' one
+    instantiation) evaluating the four slots in turn: bitwise its plain
+    version and B1 at B = 300 chains with invalid lanes and a budget that
+    stops lanes inside a packet; one launch counted at (bucket, 32); a
+    shard at lane0 = 150 is the whole launch's second half; G = 8 raises."""
+    R, B = 4, 300
+    calc, args = _group_args(dev, D, R, B)
+    cfg = (CappedConfig if capped else EpochConfig)(n_dims=D, n_phi=2, grade_dims=(D,),
+                                                     num_repeats=(R,))
+    key = (pallas_slice_v4.bucket(D), 32)
+    assert pallas_slice_v5.packet_group_for(calc, B, D, dev) == 32
+    before = pallas_slice_v5.GROUP_LAUNCHES[key]
+    got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args)
+    assert pallas_slice_v5.GROUP_LAUNCHES[key] == before + 1
+    want = pallas_slice_v5.slice_records_packet_plain(lambda p: calc(p)[2], cfg, (5, 6), *args)
+    b1 = pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args)
+    for k in range(3):
+        assert torch.equal(got[k], want[k]) and torch.equal(got[k], b1[k]), k
+    shard = pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *(a[150:] for a in args),
+                                           lane0=150)
+    for a, b in zip(shard, got):
+        assert torch.equal(a, b[150:])
+    valid = args[2]
+    assert (got[2][~valid] == 0).all() and (got[2][valid].sum(1) > 0).all()
+    assert bool((got[1][valid] == np.float32(cfg.logzero)).any()) == capped
+    with pytest.raises(ValueError, match="not one of"):
+        pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args, group=8)
+
+
+@pytest.mark.parametrize("D", [64, 160])
+def test_packet_resident_warps_above_32(dev, D):
+    """The occupancy query of B3's G = 32 kernel in the wide and stream
+    buckets (the stream bucket's shared memory included) for every functor
+    that takes D: 1 to 32 warps an SM."""
+    for name in sorted(LIKELIHOODS):
+        calc = make_batched_calculator(UniformPrior(0.0, 1.0), LIKELIHOODS[name](D), D, 0,
+                                       device=dev)
+        warps = pallas_slice_v5.resident_warps(calc, D, dev, 32)
+        assert 1 <= warps <= 32, (name, warps)
+
+
+def _forced_args(dev, low, B, R, D, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x0 = (0.5 + 0.02 * torch.randn((B, D), generator=gen, device=dev)).clamp(0, 1)
+    valid = torch.arange(B, device=dev) >= 64
+    nh, w, _ = make_directions((0.05 * torch.eye(D, device=dev)).expand(B, D, D),
+                               grade_dims=(D,), num_repeats=(R,), n_dims=D, generator=gen)
+    return x0, low.plain_logL(x0) - 2.0, valid, nh, w
+
+
+@pytest.mark.parametrize("D", [4, 20, 40, 160])
+def test_forced_fused_kernels_equal_plain(dev, D):
+    """A per-point torch Gaussian lowered into B3, B4 and B5 (the libraries
+    of FUSED_V5, FUSED_V3, FUSED_V2, every G of the bucket, built in
+    parallel): each bitwise its plain version on Lowered.plain_logL (B5's
+    cube too), B3 and B4 also B1's fused route, with invalid lanes; each
+    launch counted under the engine's fused counter and (bucket, G); the
+    runner's check (validate_functor against plain_logL) at the rule's G."""
+    calc = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0, device=dev)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered), low
+    B, R = 300, 4
+    args = _forced_args(dev, low, B, R, D, D)
+    cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(R,))
+    fn = low.plain_logL
+    b1 = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args)
+    want5 = pallas_slice_v5.slice_records_packet_plain(fn, cfg, (9, 10), *args)
+    want3 = pallas_slice_v3.slice_records_window_plain(fn, cfg, (9, 10), *args)
+    want2 = pallas_slice.slice_records_lockstep_plain(fn, cfg, (9, 10), *args)
+    for k in range(3):
+        assert torch.equal(want5[k], b1[k]) and torch.equal(want3[k], b1[k]), k
+    groups5 = pallas_slice_v5.packet_groups(D)
+    groups = pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.bucket(D)]
+    nvcc.build_all({**{low.library_name(G, "cuda5"): [fused_like.SOURCE] for G in groups5},
+                    **{low.library_name(G, e): [fused_like.SOURCE] for G in groups
+                       for e in ("cuda3", "cuda2")}},
+                   headers={**{low.library_name(G, "cuda5"): low.source(G, "cuda5")
+                               for G in groups5},
+                            **{low.library_name(G, e): low.source(G, e) for G in groups
+                               for e in ("cuda3", "cuda2")}})
+    bk = pallas_slice_v4.bucket(D)
+    for G in groups5:
+        before = (pallas_slice_v5.LAUNCHES["slice_epoch_v5_fused"],
+                  pallas_slice_v5.GROUP_LAUNCHES[bk, G])
+        got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (9, 10), *args, group=G)
+        assert (pallas_slice_v5.LAUNCHES["slice_epoch_v5_fused"],
+                pallas_slice_v5.GROUP_LAUNCHES[bk, G]) == (before[0] + 1, before[1] + 1)
+        for k in range(3):
+            assert torch.equal(got[k], want5[k]), ("B3", G, k, int((got[k] != want5[k]).sum()))
+    for G in groups:
+        before = (pallas_slice_v3.LAUNCHES["slice_epoch_v3_fused"],
+                  pallas_slice.LAUNCHES["slice_epoch_v2_fused"])
+        got3 = pallas_slice_v3.slice_epoch_v3(calc, cfg, (9, 10), *args, group=G)
+        got2 = pallas_slice.slice_epoch_v2(calc, cfg, (9, 10), *args, group=G)
+        assert (pallas_slice_v3.LAUNCHES["slice_epoch_v3_fused"],
+                pallas_slice.LAUNCHES["slice_epoch_v2_fused"]) == (before[0] + 1, before[1] + 1)
+        for k in range(3):
+            assert torch.equal(got3[k], want3[k]), ("B4", G, k)
+        for k in range(4):
+            assert torch.equal(got2[k], want2[k]), ("B5", G, k)
+    assert (want5[2][:64] == 0).all() and (want5[2][64:].sum(1) > 0).all()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for engine in ("cuda5", "cuda3", "cuda2"):
+        G = (pallas_slice_v5.packet_group_for(calc, B, D, dev) if engine == "cuda5"
+             else pallas_slice_v4.choose_group(B, D, n_sm))
+        wrapper = kernel_wrapper(engine)
+        pallas_slice_v4.validate_functor(calc, cfg, dev,
+                                         lambda *a: wrapper(*a, group=G),  # noqa: B023
+                                         want=low.plain_logL)
+    assert 1 <= pallas_slice_v5.fused_resident_warps(low, dev, groups5[-1]) <= 32
+
+
+def test_forced_fused_headers_build_their_own_entries(dev):
+    """Each engine's generated header carries its define and builds a
+    library with its own entry (and not B1's)."""
+    calc = make_batched_calculator(identity_prior, _per_point_gaussian, 20, 0, device=dev)
+    low = fused_like.lowering(calc)
+    entries = {"cuda5": "slice_epoch_fused_v5_launch", "cuda3": "slice_epoch_fused_v3_launch",
+               "cuda2": "slice_epoch_fused_v2_launch"}
+    for engine, entry in entries.items():
+        lib = low.library(32 if engine == "cuda5" else 16, engine)
+        assert hasattr(lib, entry)
+        with pytest.raises(AttributeError):
+            lib.slice_epoch_fused_launch
+
+
+FORCED_RUN = dict(nlive=100, num_repeats=20, do_clustering=False, read_resume=False,
+                  max_ndead=1500, seed=23, feedback=-1, device="cuda")
+
+
+def _forced_run(like, D, engine, base, **kw):
+    for c in (pallas_slice_v4.LAUNCHES, pallas_slice_v5.LAUNCHES, pallas_slice_v3.LAUNCHES,
+              pallas_slice.LAUNCHES):
+        for k in c:
+            c[k] = 0
+    out = pt.run(like, D, base_dir=base, engine=engine, **{**FORCED_RUN, **kw})
+    with open(os.path.join(base, "test.metrics.jsonl")) as f:
+        last = [json.loads(ln) for ln in f.read().splitlines()][-1]
+    with open(os.path.join(base, "test.txt"), "rb") as f:
+        return out, last, f.read()
+
+
+def test_forced_engines_run_a_torch_model(dev):
+    """A per-point torch Gaussian (D = 6) through run() on each forced
+    engine: cuda5 and cuda3 write the .txt of engine="cuda" byte for byte
+    (the same run), cuda2 lands within 3 sigma of logZ = 0; each run's route
+    is its engine's fused route, whose launches it counted, and no functor
+    kernel ran."""
+    D = 6
+    runs = {}
+    for engine in ("cuda", "cuda5", "cuda3", "cuda2"):
+        with tempfile.TemporaryDirectory() as base:
+            runs[engine] = _forced_run(_per_point_gaussian, D, engine, base)
+    routes = {"cuda": "slice_epoch_fused", "cuda5": "slice_epoch_v5_fused",
+              "cuda3": "slice_epoch_v3_fused", "cuda2": "slice_epoch_v2_fused"}
+    for engine, (out, last, _) in runs.items():
+        assert last["engine"] == engine and last["route"] == routes[engine]
+        assert last["kernel_launches"][routes[engine]] > 1
+        assert not any(last["kernel_launches"][k] for k in
+                       ("slice_epoch", "slice_epoch_v5", "slice_epoch_v3", "slice_epoch_v2"))
+        if engine != "cuda":
+            assert "lowered: " in last["route_reason"]
+    for engine in ("cuda5", "cuda3"):
+        assert runs[engine][2] == runs["cuda"][2]
+        assert runs[engine][0].logZ == runs["cuda"][0].logZ
+    out = runs["cuda2"][0]
+    assert abs(out.logZ) < 3 * out.logZerr
+
+
+def test_forced_engines_refuse_a_model_the_lowering_refuses(dev):
+    """A likelihood outside the lowering's table (vector_norm) raises on each
+    forced engine before the run, naming the op and engine='cuda', and at
+    precision='highest' each forced engine raises too."""
+    for engine in ("cuda5", "cuda3", "cuda2"):
+        with tempfile.TemporaryDirectory() as base:
+            with pytest.raises(ValueError, match="linalg_vector_norm.*engine='cuda'"):
+                pt.run(_vn_gaussian, 4, base_dir=base, engine=engine, **FORCED_RUN)
+            assert not os.path.exists(os.path.join(base, "test.txt"))
+            with pytest.raises(ValueError, match="precision='highest'"):
+                pt.run(_per_point_gaussian, 4, base_dir=base, engine=engine,
+                       precision="highest", **FORCED_RUN)
+
+
+@pytest.mark.parametrize("D", [40, 64])
+def test_cuda5_run_above_32_equals_cuda(dev, D):
+    """run(engine="cuda5") on the zoo Gaussian in the wide bucket (D = 40,
+    64) writes the .txt of engine="cuda" byte for byte, B3 at (128, 32)."""
+    runs = {}
+    for engine in ("cuda", "cuda5"):
+        with tempfile.TemporaryDirectory() as base:
+            runs[engine] = _forced_run(gaussian(D), D, engine, base, nDerived=2, nlive=64,
+                                       num_repeats=2 * D, max_ndead=400)
+    last = runs["cuda5"][1]
+    assert last["route"] == "slice_epoch_v5" and last["kernel_launches"]["slice_epoch_v5"] > 1
+    assert runs["cuda5"][2] == runs["cuda"][2]

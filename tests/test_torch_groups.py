@@ -5,6 +5,8 @@ and what the wrappers pass to their entries, and the plain versions of E7's
 bodies ``body20_div`` and ``body20_hash`` — the measurements that chose the
 design — against a numpy loop of the same rounded float32 operations."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -141,8 +143,9 @@ class _OnCard:  # what the wrappers read of a CUDA tensor before launching
 def test_packet_and_v2_launches_pass_the_group(monkeypatch):
     """On the card, B3 launches at choose_packet_group's G (or the one asked
     for) and B4 and B5 at choose_group's, each entry given G; each counts
-    its launch by G (B4 and B5 by the dimension bucket and G) in its own
-    GROUP_LAUNCHES, none in B1's.  The launch is
+    its launch by the dimension bucket and G in its own GROUP_LAUNCHES,
+    none in B1's.  The model has a device functor (the wrappers take the
+    functor kernels, not the fused routes).  The launch is
     recorded instead of made, and B3's kernels keep the Gaussian's resident
     warps."""
     launched = []
@@ -172,24 +175,25 @@ def test_packet_and_v2_launches_pass_the_group(monkeypatch):
     try:
         args = (_OnCard(512, 20), _OnCard(512), _OnCard(512), _OnCard(512, 40, 20),
                 _OnCard(512, 40))
-        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args)
-        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args, group=1)
-        pallas_slice_v5.slice_epoch_v5(None, None, (0, 0), *args, group=8)
+        calc = SimpleNamespace(device_spec={"likelihood": {"name": "gaussian"}})
+        pallas_slice_v5.slice_epoch_v5(calc, None, (0, 0), *args)
+        pallas_slice_v5.slice_epoch_v5(calc, None, (0, 0), *args, group=1)
+        pallas_slice_v5.slice_epoch_v5(calc, None, (0, 0), *args, group=8)
         monkeypatch.setattr(pallas_slice, "v2_repeat_budget", lambda cfg: 48)
-        pallas_slice.slice_epoch_v2(None, None, (0, 0), *args)
-        pallas_slice.slice_epoch_v2(None, None, (0, 0), *args, group=2)
+        pallas_slice.slice_epoch_v2(calc, None, (0, 0), *args)
+        pallas_slice.slice_epoch_v2(calc, None, (0, 0), *args, group=2)
         monkeypatch.setattr(pallas_slice_v3, "cap_body", lambda cfg: 12)
-        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *args)
-        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *args, group=4)
+        pallas_slice_v3.slice_epoch_v3(calc, None, (0, 0), *args)
+        pallas_slice_v3.slice_epoch_v3(calc, None, (0, 0), *args, group=4)
         bench = (_OnCard(8192, 20), _OnCard(8192), _OnCard(8192), _OnCard(8192, 100, 20),
                  _OnCard(8192, 100))
-        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *bench)
+        pallas_slice_v3.slice_epoch_v3(calc, None, (0, 0), *bench)
         assert launched == [("slice_epoch_v5_launch", (32,)), ("slice_epoch_v5_launch", (1,)),
                             ("slice_epoch_v5_launch", (8,)), ("slice_epoch_v2_launch", (16,)),
                             ("slice_epoch_v2_launch", (2,)), ("slice_epoch_v3_launch", (16,)),
                             ("slice_epoch_v3_launch", (4,)), ("slice_epoch_v3_launch", (8,))]
-        assert {g: c for g, c in pallas_slice_v5.GROUP_LAUNCHES.items() if c} == {32: 1, 1: 1,
-                                                                                   8: 1}
+        assert {k: c for k, c in pallas_slice_v5.GROUP_LAUNCHES.items() if c} == {
+            (32, 32): 1, (32, 1): 1, (32, 8): 1}
         assert {k: c for k, c in pallas_slice.GROUP_LAUNCHES.items() if c} == {(32, 16): 1,
                                                                                (32, 2): 1}
         assert {k: c for k, c in pallas_slice_v3.GROUP_LAUNCHES.items() if c} == {

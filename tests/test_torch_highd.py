@@ -13,6 +13,7 @@ to those plain versions on the card by ``tests/test_torch_cuda.py`` and
 
 import json
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -369,8 +370,9 @@ def test_wide_launches_count_by_bucket_and_group(monkeypatch):
                  _OnCard(8192, 8))
         pallas_slice_v4.slice_epoch(None, None, (0, 0), *run)
         pallas_slice_v4.slice_epoch(None, None, (0, 0), *bench)
-        pps.slice_epoch_v2(None, None, (0, 0), *run, group=32)
-        pallas_slice_v3.slice_epoch_v3(None, None, (0, 0), *bench)
+        functor = SimpleNamespace(device_spec={"likelihood": {"name": "gaussian"}})
+        pps.slice_epoch_v2(functor, None, (0, 0), *run, group=32)
+        pallas_slice_v3.slice_epoch_v3(functor, None, (0, 0), *bench)
         for G in (8, 16):
             with pytest.raises(ValueError, match="not one of"):
                 pallas_slice_v4.slice_epoch(None, None, (0, 0), *run, group=G)
@@ -451,42 +453,49 @@ def test_fused_refuses_above_the_stream_bound_with_its_reason():
 def test_resolve_engine_refuses_above_the_stream_bound_naming_the_plain_engine(monkeypatch):
     """Above the stream bucket's bound for a functor (the zoo Gaussian, one
     term: D <= 19,370) every kernel engine raises once, in resolve_engine,
-    naming the bound and engine='torch'; cuda5 (B3) raises above 32; the
+    naming the bound and engine='torch', cuda5 (B3) as the others; the
     plain engine takes any D."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     big = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(19371), 19371, 0)
     for engine in ("auto",) + ns.KERNEL_ENGINES:
-        with pytest.raises(ValueError, match="D = 32" if engine == "cuda5"
-                           else "D <= 19370 .*engine='torch'"):
+        with pytest.raises(ValueError, match="D <= 19370 .*engine='torch'"):
             ns.resolve_engine(engine, cuda, big)
     assert ns.resolve_engine("torch", cuda, big) == "torch"
     # two terms a coordinate: the bound is 14,528
     twin = make_batched_calculator(UniformPrior(0.0, 1.0), twin_gaussian(14529), 14529, 0)
     with pytest.raises(ValueError, match="D <= 14528 .*engine='torch'"):
         ns.resolve_engine("cuda", cuda, twin)
+    for engine in ("cuda5", "cuda3", "cuda2"):
+        with pytest.raises(ValueError, match="D <= 14528 .*engine='torch'"):
+            ns.resolve_engine(engine, cuda, twin)
     d40 = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(40), 40, 0)
-    for engine in ("cuda", "cuda3", "cuda2"):
+    for engine in ("cuda", "cuda5", "cuda3", "cuda2"):
         assert ns.resolve_engine(engine, cuda, d40) == engine
-    with pytest.raises(ValueError, match="D = 32"):
-        ns.resolve_engine("cuda5", cuda, d40)
 
 
 def test_engines_resolve_at_d160(monkeypatch):
     """At D = 160 "auto" resolves to "cuda" (the functor kernel in the stream
     bucket for the zoo Gaussian, the fused route for a per-point torch
-    model), "cuda3" and "cuda2" resolve, graded and host-callback models
-    resolve to "scan"; "cuda5" still raises at D = 33."""
+    model), "cuda5", "cuda3" and "cuda2" resolve for both (their functor
+    kernels for the zoo Gaussian, their fused routes for the per-point
+    model), graded and host-callback models resolve to "scan"; "cuda5"
+    takes D = 33, the wide bucket's first."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = ns.resolve_device("cuda")
     D = 160
     zoo = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(D), D, 2)
-    for engine in ("auto", "cuda", "cuda3", "cuda2"):
+    for engine in ("auto", "cuda", "cuda5", "cuda3", "cuda2"):
         assert ns.resolve_engine(engine, cuda, zoo) == ("cuda" if engine == "auto" else engine)
     assert slice_kernel.cuda_route(zoo)[0] == "slice_epoch"
     per_point = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0)
     assert ns.resolve_engine("auto", cuda, per_point) == "cuda"
     assert slice_kernel.cuda_route(per_point)[0] == "slice_epoch_fused"
+    for engine, kernel in slice_kernel.FORCED_KERNELS.items():
+        assert ns.resolve_engine(engine, cuda, per_point) == engine
+        assert slice_kernel.epoch_route(engine, zoo, cuda) == kernel
+        assert slice_kernel.epoch_route(engine, per_point, cuda) == kernel + "_fused"
+        assert "lowered: " in slice_kernel.route_reason(engine, per_point, cuda)
     host = make_batched_calculator(
         identity_prior, lambda th: float(-np.sum((np.asarray(th) - 0.5) ** 2)), D, 0)
     assert host.uses_callback and ns.resolve_engine("auto", cuda, host) == "scan"
@@ -495,21 +504,34 @@ def test_engines_resolve_at_d160(monkeypatch):
         lambda aux, th: -(aux + torch.sum((th[..., 16:] - 0.5) ** 2, dim=-1)), 16), D, 0)
     assert graded.graded and ns.resolve_engine("auto", cuda, graded) == "scan"
     d33 = make_batched_calculator(UniformPrior(0.0, 1.0), pt_gaussian(33), 33, 0)
-    with pytest.raises(ValueError, match="D = 32"):
-        ns.resolve_engine("cuda5", cuda, d33)
+    assert ns.resolve_engine("cuda5", cuda, d33) == "cuda5"
 
 
 def test_packet_kernel_refuses_above_32_naming_its_bound():
-    """B3 keeps a chain's coordinates per thread: above D = 32 it raises,
-    naming the bound, before any launch (on either device)."""
+    """B3 above D = 32: on the CPU its plain version runs at any D (D = 33,
+    the wide bucket's first, bitwise the plain engine); on the card a chain
+    holds a whole warp there (the one G of the wide and stream buckets:
+    choose_packet_group and the bucket's groups), and D is bounded by the
+    stream bucket's shared memory, as B1's: check_dims raises above it,
+    naming the bound and engine='torch'."""
     D, B = 33, 8
     calc = make_batched_calculator(identity_prior, pt_gaussian(D), D, 2)
     cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(1,))
-    with pytest.raises(ValueError, match="stops at D = 32"):
-        pallas_slice_v5.slice_epoch_v5(
-            calc, cfg, (0, 0), torch.full((B, D), 0.5), torch.zeros(B),
-            torch.ones(B, dtype=torch.bool), torch.ones((B, 1, D)) / math.sqrt(D),
-            torch.ones((B, 1)))
+    args = (torch.full((B, D), 0.5), torch.zeros(B), torch.ones(B, dtype=torch.bool),
+            torch.ones((B, 1, D)) / math.sqrt(D), torch.ones((B, 1)))
+    got = pallas_slice_v5.slice_epoch_v5(calc, cfg, (0, 0), *args)
+    want = slice_kernel.slice_records_plain(lambda p: calc(p)[2], cfg, (0, 0), *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for d in (33, 128, 129, 19370):
+        assert pallas_slice_v5.choose_packet_group(512, d, H100_SMS, None) == 32
+        assert pallas_slice_v5.packet_groups(d) == (32,)
+    assert pallas_slice_v5.packet_groups(32) == pallas_slice_v5.PACKET_GROUPS
+    pallas_slice_v5.check_dims(19370)
+    with pytest.raises(ValueError, match="D <= 19370 .*engine='torch'"):
+        pallas_slice_v5.check_dims(19371)
+    with pytest.raises(ValueError, match="D <= 14528 .*engine='torch'"):
+        pallas_slice_v5.check_dims(14529, n_terms=2)
 
 
 def test_random_gaussian_functor_refuses_above_the_stream_bound():

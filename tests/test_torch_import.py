@@ -32,6 +32,7 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.pallas_epoch_v2",
     "polychordlite_tpu_torch.experiments.pallas_slice_repeat",
     "polychordlite_tpu_torch.experiments.prof_ring",
+    "polychordlite_tpu_torch.experiments.ptxas_parity",
     "polychordlite_tpu_torch.examples.quickstart",
     "polychordlite_tpu_torch.examples.run_example",
     "polychordlite_tpu_torch.examples.graded_likelihood",

@@ -8,6 +8,7 @@ tests of it (``tests/test_run.py:389-417``)."""
 
 import math
 import warnings
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -203,10 +204,12 @@ def test_kernel_wrappers_pass_lane0(monkeypatch):
     monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: empty(*a, **k))
     args = (OnCard(512, 20), OnCard(512), OnCard(512), OnCard(512, 40, 20), OnCard(512, 40))
     cfg = EpochConfig(n_dims=20, n_phi=1, grade_dims=(20,), num_repeats=(40,))
-    pallas_slice_v4.slice_epoch(None, cfg, (0, 0), *args, lane0=512)
-    pallas_slice_v5.slice_epoch_v5(None, cfg, (0, 0), *args, group=8, lane0=1024)
-    pallas_slice_v3.slice_epoch_v3(None, cfg, (0, 0), *args, lane0=256)
-    pallas_slice.slice_epoch_v2(None, cfg, (0, 0), *args, lane0=768)
+    # a model with a device functor: the forced engines' functor kernels
+    calc = SimpleNamespace(device_spec={"likelihood": {"name": "gaussian"}})
+    pallas_slice_v4.slice_epoch(calc, cfg, (0, 0), *args, lane0=512)
+    pallas_slice_v5.slice_epoch_v5(calc, cfg, (0, 0), *args, group=8, lane0=1024)
+    pallas_slice_v3.slice_epoch_v3(calc, cfg, (0, 0), *args, lane0=256)
+    pallas_slice.slice_epoch_v2(calc, cfg, (0, 0), *args, lane0=768)
     assert launched == [("slice_epoch_launch", 512), ("slice_epoch_v5_launch", 1024),
                         ("slice_epoch_v3_launch", 256), ("slice_epoch_v2_launch", 768)]
 

@@ -95,9 +95,11 @@ def test_engine_and_device_rules(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ns.resolve_device(None)
 
-    # with a card: every kernel engine for a model with a device form; "cuda"
-    # (the traced route) for a torch model without one, the forced A/B
-    # kernels refusing it; a host-callback model on "scan" (the host route),
+    # with a card: every kernel engine for a model with a device form; every
+    # kernel engine for a torch model without one that the lowering takes
+    # ("cuda" and the forced A/B kernels' fused routes), the forced ones
+    # refusing a model the lowering refuses, naming its reason and
+    # engine='cuda'; a host-callback model on "scan" (the host route),
     # refused by every kernel engine (naming engine='scan' and
     # engine='torch')
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -114,9 +116,14 @@ def test_engine_and_device_rules(monkeypatch):
     assert no_form.device_spec is None and not no_form.uses_callback
     assert ns.resolve_engine("auto", cuda, no_form) == "cuda"
     for engine in ("cuda5", "cuda3", "cuda2"):
-        with pytest.raises(ValueError, match="engine='torch'"):
-            ns.resolve_engine(engine, cuda, no_form)
+        assert ns.resolve_engine(engine, cuda, no_form) == engine
     assert ns.resolve_engine("torch", cuda, no_form) == "torch"
+    refused = make_batched_calculator(
+        identity_prior, lambda th: -torch.linalg.vector_norm(th - 0.5, dim=-1), D, 0)
+    assert ns.resolve_engine("cuda", cuda, refused) == "cuda"
+    for engine in ("cuda5", "cuda3", "cuda2"):
+        with pytest.raises(ValueError, match="linalg_vector_norm.*engine='cuda'"):
+            ns.resolve_engine(engine, cuda, refused)
 
     callback = make_batched_calculator(
         identity_prior, lambda th: float(-np.sum((np.asarray(th) - 0.5) ** 2)), D, 0)
