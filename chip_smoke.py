@@ -39,9 +39,11 @@ zoo Gaussian and random_gaussian, the fused route, the traced route, B4 and
 B5 at D = 160, 256 and 512, B = 512, bitwise their plain versions at R = 4
 and timed at R = 2 D; B1 also as a shard at lane0 = 256 and at the
 bucket's bound, D = 19,370; the fused and traced routes also in float64 at
-160), B2's long kernel past dim 128 (``gram_schmidt_d512``: (2, dim, dim,
-512) at dims 160 and 256 bitwise, 512 timed, 160 in float64, beside
-``torch.linalg.qr``) and the graded and host routes at D = 160
+160), B2's long path past dim 128 (``gram_schmidt_d512``, blocked CGS2:
+(2, dim, dim, 512) at dims 160 and 256, 160 in float64, the 160-D run's
+bases and dim 512 on 16 chains bitwise, (2, 512, 512, 512) timed, each
+beside ``torch.linalg.qr`` with its resident warps an SM and scratch
+bytes) and the graded and host routes at D = 160
 (``stream_routes_d160``), holds
 the double kernels of ``precision='highest'`` (``f64_kernels``: B1's fused
 route and the traced route at gaussian.ini's shape and the bench, the
@@ -237,8 +239,9 @@ torch Gaussian (D = 20, nlive 100) on ``"cuda"`` and each forced engine,
 whose route must be its fused route: ``"cuda5"`` and ``"cuda3"`` write
 the ``"cuda"`` run's files byte for byte, ``"cuda2"`` lands within 3 sigma.
 
-The plain versions of the heaviest checks (B2's long kernel at dims 160
-and 256, the wide bucket's four kernels, the 160-D run's fused geometry,
+The plain versions of the heaviest checks (B2's long path at every
+``GS_LONG`` geometry but (2, 512, 512, 512), split by chains, the wide
+bucket's four kernels, the 160-D run's fused geometry,
 the two phases above) run on the host's CPU in ``PLAIN_WORKERS`` worker
 processes (``plain_job``) while the card runs the phases that follow; the
 phase ``plain_checks``, behind the kernel timings and beside the 160-D
@@ -324,12 +327,13 @@ D160_RUN = dict(B=256, R=800, D=160, B_valid=200)
 D160_LOGZ = 160 * math.log(math.erf(2.5 / math.sqrt(2.0)))
 # B2 above dim 128: (2, dim, dim, 512) at dims 160 and 256 in float32 and 160
 # in float64, and the 160-D run's (5, 160, 160, 256), bitwise its plain
-# version; at dim 512 only the time, at the chains GS_D512_B (the columns
-# past 112 read back from device memory): (tag, NB, dim, B, dtype)
+# version on the host's CPU; at dim 512 the time at the chains GS_D512_B, and
+# bitwise on the few chains of GS_D512_FEW: (tag, NB, dim, B, dtype)
 GS_D512_B = 512
 GS_LONG = (("d160_float32", 2, 160, 512, "float32"), ("d256_float32", 2, 256, 512, "float32"),
            ("d160_float64", 2, 160, 512, "float64"), ("d160_run", 5, 160, 256, "float32"),
            ("d512_float32", 2, 512, GS_D512_B, "float32"))
+GS_D512_FEW = (1, 512, 16, "float32")
 # the 40-D run at precision='highest' (traced route and B2's wide kernel in
 # double; nlive 100, num_repeats 2 D), and its kernels' geometry: 104 valid
 # lanes of 128, B2 two bases
@@ -996,6 +1000,7 @@ def main() -> None:
                                 rf"slice_epoch_v3_instr_kernelI{like}Li(\d+)ELb([01])E"),
             "B2": ptxas_kernels(log("gram_schmidt", ""),
                                 r"(gram_schmidt_wide_kernel|gram_schmidt_long_kernel|"
+                                r"gsl_to_columns|gsl_from_columns|"
                                 r"gram_schmidt_kernelILi(?:20|32)E)"),
         }
         results["ptxas_gaussian"] = gaussian_kernels
@@ -1066,57 +1071,69 @@ def main() -> None:
         results["gram_schmidt_d64_run"] = out["d64_run"]
         return out
 
-    # ---- 2b. B2 above dim 128 (the long kernel: ceil(dim / 32) rows a lane,
-    # the finished columns in shared memory, past dim 240 in float32 partly
-    # in the scratch buffer): (2, dim, dim, 512) at dims 160 and 256 in
-    # float32 and 160 in float64, and the 160-D run's bases (5, 160, 160,
-    # 256), bitwise its plain version; at dim 512 (GS_D512_B chains) only
-    # timed, once; each beside torch.linalg.qr (GS_LONG)
+    # ---- 2b. B2 above dim 128 (the long path: blocked CGS2, four warps a
+    # basis, the bases in a column-major scratch streamed through shared
+    # memory): (2, dim, dim, 512) at dims 160 and 256 in float32 and 160 in
+    # float64, the 160-D run's bases (5, 160, 160, 256) and dim 512 on a few
+    # chains (GS_D512_FEW), each bitwise its plain version, which the host's
+    # CPU workers run (plain_checks); (2, 512, 512, 512) timed and held to
+    # QtQ = I; each beside torch.linalg.qr, with the kernel's resident warps
+    # an SM and the scratch's bytes (GS_LONG)
     @phase("gram_schmidt_d512")
     def _():
         out = {}
         counts0 = dict(pallas_dirs.LAUNCHES)
-        for tag, NB, dim, B, dt_name in GS_LONG:
+        lib = pallas_dirs._lib()
+        for tag, NB, dim, B, dt_name in GS_LONG + (("d512_few",) + GS_D512_FEW,):
             dt = getattr(torch, dt_name)
             shape = (NB, dim, dim, B)
             g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(dim), device=dev,
                             dtype=dt)
             name = "gram_schmidt_long" + ("_f64" if dt == torch.float64 else "")
             before = pallas_dirs.LAUNCHES[name]
-            q, ms = cuda_once(lambda: pallas_dirs.gram_schmidt_lanes(g))  # noqa: B023
+            q = pallas_dirs.gram_schmidt_lanes(g)
+            torch.cuda.synchronize()
             if pallas_dirs.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"{tag}: {name} was not the kernel launched")
             eye = torch.eye(dim, device=dev, dtype=dt)[None, :, :, None]
             orth = (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max().item()
-            # CGS2's loss of orthogonality grows with the dim: float32 at 512
-            # is held to 1e-4
+            # float32 at 512 is held to 1e-4, as the earlier order was
             tol = 1e-12 if dt == torch.float64 else (1e-5 if dim <= 256 else 1e-4)
             if not orth <= tol:
                 raise AssertionError(f"{tag}: max|QtQ - I| {orth:.3g} > {tol}")
             itemsize = g.element_size()
+            n_scratch = lib.gram_schmidt_scratch_values(NB, dim, B, itemsize)
             rec = {"shape": list(shape), "dtype": dt_name, "kernel": name, "orth_err": orth,
-                   "scratch_values": pallas_dirs._lib().gram_schmidt_scratch_values(
-                       NB, dim, B, itemsize)}
-            if dim <= 256:
-                q_plain, plain_ms = cuda_once(
-                    lambda: pallas_dirs.gram_schmidt_plain(g))  # noqa: B023
-                mism = int((q != q_plain).sum())
-                if mism:
-                    raise AssertionError(f"{tag}: the kernel differs from the plain version "
-                                         f"in {mism} entries")
-                rec.update(mismatches=mism, max_abs_err=(q - q_plain).abs().max().item(),
-                           plain_ms=plain_ms,
-                           ms=cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g), 3))  # noqa: B023
-                del q_plain
-            else:  # one call, the one above: its plain version would take minutes
-                rec.update(ms=ms, plain_ms=None, max_abs_err=None)
-            del q
-            rec["library_ms"] = qr_ms(g)
+                   "scratch_values": n_scratch, "scratch_bytes": n_scratch * itemsize,
+                   "resident_warps_per_sm": lib.gram_schmidt_long_resident_warps(dim, itemsize),
+                   "ms": cuda_ms(lambda: pallas_dirs.gram_schmidt_lanes(g),  # noqa: B023
+                                 3 if dim <= 256 else 2),
+                   "library_ms": qr_ms(g), "mismatches": None, "max_abs_err": None,
+                   "plain_ms": None}
             rec["bound_ms"], rec["bound_by"] = bound(
                 2 * itemsize * NB * dim * dim * B, gram_schmidt_flops(NB, dim, B),
                 F64_FLOPS_PER_S if dt == torch.float64 else F32_FLOPS_PER_S)
             out[tag] = rec
-            del g
+            if tag != "d512_float32":  # its plain version would take minutes on a core
+                # the host's workers take at most 512 bases a job, split by chains
+                step = max(1, 512 // NB)
+                futs = {s: plain_later("gram_schmidt", None, g=g[..., s:s + step])
+                        for s in range(0, B, step)}
+                q_host = q.cpu()
+
+                def check(res, q_host=q_host, rec=rec, tag=tag):
+                    q_plain = torch.cat([res[s][0] for s in sorted(res)], dim=3)
+                    mism = int((q_host != q_plain).sum())
+                    rec.update(mismatches=mism, plain_device="cpu",
+                               max_abs_err=(q_host - q_plain).abs().max().item(),
+                               plain_ms=sum(ms for _, ms in res.values()))
+                    if mism:
+                        raise AssertionError(f"{tag}: the kernel differs from its plain "
+                                             f"version on the CPU in {mism} entries")
+                    return {"mismatches": mism, "plain_ms": rec["plain_ms"]}
+
+                check_later(f"gram_schmidt_d512/{tag}", futs, check)
+            del q, g
         out["launches"] = {k: v - counts0[k] for k, v in pallas_dirs.LAUNCHES.items()
                            if v > counts0[k]}
         results["gram_schmidt_long"] = out

@@ -50,25 +50,89 @@
 // products per basis — with five shuffle steps in each, hidden only by the
 // other bases on the SM.
 
-// Above dim 128 the warp-per-basis design goes on with run-time rows
-// (gram_schmidt_long_kernel): lane l holds rows i = l + 32 m, ceil(dim / 32)
-// of them, in the same order — each lane sums its rows in index order, then
-// the butterfly — so the plain version is the same function with its row
-// cap lifted.  Neither the working column nor the finished ones fit
-// registers at any dim, so the working column lives in the block's dynamic
-// shared memory (dim values) and so do the finished columns k < k_smem,
-// as many as the rest of the 227 KB holds ([k][i]): all of them up to dim
-// 240 in float32 and 169 in float64 (gs_columns_in_smem).  The columns past
-// k_smem go to a scratch buffer in device memory that the wrapper
-// allocates, [basis][k - k_smem][i], so that a warp's 32 rows of a column
-// are 32 contiguous values.  Each lane reads only the rows it wrote, in
-// shared and in device memory alike, so no barrier is needed.  What bounds
-// it: the same chain of ~dim^2 dependent dot products per basis, now of
-// ceil(dim / 32) shared-memory loads a lane each; past k_smem, the values
-// each basis reads back from device memory, about (dim - k_smem)^2 dim of
-// them (327 MB a basis at dim 512 in float32), which L2 holds for only a
-// few bases at a time.  The working column bounds
-// dim: dim sizeof(T) <= 227 KB, dim <= 29,056 (GS_MAXD_LONG) in either type.
+// Above dim 128 (gram_schmidt_long_kernel) a basis no longer fits one warp's
+// registers, and the warp-per-basis order — ~2 dim^2 dependent dot
+// products, each a chain of shared-memory loads and shuffles — left one or
+// two warps an SM with nothing to overlap (that kernel took 43.53 ms at
+// (2, 160, 160, 512) and 2,475 ms at dim 512, slower than one batched
+// torch.linalg.qr from dim 256 up; PERF.md).  So the long kernel is
+// blocked: the JAX package's XLA path (polychordlite_tpu/ops/directions.py::
+// _gram_schmidt) in its reorthogonalised form, BCGS2 (Barlow and
+// Smoktunowicz), in panels of GSL_P = 32 columns.  The panel of columns
+// j0 .. j0 + 31 (V, dim x 32) against the finished columns Q = q_0 ..
+// q_{j0 - 1} takes two passes (one at j0 = 0) of
+//   C = Q^T V  (C[k][jj] summed over the rows i in index order 0 .. dim-1)
+//   V = V - U, U = Q C  (U[i][jj] summed over k in index order 0 .. j0-1)
+// and then each column of the panel in turn: two sweeps of CGS2 against the
+// panel's earlier columns (their coefficients as the warp-per-basis
+// kernels sum a dot product: each lane its rows i = lane + 32 m in order,
+// then the butterfly; the update summed over those columns in order), the
+// norm in the same order, q = v / max(sqrt(norm), 1e-30).  The XLA path's
+// order — both sweeps against Q, then the panel once — loses orthogonality
+// on an ill-conditioned basis: a column that the panel step shrinks by s
+// grows its error along Q by 1 / s; the second pass takes that error out
+// (tests/test_torch_gram_schmidt_long.py holds both orders to it).
+// The two products are the ~4 dim^3 operations a basis that chip_smoke.py
+// counts (the panel steps add ~8 dim^2 P more, 2 P / dim of it: 40 % at
+// dim 160, 12.5 % at 512, in chains of 32 columns), and their outputs are
+// independent sums, so a thread holds a 4 x 4 tile of them in registers:
+// sixteen independent chains of adds in one thread instead of one chain a
+// warp.
+// Each sum keeps its one fixed order, so the plain version
+// (ops/pallas_dirs.py::_gram_schmidt_long_plain) repeats the kernel bit
+// for bit: the file stays --fmad=false with rounded.cuh's rn_mul and
+// rn_add, which caps the kernel at half of the FFMA rate that
+// chip_smoke.py's bound assumes (a multiply and an add issue apart: 33.5
+// TFLOP/s of them in float32, 17 in float64).  No tensor cores: a TF32
+// product keeps ~10 bits of each factor, which undoes what the second
+// pass exists for, and no plain version repeats an mma's order of
+// summation.  P = 32: a panel is one warp wide, and a 64-column pass of
+// the coefficient product reads Q once for 32 columns of V (16 operations
+// a byte of Q); a wider panel would lengthen the panel steps' chains.
+//
+// Where the time goes (experiments/gs_long_parts.py, PERF.md): at (2, 160,
+// 160, 512) the kernel takes 3.24 ms, the two products alone 1.05 and the
+// panel steps alone 1.71; at dim 512 51.0, 30.9 and 18.8.  The panel steps
+// are bound by shared-memory traffic and latency, not by their operations:
+// each column reads the panel's earlier columns twice a sweep, one value
+// per multiply-add.  They run on a copy of the panel in the block's shared
+// memory (where the ring's stages were; up to dim 768 in float32, 384 in
+// float64, past that in the scratch), which measured 3.24 ms against 3.81
+// in the scratch at dim 160; a row-major copy with 16-byte loads of four
+// columns measured slower, and so did the kernel capped at 128 registers
+// at the 160-D run's (5, 160, 160, 256), where its 20 warps an SM (96
+// registers, a 44-byte spill) finish the 1,280 bases in fewer waves.
+//
+// Where the finished columns live: a basis's dim^2 values pass a block's
+// 227 KB above dim ~230 in float32, and the panel, C and Q together far
+// below that, so every basis lives in a basis-major scratch in device
+// memory and the products stream through the block's shared memory in a
+// ring of two stages filled by cp.async (the alternative, a thread-block
+// cluster holding Q in distributed shared memory, would hold dim <= ~660
+// and needs a fixed block order to combine partial sums, while streaming
+// serves every dim to GS_MAXD_LONG with one code path and a ring of 27.8
+// KB a block in float32, 52 KB in float64, so several bases share an SM;
+// past dim 192 the panel steps' copy, below, takes more).  Each stage is
+// filled by all the block's threads and consumed after one block barrier
+// (cp.async.wait_group), so no mbarrier is needed.  Q is read once a pass:
+// each 64-column pass of C = Q^T V streams its columns of Q and the panel
+// in 32-row tiles, each 64-row pass of the update streams Q's rows and C
+// in 32-column tiles.
+//
+// Layout: the interface keeps the JAX package's (n_bases, dim, dim, B)
+// with the chain axis minor, where one basis's values lie B apart.  So a
+// transpose kernel (gsl_to_columns, 32 x 32 tiles through shared memory,
+// coalesced on both sides) first writes every basis column-major into the
+// scratch — basis n = nb B + b, column j, row i at (n dim + j) ld + i, ld
+// = dim rounded up to 32, the pad rows zero — and gsl_from_columns writes
+// the result back: two memory-bound passes of ~2 x the input's bytes.  The
+// coefficients C of each basis (ld x 32) follow in the same scratch:
+// gram_schmidt_scratch_values = n_bases B ld (dim + 32) values.  One
+// launch of the long path is these three kernels.  Its shared memory grows
+// with dim only through the panel's copy, which stops at GSL_PANEL_SMEM;
+// GS_MAXD_LONG stays where the earlier design's working column in shared
+// memory put it (the scratch, 3.4 GB a basis there in float32, bounds dim
+// long before).
 
 // Double: a run at precision='highest' draws its directions in
 // float64, so both kernels are templates on the scalar type T, the float
@@ -91,8 +155,8 @@
 #define GS_ROWS (GS_MAXD_WIDE / 32)  // rows per lane in the wide kernel
 // the shared memory a block may have (bytes)
 #define GS_SMEM_MAX 232448
-// the largest dim of the long kernel: its working column fills a block's
-// shared memory in float64
+// the largest dim of the long path: where the earlier long kernel's working
+// column filled a block's shared memory in float64 (see the top of the file)
 #define GS_MAXD_LONG (GS_SMEM_MAX / 8)
 
 // The chains of a block of the thread-per-basis kernel: 32, or 16 where a
@@ -213,74 +277,414 @@ __global__ void gram_schmidt_wide_kernel(const T* __restrict__ g, T* __restrict_
     }
 }
 
-// dim > GS_MAXD_WIDE: basis (blockIdx.y, chain blockIdx.x) on the block's
-// one warp, the working column and the finished columns k < k_smem in shared
-// memory, the others in `scratch` (see the top of the file).
-template <class T>
-__global__ void gram_schmidt_long_kernel(const T* __restrict__ g, T* __restrict__ q,
-                                         T* __restrict__ scratch, int dim, int B, int k_smem) {
-    extern __shared__ __align__(16) unsigned char gs_smem[];
-    T* v = reinterpret_cast<T*>(gs_smem);  // the working column: row i at v[i]
-    T* qw = v + dim;                       // [k][i]: finished column k < k_smem, row i
-    const int lane = threadIdx.x;          // blockDim.x == 32
-    const int b = blockIdx.x;
-    const size_t sj = (size_t)B;        // stride of the column index
-    const size_t si = (size_t)dim * B;  // stride of the row index
-    const size_t base = (size_t)blockIdx.y * dim * dim * B + b;
-    const T* gb = g + base;
-    T* qb = q + base;
-    // [k - k_smem][i]: this basis's finished columns past k_smem
-    T* qg = scratch + ((size_t)blockIdx.y * B + b) * (size_t)(dim - k_smem) * dim;
+// ---- the long kernel: dim > GS_MAXD_WIDE (see the top of the file) ----
+#define GSL_THREADS 128  // four warps a basis
+#define GSL_P 32         // columns of a panel
+#define GSL_TI 32        // rows of a staged tile of C = Q^T V
+#define GSL_KB 64        // finished columns a pass of C = Q^T V
+#define GSL_RB 64        // rows a pass of the update V -= Q C
+#define GSL_KC 32        // finished columns of a staged tile of the update
 
-    for (int j = 0; j < dim; ++j) {
-        for (int i = lane; i < dim; i += 32) v[i] = gb[i * si + j * sj];
-        for (int sweep = 0; sweep < 2; ++sweep) {
-            for (int k = 0; k < j; ++k) {
-                const T* qk = k < k_smem ? qw + (size_t)k * dim : qg + (size_t)(k - k_smem) * dim;
-                T c = T(0);
-                for (int i = lane; i < dim; i += 32) c = rn_add(c, rn_mul(qk[i], v[i]));
+// The staged tiles of the long kernel's ring, in T: two stages.  A staged column is
+// padded by 16 bytes, so that the eight columns a quarter-warp reads lie in
+// eight different groups of four banks.
+template <class T>
+struct GsLong {
+    static constexpr int VEC = 16 / (int)sizeof(T);  // values a 16-byte copy
+    static constexpr int S1 = GSL_TI + VEC;          // a staged column of C = Q^T V
+    static constexpr int S2 = GSL_RB + VEC;          // a staged column of Q in the update
+    static constexpr int SC = GSL_P + VEC;           // a staged row of C in the update
+    static constexpr int STAGE1 = (GSL_KB + GSL_P) * S1;
+    static constexpr int STAGE2 = GSL_KC * (S2 + SC);
+    static constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;
+};
+
+// One 16-byte cp.async into shared memory, zero-filled where !valid.
+__device__ __forceinline__ void gsl_cp16(void* dst, const void* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void gsl_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every copy but the newest group has landed
+__device__ __forceinline__ void gsl_wait_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Four consecutive values of shared memory (16-byte aligned).
+__device__ __forceinline__ void ld4(const float* p, float (&r)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double (&r)[4]) {
+    const double2 x = *reinterpret_cast<const double2*>(p);
+    const double2 y = *reinterpret_cast<const double2*>(p + 2);
+    r[0] = x.x, r[1] = x.y, r[2] = y.x, r[3] = y.y;
+}
+
+// One staged tile of C = Q^T V: the thread's C[kslot + 16 a][jslot + 8 b]
+// (a < NA, b < 4) over the tile's `rows` rows in order.
+template <class T, int NA>
+__device__ __forceinline__ void gsl_coef_tile(const T* qs, const T* vs, int rows, int kslot,
+                                              int jslot, T (&acc)[4][4]) {
+    using L = GsLong<T>;
+    int r = 0;
+    for (; r + 4 <= rows; r += 4) {
+        T q[NA][4], v[4][4];
 #pragma unroll
-                for (int off = 16; off > 0; off >>= 1)
-                    c = rn_add(c, __shfl_xor_sync(0xffffffffu, c, off));
-                for (int i = lane; i < dim; i += 32) v[i] = rn_sub(v[i], rn_mul(c, qk[i]));
+        for (int a = 0; a < NA; ++a) ld4(qs + (kslot + 16 * a) * L::S1 + r, q[a]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) ld4(vs + (jslot + 8 * b) * L::S1 + r, v[b]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int a = 0; a < NA; ++a)
+#pragma unroll
+                for (int b = 0; b < 4; ++b) acc[a][b] = rn_add(acc[a][b], rn_mul(q[a][x], v[b][x]));
+    }
+    for (; r < rows; ++r)
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                acc[a][b] = rn_add(acc[a][b], rn_mul(qs[(kslot + 16 * a) * L::S1 + r],
+                                                     vs[(jslot + 8 * b) * L::S1 + r]));
+}
+
+// C = Q^T V for the panel at j0 (pe columns) against its j0 finished
+// columns, written to cb[k][jj]: passes of GSL_KB columns of Q, each over
+// the rows in GSL_TI-row tiles streamed through the ring.
+template <class T>
+__device__ void gsl_coefficients(const T* wb, T* cb, T* ring, int dim, int ld, int j0, int pe) {
+    using L = GsLong<T>;
+    constexpr int CPC = GSL_TI / L::VEC;  // copies a staged column
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // a quarter-warp reads eight consecutive columns of Q and one of V
+    const int kslot = (warp & 1) * 8 + (lane & 7), jslot = (warp >> 1) * 4 + (lane >> 3);
+    const int n_tiles = (dim + GSL_TI - 1) / GSL_TI;
+    for (int kb = 0; kb < j0; kb += GSL_KB) {
+        const int kn = min(GSL_KB, j0 - kb);  // 32 or 64
+        auto stage = [&](int t) {
+            T* qs = ring + (t & 1) * L::STAGE;
+            T* vs = qs + GSL_KB * L::S1;
+            const int i0 = t * GSL_TI;
+            for (int c = tid; c < (kn + GSL_P) * CPC; c += GSL_THREADS) {
+                const int col = c / CPC, off = (c % CPC) * L::VEC, i = i0 + off;
+                const bool of_q = col < kn;
+                const int jj = col - kn;
+                const bool ok = i < dim && (of_q || jj < pe);
+                const T* src = wb + (size_t)(of_q ? kb + col : j0 + jj) * ld + i;
+                gsl_cp16((of_q ? qs + col * L::S1 : vs + jj * L::S1) + off, ok ? src : wb, ok);
             }
-        }
-        T nrm = T(0);
-        for (int i = lane; i < dim; i += 32) nrm = rn_add(nrm, rn_mul(v[i], v[i]));
+            gsl_commit();
+        };
+        T acc[4][4];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            nrm = rn_add(nrm, __shfl_xor_sync(0xffffffffu, nrm, off));
-        const T den = gs_den(nrm);
-        T* qj = j < k_smem ? qw + (size_t)j * dim : qg + (size_t)(j - k_smem) * dim;
-        for (int i = lane; i < dim; i += 32) {
-            const T x = rn_div(v[i], den);
-            qj[i] = x;
-            qb[i * si + j * sj] = x;
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
+        stage(0);
+        for (int t = 0; t < n_tiles; ++t) {
+            if (t + 1 < n_tiles)
+                stage(t + 1);
+            else
+                gsl_commit();
+            gsl_wait_one();
+            __syncthreads();
+            const T* qs = ring + (t & 1) * L::STAGE;
+            const int rows = min(GSL_TI, dim - t * GSL_TI);
+            if (kn == GSL_KB)
+                gsl_coef_tile<T, 4>(qs, qs + GSL_KB * L::S1, rows, kslot, jslot, acc);
+            else
+                gsl_coef_tile<T, 2>(qs, qs + GSL_KB * L::S1, rows, kslot, jslot, acc);
+            __syncthreads();  // the stage is read before the next fill
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+            if (16 * a < kn)
+#pragma unroll
+                for (int b = 0; b < 4; ++b)
+                    cb[(size_t)(kb + kslot + 16 * a) * GSL_P + jslot + 8 * b] = acc[a][b];
+    }
+    __threadfence_block();
+    __syncthreads();  // C is whole before the update reads it
+}
+
+// V -= Q C for the panel at j0: passes of GSL_RB rows, each summing
+// U[i][jj] over the finished columns k in order, streamed in GSL_KC-column
+// tiles of Q and C; then V[i][jj] = V[i][jj] - U[i][jj] in the scratch.
+template <class T>
+__device__ void gsl_update(T* wb, const T* cb, T* ring, int dim, int ld, int j0, int pe) {
+    using L = GsLong<T>;
+    constexpr int CPQ = GSL_RB / L::VEC, CPR = GSL_P / L::VEC;  // copies a column, a row
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int roff = warp * 16 + (lane & 3) * 4, jq = (lane >> 2) * 4;  // 4 rows x 4 columns
+    const int n_tiles = j0 / GSL_KC;
+    for (int r0 = 0; r0 < dim; r0 += GSL_RB) {
+        auto stage = [&](int t) {
+            T* qs = ring + (t & 1) * L::STAGE;
+            T* cs = qs + GSL_KC * L::S2;
+            const int k0 = t * GSL_KC;
+            for (int c = tid; c < GSL_KC * CPQ; c += GSL_THREADS) {
+                const int kk = c / CPQ, off = (c % CPQ) * L::VEC, i = r0 + off;
+                const bool ok = i < dim;
+                gsl_cp16(qs + kk * L::S2 + off, ok ? wb + (size_t)(k0 + kk) * ld + i : wb, ok);
+            }
+            for (int c = tid; c < GSL_KC * CPR; c += GSL_THREADS) {
+                const int kk = c / CPR, off = (c % CPR) * L::VEC;
+                gsl_cp16(cs + kk * L::SC + off, cb + (size_t)(k0 + kk) * GSL_P + off, true);
+            }
+            gsl_commit();
+        };
+        T acc[4][4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) acc[x][b] = T(0);
+        stage(0);
+        for (int t = 0; t < n_tiles; ++t) {
+            if (t + 1 < n_tiles)
+                stage(t + 1);
+            else
+                gsl_commit();
+            gsl_wait_one();
+            __syncthreads();
+            const T* qs = ring + (t & 1) * L::STAGE;
+            const T* cs = qs + GSL_KC * L::S2;
+            if (r0 + warp * 16 < dim) {  // the warp has rows in this pass
+#pragma unroll 4
+                for (int kk = 0; kk < GSL_KC; ++kk) {
+                    T q[4], c[4];
+                    ld4(qs + kk * L::S2 + roff, q);
+                    ld4(cs + kk * L::SC + jq, c);
+#pragma unroll
+                    for (int x = 0; x < 4; ++x)
+#pragma unroll
+                        for (int b = 0; b < 4; ++b)
+                            acc[x][b] = rn_add(acc[x][b], rn_mul(q[x], c[b]));
+                }
+            }
+            __syncthreads();  // the stage is read before the next fill
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+            const int i = r0 + roff + x;
+            if (i < dim)
+#pragma unroll
+                for (int b = 0; b < 4; ++b)
+                    if (jq + b < pe) {
+                        T* p = wb + (size_t)(j0 + jq + b) * ld + i;
+                        *p = rn_sub(*p, acc[x][b]);
+                    }
+        }
+    }
+    __threadfence_block();
+    __syncthreads();  // the panel is updated before it is read again
+}
+
+// The butterfly of the warp-per-basis kernels: every lane ends with the sum.
+template <class T>
+__device__ __forceinline__ T gsl_butterfly(T c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) c = rn_add(c, __shfl_xor_sync(0xffffffffu, c, off));
+    return c;
+}
+
+// The panel's own CGS2, column by column, on `panel` (its columns ld
+// apart): against its earlier columns t < jj, each coefficient a warp's dot
+// product (warp w takes t = w + 4 a, four at a time), the update summed
+// over t in order by a thread a row; then the norm and the division by
+// warp 0.  cs (16-byte aligned shared memory) holds the coefficients.
+template <class T>
+__device__ __forceinline__ void gsl_panel_columns(T* panel, T* cs, int dim, int ld, int pe) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    for (int jj = 0; jj < pe; ++jj) {
+        T* v = panel + (size_t)jj * ld;
+        for (int sweep = 0; jj > 0 && sweep < 2; ++sweep) {
+            // t = t0 + 4 x (x < 4): those past jj are computed on column t0
+            // and dropped
+            for (int t0 = warp; t0 < jj; t0 += 16) {
+                const T* p[4];
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    p[x] = panel + (size_t)(t0 + 4 * x < jj ? t0 + 4 * x : t0) * ld;
+                T a[4] = {T(0), T(0), T(0), T(0)};
+                for (int i = lane; i < dim; i += 32) {
+                    const T vi = v[i];
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) a[x] = rn_add(a[x], rn_mul(p[x][i], vi));
+                }
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                    if (t0 + 4 * x < jj) {  // uniform over the warp
+                        const T c = gsl_butterfly(a[x]);
+                        if (lane == 0) cs[t0 + 4 * x] = c;
+                    }
+            }
+            __syncthreads();
+            for (int i = tid; i < dim; i += GSL_THREADS) {
+                T u = T(0);
+                int t = 0;
+                for (; t + 4 <= jj; t += 4) {
+                    T c[4];
+                    ld4(cs + t, c);
+#pragma unroll
+                    for (int x = 0; x < 4; ++x)
+                        u = rn_add(u, rn_mul(panel[(size_t)(t + x) * ld + i], c[x]));
+                }
+                for (; t < jj; ++t) u = rn_add(u, rn_mul(panel[(size_t)t * ld + i], cs[t]));
+                v[i] = rn_sub(v[i], u);
+            }
+            __syncthreads();
+        }
+        if (warp == 0) {  // the norm and the division, in one warp: no barrier between
+            T nrm = T(0);
+            for (int i = lane; i < dim; i += 32) nrm = rn_add(nrm, rn_mul(v[i], v[i]));
+            const T den = gs_den(gsl_butterfly(nrm));
+            for (int i = lane; i < dim; i += 32) v[i] = rn_div(v[i], den);
+        }
+        __syncthreads();
+    }
+}
+
+// The panel step at j0: its pe columns staged into shared memory at `ps`
+// where they fit (panel_in_smem; the loads and stores above then compile to
+// shared-memory ones), else worked on in the scratch.
+template <class T>
+__device__ void gsl_panel(T* wb, T* ps, T* cs, int dim, int ld, int j0, int pe,
+                          bool panel_in_smem) {
+    using L = GsLong<T>;
+    T* g = wb + (size_t)j0 * ld;
+    if (!panel_in_smem) {
+        gsl_panel_columns<T>(g, cs, dim, ld, pe);
+        return;
+    }
+    const int n16 = pe * ld / L::VEC;  // 16-byte pieces of the panel
+    for (int c = threadIdx.x; c < n16; c += GSL_THREADS)
+        reinterpret_cast<uint4*>(ps)[c] = reinterpret_cast<const uint4*>(g)[c];
+    __syncthreads();
+    gsl_panel_columns<T>(ps, cs, dim, ld, pe);
+    for (int c = threadIdx.x; c < n16; c += GSL_THREADS)
+        reinterpret_cast<uint4*>(g)[c] = reinterpret_cast<const uint4*>(ps)[c];
+    __threadfence_block();
+    __syncthreads();
+}
+
+// The shared memory of the long kernel at `dim` (bytes): the ring, or the
+// panel where it is staged there (the two are never used at once), then the
+// coefficients.
+template <class T>
+static int gsl_smem(int dim, bool panel_in_smem) {
+    using L = GsLong<T>;
+    const long long ring = 2LL * L::STAGE, panel = (dim + 31LL) / 32 * 32 * GSL_P;
+    const long long body = panel_in_smem && panel > ring ? panel : ring;
+    return (int)((body + GSL_P + L::VEC) * (long long)sizeof(T));
+}
+
+// Whether the panel steps run in shared memory at `dim`: while the panel
+// takes at most GSL_PANEL_SMEM bytes (dim 768 in float32, 384 in float64).
+#define GSL_PANEL_SMEM (96 * 1024)
+template <class T>
+static bool gsl_panel_in_smem(int dim) {
+    return (dim + 31LL) / 32 * 32 * GSL_P * (long long)sizeof(T) <= GSL_PANEL_SMEM;
+}
+
+// One basis a block (blockIdx.x = nb B + b): its columns at w + n dim ld,
+// its coefficients at cg + n ld GSL_P, both in the scratch.  No pointer here
+// is __restrict__: the kernel reads what it wrote, and a read-only load
+// would not see it.
+template <class T>
+__global__ void __launch_bounds__(GSL_THREADS)
+    gram_schmidt_long_kernel(T* w, T* cg, int dim, int ld, int panel_in_smem, int cs_at) {
+    extern __shared__ __align__(16) unsigned char gs_smem[];
+    T* ring = reinterpret_cast<T*>(gs_smem);
+    T* cs = ring + cs_at;
+    T* wb = w + (size_t)blockIdx.x * dim * ld;
+    T* cb = cg + (size_t)blockIdx.x * ld * GSL_P;
+    for (int j0 = 0; j0 < dim; j0 += GSL_P) {
+        const int pe = min(GSL_P, dim - j0);
+        for (int pass = 0; pass < (j0 > 0 ? 2 : 1); ++pass) {
+            if (j0 > 0) {
+                gsl_coefficients<T>(wb, cb, ring, dim, ld, j0, pe);
+                gsl_update<T>(wb, cb, ring, dim, ld, j0, pe);
+            }
+            gsl_panel<T>(wb, ring, cs, dim, ld, j0, pe, panel_in_smem != 0);
         }
     }
 }
 
-// The finished columns the long kernel keeps in shared memory at `dim`:
-// as many as fit beside the working column, at most dim.
-static long long gs_columns_in_smem(int dim, int bytes) {
-    const long long k = ((long long)GS_SMEM_MAX / bytes - dim) / dim;
-    return k < dim ? k : dim;
+// (n_bases, dim, dim, B) -> the scratch, column-major by basis (rows dim ..
+// ld - 1 zero): for each (nb, j) a (rows i, chains b) matrix transposed in
+// 32 x 32 tiles.  Grid (n_bases b_tiles, ld / 32, dim), block (32, 8).
+template <class T>
+__global__ void gsl_to_columns(const T* __restrict__ g, T* __restrict__ w, int dim, int ld, int B,
+                               int b_tiles) {
+    __shared__ T tile[32][33];
+    const int nb = blockIdx.x / b_tiles, b0 = (blockIdx.x % b_tiles) * 32;
+    const int i0 = blockIdx.y * 32, j = blockIdx.z, tx = threadIdx.x;
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int i = i0 + r, b = b0 + tx;
+        tile[r][tx] = i < dim && b < B ? g[(((size_t)nb * dim + i) * dim + j) * B + b] : T(0);
+    }
+    __syncthreads();
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int b = b0 + r;
+        if (b < B) w[(((size_t)nb * B + b) * dim + j) * ld + i0 + tx] = tile[tx][r];
+    }
 }
 
+// The scratch -> (n_bases, dim, dim, B).  Grid (n_bases b_tiles,
+// ceil(dim / 32), dim), block (32, 8).
+template <class T>
+__global__ void gsl_from_columns(const T* __restrict__ w, T* __restrict__ q, int dim, int ld,
+                                 int B, int b_tiles) {
+    __shared__ T tile[32][33];
+    const int nb = blockIdx.x / b_tiles, b0 = (blockIdx.x % b_tiles) * 32;
+    const int i0 = blockIdx.y * 32, j = blockIdx.z, tx = threadIdx.x;
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int b = b0 + r, i = i0 + tx;
+        tile[r][tx] = b < B && i < dim ? w[(((size_t)nb * B + b) * dim + j) * ld + i] : T(0);
+    }
+    __syncthreads();
+    for (int r = threadIdx.y; r < 32; r += 8) {
+        const int i = i0 + r, b = b0 + tx;
+        if (i < dim && b < B) q[(((size_t)nb * dim + i) * dim + j) * B + b] = tile[tx][r];
+    }
+}
+
+// The long path's column stride in the scratch: dim rounded up to 32.
+static long long gsl_ld(int dim) { return (dim + 31LL) / 32 * 32; }
+
+// The three kernels of one launch of the long path, on `stream`.
 template <class T>
 static int gram_schmidt_long(const T* g, T* q, T* scratch, int n_bases, int dim, int B,
                              cudaStream_t stream) {
-    const int k_smem = (int)gs_columns_in_smem(dim, (int)sizeof(T));
-    if (k_smem < dim && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const int smem = (int)sizeof(T) * dim * (1 + k_smem);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_long_kernel<T>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    gram_schmidt_long_kernel<T><<<dim3(B, n_bases), 32, smem, stream>>>(g, q, scratch, dim, B,
-                                                                         k_smem);
+    using L = GsLong<T>;
+    const long long n = (long long)n_bases * B;
+    if (scratch == nullptr || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int ld = (int)gsl_ld(dim), b_tiles = (B + 31) / 32;
+    T* w = scratch;
+    T* cg = scratch + (size_t)n * dim * ld;
+    gsl_to_columns<T><<<dim3(n_bases * b_tiles, ld / 32, dim), dim3(32, 8), 0, stream>>>(
+        g, w, dim, ld, B, b_tiles);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const bool in_smem = gsl_panel_in_smem<T>(dim);
+    const int smem = gsl_smem<T>(dim, in_smem);
+    const int cs_at = smem / (int)sizeof(T) - GSL_P - L::VEC;
+    // set at every launch: the largest size it allows depends on dim
+    e = cudaFuncSetAttribute((const void*)gram_schmidt_long_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    gram_schmidt_long_kernel<T><<<(unsigned)n, GSL_THREADS, smem, stream>>>(w, cg, dim, ld,
+                                                                           in_smem, cs_at);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gsl_from_columns<T><<<dim3(n_bases * b_tiles, (dim + 31) / 32, dim), dim3(32, 8), 0, stream>>>(
+        w, q, dim, ld, B, b_tiles);
     return (int)cudaGetLastError();
 }
 
@@ -337,18 +741,40 @@ static int gram_schmidt(const void* g, void* q, void* scratch, int n_bases, int 
 // The largest dim of the three kernels.
 extern "C" int gram_schmidt_max_dim() { return GS_MAXD_LONG; }
 
-// The values of the scratch buffer a launch at (n_bases, dim, B) in a type
-// of `bytes` bytes needs: the long kernel's finished columns past those
-// its shared memory holds (0 where it holds them all, and at dim <= 128).
+// The warps of the long kernel resident on one SM at `dim` in a type of
+// `bytes` bytes (its blocks by cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at the shared memory of that dim, four warps each), or minus a CUDA error.
+template <class T>
+static int gsl_resident_warps(int dim) {
+    const int smem = gsl_smem<T>(dim, gsl_panel_in_smem<T>(dim));
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_long_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gram_schmidt_long_kernel<T>,
+                                                          GSL_THREADS, smem);
+    return e == cudaSuccess ? blocks * GSL_THREADS / 32 : -(int)e;
+}
+
+extern "C" int gram_schmidt_long_resident_warps(int dim, int bytes) {
+    return bytes == 8 ? gsl_resident_warps<double>(dim) : gsl_resident_warps<float>(dim);
+}
+
+// The values of the scratch buffer a launch at (n_bases, dim, B) needs: the
+// long path's bases, column-major with the column stride ld = dim rounded
+// up to 32, and their coefficients, ld x 32 each (0 at dim <= 128; the
+// same count in either type, `bytes` kept for the interface).
 extern "C" long long gram_schmidt_scratch_values(int n_bases, int dim, int B, int bytes) {
+    (void)bytes;
     if (dim <= GS_MAXD_WIDE) return 0;
-    return (long long)n_bases * B * (dim - gs_columns_in_smem(dim, bytes)) * dim;
+    return (long long)n_bases * B * gsl_ld(dim) * (dim + GSL_P);
 }
 
 // g, q: (n_bases, dim, dim, B) float32, contiguous, on the device: the
 // thread-per-basis kernel for dim <= GS_MAXD, the wide kernel up to
-// GS_MAXD_WIDE, the long kernel above; scratch: a device array of
-// gram_schmidt_scratch_values(n_bases, dim, B, 4) float32 (null when 0).
+// GS_MAXD_WIDE, the long path above (three kernels on the stream); scratch:
+// a device array of gram_schmidt_scratch_values(n_bases, dim, B, 4) float32
+// (null when 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int gram_schmidt_f32(const void* g, void* q, void* scratch, int n_bases, int dim,
                                 int B, void* stream) {

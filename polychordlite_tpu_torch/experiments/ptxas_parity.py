@@ -8,7 +8,7 @@ spills and shared memory, kernel by kernel.
 Compiles, with the port's nvcc flags (``utils/nvcc.py``), one nvcc each and
 eight at a time, the functor libraries ``slice_epoch.cu`` (and its ring
 build), ``slice_epoch_v2.cu``, ``slice_epoch_v3.cu`` and
-``slice_epoch_v5.cu`` of both checkouts (and this one's B3 wide and stream
+``slice_epoch_v5.cu`` and B2's ``gram_schmidt.cu`` of both checkouts (and this one's B3 wide and stream
 library, ``SLICE_EPOCH_V5_WIDE``, whose kernels are all added), and each
 one's ``slice_epoch_fused.cu`` with the B1 and ring headers that its own
 ``ops/fused_like.py`` generates for a per-point torch Gaussian at D = 20
@@ -34,7 +34,8 @@ LIBRARIES = (("slice_epoch", "slice_epoch.cu", ()),
              ("slice_epoch_ring", "slice_epoch.cu", ("SLICE_EPOCH_RING",)),
              ("slice_epoch_v2", "slice_epoch_v2.cu", ()),
              ("slice_epoch_v3", "slice_epoch_v3.cu", ()),
-             ("slice_epoch_v5", "slice_epoch_v5.cu", ()))
+             ("slice_epoch_v5", "slice_epoch_v5.cu", ()),
+             ("gram_schmidt", "gram_schmidt.cu", ()))
 #: libraries of this checkout that the other may not build (B3's wide and
 #: stream buckets): reported as added
 THIS_ONLY = (("slice_epoch_v5_wide", "slice_epoch_v5.cu", ("SLICE_EPOCH_V5_WIDE",)),)

@@ -8,30 +8,31 @@ same layout.  On a CUDA tensor it launches the hand-written kernels of
 ``csrc/gram_schmidt.cu`` (see the source): up to dim :data:`NARROW_MAXD`,
 one thread per basis with the finished columns in shared memory; up to
 :data:`WIDE_MAXD`, one warp per basis with the dot products reduced across
-its lanes; above, up to :data:`MAXD`, the same warp per basis with
-ceil(dim / 32) rows a lane, the working column and as many finished columns
-as fit in shared memory and the others in a scratch buffer in device memory
-that this wrapper allocates (all of them in shared memory up to dim 240 in
-float32 and 169 in float64; past that the card's free memory bounds dim
-before :data:`MAXD` does, and the time grows as dim cubed).  On a CPU tensor it runs
-:func:`gram_schmidt_plain`, the same sweeps in plain torch with each
-kernel's order of summation.  Float32, as in the reference, and float64 for
-a run at ``precision='highest'`` (every kernel instantiated in double, entry
-``gram_schmidt_f64``; their launches counted apart, under the names with
-``_f64``).
+its lanes; above, up to :data:`MAXD`, the long path: blocked CGS2 in panels
+of :data:`LONG_PANEL` columns, four warps a basis, the bases transposed
+into a column-major scratch buffer in device memory that this wrapper
+allocates and streamed through shared memory (the card's free memory
+bounds dim before :data:`MAXD` does, and the time grows as dim cubed).
+On a CPU tensor it runs :func:`gram_schmidt_plain`, the same sweeps in
+plain torch with each kernel's order of summation.  Float32, as in the
+reference, and float64 for a run at ``precision='highest'`` (every kernel
+instantiated in double, entry ``gram_schmidt_f64``; their launches counted
+apart, under the names with ``_f64``).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..utils import nvcc
 
 #: kernel launches since the last reset (compare-with-plain launches
 #: included): the thread-per-basis kernel, the warp-per-basis kernel above
-#: dim 32 and its run-time-rows form above dim 128, in float32 and in float64
+#: dim 32 and the long path above dim 128 (its transpose in, blocked CGS2
+#: and transpose out counted as one launch), in float32 and in float64
 LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0, "gram_schmidt_long": 0,
             "gram_schmidt_f64": 0, "gram_schmidt_wide_f64": 0, "gram_schmidt_long_f64": 0}
 #: the entry of each dtype
@@ -39,15 +40,19 @@ _ENTRIES = {torch.float32: "gram_schmidt_f32", torch.float64: "gram_schmidt_f64"
 #: the largest dim of the thread-per-basis kernel, of the wide kernel's
 #: four rows a lane, and of all (GS_MAXD, GS_MAXD_WIDE and GS_MAXD_LONG of
 #: ``csrc/gram_schmidt.cu``, whose ``gram_schmidt_max_dim()`` the library
-#: is checked against when it loads: the long kernel's working column fills
-#: a block's ``nvcc.SMEM_MAX`` bytes of shared memory in float64).  Past dim
-#: 240 in float32 and 169 in float64 the scratch buffer, NB B (dim - k) dim
-#: values for the k columns shared memory keeps, bounds dim first: 21 GB at
-#: dim 2,048 for 5 bases of 256 chains in float32; the wrapper raises before
-#: it allocates more than the card has free
+#: is checked against when it loads: ``nvcc.SMEM_MAX`` // 8).  The long
+#: path's scratch buffer, NB B ld (dim + 32) values with ld = dim rounded up
+#: to 32, bounds dim first: 22 GB at dim 2,048 for 5 bases of 256 chains in
+#: float32; the wrapper raises before it allocates more than the card has
+#: free
 NARROW_MAXD, WIDE_MAXD, MAXD = 32, 128, nvcc.SMEM_MAX // 8
+#: the columns of a panel of the long path (GSL_P of ``csrc/gram_schmidt.cu``)
+LONG_PANEL = 32
 #: the lanes of a warp
 _LANES = 32
+#: the bases a CPU call of the long plain version works on at a time, so that
+#: its products stay in the processor's caches
+_LONG_CHUNK = 256
 
 
 def gram_schmidt_plain(gauss_t: torch.Tensor) -> torch.Tensor:
@@ -57,10 +62,14 @@ def gram_schmidt_plain(gauss_t: torch.Tensor) -> torch.Tensor:
 
     Up to dim :data:`NARROW_MAXD` every dot product is summed over the rows
     in index order, one rounded operation at a time, as the thread-per-basis
-    kernel does; above it in the wide kernel's order
-    (:func:`_gram_schmidt_wide_plain`).  So the kernels and their plain
-    version agree bit for bit on the card."""
+    kernel does; up to :data:`WIDE_MAXD` in the wide kernel's order
+    (:func:`_gram_schmidt_wide_plain`); above it in blocked CGS2, the long
+    path's order (:func:`_gram_schmidt_long_plain`).  So the kernels and
+    their plain version agree bit for bit on the card, and above
+    :data:`WIDE_MAXD` on the CPU too."""
     dim = gauss_t.shape[1]
+    if dim > WIDE_MAXD:
+        return _gram_schmidt_long_plain(gauss_t)
     if dim > NARROW_MAXD:
         return _gram_schmidt_wide_plain(gauss_t)
     q = torch.empty_like(gauss_t)
@@ -101,13 +110,12 @@ def _warp_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
-    """:func:`gram_schmidt_plain` above dim 32, in the order of
-    ``csrc/gram_schmidt.cu``'s warp-per-basis kernels: the column padded
+    """:func:`gram_schmidt_plain` at dims 33 to 128, in the order of
+    ``csrc/gram_schmidt.cu``'s warp-per-basis kernel: the column padded
     with zeros to ceil(dim / 32) * 32 rows and every dot product by
-    :func:`_warp_dot` (the wide kernel pads to 4 * 32 rows up to dim 128,
-    the long kernel skips the rows past dim: a zero row adds +0 to a partial
-    sum that is never -0, so it changes no sum, and any dim gives the
-    kernels' bits)."""
+    :func:`_warp_dot` (the kernel pads to 4 * 32 rows: a zero row adds +0 to
+    a partial sum that is never -0, so it changes no sum, and any dim
+    gives the kernel's bits)."""
     NB, dim, _, B = gauss_t.shape
     pad = -(-dim // _LANES) * _LANES
     g = torch.zeros((NB, pad, dim, B), dtype=gauss_t.dtype, device=gauss_t.device)
@@ -124,6 +132,99 @@ def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
     return q[:, :dim].contiguous()
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest, as the kernels' ``__fsqrt_rn`` and
+    ``__dsqrt_rn``: ``torch.sqrt`` on the card; on the CPU numpy's, the
+    processor's square-root instruction, because the CPU's ``torch.sqrt``
+    goes through a vector math library whose float32 and float64 results
+    differ from the rounded root in the last bit for ~0.7 % of inputs."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_warp_dot` over axis 0 of ``(rows, ...)`` tensors (broadcast
+    against each other): lane l sums its rows l + 32 m in order from +0,
+    then the butterfly.  The rows past ``rows`` are the zeros the kernels
+    skip: a sum that starts at +0 is never -0, so adding +0 changes none."""
+    rows = a.shape[0]
+    shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    c = torch.zeros((_LANES,) + shape, dtype=a.dtype, device=a.device)
+    for m in range(0, rows, _LANES):
+        n = min(_LANES, rows - m)
+        c[:n] = c[:n] + a[m:m + n] * b[m:m + n]
+    off = _LANES // 2
+    while off:
+        c = c[:off] + c[off:2 * off]
+        off //= 2
+    return c[0]
+
+
+def _gram_schmidt_long_plain(gauss_t: torch.Tensor) -> torch.Tensor:
+    """:func:`gram_schmidt_plain` above dim :data:`WIDE_MAXD`, in the long
+    path's order (``csrc/gram_schmidt.cu``): blocked CGS2 in panels of
+    :data:`LONG_PANEL` columns (:func:`_long_plain_bases`), on the bases in
+    chunks of :data:`_LONG_CHUNK` on the CPU."""
+    NB, dim, _, B = gauss_t.shape
+    x = gauss_t.permute(1, 2, 0, 3).reshape(dim, dim, NB * B)  # [i][j][basis]
+    step = _LONG_CHUNK if x.device.type == "cpu" else NB * B
+    q = torch.cat([_long_plain_bases(x[:, :, s:s + step].contiguous())
+                   for s in range(0, NB * B, step)], dim=2)
+    return q.reshape(dim, dim, NB, B).permute(2, 0, 1, 3).contiguous()
+
+
+def _long_plain_bases(x: torch.Tensor) -> torch.Tensor:
+    """The long path on ``(dim, dim, n)`` matrices (rows, columns, bases):
+    reorthogonalised block CGS2 (BCGS2) in panels of :data:`LONG_PANEL`
+    columns.  A panel V against the finished columns Q (j0 of them) takes
+    two passes (one where j0 = 0) of: C = Q^T V, each C[k][jj] summed over
+    the rows in index order from +0, and V = V - Q C, each product summed
+    over k in index order from +0; then :func:`_long_plain_panel`.  The
+    second pass restores what the first pass's panel step loses to
+    cancellation: a column that shrinks by a factor s there grows its
+    remaining error along Q by 1 / s."""
+    dim, _, n = x.shape
+    q = x.clone()
+    for j0 in range(0, dim, LONG_PANEL):
+        v = q[:, j0:j0 + LONG_PANEL].clone()  # (dim, pe, n)
+        pe = v.shape[1]
+        fin = q[:, :j0]  # (dim, j0, n)
+        prod = torch.empty((j0, pe, n), dtype=x.dtype, device=x.device)
+        upd = torch.empty_like(v)
+        for _ in range(2 if j0 else 1):
+            if j0:
+                c = torch.zeros_like(prod)
+                for i in range(dim):
+                    torch.mul(fin[i, :, None], v[i, None], out=prod)
+                    c.add_(prod)
+                u = torch.zeros_like(v)
+                for k in range(j0):
+                    torch.mul(fin[:, k, None], c[k, None], out=upd)
+                    u.add_(upd)
+                v = v - u
+            _long_plain_panel(v)
+        q[:, j0:j0 + pe] = v
+    return q
+
+
+def _long_plain_panel(v: torch.Tensor) -> None:
+    """CGS2 of a panel's ``(dim, pe, n)`` columns in place, one by one: two
+    sweeps against its earlier columns t (coefficients by :func:`_lane_dot`,
+    the update summed over t in order from +0), the norm by
+    :func:`_lane_dot`, v / max(sqrt(norm), 1e-30)."""
+    for jj in range(v.shape[1]):
+        col = v[:, jj]
+        for _ in range(2 if jj else 0):
+            coef = _lane_dot(v[:, :jj], col[:, None])  # (jj, n)
+            u = torch.zeros_like(col)
+            for t in range(jj):
+                u = u + v[:, t] * coef[t]
+            col = col - u
+        den = torch.clamp_min(_sqrt_rn(_lane_dot(col, col)), 1e-30)
+        v[:, jj] = col / den
+
+
 def _lib():
     lib = nvcc.load("gram_schmidt", ["gram_schmidt.cu"])
     if not getattr(lib, "_typed", False):
@@ -135,6 +236,8 @@ def _lib():
         lib.gram_schmidt_max_dim.restype = ctypes.c_int
         lib.gram_schmidt_scratch_values.argtypes = [ctypes.c_int] * 4
         lib.gram_schmidt_scratch_values.restype = ctypes.c_longlong
+        lib.gram_schmidt_long_resident_warps.argtypes = [ctypes.c_int] * 2
+        lib.gram_schmidt_long_resident_warps.restype = ctypes.c_int
         if lib.gram_schmidt_max_dim() != MAXD:
             raise RuntimeError(f"gram_schmidt.cu's largest dim {lib.gram_schmidt_max_dim()} is "
                                f"not pallas_dirs.MAXD = {MAXD}")
@@ -172,7 +275,7 @@ def gram_schmidt_lanes(gauss_t: torch.Tensor) -> torch.Tensor:
         need, (free, _) = n_scratch * g.element_size(), torch.cuda.mem_get_info(g.device)
         if need > free:
             raise ValueError(
-                f"B2's long kernel at dim {dim} keeps the columns past shared memory's in a "
+                f"B2's long path at dim {dim} keeps its bases and their coefficients in a "
                 f"scratch buffer of {n_scratch} values ({need / 2**30:.1f} GiB for {NB} x {B} "
                 f"bases), more than the card's {free / 2**30:.1f} GiB free; run fewer chains "
                 "(nlive) or engine='torch'")

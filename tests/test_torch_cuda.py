@@ -1659,27 +1659,40 @@ STREAM_D = [129, 160, 256]
 STREAM = pallas_slice_v4.STREAM
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dim", [129, 160, 256, 300])
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("dim,dtype", [(129, F32), (160, F32), (241, F32), (256, F32), (300, F32),
+                                       (512, F32), (129, F64), (160, F64), (170, F64),
+                                       (256, F64), (300, F64), (400, F64)])
 def test_gram_schmidt_long_kernel_equals_plain(dev, dim, dtype):
-    """B2 above dim 128 (ceil(dim / 32) rows a lane) bitwise its plain
-    version, the finished columns in shared memory up to dim 240 in float32
-    and 169 in float64 and past that partly in the scratch buffer (256 and
-    300 in both types); one launch counted as the long kernel's; columns
-    orthonormal."""
-    g = torch.randn((2, dim, dim, 37), generator=torch.Generator(dev).manual_seed(dim),
+    """B2 above dim 128 (the long path: blocked CGS2 in panels of 32
+    columns, the bases in a column-major scratch) bitwise its plain version
+    on the card and on the host's CPU, at dims on both sides of what a
+    block's shared memory holds of a basis (~230 in float32, ~165 in
+    float64), with a ragged last panel (129, 170, 241, 300, 400), and at
+    400 in float64 past the dims whose panel steps run in shared memory
+    (384; there they run in the scratch); one launch
+    counted as the long path's; columns orthonormal; the scratch the
+    wrapper allocates and the kernel's resident warps as the library
+    reports them."""
+    B = 37 if dim <= 300 else 6
+    g = torch.randn((2, dim, dim, B), generator=torch.Generator(dev).manual_seed(dim),
                     device=dev, dtype=dtype)
     name = "gram_schmidt_long" + ("_f64" if dtype == torch.float64 else "")
     before = dict(pallas_dirs.LAUNCHES)
     q = pallas_dirs.gram_schmidt_lanes(g)
     assert pallas_dirs.LAUNCHES == {**before, name: before[name] + 1}
     assert torch.equal(q, pallas_dirs.gram_schmidt_plain(g))
+    assert torch.equal(q.cpu(), pallas_dirs.gram_schmidt_plain(g.cpu()))
     eye = torch.eye(dim, device=dev, dtype=dtype)[None, :, :, None]
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert (torch.einsum("nikb,nijb->nkjb", q, q) - eye).abs().max() < tol
-    in_smem = {torch.float32: 240, torch.float64: 169}[dtype]
-    n_scratch = pallas_dirs._lib().gram_schmidt_scratch_values(2, dim, 37, g.element_size())
-    assert (n_scratch > 0) == (dim > in_smem)
+    lib = pallas_dirs._lib()
+    ld = -(-dim // 32) * 32
+    n_scratch = lib.gram_schmidt_scratch_values(2, dim, B, g.element_size())
+    assert n_scratch == 2 * B * ld * (dim + 32)
+    assert lib.gram_schmidt_long_resident_warps(dim, g.element_size()) >= 4
 
 
 @pytest.mark.parametrize("capped", [False, True])

@@ -158,10 +158,11 @@ def test_wide_plain_order_is_the_warp_butterfly():
 
 
 def test_plain_gram_schmidt_has_no_bound_on_dim():
-    """Above dim 128 (B2's long kernel) the plain version keeps the wide
-    order with more rows a lane: zero rows change no sum, so padding the
-    same columns to 4 or 5 rows a lane gives the same dot products bit for
-    bit, and at dim 140 the columns are orthonormal."""
+    """Above dim 128 (B2's long path) the plain version is blocked CGS2 in
+    panels of 32 columns, whose panel steps sum their dot products in the
+    warp order with as many rows a lane as dim needs: zero rows change no
+    sum, so padding the same columns to 4 or 5 rows a lane gives the same
+    dot products bit for bit, and at dim 140 the columns are orthonormal."""
     rng = np.random.default_rng(8)
     a, b = (torch.as_tensor(rng.standard_normal((2, 100, 3)).astype(np.float32))
             for _ in range(2))

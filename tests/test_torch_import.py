@@ -33,6 +33,8 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.pallas_slice_repeat",
     "polychordlite_tpu_torch.experiments.prof_ring",
     "polychordlite_tpu_torch.experiments.ptxas_parity",
+    "polychordlite_tpu_torch.experiments.gs_long_parts",
+    "polychordlite_tpu_torch.experiments.cpu_ops_rounding",
     "polychordlite_tpu_torch.examples.quickstart",
     "polychordlite_tpu_torch.examples.run_example",
     "polychordlite_tpu_torch.examples.graded_likelihood",
