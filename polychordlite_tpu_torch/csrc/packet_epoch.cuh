@@ -8,9 +8,11 @@
 // Above SLICE_MAXD (the wide bucket to SLICE_MAXD_WIDE, the stream bucket
 // above) a chain holds a whole warp, G = 32, one chain a block, and the
 // warp evaluates the packet's four slots one after the other, each with the
-// bucket's G = 32 like_eval (slice_epoch.cuh: the terms staged in shared
-// memory and combined in index order on every lane; in the stream bucket x0
-// and n̂ are the chain's rows of the block's dynamic shared memory too).
+// bucket's G = 32 like_eval (slice_epoch.cuh: each lane folds the terms of
+// its own coordinates and a shuffle butterfly joins the lanes, the lane
+// order of likelihoods.cuh; in the stream bucket x0, n̂ and the terms are
+// the chain's rows of the block's dynamic shared memory; in both buckets
+// its directions are read as slice_load_nhat's coalesced rows).
 // Every lane runs the packet machine on the four logLs, so nothing is
 // broadcast for the decisions.  Of the two layouts open here — this one,
 // and one chain on a block of four warps, warp j evaluating slot j, the four
@@ -27,9 +29,6 @@
 
 #include "packet_machine.cuh"
 #include "slice_epoch.cuh"
-
-// the lanes of a warp: a chain's G above SLICE_MAXD
-#define WARP_LANES 32
 
 // A packet slot's logL on its sub-group of Gs lanes: slice_epoch.cuh's
 // two-stage like_eval (its ballot masked to the sub-group, its shuffles of
@@ -143,7 +142,7 @@ __device__ __forceinline__ void packet_warp_epoch(const GroupLane<WARP_LANES, Li
         const float bnd = a.bound[b];
         const uint32_t h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
         for (; r < R; ++r) {
-            slice_load<WARP_LANES, MAXD>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
+            slice_load_nhat<WARP_LANES, MAXD>(n, a.nhat, r, D, B, R, b, g);
             const float wr = a.w[(size_t)r * B + b];
             const uint32_t h_rep = mix32(h_lane, (uint32_t)r);
             PacketState s;

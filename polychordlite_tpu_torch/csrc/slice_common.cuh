@@ -34,6 +34,8 @@ using exactly = typename same_type<T>::type;
 #define SLICE_LANE_CAP 4
 #define SLICE_MAXD_STREAM 0
 #define SLICE_SMEM_MAX 232448
+// the lanes of a warp: a chain's G above SLICE_MAXD
+#define WARP_LANES 32
 
 enum { PH_INIT_R = 0, PH_INIT_L, PH_STEP_R, PH_STEP_L, PH_SHRINK, PH_DONE };
 

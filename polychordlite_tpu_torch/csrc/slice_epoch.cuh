@@ -67,33 +67,42 @@
 // the SLICE_MAXD_WIDE = 128 bucket holds a chain on G = 32 lanes only
 // (K <= SLICE_LANE_CAP = 4: G = 1 would keep 128 coordinates a thread; G =
 // 16 measured slower than G = 32 at every wide shape timed, PERF.md section
-// 6), and its combine does not take the terms into registers — NT x 128
-// floats a lane would spill — but from shared memory: each lane stores the
-// terms it owns into its chain's row (NT x 128 + 1 floats; one warp, so one
-// chain, a block), a __syncwarp, and every lane of the group runs the same
-// index-order combine from the row (broadcast reads).  The order of every
-// float operation is the 32 bucket's, so each G is bitwise the plain
-// version and G = 32.  What bounds a wide micro-step is that combine: a
-// chain of D dependent adds (the index order the torch calc fixes), with
-// one warp a chain and 512 chains on 132 SMs.
+// 6).  Its functors combine in the lane order (likelihoods.cuh: fold on the
+// view LaneRegs): every lane folds the terms of its own K slots from its
+// registers and a five-step __shfl_xor_sync butterfly joins the lanes, so a
+// reduction costs each lane K - 1 + 5 dependent operations; in index order
+// it would be a chain of D dependent adds on every lane (one warp a chain,
+// 512 chains on 132 SMs: nothing hides it), from terms staged in shared
+// memory (NT x 128 a lane would spill from registers).  Nothing is staged
+// and the lanes need no barrier.  The plain versions sum in that order above
+// D = 32 (models/examples.py::coordinate_fold, ops/fused_like.py), so the
+// kernel stays bitwise its plain version.  A STAGED functor, which reads
+// T[j][d] at any d (himmelblau; random_gaussian, whose quadratic form
+// couples every pair of coordinates and runs in index order; a generated
+// functor that reads one coordinate's terms), also has its terms staged in
+// its chain's row of shared memory (staged_row below).  A chain's
+// directions come as rows, (B, R, D), so that its warp loads a repeat's n̂
+// coalesced (slice_load_nhat), in this bucket and the next.
 //
 // Above D = 128 the stream bucket (MAXD = SLICE_MAXD_STREAM, no compile-time
 // bound) holds a chain on G = 32 lanes as the wide bucket does, but nothing
-// of the chain sits in registers: its x0, its n̂ and its staged terms are
-// rows of the block's dynamic shared memory, (2 + NT) D values of the run's
-// type (one chain, one warp, a block), lane g owning the coordinates d = g
-// (mod 32), which it alone reads and writes in x0 and n̂ (so no barrier
-// guards them; the terms are fenced by __syncwarp as in the wide bucket).
-// Every per-coordinate loop (the load, the advance, the cube row, the term
-// stage) runs to the run-time D, and the prior's a and s come by pointer
-// (DevicePriorT, likelihoods.cuh).  The combine and the order of every
-// operation are the wide bucket's, so the plain version is the same.  D is
-// bounded by the 227 KB a block may have: (2 + NT) D sizeof(T) <=
-// SLICE_SMEM_MAX, D <= 14,528 in float32 at NT = 2
+// of the chain sits in registers: its x0, its n̂ and its terms are rows of
+// the block's dynamic shared memory, (2 + NT) D values of the run's type
+// (one chain, one warp, a block), lane g owning the coordinates d = g (mod
+// 32), which it alone reads and writes in x0 and n̂ (so no barrier guards
+// them).  Every per-coordinate loop (the load, the advance, the cube row,
+// the term stage) runs to the run-time D, and the prior's a and s come by
+// pointer (DevicePriorT, likelihoods.cuh).  Each lane folds its own
+// entries of the terms' rows (the view LaneRows: again no barrier); for a
+// STAGED functor the rows are fenced by __syncwarp so that every lane can
+// read any entry.  D is bounded by the 227 KB a block may have:
+// (2 + NT) D sizeof(T) <= SLICE_SMEM_MAX, D <= 14,528 in float32 at NT = 2
 // (ops/pallas_slice_v4.py::stream_max_d); a request above 48 KB sets the
-// kernel's dynamic shared-memory attribute first.  What bounds a micro-step is again the combine's D dependent adds,
-// now read from shared memory one per add.
-//
+// kernel's dynamic shared-memory attribute first.  What is left of a stream micro-step is the term
+// stage, D / 32 slots a lane, each with its shared and cached loads and an
+// IEEE division, four slots' loads issued together, and the machine
+// (experiments/b1_bucket_parts.py prices the parts).
+
 // The counted form (slice_epoch_counted_launch) replaces the instrumented
 // TPU kernel experiments/v4_instr.py::build_epoch_fn_pallas_v4 (:384, in
 // the repository's top-level experiments/): the G = 1 kernel, instantiated
@@ -115,7 +124,9 @@
 // registers of the chain state and the wide bucket's staged row.
 //
 // Layout: x0 (D, B), nhat (R, D, B) and w (R, B) with the chain axis
-// minor; outputs t, logL (R, B) float32 and nlike (R, B) int32.  With
+// minor, but nhat (B, R, D) above D = 32 (one chain a warp reads its
+// repeat's row coalesced: slice_machine.cuh::slice_load_nhat); outputs t,
+// logL (R, B) float32 and nlike (R, B) int32.  With
 // G > 1 a warp's load of one coordinate touches G rows of 32 / G chains
 // each; chains of a warp sit in different repeats (they run freely), so a
 // repeat's directions cannot be staged for the block — they are read once
@@ -205,20 +216,28 @@ struct GroupLane<G, Like, true> {
     Real* terms;
 };
 
-// The terms of the 128 bucket's chain, staged in shared memory: T[j][d].
-template <int MAXD, class Real = float>
-struct StagedTerms {
-    const Real* p;
-    __device__ __forceinline__ const Real* operator[](int j) const { return p + j * MAXD; }
-};
-
-// ... of the stream bucket's chain, rows of `stride` = D values.
-template <class Real>
-struct StreamTerms {
-    const Real* p;
-    int stride;
-    __device__ __forceinline__ const Real* operator[](int j) const { return p + j * stride; }
-};
+// The 128 bucket's staged row, for a STAGED functor: each lane of the
+// group stores the terms it owns in its chain's row of shared memory (one
+// warp per block; the odd row stride puts the chains of a warp on distinct
+// banks), fenced by __syncwarp on both sides, so that every lane can read
+// T[j][d] = row[j MAXD + d] for any d.
+template <int G, class Like, class Real, int K>
+__device__ __forceinline__ const Real* staged_row(const Real (&own)[Like::NT][K], int g, int D) {
+    constexpr int NT = Like::NT, MAXD = Like::MAXD;
+    __shared__ Real staged[32 / G][NT * MAXD + 1];
+    Real* row = staged[(threadIdx.x & 31) / G];
+    __syncwarp();  // the previous micro-step's combine has read the row
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const int d = g + k * G;
+        if (d < D) {
+#pragma unroll
+            for (int j = 0; j < NT; ++j) row[j * MAXD + d] = own[j][k];
+        }
+    }
+    __syncwarp();
+    return row;
+}
 
 template <int G, class Like>
 __device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
@@ -227,22 +246,40 @@ __device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
                                                    int D) {
     using Real = real_of<Like>;
     constexpr int NT = Like::NT, MAXD = Like::MAXD;
+    constexpr bool STAGED = staged_terms<Like>::value;
     if constexpr (MAXD == SLICE_MAXD_STREAM) {
         // the stream bucket: each lane stores the terms of the coordinates it
-        // owns straight into the chain's row, as it makes them, and every
-        // lane combines from there, as in the 128 bucket
+        // owns straight into the chain's rows, as it makes them, and the
+        // combine's folds read its own entries from there (no barrier); a
+        // STAGED functor reads any entry, after a __syncwarp
         bool inside = true;
-        __syncwarp();  // the previous micro-step's combine has read the row
-        for (int d = L.g; d < D; d += G) {
+        if constexpr (STAGED) __syncwarp();  // the previous micro-step's combine has read the row
+        const auto slot = [&](int d, Real xd, Real nd, Real ad, Real sd) {
             Real o[NT] = {};
-            L.like.term(
-                probe_theta(x0[d], n[d], t, L.like.prior.a[d], L.like.prior.s[d], inside), d, o);
+            L.like.term(probe_theta(xd, nd, t, ad, sd, inside), d, o);
 #pragma unroll
             for (int j = 0; j < NT; ++j) L.terms[j * D + d] = o[j];
+        };
+        // four slots at a time, their shared and cached loads issued
+        // together ahead of the four divisions; then the rest one by one
+        int d = L.g;
+        for (; d + 3 * G < D; d += 4 * G) {
+            Real xd[4], nd[4], ad[4], sd[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int e = d + u * G;
+                xd[u] = x0[e];
+                nd[u] = n[e];
+                ad[u] = L.like.prior.a[e];
+                sd[u] = L.like.prior.s[e];
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) slot(d + u * G, xd[u], nd[u], ad[u], sd[u]);
         }
+        for (; d < D; d += G) slot(d, x0[d], n[d], L.like.prior.a[d], L.like.prior.s[d]);
         inside = (__ballot_sync(0xffffffffu, inside) & L.mask) == L.mask;
-        __syncwarp();
-        return like_result(L.like.combine(StreamTerms<Real>{L.terms, D}, D), inside,
+        if constexpr (STAGED) __syncwarp();
+        return like_result(L.like.combine(LaneRows<Real, NT>{L.terms, L.g, D}, D), inside,
                            L.logzero);
     } else {
     constexpr int K = GroupLane<G, Like>::K;
@@ -273,25 +310,13 @@ __device__ __forceinline__ real_of<Like> like_eval(const GroupLane<G, Like>& L,
         }
         return like_result(L.like.combine(T, D), inside, L.logzero);
     } else {
-        // the 128 bucket: NT x MAXD terms per chain would spill from every
-        // lane's registers, so each lane stages the terms it owns in its
-        // chain's row of shared memory (one warp per block; the odd row
-        // stride puts the chains of a warp on distinct banks) and every lane
-        // of the group combines from there, in the same index order
-        __shared__ Real staged[32 / G][NT * MAXD + 1];
-        Real* row = staged[(threadIdx.x & 31) / G];
-        __syncwarp();  // the previous micro-step's combine has read the row
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            const int d = L.g + k * G;
-            if (d < D) {
-#pragma unroll
-                for (int j = 0; j < NT; ++j) row[j * MAXD + d] = own[j][k];
-            }
-        }
-        __syncwarp();
-        return like_result(L.like.combine(StagedTerms<MAXD, Real>{row}, D), inside,
-                           L.logzero);
+        // the 128 bucket: the combine's folds read each lane's own terms from
+        // its registers; a STAGED functor's terms also go to the chain's
+        // staged row (NT x MAXD terms a chain would spill from registers)
+        const Real* row = nullptr;
+        if constexpr (STAGED) row = staged_row<G, Like>(own, L.g, D);
+        return like_result(L.like.combine(LaneRegs<Real, NT, K>{own, L.g, D, row, MAXD}, D),
+                           inside, L.logzero);
     }
     }
 }
@@ -386,7 +411,7 @@ __device__ __forceinline__ void group_epoch_on(const GroupLane<G, Like>& L,
     s.start();
     if (!done || (Policy::CUBE && in_range)) slice_load<G, MAXD>(x0, a.x0t, 0, D, B, b, g);
     if (!done) {
-        slice_load<G, MAXD>(n, a.nhat, 0, D, B, b, g);
+        slice_load_nhat<G, MAXD>(n, a.nhat, 0, D, B, R, b, g);
         wr = a.w[b];
         bnd = a.bound[b];
         h_lane = mix32(mix32(a.k0, a.k1), a.lane0 + (uint32_t)b);
@@ -423,7 +448,7 @@ __device__ __forceinline__ void group_epoch_on(const GroupLane<G, Like>& L,
             if (end) {  // the cube row, then the next repeat
                 repeat_end<Policy, G, MAXD>(a, r, b, x0, g);
                 if (++r < R) {
-                    slice_load<G, MAXD>(n, a.nhat, (size_t)r * D * B, D, B, b, g);
+                    slice_load_nhat<G, MAXD>(n, a.nhat, r, D, B, R, b, g);
                     wr = a.w[(size_t)r * B + b];
                     h_rep = mix32(h_lane, (uint32_t)r);
                     s.start();

@@ -36,8 +36,9 @@
 // What bounds it is B1's micro-step (slice_epoch.cuh), with the lowered
 // body in place of the hand-written one: its per-coordinate chain runs on
 // the lane that owns the coordinate (term), its sums and scalar tail on
-// every lane of the group (combine), the constants read through the
-// read-only cache.  Every float operation is a rounded intrinsic under
+// every lane of the group (combine; above D = 32 each sum folded in
+// the lane order), the constants read through the read-only
+// cache.  Every float operation is a rounded intrinsic under
 // --fmad=false, so the kernel agrees bit for bit with fused_like.py's plain
 // version, Lowered.plain_logL.
 //

@@ -209,9 +209,28 @@ __device__ __forceinline__ void slice_load(T* v, const T* __restrict__ src,
     }
 }
 
+// Load chain b's direction of repeat r into n.  In the 32 bucket the
+// directions are (R, D, B), chain axis minor, as slice_load reads a seed:
+// the chains of a warp read neighbouring entries.  Above D = 32, where one
+// chain holds a warp, they are (B, R, D): a chain's repeat is one
+// contiguous row of D values, which its warp reads in coalesced loads (in
+// (R, D, B) each lane's load of a coordinate touched a sector of its own,
+// and past D ~ 256 those misses made the repeat's load the dearest part of
+// the machine).  ops/pallas_slice_v4.py::launch_slice_kernel lays them out
+// by the same rule.
+template <int G, int MAXD, class T>
+__device__ __forceinline__ void slice_load_nhat(T* n, const T* __restrict__ nhat, int r, int D,
+                                                int B, int R, int b, int g) {
+    if constexpr (MAXD == SLICE_MAXD)
+        slice_load<G, MAXD>(n, nhat, (size_t)r * D * B, D, B, b, g);
+    else  // the row of (b, r): a "seed" of one chain at its offset
+        slice_load<G, MAXD>(n, nhat, ((size_t)b * R + r) * D, D, 1, 0, g);
+}
+
 // The arguments of a free-running epoch kernel (slice_epoch.cuh: B1, B5 at
-// G > 1; slice_epoch_v5.cu: B3).  Layout: x0 (D, B), nhat (R, D, B) and w
-// (R, B) with the chain axis minor; outputs t, logL (R, B) of the scalar
+// G > 1; slice_epoch_v5.cu: B3).  Layout: x0 (D, B), nhat (R, D, B) (above
+// D = 32 (B, R, D): slice_load_nhat) and w (R, B) with the chain
+// axis minor; outputs t, logL (R, B) of the scalar
 // type T (float32; float64 for the fused route at precision='highest'),
 // nlike (R, B) int32 and, where the kernel writes it (B5), cube (R, D, B).
 template <class T = float>

@@ -15,8 +15,11 @@ one's ``slice_epoch_fused.cu`` with the B1 and ring headers that its own
 (G = 16), 64 and 160 (G = 32).  Prints one JSON line: whether the generated
 headers are the same text in both, each build's exit code, and per library
 the kernels of the other checkout, those missing here and those whose
-report differs (with the first few names).  Kernels this checkout adds are
-counted and listed apart.  Needs nvcc; touches no card.
+report differs (with the first few names), and apart those of the D <= 32
+instantiations (a functor of the SLICE_MAXD bucket, ``...LikeILi32EE``, or
+a fused library generated at D <= 32, with both reports' lines), with
+``n_differ_d32`` their sum over every library.  Kernels this checkout adds are counted and listed apart.
+Needs nvcc; touches no card.
 """
 
 from __future__ import annotations
@@ -40,6 +43,16 @@ LIBRARIES = (("slice_epoch", "slice_epoch.cu", ()),
 #: stream buckets): reported as added
 THIS_ONLY = (("slice_epoch_v5_wide", "slice_epoch_v5.cu", ("SLICE_EPOCH_V5_WIDE",)),)
 FUSED = ((20, 16), (64, 32), (160, 32))
+
+
+def in_d32(library: str, kernel: str) -> bool:
+    """Whether ``kernel`` of ``library`` is a D <= 32 instantiation: a
+    functor of the SLICE_MAXD bucket, or any kernel of a fused library
+    generated at D <= 32 (``fused_d20``, ``fused_ring_d20``)."""
+    m = re.match(r"fused(?:_ring)?_d(\d+)$", library)
+    if m:
+        return int(m[1]) <= 32
+    return re.search(r"LikeILi32EE", kernel) is not None
 
 _HEADERS = r"""
 import json, math, sys
@@ -129,11 +142,16 @@ def main(other: str, out_dir: str = None) -> dict:
         there = kernels(built["other", name][1]) if ("other", name) in built else {}
         common = sorted(set(here) & set(there))
         differ = [k for k in common if here[k] != there[k]]
+        d32 = [k for k in differ if in_d32(name, k)]
         report["libraries"][name] = {
             "other_kernels": len(there), "missing_here": sorted(set(there) - set(here)),
             "n_differ": len(differ), "differ": differ[:5],
+            "n_d32": sum(in_d32(name, k) for k in common), "n_differ_d32": len(d32),
+            "differ_d32": d32,
+            "d32_lines": {k: {"this": here[k], "other": there[k]} for k in d32},
             "added_here": len(set(here) - set(there)),
             "added": {k: here[k] for k in sorted(set(here) - set(there))}}
+    report["n_differ_d32"] = sum(v["n_differ_d32"] for v in report["libraries"].values())
     print(json.dumps(report))
     return report
 

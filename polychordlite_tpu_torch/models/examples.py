@@ -8,13 +8,14 @@ device functor and that functor's constants (``ops/pallas_slice_v4.py``).
 
 All eleven analytic likelihoods of the JAX package's zoo are here, each
 with a device form.  Their arithmetic is written as separate IEEE float
-operations in a fixed order — sums over coordinates in index order,
-logaddexp spelled out, integer powers as chains of multiplications, and
-every division by a tensor, never by a Python scalar (CUDA turns a division
-by a host scalar into a multiplication by its reciprocal) — so that the
-device functors (``csrc/likelihoods.cuh``), which do the same operations in
-the same order, agree with them bit for bit.  Derived parameters are the
-JAX package's; the functors compute logL only.
+operations in a fixed order — sums (products, maxima) over coordinates in
+the order of :func:`coordinate_fold`, logaddexp spelled out, integer powers
+as chains of multiplications, and every division by a tensor, never by a
+Python scalar (CUDA turns a division by a host scalar into a
+multiplication by its reciprocal) — so that the device functors
+(``csrc/likelihoods.cuh``), which do the same operations in the same
+order, agree with them bit for bit.  Derived parameters are the JAX
+package's; the functors compute logL only.
 """
 
 from __future__ import annotations
@@ -24,8 +25,34 @@ import math
 import numpy as np
 import torch
 
+from ..ops.pallas_slice_v4 import SLICE_MAXD, WARP
+
 LOG_TWO_PI = math.log(2.0 * math.pi)
 LOG_SQRT_TWO_PI = 0.5 * LOG_TWO_PI
+
+
+def coordinate_fold(items: torch.Tensor, op, n_dims: int) -> torch.Tensor:
+    """``op`` over the columns of ``items (B, n)``, one value per coordinate
+    d = 0 .. n - 1 of a model of ``n_dims`` dimensions, in the kernels' order.
+    Up to the kernels' 32 bucket (``SLICE_MAXD``): in index order from the
+    first column.  Above (``csrc/likelihoods.cuh::fold`` on a lane view),
+    where a chain holds the ``WARP`` lanes of a warp: lane g folds the
+    columns g, g + 32, g + 64, ... in index order from its first, then a
+    butterfly joins the lanes, lane g taking op(its value, lane g ^ m's) at
+    m = 16, 8, 4, 2, 1; the result is lane 0's.  Above 32 every lane needs a
+    column (n >= 32)."""
+    if n_dims <= SLICE_MAXD:
+        acc = items[:, 0]
+        for k in range(1, items.shape[1]):
+            acc = op(acc, items[:, k])
+        return acc
+    acc = items[:, :WARP]
+    for start in range(WARP, items.shape[1], WARP):
+        n = min(WARP, items.shape[1] - start)
+        acc = torch.cat([op(acc[:, :n], items[:, start:start + n]), acc[:, n:]], dim=1)
+    for m in (16, 8, 4, 2, 1):  # lane g ^ m: the halves of each block of 2 m lanes swapped
+        acc = op(acc, acc.reshape(-1, WARP // (2 * m), 2, m).flip(2).reshape(-1, WARP))
+    return acc[:, 0]
 
 
 def _log_vn(n: int) -> float:
@@ -42,10 +69,7 @@ def gaussian(n_dims: int, mu: float = 0.5, sigma: float = 0.1):
 
     def loglikelihood(theta: torch.Tensor):
         d = (theta - mu) / theta.new_full((1,), sigma)
-        dd = d * d
-        chi2 = dd[:, 0]
-        for k in range(1, dd.shape[1]):
-            chi2 = chi2 + dd[:, k]
+        chi2 = coordinate_fold(d * d, torch.add, n_dims)
         logL = norm - 0.5 * chi2
         r = torch.sqrt(torch.sum((theta - mu) ** 2, dim=1))
         return logL, torch.stack([r, n_dims * torch.log(r) + log_vn], dim=1)
@@ -82,9 +106,10 @@ def gaussian_shells(n_dims: int, radius: float = 2.0, sigma: float = 0.1):
 
     def loglikelihood(theta: torch.Tensor):
         th0 = theta[:, 0]
-        rest = torch.zeros_like(th0)
-        for k in range(1, theta.shape[1]):
-            rest = rest + theta[:, k] * theta[:, k]
+        # rest from zeros: coordinate 0 adds 0
+        items = [torch.zeros_like(th0)] + [theta[:, k] * theta[:, k]
+                                           for k in range(1, theta.shape[1])]
+        rest = coordinate_fold(torch.stack(items, dim=1), torch.add, n_dims)
         c1 = th0 + centre
         c2 = th0 - centre
         r1 = torch.sqrt(c1 * c1 + rest)
@@ -109,12 +134,10 @@ def _divisor(theta: torch.Tensor, value: float) -> torch.Tensor:
     return theta.new_full((1,), value)
 
 
-def _index_sum(terms):
-    """Sum of a sequence of (B,) tensors, in index order from the first."""
-    total = terms[0]
-    for term in terms[1:]:
-        total = total + term
-    return total
+def _coordinate_sum(terms, n_dims: int):
+    """Sum of a sequence of (B,) tensors, one a coordinate, in the order of
+    :func:`coordinate_fold`."""
+    return coordinate_fold(torch.stack(terms, dim=1), torch.add, n_dims)
 
 
 def _mix_of_two(l1, l2):
@@ -133,7 +156,7 @@ def half_gaussian(n_dims: int, sigma: float = 0.1):
     def loglikelihood(theta: torch.Tensor):
         div = _divisor(theta, sigma)
         z = [(theta[:, k] - (0.0 if k == 0 else 0.5)) / div for k in range(theta.shape[1])]
-        chi2 = _index_sum([zk * zk for zk in z])
+        chi2 = _coordinate_sum([zk * zk for zk in z], n_dims)
         logL = norm - 0.5 * chi2
         r = torch.sqrt(chi2) * sigma
         return logL, torch.stack([r, n_dims * torch.log(r) + log_vn - math.log(2.0)], dim=1)
@@ -151,9 +174,9 @@ def pyramidal(n_dims: int, mu: float = 0.5, sigma: float = 0.1):
 
     def loglikelihood(theta: torch.Tensor):
         div = _divisor(theta, sigma)
-        m = (theta[:, 0] - mu).abs() / div
-        for k in range(1, theta.shape[1]):
-            m = torch.maximum(m, (theta[:, k] - mu).abs() / div)
+        m = coordinate_fold(torch.stack(
+            [(theta[:, k] - mu).abs() / div for k in range(theta.shape[1])], dim=1),
+            torch.maximum, n_dims)
         return norm - (m * m) / _divisor(theta, factor)
 
     loglikelihood.device_form = {
@@ -172,7 +195,7 @@ def rastrigin(n_dims: int, A: float = 10.0):
         for k in range(theta.shape[1]):
             th = theta[:, k]
             terms.append((th * th + log_norm) - torch.cos(th * two_pi) * A)
-        return -_index_sum(terms)
+        return -_coordinate_sum(terms, n_dims)
 
     loglikelihood.device_form = {
         "name": "rastrigin", "log_norm": log_norm, "A": A, "two_pi": two_pi,
@@ -190,8 +213,8 @@ def twin_gaussian(n_dims: int, sigma: float = 0.1):
         div = _divisor(theta, sigma)
         z1 = [(theta[:, k] - (-off if k < 2 else 0.0)) / div for k in range(theta.shape[1])]
         z2 = [(theta[:, k] - (off if k < 2 else 0.0)) / div for k in range(theta.shape[1])]
-        l1 = norm - 0.5 * _index_sum([z * z for z in z1])
-        l2 = norm - 0.5 * _index_sum([z * z for z in z2])
+        l1 = norm - 0.5 * _coordinate_sum([z * z for z in z1], n_dims)
+        l2 = norm - 0.5 * _coordinate_sum([z * z for z in z2], n_dims)
         phi = torch.where(theta[:, 0] > 0.5, 1.0, -1.0).to(theta.dtype)
         return _mix_of_two(l1, l2), phi[:, None]
 
@@ -243,7 +266,7 @@ def rosenbrock(n_dims: int, a: float = 1.0, b: float = 100.0):
             terms.append(u * u + (v * v) * b)
         if not terms:
             return torch.full_like(theta[:, 0], norm)
-        return norm - _index_sum(terms)
+        return norm - _coordinate_sum(terms, n_dims)
 
     loglikelihood.device_form = {"name": "rosenbrock", "a": a, "b": b, "norm": norm}
     return loglikelihood
@@ -254,9 +277,9 @@ def eggbox(n_dims: int):
 
     def loglikelihood(theta: torch.Tensor):
         two = _divisor(theta, 2.0)
-        p = torch.cos(theta[:, 0] / two)
-        for k in range(1, theta.shape[1]):
-            p = p * torch.cos(theta[:, k] / two)
+        p = coordinate_fold(torch.stack(
+            [torch.cos(theta[:, k] / two) for k in range(theta.shape[1])], dim=1),
+            torch.mul, n_dims)
         q = p + 2.0
         q2 = q * q
         return -(q * (q2 * q2))
@@ -272,7 +295,8 @@ def gaussian_shell(n_dims: int, radius: float = 2.0, sigma: float = 0.1):
     two_s2 = 2.0 * sigma * sigma
 
     def loglikelihood(theta: torch.Tensor):
-        r = torch.sqrt(_index_sum([theta[:, k] * theta[:, k] for k in range(theta.shape[1])]))
+        r = torch.sqrt(_coordinate_sum([theta[:, k] * theta[:, k]
+                                        for k in range(theta.shape[1])], n_dims))
         d = r - radius
         return -A - (d * d) / _divisor(theta, two_s2), r[:, None]
 
@@ -287,7 +311,9 @@ def random_gaussian(n_dims: int, sigma: float = 0.1, seed: int = 0):
     covariance (random_utils.F90:581-614 construction: random orthonormal
     basis with random eigenvalues up to 1/sigma^2), built with the JAX
     package's numpy code and used in float32, as the JAX package uses it.
-    The quadratic form is a double loop in index order."""
+    The quadratic form is a double loop in index order in every dimension:
+    it couples every pair of coordinates, so its functor keeps the staged
+    index-order combine above D = 32 too."""
     rng = np.random.default_rng(seed)
     gauss = rng.standard_normal((n_dims, n_dims))
     q, _ = np.linalg.qr(gauss)

@@ -9,8 +9,8 @@ and likelihood, lowers the trace to a small IR, and that IR has two
 consumers, so that they cannot drift apart:
 
 * :meth:`Lowered.plain_logL` interprets it in torch, in the lowering's
-  dtype, one rounded operation at a time, reductions in index order: the
-  kernel's plain version;
+  dtype, one rounded operation at a time, reductions in the kernel's order
+  (below): the kernel's plain version;
 * :meth:`Lowered.emit_functor` writes it as C++ for B1's two-stage functor
   interface (``csrc/likelihoods.cuh``), which ``csrc/slice_epoch_fused.cu``
   instantiates (``ops/pallas_slice_v4.py::slice_epoch_fused``).
@@ -45,14 +45,26 @@ staged in shared memory; or ``SLICE_MAXD_STREAM`` above 128, where the
 chain's x0 and n̂ live there too and the prior comes by pointer,
 ``csrc/slice_epoch.cuh``).
 
-**IR.**  Two statement lists over references (below).  ``term`` is the
+**IR.**  Statement lists over references (below).  ``term`` is the
 per-coordinate chain, evaluated for coordinate d on the lane that owns it;
 the values it hands on are ``exports`` (``T[j][d]``).  ``combine`` is
 everything else, scalarised at the static D: the ordered sums and the scalar
 tail; a graph that couples coordinates exports the coordinate and keeps its
-body here.  Model constants (captured tensors and numbers) are slots of one
-buffer of the lowering's dtype, never in the source, so the source — and its hash, the
-library's name — depends on the graph only.
+body here.  Up to D = 32 a reduction (``sum``, ``mean``, ``amax``,
+``logsumexp``) is a chain in index order, one statement a coordinate.
+Above, where a chain holds the 32 lanes of a warp, a reduction over the
+coordinate axis of an export is one statement, ``lane_add`` or
+``lane_max`` of an item: an export, or a ``lane`` statement, the third
+list, per-coordinate statements of a reduction's items that may read the
+combine's scalars (logsumexp's exp(x - max)).  The kernel folds it in the
+lane order (``csrc/likelihoods.cuh::fold`` on a lane view: each lane its own
+coordinates in index order, then a butterfly of shuffles) and the plain
+version repeats that order (``models/examples.py::coordinate_fold``);
+products that couple coordinates (``mv``, ``mm``, ``dot``) and reductions
+over anything else keep the chain.  Model constants (captured tensors and
+numbers) are slots of one buffer of the lowering's dtype, never in the
+source, so the source — and its hash, the library's name — depends on the
+graph only.
 
 **Validation** before a run uses it: :func:`lower` holds ``plain_logL``
 against the calc's own logL on ``ops/evaluate.py``'s probe cubes at the
@@ -84,6 +96,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..models.examples import coordinate_fold
 from ..utils import nvcc
 from .evaluate import probe_cubes, same_values
 from .pallas_slice_v4 import SLICE_MAXD, SLICE_MAXD_WIDE, stream_max_d
@@ -108,10 +121,16 @@ DTYPES = (torch.float32, torch.float64)
 #   ("cv", k)     constant slots k .. k + D - 1, slot k + d for coordinate d (term only)
 #   ("k", v)      a literal of an op's own definition (not a model value), in the
 #                 lowering's dtype
+#   ("o", j)      export j of the lane's own coordinate (lane statements and the
+#                 item of a lane reduction)
+#   ("q", i)      lane statement i
 # A statement is (op, args), its value the reference of its position; the
 # operations are the keys of PLAIN and "f32", a boolean as a real of the
-# lowering's dtype (float32 in the name only).
+# lowering's dtype (float32 in the name only); and in the combine above D = 32
+# the keys of LANE_OPS, a reduction over the coordinates of its one argument.
 BOOL_OPS = frozenset(("lt", "le", "gt", "ge", "eq", "ne"))
+#: the lane reductions (above D = 32) and the binary operation each folds with
+LANE_OPS = {"lane_add": "add", "lane_max": "max"}
 #: float operations per IR statement, for the kernels' bound (the quantile's
 #: rational approximation ~30, a library call ~20)
 OP_COST = {"erfinv": 24, "ndtri": 28, "pow": 20, "exp": 20, "log": 20, "log1p": 20,
@@ -279,6 +298,8 @@ class Lowered:
     #: the dtype of the plain version and the kernel: float32, or float64 for
     #: a calc made at precision='highest'
     dtype: torch.dtype = torch.float32
+    #: the lane statements (above D = 32: the items of the lane reductions)
+    lane: List[tuple] = field(default_factory=list)
     #: seconds each group size's library took to build (or load) in this
     #: process, by G (another engine's by "G/<engine>": "G/ring", "G/cuda5")
     build_seconds: Dict[object, float] = field(default_factory=dict)
@@ -294,7 +315,9 @@ class Lowered:
         combine, and the machine's ~7."""
         def cost(stmts):
             return sum(OP_COST.get(op, 1) for op, _ in stmts)
-        return 4 * self.n_dims + self.n_dims * cost(self.term) + cost(self.combine) + 7
+        per_coordinate = cost(self.term) + cost(self.lane) + sum(
+            op in LANE_OPS for op, _ in self.combine)
+        return 4 * self.n_dims + self.n_dims * per_coordinate + cost(self.combine) + 7
 
     def device_consts(self, device) -> torch.Tensor:
         """The constant buffer on ``device``, made once: the slots, then the
@@ -351,6 +374,7 @@ class Lowered:
             vals.append(apply(op, [term_arg(r) for r in args]))
         T = [term_arg(r) for r in self.exports]
         svals: List[torch.Tensor] = []
+        lvals: Dict[int, torch.Tensor] = {}
 
         def comb_arg(ref):
             kind = ref[0]
@@ -362,8 +386,25 @@ class Lowered:
                 return c[ref[1]]
             return _lit(ref[1], dev, dt)
 
+        def lane_arg(ref):  # a (B, D) value, or one that broadcasts to it
+            kind = ref[0]
+            if kind == "o":
+                return T[ref[1]]
+            if kind == "q":
+                i = ref[1]
+                if i not in lvals:
+                    op, args = self.lane[i]
+                    lvals[i] = apply(op, [lane_arg(r) for r in args])
+                return lvals[i]
+            v = comb_arg(ref)
+            return v[:, None] if v.dim() == 1 else v
+
         for op, args in self.combine:
-            svals.append(apply(op, [comb_arg(r) for r in args]))
+            if op in LANE_OPS:
+                items = lane_arg(args[0]).expand(p.shape[0], D)
+                svals.append(coordinate_fold(items, PLAIN[LANE_OPS[op]], D))
+            else:
+                svals.append(apply(op, [comb_arg(r) for r in args]))
         out = comb_arg(self.out).expand(p.shape[0])
         logzero = _lit(self.logzero, dev, dt)
         out = torch.where(torch.isnan(out), logzero, out)
@@ -379,7 +420,9 @@ class Lowered:
             kind = ref[0]
             if kind == "x":
                 return "x"
-            if kind in ("p", "s"):
+            if kind == "o":
+                return f"o[{ref[1]}]"
+            if kind in ("p", "s", "q"):
                 return f"{kind}{ref[1]}"
             if kind == "t":
                 return f"T[{ref[1]}][{ref[2]}]"
@@ -389,14 +432,53 @@ class Lowered:
                 return f"__ldg(c + {ref[1]} + d)"
             return _c_float(ref[1], dt)
 
+        def stmt(prefix, i, op, args, indent="        "):
+            return (f"{indent}const {'bool' if op in BOOL_OPS else real} {prefix}{i} = "
+                    f"{_c_stmt(op, [ref_c(r) for r in args], dt)};")
+
         def body(stmts, prefix):
-            return [f"        const {'bool' if op in BOOL_OPS else real} {prefix}{i} = "
-                    f"{_c_stmt(op, [ref_c(r) for r in args], dt)};"
-                    for i, (op, args) in enumerate(stmts)]
+            return [stmt(prefix, i, op, args) for i, (op, args) in enumerate(stmts)]
+
+        def fold_stmt(i, op, item):
+            """A lane reduction: a fold over the item's statements, which the
+            view of the terms runs in the lane order."""
+            need = set()
+
+            def mark(ref):
+                if ref[0] == "q" and ref[1] not in need:
+                    need.add(ref[1])
+                    for r in self.lane[ref[1]][1]:
+                        mark(r)
+
+            mark(item)
+            fold = _c_stmt(LANE_OPS[op], ["u", "v"], dt)
+            return [f"        const {real} s{i} = fold(",
+                    f"            T, D, [&](const {real}* o, int d) {{",
+                    "                (void)d;",
+                    *[stmt("q", q, *self.lane[q], indent="                ")
+                      for q in sorted(need)],
+                    f"                return {ref_c(item)};",
+                    f"            }}, []({real} u, {real} v) {{ return {fold}; }});"]
 
         term = body(self.term, "p") + [f"        out[{j}] = {ref_c(r)};"
                                        for j, r in enumerate(self.exports)]
-        combine = body(self.combine, "s") + [f"        return {ref_c(self.out)};"]
+        if self.n_dims > SLICE_MAXD:  # the lane order (csrc/likelihoods.cuh)
+            combine = []
+            for i, (op, args) in enumerate(self.combine):
+                combine += (fold_stmt(i, op, args[0]) if op in LANE_OPS
+                            else [stmt("s", i, op, args)])
+            combine += [f"        return {ref_c(self.out)};"]
+            staged = any(r[0] == "t" for _, args in self.combine for r in args)
+            lanes = [f"    static constexpr bool STAGED = {str(staged).lower()};"]
+            signature = ["    template <class TT>",
+                         f"    __device__ __forceinline__ {real} combine(const TT& T, int D) const {{",
+                         "        (void)T;",
+                         "        (void)D;"]
+        else:
+            combine = body(self.combine, "s") + [f"        return {ref_c(self.out)};"]
+            lanes = []
+            signature = ["    template <class TT>",
+                         f"    __device__ __forceinline__ {real} combine(const TT& T, int) const {{"]
         if self.n_dims > SLICE_MAXD_WIDE:  # the stream bucket: by pointer
             prior = f"    DevicePriorT<{real}> prior;"
         elif dt == torch.float32:
@@ -410,13 +492,13 @@ class Lowered:
             f"    const {real}* __restrict__ c;  // the model's constants (device)",
             f"    {real} logzero;",
             f"    static constexpr int NT = {self.n_terms};",
+            *lanes,
             "",
             f"    __device__ __forceinline__ void term({real} x, int d, {real}* out) const {{",
             "        (void)d;",
             *term,
             "    }",
-            "    template <class TT>",
-            f"    __device__ __forceinline__ {real} combine(const TT& T, int) const {{",
+            *signature,
             *combine,
             "    }",
             "};",
@@ -554,6 +636,7 @@ class _Lowering:
         self.consts: List[float] = []
         self.term: List[tuple] = []
         self.combine: List[tuple] = []
+        self.lane: List[tuple] = []
         self.exports: List[tuple] = []
         self.export_bool: List[bool] = []
 
@@ -571,6 +654,21 @@ class _Lowering:
     def em_comb(self, op, *args):
         self.combine.append((op, args))
         return ("s", len(self.combine) - 1)
+
+    def em_lane(self, op, *args):
+        self.lane.append((op, args))
+        return ("q", len(self.lane) - 1)
+
+    def lane_export(self, items):
+        """j where ``items`` are export j of coordinates 0 .. D-1 in order and
+        D > 32 (a reduction the lane order takes), else None."""
+        if self.D <= SLICE_MAXD or len(items) != self.D:
+            return None
+        first = items[0]
+        if not (isinstance(first, tuple) and first[0] == "t"):
+            return None
+        j = first[1]
+        return j if all(r == ("t", j, d) for d, r in enumerate(items)) else None
 
     def elements(self, v: _Val) -> np.ndarray:
         """The value as an array of combine references."""
@@ -848,6 +946,10 @@ class _Lowering:
         out = np.empty(kept, object)
         for idx in np.ndindex(*kept):
             items = list(flat[idx])
+            j = self.lane_export(items)
+            if j is not None:
+                out[idx] = self.lane_reduction(name, ("o", j))
+                continue
             if name in ("sum", "mean"):
                 acc = _chain(em, "add", items, ZERO)
                 if name == "mean":
@@ -861,6 +963,21 @@ class _Lowering:
                 acc = em("add", em("log", s), m)
             out[idx] = acc
         return _Val(shape, els=out.reshape(shape))
+
+    def lane_reduction(self, name, item):
+        """``name`` over the coordinates of the export ``item`` in the lane
+        order, with the chain's steps otherwise (logsumexp's items are lane
+        statements that read the max)."""
+        em = self.em_comb
+        if name == "amax":
+            return em("lane_max", item)
+        if name in ("sum", "mean"):
+            acc = em("lane_add", item)
+            return em("div", acc, ("k", float(self.D))) if name == "mean" else acc
+        m = em("lane_max", item)
+        m = em("where", em("eq", em("abs", m), INF), ZERO, m)
+        s = em("lane_add", self.em_lane("exp", self.em_lane("sub", item, m)))
+        return em("add", em("log", s), m)
 
     def product(self, name, args, shape) -> _Val:
         a, b = (self.elements(v) for v in args[:2])
@@ -910,14 +1027,19 @@ def _prune(low: _Lowering, out):
     """Drop the statements, exports and constant slots the result does not
     reach, and number what is left in order (a statement refers only to
     earlier ones, so one sweep backwards marks what is live)."""
-    live_s, live_t, live_p, live_c = set(), set(), set(), set()
+    live_s, live_t, live_p, live_c, live_q = set(), set(), set(), set(), set()
 
     def mark(ref, D):
         kind = ref[0]
         if kind == "s":
             live_s.add(ref[1])
-        elif kind == "t":
+        elif kind in ("t", "o"):
             live_t.add(ref[1])
+        elif kind == "q":  # a lane statement: its arguments at once (they precede it)
+            if ref[1] not in live_q:
+                live_q.add(ref[1])
+                for r in low.lane[ref[1]][1]:
+                    mark(r, D)
         elif kind == "p":
             live_p.add(ref[1])
         elif kind == "c":
@@ -944,6 +1066,7 @@ def _prune(low: _Lowering, out):
     new_p = {i: n for n, i in enumerate(sorted(live_p))}
     new_t = {j: n for n, j in enumerate(sorted(live_t))}
     new_s = {i: n for n, i in enumerate(sorted(live_s))}
+    new_q = {i: n for n, i in enumerate(sorted(live_q))}
 
     def remap(ref):
         kind = ref[0]
@@ -951,6 +1074,10 @@ def _prune(low: _Lowering, out):
             return ("p", new_p[ref[1]])
         if kind == "s":
             return ("s", new_s[ref[1]])
+        if kind == "q":
+            return ("q", new_q[ref[1]])
+        if kind == "o":
+            return ("o", new_t[ref[1]])
         if kind == "t":
             return ("t", new_t[ref[1]], ref[2])
         if kind in ("c", "cv"):
@@ -960,8 +1087,10 @@ def _prune(low: _Lowering, out):
     term = [(op, tuple(map(remap, args))) for i, (op, args) in enumerate(low.term) if i in new_p]
     comb = [(op, tuple(map(remap, args))) for i, (op, args) in enumerate(low.combine)
             if i in new_s]
+    lane = [(op, tuple(map(remap, args))) for i, (op, args) in enumerate(low.lane)
+            if i in new_q]
     exports = [remap(low.exports[j]) for j in sorted(live_t)] or [("x",)]
-    return term, exports, comb, remap(out), np.asarray(consts, np.float64)
+    return term, exports, comb, lane, remap(out), np.asarray(consts, np.float64)
 
 
 # ------------------------------------------------------------------ entry points
@@ -1029,7 +1158,7 @@ def lower(calc) -> Lowered:
     # the prior into the body
     affine = getattr(prior_fn, "affine", None) if dt == torch.float32 else None
     low = _Lowering(trace(calc, affine is not None), D, calc.device, dt)
-    term, exports, comb, out, consts = _prune(low, low.run())
+    term, exports, comb, lane, out, consts = _prune(low, low.run())
     if D > SLICE_MAXD_WIDE and D > stream_max_d(len(exports), dt):
         raise Refused(_too_wide(D, len(exports), dt, stream_max_d(len(exports), dt)))
     np_dt = np.float32 if dt == torch.float32 else np.float64
@@ -1038,7 +1167,7 @@ def lower(calc) -> Lowered:
     else:
         prior = (np.zeros(D, np_dt), np.ones(D, np_dt))
     lowered = Lowered(D, prior, consts.astype(np_dt), term, exports, comb, out,
-                      float(np_dt(calc.logzero)), affine is None, dt)
+                      float(np_dt(calc.logzero)), affine is None, dt, lane=lane)
     cube = probe_cubes(D, calc.device, dt)
     got, want = lowered.plain_logL(cube), calc(cube)[2].to(dt)
     if dt == torch.float32:

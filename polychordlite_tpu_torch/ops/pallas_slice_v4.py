@@ -374,7 +374,11 @@ def launch_slice_kernel(lib, entry: str, calc, cfg: EpochConfig, key_words,
         if a.device != dev:
             raise ValueError(f"{entry}: {name} is on {a.device}, x0 on {dev}")
     x0t = x0.to(dtype).t().contiguous()
-    nhat_t = nhats.to(dtype).permute(1, 2, 0).contiguous()
+    # (R, D, B), the chain axis minor, in the 32 bucket; above, where a chain
+    # holds a warp, (B, R, D), a chain's repeat one row
+    # (csrc/slice_machine.cuh::slice_load_nhat)
+    nhat_t = (nhats.to(dtype).permute(1, 2, 0).contiguous() if D <= SLICE_MAXD
+              else nhats.to(dtype).contiguous())
     w_t = ws.to(dtype).t().contiguous()
     bound_f = bound.to(dtype).contiguous()
     valid_f = valid.to(dtype).contiguous()

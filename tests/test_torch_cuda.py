@@ -2031,13 +2031,15 @@ def test_ring_host_callback_is_the_scan_run(dev, tmp_path):
 #: (the tree before it and after it built side by side on an H100: none of
 #: the 572 kernels of slice_epoch.cu, slice_epoch_v2.cu and slice_epoch_v3.cu
 #: changed): RingPolicy and the overflow field of the kernel's arguments
-#: leave them as they were
+#: leave them as they were.  The 128 and stream buckets' entries are the
+#: lane order's (its combine and the direction rows of every chain above D =
+#: 32, built on an H100); the 32 bucket's are what they were
 POLICY_REGISTERS = {
-    "V4Policy/0/32": 56, "V4Policy/128/32": 64, "V4Policy/32/32": 75, "V4Policy/32/16": 83,
+    "V4Policy/0/32": 64, "V4Policy/128/32": 68, "V4Policy/32/32": 75, "V4Policy/32/16": 83,
     "V4Policy/32/8": 95, "V4Policy/32/4": 120, "V4Policy/32/2": 149, "V4Policy/32/1": 171,
-    "V3Policy/0/32": 56, "V3Policy/128/32": 64, "V3Policy/32/32": 75, "V3Policy/32/16": 83,
+    "V3Policy/0/32": 63, "V3Policy/128/32": 68, "V3Policy/32/32": 75, "V3Policy/32/16": 83,
     "V3Policy/32/8": 95, "V3Policy/32/4": 120, "V3Policy/32/2": 149, "V3Policy/32/1": 171,
-    "V2Policy/0/32": 64, "V2Policy/128/32": 64, "V2Policy/32/32": 82, "V2Policy/32/16": 86,
+    "V2Policy/0/32": 72, "V2Policy/128/32": 72, "V2Policy/32/32": 82, "V2Policy/32/16": 86,
     "V2Policy/32/8": 101, "V2Policy/32/4": 127, "V2Policy/32/2": 123, "V2Policy/32/1": 177,
 }
 
@@ -2298,3 +2300,86 @@ def test_cuda5_run_above_32_equals_cuda(dev, D):
     last = runs["cuda5"][1]
     assert last["route"] == "slice_epoch_v5" and last["kernel_launches"]["slice_epoch_v5"] > 1
     assert runs["cuda5"][2] == runs["cuda"][2]
+
+
+# ---- the lane order above D = 32 (csrc/likelihoods.cuh::fold): every
+# reduction over coordinates folds each lane's own coordinates, then a
+# butterfly of shuffles, in every wide and stream kernel and its plain version
+LANE_D = [33, 64, 65, 128, 129, 160, 512]
+
+
+def _lane_mixed(theta):
+    """A per-point model with a logsumexp, an amax (lane reductions) and a
+    read of theta[0] (the staged row beside them)."""
+    z = (theta - 0.5) / 0.1
+    return torch.logsumexp(-z * z, -1) - torch.amax(theta, -1) + theta[0]
+
+
+@pytest.mark.parametrize("D", LANE_D)
+def test_lane_order_functors_equal_their_torch_forms(dev, D):
+    """Each functor that runs above D = 32 bitwise its torch calc through B1,
+    B4, B5, B3 and B1's ring instantiation (validate_functor's 1,280 probes,
+    some outside the walls): the lane order of every reduction and
+    rosenbrock's neighbour shuffle at the edges of the wide bucket (33, 64,
+    65, 128) and in the stream bucket (129, 160, 512); himmelblau and
+    random_gaussian keep the staged index-order combine (random_gaussian to
+    D = 65: its torch calc is D^2 launches)."""
+    ring = pallas_slice_v4.ring_records(pallas_slice_v4.slice_epoch, 32, True)
+    for name in sorted(LIKELIHOODS):
+        if name == "random_gaussian" and D > 65:
+            continue
+        calc = make_batched_calculator(UniformPrior(0.0, 1.0), LIKELIHOODS[name](D), D, 0,
+                                       device=dev)
+        cfg = EpochConfig(n_dims=D, n_phi=calc.n_phi, grade_dims=(D,), num_repeats=(2,))
+        for wrapper in (pallas_slice_v4.slice_epoch, pallas_slice_v3.slice_epoch_v3,
+                        pallas_slice.slice_epoch_v2, pallas_slice_v5.slice_epoch_v5, ring):
+            pallas_slice_v4.validate_functor(calc, cfg, dev, wrapper)
+
+
+@pytest.mark.parametrize("D", LANE_D)
+def test_lane_order_epochs_equal_plain(dev, D):
+    """One epoch above D = 32 at B = 300 with invalid lanes: B1, B4, B5, B3
+    and B1's ring instantiation on the zoo Gaussian bitwise their plain
+    versions; the fused route on a per-point torch Gaussian in float32 and
+    float64, and on a logsumexp + amax + theta[0] model in float32, bitwise
+    their plain versions (its ring library too), validate_fused at G = 32."""
+    R, B = 4, 300
+    calc, args = _group_args(dev, D, R, B)
+    cfg = EpochConfig(n_dims=D, n_phi=2, grade_dims=(D,), num_repeats=(R,))
+
+    def plain(p):
+        return calc(p)[2]
+
+    want = slice_records_plain(plain, cfg, (5, 6), *args)
+    cases = {
+        "B1": (pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args), want),
+        "B4": (pallas_slice_v3.slice_epoch_v3(calc, cfg, (5, 6), *args),
+               pallas_slice_v3.slice_records_window_plain(plain, cfg, (5, 6), *args)),
+        "B5": (pallas_slice.slice_epoch_v2(calc, cfg, (5, 6), *args),
+               pallas_slice.slice_records_lockstep_plain(plain, cfg, (5, 6), *args)),
+        "B3": (pallas_slice_v5.slice_epoch_v5(calc, cfg, (5, 6), *args),
+               pallas_slice_v5.slice_records_packet_plain(plain, cfg, (5, 6), *args)),
+        "ring": (pallas_slice_v4.slice_epoch(calc, cfg, (5, 6), *args, ring_cap=cfg.ring_budget),
+                 slice_records_plain(plain, cfg, (5, 6), *args, ring_cap=cfg.ring_budget)),
+    }
+    for name, (got, ref) in cases.items():
+        assert len(got) == len(ref)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert torch.equal(a, b), (name, k, int((a != b).sum()))
+    assert (want[2][args[2]].sum(1) > 0).all()
+    for model, dtype in ((_per_point_gaussian, torch.float32), (_per_point_gaussian, F64),
+                         (_lane_mixed, torch.float32)):
+        pp = (_f64_calc(identity_prior, model, D, 0, dev) if dtype == F64 else
+              make_batched_calculator(identity_prior, model, D, 0, device=dev))
+        low = fused_like.lowering(pp)
+        assert isinstance(low, fused_like.Lowered) and low.dtype == dtype, low
+        assert "fold(" in low.source(32)
+        x0, _, valid, nh, w = (a.to(dtype) if a.is_floating_point() else a for a in args)
+        fargs = (x0, low.plain_logL(x0) - 2.0, valid, nh, w)
+        fcfg = EpochConfig(n_dims=D, n_phi=pp.n_phi, grade_dims=(D,), num_repeats=(R,))
+        for ring_cap in (None, fcfg.ring_budget):
+            got = pallas_slice_v4.slice_epoch_fused(pp, fcfg, (9, 10), *fargs, ring_cap=ring_cap)
+            ref = slice_records_plain(low.plain_logL, fcfg, (9, 10), *fargs, ring_cap=ring_cap)
+            for k, (a, b) in enumerate(zip(got, ref)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (model.__name__, dtype, k)
+            pallas_slice_v4.validate_fused(pp, fcfg, dev, 32, ring=ring_cap is not None)

@@ -446,12 +446,18 @@ def test_time_speeds_measures_a_real_ratio():
     """The full calc measures more than twice the fast part on the cached
     intermediate (``tests/test_graded.py:106-117``); a monolithic model's
     grades each perturb their own coordinates; one grade or literal repeats
-    time nothing and leave the generator where it was."""
+    time nothing and leave the generator where it was.  Each speed is the
+    least of five measurements: a wall-clock time on a CPU shared with other
+    test processes is slowed by every stall that falls in its window, never
+    sped up, so one stall in the full calc's or the fast part's window cannot
+    move the least of five."""
     calc = graded_calc()
     s = PolyChordSettings(NDIMS, 1, grade_dims=[N_SLOW, N_FAST],
                           grade_frac=[0.25, 0.75]).finalise()
-    speeds = generate.time_speeds(calc, s, torch.Generator().manual_seed(0))
-    assert speeds.shape == (2,) and speeds[0] > 2.0 * speeds[1], speeds
+    runs = [generate.time_speeds(calc, s, torch.Generator().manual_seed(0)) for _ in range(5)]
+    assert all(r.shape == (2,) for r in runs)
+    speeds = np.min(np.stack(runs), axis=0)
+    assert speeds[0] > 2.0 * speeds[1], (speeds, runs)
     mono = generate.time_speeds(mono_calc(), s, torch.Generator().manual_seed(0))
     assert mono.shape == (2,) and (mono > 0).all()
     for kw in (dict(grade_dims=[NDIMS]), dict(grade_dims=[2, 2], grade_frac=[2.0, 6.0])):

@@ -412,7 +412,10 @@ def test_fused_lowers_a_per_point_gaussian_in_the_stream_bucket():
         real = "float" if dt == torch.float32 else "double"
         assert "#define FUSED_MAXD SLICE_MAXD_STREAM" in src and f"#define FUSED_D {D}" in src
         assert f"DevicePriorT<{real}> prior;" in src and "AffinePriorT" not in src
-        assert f"T[0][{D - 1}]" in src
+        # one lane reduction (csrc/likelihoods.cuh::fold on a lane view), no
+        # read of a coordinate's staged term
+        assert "combine(const TT& T, int D)" in src and src.count("fold(") == 1
+        assert "STAGED = false" in src and "T[0][" not in src
         prior = low.device_prior(torch.device("cpu"))
         assert prior.numel() == 2 * D and torch.equal(
             prior, low.device_consts(torch.device("cpu"))[-2 * D:])
@@ -422,7 +425,8 @@ def test_fused_lowers_a_per_point_gaussian_in_the_stream_bucket():
 def test_fused_lowers_a_per_point_gaussian_in_the_wide_bucket(D):
     """The per-point torch Gaussian lowers at D = 64 and 128 into the wide
     bucket's header, its plain logL within rtol 1e-5 / atol 1e-6 of the
-    calc's; the emitted combine reads the terms through any T[j][d]."""
+    calc's; the emitted combine folds the terms in the lane order (one
+    lane reduction, nothing staged)."""
     calc = make_batched_calculator(identity_prior, _per_point_gaussian, D, 0)
     assert calc.form == "per_point"
     low = fused_like.lowering(calc)
@@ -432,8 +436,8 @@ def test_fused_lowers_a_per_point_gaussian_in_the_wide_bucket(D):
     got, want = low.plain_logL(cube), calc(cube)[2]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     src = low.source(32)
-    assert "#define FUSED_MAXD 128" in src and "combine(const TT& T, int)" in src
-    assert f"T[0][{D - 1}]" in src
+    assert "#define FUSED_MAXD 128" in src and "combine(const TT& T, int D)" in src
+    assert src.count("fold(") == 1 and "STAGED = false" in src and "T[0][" not in src
 
 
 def test_fused_refuses_above_the_stream_bound_with_its_reason():
