@@ -7,7 +7,7 @@ Builds the port's CUDA kernel libraries from ``polychordlite_tpu_torch/csrc``
 reported, by G for the Gaussian kernels of B1, B3, B4, B5 and E2, and by
 dimension bucket), checks each kernel against its plain torch version on
 the card (B2 Gram-Schmidt, bitwise, at the bench and gaussian.ini shapes,
-and its warp-per-basis kernel at the bases a B = 512, R = 2 D epoch draws
+and its wide kernel at the bases a B = 512, R = 2 D epoch draws
 at D = 40, 64, 128, at the 64-D run's (2, 64, 64, 256) and at
 (5, 64, 64, 8192), each beside ``torch.linalg.qr``; B1 v4, B3 v5, B4 v3 and B5
 v2 at every group size G of lanes per chain, at four geometries, B1, B3,
@@ -177,7 +177,7 @@ then drives the port's paths and checks what comes out and which kernels ran
   precision raises C13's error before its first epoch;
 * ``run_traced_highest_d40``: a 40-D Gaussian written with
   ``torch.linalg.vector_norm`` at ``precision='highest'`` (nlive 100,
-  num_repeats 80): the traced route and B2's warp-per-basis kernel in
+  num_repeats 80): the traced route and B2's wide kernel in
   double, within 3 sigma of 0;
 * ``run_maximise_nlives``: gaussian.ini's likelihood per point with
   ``maximise=True`` and ``nlives={-30: 250}``: ``<root>.maximum`` at the
@@ -1016,7 +1016,7 @@ def main() -> None:
 
     # ---- 2. Gram-Schmidt (B2) against its plain version, bitwise: the
     # thread-per-basis kernel at the bench and gaussian.ini's shapes, the
-    # warp-per-basis kernel at the bases a B = 512, R = 2 D epoch draws at
+    # wide kernel at the bases a B = 512, R = 2 D epoch draws at
     # D = 40, 64, 128 and at the bench's chains at D = 64
     @phase("gram_schmidt")
     def _():
@@ -1065,6 +1065,9 @@ def main() -> None:
             out[tag]["bound_ms"], out[tag]["bound_by"] = bound(
                 2 * 4 * nb * d * d * b, gram_schmidt_flops(nb, d, b))
             out[tag]["ms_over_library"] = out[tag]["ms"] / out[tag]["library_ms"]
+            if wide:  # the wide kernel's bases a block and resident warps an SM
+                nw, blocks = pallas_dirs.wide_blocks(nb, d, b)
+                out[tag]["bases_a_block"], out[tag]["resident_warps"] = nw, nw * blocks
         results["gram_schmidt"] = {**out["bench"],
                                    "max_abs_err": max(o["max_abs_err"] for o in out.values())}
         results["gram_schmidt_wide"] = out["d64"]
@@ -1861,7 +1864,7 @@ def main() -> None:
         out = {"f64_flops_per_s": F64_FLOPS_PER_S}
         kw = (0x01234567, 0x89ABCDEF)
         # B2 in double: the thread-per-basis kernel at the bench and
-        # gaussian.ini's bases, the warp-per-basis kernel at (2, 64, 64, 512)
+        # gaussian.ini's bases, the wide kernel at (2, 64, 64, 512)
         # and at the 40-D run's bases
         for tag, shape in (("bench", (5, 20, 20, BENCH["B"])), ("gaussian_ini", (2, 20, 20, 512)),
                            ("wide_d64", (2, 64, 64, 512)),
@@ -1898,6 +1901,9 @@ def main() -> None:
                 "library_ms": cuda_once(lambda: torch.linalg.qr(mats))[1],  # noqa: B023
                 "bound": bound(2 * 8 * nb * d * d * b, gram_schmidt_flops(nb, d, b), F64_FLOPS_PER_S),
             }
+            if wide:
+                nw, blocks = pallas_dirs.wide_blocks(nb, d, b, torch.float64)
+                out[f"gram_schmidt_{tag}"].update(bases_a_block=nw, resident_warps=nw * blocks)
         # B1's fused route and the traced route in double, at gaussian.ini's
         # shape and the bench geometry
         calc64 = dtype_calc(per_point_gaussian, 20, torch.float64)
@@ -3426,7 +3432,7 @@ print("RESULT " + json.dumps(out), flush=True)
         """run() on the card with every launch count at 0 before it: (the
         final metrics record, the output, wall seconds, the launches).  The
         path must take ``route`` (the fused route, or the traced route) and
-        launch B2's kernel ``dirs`` (its warp-per-basis kernel above D = 32)
+        launch B2's kernel ``dirs`` (its wide kernel above D = 32)
         and the route's kernel only (``kernels``, the counters' names, where
         they are not ``dirs`` and ``route``: the double instantiations at
         precision='highest'), with chained epochs kept (a replay divergence
@@ -3875,7 +3881,7 @@ print("RESULT " + json.dumps(out), flush=True)
     def _():
         """A 40-D normalised Gaussian written with torch.linalg.vector_norm
         (refused by the lowering) at precision='highest': the traced route
-        and B2's warp-per-basis kernel, both in double; logZ = 0 within 3
+        and B2's wide kernel, both in double; logZ = 0 within 3
         sigma (nlive 100, num_repeats 2 D)."""
         D = D40_HIGHEST["nDims"]
         last, stats, wall, ran, _ = route_run(

@@ -34,21 +34,40 @@
 //
 // Above dim 32 that design does not fit: a block's dim^2 * 128 bytes pass
 // the 227 KB an SM has at dim 42, and v[dim] per thread spills.  So dims 33
-// to 128 have a second kernel, gram_schmidt_wide_kernel: one basis per warp
-// (one warp per block), lane l holding rows i = l + 32 m (m < 4) of the
-// working column in registers, the finished columns in shared memory
-// ([k][i], dim^2 floats: 64 KB at 128, so three bases per SM there,
-// fourteen at 64), and every dot product reduced across the lanes.  Its
-// order differs from the thread-per-basis kernel's, and
-// ops/pallas_dirs.py::gram_schmidt_plain follows it above dim 32: each lane
-// sums its four rows in order (the rows past dim hold zeros, which change
-// no sum), then a butterfly of __shfl_xor_sync over offsets 16, 8, 4, 2, 1
-// adds the partial sums (every lane ends with the same value, float
-// addition being commutative).  dim is a run-time argument: one kernel
-// for the 96 dims, the loops over rows fixed at four per lane.  The chain
-// is the same one the thread-per-basis kernel has — ~dim^2 dependent dot
-// products per basis — with five shuffle steps in each, hidden only by the
-// other bases on the SM.
+// to 128 have a second kernel, gram_schmidt_wide_kernel: one basis per warp,
+// lane l holding rows i = l + 32 m (m < R = ceil(dim / 32), a template
+// parameter: 2, 3 or 4) of the working column in registers, the finished
+// columns in shared memory.  Its order is classical CGS2 column by column —
+// the long path's panel step below, on the whole basis
+// (ops/pallas_dirs.py::_long_plain_panel): for column j each sweep first
+// takes all j coefficients c_k = q_k . v against the same v (each lane's
+// rows in order from +0, then a butterfly over offsets 16, 8, 4, 2, 1), then
+// v -= sum_k c_k q_k summed over k in order from +0.  The first wide kernel
+// took each coefficient against the v the previous update had left
+// (modified Gram-Schmidt), so a basis was a chain of ~dim^2 dependent dot
+// products, each a shared-memory load and five shuffle steps, with about
+// one warp a scheduler to hide it: 0.535 ms at the 64-D run's (2, 64, 64,
+// 256), 14.6 at (5, 64, 64, 8192) (PERF.md).  Here a sweep's coefficients
+// are independent: gram_schmidt_wide.cuh reduces them KC at a time
+// (gsw_reduce: at each butterfly offset a lane keeps half of its values
+// and adds its partner's partial of each, KC - 1 shuffles for KC sums,
+// each with its own butterfly's bits) and keeps the chunk's finished
+// values in registers for the update, so a sweep reads the finished
+// columns once; the last chunk of a sweep narrows to the power of two that
+// holds it.  A column's critical path is two sweeps of chunked reductions
+// and one j-long chain of adds a row; 0.107 ms at (2, 64, 64, 256), 5.04 at
+// (5, 64, 64, 8192) (experiments/gs_wide_times.py).  The long path forced
+// down to dim 33 measured 0.290 and 18.5 there: its panel steps are this
+// chain again, in three panels a basis.
+//
+// A warp's shared memory holds its basis (dim columns of 32 R values, the
+// rows past dim +0 once a column is finished; 64 KB at dim 128 in float32)
+// and two buffers of KC coefficients.  A block holds nw bases of
+// consecutive chains (gsw_choose weighs the shared memory, the resident
+// warps and the SMs reached), copied in by cp.async before its warps start
+// and out after they finish, so that each copy of an entry (i, j) covers a
+// run of nw chains of the (n_bases, dim, dim, B) layout instead of a
+// sector a value (one base a block measured 1.2-1.6x slower at dim 64).
 
 // Above dim 128 (gram_schmidt_long_kernel) a basis no longer fits one warp's
 // registers, and the warp-per-basis order — ~2 dim^2 dependent dot
@@ -64,8 +83,8 @@
 //   C = Q^T V  (C[k][jj] summed over the rows i in index order 0 .. dim-1)
 //   V = V - U, U = Q C  (U[i][jj] summed over k in index order 0 .. j0-1)
 // and then each column of the panel in turn: two sweeps of CGS2 against the
-// panel's earlier columns (their coefficients as the warp-per-basis
-// kernels sum a dot product: each lane its rows i = lane + 32 m in order,
+// panel's earlier columns (their coefficients as the wide kernel sums a
+// dot product: each lane its rows i = lane + 32 m in order,
 // then the butterfly; the update summed over those columns in order), the
 // norm in the same order, q = v / max(sqrt(norm), 1e-30).  The XLA path's
 // order — both sweeps against Q, then the panel once — loses orthogonality
@@ -140,19 +159,22 @@
 // thread-per-basis kernel needs 8 * dim^2 * 32 bytes of shared memory,
 // past the 227 KB a block may have above dim 30; there the block holds 16
 // chains (gs_lanes: half a warp, 128 KB at dim 32).  Its v[DIM] and qv[DIM]
-// take twice the registers.  The wide kernel's one basis takes dim^2 * 8
+// take twice the registers.  The wide kernel's basis takes 8 * dim * 32 R
 // bytes, 128 KB at dim 128: one basis an SM there.  The sums keep their
 // order, so each double kernel is bitwise gram_schmidt_plain in float64.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cmath>
+#include <type_traits>
 #include <utility>
 
+#include "gram_schmidt_wide.cuh"
 #include "rounded.cuh"
 
 #define GS_MAXD 32
 #define GS_MAXD_WIDE 128
-#define GS_ROWS (GS_MAXD_WIDE / 32)  // rows per lane in the wide kernel
 // the shared memory a block may have (bytes)
 #define GS_SMEM_MAX 232448
 // the largest dim of the long path: where the earlier long kernel's working
@@ -166,11 +188,6 @@ template <class T>
 constexpr int gs_lanes(int dim) {
     return (int)sizeof(T) * dim * dim * 32 <= GS_SMEM_MAX ? 32 : 16;
 }
-
-// The norm's rounded square root, clamped from below (the plain version's
-// clamp_min(sqrt(norm), 1e-30) in the type's own literal).
-__device__ __forceinline__ float gs_den(float nrm) { return fmaxf(__fsqrt_rn(nrm), 1e-30f); }
-__device__ __forceinline__ double gs_den(double nrm) { return fmax(__dsqrt_rn(nrm), 1e-30); }
 
 template <class T, int DIM, int LANES>
 __global__ void gram_schmidt_kernel(const T* __restrict__ g, T* __restrict__ q, int B) {
@@ -216,65 +233,51 @@ __global__ void gram_schmidt_kernel(const T* __restrict__ g, T* __restrict__ q, 
     }
 }
 
-// The dot product of two columns held as rows i = lane + 32 m: each lane's
-// rows in order, then the butterfly over the warp.
+// One cp.async of a value of T (4 or 8 bytes) into shared memory.
 template <class T>
-__device__ __forceinline__ T warp_dot(const T (&a)[GS_ROWS], const T (&b)[GS_ROWS]) {
-    T c = T(0);
-#pragma unroll
-    for (int m = 0; m < GS_ROWS; ++m) c = rn_add(c, rn_mul(a[m], b[m]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c = rn_add(c, __shfl_xor_sync(0xffffffffu, c, off));
-    return c;
+__device__ __forceinline__ void gsw_cp(T* dst, const T* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (sizeof(T) == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// GS_MAXD < dim <= GS_MAXD_WIDE: basis (blockIdx.y, chain blockIdx.x) on the
-// block's one warp.
-template <class T>
+// GS_MAXD < dim <= GS_MAXD_WIDE, R = ceil(dim / 32): the bases of chains
+// b0 .. b0 + nw - 1 of blockIdx.y (nw = blockDim.x / 32, b0 = blockIdx.x nw),
+// warp w on chain b0 + w, its values at w * stride in shared memory (stride
+// from gsw_stride).  The block's threads copy every basis in by cp.async —
+// entry (i, j) of the nw chains from nw consecutive values, one entry a
+// thread, rows i consecutive across a warp — and out the same way.
+template <class T, int R>
 __global__ void gram_schmidt_wide_kernel(const T* __restrict__ g, T* __restrict__ q, int dim,
-                                         int B) {
+                                         int B, int stride) {
+    constexpr int P = GsWide<T, R>::P;
     extern __shared__ __align__(16) unsigned char gs_smem[];
-    T* qw = reinterpret_cast<T*>(gs_smem);  // [k][i]: finished column k, row i
-    const int lane = threadIdx.x;  // blockDim.x == 32
-    const int b = blockIdx.x;
-    const size_t sj = (size_t)B;        // stride of the column index
-    const size_t si = (size_t)dim * B;  // stride of the row index
-    const size_t base = (size_t)blockIdx.y * dim * dim * B + b;
-    const T* gb = g + base;
-    T* qb = q + base;
-
-    for (int j = 0; j < dim; ++j) {
-        T v[GS_ROWS];
+    T* sm = reinterpret_cast<T*>(gs_smem);
+    const int nw = blockDim.x / 32, b0 = blockIdx.x * nw, here = min(nw, B - b0);
+    const size_t base = (size_t)blockIdx.y * dim * dim * B + b0;
+    const int w = threadIdx.x % nw, r = threadIdx.x / nw;  // chain b0 + w, rows r + 32 m
+    T* sw = sm + w * stride;
+    if (w < here)
+        for (int j = 0; j < dim; ++j)
 #pragma unroll
-        for (int m = 0; m < GS_ROWS; ++m) {
-            const int i = lane + 32 * m;
-            v[m] = i < dim ? gb[i * si + j * sj] : T(0);
-        }
-        for (int sweep = 0; sweep < 2; ++sweep) {
-            for (int k = 0; k < j; ++k) {
-                T qv[GS_ROWS];
-#pragma unroll
-                for (int m = 0; m < GS_ROWS; ++m) {
-                    const int i = lane + 32 * m;
-                    qv[m] = i < dim ? qw[k * dim + i] : T(0);
-                }
-                const T c = warp_dot(qv, v);
-#pragma unroll
-                for (int m = 0; m < GS_ROWS; ++m) v[m] = rn_sub(v[m], rn_mul(c, qv[m]));
+            for (int m = 0; m < R; ++m) {
+                const int i = r + 32 * m;
+                if (i < dim) gsw_cp(sw + j * P + i, g + base + ((size_t)i * dim + j) * B + w);
             }
-        }
-        const T den = gs_den(warp_dot(v, v));
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const int warp = threadIdx.x / 32;
+    if (warp < here) gsw_basis<T, R>(sm + warp * stride, dim, threadIdx.x % 32);
+    __syncthreads();
+    if (w < here)
+        for (int j = 0; j < dim; ++j)
 #pragma unroll
-        for (int m = 0; m < GS_ROWS; ++m) {
-            const int i = lane + 32 * m;
-            if (i < dim) {
-                const T x = rn_div(v[m], den);
-                qw[j * dim + i] = x;
-                qb[i * si + j * sj] = x;
+            for (int m = 0; m < R; ++m) {
+                const int i = r + 32 * m;
+                if (i < dim) q[base + ((size_t)i * dim + j) * B + w] = sw[j * P + i];
             }
-        }
-        __syncwarp();  // column j is in shared memory before any lane reads it
-    }
 }
 
 // ---- the long kernel: dim > GS_MAXD_WIDE (see the top of the file) ----
@@ -312,17 +315,6 @@ __device__ __forceinline__ void gsl_commit() {
 // every copy but the newest group has landed
 __device__ __forceinline__ void gsl_wait_one() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four consecutive values of shared memory (16-byte aligned).
-__device__ __forceinline__ void ld4(const float* p, float (&r)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
-}
-__device__ __forceinline__ void ld4(const double* p, double (&r)[4]) {
-    const double2 x = *reinterpret_cast<const double2*>(p);
-    const double2 y = *reinterpret_cast<const double2*>(p + 2);
-    r[0] = x.x, r[1] = x.y, r[2] = y.x, r[3] = y.y;
 }
 
 // One staged tile of C = Q^T V: the thread's C[kslot + 16 a][jslot + 8 b]
@@ -485,7 +477,8 @@ __device__ void gsl_update(T* wb, const T* cb, T* ring, int dim, int ld, int j0,
     __syncthreads();  // the panel is updated before it is read again
 }
 
-// The butterfly of the warp-per-basis kernels: every lane ends with the sum.
+// The butterfly over the warp (gsw_reduce of one value): every lane ends
+// with the sum.
 template <class T>
 __device__ __forceinline__ T gsl_butterfly(T c) {
 #pragma unroll
@@ -688,16 +681,83 @@ static int gram_schmidt_long(const T* g, T* q, T* scratch, int n_bases, int dim,
     return (int)cudaGetLastError();
 }
 
+// The wide kernel's values a warp: its dim columns of P rows and 2 KC
+// coefficients, rounded up to 32 values, then (nw > 1) an offset that puts
+// the areas of a block's nw warps in different banks for the copies in and
+// out (a warp-wide copy: nw chains x 32 / nw rows of one column).
+template <class T, int R>
+static int gsw_stride(int dim, int nw) {
+    const int body = (dim * GsWide<T, R>::P + 2 * GsWide<T, R>::KC + 31) / 32 * 32;
+    return body + (nw > 1 ? 128 / (int)sizeof(T) / nw : 0);
+}
+
+// The bases a block (nw, a power of two) of the wide kernel at (n_bases,
+// dim, B), and its blocks resident on an SM.  More bases a block make each
+// copy in or out one contiguous run of nw chains instead of a sector a
+// value; but a block's shared memory grows with nw, and fewer blocks may
+// leave SMs idle.  So each nw that fits is scored by the warps it keeps busy
+// on an SM: its resident warps, at most the chains' even share of an SM,
+// times the share of SMs its blocks reach; the largest nw within 15 % of
+// the best score is taken.
+template <class T, int R>
+static cudaError_t gsw_choose(int n_bases, int dim, int B, int* nw_out, int* blocks_out) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_wide_kernel<T, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GS_SMEM_MAX);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute((const void*)gram_schmidt_wide_kernel<T, R>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    int dev = 0, n_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const double share = std::ceil((double)n_bases * B / n_sm);
+    double score[4] = {0, 0, 0, 0}, best = 0;
+    int blocks[4] = {0, 0, 0, 0};
+    for (int x = 0; x < 4; ++x) {  // nw = 1, 2, 4, 8
+        const int nw = 1 << x, smem = nw * gsw_stride<T, R>(dim, nw) * (int)sizeof(T);
+        if (smem > GS_SMEM_MAX) break;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks[x], gram_schmidt_wide_kernel<T, R>, 32 * nw, smem);
+        if (e != cudaSuccess) return e;
+        const double reach = std::min(1.0, (double)n_bases * ((B + nw - 1) / nw) / n_sm);
+        score[x] = std::min((double)(nw * blocks[x]), share) * reach;
+        best = std::max(best, score[x]);
+    }
+    int x = 3;
+    while (x > 0 && !(blocks[x] > 0 && score[x] >= 0.85 * best)) --x;
+    *nw_out = 1 << x;
+    *blocks_out = blocks[x];
+    return cudaSuccess;
+}
+
+template <class T, int R>
+static int gsw_launch(const T* g, T* q, int n_bases, int dim, int B, cudaStream_t stream) {
+    int nw = 0, blocks = 0;
+    const cudaError_t e = gsw_choose<T, R>(n_bases, dim, B, &nw, &blocks);
+    if (e != cudaSuccess) return (int)e;
+    const int stride = gsw_stride<T, R>(dim, nw);
+    gram_schmidt_wide_kernel<T, R><<<dim3((B + nw - 1) / nw, n_bases), 32 * nw,
+                                     nw * stride * (int)sizeof(T), stream>>>(g, q, dim, B, stride);
+    return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, R>) at the rows a lane of `dim`, R = 2, 3, 4.
+template <class F>
+static int gsw_by_rows(int dim, F f) {
+    switch ((dim + 31) / 32) {
+        case 2: return f(std::integral_constant<int, 2>{});
+        case 3: return f(std::integral_constant<int, 3>{});
+        default: return f(std::integral_constant<int, 4>{});
+    }
+}
+
 template <class T>
 static int gram_schmidt_wide(const T* g, T* q, int n_bases, int dim, int B,
                              cudaStream_t stream) {
-    const int smem = (int)sizeof(T) * dim * dim;
-    const cudaError_t e = cudaFuncSetAttribute((const void*)gram_schmidt_wide_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)sizeof(T) * GS_MAXD_WIDE * GS_MAXD_WIDE);
-    if (e != cudaSuccess) return (int)e;
-    gram_schmidt_wide_kernel<T><<<dim3(B, n_bases), 32, smem, stream>>>(g, q, dim, B);
-    return (int)cudaGetLastError();
+    return gsw_by_rows(dim, [&](auto r) {
+        return gsw_launch<T, decltype(r)::value>(g, q, n_bases, dim, B, stream);
+    });
 }
 
 template <class T>
@@ -758,6 +818,23 @@ static int gsl_resident_warps(int dim) {
 
 extern "C" int gram_schmidt_long_resident_warps(int dim, int bytes) {
     return bytes == 8 ? gsl_resident_warps<double>(dim) : gsl_resident_warps<float>(dim);
+}
+
+// The bases a block of the wide kernel takes at a launch of (n_bases, dim,
+// B) in a type of `bytes` bytes (gsw_choose), times 100, plus its resident
+// blocks an SM; or minus a CUDA error; 0 outside 32 < dim <= 128.
+template <class T>
+static int gsw_report(int n_bases, int dim, int B) {
+    if (dim <= GS_MAXD || dim > GS_MAXD_WIDE) return 0;
+    return gsw_by_rows(dim, [&](auto r) {
+        int nw = 0, blocks = 0;
+        const cudaError_t e = gsw_choose<T, decltype(r)::value>(n_bases, dim, B, &nw, &blocks);
+        return e == cudaSuccess ? 100 * nw + blocks : -(int)e;
+    });
+}
+
+extern "C" int gram_schmidt_wide_blocks(int n_bases, int dim, int B, int bytes) {
+    return bytes == 8 ? gsw_report<double>(n_bases, dim, B) : gsw_report<float>(n_bases, dim, B);
 }
 
 // The values of the scratch buffer a launch at (n_bases, dim, B) needs: the

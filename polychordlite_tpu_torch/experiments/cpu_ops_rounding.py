@@ -1,6 +1,7 @@
 """Which elementwise torch operation rounds differently on the host's CPU
-than on the card: the comparison behind B2's long plain version taking its
-square root from numpy on the CPU (``ops/pallas_dirs.py::_sqrt_rn``).
+than on the card: the comparison behind the plain versions held to a
+kernel bit for bit (B2's, the fused route's) taking their square root from
+numpy on the CPU (``ops/precision.py::sqrt_rn``).
 
     python -m polychordlite_tpu_torch.experiments.cpu_ops_rounding [n]
 

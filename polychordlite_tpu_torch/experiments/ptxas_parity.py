@@ -16,8 +16,9 @@ one's ``slice_epoch_fused.cu`` with the B1 and ring headers that its own
 headers are the same text in both, each build's exit code, and per library
 the kernels of the other checkout, those missing here and those whose
 report differs (with the first few names), and apart those of the D <= 32
-instantiations (a functor of the SLICE_MAXD bucket, ``...LikeILi32EE``, or
-a fused library generated at D <= 32, with both reports' lines), with
+instantiations (a functor of the SLICE_MAXD bucket, ``...LikeILi32EE``, B2's
+thread-per-basis kernel, or a fused library generated at D <= 32, with both
+reports' lines), with
 ``n_differ_d32`` their sum over every library.  Kernels this checkout adds are counted and listed apart.
 Needs nvcc; touches no card.
 """
@@ -47,12 +48,13 @@ FUSED = ((20, 16), (64, 32), (160, 32))
 
 def in_d32(library: str, kernel: str) -> bool:
     """Whether ``kernel`` of ``library`` is a D <= 32 instantiation: a
-    functor of the SLICE_MAXD bucket, or any kernel of a fused library
-    generated at D <= 32 (``fused_d20``, ``fused_ring_d20``)."""
+    functor of the SLICE_MAXD bucket, B2's thread-per-basis kernel (dims 1
+    to 32), or any kernel of a fused library generated at D <= 32
+    (``fused_d20``, ``fused_ring_d20``)."""
     m = re.match(r"fused(?:_ring)?_d(\d+)$", library)
     if m:
         return int(m[1]) <= 32
-    return re.search(r"LikeILi32EE", kernel) is not None
+    return re.search(r"LikeILi32EE|gram_schmidt_kernelI", kernel) is not None
 
 _HEADERS = r"""
 import json, math, sys

@@ -100,7 +100,7 @@ from ..models.examples import coordinate_fold
 from ..utils import nvcc
 from .evaluate import probe_cubes, same_values
 from .pallas_slice_v4 import SLICE_MAXD, SLICE_MAXD_WIDE, stream_max_d
-from .precision import calc_dtype
+from .precision import calc_dtype, sqrt_rn
 
 #: the most elements of a value that is not a constant — the largest D of any
 #: bucket, the stream bucket's in float32 at one term — and of a constant
@@ -197,12 +197,12 @@ def _giles(x, y):
     """``fused_giles``: both polynomials, the one for w chosen."""
     w = torch.neg(torch.log(y))
     centre = _horner(_GILES_CENTRE, torch.sub(w, _lit(2.5, x.device)))
-    tail = _horner(_GILES_TAIL, torch.sub(torch.sqrt(w), _lit(3.0, x.device)))
+    tail = _horner(_GILES_TAIL, torch.sub(sqrt_rn(w), _lit(3.0, x.device)))
     return torch.mul(torch.where(w < 5.0, centre, tail), x)
 
 
 def _tail(p):
-    t = torch.sqrt(torch.mul(_lit(-2.0, p.device), torch.log(p)))
+    t = sqrt_rn(torch.mul(_lit(-2.0, p.device), torch.log(p)))
     return torch.div(_horner(_ACKLAM_C, t), _horner(_ACKLAM_D, t))
 
 
@@ -233,7 +233,7 @@ PLAIN = {
     "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge, "eq": torch.eq,
     "ne": torch.ne, "where": torch.where, "neg": torch.neg, "abs": torch.abs,
     "exp": torch.exp, "log": torch.log, "log1p": torch.log1p, "expm1": torch.expm1,
-    "sqrt": torch.sqrt, "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh,
+    "sqrt": sqrt_rn, "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh,
     "erfinv": _erfinv, "ndtri": _ndtri,
 }
 

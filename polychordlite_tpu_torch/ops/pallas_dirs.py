@@ -7,12 +7,14 @@ chain axis minor — and returns their CGS2-orthonormalised columns in the
 same layout.  On a CUDA tensor it launches the hand-written kernels of
 ``csrc/gram_schmidt.cu`` (see the source): up to dim :data:`NARROW_MAXD`,
 one thread per basis with the finished columns in shared memory; up to
-:data:`WIDE_MAXD`, one warp per basis with the dot products reduced across
-its lanes; above, up to :data:`MAXD`, the long path: blocked CGS2 in panels
-of :data:`LONG_PANEL` columns, four warps a basis, the bases transposed
-into a column-major scratch buffer in device memory that this wrapper
-allocates and streamed through shared memory (the card's free memory
-bounds dim before :data:`MAXD` does, and the time grows as dim cubed).
+:data:`WIDE_MAXD`, one warp per basis, column by column, each sweep's
+coefficients reduced across its lanes together, several chains' bases a
+block in shared memory; above, up to :data:`MAXD`, the long path: blocked
+CGS2 in panels of :data:`LONG_PANEL` columns, four warps a basis, the
+bases transposed into a column-major scratch buffer in device memory that
+this wrapper allocates and streamed through shared memory (the card's
+free memory bounds dim before :data:`MAXD` does, and the time grows as dim
+cubed).
 On a CPU tensor it runs :func:`gram_schmidt_plain`, the same sweeps in
 plain torch with each kernel's order of summation.  Float32, as in the
 reference, and float64 for a run at ``precision='highest'`` (every kernel
@@ -24,21 +26,21 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..utils import nvcc
+from .precision import sqrt_rn
 
 #: kernel launches since the last reset (compare-with-plain launches
-#: included): the thread-per-basis kernel, the warp-per-basis kernel above
-#: dim 32 and the long path above dim 128 (its transpose in, blocked CGS2
+#: included): the thread-per-basis kernel, the wide kernel (a warp a basis)
+#: above dim 32 and the long path above dim 128 (its transpose in, blocked CGS2
 #: and transpose out counted as one launch), in float32 and in float64
 LAUNCHES = {"gram_schmidt": 0, "gram_schmidt_wide": 0, "gram_schmidt_long": 0,
             "gram_schmidt_f64": 0, "gram_schmidt_wide_f64": 0, "gram_schmidt_long_f64": 0}
 #: the entry of each dtype
 _ENTRIES = {torch.float32: "gram_schmidt_f32", torch.float64: "gram_schmidt_f64"}
-#: the largest dim of the thread-per-basis kernel, of the wide kernel's
-#: four rows a lane, and of all (GS_MAXD, GS_MAXD_WIDE and GS_MAXD_LONG of
+#: the largest dim of the thread-per-basis kernel, of the wide kernel (at
+#: most four rows a lane), and of all (GS_MAXD, GS_MAXD_WIDE and GS_MAXD_LONG of
 #: ``csrc/gram_schmidt.cu``, whose ``gram_schmidt_max_dim()`` the library
 #: is checked against when it loads: ``nvcc.SMEM_MAX`` // 8).  The long
 #: path's scratch buffer, NB B ld (dim + 32) values with ld = dim rounded up
@@ -85,68 +87,17 @@ def gram_schmidt_plain(gauss_t: torch.Tensor) -> torch.Tensor:
         norm = torch.zeros_like(v[0])
         for i in range(dim):
             norm = norm + v[i] * v[i]
-        den = torch.clamp_min(torch.sqrt(norm), 1e-30)
+        den = torch.clamp_min(sqrt_rn(norm), 1e-30)
         for i in range(dim):
             q[:, i, j] = v[i] / den
     return q
 
 
-def _warp_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The wide kernel's dot product of columns held as ``(NB, M * 32, B)``
-    (row i = lane + 32 m; M = 4 in the kernel): each lane's M rows in order,
-    then the butterfly over the lanes, lower half plus upper half at offsets
-    16, 8, 4, 2, 1."""
-    nb, rows, B = a.shape
-    m_rows = rows // _LANES
-    a4, b4 = a.view(nb, m_rows, _LANES, B), b.view(nb, m_rows, _LANES, B)
-    c = torch.zeros((nb, _LANES, B), dtype=a.dtype, device=a.device)
-    for m in range(m_rows):
-        c = c + a4[:, m] * b4[:, m]
-    off = _LANES // 2
-    while off:
-        c = c[:, :off] + c[:, off:2 * off]
-        off //= 2
-    return c[:, 0]
-
-
-def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
-    """:func:`gram_schmidt_plain` at dims 33 to 128, in the order of
-    ``csrc/gram_schmidt.cu``'s warp-per-basis kernel: the column padded
-    with zeros to ceil(dim / 32) * 32 rows and every dot product by
-    :func:`_warp_dot` (the kernel pads to 4 * 32 rows: a zero row adds +0 to
-    a partial sum that is never -0, so it changes no sum, and any dim
-    gives the kernel's bits)."""
-    NB, dim, _, B = gauss_t.shape
-    pad = -(-dim // _LANES) * _LANES
-    g = torch.zeros((NB, pad, dim, B), dtype=gauss_t.dtype, device=gauss_t.device)
-    g[:, :dim] = gauss_t
-    q = torch.zeros_like(g)
-    for j in range(dim):
-        v = g[:, :, j]
-        for _ in range(2):
-            for k in range(j):
-                qk = q[:, :, k]
-                v = v - _warp_dot(qk, v)[:, None] * qk
-        den = torch.clamp_min(torch.sqrt(_warp_dot(v, v)), 1e-30)
-        q[:, :, j] = v / den[:, None]
-    return q[:, :dim].contiguous()
-
-
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The square root rounded to nearest, as the kernels' ``__fsqrt_rn`` and
-    ``__dsqrt_rn``: ``torch.sqrt`` on the card; on the CPU numpy's, the
-    processor's square-root instruction, because the CPU's ``torch.sqrt``
-    goes through a vector math library whose float32 and float64 results
-    differ from the rounded root in the last bit for ~0.7 % of inputs."""
-    if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
-    return torch.sqrt(x)
-
-
 def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """:func:`_warp_dot` over axis 0 of ``(rows, ...)`` tensors (broadcast
-    against each other): lane l sums its rows l + 32 m in order from +0,
-    then the butterfly.  The rows past ``rows`` are the zeros the kernels
+    """The warp kernels' dot product over axis 0 of ``(rows, ...)`` tensors
+    (broadcast against each other): lane l sums its rows l + 32 m in order
+    from +0, then the butterfly over the lanes, lower half plus upper half at
+    offsets 16, 8, 4, 2, 1.  The rows past ``rows`` are the zeros the kernels
     skip: a sum that starts at +0 is never -0, so adding +0 changes none."""
     rows = a.shape[0]
     shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
@@ -161,16 +112,39 @@ def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c[0]
 
 
+def _gram_schmidt_wide_plain(gauss_t: torch.Tensor) -> torch.Tensor:
+    """:func:`gram_schmidt_plain` at dims 33 to 128, in the order of
+    ``csrc/gram_schmidt.cu``'s wide kernel: classical CGS2 column by column
+    on the whole basis, :func:`_long_plain_panel` (each sweep's coefficients
+    from one v by :func:`_lane_dot`, the update summed over the finished
+    columns in order), on the bases in chunks of :data:`_LONG_CHUNK` on the
+    CPU."""
+    return _by_bases(gauss_t, _wide_plain_bases)
+
+
+def _wide_plain_bases(x: torch.Tensor) -> torch.Tensor:
+    """The wide order on ``(dim, dim, n)`` matrices (rows, columns, bases)."""
+    q = x.clone()
+    _long_plain_panel(q)
+    return q
+
+
 def _gram_schmidt_long_plain(gauss_t: torch.Tensor) -> torch.Tensor:
     """:func:`gram_schmidt_plain` above dim :data:`WIDE_MAXD`, in the long
     path's order (``csrc/gram_schmidt.cu``): blocked CGS2 in panels of
     :data:`LONG_PANEL` columns (:func:`_long_plain_bases`), on the bases in
     chunks of :data:`_LONG_CHUNK` on the CPU."""
+    return _by_bases(gauss_t, _long_plain_bases)
+
+
+def _by_bases(gauss_t: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` on the ``(dim, dim, n)`` matrices (rows, columns, bases) of
+    ``(n_bases, dim, dim, B)``, :data:`_LONG_CHUNK` bases at a time on the
+    CPU, all at once on the card."""
     NB, dim, _, B = gauss_t.shape
     x = gauss_t.permute(1, 2, 0, 3).reshape(dim, dim, NB * B)  # [i][j][basis]
     step = _LONG_CHUNK if x.device.type == "cpu" else NB * B
-    q = torch.cat([_long_plain_bases(x[:, :, s:s + step].contiguous())
-                   for s in range(0, NB * B, step)], dim=2)
+    q = torch.cat([fn(x[:, :, s:s + step].contiguous()) for s in range(0, NB * B, step)], dim=2)
     return q.reshape(dim, dim, NB, B).permute(2, 0, 1, 3).contiguous()
 
 
@@ -221,7 +195,7 @@ def _long_plain_panel(v: torch.Tensor) -> None:
             for t in range(jj):
                 u = u + v[:, t] * coef[t]
             col = col - u
-        den = torch.clamp_min(_sqrt_rn(_lane_dot(col, col)), 1e-30)
+        den = torch.clamp_min(sqrt_rn(_lane_dot(col, col)), 1e-30)
         v[:, jj] = col / den
 
 
@@ -238,11 +212,22 @@ def _lib():
         lib.gram_schmidt_scratch_values.restype = ctypes.c_longlong
         lib.gram_schmidt_long_resident_warps.argtypes = [ctypes.c_int] * 2
         lib.gram_schmidt_long_resident_warps.restype = ctypes.c_int
+        lib.gram_schmidt_wide_blocks.argtypes = [ctypes.c_int] * 4
+        lib.gram_schmidt_wide_blocks.restype = ctypes.c_int
         if lib.gram_schmidt_max_dim() != MAXD:
             raise RuntimeError(f"gram_schmidt.cu's largest dim {lib.gram_schmidt_max_dim()} is "
                                f"not pallas_dirs.MAXD = {MAXD}")
         lib._typed = True
     return lib
+
+
+def wide_blocks(n_bases: int, dim: int, B: int, dtype=torch.float32):
+    """(bases a block, blocks resident on an SM) of the wide kernel at a
+    launch on ``(n_bases, dim, dim, B)`` in ``dtype`` on the current card
+    (``csrc/gram_schmidt.cu::gsw_choose``); (0, 0) outside dims 33 to 128."""
+    r = _lib().gram_schmidt_wide_blocks(n_bases, dim, B, 8 if dtype == torch.float64 else 4)
+    nvcc.check(-r if r < 0 else 0, "gram_schmidt_wide_blocks")
+    return divmod(r, 100)
 
 
 def _kernel_name(dim: int) -> str:

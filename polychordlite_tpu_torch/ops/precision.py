@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 
 # |logL| beyond which the f32 contour comparison starts losing shells
@@ -70,3 +71,16 @@ def real_dtype_scope(dtype: torch.dtype):
         yield
     finally:
         set_real_dtype(before)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded to nearest, as the kernels' ``__fsqrt_rn``,
+    ``__dsqrt_rn``, ``sqrtf`` and ``sqrt``: ``torch.sqrt`` on the card; on
+    the CPU numpy's, the processor's square-root instruction, because the
+    CPU's ``torch.sqrt`` goes through a vector math library whose float32
+    and float64 results differ from the rounded root in the last bit for
+    ~0.7 % of inputs (``experiments/cpu_ops_rounding.py``).  The plain
+    versions that a kernel is held to bit for bit take it."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)

@@ -944,13 +944,18 @@ WIDE_D = [33, 40, 64, 100, 128]
 WIDE_GROUPS = pallas_slice_v4.BUCKET_GROUPS[pallas_slice_v4.SLICE_MAXD_WIDE]
 
 
-@pytest.mark.parametrize("dim", WIDE_D)
-def test_gram_schmidt_wide_kernel_equals_plain(dev, dim):
-    """B2's warp-per-basis kernel above dim 32 bitwise its plain version (the
-    kernel's order of summation), at a chain count that is not a multiple
-    of a warp; one launch counted as the wide kernel's."""
-    g = torch.randn((2, dim, dim, 300), generator=torch.Generator(dev).manual_seed(dim),
+@pytest.mark.parametrize("dim,B", [(33, 301), (40, 299), (64, 301), (64, 1001), (65, 157),
+                                   (96, 301), (97, 157), (100, 301), (128, 63), (128, 301)])
+def test_gram_schmidt_wide_kernel_equals_plain(dev, dim, B):
+    """B2's wide kernel above dim 32 bitwise its plain version (the
+    kernel's order of summation), at each rows-a-lane bucket (2, 3, 4) and
+    its edges, at chain counts that are not a multiple of a block's bases
+    (the last block's warps past B idle); one launch counted as the wide
+    kernel's."""
+    g = torch.randn((2, dim, dim, B), generator=torch.Generator(dev).manual_seed(dim),
                     device=dev)
+    nw, blocks = pallas_dirs.wide_blocks(2, dim, B)
+    assert nw in (1, 2, 4, 8) and blocks >= 1 and (nw == 1 or B % nw)
     before = dict(pallas_dirs.LAUNCHES)
     q = pallas_dirs.gram_schmidt_lanes(g)
     assert pallas_dirs.LAUNCHES["gram_schmidt_wide"] == before["gram_schmidt_wide"] + 1
@@ -1111,13 +1116,16 @@ def _f64_calc(prior, like, D, nd, dev):
 
 @pytest.mark.parametrize("shape", [(2, 1, 1, 1000), (3, 3, 3, 999), (2, 20, 20, 512),
                                    (5, 20, 20, 2048), (2, 30, 30, 300), (2, 31, 31, 300),
-                                   (2, 32, 32, 999), (2, 33, 33, 300), (2, 64, 64, 300),
-                                   (2, 128, 128, 64)])
+                                   (2, 32, 32, 999), (2, 33, 33, 301), (2, 40, 40, 127),
+                                   (2, 64, 64, 301), (2, 65, 65, 157), (2, 96, 96, 63),
+                                   (2, 128, 128, 63)])
 def test_gram_schmidt_f64_equals_plain(dev, shape):
     """Both B2 kernels in double bitwise gram_schmidt_plain in float64: the
     thread-per-basis kernel at 32 chains a block up to dim 30 and 16 above
-    (its shared memory), the warp-per-basis kernel above dim 32; each
-    launch counted under its _f64 name; columns orthonormal to 1e-12."""
+    (its shared memory), the wide kernel above dim 32 at each rows-a-lane
+    bucket and its edges, at chain counts that are not a multiple of its
+    block's bases; each launch counted under its _f64 name; columns
+    orthonormal to 1e-12."""
     dim = shape[1]
     g = torch.randn(shape, generator=torch.Generator(dev).manual_seed(dim), device=dev,
                     dtype=torch.float64)

@@ -116,6 +116,13 @@ def shapes(theta):
     return -(c * c).sum(-1) - q.sum(-1) / 50.0 + w.amax(-1) + theta @ m @ theta / 100.0
 
 
+def shell(theta):
+    """A Gaussian shell (``ini/gaussian_shell.ini``'s form): a square root
+    between arithmetic, the root rounded once as ``sqrtf`` rounds it."""
+    r = torch.sqrt(((theta - 0.5) ** 2).sum(-1))
+    return -((r - 0.3) ** 2) / 0.0032
+
+
 MODELS = {  # prior, likelihood, D, nDerived, the form
     "gaussian_ini": (ppr.identity_prior, torch_gaussian(20), 20, 2, "batched"),
     "quickstart": (ppr.UniformPrior(-1, 1), quickstart_torch, QUICK_D, 1, "per_point"),
@@ -126,6 +133,7 @@ MODELS = {  # prior, likelihood, D, nDerived, the form
                     lambda th: -0.5 * (((th - 2.0) / 0.5) ** 2).sum(-1), 3, 0, "batched"),
     "calls": (ppr.identity_prior, calls, 6, 0, "batched"),
     "shapes": (ppr.identity_prior, shapes, 5, 0, "per_point"),
+    "shell": (ppr.identity_prior, shell, 4, 0, "batched"),
 }
 
 
@@ -348,12 +356,14 @@ int main() {
 """
 
 
-@pytest.mark.parametrize("name", ["quickstart", "gaussian_ini", "correlated", "masked", "shapes"])
+@pytest.mark.parametrize("name", ["quickstart", "gaussian_ini", "correlated", "masked", "shapes",
+                                  "shell"])
 def test_emitted_functor_is_bitwise_its_plain_version_as_host_cpp(name, tmp_path):
     """The emitted term and combine, compiled by g++ with -ffp-contract=off
     and the intrinsics mapped to plain float operations: for a model of
-    arithmetic, comparisons and selections only, every logL is the plain
-    version's bit for bit."""
+    arithmetic, comparisons, selections and square roots only, every logL
+    is the plain version's bit for bit (its root the rounded one on the
+    CPU too, as the host's ``sqrtf`` and the card's; C28)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on the PATH")
@@ -361,7 +371,7 @@ def test_emitted_functor_is_bitwise_its_plain_version_as_host_cpp(name, tmp_path
     low = fused_like.lower(calc)
     assert not {op for op, _ in low.term + low.combine} - {
         "add", "sub", "mul", "div", "max", "min", "lt", "le", "gt", "ge", "eq", "ne", "where",
-        "neg", "abs", "f32"}
+        "neg", "abs", "sqrt", "f32"}
     (tmp_path / "fused_like.cuh").write_text(low.source(1))
     (tmp_path / "main.cpp").write_text(_HOST_MAIN)
     exe = tmp_path / "fused"

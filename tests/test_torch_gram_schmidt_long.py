@@ -1,7 +1,7 @@
 """B2 above dim 128 on the CPU: the long path's plain order (blocked CGS2 in
 panels of 32 columns, reorthogonalised), held against an order spelled out
 by hand in numpy and against the JAX package's XLA ``_gram_schmidt``, and
-the orders at dims <= 128 held to their earlier bits.
+the orders at dims <= 128 held to orders spelled out here.
 
 The kernel itself (``csrc/gram_schmidt.cu::gram_schmidt_long_kernel``) is
 held bit for bit to this plain version on the card by
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from polychordlite_tpu.ops.directions import _gram_schmidt as jax_xla_gram_schmidt
-from polychordlite_tpu_torch.ops import pallas_dirs
+from polychordlite_tpu_torch.ops import pallas_dirs, precision
 
 
 def _lanes_dot(a, b):
@@ -85,17 +85,16 @@ def test_long_plain_order_is_spelled_out_on_one_panel(dtype):
 def test_long_plain_column_pair_is_the_warp_order():
     """One column pair of 70 rows (the last lane group ragged): the panel's
     dot product, :func:`pallas_dirs._lane_dot`, bitwise the lane sums spelled
-    out, and the wide order's :func:`pallas_dirs._warp_dot` of the same
-    columns padded with zero rows."""
+    out, and bitwise itself on the same columns padded with zero rows to 96
+    (the +0 rows the wide kernel holds past dim)."""
     rng = np.random.default_rng(3)
     a, b = rng.standard_normal((2, 70, 2)).astype(np.float32)
     got = pallas_dirs._lane_dot(torch.as_tensor(a), torch.as_tensor(b)).numpy()
     np.testing.assert_array_equal(got, _lanes_dot(a, b))
-    pad = np.zeros((1, 96, 2), np.float32)
-    pa, pb = pad.copy(), pad.copy()
-    pa[0, :70], pb[0, :70] = a, b
-    wide = pallas_dirs._warp_dot(torch.as_tensor(pa), torch.as_tensor(pb)).numpy()
-    np.testing.assert_array_equal(got, wide[0])
+    pa, pb = np.zeros((96, 2), np.float32), np.zeros((96, 2), np.float32)
+    pa[:70], pb[:70] = a, b
+    padded = pallas_dirs._lane_dot(torch.as_tensor(pa), torch.as_tensor(pb)).numpy()
+    np.testing.assert_array_equal(got, padded)
 
 
 @pytest.mark.parametrize("dim", [129, 200])
@@ -195,70 +194,66 @@ def test_sqrt_rn_is_the_rounded_root_on_the_cpu():
     root, in both types, whatever the CPU's torch.sqrt rounds to."""
     for dtype in (np.float32, np.float64):
         x = (np.random.default_rng(1).random(100_000) * 300).astype(dtype)
-        got = pallas_dirs._sqrt_rn(torch.as_tensor(x))
+        got = precision.sqrt_rn(torch.as_tensor(x))
         assert got.dtype == torch.from_numpy(x).dtype
         np.testing.assert_array_equal(got.numpy(), np.sqrt(x))
 
 
-# ---- dims <= 128 keep their bits: the orders as they were, copied here
+# ---- dims <= 128: the narrow order, and the wide order spelled out
 
 
-def _narrow_as_before(gauss_t):
-    dim = gauss_t.shape[1]
-    q = torch.empty_like(gauss_t)
+def _narrow_spelled(x, root=np.sqrt):
+    """The thread-per-basis order on (dim, dim, n) numpy matrices (rows,
+    columns, bases): every dot product summed over the rows in index order,
+    one column at a time; v over max(root(|v|^2), 1e-30), numpy's root
+    unless told."""
+    dim = x.shape[0]
+    q = np.empty_like(x)
     for j in range(dim):
-        v = [gauss_t[:, i, j] for i in range(dim)]
+        v = x[:, j].copy()
         for _ in range(2):
             for k in range(j):
-                qk = [q[:, i, k] for i in range(dim)]
-                c = torch.zeros_like(v[0])
+                c = np.zeros_like(v[0])
                 for i in range(dim):
-                    c = c + qk[i] * v[i]
-                v = [v[i] - c * qk[i] for i in range(dim)]
-        norm = torch.zeros_like(v[0])
+                    c = c + q[i, k] * v[i]
+                v = v - c * q[:, k]
+        norm = np.zeros_like(v[0])
         for i in range(dim):
             norm = norm + v[i] * v[i]
-        den = torch.clamp_min(torch.sqrt(norm), 1e-30)
-        for i in range(dim):
-            q[:, i, j] = v[i] / den
+        q[:, j] = v / np.maximum(root(norm), x.dtype.type(1e-30))
     return q
 
 
-def _wide_as_before(gauss_t):
-    def warp_dot(a, b):
-        nb, rows, B = a.shape
-        a4, b4 = a.view(nb, rows // 32, 32, B), b.view(nb, rows // 32, 32, B)
-        c = torch.zeros((nb, 32, B), dtype=a.dtype)
-        for m in range(rows // 32):
-            c = c + a4[:, m] * b4[:, m]
-        off = 16
-        while off:
-            c = c[:, :off] + c[:, off:2 * off]
-            off //= 2
-        return c[:, 0]
-
-    NB, dim, _, B = gauss_t.shape
-    pad = -(-dim // 32) * 32
-    g = torch.zeros((NB, pad, dim, B), dtype=gauss_t.dtype)
-    g[:, :dim] = gauss_t
-    q = torch.zeros_like(g)
+def _wide_spelled(x, root=np.sqrt):
+    """The wide kernel's order (classical CGS2 column by column) on (dim,
+    dim, n) numpy matrices: for column j two sweeps (none at j = 0), each
+    taking every coefficient against the same v by the lane sums, then
+    u = sum_k q_k c_k over k in order from +0 and v - u; then v over
+    max(root(the lane sum of v^2), 1e-30), numpy's root unless told."""
+    dim = x.shape[0]
+    q = x.copy()
     for j in range(dim):
-        v = g[:, :, j]
-        for _ in range(2):
+        v = q[:, j].copy()
+        for _ in range(2 if j else 0):
+            coef = _lanes_dot(q[:, :j], v[:, None])  # (j, n)
+            u = np.zeros_like(v)
             for k in range(j):
-                qk = q[:, :, k]
-                v = v - warp_dot(qk, v)[:, None] * qk
-        den = torch.clamp_min(torch.sqrt(warp_dot(v, v)), 1e-30)
-        q[:, :, j] = v / den[:, None]
-    return q[:, :dim].contiguous()
+                u = u + q[:, k] * coef[k]
+            v = v - u
+        q[:, j] = v / np.maximum(root(_lanes_dot(v, v)), x.dtype.type(1e-30))
+    return q
 
 
-@pytest.mark.parametrize("dim,dtype", [(20, torch.float32), (64, torch.float32),
-                                       (128, torch.float32), (40, torch.float64)])
+@pytest.mark.parametrize("dim,dtype", [(20, np.float32), (64, np.float32), (128, np.float32),
+                                       (40, np.float64), (40, np.float32), (65, np.float32),
+                                       (97, np.float64)])
 def test_orders_up_to_128_keep_their_bits(dim, dtype):
-    """gram_schmidt_plain at dims 20 (one thread a basis), 64 and 128 (the
-    warp butterfly) and 40 in float64 bitwise the orders as they were before
-    the long path changed."""
-    g = torch.as_tensor(np.random.default_rng(dim).standard_normal((2, dim, dim, 3))).to(dtype)
-    before = _narrow_as_before(g) if dim <= 32 else _wide_as_before(g)
-    assert torch.equal(pallas_dirs.gram_schmidt_plain(g), before)
+    """gram_schmidt_plain at dim 20 (one thread a basis) bitwise the narrow
+    order, and at dims 40, 64, 65 (three rows a lane), 128 and in float64
+    at 40 and 97 bitwise the wide kernel's classical CGS2, both spelled out
+    in numpy on the rounded root."""
+    g = np.random.default_rng(dim).standard_normal((2, dim, dim, 3)).astype(dtype)
+    x = g.transpose(1, 2, 0, 3).reshape(dim, dim, 6)
+    want = (_narrow_spelled if dim <= 32 else _wide_spelled)(x)
+    got = pallas_dirs.gram_schmidt_plain(torch.as_tensor(g)).numpy()
+    np.testing.assert_array_equal(got.transpose(1, 2, 0, 3).reshape(dim, dim, 6), want)

@@ -2,7 +2,7 @@
 
 The kernel template's wide bucket (32 < D <= 128: B1, B4, B5 and the fused
 route at G = 32) and its stream bucket above (the same at G = 32, to the
-shared-memory bound), B2's warp-per-basis order above dim 32 and 128, the
+shared-memory bound), B2's wide order above dim 32 and the long order above 128, the
 plain engine's directions (which never reach B2), a 160-D run, and the
 refusals above the bounds.  The same numpy-seeded inputs go through the JAX function (a Pallas
 kernel in interpret mode) and its torch counterpart; on the CPU the port's
@@ -139,22 +139,24 @@ def test_wide_plain_cgs2_matches_xla_gram_schmidt(dim, atol):
 
 
 def test_wide_plain_order_is_the_warp_butterfly():
-    """The wide order, spelled out for one column pair: each lane's four
-    rows summed in order, then lower plus upper half at offsets 16 ... 1
-    (rows past dim zero) — bitwise the dot product gram_schmidt_plain uses."""
+    """The wide order's dot product, spelled out for one column pair of 70
+    rows: each lane's rows l, l + 32, l + 64 summed in order from +0 (the
+    rows past dim the +0 the kernel holds there), then lower plus upper
+    half at offsets 16 ... 1 — bitwise _lane_dot, the dot product
+    gram_schmidt_plain takes at dims 33 to 128."""
     rng = np.random.default_rng(3)
     dim = 70
-    a, b = (np.zeros((1, 128, 2), np.float32) for _ in range(2))
-    a[0, :dim], b[0, :dim] = rng.standard_normal((2, dim, 2)).astype(np.float32)
+    a, b = (np.zeros((96, 2), np.float32) for _ in range(2))
+    a[:dim], b[:dim] = rng.standard_normal((2, dim, 2)).astype(np.float32)
     lanes = np.zeros((32, 2), np.float32)
-    for m in range(4):
-        lanes = lanes + a[0, 32 * m:32 * m + 32] * b[0, 32 * m:32 * m + 32]
+    for m in range(3):
+        lanes = lanes + a[32 * m:32 * m + 32] * b[32 * m:32 * m + 32]
     off = 16
     while off:
         lanes = lanes[:off] + lanes[off:2 * off]
         off //= 2
-    got = pallas_dirs._warp_dot(torch.as_tensor(a), torch.as_tensor(b)).numpy()
-    np.testing.assert_array_equal(got[0], lanes[0])
+    got = pallas_dirs._lane_dot(torch.as_tensor(a[:dim]), torch.as_tensor(b[:dim])).numpy()
+    np.testing.assert_array_equal(got, lanes[0])
 
 
 def test_plain_gram_schmidt_has_no_bound_on_dim():
@@ -164,10 +166,10 @@ def test_plain_gram_schmidt_has_no_bound_on_dim():
     sum, so padding the same columns to 4 or 5 rows a lane gives the same
     dot products bit for bit, and at dim 140 the columns are orthonormal."""
     rng = np.random.default_rng(8)
-    a, b = (torch.as_tensor(rng.standard_normal((2, 100, 3)).astype(np.float32))
+    a, b = (torch.as_tensor(rng.standard_normal((100, 2, 3)).astype(np.float32))
             for _ in range(2))
-    dots = [pallas_dirs._warp_dot(torch.nn.functional.pad(a, (0, 0, 0, rows - 100)),
-                                  torch.nn.functional.pad(b, (0, 0, 0, rows - 100)))
+    dots = [pallas_dirs._lane_dot(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, rows - 100)),
+                                  torch.nn.functional.pad(b, (0, 0, 0, 0, 0, rows - 100)))
             for rows in (128, 160)]
     assert torch.equal(dots[0], dots[1])
     g = torch.as_tensor(rng.standard_normal((1, 140, 140, 2)).astype(np.float32))

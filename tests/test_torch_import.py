@@ -34,6 +34,7 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.prof_ring",
     "polychordlite_tpu_torch.experiments.ptxas_parity",
     "polychordlite_tpu_torch.experiments.gs_long_parts",
+    "polychordlite_tpu_torch.experiments.gs_wide_times",
     "polychordlite_tpu_torch.experiments.b1_bucket_parts",
     "polychordlite_tpu_torch.experiments.cpu_ops_rounding",
     "polychordlite_tpu_torch.examples.quickstart",
