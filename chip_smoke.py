@@ -67,9 +67,12 @@ against its plain version, the traced route on the likelihood's torch form
 and (float32) the plain engine on the same model, with the epoch records
 from the probes it kept against the re-evaluated ones, the user's calls
 against nlike and the host time of a round by part, and B2 at those runs'
-bases, holds the traced route at the data-driven inis' batches
-(``data_driven_step``: fitting at B 512, object_detection at B 128, the
-inis' block priors; B2 at object_detection's (5, 12, 12, 128)), holds
+bases, holds the fused route and the traced route at the data-driven
+inis' batches (``data_driven_step``: fitting at B 512, object_detection at
+B 128, the inis' block priors; the functors' data loops, their rows split
+over a chain's lanes at the route's G, bitwise their plain versions, timed
+beside the traced route; B2 at object_detection's (5, 12, 12, 128)),
+holds
 the chain batch over shards (``sharded_epoch``: the runner of every engine
 and route, the plain engine, B1's functor, fused and traced routes, the
 graded route, B3, B4 and B5, over [cuda] * 2 and [cuda] * 4 at
@@ -141,10 +144,10 @@ then drives the port's paths and checks what comes out and which kernels ran
 * ``run_fitting_ini`` and ``run_object_detection_ini``: ``python3 -m
   polychordlite_tpu_torch`` on copies of ``ini/fitting.ini`` and
   ``ini/object_detection.ini`` (``base_dir`` and a seed added, the data
-  from the repository's ``data/``): the traced route (the lowering's
-  refusal in ``route_reason``) and B2, at the batches data_driven_step
-  held, each within 3 combined sigma of the JAX package's run of the same
-  ini on the CPU (:data:`DATA_ORACLES`);
+  from the repository's ``data/``): the fused route (the functors' data
+  loops, the libraries data_driven_step built) and B2, at the batches
+  data_driven_step held, each within 3 combined sigma of the JAX package's
+  run of the same ini on the CPU (:data:`DATA_ORACLES`);
 
 * ``run_gaussian_ini_torch``: gaussian.ini's settings through ``run()`` with
   its likelihood written as a plain batched torch function (no device
@@ -359,10 +362,12 @@ QUICK_RUN = dict(B=256, R=20, D=4, B_valid=200)
 # run_forced_torch's batch: nlive 100 in one shard's 128 lanes
 FORCED_RUN_B = 128
 CC_RUN = dict(B=256, R=40, D=20, B_valid=200)
-# the data-driven inis at their own settings, on the traced route:
-# ini/fitting.ini (20-D, nlive 500, num_repeats 40: B = 512, 504 valid; B2
-# at gaussian.ini's (2, 20, 20, 512)) and ini/object_detection.ini (12-D,
-# nlive 50, num_repeats 50: B = 128, 56 valid; B2 at (5, 12, 12, 128))
+# the data-driven inis at their own settings, on the fused route (one data
+# loop a model): ini/fitting.ini (20-D, nlive 500, num_repeats 40: B = 512,
+# 504 valid; B2 at gaussian.ini's (2, 20, 20, 512)) and
+# ini/object_detection.ini (12-D, nlive 50, num_repeats 50: B = 128, 56
+# valid; B2 at (5, 12, 12, 128)); the study experiments/fused_data_times.py
+# reads these
 DATA_RUNS = {"fitting": dict(B=512, R=40, D=20, B_valid=504),
              "object_detection": dict(B=128, R=50, D=12, B_valid=56)}
 #: their oracles, the JAX package's runs of the same inis on the CPU (JAX
@@ -575,6 +580,87 @@ def gaussian_probe_flops(D: int) -> int:
     sigma and the chi-square add (4 per coordinate), logL and the chord
     position t (about 7) — a division counted as one operation."""
     return 8 * D + 7
+
+
+def data_calc(name: str, device):
+    """The calc of ``ini/<name>.ini`` as ``inidriver.run_ini`` builds it: its
+    BlockPrior and the likelihood on the repository's data."""
+    from polychordlite_tpu_torch.models import get_likelihood
+    from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
+    from polychordlite_tpu_torch.priors import BlockPrior
+    from polychordlite_tpu_torch.utils.inifile import read_ini
+
+    D = DATA_RUNS[name]["D"]
+    _, blocks, *_ = read_ini(os.path.join(HERE, "ini", f"{name}.ini"))
+    return make_batched_calculator(
+        BlockPrior(blocks, D), get_likelihood(name, D, data_dir=os.path.join(HERE, "data")),
+        D, 0, device=device)
+
+
+def mid_run_inputs(calc, geo: dict, device, seed: int):
+    """(cfg, (x0, bound, valid, n-hat, w)) of one epoch mid-run at ``geo``'s
+    B, R, D: the best B_valid of 4 B_valid prior draws as the live set,
+    each lane's seed a live point and its bound the smaller logL of it and
+    another, the live set's Cholesky for the directions; lanes past
+    ``B_valid`` invalid."""
+    import torch
+
+    from polychordlite_tpu_torch.ops.directions import make_directions
+    from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig
+
+    B, R, D, nlive = geo["B"], geo["R"], geo["D"], geo["B_valid"]
+    gen = torch.Generator(device).manual_seed(seed)
+    draws = torch.rand((4 * nlive, D), generator=gen, device=device)
+    live = draws[torch.topk(calc(draws)[2], nlive).indices]
+    live_logL = calc(live)[2]
+    pick = torch.randint(0, nlive, (B,), generator=gen, device=device)
+    other = torch.randint(0, nlive, (B,), generator=gen, device=device)
+    x0 = live[pick]
+    bnd = torch.minimum(live_logL[pick], live_logL[other])
+    valid = torch.arange(B, device=device) < nlive
+    chol = torch.linalg.cholesky(torch.cov(live.T)
+                                 + 1e-9 * torch.eye(D, device=device)).expand(B, D, D)
+    nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
+                               generator=gen)
+    return EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,)), (x0, bnd, valid,
+                                                                               nh, w)
+
+
+def fused_ops_ms(low, evals: int) -> float:
+    """The least ms of ``evals`` probes' operations of a lowered model
+    (``Lowered.ops_per_probe``): the float64 ones at the float64 peak, the
+    rest at the float32 peak."""
+    ops = low.ops_per_probe()
+    f64 = ops.get("f64", 0)
+    return evals * ((sum(ops.values()) - f64) / F32_FLOPS_PER_S + f64 / F64_FLOPS_PER_S) * 1e3
+
+
+def fused_bound(low, B: int, R: int, D: int, evals: int):
+    """(bound_ms, bound_by) of a fused epoch: the bytes of B1's epoch
+    (:func:`slice_epoch_bytes`) and the constant buffer, once; or the
+    operations of ``evals`` probes (:func:`fused_ops_ms`)."""
+    consts = low.device_consts("cpu")
+    t_bytes = (slice_epoch_bytes(B, R, D) + consts.numel() * consts.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = fused_ops_ms(low, evals)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decisions_against(got, other) -> dict:
+    """Where two routes' epochs (t, logL, nlike) on the same inputs decide
+    differently (t or nlike differ; logL may differ in its last bits where
+    their sums round in other orders): the count of such records, the
+    lanes, and where they agree the largest relative difference of logL."""
+    import torch
+
+    diff = (got[0] != other[0]) | (got[2] != other[2])
+    lanes = torch.nonzero(diff.any(1)).flatten().tolist()
+    same = ~diff.any(1)
+    rel = ((got[1][same].double() - other[1][same].double()).abs()
+           / other[1][same].double().abs().clamp_min(1e-30))
+    return {"t_or_nlike_mismatches": int(diff.sum()), "lanes": len(lanes),
+            "listed": lanes[:50],
+            "max_rel_logL_where_agreeing": float(rel.max()) if rel.numel() else 0.0}
 
 
 def gram_schmidt_flops(NB: int, D: int, B: int) -> int:
@@ -876,7 +962,11 @@ def main() -> None:
         from polychordlite_tpu_torch.ops.directions import make_directions
         from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
         from polychordlite_tpu_torch.ops.precision import real_dtype_scope
-        from polychordlite_tpu_torch.ops.slice_kernel import EpochConfig, slice_records_plain
+        from polychordlite_tpu_torch.ops.slice_kernel import (
+            EpochConfig,
+            route_reason,
+            slice_records_plain,
+        )
         from polychordlite_tpu_torch.core.generate import assign_num_repeats, time_speeds
         from polychordlite_tpu_torch.output import PolyChordOutput
         from polychordlite_tpu_torch.parallel.mesh import GRANULE
@@ -1213,6 +1303,22 @@ def main() -> None:
                   ("shells_ini", SHELLS))
     GROUPS = pallas_slice_v4.GROUPS
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the data inis' functors, lowered here and built at the route's G
+    # (pallas_slice_v4.route_group) behind the phases that follow, as the
+    # ring library is; the ini runs load the same libraries from disk
+    data_lib = ThreadPoolExecutor(max_workers=1)
+
+    def data_form(name, geo):
+        """(calc, Lowered, the route's G, its build's future) of a data ini's
+        model, or None where the lowering refuses it."""
+        calc = data_calc(name, dev)
+        low = fused_like.lowering(calc)
+        if not isinstance(low, fused_like.Lowered):
+            return None
+        G = pallas_slice_v4.route_group(calc, geo["B"], geo["D"], dev)
+        return calc, low, G, data_lib.submit(low.build, [G])
+
+    data_forms = {k: data_form(k, g) for k, g in DATA_RUNS.items()}
 
     def mismatches(got, want):
         return {k: int((a != b).sum()) for k, a, b in zip(("t", "logL", "nlike"), got, want)}
@@ -2936,63 +3042,74 @@ def main() -> None:
         results["stream_routes_d160"] = out
         return out
 
-    # ---- 6g. the data-driven models on the traced route, at the batches
-    # their inis' runs give it
-    def data_calc(name, D):
-        _, blocks, *_ = read_ini(os.path.join(HERE, "ini", f"{name}.ini"))
-        return make_batched_calculator(
-            BlockPrior(blocks, D), get_likelihood(name, D, data_dir=os.path.join(HERE, "data")),
-            D, 0, device=dev)
-
+    # ---- 6g. the data-driven models on the fused route (their functors'
+    # data loops) and on the traced route, at the batches their inis' runs
+    # give them
     @phase("data_driven_step")
     def _():
         """fitting and object_detection with their inis' block priors, at the
         batches run_fitting_ini and run_object_detection_ini give the
-        kernels, on mid-run inputs (a live set: the best nlive of 4 nlive
-        prior draws, bounds between two live points' logL, its Cholesky):
-        the traced route (the lowering refuses both, its reason recorded)
-        against the plain engine, t, logL, nlike, 0 mismatches; ms per
-        epoch, launches, bound; B2 at object_detection's bases."""
+        kernels, on mid-run inputs (:func:`mid_run_inputs`): the fused route
+        (both lower, one data loop each) at the route's G
+        (``pallas_slice_v4.route_group``: the rows split over a chain's
+        lanes) bitwise its plain version; its decisions against the traced
+        route counted and listed; the traced route against the plain engine,
+        0 mismatches; ms per epoch of both routes, launches, evals, bounds,
+        the functor's source lines, nvcc seconds, registers and spills; B2
+        at object_detection's bases."""
         out = {}
         kw = (0x01234567, 0x89ABCDEF)
         for name, geo in DATA_RUNS.items():
             B, R, D = geo["B"], geo["R"], geo["D"]
-            calc = data_calc(name, D)
-            low = fused_like.lowering(calc)
-            if calc.form != "batched" or not isinstance(low, fused_like.Refused):
-                raise AssertionError(f"{name}: form {calc.form}, lowering {low}")
-            gen = torch.Generator(dev).manual_seed(SEED)
-            nlive = geo["B_valid"]
-            draws = torch.rand((4 * nlive, D), generator=gen, device=dev)
-            top = torch.topk(calc(draws)[2], nlive).indices
-            live = draws[top]
-            live_logL = calc(live)[2]
-            pick = torch.randint(0, nlive, (B,), generator=gen, device=dev)
-            other = torch.randint(0, nlive, (B,), generator=gen, device=dev)
-            x0 = live[pick]
-            bnd = torch.minimum(live_logL[pick], live_logL[other])
-            valid = torch.arange(B, device=dev) < geo["B_valid"]
-            chol = torch.linalg.cholesky(torch.cov(live.T)
-                                         + 1e-9 * torch.eye(D, device=dev)).expand(B, D, D)
-            nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(R,), n_dims=D,
-                                       generator=gen)
-            cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(R,))
-            args = (x0, bnd, valid, nh, w)
+            if data_forms[name] is None:
+                raise AssertionError(f"{name}: {fused_like.lowering(data_calc(name, dev))}")
+            calc, low, G, building = data_forms[name]
+            if calc.form != "batched":
+                raise AssertionError(f"{name}: form {calc.form}")
+            building.result()
+            lib = low.library_name(G)
+            cfg, args = mid_run_inputs(calc, geo, dev, SEED)
+            want_f, fused_plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
+                low.plain_logL, cfg, kw, *args))  # noqa: B023
+            before = pallas_slice_v4.LAUNCHES["slice_epoch_fused"]
+            got = pallas_slice_v4.slice_epoch_fused(calc, cfg, kw, *args)
+            fused = {
+                "group": G,
+                "launches_per_epoch": pallas_slice_v4.LAUNCHES["slice_epoch_fused"] - before,
+                "mismatches": decisions(f"data_driven_step {name} fused", [
+                    (f"{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got,
+                                                              want_f)]),
+                "ms": cuda_ms(lambda: pallas_slice_v4.slice_epoch_fused(  # noqa: B023
+                    calc, cfg, kw, *args), 3),  # noqa: B023
+                "plain_ms": fused_plain_ms,
+                "nvcc_s": nvcc.build_seconds.get(lib, 0.0),
+                "ptxas": ptxas_summary(nvcc.build_log.get(lib, "")),
+                "source_lines": len(low.source(G).splitlines())}
             want, plain_ms = cuda_once(lambda: slice_records_plain(  # noqa: B023
                 lambda p: calc(p)[2], cfg, kw, *args))  # noqa: B023
             before = (pallas_slice_v4.LAUNCHES["slice_step"], dict(pallas_slice_v4.TRACED))
-            got = pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args)
+            traced = pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args)
             launches = pallas_slice_v4.LAUNCHES["slice_step"] - before[0]
             replays = pallas_slice_v4.TRACED["replays"] - before[1]["replays"]
-            mism = decisions(f"data_driven_step {name}", [
-                (f"{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), got, want)])
+            mism = decisions(f"data_driven_step {name} traced", [
+                (f"{k}_vs_plain", a, b) for k, a, b in zip(("t", "logL", "nlike"), traced, want)])
             ms = cuda_ms(lambda: pallas_slice_v4.slice_epoch_traced(calc, cfg, kw, *args), 3)  # noqa: B023
-            out[name] = {"B": B, "R": R, "D": D, "valid_lanes": int(valid.sum()),
-                         "evals": int(want[2].sum()), "route_reason": low.reason,
-                         "mismatches": mism, "launches_per_epoch": launches,
-                         "replays_per_epoch": replays, "ms": ms, "plain_ms": plain_ms,
-                         "plain_over_route": plain_ms / ms,
-                         "bound": bound(slice_step_bytes(B, D, launches, R), 0)}
+            against = decisions_against(want_f, traced)
+            evals = int(want_f[2].sum())
+            fused["bound"] = fused_bound(low, B, R, D, evals)
+            out[name] = {
+                "B": B, "R": R, "D": D, "valid_lanes": geo["B_valid"], "group": G,
+                "route_reason": route_reason("cuda", calc), "evals": evals,
+                "loops": [(lp.n_rows, len(lp.body)) for lp in low.loops],
+                "ops_per_probe": low.ops_per_probe(),
+                "fused": fused,
+                "traced": {"mismatches": mism, "launches_per_epoch": launches,
+                           "replays_per_epoch": replays, "ms": ms, "plain_ms": plain_ms,
+                           "plain_over_route": plain_ms / ms,
+                           "bound": bound(slice_step_bytes(B, D, launches, R), 0),
+                           "bound_ops_ms": fused_ops_ms(low, evals)},
+                "fused_vs_traced": against,
+                "traced_over_fused": ms / fused["ms"]}
         ob = DATA_RUNS["object_detection"]
         out["gram_schmidt_object_detection"] = gram_schmidt_hold(
             "object_detection", -(-ob["R"] // ob["D"]), ob["D"], ob["B"])
@@ -4523,9 +4640,10 @@ print("RESULT " + json.dumps(out), flush=True)
     def data_ini_run(name):
         """python -m polychordlite_tpu_torch on a copy of ini/<name>.ini
         (base_dir and seed added; its data_dir = data read from the
-        repository): engine "cuda" on the traced route (the lowering's
-        refusal in route_reason) and B2 only, at the batch data_driven_step
-        held, within 3 combined sigma of the JAX package's CPU run."""
+        repository): engine "cuda" on the fused route (its functor's data
+        loop) and B2 only, at the batch data_driven_step held (whose
+        libraries it reuses), within 3 combined sigma of the JAX package's
+        CPU run."""
         base, ini, proc, wall = job_result(name)
         s, *_ = read_ini(ini)
         held = DATA_RUNS[name]
@@ -4535,11 +4653,11 @@ print("RESULT " + json.dumps(out), flush=True)
         summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("logZ = ")]
         last = read_metrics(base, name)[-1]
         ran = {k: v for k, v in last["kernel_launches"].items() if v}
-        if (last.get("engine"), last.get("route")) != ("cuda", "slice_step"):
+        if (last.get("engine"), last.get("route")) != ("cuda", "slice_epoch_fused"):
             raise AssertionError(f"{name}: engine {last.get('engine')!r}, route "
                                  f"{last.get('route')!r} ({last.get('route_reason')})")
-        if not only(ran, ("gram_schmidt", "slice_step")):
-            raise AssertionError(f"{name}: the run did not run B2 and the traced route (only): "
+        if not only(ran, ("gram_schmidt", "slice_epoch_fused")):
+            raise AssertionError(f"{name}: the run did not run B2 and the fused route (only): "
                                  f"{ran}")
         add_launches(ran)
         out = PolyChordOutput(base, name)
@@ -4557,7 +4675,7 @@ print("RESULT " + json.dumps(out), flush=True)
                           "from": how},
                "pull_combined_sigma": pull, "wall_s": wall, "dead_per_s": out.ndead / wall,
                "device_frac": last.get("device_frac"), "launches": ran,
-               "traced_route": last.get("traced_route"),
+               "fused_build_seconds": last.get("fused_build_seconds"),
                "host_totals_s": last.get("host_totals"),
                "epoch_timers_s": last.get("epoch_timers")}
         results[f"run_{name}_ini"] = rec
@@ -4827,6 +4945,7 @@ print("RESULT " + json.dumps(out), flush=True)
 
     cli_jobs.shutdown()
     ring_lib.shutdown()
+    data_lib.shutdown()
     plain_pool.shutdown(cancel_futures=True)
     shutil.rmtree(plain_dir, ignore_errors=True)
     side_jobs.shutdown()
@@ -4950,12 +5069,15 @@ print("RESULT " + json.dumps(out), flush=True)
                          "B", "valid_lanes", "mismatches", "ms", "plain_ms", "bound")},
                      "run_graded": {k: results["run_graded"]["graded"][k]
                                     for k in ("slow_share_of_rows", "wall_s", "dead_per_s")}}
-        if name == "slice_step":  # the data-driven models' batches, and their runs
+        if name == "slice_step":  # the data-driven models' batches (their runs take
+            # the fused route: the row slice_epoch_fused_data)
             dd = results["data_driven_step"]
-            extra = {k: {**{f: dd[k][f] for f in ("B", "valid_lanes", "R", "D", "ms",
-                                                  "plain_ms", "launches_per_epoch",
-                                                  "mismatches", "route_reason")},
-                         "bound_ms": dd[k]["bound"][0], "bound_by": dd[k]["bound"][1],
+            extra = {k: {**{f: dd[k][f] for f in ("B", "valid_lanes", "R", "D")},
+                         **{f: dd[k]["traced"][f] for f in ("ms", "plain_ms",
+                                                            "launches_per_epoch", "mismatches",
+                                                            "bound_ops_ms")},
+                         "bound_ms": dd[k]["traced"]["bound"][0],
+                         "bound_by": dd[k]["traced"]["bound"][1],
                          "launches_on_run": results[f"run_{k}_ini"]["launches"].get(
                              "slice_step", 0)}
                      for k in DATA_RUNS}
@@ -5017,6 +5139,28 @@ print("RESULT " + json.dumps(out), flush=True)
             "f32_twin_ms": rec["f32_twin_ms"],
             **extra,
         })
+    # B1's fused route on the data-driven inis' functors (their data loops):
+    # fitting's numbers first, object_detection's beside them; launches on
+    # run_fitting_ini and run_object_detection_ini
+    dd = results["data_driven_step"]
+    fit = dd["fitting"]
+    kernels.append({
+        "name": "slice_epoch_fused_data", "route": "cuda", "source": src + "slice_epoch_fused.cu",
+        "replaces": "polychordlite_tpu/ops/pallas_slice_v4.py:508", "dtype": "float32",
+        "launches": sum(results[f"run_{k}_ini"]["launches"].get("slice_epoch_fused", 0)
+                        for k in DATA_RUNS),
+        "max_abs_err": 0.0, "ms": fit["fused"]["ms"], "plain_ms": fit["fused"]["plain_ms"],
+        "bound_ms": fit["fused"]["bound"][0], "bound_by": fit["fused"]["bound"][1],
+        "library_ms": None,
+        **{k: {**{f: dd[k][f] for f in ("B", "valid_lanes", "R", "D", "group", "evals",
+                                        "loops", "traced_over_fused", "fused_vs_traced")},
+               "ms": dd[k]["fused"]["ms"], "plain_ms": dd[k]["fused"]["plain_ms"],
+               "bound_ms": dd[k]["fused"]["bound"][0], "bound_by": dd[k]["fused"]["bound"][1],
+               "traced_ms": dd[k]["traced"]["ms"],
+               **{f: dd[k]["fused"][f] for f in ("nvcc_s", "ptxas", "source_lines")},
+               "launches_on_run": results[f"run_{k}_ini"]["launches"].get(
+                   "slice_epoch_fused", 0)}
+           for k in DATA_RUNS}})
     # the ring engine's instantiations (RingPolicy: B1's functor kernel and
     # the fused route; the traced route under the ring's budget) at the
     # bench, ring_factor 12 (ring_epoch), with gaussian.ini's shape beside;

@@ -27,6 +27,24 @@
 // tests (tests/test_torch_fused.py), with the intrinsics mapped to plain
 // float operations.
 //
+// A data loop of a generated functor (ops/fused_like.py: a sum or a max
+// over data rows) folds its rows as 32 virtual lanes, row r on virtual lane
+// r mod 32, each from the fold's identity in row order, then a butterfly of
+// the 32 (the lane order of likelihoods.cuh::fold).  The L lanes that hold
+// a chain's evaluation (FUSED_ROW_LANES: the chain's G, or 1 where every
+// lane runs every row) split the virtual lanes: lane g runs g, g + L, ...
+// (fused_row_lane), and FusedRowFold joins them, the butterfly's steps
+// m >= L within the lane and m < L by shuffles, then hands every lane lane
+// 0's value.  So the order, and the plain version (fused_like.row_fold), do
+// not depend on L.  Every lane runs the same trip count, a row past the end
+// computing row 0 unfolded: with each lane leaving the row loop after its
+// own last row, fitting's functor (ini/fitting.ini) at G = 32 gives wrong
+// sums on an H100, with 8-byte or 32-bit float64 loads and with a
+// __syncwarp() before the fold's shuffles, while the same loop with each
+// slot index and row checked against its range finds none outside and is
+// bitwise (PERF.md section 6; the cause is not found).  The int
+// overloads of fused_max and fused_min clamp searchsorted's indices.
+//
 // A functor generated at precision='highest' is double: fused_max and
 // fused_min have double overloads, and sin, cos and pow double forms kept
 // out of line (fused_sin, fused_cos, fused_pow).  erfinv and ndtri have no
@@ -49,6 +67,81 @@ __device__ __forceinline__ double fused_max(double a, double b) {
 __device__ __forceinline__ double fused_min(double a, double b) {
     return a != a ? a : (b != b ? b : (a < b ? a : b));
 }
+
+// A float64 slot of a float32 lowering's buffer: its two words from word
+// `at` (low word first; `at` is even and the buffer 8-byte aligned, so one
+// 8-byte load).
+__device__ __forceinline__ double fused_f64(const float* c, int at) {
+#ifdef __CUDACC__
+    return __ldg(reinterpret_cast<const double*>(c + at));
+#else
+    union {
+        float f[2];
+        double d;
+    } u = {{c[at], c[at + 1]}};
+    return u.d;
+#endif
+}
+
+__device__ __forceinline__ int fused_max(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ int fused_min(int a, int b) { return a < b ? a : b; }
+
+// This lane's place among the L lanes that split a data loop's rows.
+template <int L>
+__device__ __forceinline__ int fused_row_lane() {
+#ifdef __CUDACC__
+    if constexpr (L > 1) return (int)(threadIdx.x & (L - 1));
+#endif
+    return 0;
+}
+
+// The fold of a data loop's virtual lanes on lane g of the L that split the
+// rows: V = 32 / L virtual lanes g + j L, visited one after another in the
+// order i = 0 .. V - 1, j = lane_of(i) (i's bits reversed), each pushed as
+// its partial.  The butterfly's steps m >= L pair, within the lane, j with
+// j + V / 2, then j with j + V / 4, ...: a tree whose leaves in bit-reversed
+// order are neighbours, so push folds it as a binary counter (level k holds
+// the finished subtree of 2^k leaves) in named registers — no array, no
+// local memory.  result() then runs the steps m < L as shuffles and hands
+// every lane lane 0's value.
+template <int L, class T>
+struct FusedRowFold {
+    static constexpr int V = 32 / L;
+    static constexpr int BITS = V >= 32 ? 5 : V >= 16 ? 4 : V >= 8 ? 3 : V >= 4 ? 2 : V >= 2 ? 1 : 0;
+    T s0, s1, s2, s3, s4, s5;
+    __device__ __forceinline__ int lane_of(int i) const {
+        int j = 0;
+#pragma unroll
+        for (int b = 0; b < BITS; ++b) j |= ((i >> b) & 1) << (BITS - 1 - b);
+        return j;
+    }
+    template <class Op>
+    __device__ __forceinline__ void push(int i, T c, Op op) {
+        if (!(i & 1)) { s0 = c; return; }
+        c = op(s0, c);
+        if (!(i & 2)) { s1 = c; return; }
+        c = op(s1, c);
+        if (!(i & 4)) { s2 = c; return; }
+        c = op(s2, c);
+        if (!(i & 8)) { s3 = c; return; }
+        c = op(s3, c);
+        if (!(i & 16)) { s4 = c; return; }
+        s5 = op(s4, c);
+    }
+    template <class Op>
+    __device__ __forceinline__ T result(Op op) const {
+        T v = BITS == 0 ? s0 : BITS == 1 ? s1 : BITS == 2 ? s2 : BITS == 3 ? s3 : BITS == 4 ? s4 : s5;
+#ifdef __CUDACC__
+        if constexpr (L > 1) {
+#pragma unroll
+            for (int m = L / 2; m >= 1; m >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, m));
+            v = __shfl_sync(0xffffffffu, v, 0, L);
+        }
+#endif
+        return v;
+    }
+};
 
 __device__ __noinline__ float fused_sinf(float x) { return sinf(x); }
 __device__ __noinline__ float fused_cosf(float x) { return cosf(x); }

@@ -31,7 +31,11 @@
 // with one graph shares one library.  A prior with an affine form stays B1's
 // AffinePrior (prior_a, prior_s, host arrays); in the stream bucket it is the
 // device array `dev` = [a (D), s (D)] (DevicePriorT).  The float64 kernel is
-// instantiated in every bucket as the float32 one is.
+// instantiated in every bucket as the float32 one is.  A functor with data
+// loops (a sum over a model's data rows, ops/fused_like.py) splits their rows
+// over the chain's lanes (FUSED_ROW_LANES in its header, fused_ops.cuh's
+// FusedRowFold), and a float32 functor with a float64 body reads its float64
+// constants from the buffer's tail (FUSED_NC64_AT, fused_f64).
 //
 // What bounds it is B1's micro-step (slice_epoch.cuh), with the lowered
 // body in place of the hand-written one: its per-coordinate chain runs on

@@ -7,12 +7,18 @@ fitted to data uncertain in x and y) and ``object_detection``
 that run with the adaptive sorted priors.  Both take a ``(B, D)`` physical
 tensor and return ``logL (B,)``, the batched convention of
 ``models/examples.py``, so ``ops/evaluate.py`` reads them as batched torch
-models on the device.  Neither has a device functor, and the fused route's
-lowering refuses both (fitting computes in float64 and locates its knots
-with ``searchsorted``; object_detection's per-point image exceeds the
-lowering's bound of 128 elements; with the inis' block priors the prior's
-``index_select`` is refused first), so on a card they run on B1's traced
-route, ``route_reason`` naming the refusal.
+models on the device.  Neither has a device functor; the fused route's
+lowering (``ops/fused_like.py``) takes both, with the inis' block priors
+(their ``index_select``, ``index_copy`` and the sorted prior's ``flip`` and
+``cumsum`` are static remaps and chains there), so on a card they run on
+B1's fused route.  fitting's float64 body (a float64 statement type inside
+the float32 lowering), its ``searchsorted`` (torch's own halving search),
+its gathers and ``erf``, and object_detection's 20 x 20 image lower too:
+each model's sum over its data rows (fitting's 50 points, the image's 400
+pixels) is a data loop, not a statement a row.  (Before the lowering took
+them, the inis' block priors' ``index_select`` refused both first, then
+fitting's float64 ``_to_copy`` and ``searchsorted``; object_detection's
+likelihood ops were in the table, its image scalarised element by element.)
 
 The data files use the reference formats: ``data.dat`` rows of
 ``x y sigma_x sigma_y``; ``obj_info.dat`` the scalars nx, xmin, xmax, ny,

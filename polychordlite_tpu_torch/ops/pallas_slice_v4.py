@@ -225,7 +225,7 @@ def bucket(D: int, n_terms: int = 1, dtype=torch.float32):
         "engine='torch' runs any D")
 
 
-def choose_group(B: int, D: int, n_sm: int) -> int:
+def choose_group(B: int, D: int, n_sm: int, rows: int = 0) -> int:
     """G, the lanes of a warp that hold one chain: the smallest power of two
     whose B G / 32 warps reach :data:`TARGET_WARPS_PER_SM` on each of the
     card's ``n_sm`` SMs, and never more lanes than coordinates (G <= D, so
@@ -234,12 +234,34 @@ def choose_group(B: int, D: int, n_sm: int) -> int:
     each chain's state machine and sums.  Above D = 32 (the wide bucket) G
     is the bucket's one, 128 / :data:`LANE_CAP` = 32: no lane owns more
     than LANE_CAP coordinates, so G >= D / LANE_CAP and never G = 1; above
-    128 (the stream bucket) G is 32 as well."""
+    128 (the stream bucket) G is 32 as well.
+
+    ``rows`` > 0 are the rows of a fused functor's data loop
+    (``fused_like.Lowered.data_rows``), which the chain's lanes split: G
+    then doubles on, past D, while it is below the rows, to 32.  A probe
+    costs about its rows a lane, which outweighs the warps the rule counts:
+    at the data inis' batches ((512, R 40, D 20) with 50 rows; (128, R 50, D
+    12) with 400) G = 32 took 1 / 1.7 and 1 / 2.9 of the rule's G's time on
+    an H100 (PERF.md section 6); other batches and row counts are not
+    measured."""
     g_max = 1 << (min(D, WARP).bit_length() - 1)
     g = BUCKET_GROUPS[bucket(D)][0]
     while g < g_max and B * g < TARGET_WARPS_PER_SM * n_sm * WARP:
         g *= 2
+    while g < WARP and g < rows:
+        g *= 2
     return g
+
+
+def route_group(calc, B: int, D: int, dev: torch.device) -> int:
+    """G of B1's launches for ``calc`` on ``dev`` (its functor, fused or
+    traced route, :func:`slice_kernel.cuda_route`): :func:`choose_group`,
+    given the data rows of the lowering where the fused route runs it."""
+    from .fused_like import lowering
+    from .slice_kernel import cuda_route
+
+    fused = cuda_route(calc)[0] == "slice_epoch_fused"
+    return choose_group(B, D, _sm_count(dev), lowering(calc).data_rows if fused else 0)
 
 
 def launch_group(B: int, D: int, dev: torch.device, group=None):
@@ -500,7 +522,8 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     each (B, R), with the inputs of :func:`slice_epoch`.  CPU tensors: the
     plain version, ``slice_records_plain`` on ``Lowered.plain_logL``; CUDA
     tensors: ``csrc/slice_epoch_fused.cu`` in that dtype with ``group``
-    lanes per chain (:func:`launch_group`), its library built at first use.
+    lanes per chain (:func:`choose_group` given the lowering's data rows by
+    default), its library built at first use.
     A model the lowering refused raises, naming the reason.  ``ring_cap``
     as :func:`slice_epoch`'s: the ring library of the model and G
     (``FUSED_RING``), the overflow flags last."""
@@ -517,7 +540,8 @@ def slice_epoch_fused(calc, cfg: EpochConfig, key_words, x0, bound, valid, nhats
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     B, R, D = nhats.shape
-    key = launch_group(B, D, x0.device, group)
+    key = launch_group(B, D, x0.device, choose_group(
+        B, D, _sm_count(x0.device), low.data_rows) if group is None else group)
     G = key[1]
     functor = fused_functor(low, G, x0.device)
     ring = ring_cap is not None

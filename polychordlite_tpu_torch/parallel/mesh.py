@@ -68,14 +68,17 @@ GRANULE = 128
 def run_group(engine: str, calc, B: int, D: int, device: torch.device):
     """G, the lanes per chain that ``engine``'s kernel picks for B chains of
     D coordinates of ``calc`` on ``device`` (None on the CPU, where the
-    wrappers run their plain versions)."""
+    wrappers run their plain versions): B1's (``pallas_slice_v4.route_group``)
+    where ``"cuda"`` or the ring takes it."""
     if device.type != "cuda":
         return None
-    from ..ops.pallas_slice_v4 import _sm_count, choose_group
+    from ..ops.pallas_slice_v4 import _sm_count, choose_group, route_group
     from ..ops.pallas_slice_v5 import packet_group_for
 
     if engine == "cuda5":
         return packet_group_for(calc, B, D, device)
+    if engine in ("cuda", "ring"):
+        return route_group(calc, B, D, device)
     return choose_group(B, D, _sm_count(device))
 
 

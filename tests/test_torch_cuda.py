@@ -1586,17 +1586,14 @@ def test_callback_run_on_the_card(dev):
         assert abs(out.logZ + 4 * math.log(2.0)) < 3 * out.logZerr
 
 
-@pytest.mark.parametrize("name,D", [("fitting", 20), ("object_detection", 12)])
-def test_data_driven_traced_route_equals_plain(dev, name, D):
-    """The data-driven models with the inis' block priors on the traced
-    route (the lowering refuses both) against the plain engine, bit for
-    bit, at 504 valid lanes of 512."""
+def _data_epoch(dev, name, D):
+    """A data-driven ini's calc (its block prior, the repository's data) on
+    the card, and one epoch's inputs at 504 valid lanes of 512, R = 8."""
     from polychordlite_tpu_torch.models import get_likelihood
 
     _, blocks, *_ = read_ini(os.path.join(REPO, "ini", f"{name}.ini"))
     calc = make_batched_calculator(BlockPrior(blocks, D), get_likelihood(
         name, D, data_dir=os.path.join(REPO, "data")), D, 0, device=dev)
-    assert calc.form == "batched" and isinstance(fused_like.lowering(calc), fused_like.Refused)
     g = torch.Generator(dev).manual_seed(4)
     live = torch.rand((500, D), generator=g, device=dev)
     logL = calc(live)[2]
@@ -1606,10 +1603,105 @@ def test_data_driven_traced_route_equals_plain(dev, name, D):
     chol = torch.linalg.cholesky(torch.cov(live.T)).expand(512, D, D)
     nh, w, _ = make_directions(chol, grade_dims=(D,), num_repeats=(8,), n_dims=D, generator=g)
     cfg = EpochConfig(n_dims=D, n_phi=1, grade_dims=(D,), num_repeats=(8,))
-    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (1, 2), x0, bound, valid, nh, w)
-    want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), x0, bound, valid, nh, w)
+    return calc, cfg, (x0, bound, valid, nh, w)
+
+
+@pytest.mark.parametrize("name,D", [("fitting", 20), ("object_detection", 12)])
+def test_data_driven_traced_route_equals_plain(dev, name, D):
+    """The data-driven models with the inis' block priors on the traced
+    route (which takes them whether the lowering does or not; since the
+    lowering takes them, "cuda" runs them on the fused route) against the
+    plain engine, bit for bit, at 504 valid lanes of 512."""
+    calc, cfg, args = _data_epoch(dev, name, D)
+    assert calc.form == "batched" and isinstance(fused_like.lowering(calc), fused_like.Lowered)
+    got = pallas_slice_v4.slice_epoch_traced(calc, cfg, (1, 2), *args)
+    want = slice_records_plain(lambda p: calc(p)[2], cfg, (1, 2), *args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,D", [("fitting", 20), ("object_detection", 12)])
+def test_data_driven_fused_route_equals_plain(dev, name, D):
+    """Each data model's functor (one data loop; fitting's float64 body,
+    searchsorted, gathers and erf) through B1's fused route over an epoch:
+    bitwise its plain version at the rule's G without the rows and at G =
+    32, the rows split over the chain's lanes (the fold's order does not
+    depend on G), one launch counted each; the runner's check
+    (validate_fused) at the rule's G; the route's own G (``route_group``,
+    the rows given: 32) bitwise as well.  Its decisions against the traced
+    route on the same inputs (the calc's own torch logL, rounded in its own
+    order, the sorted prior's cumulative sum in the card's scan order): the
+    lanes whose decisions (t or nlike) differ are counted and listed, at most
+    2 % of the valid lanes, and where they agree logL within the model-form
+    tolerance (1e-5 relative)."""
+    calc, cfg, args = _data_epoch(dev, name, D)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered) and low.loops, low
+    want = slice_records_plain(low.plain_logL, cfg, (1, 2), *args)
+    rule = pallas_slice_v4.choose_group(512, D, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    low.build(sorted({rule, 32}))
+    for G in sorted({rule, 32}):
+        before = pallas_slice_v4.LAUNCHES["slice_epoch_fused"]
+        got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (1, 2), *args, group=G)
+        assert pallas_slice_v4.LAUNCHES["slice_epoch_fused"] == before + 1
+        for k, a, b in zip(("t", "logL", "nlike"), got, want):
+            assert torch.equal(a, b), (G, k, int((a != b).sum()))
+    pallas_slice_v4.validate_fused(calc, cfg, dev, rule)
+    assert pallas_slice_v4.route_group(calc, 512, D, dev) == 32
+    before = dict(pallas_slice_v4.GROUP_LAUNCHES)
+    got = pallas_slice_v4.slice_epoch_fused(calc, cfg, (1, 2), *args)  # the route's own G
+    assert pallas_slice_v4.GROUP_LAUNCHES[(32, 32)] == before.get((32, 32), 0) + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    traced = pallas_slice_v4.slice_epoch_traced(calc, cfg, (1, 2), *args)
+    diff = (want[0] != traced[0]) | (want[2] != traced[2])
+    lanes = torch.nonzero(diff.any(1)).flatten().tolist()
+    same = ~diff.any(1)
+    rel = ((want[1][same].double() - traced[1][same].double()).abs()
+           / traced[1][same].double().abs().clamp_min(1e-30))
+    print(name, "against the traced route: lanes", lanes, "max rel logL", float(rel.max()))
+    assert len(lanes) <= 0.02 * 504, (name, len(lanes), lanes)
+    assert float(rel.max()) <= 1e-5
+    assert (want[2][504:] == 0).all() and (want[2][:504].sum(1) > 0).all()
+
+
+def test_data_driven_forced_engines(dev):
+    """object_detection's functor through the forced engines: B3 (cuda5;
+    its packet slots run every row on each lane, FUSED_ROW_LANES 1) and B4
+    (cuda3; the rows split at G) bitwise B1's fused route, B5 (cuda2)
+    bitwise its own plain version (it writes the cube); each at its rule's
+    G, launches counted under the engine's fused counter."""
+    D = 12
+    calc, cfg, args = _data_epoch(dev, "object_detection", D)
+    low = fused_like.lowering(calc)
+    assert isinstance(low, fused_like.Lowered) and low.loops
+    b1 = pallas_slice_v4.slice_epoch_fused(calc, cfg, (9, 10), *args)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = pallas_slice_v4.choose_group(512, D, n_sm)
+    G5 = pallas_slice_v5.packet_group_for(calc, 512, D, dev)
+    assert low.row_lanes(G5, "cuda5") == 1 and low.row_lanes(G, "cuda3") == G
+    nvcc.build_all({low.library_name(G5, "cuda5"): [fused_like.SOURCE],
+                    **{low.library_name(G, e): [fused_like.SOURCE] for e in ("cuda3", "cuda2")}},
+                   headers={low.library_name(G5, "cuda5"): low.source(G5, "cuda5"),
+                            **{low.library_name(G, e): low.source(G, e)
+                               for e in ("cuda3", "cuda2")}})
+    before = (pallas_slice_v5.LAUNCHES["slice_epoch_v5_fused"],
+              pallas_slice_v3.LAUNCHES["slice_epoch_v3_fused"],
+              pallas_slice.LAUNCHES["slice_epoch_v2_fused"])
+    got5 = pallas_slice_v5.slice_epoch_v5(calc, cfg, (9, 10), *args, group=G5)
+    got3 = pallas_slice_v3.slice_epoch_v3(calc, cfg, (9, 10), *args, group=G)
+    got2 = pallas_slice.slice_epoch_v2(calc, cfg, (9, 10), *args, group=G)
+    assert (pallas_slice_v5.LAUNCHES["slice_epoch_v5_fused"],
+            pallas_slice_v3.LAUNCHES["slice_epoch_v3_fused"],
+            pallas_slice.LAUNCHES["slice_epoch_v2_fused"]) == tuple(n + 1 for n in before)
+    want3 = pallas_slice_v3.slice_records_window_plain(low.plain_logL, cfg, (9, 10), *args)
+    want2 = pallas_slice.slice_records_lockstep_plain(low.plain_logL, cfg, (9, 10), *args)
+    for k in range(3):
+        assert torch.equal(got5[k], b1[k]), ("B3", k, int((got5[k] != b1[k]).sum()))
+        assert torch.equal(got3[k], want3[k]) and torch.equal(want3[k], b1[k]), ("B4", k)
+    for k in range(4):
+        assert torch.equal(got2[k], want2[k]), ("B5", k)
 
 
 def test_c_abi_in_process_on_the_card(dev, tmp_path):

@@ -19,7 +19,7 @@ from polychordlite_tpu_torch.inidriver import data_dir, run_ini
 from polychordlite_tpu_torch.models import EXAMPLES, LIKELIHOODS, get_likelihood
 from polychordlite_tpu_torch.models import data_driven as tdd
 from polychordlite_tpu_torch.ops.evaluate import make_batched_calculator
-from polychordlite_tpu_torch.ops.fused_like import Refused, lowering
+from polychordlite_tpu_torch.ops.fused_like import Lowered, lowering
 from polychordlite_tpu_torch.priors import BlockPrior
 from polychordlite_tpu_torch.utils.inifile import read_ini
 
@@ -139,15 +139,16 @@ def test_searchsorted_sides_agree_on_sorted_knots():
 def test_registered_and_read_as_batched_torch_models():
     """Both are in the models' EXAMPLES (the zoo's LIKELIHOODS keeps the
     models with a device functor) and read as batched torch models (not
-    host callbacks); the lowering refuses both, naming why, so on a card
-    they take the traced route."""
+    host callbacks); the lowering takes both with their inis' block priors
+    (each with one data loop), so on a card they take the fused route."""
     for name, D in MODELS.items():
         assert EXAMPLES[name] is getattr(tdd, name) and name not in LIKELIHOODS
         calc = make_batched_calculator(BlockPrior(read_ini(os.path.join(
             REPO, "ini", f"{name}.ini"))[1], D), get_likelihood(name, D, data_dir=DATA), D, 0)
         assert calc.form == "batched" and not calc.uses_callback
         low = lowering(calc)
-        assert isinstance(low, Refused) and low.reason
+        assert isinstance(low, Lowered), low
+        assert len(low.loops) == 1 and low.prior_lowered
 
 
 def test_data_dir_rule(tmp_path):

@@ -35,6 +35,8 @@ MODULES = [
     "polychordlite_tpu_torch.experiments.ptxas_parity",
     "polychordlite_tpu_torch.experiments.gs_long_parts",
     "polychordlite_tpu_torch.experiments.gs_wide_times",
+    "polychordlite_tpu_torch.experiments.fused_data_times",
+    "polychordlite_tpu_torch.experiments.data_ini_runs",
     "polychordlite_tpu_torch.experiments.b1_bucket_parts",
     "polychordlite_tpu_torch.experiments.cpu_ops_rounding",
     "polychordlite_tpu_torch.examples.quickstart",

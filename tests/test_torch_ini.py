@@ -138,13 +138,20 @@ def test_engine_auto_on_a_card_refuses_a_layout_without_affine_form(monkeypatch)
     calc = make_batched_calculator(ppr.BlockPrior(_layout("gaussian"), 5), gaussian(5), 5, 2)
     assert calc.device_spec is None and calc.form == "batched"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    # "cuda" takes the layout through the traced route; the forced A/B
-    # kernels need a functor and refuse it, naming the plain engine
+    # "cuda" takes the layout through the fused route (the lowering takes
+    # the block layout's index_select and index_copy), and so do the forced
+    # A/B kernels, lowered into theirs; a layout the lowering refuses (the
+    # adaptive prior's floor) runs on "cuda" (its traced route) and the
+    # forced kernels refuse it, naming the plain engine
+    refused = make_batched_calculator(
+        ppr.BlockPrior(_layout("adaptive_sorted_uniform"), 5), gaussian(5), 5, 2)
     for engine in ("auto", "cuda"):
         assert ns.resolve_engine(engine, torch.device("cuda"), calc) == "cuda"
+        assert ns.resolve_engine(engine, torch.device("cuda"), refused) == "cuda"
     for engine in ("cuda5", "cuda3", "cuda2"):
+        assert ns.resolve_engine(engine, torch.device("cuda"), calc) == engine
         with pytest.raises(ValueError, match="engine='torch'"):
-            ns.resolve_engine(engine, torch.device("cuda"), calc)
+            ns.resolve_engine(engine, torch.device("cuda"), refused)
     assert ns.resolve_engine("torch", torch.device("cuda"), calc) == "torch"
 
 
